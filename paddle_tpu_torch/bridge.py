@@ -1,5 +1,7 @@
-"""Weight bridge from the JAX package: its GPT state as numpy arrays, under
-the same parameter names, becomes a port model.
+"""Weight bridge between the JAX package and the port, as numpy arrays under
+the same parameter names: ``from_paddle_tpu_state`` builds a port model
+from the JAX package's GPT state; ``to_paddle_tpu_state`` returns a port
+model's parameters the other way, so the two can be compared after steps.
 
 The bridge takes numpy only and imports nothing of JAX; a caller holding a
 JAX model passes ``{k: np.asarray(v) for k, v in
@@ -14,7 +16,7 @@ import torch
 
 from .models.gpt import GPTForCausalLM
 
-__all__ = ["from_paddle_tpu_state"]
+__all__ = ["from_paddle_tpu_state", "to_paddle_tpu_state"]
 
 
 def from_paddle_tpu_state(state, config, device="cuda", dtype=None):
@@ -37,3 +39,17 @@ def from_paddle_tpu_state(state, config, device="cuda", dtype=None):
                                  f"{tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(arr)).to(p.dtype))
     return model
+
+
+def to_paddle_tpu_state(model):
+    """{name: np.ndarray} of every parameter of a port model, under the JAX
+    package's ``state_dict()`` names (``gpt.blocks.0.attn.qkv_proj.weight``,
+    paddle's ``[in, out]`` layout). numpy has no bf16: bf16 parameters come
+    back as the float32 arrays of the same values."""
+    out = {}
+    for name, p in model.named_parameters():
+        t = p.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[name] = t.numpy().copy()
+    return out

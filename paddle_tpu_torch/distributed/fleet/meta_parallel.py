@@ -1,5 +1,6 @@
-"""Single-device forms of the tensor-parallel layers — the counterpart of
-``paddle_tpu/distributed/fleet/meta_parallel.py:67-126``.
+"""Single-device forms of the tensor-parallel layers and of
+``ParallelCrossEntropy`` — the counterpart of
+``paddle_tpu/distributed/fleet/meta_parallel.py:67-168``.
 
 Weights keep paddle's ``[in, out]`` layout, so ``bridge.py`` copies the JAX
 package's arrays without transposing them. The products are plain
@@ -12,7 +13,7 @@ import torch
 from torch import nn
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
-           "RowParallelLinear"]
+           "RowParallelLinear", "ParallelCrossEntropy"]
 
 
 class VocabParallelEmbedding(nn.Module):
@@ -47,6 +48,34 @@ class _Linear(nn.Module):
     def forward(self, x):
         out = x @ self.weight
         return out + self.bias if self.bias is not None else out
+
+
+class ParallelCrossEntropy(nn.Module):
+    """Softmax cross entropy per token over the vocab axis, in the logits'
+    dtype (bf16 under O2): lse = max + log(sum(exp(logits - max))) with the
+    max detached, minus the target logit; 0 where the label is
+    ``ignore_index`` (JAX :132-168). The JAX package sums a one-hot mask to
+    pick the target; a gather of the same entry is the same value (a sum of
+    one logit and zeros) without a [tokens, vocab] mask, and labels outside
+    the vocab give 0 there too."""
+
+    def __init__(self, mp_group=None, name=None, ignore_index=-100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, input, label):
+        vocab = input.shape[-1]
+        squeeze = label.dim() == input.dim() and label.shape[-1] == 1
+        lab = label.squeeze(-1) if squeeze else label
+        m = input.amax(dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.exp(input - m).sum(dim=-1)) + m.squeeze(-1)
+        in_vocab = (lab >= 0) & (lab < vocab)
+        tgt = input.gather(-1, lab.clamp(0, vocab - 1).unsqueeze(-1))
+        tgt = torch.where(in_vocab, tgt.squeeze(-1), torch.zeros_like(lse))
+        loss = lse - tgt
+        loss = torch.where(lab == self.ignore_index, torch.zeros_like(loss),
+                           loss)
+        return loss.unsqueeze(-1) if squeeze else loss
 
 
 class ColumnParallelLinear(_Linear):

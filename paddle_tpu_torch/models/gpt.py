@@ -1,14 +1,21 @@
-"""GPT causal LM on the paged serving path — the counterpart of
-``paddle_tpu/models/gpt.py``.
+"""GPT causal LM — the counterpart of ``paddle_tpu/models/gpt.py``.
 
 This slice covers the default ``GPTConfig`` family: RoPE (neox, base 1e4),
 pre-norm RMSNorm, SwiGLU MLP, tied embeddings, any ``num_kv_heads`` that
-divides ``num_heads``, with attention over the paged KV pool
-(``GPTAttention``'s cache branch, JAX ``gpt.py:108-176``). Not ported yet,
-and refused with ``NotImplementedError``: the GPT-2-style variant (learned
-positions, LayerNorm, GELU, ``gpt3_1p3b``) and the cache-free forward (it
-needs the flash-attention kernel); dense ``generate()`` and ``verify_step``
-are refused in ``generation.py``.
+divides ``num_heads``, on two branches of ``GPTAttention``:
+
+* the cache-free forward (JAX ``gpt.py:177-184``, ``:230-233``,
+  ``:280-301``): RoPE at ``arange(S)`` (or the given ``position_ids``), then
+  ``F.flash_attention(q, k, v, causal=True)`` — the flash kernels on CUDA;
+  ``GPTForCausalLM(ids, labels=...)`` returns ``(logits, loss)`` with the
+  loss the mean of ``ParallelCrossEntropy``. This is the training path.
+* the paged cache branch (JAX ``gpt.py:108-176``): attention over the paged
+  KV pool, for the serving step programs.
+
+Not ported yet, and refused with ``NotImplementedError``: the GPT-2-style
+variant (learned positions, LayerNorm, GELU, ``gpt3_1p3b``), dropout,
+recompute; dense ``generate()`` and ``verify_step`` are refused in
+``generation.py``.
 """
 from __future__ import annotations
 
@@ -20,12 +27,14 @@ from torch import nn
 
 from ..distributed.fleet.meta_parallel import (
     ColumnParallelLinear,
+    ParallelCrossEntropy,
     RowParallelLinear,
     VocabParallelEmbedding,
 )
 from ..framework import make_generator, resolve_device
 from ..incubate.nn.functional import apply_rope, rope_cos_sin, swiglu
 from ..nn import RMSNorm
+from ..nn import functional as F
 from ..ops.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_ref,
@@ -42,9 +51,16 @@ DECODE_KERNELS = ("kernel", "plain")
 class GPTConfig:
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, num_kv_heads=None, intermediate_size=None,
-                 max_position=2048, use_rope=True,
+                 max_position=2048, dropout=0.0, use_rope=True,
                  use_rms_norm=True, use_swiglu=True, tie_embeddings=True,
-                 dtype="float32"):
+                 dtype="float32", recompute=None):
+        if dropout != 0.0:
+            raise NotImplementedError(
+                "dropout is not ported yet (the JAX package draws its masks "
+                "from jax.random); use dropout=0.0")
+        if recompute is not None:
+            raise NotImplementedError(
+                f"recompute={recompute!r} is not ported yet; use None")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -52,11 +68,13 @@ class GPTConfig:
         self.num_kv_heads = num_kv_heads or num_heads
         self.intermediate_size = intermediate_size or 4 * hidden_size
         self.max_position = max_position
+        self.dropout = dropout
         self.use_rope = use_rope
         self.use_rms_norm = use_rms_norm
         self.use_swiglu = use_swiglu
         self.tie_embeddings = tie_embeddings
         self.dtype = dtype
+        self.recompute = recompute
 
 
 def gpt_tiny():
@@ -118,17 +136,21 @@ class GPTAttention(nn.Module):
                                           has_bias=False, device=device,
                                           dtype=dtype)
 
-    def forward(self, x, rope, k_pool, v_pool, step: PagedStep,
-                decode_kernel="kernel"):
-        """Paged cache branch: RoPE at absolute positions, the new K/V rows
-        scattered into the pools IN PLACE, attention over the live prefix
-        plus the causal new rows."""
+    def forward(self, x, rope, k_pool=None, v_pool=None,
+                step: PagedStep | None = None, decode_kernel="kernel"):
+        """Without ``step``: causal flash attention over the S rows of x.
+        With it, the paged cache branch: RoPE at absolute positions, the new
+        K/V rows scattered into the pools IN PLACE, attention over the live
+        prefix plus the causal new rows."""
         B, S = x.shape[0], x.shape[1]
         H, Hkv, D = self.num_heads, self.num_kv_heads, self.head_dim
         q, k, v = self.qkv_proj(x).split([H * D, Hkv * D, Hkv * D], dim=-1)
         q = apply_rope(q.reshape(B, S, H, D), *rope)
         k = apply_rope(k.reshape(B, S, Hkv, D), *rope)
         v = v.reshape(B, S, Hkv, D)
+        if step is None:
+            out, _ = F.flash_attention(q, k, v, causal=True)
+            return self.out_proj(out.reshape(B, S, H * D))
         paged_scatter_(k_pool, k, step.write_rows, step.write_slots)
         paged_scatter_(v_pool, v, step.write_rows, step.write_slots)
         attend = (paged_decode_attention if decode_kernel == "kernel"
@@ -163,7 +185,8 @@ class GPTBlock(nn.Module):
         self.ln2 = RMSNorm(c.hidden_size, device=device, dtype=dtype)
         self.mlp = GPTMLP(c, device=device, dtype=dtype)
 
-    def forward(self, x, rope, k_pool, v_pool, step, decode_kernel="kernel"):
+    def forward(self, x, rope, k_pool=None, v_pool=None, step=None,
+                decode_kernel="kernel"):
         x = x + self.attn(self.ln1(x), rope, k_pool, v_pool, step,
                           decode_kernel)
         return x + self.mlp(self.ln2(x))
@@ -182,21 +205,27 @@ class GPTModel(nn.Module):
         self.ln_f = RMSNorm(c.hidden_size, device=device, dtype=dtype)
 
     def forward(self, input_ids, k_pools=None, v_pools=None, step=None,
-                decode_kernel="kernel"):
-        """input_ids [B, S] -> logits [B, S, V]; attends through (and
-        writes into) the per-layer pools ``k_pools[i]`` / ``v_pools[i]``."""
-        if step is None:
-            raise NotImplementedError(
-                "the cache-free forward needs the flash-attention kernel, "
-                "which is not ported yet; the port serves through the "
-                "paged step programs (prefill_chunk / decode_step)")
-        if decode_kernel not in DECODE_KERNELS:
-            raise ValueError(f"decode_kernel must be one of {DECODE_KERNELS}")
+                decode_kernel="kernel", position_ids=None):
+        """input_ids [B, S] -> logits [B, S, V]. Without ``step``: the
+        cache-free causal forward, RoPE at ``position_ids`` ([S] or [B, S],
+        default ``arange(S)``). With it: attends through (and writes into)
+        the per-layer pools ``k_pools[i]`` / ``v_pools[i]``."""
         x = self.embed_tokens(input_ids)
         head_dim = self.config.hidden_size // self.config.num_heads
-        rope = rope_cos_sin(step.positions, head_dim, x.dtype)
-        for blk, kp, vp in zip(self.blocks, k_pools, v_pools):
-            x = blk(x, rope, kp, vp, step, decode_kernel)
+        if step is None:
+            B, S = input_ids.shape
+            pos = (torch.arange(S, device=x.device) if position_ids is None
+                   else torch.as_tensor(position_ids, device=x.device))
+            rope = rope_cos_sin(pos.expand(B, S), head_dim, x.dtype)
+            for blk in self.blocks:
+                x = blk(x, rope)
+        else:
+            if decode_kernel not in DECODE_KERNELS:
+                raise ValueError(
+                    f"decode_kernel must be one of {DECODE_KERNELS}")
+            rope = rope_cos_sin(step.positions, head_dim, x.dtype)
+            for blk, kp, vp in zip(self.blocks, k_pools, v_pools):
+                x = blk(x, rope, kp, vp, step, decode_kernel)
         x = self.ln_f(x)
         return x @ self.embed_tokens.weight.T
 
@@ -229,10 +258,18 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
             if hasattr(mod, "reset_parameters") and mod is not self:
                 mod.reset_parameters(generator)
 
-    def forward(self, input_ids):
-        raise NotImplementedError(
-            "the cache-free forward needs the flash-attention kernel, which "
-            "is not ported yet; serve through prefill_chunk / decode_step")
+    def forward(self, input_ids, labels=None, position_ids=None):
+        """logits [B, S, V], or (logits, loss) with ``labels`` [B, S]: loss
+        the mean over all tokens of ``ParallelCrossEntropy`` (ignored labels
+        count as 0), in the logits' dtype (JAX ``gpt.py:310-321``)."""
+        input_ids = torch.as_tensor(input_ids, device=self.device)
+        logits = self.gpt(input_ids, position_ids=position_ids)
+        if labels is None:
+            return logits
+        labels = torch.as_tensor(labels, device=self.device)
+        per_token = ParallelCrossEntropy()(
+            logits.reshape(-1, logits.shape[-1]), labels.reshape(-1))
+        return logits, per_token.mean()
 
     # --------------------------------------- GenerationMixin hooks
     def _decode_layer(self):

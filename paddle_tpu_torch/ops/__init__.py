@@ -1,4 +1,5 @@
-"""Operators of the port: the paged attention kernel and its plain twin."""
+"""Operators of the port: the paged attention kernel and the flash-attention
+kernels (``ops.flash_attention``), each beside its plain twin."""
 from .paged_attention import (
     paged_cache_update,
     paged_decode_attention,

@@ -39,6 +39,18 @@ SOURCES = {
             "paged_attention_error_string": ([_I], ctypes.c_char_p),
         },
     ),
+    "flash_attention": (
+        "flash_attention.cu",
+        {
+            "flash_attention_forward": (
+                [_P] * 5 + [_I] * 5 + [_F, _I, _P], ctypes.c_int),
+            "flash_attention_backward_dq": (
+                [_P] * 7 + [_I] * 5 + [_F, _I, _P], ctypes.c_int),
+            "flash_attention_backward_dkv": (
+                [_P] * 8 + [_I] * 5 + [_F, _I, _P], ctypes.c_int),
+            "flash_attention_error_string": ([_I], ctypes.c_char_p),
+        },
+    ),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

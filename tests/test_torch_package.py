@@ -24,16 +24,25 @@ def test_import_leaves_jax_and_paddle_tpu_out():
     code = (
         "import importlib, pkgutil, sys\n"
         "import paddle_tpu_torch as p\n"
+        "names = []\n"
         "for m in pkgutil.walk_packages(p.__path__, 'paddle_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    names.append(m.name)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'paddle_tpu' or "
         "n.startswith('paddle_tpu.'))\n"
-        "print(repr(bad))\n")
+        "print(repr(bad))\n"
+        "print(' '.join(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]"
+    bad, names = out.stdout.strip().splitlines()
+    assert bad == "[]"
+    walked = set(names.split())
+    for mod in ("ops.flash_attention", "nn.functional.flash_attention",
+                "nn.clip", "optimizer", "amp", "jit.train",
+                "distributed.fleet.meta_parallel", "models.gpt", "bridge"):
+        assert f"paddle_tpu_torch.{mod}" in walked, mod
 
 
 def _imported_roots(path):
@@ -80,17 +89,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_unported_paths_raise_not_implemented():
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn import functional as F
 
     gpt2 = GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
                      num_heads=2, use_rope=False, use_rms_norm=False,
                      use_swiglu=False)
     with pytest.raises(NotImplementedError, match="GPT-2-style"):
         GPTForCausalLM(gpt2, device="cpu")
+    for kw in (dict(dropout=0.1), dict(recompute="dots")):
+        with pytest.raises(NotImplementedError):
+            GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                      num_heads=2, **kw)
     m = GPTForCausalLM(GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
                                  num_heads=2), device="cpu")
     ids = torch.zeros((1, 3), dtype=torch.int64)
-    for call in (lambda: m(ids), lambda: m.generate(ids),
-                 lambda: m.verify_step(ids)):
+    assert m(ids).shape == (1, 3, 64)         # the cache-free forward runs
+    for call in (lambda: m.generate(ids), lambda: m.verify_step(ids),
+                 lambda: F.flashmask_attention(ids, ids, ids)):
         with pytest.raises(NotImplementedError):
             call()
 
