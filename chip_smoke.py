@@ -39,7 +39,38 @@ non-zero without the final line:
    of the full model hold every layer's kernel call against the plain
    version on the same inputs, and the logits against the plain attention
    path; a planted fault (lengths one short) must fail the per-layer check.
-8. training — GPT-350M at full width, O2 bf16 (``amp.decorate``), AdamW
+8. dense kernel vs plain — the dense split-KV kernel against its plain
+   version, within ``decode_attention.kernel_tolerance`` (f32 1e-4, bf16
+   the paged bound), in f32 and bf16: the generation shapes (B=8, 16 heads
+   of 64, T=640; decode S=1 at lengths 512-639, prefill S=512 at 0, and
+   both with the one int length generate() passes), GQA 4 and 8 at D=128,
+   T=1000 (no multiple of a tile), and requests whose live prefix ends
+   inside the first tile.
+9. dense timing — kernel, plain and library (SDPA over the dense cache
+   with the length mask, a yardstick only) at the decode and prefill
+   shapes, CUDA events, median of 25, L2 flushed; the bound from this run's
+   live bytes and operations.
+10. generation — GPT-350M at full width (random seeded f32 weights, cast
+   to bf16 by generate()). In situ first: the prompt's prefill (512 rows at
+   length 0), its second half again (256 rows at length 256) and one
+   decode forward hold every layer's dense kernel call to the plain
+   version on the same inputs, and a planted fault (the length one short)
+   must fail that check at the second prefill and at the decode, each on
+   its own. Then the main path: generate(ids [8, 512], max_new_tokens=128),
+   greedy and sampled (temperature 0.8, top-k 40), prefill and decode
+   tokens/s, exactly num_layers x forwards dense launches; a profiled
+   decode forward; the whole-batch GenerateBatchingPredictor behind
+   InferenceServer (6 threaded requests of 64-500 prompt tokens, 32 new,
+   and one over HTTP: lengths, ids, pool conservation, paged launches);
+   one request through a predictor whose pool signature does not match
+   (served by dense generate(), the dense count rising, the pool
+   untouched); and generate_speculative(prompt of 256, 64 new, spec_k=4,
+   drafter="self") in f32, whose tokens must equal greedy f32 generate()'s
+   up to the first near-tie (top two logits within 1e-3), over at least 32
+   tokens, with its acceptance, both kernels' launches and tokens/s; then
+   the same with an oracle drafter replaying generate()'s tokens, which
+   must accept every draft when no near-tie cut the comparison.
+11. training — GPT-350M at full width, O2 bf16 (``amp.decorate``), AdamW
    (lr 1e-4, weight decay 0.01, multi_precision) under TrainStep, B=8,
    S=1024, seeded ids and labels rolled by one. In situ first: one forward
    and backward holds every layer's flash forward and dq / dk / dv to the
@@ -255,6 +286,124 @@ def time_kernels(torch, pa, device):
                    bound_ms=bound_ms, bound_by=bound_by,
                    timed_launches=launches)
         print("kernel-time", json.dumps(rec), flush=True)
+        out[name] = rec
+    return out
+
+
+# ----------------------------------------------------------- phase 8/9
+def dense_case(torch, B, S, Hkv, G, D, T, lengths, dtype, device, seed):
+    """Random q and dense head-leading caches [B, Hkv, T, D], lengths (an
+    int, the one length dense generate() passes, stays an int)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    td = getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=g, device=device).to(td)
+               for shape in ((B, S, Hkv * G, D), (B, Hkv, T, D),
+                             (B, Hkv, T, D)))
+    if isinstance(lengths, int):
+        return q, k, v, lengths
+    return q, k, v, torch.as_tensor(np.asarray(lengths, np.int32),
+                                    device=device)
+
+
+def generation_lengths(rng, B=8, S=1, T=640):
+    """Per-request lengths of the generation shapes: decode (S = 1) at
+    512-639, where generate()'s 128 decode steps put them; prefill at 0."""
+    if S > 1:
+        return np.zeros(B, np.int64)
+    return rng.integers(512, T - S + 1, B)
+
+
+def check_dense_kernels(torch, da, device):
+    """The dense kernel against its plain version on the card: the
+    generation shapes (B = 8, 16 heads of 64, T = 640; decode S = 1 at
+    lengths 512-639, prefill S = 512 at 0; both again with the one int
+    length generate() passes), GQA 4 and 8 at D = 128, a T that is no
+    multiple of any tile, and requests whose live prefix ends inside the
+    first tile; f32 and bf16."""
+    rng = np.random.default_rng(20)
+    cases = []
+    for dtype in ("bfloat16", "float32"):
+        cases += [
+            ("decode", 8, 1, 16, 1, 64, 640, generation_lengths(rng), dtype),
+            ("prefill", 8, 512, 16, 1, 64, 640,
+             generation_lengths(rng, S=512), dtype),
+            ("decode-int", 8, 1, 16, 1, 64, 640, 575, dtype),
+            ("prefill-int", 8, 512, 16, 1, 64, 640, 0, dtype),
+            ("g4-d128", 4, 1, 4, 4, 128, 700, [0, 37, 400, 699], dtype),
+            ("g4-d128-s33", 2, 33, 4, 4, 128, 700, [0, 600], dtype),
+            ("g8-d128", 4, 3, 2, 8, 128, 300, [5, 64, 200, 297], dtype),
+            ("ragged-t1000", 2, 7, 8, 1, 64, 1000, [500, 993], dtype),
+            ("first-tile", 4, 1, 16, 1, 64, 640, [0, 3, 40, 63], dtype),
+        ]
+    results, worst = [], {}
+    for n, (name, B, S, Hkv, G, D, T, lengths, dtype) in enumerate(cases):
+        args = dense_case(torch, B, S, Hkv, G, D, T, lengths, dtype, device,
+                          seed=400 + n)
+        got = da.decode_attention(*args)
+        torch.cuda.synchronize()
+        ref = da.decode_attention_ref(*args)
+        err, over = held_to_plain(torch, da, args, got, ref)
+        ok = bool(torch.isfinite(got).all()) and over <= 1.0
+        rec = dict(case=name, dtype=dtype, B=B, S=S, Hq=Hkv * G, Hkv=Hkv,
+                   D=D, T=T, max_abs_err=err, err_over_limit=over, ok=ok)
+        print("dense-check", json.dumps(rec), flush=True)
+        results.append(rec)
+        if name.startswith(("decode", "prefill")):
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+        if not ok:
+            raise AssertionError(f"dense kernel disagrees with plain: {rec}")
+    return results, worst
+
+
+def dense_bound(B, S, Hq, Hkv, D, T, lengths, elt, dtype):
+    """Least time of one dense call on an H100 SXM: q, the LIVE K/V rows
+    and the lengths read once, the output written once; 4*D operations per
+    allowed (query head, row, column) triple. Returns (ms, 'bytes' |
+    'operations')."""
+    lengths = np.asarray(lengths, np.int64)
+    live = np.minimum(lengths + S, T)
+    nbytes = (2 * int(live.sum()) * Hkv * D * elt
+              + 2 * B * S * Hq * D * elt + B * 4)
+    pairs = sum(int(np.minimum(ln + np.arange(S) + 1, T).sum())
+                for ln in lengths)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 4.0 * D * Hq * pairs / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_dense_kernels(torch, da, device):
+    """Kernel, plain and library at the generation shapes (bf16). The
+    library yardstick is scaled_dot_product_attention over the same dense
+    cache with the length mask; the port never calls it."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(21)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    out = {}
+    for name, S in (("decode", 1), ("prefill", 512)):
+        B, Hkv, D, T = 8, 16, 64, 640
+        lengths = generation_lengths(rng, B, S, T)
+        args = dense_case(torch, B, S, Hkv, 1, D, T, lengths, "bfloat16",
+                          device, seed=7)
+        q, k, v, ln = args
+        ms = time_ms(torch, lambda: da.decode_attention(*args), flush)
+        plain_ms = time_ms(torch, lambda: da.decode_attention_ref(*args),
+                           flush)
+        pos_q = ln.long()[:, None] + torch.arange(S, device=device)
+        mask = (torch.arange(T, device=device)[None, None, :]
+                <= pos_q[:, :, None])[:, None]
+        qt = q.transpose(1, 2)
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, k, v, attn_mask=mask), flush)
+        bound_ms, bound_by = dense_bound(B, S, Hkv, Hkv, D, T, lengths, 2,
+                                         "bfloat16")
+        rec = dict(shape=name, B=B, S=S, Hq=Hkv, Hkv=Hkv, D=D, T=T,
+                   dtype="bfloat16",
+                   live_tokens=int(np.minimum(lengths + S, T).sum()),
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        print("dense-time", json.dumps(rec), flush=True)
         out[name] = rec
     return out
 
@@ -680,7 +829,412 @@ def serve(torch, model, device, n_requests=12, http_requests=2,
     return rec
 
 
-# --------------------------------------------------------------- phase 8
+# --------------------------------------------------------------- phase 10
+GEN_B, GEN_P, GEN_NEW = 8, 512, 128         # generate() at full width
+
+
+def dense_insitu(torch, model, device):
+    """Three forwards of the full model over dense bf16 caches of T = 640:
+    the prompt's prefill ([8, 512] at length 0, the main path's), its second
+    half prefilled again ([8, 256] at length 256: four 64-row tiles, each
+    with its own causal limit, at a length a fault can shorten) and one
+    decode forward (length 512). On the kernel path every layer's kernel
+    call is held to the plain version on the same inputs
+    (``kernel_tolerance``), each forward's worst reading kept apart, and
+    the logits to the plain attention path's (a coarse bound). A control
+    runs the kernel with the length one short: it must fail the per-layer
+    check at the second prefill and at the decode, each on its own (at
+    length 0 it clamps to no change)."""
+    from paddle_tpu_torch.models import gpt as gpt_mod
+    from paddle_tpu_torch.ops import decode_attention as da
+
+    rng = np.random.default_rng(22)
+    V = model.config.vocab_size
+    ids = torch.as_tensor(rng.integers(0, V, (GEN_B, GEN_P + 1)),
+                          device=device)
+    L, Hkv, D = model._decode_cache_spec()
+    state = model._decode_state(torch.bfloat16)
+    kernel = gpt_mod.decode_attention
+    half = GEN_P // 2
+    forwards = (("prefill_at_0", 0, GEN_P),
+                (f"prefill_at_{half}", half, GEN_P),
+                (f"decode_at_{GEN_P}", GEN_P, GEN_P + 1))
+    faultable = [name for name, lo, _ in forwards if lo > 0]
+
+    def run(path, fault=False):
+        over, current = {}, [None]
+
+        def checked(q, k, v, length, scale=None):
+            got = kernel(q, k, v, max(length - 1, 0) if fault else length,
+                         scale=scale)
+            args = (q, k, v, length)
+            ref = da.decode_attention_ref(*args, scale=scale)
+            r = held_to_plain(torch, da, args, got, ref, scale)[1]
+            over[current[0]] = max(over.get(current[0], 0.0), r)
+            return got
+
+        shape = (GEN_B, Hkv, GEN_P + GEN_NEW, D)
+        kc = [torch.zeros(shape, dtype=torch.bfloat16, device=device)
+              for _ in range(L)]
+        vc = [torch.zeros(shape, dtype=torch.bfloat16, device=device)
+              for _ in range(L)]
+        rows = []
+        gpt_mod.decode_attention = checked
+        try:
+            with torch.no_grad():
+                for name, lo, hi in forwards:
+                    current[0] = name
+                    rows.append(model._decode_call(
+                        state, ids[:, lo:hi], kc, vc, gpt_mod.DenseStep(lo),
+                        path)[:, -1])
+        finally:
+            gpt_mod.decode_attention = kernel
+        logits = torch.stack(rows).float()
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"non-finite logits on the {path} path")
+        return logits, over
+
+    plain, _ = run("plain")
+    scale = float(plain.abs().max())
+    rec = dict(max_abs_logit=scale, rel_tol=INSITU_REL_TOL)
+    for name, fault in (("kernel", False), ("fault", True)):
+        logits, over = run("kernel", fault)
+        diff = float((logits - plain).abs().max())
+        rec[name] = dict(
+            layer_err_over_limit=over, max_abs_dlogit=diff,
+            rel=diff / scale, greedy_agreement=float(
+                (logits.argmax(-1) == plain.argmax(-1)).float().mean()))
+    print("dense-insitu", json.dumps(rec), flush=True)
+    k, f = rec["kernel"], rec["fault"]
+    if (sorted(k["layer_err_over_limit"]) != sorted(n for n, _, _ in forwards)
+            or max(k["layer_err_over_limit"].values()) > 1.0
+            or k["rel"] > INSITU_REL_TOL):
+        raise AssertionError(f"dense kernel path drifts from plain: {rec}")
+    if any(f["layer_err_over_limit"][n] <= 1.0 for n in faultable):
+        raise AssertionError(f"the planted fault passed a check: {rec}")
+    return rec
+
+
+def generation(torch, model, device):
+    """The dense main path: generate(ids [8, 512], max_new_tokens=128) in
+    bf16, greedy and then sampled (temperature 0.8, top-k 40). A prefill-only
+    call (max_new_tokens=1) before it times the prefill; decode tokens/s is
+    the remaining 127 tokens per request over the rest of the greedy call.
+    The dense kernel must launch exactly num_layers x forwards times."""
+    from paddle_tpu_torch.ops import decode_attention as da
+
+    rng = np.random.default_rng(23)
+    V = model.config.vocab_size
+    L = model.config.num_layers
+    ids = torch.as_tensor(rng.integers(0, V, (GEN_B, GEN_P)), device=device)
+
+    def timed(**kw):
+        t0 = time.perf_counter()
+        out = model.generate(ids, **kw).cpu()       # ends in a host copy
+        return out, time.perf_counter() - t0
+
+    timed(max_new_tokens=GEN_NEW)                   # warm
+    _, prefill_s = timed(max_new_tokens=1)
+    da.decode_attention.launches = 0                # main path starts here
+    greedy, greedy_s = timed(max_new_tokens=GEN_NEW)
+    sampled, sampled_s = timed(max_new_tokens=GEN_NEW, temperature=0.8,
+                               top_k=40, seed=1)
+    launches = da.decode_attention.launches         # main path ends here
+    expect = L * 2 * GEN_NEW
+    ids_np = ids.cpu().numpy()
+    for name, out in (("greedy", greedy), ("sampled", sampled)):
+        out = out.numpy()
+        if (out.shape != (GEN_B, GEN_P + GEN_NEW)
+                or not np.array_equal(out[:, :GEN_P], ids_np)
+                or out.min() < 0 or out.max() >= V):
+            raise AssertionError(f"{name} generate(): wrong shape or ids")
+    decode_s = greedy_s - prefill_s
+    rec = dict(B=GEN_B, prompt=GEN_P, new_tokens=GEN_NEW, dtype="bfloat16",
+               prefill_s=prefill_s,
+               prefill_tok_per_s=GEN_B * GEN_P / prefill_s,
+               greedy_s=greedy_s, sampled_s=sampled_s, decode_s=decode_s,
+               decode_tok_per_s=GEN_B * (GEN_NEW - 1) / decode_s,
+               sampled_tok_per_s=GEN_B * GEN_NEW / sampled_s,
+               kernel_launches=launches, expected_launches=expect,
+               sampled_differs_from_greedy=bool(
+                   (greedy.numpy() != sampled.numpy()).any()))
+    print("generation", json.dumps(rec), flush=True)
+    if launches != expect:
+        raise AssertionError(f"dense kernel launches {launches} != "
+                             f"num_layers x forwards = {expect}")
+    return rec
+
+
+def profile_dense_step(torch, model, device):
+    """Where a generate() decode step's time goes: one dense decode forward
+    (8 requests at length 512 of T = 640, bf16) timed by the host clock
+    and then traced by torch.profiler, as ``profile_steps`` does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.models.gpt import DenseStep
+
+    rng = np.random.default_rng(24)
+    V = model.config.vocab_size
+    L, Hkv, D = model._decode_cache_spec()
+    state = model._decode_state(torch.bfloat16)
+    shape = (GEN_B, Hkv, GEN_P + GEN_NEW, D)
+    kc = [torch.zeros(shape, dtype=torch.bfloat16, device=device)
+          for _ in range(L)]
+    vc = [torch.zeros(shape, dtype=torch.bfloat16, device=device)
+          for _ in range(L)]
+    ids = torch.as_tensor(rng.integers(0, V, (GEN_B, GEN_P + 1)),
+                          device=device)
+
+    def step():
+        with torch.no_grad():
+            lg = model._decode_call(state, ids[:, GEN_P:], kc, vc,
+                                    DenseStep(GEN_P), "kernel")
+            return lg[:, -1].argmax(-1).cpu()
+
+    with torch.no_grad():
+        model._decode_call(state, ids[:, :GEN_P], kc, vc,
+                           DenseStep(0), "kernel")
+    step()                                          # warm
+    t0 = time.perf_counter()
+    step()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    attn_us = sum(e.self_device_time_total for e in kernels
+                  if "dense_partials_kernel" in e.key
+                  or "split_kv_combine_kernel" in e.key)
+    by_kind = {}
+    for e in kernels:
+        kind = ("dense attention" if "dense_partials" in e.key
+                or "split_kv_combine" in e.key else kernel_kind(e.key))
+        ms, n = by_kind.get(kind, (0.0, 0))
+        by_kind[kind] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    rec = dict(call="generate decode forward", B=GEN_B, length=GEN_P,
+               wall_ms=wall * 1e3, profiled_wall_ms=prof_wall * 1e3,
+               device_ms=dev_us / 1e3 if dev_us else None,
+               kernel_launches=int(sum(e.count for e in kernels)),
+               device_busy_share=(dev_us / 1e6 / prof_wall
+                                  if dev_us else None),
+               attention_share_of_device=(attn_us / dev_us
+                                          if dev_us else None),
+               device_ms_by_kind=by_kind,
+               top_kernels=[(e.key[:80], e.count,
+                             e.self_device_time_total / 1e3) for e in top])
+    print("dense-profile", json.dumps(rec), flush=True)
+    return rec
+
+
+def _post_npz(port, ids):
+    buf = io.BytesIO()
+    np.savez(buf, ids=ids)
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/generate",
+                                 data=buf.getvalue(), method="POST")
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return np.load(io.BytesIO(r.read()))["out0"]
+
+
+def batch_serve(torch, model, device, n_requests=6, new=32,
+                prompt_range=(64, 500), block_size=32):
+    """The whole-batch GenerateBatchingPredictor behind InferenceServer
+    over a bf16 pool: threaded requests of mixed prompt lengths, then one
+    over HTTP. Each batch is one generate_paged call (one prefill + new - 1
+    decode forwards through the paged kernel). Checks lengths, ids, pool
+    conservation and the paged kernel's launches."""
+    from paddle_tpu_torch.inference import (
+        GenerateBatchingPredictor,
+        InferenceServer,
+        PagedKVCache,
+    )
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    spec = model._decode_cache_spec()
+    per_req = -(-(prompt_range[1] + new) // block_size)
+    kv = PagedKVCache(*spec, block_size=block_size,
+                      num_blocks=(n_requests + 1) * per_req,
+                      dtype=torch.bfloat16, device=device)
+    gp = GenerateBatchingPredictor(model, max_batch_size=8, max_delay_ms=100,
+                                   max_new_tokens=new, kv_cache=kv,
+                                   device=device)
+    rng = np.random.default_rng(25)
+    V = model.config.vocab_size
+    plens = rng.integers(prompt_range[0], prompt_range[1] + 1, n_requests)
+    prompts = [rng.integers(0, V, n).astype(np.int64) for n in plens]
+    http_prompt = rng.integers(0, V, int(rng.integers(*prompt_range))
+                               ).astype(np.int64)
+    results, errors = {}, {}
+
+    def client(i):
+        try:
+            results[i] = gp.infer(prompts[i], timeout=600)
+        except Exception as e:      # reported below, fails the phase
+            errors[i] = repr(e)
+
+    srv = InferenceServer(gp, device=device, default_timeout=600).start()
+    pa.paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(n_requests)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads) or errors:
+            raise AssertionError(f"requests failed: {errors}")
+        http_out = _post_npz(srv.port, http_prompt)
+    finally:
+        wall = time.perf_counter() - t0
+        srv.stop()
+    launches = pa.paged_decode_attention.launches
+    for p, out in [(prompts[i], results[i]) for i in range(n_requests)] + [
+            (http_prompt, http_out)]:
+        if (out.shape != (len(p) + new,) or not np.array_equal(out[:len(p)], p)
+                or out.min() < 0 or out.max() >= V):
+            raise AssertionError("whole-batch request: wrong length or ids")
+    kv.check_conservation()
+    if kv.blocks_in_use != 0:
+        raise AssertionError(f"{kv.blocks_in_use} KV blocks leaked")
+    snap = gp.metrics.snapshot()
+    expect = spec[0] * new * len(gp.batch_sizes)
+    rec = dict(requests=n_requests, http_requests=1,
+               completed=snap.get("completed", 0),
+               batch_sizes=list(gp.batch_sizes), new_tokens=new, wall_s=wall,
+               tok_per_s=(n_requests + 1) * new / wall,
+               paged_launches=launches, expected_launches=expect)
+    print("batch-serving", json.dumps(rec), flush=True)
+    if rec["completed"] != n_requests + 1:
+        raise AssertionError(f"completed {rec['completed']} of "
+                             f"{n_requests + 1}")
+    if launches != expect or launches == 0:
+        raise AssertionError(f"paged launches {launches} != num_layers x "
+                             f"forwards = {expect}")
+    return rec
+
+
+def degrade_check(torch, model, device, new=16):
+    """One request through a whole-batch predictor whose pool's (layers,
+    kv heads, head dim) do not match the model: served by dense generate()
+    in the pool's dtype, through the dense kernel, the pool untouched."""
+    from paddle_tpu_torch.inference import (
+        GenerateBatchingPredictor,
+        PagedKVCache,
+    )
+    from paddle_tpu_torch.ops import decode_attention as da
+
+    L, Hkv, D = model._decode_cache_spec()
+    bad = PagedKVCache(L, 2 * Hkv, D, block_size=32, num_blocks=16,
+                       dtype=torch.bfloat16, device=device)   # kv heads
+    gp = GenerateBatchingPredictor(model, max_new_tokens=new, kv_cache=bad,
+                                   device=device)
+    prompt = np.random.default_rng(26).integers(
+        0, model.config.vocab_size, 100).astype(np.int64)
+    try:
+        before = da.decode_attention.launches
+        out = gp.infer(prompt, timeout=600)
+        launches = da.decode_attention.launches - before
+        fallback = gp.metrics.get("dense_fallback_batches")
+    finally:
+        gp.close()
+    untouched = all(bool((p == 0).all()) for p in bad.k_pages + bad.v_pages)
+    rec = dict(fallback_dense=gp.fallback_dense, dense_fallback_batches=
+               fallback, dense_launches=launches, expected_launches=L * new,
+               out_len=int(out.shape[0]), pool_untouched=untouched)
+    print("degrade", json.dumps(rec), flush=True)
+    if not (gp.fallback_dense and fallback == 1 and launches == L * new
+            and out.shape == (len(prompt) + new,)
+            and np.array_equal(out[:len(prompt)], prompt) and untouched
+            and bad.blocks_in_use == 0):
+        raise AssertionError(f"signature-mismatch degrade failed: {rec}")
+    return rec
+
+
+SPEC_P, SPEC_NEW, SPEC_K = 256, 64, 4
+NEAR_TIE = 1e-3
+
+
+def speculative(torch, model, device):
+    """generate_speculative(prompt of 256, 64 new, spec_k=4, drafter='self')
+    in f32 (dtype=None): the self-drafter drafts through dense f32
+    generate() (the dense kernel), verify_step scores through the paged kernel.
+    Its tokens must equal greedy f32 generate()'s up to the first position
+    where the top two logits of a cache-free forward over generate()'s
+    output lie within 1e-3 (a near-tie, ROADMAP C); at least half must be
+    compared."""
+    from paddle_tpu_torch.inference.speculative import SpecStats
+    from paddle_tpu_torch.ops import decode_attention as da
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.default_rng(27)
+    prompt = rng.integers(0, model.config.vocab_size, SPEC_P).astype(np.int64)
+    model.generate_speculative(prompt[:32], max_new_tokens=8,
+                               spec_k=SPEC_K, drafter="self", dtype=None)
+    st = SpecStats()
+    da.decode_attention.launches = pa.paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    spec = model.generate_speculative(prompt, max_new_tokens=SPEC_NEW,
+                                      spec_k=SPEC_K, drafter="self",
+                                      dtype=None, stats=st)
+    wall = time.perf_counter() - t0
+    dense_n, paged_n = (da.decode_attention.launches,
+                        pa.paged_decode_attention.launches)
+    ref = model.generate(prompt[None], max_new_tokens=SPEC_NEW,
+                         dtype=None)
+    with torch.no_grad():
+        lg = model(ref).float()[0, SPEC_P - 1:-1]
+    top2 = lg.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    ties = np.nonzero(gap < NEAR_TIE)[0]
+    compared = int(ties[0]) if len(ties) else SPEC_NEW
+    ref = ref[0].cpu().numpy()
+    agree = bool(np.array_equal(spec[SPEC_P:SPEC_P + compared],
+                                ref[SPEC_P:SPEC_P + compared]))
+    class Oracle:       # replays greedy generate(): every draft accepted
+        def draft(self, history, k):
+            pos = len(history)
+            return ref[pos:pos + int(k)]
+
+    oracle_st = SpecStats()
+    t0 = time.perf_counter()
+    oracle = model.generate_speculative(prompt, max_new_tokens=SPEC_NEW,
+                                        spec_k=SPEC_K, drafter=Oracle(),
+                                        dtype=None, stats=oracle_st)
+    oracle_wall = time.perf_counter() - t0
+    oracle_agree = bool(np.array_equal(oracle[:SPEC_P + compared],
+                                       ref[:SPEC_P + compared]))
+    rec = dict(prompt=SPEC_P, new_tokens=SPEC_NEW, spec_k=SPEC_K,
+               drafter="self", dtype="float32", stats=st.to_dict(),
+               wall_s=wall, tok_per_s=SPEC_NEW / wall,
+               dense_launches=dense_n, paged_launches=paged_n,
+               compared_tokens=compared, min_top2_gap=float(gap.min()),
+               tokens_equal_greedy=agree,
+               total_equal=bool(np.array_equal(spec, ref)),
+               oracle=dict(stats=oracle_st.to_dict(), wall_s=oracle_wall,
+                           tok_per_s=SPEC_NEW / oracle_wall,
+                           tokens_equal_greedy=oracle_agree))
+    print("speculative", json.dumps(rec), flush=True)
+    L = model.config.num_layers
+    if not (agree and oracle_agree) or compared < SPEC_NEW // 2:
+        raise AssertionError(f"speculative tokens differ from greedy "
+                             f"generate() or too few compared: {rec}")
+    if (st.emitted != SPEC_NEW or paged_n != L * (1 + st.launches)
+            or dense_n == 0 or dense_n % L):
+        raise AssertionError(f"speculative launch accounting: {rec}")
+    if compared == SPEC_NEW and oracle_st.acceptance_rate != 1.0:
+        raise AssertionError(f"the oracle's greedy drafts were rejected: "
+                             f"{rec}")
+    return rec
+
+
+# --------------------------------------------------------------- phase 11
 def flash_launches(fa):
     return {"fwd": fa.flash_fwd.launches, "dq": fa.flash_bwd_dq.launches,
             "dkv": fa.flash_bwd_dkv.launches}
@@ -918,6 +1472,7 @@ def main():
     from paddle_tpu_torch.inference import PagedKVCache
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_350m
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
 
@@ -955,6 +1510,27 @@ def main():
           flush=True)
     del model
     torch.cuda.empty_cache()
+    dense_checks, dense_worst = check_dense_kernels(torch, da, device)
+    dense_timing = time_dense_kernels(torch, da, device)
+
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(gpt_350m(), device=device, seed=0)   # f32
+    torch.cuda.synchronize()
+    print(f"model: GPT-350M f32 (bf16 cast for generate), built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gen_insitu = dense_insitu(torch, model, device)
+    gen = generation(torch, model, device)
+    print(f"generate() on {card}: prefill {gen['prefill_tok_per_s']:.0f} "
+          f"tok/s, decode {gen['decode_tok_per_s']:.0f} tok/s", flush=True)
+    gen_profile = profile_dense_step(torch, model, device)
+    batch = batch_serve(torch, model, device)
+    degrade = degrade_check(torch, model, device)
+    spec = speculative(torch, model, device)
+    print(f"speculative on {card}: acceptance "
+          f"{spec['stats']['acceptance_rate']}, {spec['tok_per_s']:.1f} "
+          f"tok/s, {spec['compared_tokens']} tokens compared", flush=True)
+    del model
+    torch.cuda.empty_cache()
     training, train_checks = train(torch, fa, device)
     print(f"training on {card}: {training['step_ms']:.1f} ms/step, "
           f"{training['tokens_per_s']:.0f} tok/s, "
@@ -974,6 +1550,20 @@ def main():
                     ("ms", "plain_ms", "bound_ms", "bound_by",
                      "library_ms")},
     }]
+    g = dense_timing["decode"]
+    kernels.append({
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas/decode_attention.py:135",
+        "launches": gen["kernel_launches"],
+        "max_abs_err": dense_worst["bfloat16"],
+        "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": g["bound_by"], "library_ms": g["library_ms"],
+        "prefill": {k: dense_timing["prefill"][k] for k in
+                    ("ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms")},
+    })
     src = "paddle_tpu/ops/pallas/flash_attention.py"
     for kern, name, replaces, also in (
             ("fwd", "flash_attention_fwd", f"{src}:89", []),
@@ -995,6 +1585,10 @@ def main():
     record = dict(card=card, build_s=build_s, checks=checks, timing=timing,
                   insitu=insitu, profile=steps, serving=serving,
                   flash_checks=flash_checks, flash_timing=flash_timing,
+                  dense_checks=dense_checks, dense_timing=dense_timing,
+                  dense_insitu=gen_insitu, generation=gen,
+                  dense_profile=gen_profile, batch_serving=batch,
+                  degrade=degrade, speculative=spec,
                   train_insitu=train_checks, training=training,
                   kernels=kernels)
     if args.json:

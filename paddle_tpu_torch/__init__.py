@@ -8,14 +8,19 @@ card, and its plain PyTorch version runs for CPU tensors.
 
 Slices so far: GPT (RoPE / RMSNorm / SwiGLU) served token by token through
 the paged KV pool, the continuous scheduler and the HTTP server, with
-attention in a hand-written paged split-KV CUDA kernel; and GPT trained
+attention in a hand-written paged split-KV CUDA kernel; GPT trained
 through ``TrainStep`` with ``AdamW``, O2 bf16 (``amp.decorate``) and
-hand-written flash-attention forward and backward CUDA kernels.
+hand-written flash-attention forward and backward CUDA kernels; and GPT
+generating through dense ``generate()`` (a hand-written dense split-KV
+CUDA kernel), whole-batch ``generate_paged`` behind
+``GenerateBatchingPredictor``, and speculative decoding
+(``generate_speculative``, ``verify_step``).
 """
 from . import amp, jit, nn, optimizer
 from .bridge import from_paddle_tpu_state, to_paddle_tpu_state
 from .inference import (
     ContinuousGenerateBatchingPredictor,
+    GenerateBatchingPredictor,
     InferenceServer,
     PagedKVCache,
 )
@@ -23,5 +28,6 @@ from .models import GPTConfig, GPTForCausalLM, gpt_350m, gpt_tiny
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "gpt_tiny", "gpt_350m",
            "PagedKVCache", "ContinuousGenerateBatchingPredictor",
+           "GenerateBatchingPredictor",
            "InferenceServer", "from_paddle_tpu_state", "to_paddle_tpu_state",
            "amp", "jit", "nn", "optimizer"]

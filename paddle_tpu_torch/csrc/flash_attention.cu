@@ -52,29 +52,16 @@
 // f32 inputs take the same tiles with the products done by CUDA-core FMAs
 // in full f32 (tensor cores would round them to TF32). No wgmma, TMA or
 // software pipelining yet: this is the simple, correct first version.
+// The warp-level products and helpers live in attention_common.cuh.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 64;  // query rows of a tile (16 per warp)
 constexpr int kCols = 64;  // key columns of a tile
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Rows [row0, row0 + 64) of head (b, h) of a [B, S, H, D] tensor into a
 // shared tile with row stride LD; rows at or past S are zero.
@@ -94,143 +81,6 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
       val = *reinterpret_cast<const uint4*>(
           src + ((size_t)b * S + s) * H * D + (size_t)h * D + c);
     *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One warp's product into m16n8 accumulator fragments: acc[j] holds rows
-// 0..15 and columns 8j..8j+7 of C += A . B, lane l owning rows l/4 and
-// l/4 + 8, columns 2(l%4) and 2(l%4) + 1. A (16 x K) is row-major with
-// stride lda. B is given either n-major (`nk`: element (k, n) at
-// B[n * ldb + k]) or k-major (`kn`: at B[k * ldb + n]). All in shared memory.
-template <typename T, int NB, int K>
-struct WarpMma;
-
-template <int NB, int K>
-struct WarpMma<bf16, NB, K> {
-  static_assert(NB % 2 == 0 && K % 16 == 0, "tile shape");
-  static __device__ __forceinline__ void nk(float (&acc)[NB][4],
-                                            const bf16* A, int lda,
-                                            const bf16* B, int ldb) {
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int ks = 0; ks < K / 16; ++ks) {
-      uint32_t a[4];
-      ldsm_x4(a, A + (lane & 15) * lda + ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < NB; j += 2) {
-        uint32_t b[4];
-        ldsm_x4(b, B + (j * 8 + (lane & 7) + (lane >> 4) * 8) * ldb +
-                       ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(acc[j], a, b[0], b[1]);
-        mma_bf16(acc[j + 1], a, b[2], b[3]);
-      }
-    }
-  }
-  static __device__ __forceinline__ void kn(float (&acc)[NB][4],
-                                            const bf16* A, int lda,
-                                            const bf16* B, int ldb) {
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int ks = 0; ks < K / 16; ++ks) {
-      uint32_t a[4];
-      ldsm_x4(a, A + (lane & 15) * lda + ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < NB; j += 2) {
-        uint32_t b[4];
-        ldsm_x4_t(b, B + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb +
-                         j * 8 + (lane >> 4) * 8);
-        mma_bf16(acc[j], a, b[0], b[1]);
-        mma_bf16(acc[j + 1], a, b[2], b[3]);
-      }
-    }
-  }
-};
-
-// f32: the same fragments, each lane summing its own four outputs in f32.
-template <int NB, int K>
-struct WarpMma<float, NB, K> {
-  static __device__ __forceinline__ void nk(float (&acc)[NB][4],
-                                            const float* A, int lda,
-                                            const float* B, int ldb) {
-    const int lane = threadIdx.x & 31;
-    const float* a0 = A + (lane >> 2) * lda;
-    const float* a1 = a0 + 8 * lda;
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      const float* b0 = B + (j * 8 + (lane & 3) * 2) * ldb;
-      const float* b1 = b0 + ldb;
-#pragma unroll 8
-      for (int k = 0; k < K; ++k) {
-        acc[j][0] = fmaf(a0[k], b0[k], acc[j][0]);
-        acc[j][1] = fmaf(a0[k], b1[k], acc[j][1]);
-        acc[j][2] = fmaf(a1[k], b0[k], acc[j][2]);
-        acc[j][3] = fmaf(a1[k], b1[k], acc[j][3]);
-      }
-    }
-  }
-  static __device__ __forceinline__ void kn(float (&acc)[NB][4],
-                                            const float* A, int lda,
-                                            const float* B, int ldb) {
-    const int lane = threadIdx.x & 31;
-    const float* a0 = A + (lane >> 2) * lda;
-    const float* a1 = a0 + 8 * lda;
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      const float* b = B + j * 8 + (lane & 3) * 2;
-#pragma unroll 8
-      for (int k = 0; k < K; ++k) {
-        const float b0 = b[k * ldb];
-        const float b1 = b[k * ldb + 1];
-        acc[j][0] = fmaf(a0[k], b0, acc[j][0]);
-        acc[j][1] = fmaf(a0[k], b1, acc[j][1]);
-        acc[j][2] = fmaf(a1[k], b0, acc[j][2]);
-        acc[j][3] = fmaf(a1[k], b1, acc[j][3]);
-      }
-    }
-  }
-};
-
-// Store a warp's 16 x (8 * NB) fragments into shared memory rows (stride
-// ld), rounded to T.
-template <typename T, int NB>
-__device__ __forceinline__ void store_frag(T* dst, int ld,
-                                           const float (&f)[NB][4]) {
-  const int lane = threadIdx.x & 31;
-  T* r0 = dst + (lane >> 2) * ld + (lane & 3) * 2;
-  T* r1 = r0 + 8 * ld;
-#pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    r0[j * 8] = from_float<T>(f[j][0]);
-    r0[j * 8 + 1] = from_float<T>(f[j][1]);
-    r1[j * 8] = from_float<T>(f[j][2]);
-    r1[j * 8 + 1] = from_float<T>(f[j][3]);
   }
 }
 
@@ -255,16 +105,6 @@ __device__ __forceinline__ void write_rows(T* __restrict__ dst,
       row[j * 8 + 1] = from_float<T>(f[j][2 * half + 1] * mul);
     }
   }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 template <typename T, int D>
@@ -560,14 +400,6 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   write_rows<T, D>(dk, dk_acc, b, h, key_lo, S, H, 1.f, 1.f);
   write_rows<T, D>(dv, dv_acc, b, h, key_lo, S, H, 1.f, 1.f);
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
 }
 
 template <typename T, int D>

@@ -37,13 +37,11 @@
 //     kernel's `e.astype(v.dtype)` (decode_attention.py:121); the
 //     normaliser l is summed unrounded in f32, as there.
 //   * Partials (o, m, l) per split are f32; a second small kernel combines
-//     them with the exp(m_j - m*) rescale and writes 0 for rows with l = 0.
+//     them with the exp(m_j - m*) rescale and writes 0 for rows with l = 0
+//     (`split_kv_combine_kernel`, attention_common.cuh).
 // No wgmma and no TMA: this is the simple, correct first version.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
@@ -78,15 +76,6 @@ __device__ __forceinline__ float round_to<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -237,46 +226,6 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-// One warp per (b*Hkv + h, row): rescale-and-sum the split partials.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-combine_kernel(const float* __restrict__ o_part,
-               const float* __restrict__ m_part,
-               const float* __restrict__ l_part, T* __restrict__ out,
-               int splits, int BH, int SG, int S, int Hq, int Hkv, int G) {
-  constexpr int DPL = D / 32;
-  const int gw = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (gw >= BH * SG) return;
-  const int bh = gw / SG;
-  const int r = gw % SG;
-  float m_star = -INFINITY;
-  for (int j = 0; j < splits; ++j)
-    m_star = fmaxf(m_star, m_part[((size_t)j * BH + bh) * SG + r]);
-  float acc[DPL];
-#pragma unroll
-  for (int k = 0; k < DPL; ++k) acc[k] = 0.f;
-  float l_star = 0.f;
-  if (m_star != -INFINITY) {
-    for (int j = 0; j < splits; ++j) {
-      const size_t base = ((size_t)j * BH + bh) * SG + r;
-      const float w = expf(m_part[base] - m_star);
-      l_star += l_part[base] * w;
-#pragma unroll
-      for (int k = 0; k < DPL; ++k)
-        acc[k] += o_part[base * D + lane + 32 * k] * w;
-    }
-  }
-  const int b = bh / Hkv;
-  const int h = bh % Hkv;
-  const int s = r / G;
-  const int g = r % G;
-  T* dst = out + ((size_t)(b * S + s) * Hq + h * G + g) * D;
-#pragma unroll
-  for (int k = 0; k < DPL; ++k)
-    dst[lane + 32 * k] = from_float<T>(l_star > 0.f ? acc[k] / l_star : 0.f);
-}
-
 template <typename T, int D, int RPW>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const void* block_tables, const void* lengths,
@@ -295,13 +244,8 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
       P, BS, NB, G, scale, tiles_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int warps = B * Hkv * SG;
-  const int blocks = (warps * 32 + kThreads - 1) / kThreads;
-  combine_kernel<T, D><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const float*>(o_part), static_cast<const float*>(m_part),
-      static_cast<const float*>(l_part), static_cast<T*>(out), splits,
-      B * Hkv, SG, S, Hq, Hkv, G);
-  return cudaGetLastError();
+  return launch_split_kv_combine<T, D>(o_part, m_part, l_part, out, splits,
+                                       B * Hkv, SG, S, Hq, Hkv, G, stream);
 }
 
 template <typename T, int D>

@@ -16,9 +16,14 @@ A persistent tick loop over a fixed set of S slots:
 * retire — finished / EOS / expired / cancelled sequences free their
   blocks and slot at the tick boundary.
 
-Not ported yet: speculative decoding (spec_k / verify), the prefix cache,
-adapters, QoS, SLO monitor, flight recorder, utilization ledger, AOT
-warmup, streaming and the replica fleet.
+When the pool's signature does not match the model, the tick loop hands
+over to the base class's collect-and-run loop, which serves each request
+through dense ``generate()`` (JAX ``scheduler.py:977-981``).
+
+Not ported yet: the scheduler's speculative ``spec_k`` knob (the
+single-stream ``verify_step`` loop is ``inference/speculative.py``), the
+prefix cache, adapters, QoS, SLO monitor, flight recorder, utilization
+ledger, AOT warmup, streaming and the replica fleet.
 """
 from __future__ import annotations
 
@@ -138,8 +143,8 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
         super()._admission_check(arrays, req)
 
     def pending(self) -> int:
-        """Queued + in-flight sequences (drain condition)."""
-        return (self._queue.qsize() + self._live_count()
+        """Queued + in-flight sequences and batches (drain condition)."""
+        return (super().pending() + self._live_count()
                 + (1 if self._busy.is_set() else 0))
 
     def _live_count(self) -> int:
@@ -156,6 +161,10 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
         while not self._configured.wait(0.05):
             if self._stop.is_set():
                 return
+        if self.fallback_dense:
+            # a pool the paged step programs cannot use: serve through the
+            # base collect-and-run loop (_run_batch -> _run_dense)
+            return super()._loop()
         try:
             while not self._stop.is_set():
                 self._admit()

@@ -1,15 +1,15 @@
-"""Serving front: the request CAS, the generation predictor base and the
-HTTP endpoint — the counterpart of the parts of
-``paddle_tpu/inference/serving.py`` the continuous path needs.
+"""Serving front: the request CAS, the whole-batch generation predictor
+and the HTTP endpoint — the counterpart of the parts of
+``paddle_tpu/inference/serving.py`` the generation paths need.
 
 Every request carries one deadline from the HTTP header through the queue
 into the scheduler's ticks and reaches exactly one terminal outcome
 (result | failure | cancel) through a compare-and-swap on its state.
 ``InferenceServer`` speaks the JAX package's protocol: ``POST /generate``
 with an npz body ``{ids}`` answers npz ``{out0}``; ``GET /health`` and
-``GET /readyz``. Not ported yet: whole-batch generation, SSE streaming,
-the sampler/adapter/tenant headers, ``/metrics``, ``/debug/*`` and
-``ReplicaFleet``.
+``GET /readyz``. Not ported yet: SSE streaming, the sampler/adapter/tenant
+headers, ``/metrics``, ``/debug/*``, the circuit breaker, the thread
+supervisor and ``ReplicaFleet``.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from ..framework import resolve_device
 from .kv_cache import CacheOutOfBlocks, PagedKVCache
@@ -93,18 +94,33 @@ class _Request:
 
 
 class GenerateBatchingPredictor:
-    """Queue, batcher thread and terminal bookkeeping for generation over a
-    shared paged KV pool. Subclasses provide ``_loop`` (the batcher
-    thread's body); the port's one is the continuous scheduler.
+    """Dynamic whole-batch generation over a SHARED paged KV pool (JAX
+    ``serving.py:582-797``).
+
+    A batcher thread collects up to ``max_batch_size`` requests within
+    ``max_delay_ms`` (waking early once the batch fills) and serves them in
+    one ``generate_paged`` call: prompts right-padded to the batch's
+    longest, each request reserving only ceil((len + max_new_tokens) /
+    block_size) blocks of the pool. A request that cannot reserve RIGHT NOW
+    is deferred to a later batch at most ``max_defers`` times, then shed
+    with ServerBusy; the rest of its batch proceeds. Every reserved block is
+    released whatever the batch did.
+
+    When the pool's (layers, kv heads, head dim) do not match the model's,
+    paged calls would write into the wrong shapes, so the predictor serves
+    each request through dense ``generate()`` instead (``fallback_dense``;
+    counted as ``dense_fallback_batches``), in the pool's dtype.
 
     ``device`` defaults to CUDA and raises on a machine without it unless
-    the caller passes ``device="cpu"``; it must be the model's device."""
+    the caller passes ``device="cpu"``; it must be the model's device, and
+    the pool's. Subclasses may replace ``_loop`` (the batcher thread's
+    body), as the continuous scheduler does."""
 
     _component = "generator"
 
-    def __init__(self, model, max_new_tokens=32, kv_cache=None,
-                 block_size=32, num_blocks=64,
-                 admission=None, max_retries=1, max_defers=8,
+    def __init__(self, model, max_batch_size=8, max_delay_ms=2.0,
+                 max_new_tokens=32, kv_cache=None, block_size=32,
+                 num_blocks=64, admission=None, max_retries=1, max_defers=8,
                  device="cuda"):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -115,37 +131,136 @@ class GenerateBatchingPredictor:
             kv_cache = PagedKVCache(*spec, block_size=block_size,
                                     num_blocks=num_blocks,
                                     device=self.device)
-        pool_spec = (kv_cache.num_layers, kv_cache.num_kv_heads,
-                     kv_cache.head_dim)
-        if pool_spec != spec:
-            raise ValueError(f"KV pool {pool_spec} does not "
-                             f"match the model's (layers, kv heads, head "
-                             f"dim) {spec}")
         if kv_cache.device != self.device:
             raise ValueError(f"KV pool on {kv_cache.device}, predictor on "
                              f"{self.device}")
+        self.fallback_dense = (kv_cache.num_layers, kv_cache.num_kv_heads,
+                               kv_cache.head_dim) != spec
         self.model = model
         self.kv_cache = kv_cache
+        self.max_batch_size = int(max_batch_size)
+        self.max_delay = float(max_delay_ms) / 1000.0
         self.max_new_tokens = int(max_new_tokens)
         self.max_retries = int(max_retries)
         self.max_defers = int(max_defers)
         self.admission = (admission if admission is not None
                           else AdmissionController())
         self.metrics = ServingMetrics()
+        self.batch_sizes: list[int] = []
         self._clock = time.monotonic
         self._rid = itertools.count(1)      # atomic id draws
         self._queue: queue.Queue = queue.Queue()
         self._stop = threading.Event()
         self._draining = threading.Event()
+        self._batch_running = threading.Event()
         self._thread = threading.Thread(
             target=self._loop, daemon=True,
             name=f"batching-predictor[{self._component}]")
         self._thread.start()
 
+    # ---------------------------------------------------------------- worker
     def _loop(self):
-        raise NotImplementedError(
-            "whole-batch generation is not ported yet; use "
-            "ContinuousGenerateBatchingPredictor")
+        while not self._stop.is_set():
+            try:
+                first = self._queue.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            self._batch_running.set()
+            try:
+                self._run_batch(self._collect(first))
+            finally:
+                self._batch_running.clear()
+
+    def _collect(self, first):
+        """Up to max_batch_size usable requests within the max_delay
+        window, waking early once the batch fills."""
+        batch = [first] if self._usable(first) else []
+        deadline = self._clock() + self.max_delay
+        while len(batch) < self.max_batch_size:
+            remaining = deadline - self._clock()
+            if remaining <= 0:
+                break
+            try:
+                r = self._queue.get(timeout=remaining)
+            except queue.Empty:
+                break
+            if self._usable(r):
+                batch.append(r)
+        return batch
+
+    def _run_batch(self, batch):
+        batch = [r for r in batch if self._usable(r)]
+        if not batch:
+            return
+        if self.fallback_dense:
+            return self._run_dense(batch)
+        cache = self.kv_cache
+        admitted: list[tuple] = []
+        try:
+            for r in batch:
+                rid = ("req", next(self._rid))
+                try:
+                    cache.reserve(rid, len(r.arrays[0]) + self.max_new_tokens)
+                except CacheOutOfBlocks as e:
+                    self._shed_or_defer(r, e)
+                    continue
+                admitted.append((rid, r))
+            if not admitted:
+                return
+            n = len(admitted)
+            self.batch_sizes.append(n)
+            plens = np.asarray([len(r.arrays[0]) for _, r in admitted],
+                               np.int64)
+            P = int(plens.max())
+            prompts = np.zeros((n, P), np.int64)
+            for i, (_, r) in enumerate(admitted):
+                prompts[i, :plens[i]] = r.arrays[0]
+            nb = max(cache.blocks_for(int(p) + self.max_new_tokens)
+                     for p in plens)
+            tbl = np.stack([cache.block_table(rid, pad_to=nb)
+                            for rid, _ in admitted])
+            dls = [r.deadline for _, r in admitted]
+            batch_dl = (max(dls, key=lambda d: d.remaining())
+                        if all(d is not None for d in dls) else None)
+            toks = self.model.generate_paged(
+                prompts, plens, cache, tbl,
+                max_new_tokens=self.max_new_tokens, deadline=batch_dl)
+            self.metrics.inc("generated_tokens", n * self.max_new_tokens)
+            for i, (rid, r) in enumerate(admitted):
+                cache.set_length(rid, int(plens[i]) + self.max_new_tokens)
+                self._finish_req(r, np.concatenate(
+                    [r.arrays[0], toks[i].astype(r.arrays[0].dtype)]))
+        except Exception as e:      # this batch fails, not the loop
+            self.metrics.inc("batch_failures")
+            for _, r in admitted:
+                self._fail_or_retry(r, e)
+        finally:
+            # all-paths release guard: no reserved block can leak
+            for rid, _ in admitted:
+                try:
+                    cache.mark_done(rid)
+                    cache.release(rid)
+                except KeyError:    # already released
+                    pass
+
+    def _run_dense(self, batch):
+        """Degradation for a pool that cannot serve this model: per-request
+        dense ``generate()`` (correct, without shared memory)."""
+        self.metrics.inc("dense_fallback_batches")
+        self.batch_sizes.append(len(batch))
+        dtype = (None if self.kv_cache.dtype == torch.float32
+                 else self.kv_cache.dtype)
+        for r in batch:
+            try:
+                out = self.model.generate(
+                    r.arrays[0][None], max_new_tokens=self.max_new_tokens,
+                    dtype=dtype, deadline=r.deadline)
+                self.metrics.inc("generated_tokens", self.max_new_tokens)
+                self._finish_req(r, out[0].cpu().numpy().astype(
+                    r.arrays[0].dtype))
+            except Exception as e:  # this request fails, not the loop
+                self.metrics.inc("batch_failures")
+                self._fail_or_retry(r, e)
 
     # ---------------------------------------------------------------- client
     def infer(self, ids, timeout=None, deadline=None):
@@ -267,7 +382,9 @@ class GenerateBatchingPredictor:
         return self._thread.is_alive() and not self._stop.is_set()
 
     def pending(self) -> int:
-        return self._queue.qsize()
+        """Queued + in-flight batches (the drain condition)."""
+        return self._queue.qsize() + (1 if self._batch_running.is_set()
+                                      else 0)
 
     def drain(self):
         """Refuse new requests; queued / in-flight ones keep running."""

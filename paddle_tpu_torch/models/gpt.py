@@ -2,20 +2,22 @@
 
 This slice covers the default ``GPTConfig`` family: RoPE (neox, base 1e4),
 pre-norm RMSNorm, SwiGLU MLP, tied embeddings, any ``num_kv_heads`` that
-divides ``num_heads``, on two branches of ``GPTAttention``:
+divides ``num_heads``, on three branches of ``GPTAttention``:
 
 * the cache-free forward (JAX ``gpt.py:177-184``, ``:230-233``,
   ``:280-301``): RoPE at ``arange(S)`` (or the given ``position_ids``), then
   ``F.flash_attention(q, k, v, causal=True)`` — the flash kernels on CUDA;
   ``GPTForCausalLM(ids, labels=...)`` returns ``(logits, loss)`` with the
   loss the mean of ``ParallelCrossEntropy``. This is the training path.
-* the paged cache branch (JAX ``gpt.py:108-176``): attention over the paged
-  KV pool, for the serving step programs.
+* the paged cache branch (JAX ``gpt.py:108-153``): attention over the paged
+  KV pool, for the serving step programs and ``verify_step``;
+* the dense cache branch (JAX ``gpt.py:154-174``): per-request head-leading
+  caches ``[B, Hkv, T, D]`` written in place, attention through
+  ``decode_attention`` — the path of dense ``generate()``.
 
 Not ported yet, and refused with ``NotImplementedError``: the GPT-2-style
 variant (learned positions, LayerNorm, GELU, ``gpt3_1p3b``), dropout,
-recompute; dense ``generate()`` and ``verify_step`` are refused in
-``generation.py``.
+recompute.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from ..framework import make_generator, resolve_device
 from ..incubate.nn.functional import apply_rope, rope_cos_sin, swiglu
 from ..nn import RMSNorm
 from ..nn import functional as F
+from ..ops.decode_attention import decode_attention, decode_attention_ref
 from ..ops.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_ref,
@@ -43,7 +46,8 @@ from ..ops.paged_attention import (
 from .generation import GenerationMixin
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
-           "GPTForCausalLM", "PagedStep", "gpt_tiny", "gpt_350m"]
+           "GPTForCausalLM", "PagedStep", "DenseStep", "gpt_tiny",
+           "gpt_350m"]
 
 DECODE_KERNELS = ("kernel", "plain")
 
@@ -119,6 +123,15 @@ class PagedStep:
     lengths: torch.Tensor       # [B] int32 live prefix before this step
 
 
+@dataclass
+class DenseStep:
+    """What every layer of one dense-cache forward shares: the cache rows
+    present before it. Every request of a dense batch is at this length,
+    so the new rows sit at ``[length, length + S)``, which are also their
+    RoPE positions."""
+    length: int
+
+
 class GPTAttention(nn.Module):
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
@@ -137,11 +150,15 @@ class GPTAttention(nn.Module):
                                           dtype=dtype)
 
     def forward(self, x, rope, k_pool=None, v_pool=None,
-                step: PagedStep | None = None, decode_kernel="kernel"):
+                step: PagedStep | DenseStep | None = None,
+                decode_kernel="kernel"):
         """Without ``step``: causal flash attention over the S rows of x.
-        With it, the paged cache branch: RoPE at absolute positions, the new
-        K/V rows scattered into the pools IN PLACE, attention over the live
-        prefix plus the causal new rows."""
+        With a ``PagedStep``, the paged cache branch: RoPE at absolute
+        positions, the new K/V rows scattered into the pools IN PLACE,
+        attention over the live prefix plus the causal new rows. With a
+        ``DenseStep``, the same over the dense caches [B, Hkv, T, D]
+        (``k_pool`` / ``v_pool``): the new rows are written in place at
+        ``[length, length + S)``."""
         B, S = x.shape[0], x.shape[1]
         H, Hkv, D = self.num_heads, self.num_kv_heads, self.head_dim
         q, k, v = self.qkv_proj(x).split([H * D, Hkv * D, Hkv * D], dim=-1)
@@ -151,6 +168,10 @@ class GPTAttention(nn.Module):
         if step is None:
             out, _ = F.flash_attention(q, k, v, causal=True)
             return self.out_proj(out.reshape(B, S, H * D))
+        if isinstance(step, DenseStep):
+            return self.out_proj(self._attend_dense(q, k, v, k_pool, v_pool,
+                                                    step, decode_kernel)
+                                 .reshape(B, S, H * D))
         paged_scatter_(k_pool, k, step.write_rows, step.write_slots)
         paged_scatter_(v_pool, v, step.write_rows, step.write_slots)
         attend = (paged_decode_attention if decode_kernel == "kernel"
@@ -158,6 +179,22 @@ class GPTAttention(nn.Module):
         out = attend(q, k_pool, v_pool, step.tables, step.lengths,
                      scale=1.0 / math.sqrt(D))
         return self.out_proj(out.reshape(B, S, H * D))
+
+    def _attend_dense(self, q, k, v, k_cache, v_cache, step, decode_kernel):
+        """Write the S new K/V rows into the dense caches in place, then
+        attend. JAX's ``dynamic_update_slice`` clamps a start past the end;
+        ``generate()`` never gets there, so a write past T raises here."""
+        S, T = k.shape[1], k_cache.shape[2]
+        lo = step.length
+        if lo + S > T:
+            raise ValueError(f"dense cache holds {T} rows; {S} new rows at "
+                             f"{lo} would pass its end")
+        k_cache[:, :, lo:lo + S] = k.transpose(1, 2).to(k_cache.dtype)
+        v_cache[:, :, lo:lo + S] = v.transpose(1, 2).to(v_cache.dtype)
+        attend = (decode_attention if decode_kernel == "kernel"
+                  else decode_attention_ref)
+        return attend(q, k_cache, v_cache, lo,
+                      scale=1.0 / math.sqrt(self.head_dim))
 
 
 class GPTMLP(nn.Module):
@@ -208,12 +245,13 @@ class GPTModel(nn.Module):
                 decode_kernel="kernel", position_ids=None):
         """input_ids [B, S] -> logits [B, S, V]. Without ``step``: the
         cache-free causal forward, RoPE at ``position_ids`` ([S] or [B, S],
-        default ``arange(S)``). With it: attends through (and writes into)
-        the per-layer pools ``k_pools[i]`` / ``v_pools[i]``."""
+        default ``arange(S)``). With a ``PagedStep`` or ``DenseStep``:
+        attends through (and writes into) the per-layer paged pools or
+        dense caches ``k_pools[i]`` / ``v_pools[i]``."""
         x = self.embed_tokens(input_ids)
         head_dim = self.config.hidden_size // self.config.num_heads
+        B, S = input_ids.shape
         if step is None:
-            B, S = input_ids.shape
             pos = (torch.arange(S, device=x.device) if position_ids is None
                    else torch.as_tensor(position_ids, device=x.device))
             rope = rope_cos_sin(pos.expand(B, S), head_dim, x.dtype)
@@ -223,7 +261,12 @@ class GPTModel(nn.Module):
             if decode_kernel not in DECODE_KERNELS:
                 raise ValueError(
                     f"decode_kernel must be one of {DECODE_KERNELS}")
-            rope = rope_cos_sin(step.positions, head_dim, x.dtype)
+            if isinstance(step, DenseStep):
+                pos = torch.arange(step.length, step.length + S,
+                                   device=x.device).expand(B, S)
+            else:
+                pos = step.positions
+            rope = rope_cos_sin(pos, head_dim, x.dtype)
             for blk, kp, vp in zip(self.blocks, k_pools, v_pools):
                 x = blk(x, rope, kp, vp, step, decode_kernel)
         x = self.ln_f(x)

@@ -3,8 +3,9 @@
 Each source under ``paddle_tpu_torch/csrc/`` is compiled by ``nvcc`` into
 its own shared library with a plain C interface, at first use, into
 ``paddle_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded with
-``ctypes``. Library names carry a hash of the source, so an edited source
-builds anew and a stale library is never loaded. Nothing here runs when the
+``ctypes``. Library names carry a hash of the source and of the shared
+headers (``csrc/*.cuh``), so an edited source or header builds anew and a
+stale library is never loaded. Nothing here runs when the
 module is imported: the CPU tests import every module on machines without
 ``nvcc``.
 
@@ -51,6 +52,15 @@ SOURCES = {
             "flash_attention_error_string": ([_I], ctypes.c_char_p),
         },
     ),
+    "decode_attention": (
+        "decode_attention.cu",
+        {
+            "decode_attention_forward": (
+                [_P] * 4 + [_I] + [_P] * 4 + [_I] * 7 + [_F] + [_I] * 2
+                + [_P], ctypes.c_int),
+            "decode_attention_error_string": ([_I], ctypes.c_char_p),
+        },
+    ),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -73,9 +83,12 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name) -> Path:
-    src = CSRC / SOURCES[name][0]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of its source and of every
+    header under ``csrc/`` (the sources include them)."""
+    h = hashlib.sha256((CSRC / SOURCES[name][0]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name):

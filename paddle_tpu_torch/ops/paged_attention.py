@@ -14,7 +14,7 @@ request. Query row s of request b sits at absolute position
   counts kernel launches, so a run can show the main path went through it.
 * ``paged_decode_attention_ref`` — the plain PyTorch version: the JAX
   package's gather path (``decode_attention.py:334-340``) followed by
-  ``decode_attention_xla`` (``:64``).
+  ``decode_attention_xla`` (``:64``), the port's ``decode_attention_ref``.
 * ``paged_cache_update`` / ``write_positions`` — the scatter of new K/V rows
   into the pools (``:385-424``). The JAX code drops padding rows through
   XLA's out-of-bounds scatter (page id ``P``); torch indexing raises on that
@@ -28,63 +28,48 @@ import math
 import torch
 
 from . import _build
+from .decode_attention import decode_attention_ref
+from .decode_attention import kernel_tolerance as dense_tolerance
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_ref",
            "kernel_tolerance", "paged_cache_update", "write_positions", "paged_write_index",
            "paged_scatter_", "kernel_launch_config"]
 
-_NEG = torch.finfo(torch.float32).min
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _WARPS = 4          # csrc/paged_attention.cu kWarps
 _TILE_COLS = 32     # csrc/paged_attention.cu kTileCols
 
 
 # ----------------------------------------------------------------- plain
+def _gather_dense(pages, block_tables):
+    """[Hkv, P, BS, D] pool -> the dense head-leading [B, Hkv, NB*BS, D]
+    cache the block tables [B, NB] describe."""
+    Hkv, _, BS, D = pages.shape
+    B, NB = block_tables.shape
+    return (pages[:, block_tables.long()].reshape(Hkv, B, NB * BS, D)
+            .transpose(0, 1))
+
+
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths,
                                scale=None):
     """Plain PyTorch paged attention: gather the pages into a dense
-    head-leading cache, then grouped-GQA masked softmax attention with f32
-    scores and probabilities cast to the value dtype before P.V."""
-    B, S, Hq, D = q.shape
-    Hkv, _, BS, _ = k_pages.shape
-    NB = block_tables.shape[1]
-    G = Hq // Hkv
-    T = NB * BS
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
-    tbl = block_tables.long()
-    lengths = lengths.reshape(-1).long().expand(B)
-    k_dense = k_pages[:, tbl].reshape(Hkv, B, T, D).transpose(0, 1)
-    v_dense = v_pages[:, tbl].reshape(Hkv, B, T, D).transpose(0, 1)
-    qg = q.reshape(B, S, Hkv, G, D)
-    scores = torch.einsum("bsngd,bntd->bngst", qg.float(),
-                          k_dense.float()) * scale
-    pos_q = lengths[:, None] + torch.arange(S, device=q.device)[None, :]
-    pos_k = torch.arange(T, device=q.device)
-    allowed = pos_k[None, None, :] <= pos_q[:, :, None]          # [B, S, T]
-    scores = torch.where(allowed[:, None, None], scores,
-                         torch.full((), _NEG, device=q.device))
-    probs = torch.softmax(scores, dim=-1).to(v_dense.dtype)
-    out = torch.einsum("bngst,bntd->bsngd", probs, v_dense)
-    return out.reshape(B, S, Hq, D).to(q.dtype)
+    head-leading cache, then ``decode_attention_ref`` (grouped-GQA masked
+    softmax with f32 scores and probabilities cast to the value dtype
+    before P.V)."""
+    return decode_attention_ref(q, _gather_dense(k_pages, block_tables),
+                                _gather_dense(v_pages, block_tables),
+                                lengths, scale)
 
 
 def kernel_tolerance(q, k_pages, v_pages, block_tables, lengths, ref,
                      scale=None):
     """Elementwise limit on |kernel - plain| for these inputs, where ``ref``
-    is ``paged_decode_attention_ref`` of them.
-
-    f32 pools: 1e-4, another summation order over up to ~1k columns. bf16
-    pools: each side rounds every probability (the kernel its unnormalised
-    p, the plain version the normalised one) and the output to bf16, unit
-    roundoff 2^-8, so the two differ by at most 2^-7 (|ref| + sum_j p_j
-    |v_j|), plus 1e-5 of f32 accumulation noise."""
-    if k_pages.dtype == torch.float32:
-        return torch.full(ref.shape, 1e-4, device=ref.device)
-    mag = paged_decode_attention_ref(q.float(), k_pages.float(),
-                                     v_pages.float().abs(), block_tables,
-                                     lengths, scale)
-    return 1e-5 + 2.0 ** -7 * (ref.float().abs() + mag)
+    is ``paged_decode_attention_ref`` of them: the dense kernel's bound
+    (``decode_attention.kernel_tolerance``) on the gathered cache. f32
+    pools: 1e-4; bf16 pools: 2^-7 (|ref| + sum_j p_j |v_j|) + 1e-5."""
+    return dense_tolerance(q, _gather_dense(k_pages, block_tables),
+                           _gather_dense(v_pages, block_tables), lengths,
+                           ref, scale)
 
 
 # ---------------------------------------------------------------- kernel

@@ -6,10 +6,11 @@ machine without JAX:
 
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 
-Tolerances are each module's ``kernel_tolerance``, elementwise. Paged
-attention: f32 1e-4 (another summation order over up to ~1k columns); bf16
-2^-7 (|ref| + sum_j p_j |v_j|) (unnormalised probabilities and the output
-rounded to bf16 at other places than the plain version's). Flash attention:
+Tolerances are each module's ``kernel_tolerance``, elementwise. Paged and
+dense split-KV attention: f32 1e-4 (another summation order over up to ~1k
+columns); bf16 2^-7 (|ref| + sum_j p_j |v_j|) (unnormalised probabilities
+and the output rounded to bf16 at other places than the plain version's).
+Flash attention:
 2^-7 (|ref| + the magnitude of the sum) for bf16 plus 2^-16 of the f32 sums'
 magnitude for another summation order (``flash_attention.kernel_tolerance``
 states each term).
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import decode_attention as tda
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import paged_attention as tpa
 
@@ -182,3 +184,90 @@ def test_training_steps_through_the_kernels_match_the_cpu(cuda):
     np.testing.assert_allclose(kl, pl, rtol=1e-5)
     for name in ks:
         np.testing.assert_allclose(ks[name], ps[name], atol=1e-4, err_msg=name)
+
+
+def _dense_case(device, B, S, Hkv, G, D, T, dtype, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    td = getattr(torch, dtype)
+    return [torch.randn(shape, generator=g, device=device).to(td) for shape in
+            ((B, S, Hkv * G, D), (B, Hkv, T, D), (B, Hkv, T, D))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,S,D,T,lengths", [
+    (1, 1, 64, 640, [512, 639, 575, 0]),     # decode, T = 640
+    (4, 1, 128, 300, [3, 299, 64, 100]),     # GQA 4
+    (8, 1, 128, 100, [0, 1, 63, 99]),        # GQA 8, T < two tiles
+    (1, 64, 64, 200, [0, 136, 17, 70]),      # prefill rows, ragged T
+    (4, 5, 64, 77, [0, 72, 11, 40]),
+    (1, 129, 128, 129, [0, 0, 0, 0])])       # rows past one tile
+def test_decode_attention_kernel_matches_plain(cuda, dtype, G, S, D, T,
+                                               lengths):
+    q, k, v = _dense_case(cuda, 4, S, 2, G, D, T, dtype, seed=S + G)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = tda.decode_attention.launches
+    got = tda.decode_attention(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert tda.decode_attention.launches == before + 1
+    ref = tda.decode_attention_ref(q, k, v, ln)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    err = (got.float() - ref.float()).abs()
+    assert bool((err <= tda.kernel_tolerance(q, k, v, ln, ref)).all()), (
+        f"max |kernel - plain| {float(err.max())}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,length", [(1, 0), (1, 583), (64, 0), (7, 130)])
+def test_decode_attention_kernel_takes_one_length_for_the_batch(cuda, S,
+                                                                length):
+    """An int length (the dense generate() path) runs the kernel on the
+    scalar and gives what an int32 [B] tensor of that length gives."""
+    q, k, v = _dense_case(cuda, 3, S, 2, 4, 64, 640, "bfloat16", seed=S)
+    before = tda.decode_attention.launches
+    got = tda.decode_attention(q, k, v, length)
+    assert tda.decode_attention.launches == before + 1
+    ln = torch.full((3,), length, dtype=torch.int32, device=cuda)
+    assert torch.equal(got, tda.decode_attention(q, k, v, ln))
+    ref = tda.decode_attention_ref(q, k, v, ln)
+    err = (got.float() - ref.float()).abs()
+    assert bool((err <= tda.kernel_tolerance(q, k, v, ln, ref)).all())
+
+
+@pytest.mark.cuda
+def test_decode_attention_kernel_rejects_what_it_cannot_run(cuda):
+    q, k, v = _dense_case(cuda, 2, 1, 2, 1, 64, 40, "float32")
+    with pytest.raises(ValueError, match="head_dim"):
+        tda.decode_attention(q[..., :32].contiguous(),
+                             k[..., :32].contiguous(),
+                             v[..., :32].contiguous(), 5)
+    with pytest.raises(TypeError, match="int32"):
+        tda.decode_attention(q, k, v, torch.tensor([5, 5], device=cuda))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tda.decode_attention(q.half(), k.half(), v.half(), 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        tda.decode_attention(q, k.transpose(2, 3).contiguous()
+                             .transpose(2, 3), v, 5)
+    with pytest.raises(ValueError, match="multiple"):
+        tda.decode_attention(torch.cat([q, q[:, :, :1]], 2), k, v, 5)
+    with pytest.raises(ValueError, match=">= 0"):
+        tda.decode_attention(q, k, v, -1)
+
+
+@pytest.mark.cuda
+def test_generate_on_the_card_matches_the_plain_path(cuda):
+    """A small GPT (head dim 64) gives the same greedy tokens through the
+    dense kernel as through the plain attention path (f32), with one
+    kernel launch per layer per forward."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+
+    m = GPTForCausalLM(GPTConfig(vocab_size=1024, hidden_size=128,
+                                 num_layers=2, num_heads=2, max_position=128),
+                       device=cuda, seed=1)
+    prompt = np.arange(22).reshape(2, 11) * 7 % 1024
+    before = tda.decode_attention.launches
+    got = m.generate(prompt, max_new_tokens=9, dtype=None)
+    assert tda.decode_attention.launches == before + 2 * 9
+    plain = m.generate(prompt, max_new_tokens=9, dtype=None,
+                       decode_kernel="plain")
+    assert torch.equal(got, plain)
