@@ -81,6 +81,28 @@ non-zero without the final line:
    timed steps on the same batch, every loss finite, the last below the
    first, exactly 3 flash launches per layer per step; step time, tokens/s,
    the share of the bf16 peak, peak memory, and a torch.profiler step.
+12. FlashMask kernels vs plain — the masked forward, dq and dk/dv kernels
+   against their plain versions, within ``flash_attention.kernel_tolerance``
+   over the allowed positions, in f32 and bf16: uneven causal documents
+   (n = 1, one mask for all heads), causal n = 2 bands per head,
+   non-causal n = 4 bands, GQA 16/4 at D = 128 with a mask per head,
+   S = 1000; an all-zero causal mask (every output exactly 0) and a mask
+   hiding nothing (bit for bit the unmasked causal kernels).
+13. FlashMask timing — kernel, plain, bound and library (SDPA with the
+   boolean mask, a yardstick only, with the backend it picked) at
+   B = 1, S = 8192, H = 16, D = 64, bf16, causal, under the document mask
+   of [2048, 1536, 1024, 1024, 768, 512, 512, 384, 256, 128] (14.9% of
+   the causal pairs), and the unmasked causal kernels on the same inputs.
+14. varlen training — the slice's main path: 24 blocks of RMSNorm ->
+   ColumnParallelLinear(1024 -> 3072) -> F.flash_attn_varlen_qkvpacked
+   (causal) -> RowParallelLinear(1024 -> 1024) -> residual, bf16, AdamW,
+   8192 tokens a step packed from those documents in a seeded shuffled
+   order. In situ first: layers 0, 11 and 23's masked kernel calls held
+   to the plain versions on their own inputs, and every document's end
+   one short planted into the kernels must fail each. Then 2 warm-up and
+   5 timed steps: step ms, tokens/s, losses finite and falling, exactly
+   24 launches of each masked kernel per step (none unmasked), and a
+   profiled step by kernel kind.
 
 Last lines: the kernels JSON, then {"ok": true, "device": {...}}. With
 ``--json PATH`` the full record (every check, timing, profile and serving
@@ -202,17 +224,28 @@ def check_kernels(torch, pa, device):
     return results, worst
 
 
-def time_ms(torch, fn, flush, reps=25):
+def time_ms(torch, fn, flush, reps=25, queued=True):
     """Device time of one call: median of `reps` calls, each between two
     CUDA events, L2 flushed before each (the main path reaches attention
     after a layer's weights). A device-side sleep queued first keeps the
     card busy while the host enqueues every call, so the events time the
     device's work and not the host's launch overhead; the sleep must still
-    be running when the last call is queued, or the script fails."""
+    be running when the last call is queued, or the script fails. With
+    ``queued=False`` each call is timed on its own after a synchronise:
+    for calls of tens of ms whose gigabyte temporaries make the allocator
+    synchronise the device, where launch overhead is noise."""
     fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    if not queued:
+        for start, end in ev:
+            flush.zero_()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+        return float(np.median([s.elapsed_time(e) for s, e in ev]))
     torch.cuda._sleep(int(4e8))                 # ~0.2 s at 1.98 GHz
     slept = torch.cuda.Event()
     slept.record()
@@ -412,23 +445,24 @@ def time_dense_kernels(torch, da, device):
 FLASH_OUTPUTS = {"fwd": ("out", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
 
 
-def flash_run(fa, q, k, v, do, causal, plain=False):
-    """The three kernels (or their plain versions) on one case; the backward
-    takes the plain forward's out and lse, so both sides see the same saved
-    inputs."""
-    ro, rl = fa.flash_attention_fwd_ref(q, k, v, causal)
+def flash_run(fa, q, k, v, do, causal, plain=False, sri=None):
+    """The three kernels (or their plain versions) on one case, their masked
+    forms under a FlashMask ``sri``; the backward takes the plain forward's
+    out and lse, so both sides see the same saved inputs."""
+    ro, rl = fa.flash_attention_fwd_ref(q, k, v, causal, sri=sri)
     delta = fa.attention_delta(ro, do)
     if plain:
         out = dict(out=ro, lse=rl,
                    dq=fa.flash_attention_dq_ref(q, k, v, do, rl, delta,
-                                                causal))
-        out["dk"], out["dv"] = fa.flash_attention_dkv_ref(q, k, v, do, rl,
-                                                          delta, causal)
+                                                causal, sri=sri))
+        out["dk"], out["dv"] = fa.flash_attention_dkv_ref(
+            q, k, v, do, rl, delta, causal, sri=sri)
         return out, delta
-    o, lse = fa.flash_fwd(q, k, v, causal)
+    o, lse = fa.flash_fwd(q, k, v, causal, sri=sri)
     out = dict(out=o, lse=lse, dq=fa.flash_bwd_dq(q, k, v, do, rl, delta,
-                                                  causal))
-    out["dk"], out["dv"] = fa.flash_bwd_dkv(q, k, v, do, rl, delta, causal)
+                                                  causal, sri=sri))
+    out["dk"], out["dv"] = fa.flash_bwd_dkv(q, k, v, do, rl, delta, causal,
+                                            sri=sri)
     return out, delta
 
 
@@ -494,17 +528,22 @@ def check_flash_kernels(torch, fa, device):
     return results, worst
 
 
-def flash_bounds(B, S, H, D, causal, elt=2):
+def flash_bounds(B, S, H, D, causal, elt=2, pairs=None, mask_bytes=0):
     """Least time of each kernel on an H100 SXM at these shapes: each input
     read once and each output written once; 2*D operations per allowed
     (row, column) pair and product (forward 2 products, dq 3, dk/dv 4).
-    Returns {kernel: (ms, 'bytes' | 'operations')}."""
-    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    ``pairs``: the allowed pairs of one head where a FlashMask sets them
+    (default all, or the causal triangle); ``mask_bytes``: the FlashMask,
+    read once by each kernel. Returns {kernel: (ms, 'bytes' |
+    'operations')}."""
+    if pairs is None:
+        pairs = S * (S + 1) // 2 if causal else S * S
+    pairs *= B * H
     tile = B * S * H * D * elt
     row = B * H * S * 4
-    work = {"fwd": (2, 3 * tile + tile + row),
-            "dq": (3, 4 * tile + 2 * row + tile),
-            "dkv": (4, 4 * tile + 2 * row + 2 * tile)}
+    work = {"fwd": (2, 3 * tile + tile + row + mask_bytes),
+            "dq": (3, 4 * tile + 2 * row + tile + mask_bytes),
+            "dkv": (4, 4 * tile + 2 * row + 2 * tile + mask_bytes)}
     out = {}
     for kern, (products, nbytes) in work.items():
         t_ops = 2.0 * D * pairs * products / PEAK_FLOPS["bfloat16"]
@@ -1456,6 +1495,472 @@ def train(torch, fa, device, B=8, S=1024, warmup=2, timed=8, seed=12,
     return rec, insitu
 
 
+# ------------------------------------------------------ phase 12/13/14
+# The packed documents of the FlashMask timing and of varlen_train: 8192
+# tokens, 5,001,216 causal pairs per head (14.9% of the causal triangle).
+FM_DOCS = [2048, 1536, 1024, 1024, 768, 512, 512, 384, 256, 128]
+
+
+def doc_columns(lens, causal):
+    """[S, n] int32 FlashMask of packed documents of these lengths, as
+    ``flash_attn_unpadded`` builds it: per key column its document's end
+    (causal, n = 1), or [end, S, 0, start] (non-causal, n = 4)."""
+    cu = np.concatenate([[0], np.cumsum(lens)])
+    S = int(cu[-1])
+    seg = np.searchsorted(cu[1:-1], np.arange(S), side="right")
+    end, start = cu[seg + 1], cu[seg]
+    cols = [end] if causal else [end, np.full(S, S), np.zeros(S, np.int64),
+                                 start]
+    return np.stack(cols, -1).astype(np.int32)
+
+
+def fm_sri(torch, per_head, device):
+    """[B, H', S, n] int32 on the card from [B][H'] nested [S, n] arrays."""
+    return torch.as_tensor(np.asarray(per_head, np.int32),
+                           device=device).contiguous()
+
+
+def flashmask_cases(rng):
+    """(name, B, S, H, Hkv, D, causal, [B][H'] of [S, n] mask columns)."""
+    def docs(S, k):
+        cut = np.sort(rng.choice(np.arange(1, S), k, replace=False))
+        return np.diff(np.concatenate([[0], cut, [S]]))
+
+    def bands(S):           # causal n = 2: random [start, end) per column
+        lo = rng.integers(np.arange(S), S + 1)
+        return np.stack([lo, lo + rng.integers(0, S // 2, S)], -1)
+
+    return [
+        ("docs-causal", 2, 1024, 16, 16, 64, True,
+         [[doc_columns(docs(1024, 6), True)] for _ in range(2)]),
+        ("bands-causal-n2-per-head", 2, 512, 8, 8, 64, True,
+         [[bands(512) for _ in range(8)] for _ in range(2)]),
+        ("docs-noncausal-n4", 2, 512, 8, 8, 64, False,
+         [[doc_columns(docs(512, 4), False)] for _ in range(2)]),
+        ("gqa16-4-d128-per-head", 1, 768, 16, 4, 128, True,
+         [[doc_columns(docs(768, 5), True) for _ in range(16)]]),
+        ("s1000", 2, 1000, 4, 4, 64, True,
+         [[doc_columns(docs(1000, 5), True)] for _ in range(2)]),
+    ]
+
+
+def check_flashmask_kernels(torch, fa, device):
+    """The three masked kernels against their plain versions on the same
+    inputs, each output within ``kernel_tolerance`` (over the allowed
+    positions), in f32 and bf16: uneven causal documents (n = 1, one mask
+    for all heads), causal n = 2 bands per head, non-causal n = 4 bands,
+    GQA 16/4 at D = 128 with a mask per head, S = 1000. Then an all-zero
+    causal mask (every row hidden: every output exactly 0) and a mask
+    hiding nothing (start = S: bit for bit the unmasked causal kernels)."""
+    rng = np.random.default_rng(30)
+    results, worst = [], {}
+    for n, (name, B, S, H, Hkv, D, causal, cols) in enumerate(
+            flashmask_cases(rng)):
+        sri = fm_sri(torch, cols, device)
+        for dtype in ("bfloat16", "float32"):
+            q, k, v, do = flash_inputs(torch, B, S, H, Hkv, D, dtype, device,
+                                       seed=500 + n)
+            got, _ = flash_run(fa, q, k, v, do, causal, sri=sri)
+            torch.cuda.synchronize()
+            ref, delta = flash_run(fa, q, k, v, do, causal, plain=True,
+                                   sri=sri)
+            lim = fa.kernel_tolerance(q, k, v, ref, causal, dout=do,
+                                      delta=delta, sri=sri)
+            res = over_limit(torch, got, ref, lim)
+            ok = (all(bool(torch.isfinite(x).all()) for x in got.values())
+                  and all(r <= 1.0 for _, r in res.values()))
+            rec = dict(case=name, dtype=dtype, B=B, S=S, H=H, Hkv=Hkv, D=D,
+                       causal=causal, n=int(sri.shape[3]),
+                       mask_heads=int(sri.shape[1]), ok=ok,
+                       **{f"{o}_max_abs_err": e for o, (e, _) in res.items()},
+                       **{f"{o}_err_over_limit": r
+                          for o, (_, r) in res.items()})
+            print("flashmask-check", json.dumps(rec), flush=True)
+            results.append(rec)
+            if dtype == "bfloat16":
+                for kern, outs in FLASH_OUTPUTS.items():
+                    worst[kern] = max([worst.get(kern, 0.0)]
+                                      + [res[o][0] for o in outs
+                                         if o != "lse"])
+            if not ok:
+                raise AssertionError(f"masked flash kernel disagrees with "
+                                     f"plain: {rec}")
+            del got, ref, lim
+    S = 640
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, do = flash_inputs(torch, 2, S, 8, 8, 64, dtype, device,
+                                   seed=520)
+        zero = torch.zeros((2, 1, S, 1), dtype=torch.int32, device=device)
+        hidden, _ = flash_run(fa, q, k, v, do, True, sri=zero)
+        nothing = torch.full((2, 8, S, 1), S, dtype=torch.int32,
+                             device=device)
+        masked, _ = flash_run(fa, q, k, v, do, True, sri=nothing)
+        unmasked, _ = flash_run(fa, q, k, v, do, True)
+        torch.cuda.synchronize()
+        rec = dict(case="all-masked-and-mask-nothing", dtype=dtype, S=S,
+                   all_masked_exact_zero={
+                       o: bool((x == 0).all()) for o, x in hidden.items()},
+                   mask_nothing_bit_equal={
+                       o: bool(torch.equal(x, unmasked[o]))
+                       for o, x in masked.items()})
+        print("flashmask-check", json.dumps(rec), flush=True)
+        results.append(rec)
+        if not (all(rec["all_masked_exact_zero"].values())
+                and all(rec["mask_nothing_bit_equal"].values())):
+            raise AssertionError(f"masked kernels' edge cases: {rec}")
+    return results, worst
+
+
+def sdpa_backend(torch, q, k, v, mask):
+    """The backend scaled_dot_product_attention picks for these inputs:
+    PyTorch's own dispatcher choice (``torch._fused_sdp_choice``)."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, mask, 0.0,
+                                              False)).name
+
+
+def time_flashmask(torch, fa, device):
+    """Kernel, plain, bound and library times of the masked kernels (bf16,
+    causal) at B = 1, S = 8192, H = 16, D = 64 under the document mask of
+    FM_DOCS (one mask for all heads), and the unmasked causal kernels on
+    the same inputs: the work a mask-blind kernel would do. The library
+    yardstick is scaled_dot_product_attention with the boolean [1, 1, S, S]
+    mask (its forward; its one backward for dq and dk/dv), on [B, H, S, D]
+    copies made outside the timing; ``sdpa_backend`` names the backend.
+    The port never calls it. The backward kernels take the masked kernel's
+    lse and delta. The plain versions (median of 5) are timed call by
+    call (``time_ms`` ``queued=False``)."""
+    import torch.nn.functional as F
+
+    B, S, H, D = 1, sum(FM_DOCS), 16, 64
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    q, k, v, do = flash_inputs(torch, B, S, H, H, D, "bfloat16", device,
+                               seed=310)
+    sri = fm_sri(torch, [[doc_columns(FM_DOCS, True)]], device)
+    allowed = fa.flashmask_allowed(S, sri, True)             # [1, 1, S, S]
+    pairs = int(allowed.sum())
+    o, lse = fa.flashmask_fwd(q, k, v, sri, True)
+    delta = fa.attention_delta(o, do)
+    uo, ulse = fa.flash_fwd(q, k, v, True)
+    udelta = fa.attention_delta(uo, do)
+    calls = {
+        "fwd": (lambda: fa.flashmask_fwd(q, k, v, sri, True),
+                lambda: fa.flash_attention_fwd_ref(q, k, v, True, sri=sri),
+                lambda: fa.flash_fwd(q, k, v, True)),
+        "dq": (lambda: fa.flashmask_bwd_dq(q, k, v, do, lse, delta, sri,
+                                           True),
+               lambda: fa.flash_attention_dq_ref(q, k, v, do, lse, delta,
+                                                 True, sri=sri),
+               lambda: fa.flash_bwd_dq(q, k, v, do, ulse, udelta, True)),
+        "dkv": (lambda: fa.flashmask_bwd_dkv(q, k, v, do, lse, delta, sri,
+                                             True),
+                lambda: fa.flash_attention_dkv_ref(q, k, v, do, lse, delta,
+                                                   True, sri=sri),
+                lambda: fa.flash_bwd_dkv(q, k, v, do, ulse, udelta, True)),
+    }
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    for t in (qt, kt, vt):
+        t.requires_grad_()
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed)
+
+    lib_out = lib_fwd()
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                   retain_graph=True)
+
+    library = {"fwd": time_ms(torch, lib_fwd, flush),
+               "bwd": time_ms(torch, lib_bwd, flush)}
+    backend = sdpa_backend(torch, qt, kt, vt, allowed)
+    bounds = flash_bounds(B, S, H, D, True, pairs=pairs,
+                          mask_bytes=sri.numel() * 4)
+    ubounds = flash_bounds(B, S, H, D, True)
+    out = {}
+    for kern, (kernel, plain, unmasked) in calls.items():
+        side = "fwd" if kern == "fwd" else "bwd"
+        rec = dict(kernel=kern, B=B, S=S, H=H, D=D, dtype="bfloat16",
+                   causal=True, documents=FM_DOCS, allowed_pairs_per_head=
+                   pairs, causal_share=pairs / (S * (S + 1) / 2),
+                   ms=time_ms(torch, kernel, flush),
+                   plain_ms=time_ms(torch, plain, flush, reps=5,
+                                    queued=False),
+                   library_ms=library[side],
+                   library_call=("sdpa forward, boolean mask" if side ==
+                                 "fwd" else "sdpa backward, boolean mask "
+                                 "(dq, dk, dv in one call)"),
+                   library_backend=backend,
+                   bound_ms=bounds[kern][0], bound_by=bounds[kern][1],
+                   unmasked_ms=time_ms(torch, unmasked, flush),
+                   unmasked_bound_ms=ubounds[kern][0],
+                   unmasked_bound_by=ubounds[kern][1])
+        print("flashmask-time", json.dumps(rec), flush=True)
+        out[kern] = rec
+    del q, k, v, do, o, uo, qt, kt, vt, dot, lib_out, allowed, calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def held_by_heads(torch, fa, kind, got, q, k, v, sri, causal, scale,
+                  dout=None, lse=None, delta=None, chunk=4):
+    """Worst |kernel - plain| / ``kernel_tolerance`` over the outputs
+    ``got`` of one masked kernel call ("fwd", "dq" or "dkv") on its own
+    inputs, taken ``chunk`` heads at a time (the plain versions hold
+    [chunk, S, S] f32 scores)."""
+    B, S, H, _ = q.shape
+
+    def rows(x, a, b):                  # [B * H, S] -> heads a:b
+        return x.reshape(B, H, S)[:, a:b].reshape(-1, S)
+
+    worst = 0.0
+    for a in range(0, H, chunk):
+        b = min(a + chunk, H)
+        qs, ks, vs = (t[:, :, a:b] for t in (q, k, v))
+        part = {n: rows(x, a, b) if n == "lse" else x[:, :, a:b]
+                for n, x in got.items()}
+        if kind == "fwd":
+            ro, rl = fa.flash_attention_fwd_ref(qs, ks, vs, causal, scale,
+                                                sri)
+            ref = dict(out=ro, lse=rl)
+            lim = fa.kernel_tolerance(qs, ks, vs, ref, causal, scale,
+                                      sri=sri)
+        else:
+            dos, ls, ds = dout[:, :, a:b], rows(lse, a, b), rows(delta, a, b)
+            plain = (fa.flash_attention_dq_ref if kind == "dq"
+                     else fa.flash_attention_dkv_ref)
+            r = plain(qs, ks, vs, dos, ls, ds, causal, scale, sri)
+            ref = dict(zip(got, r if isinstance(r, tuple) else (r,)),
+                       lse=ls)
+            lim = fa.kernel_tolerance(qs, ks, vs, ref, causal, scale,
+                                      dout=dos, delta=ds, sri=sri)
+        res = over_limit(torch, part, ref, lim)
+        worst = max([worst] + [r for _, r in res.values()])
+    return worst
+
+
+INSITU_LAYERS = (0, 11, 23)
+
+
+def varlen_insitu(torch, fa, loss_of, cu, max_len, blocks):
+    """One forward and backward of the stack with the masked kernel calls
+    of layers 0, 11 and 23 held to the plain versions on their own inputs
+    (``held_by_heads``); the control plants each document's end one short
+    into all three kernels (the last row of every document then sees
+    nothing) and must fail the check of each. Returns the worst readings
+    per kernel, sound and faulted."""
+    kernels = (fa.flashmask_fwd, fa.flashmask_bwd_dq, fa.flashmask_bwd_dkv)
+    L = len(blocks)
+
+    def run(fault):
+        worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+        calls = {"fwd": 0, "dq": 0, "dkv": 0}
+
+        def checked(kind):            # forward calls go 0..L-1, backward
+            i = calls[kind]           # calls L-1..0
+            calls[kind] += 1
+            return (i if kind == "fwd" else L - 1 - i) in INSITU_LAYERS
+
+        def fwd(q, k, v, sri, causal=False, scale=None):
+            out, lse = kernels[0](q, k, v, sri - 1 if fault else sri,
+                                  causal, scale)
+            if checked("fwd"):
+                worst["fwd"] = max(worst["fwd"], held_by_heads(
+                    torch, fa, "fwd", dict(out=out, lse=lse), q, k, v, sri,
+                    causal, scale))
+            return out, lse
+
+        def bwd(kind, kernel, names):
+            def call(q, k, v, dout, lse, delta, sri, causal=False,
+                     scale=None):
+                got = kernel(q, k, v, dout, lse, delta,
+                             sri - 1 if fault else sri, causal, scale)
+                if checked(kind):
+                    outs = got if isinstance(got, tuple) else (got,)
+                    worst[kind] = max(worst[kind], held_by_heads(
+                        torch, fa, kind, dict(zip(names, outs)), q, k, v,
+                        sri, causal, scale, dout, lse, delta))
+                return got
+            return call
+
+        fa.flashmask_fwd = fwd
+        fa.flashmask_bwd_dq = bwd("dq", kernels[1], ("dq",))
+        fa.flashmask_bwd_dkv = bwd("dkv", kernels[2], ("dk", "dv"))
+        try:
+            loss_of(cu, max_len).backward()
+        finally:
+            fa.flashmask_fwd, fa.flashmask_bwd_dq, fa.flashmask_bwd_dkv = \
+                kernels
+            for p in blocks.parameters():
+                p.grad = None
+        if calls != {"fwd": L, "dq": L, "dkv": L}:
+            raise AssertionError(f"masked kernel calls {calls} != {L} each")
+        return worst
+
+    rec = dict(layers=list(INSITU_LAYERS), sound=run(False),
+               doc_end_one_short=run(True))
+    print("varlen-insitu", json.dumps(rec), flush=True)
+    if max(rec["sound"].values()) > 1.0:
+        raise AssertionError(f"masked kernels drift from plain in situ: "
+                             f"{rec}")
+    if min(rec["doc_end_one_short"].values()) <= 1.0:
+        raise AssertionError(f"the planted fault passed a check: {rec}")
+    return rec
+
+
+def packed_stack(torch, layers, hidden, heads, device, seed,
+                 dtype="bfloat16"):
+    """``layers`` blocks of RMSNorm -> ColumnParallelLinear(hidden ->
+    3 hidden) -> F.flash_attn_varlen_qkvpacked(causal=True) ->
+    RowParallelLinear(hidden -> hidden) -> residual, built from the port's
+    layers, weights drawn from a seeded generator."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        ColumnParallelLinear,
+        RowParallelLinear,
+    )
+    from paddle_tpu_torch.framework.random import make_generator
+    from paddle_tpu_torch.nn import RMSNorm
+    from paddle_tpu_torch.nn import functional as F
+
+    td = getattr(torch, dtype)
+
+    class PackedBlock(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.norm = RMSNorm(hidden, device=device, dtype=td)
+            self.qkv = ColumnParallelLinear(hidden, 3 * hidden,
+                                            device=device, dtype=td)
+            self.proj = RowParallelLinear(hidden, hidden, device=device,
+                                          dtype=td)
+
+        def forward(self, x, cu, max_len):
+            T = x.shape[0]
+            qkv = self.qkv(self.norm(x)).reshape(T, 3, heads,
+                                                 hidden // heads)
+            out, _ = F.flash_attn_varlen_qkvpacked(qkv, cu, cu, max_len,
+                                                   max_len, causal=True)
+            return x + self.proj(out.reshape(T, hidden))
+
+    blocks = torch.nn.ModuleList(PackedBlock() for _ in range(layers))
+    gen = make_generator(seed, device)
+    for blk in blocks:
+        blk.qkv.reset_parameters(gen)
+        blk.proj.reset_parameters(gen)
+    return blocks
+
+
+def varlen_train(torch, fa, device, docs=FM_DOCS, layers=24, hidden=1024,
+                 heads=16, warmup=2, timed=5, seed=40):
+    """The slice's main path: training on packed documents. ``layers``
+    packed-attention blocks (``packed_stack``) in bf16 under the port's
+    AdamW (lr 3e-5: 1e-3 made the 24-block stack's loss climb; weight decay
+    0.01, f32 master weights), the loss the
+    mean square error of the last block's output against a seeded target;
+    each step packs the documents ``docs`` in an order shuffled by a seeded
+    generator (its boundaries built on the host, one copy to the card).
+    In situ first (``varlen_insitu``, on the first step's order), then
+    ``warmup`` + ``timed`` steps: step ms and tokens/s on the host clock,
+    every loss finite and the last below the first, exactly layers x steps
+    launches of each masked kernel and none of the unmasked ones, and one
+    profiled step by kernel kind."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework.random import make_generator
+
+    t0 = time.perf_counter()
+    blocks = packed_stack(torch, layers, hidden, heads, device, seed)
+    opt = optimizer.AdamW(learning_rate=3e-5, parameters=blocks.parameters(),
+                          weight_decay=0.01, multi_precision=True)
+    T = int(sum(docs))
+    gen = make_generator(seed + 1, device)
+    x = torch.randn((T, hidden), generator=gen, device=device).to(
+        torch.bfloat16)
+    target = torch.randn((T, hidden), generator=gen, device=device)
+    order = np.random.default_rng(seed)
+
+    def batch():
+        lens = order.permutation(docs)
+        cu = np.concatenate([[0], np.cumsum(lens)])
+        return torch.as_tensor(cu, device=device), int(lens.max())
+
+    def loss_of(cu, max_len):
+        h = x
+        for blk in blocks:
+            h = blk(h, cu, max_len)
+        return ((h.float() - target) ** 2).mean()
+
+    def step():
+        loss = loss_of(*batch())
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    n_params = sum(p.numel() for p in blocks.parameters())
+    print(f"varlen model: {layers} packed-attention blocks bf16, "
+          f"{n_params / 1e6:.1f} M params, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    insitu = varlen_insitu(torch, fa, loss_of, *batch(), blocks)
+
+    names = ("fm_fwd", "fm_dq", "fm_dkv", "fwd", "dq", "dkv")
+    for n in names:                                   # main path starts
+        fa._WRAPPERS[n].launches = 0
+    losses = [step() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses += [step() for _ in range(timed)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t1) / timed
+    launches = {n: fa._WRAPPERS[n].launches for n in names}   # ends
+    losses = [float(v) for v in losses]
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t1
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    by_kind = {}
+    for e in kernels:
+        kind = kernel_kind(e.key)
+        ms, n = by_kind.get(kind, (0.0, 0))
+        by_kind[kind] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    attn_ms = by_kind.get("flash attention", (0.0, 0))[0]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    steps = warmup + timed
+    rec = dict(layers=layers, hidden=hidden, heads=heads, tokens=T,
+               documents=list(docs), warmup=warmup, timed=timed,
+               losses=losses, step_ms=step_s * 1e3, tokens_per_s=T / step_s,
+               masked_launches=launches,
+               expected_launches_each=layers * steps,
+               profiled_wall_ms=prof_wall * 1e3,
+               device_ms=dev_us / 1e3 if dev_us else None,
+               kernel_launches=int(sum(e.count for e in kernels)),
+               device_busy_share=(dev_us / 1e6 / prof_wall
+                                  if dev_us else None),
+               attention_share_of_device=(attn_ms * 1e3 / dev_us
+                                          if dev_us else None),
+               device_ms_by_kind=by_kind,
+               top_kernels=[(e.key[:80], e.count,
+                             e.self_device_time_total / 1e3) for e in top])
+    print("varlen-train", json.dumps(rec), flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite or not falling: {losses}")
+    want = dict(fm_fwd=layers * steps, fm_dq=layers * steps,
+                fm_dkv=layers * steps, fwd=0, dq=0, dkv=0)
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
+    del blocks, opt, x, target
+    torch.cuda.empty_cache()
+    return rec, insitu
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="write the full record to this file")
@@ -1535,6 +2040,11 @@ def main():
     print(f"training on {card}: {training['step_ms']:.1f} ms/step, "
           f"{training['tokens_per_s']:.0f} tok/s, "
           f"{training['bf16_peak_share']:.3f} of the bf16 peak", flush=True)
+    fm_checks, fm_worst = check_flashmask_kernels(torch, fa, device)
+    fm_timing = time_flashmask(torch, fa, device)
+    varlen, varlen_checks = varlen_train(torch, fa, device)
+    print(f"varlen training on {card}: {varlen['step_ms']:.1f} ms/step, "
+          f"{varlen['tokens_per_s']:.0f} tok/s", flush=True)
 
     d = timing["decode"]
     kernels = [{
@@ -1582,6 +2092,21 @@ def main():
             "s8192": {k: flash_timing["s8192"][kern][k] for k in
                       ("ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms")}})
+    for kern, name, line in (("fwd", "flashmask_fwd", 89),
+                             ("dq", "flashmask_dq", 166),
+                             ("dkv", "flashmask_dkv", 196)):
+        t = fm_timing[kern]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"{src}:{line}", "has_sri": True,
+            "launches": varlen["masked_launches"][f"fm_{kern}"],
+            "max_abs_err": fm_worst[kern],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "library_call": t["library_call"],
+            "library_backend": t["library_backend"],
+            "unmasked_ms": t["unmasked_ms"]})
     record = dict(card=card, build_s=build_s, checks=checks, timing=timing,
                   insitu=insitu, profile=steps, serving=serving,
                   flash_checks=flash_checks, flash_timing=flash_timing,
@@ -1590,6 +2115,8 @@ def main():
                   dense_profile=gen_profile, batch_serving=batch,
                   degrade=degrade, speculative=spec,
                   train_insitu=train_checks, training=training,
+                  flashmask_checks=fm_checks, flashmask_timing=fm_timing,
+                  varlen_insitu=varlen_checks, varlen_train=varlen,
                   kernels=kernels)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),

@@ -14,7 +14,10 @@ hand-written flash-attention forward and backward CUDA kernels; and GPT
 generating through dense ``generate()`` (a hand-written dense split-KV
 CUDA kernel), whole-batch ``generate_paged`` behind
 ``GenerateBatchingPredictor``, and speculative decoding
-(``generate_speculative``, ``verify_step``).
+(``generate_speculative``, ``verify_step``); and FlashMask and packed
+varlen attention (``nn.functional.flashmask_attention``,
+``flash_attn_unpadded`` and the qkvpacked forms), forward and backward,
+through the masked forms of the flash-attention CUDA kernels.
 """
 from . import amp, jit, nn, optimizer
 from .bridge import from_paddle_tpu_state, to_paddle_tpu_state

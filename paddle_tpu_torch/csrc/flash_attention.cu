@@ -53,6 +53,30 @@
 // in full f32 (tensor cores would round them to TF32). No wgmma, TMA or
 // software pipelining yet: this is the simple, correct first version.
 // The warp-level products and helpers live in attention_common.cuh.
+//
+// FlashMask. Each kernel has a masked form (template flag Mask) that
+// replaces the has_sri=True form of the same TPU kernel: `_fwd_kernel`
+// (:89), `_dq_kernel` (:166) and `_dkv_kernel` (:196) with the mask of
+// `_allowed_mask` (:51-79), behind the custom VJP `_flash_masked`
+// (:458-476). The mask is startend_row_indices, int32 [B, H', S, n] with
+// H' = 1 or H and n <= 4: per key column, the query rows it hides (causal
+// n = 1: rows >= start; causal n >= 2: [start, end); non-causal:
+// [LTS, LTE) and [UTS, UTE), LTE = S and UTS = UTE = 0 where fewer columns
+// are given). A block reads the entries of the 64 key columns of its
+// current tile (the dk/dv kernel those of its own 64 keys, as the TPU cuts
+// sri per k block, :414-418), turns each into two half-open row bands in
+// shared memory, and tests every element against them beside the causal
+// test. H' = 1 is broadcast by the index, never materialised.
+// Tile skip: a 64 x 64 tile whose every column has all its causally
+// allowed rows inside one band contributes exactly 0, so it is skipped
+// before its loads and products: in the forward m stays -inf and alpha = 1
+// for such a tile, so the skip is bit-exact. On packed documents (a causal
+// mask with start = the column's document end) this removes every tile
+// across documents, most of the causal work at 8192 tokens. The test is
+// conservative (one band must hold the rows; two that only cover them
+// together do not skip). Bound: the same products over the allowed pairs
+// only, so operations bound the masked kernels as they bound the unmasked
+// ones; the mask adds S * n * 4 bytes per head read.
 
 #include "attention_common.cuh"
 
@@ -62,6 +86,50 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 64;  // query rows of a tile (16 per warp)
 constexpr int kCols = 64;  // key columns of a tile
+
+// The query rows a FlashMask hides in key column c of head (b, h), as two
+// half-open bands [x, y) and [z, w) (see the note at the head of the file).
+__device__ __forceinline__ int4 column_bands(const int* __restrict__ sri,
+                                             int b, int h, int Hp, int n,
+                                             int S, int c, int causal) {
+  const int* e = sri + (((size_t)b * Hp + (Hp == 1 ? 0 : h)) * S + c) * n;
+  if (causal) return make_int4(e[0], n > 1 ? e[1] : S, 0, 0);
+  return make_int4(e[0], n > 1 ? e[1] : S, n > 3 ? e[2] : 0,
+                   n > 3 ? e[3] : 0);
+}
+
+__device__ __forceinline__ bool in_bands(const int4& m, int row) {
+  return (row >= m.x && row < m.y) || (row >= m.z && row < m.w);
+}
+
+// True when column c (bands m) leaves no query row of [r0, r1) allowed:
+// past S, above the causal diagonal, or one band holding every row that
+// causality leaves.
+__device__ __forceinline__ bool column_covered(const int4& m, int c, int r0,
+                                               int r1, int S, int causal) {
+  if (c >= S) return true;
+  const int lo = causal ? max(r0, c) : r0;
+  return lo >= r1 || (m.x <= lo && m.y >= r1) || (m.z <= lo && m.w >= r1);
+}
+
+// The bands of key columns [c0, c0 + 64) into `bands`; returns, to every
+// thread, whether they cover the tile of query rows [r0, r1). Contains a
+// barrier: every thread of the block calls it.
+__device__ __forceinline__ bool load_bands(int4* bands,
+                                           const int* __restrict__ sri,
+                                           int b, int h, int Hp, int n,
+                                           int S, int c0, int r0, int r1,
+                                           int causal) {
+  bool covered = true;
+  if (threadIdx.x < kCols) {
+    const int c = c0 + threadIdx.x;
+    const int4 m = c < S ? column_bands(sri, b, h, Hp, n, S, c, causal)
+                         : make_int4(0, 0, 0, 0);
+    bands[threadIdx.x] = m;
+    covered = column_covered(m, c, r0, r1, S, causal);
+  }
+  return __syncthreads_and(covered);
+}
 
 // Rows [row0, row0 + 64) of head (b, h) of a [B, S, H, D] tensor into a
 // shared tile with row stride LD; rows at or past S are zero.
@@ -107,20 +175,28 @@ __device__ __forceinline__ void write_rows(T* __restrict__ dst,
   }
 }
 
-template <typename T, int D>
+// The masked forms keep one int4 of bands per key column of a tile after
+// the tiles of the unmasked form.
+template <bool Mask>
+constexpr size_t bands_smem() {
+  return Mask ? kCols * sizeof(int4) : 0;
+}
+
+template <typename T, int D, bool Mask>
 constexpr size_t fwd_smem() {
   return (size_t)(3 * kRows * (D + 16 / sizeof(T)) +
-                  kRows * (kCols + 16 / sizeof(T))) * sizeof(T);
+                  kRows * (kCols + 16 / sizeof(T))) * sizeof(T) +
+         bands_smem<Mask>();
 }
 
 // grid (ceil(S / 64), B * H), block 128. The heaviest causal tiles (the
 // last query rows) are scheduled first.
-template <typename T, int D>
+template <typename T, int D, bool Mask>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int S, int H, float scale,
-                 int causal) {
+                 float* __restrict__ lse, const int* __restrict__ sri,
+                 int S, int H, float scale, int causal, int n, int Hp) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int LD = D + VEC;
   constexpr int LDP = kCols + VEC;
@@ -130,6 +206,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* k_s = q_s + kRows * LD;
   T* v_s = k_s + kCols * LD;
   T* p_s = v_s + kCols * LD;
+  int4* bands = reinterpret_cast<int4*>(p_s + kRows * LDP);
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -153,6 +230,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < tiles; ++t) {
     const int c0 = t * kCols;
     __syncthreads();  // the previous tile is consumed by every warp
+    if constexpr (Mask) {
+      if (load_bands(bands, sri, b, h, Hp, n, S, c0, row0,
+                     min(row0 + kRows, S), causal))
+        continue;  // the mask covers the tile: it adds exactly nothing
+    }
     load_tile<T, D>(k_s, k, b, h, c0, S, H);
     load_tile<T, D>(v_s, v, b, h, c0, S, H);
     __syncthreads();
@@ -167,7 +249,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int row = row_lo + 8 * (e >> 1);
         const int col = c0 + j * 8 + cq + (e & 1);
-        const bool allowed = col < S && (!causal || col <= row);
+        const bool allowed = col < S && (!causal || col <= row) &&
+                             (!Mask || !in_bands(bands[col - c0], row));
         s[j][e] = allowed ? s[j][e] * scale : -INFINITY;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
@@ -220,21 +303,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool Mask>
 constexpr size_t dq_smem() {
   return (size_t)(4 * kRows * (D + 16 / sizeof(T)) +
-                  kRows * (kCols + 16 / sizeof(T))) * sizeof(T);
+                  kRows * (kCols + 16 / sizeof(T))) * sizeof(T) +
+         bands_smem<Mask>();
 }
 
 // grid (ceil(S / 64), B * H), block 128: one block per 64 query rows, the
 // K/V tiles walked up to the diagonal. Heaviest tiles first.
-template <typename T, int D>
+template <typename T, int D, bool Mask>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int S,
-                int H, float scale, int causal) {
+                const float* __restrict__ delta, T* __restrict__ dq,
+                const int* __restrict__ sri, int S, int H, float scale,
+                int causal, int n, int Hp) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int LD = D + VEC;
   constexpr int LDP = kCols + VEC;
@@ -245,6 +330,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* k_s = do_s + kRows * LD;
   T* v_s = k_s + kCols * LD;
   T* ds_s = v_s + kCols * LD;
+  int4* bands = reinterpret_cast<int4*>(ds_s + kRows * LDP);
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -275,6 +361,11 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < tiles; ++t) {
     const int c0 = t * kCols;
     __syncthreads();
+    if constexpr (Mask) {
+      if (load_bands(bands, sri, b, h, Hp, n, S, c0, row0,
+                     min(row0 + kRows, S), causal))
+        continue;
+    }
     load_tile<T, D>(k_s, k, b, h, c0, S, H);
     load_tile<T, D>(v_s, v, b, h, c0, S, H);
     __syncthreads();
@@ -293,7 +384,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int i = e >> 1;
         const int row = row_lo + 8 * i;
         const int col = c0 + j * 8 + cq + (e & 1);
-        const bool allowed = col < S && (!causal || col <= row);
+        const bool allowed = col < S && (!causal || col <= row) &&
+                             (!Mask || !in_bands(bands[col - c0], row));
         const float p = allowed ? expf(s[j][e] * scale - lse_r[i]) : 0.f;
         s[j][e] = p * (dp[j][e] - delta_r[i]) * scale;  // ds
       }
@@ -306,23 +398,24 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   write_rows<T, D>(dq, acc, b, h, row_lo, S, H, 1.f, 1.f);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool Mask>
 constexpr size_t dkv_smem() {
   return (size_t)(4 * kRows * (D + 16 / sizeof(T)) +
                   2 * kCols * (kRows + 16 / sizeof(T))) * sizeof(T) +
-         2 * kRows * sizeof(float);
+         2 * kRows * sizeof(float) + bands_smem<Mask>();
 }
 
 // grid (ceil(S / 64), B * H), block 128: one block per 64 key columns, the
 // query tiles walked from the diagonal down (the heaviest blocks, the first
 // columns, are scheduled first by grid order).
-template <typename T, int D>
+template <typename T, int D, bool Mask>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, int S, int H, float scale, int causal) {
+                 T* __restrict__ dv, const int* __restrict__ sri, int S,
+                 int H, float scale, int causal, int n, int Hp) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int LD = D + VEC;
   constexpr int LDP = kRows + VEC;
@@ -336,6 +429,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* ds_s = p_s + kCols * LDP;  // ds^T [key][query]
   float* lse_s = reinterpret_cast<float*>(ds_s + kCols * LDP);
   float* delta_s = lse_s + kRows;
+  int4* bands = reinterpret_cast<int4*>(delta_s + kRows);
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -358,9 +452,25 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const int first = causal ? col0 / kRows : 0;
   const int q_tiles = (S + kRows - 1) / kRows;
+  // the block's own 64 key columns: their bands hold for every query tile
+  int4 mine = make_int4(0, 0, 0, 0);
+  if constexpr (Mask) {
+    if (threadIdx.x < kCols) {
+      if (col0 + (int)threadIdx.x < S)
+        mine = column_bands(sri, b, h, Hp, n, S, col0 + threadIdx.x, causal);
+      bands[threadIdx.x] = mine;
+    }
+  }
 
   for (int t = first; t < q_tiles; ++t) {
     const int q0 = t * kRows;
+    if constexpr (Mask) {
+      const bool covered =
+          threadIdx.x >= kCols ||
+          column_covered(mine, col0 + threadIdx.x, q0, min(q0 + kRows, S), S,
+                         causal);
+      if (__syncthreads_and(covered)) continue;
+    }
     __syncthreads();
     load_tile<T, D>(q_s, q, b, h, q0, S, H);
     load_tile<T, D>(do_s, dout, b, h, q0, S, H);
@@ -385,7 +495,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int key = key_lo + 8 * (e >> 1);
         const int qi = j * 8 + cq + (e & 1);
         const int row = q0 + qi;
-        const bool allowed = row < S && key < S && (!causal || key <= row);
+        const bool allowed = row < S && key < S && (!causal || key <= row) &&
+                             (!Mask || !in_bands(bands[key - col0], row));
         const float p = allowed ? expf(st[j][e] * scale - lse_s[qi]) : 0.f;
         st[j][e] = p;
         dpt[j][e] = p * (dpt[j][e] - delta_s[qi]) * scale;  // ds^T
@@ -402,57 +513,65 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   write_rows<T, D>(dv, dv_acc, b, h, key_lo, S, H, 1.f, 1.f);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool Mask>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
-                       void* lse, int B, int S, int H, float scale,
-                       int causal, cudaStream_t st) {
-  const size_t smem = fwd_smem<T, D>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, smem);
+                       void* lse, const void* sri, int B, int S, int H,
+                       float scale, int causal, int n, int Hp,
+                       cudaStream_t st) {
+  const size_t smem = fwd_smem<T, D, Mask>();
+  cudaError_t err = allow_smem(flash_fwd_kernel<T, D, Mask>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kRows - 1) / kRows, B * H);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, st>>>(
+  flash_fwd_kernel<T, D, Mask><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), S, H, scale, causal);
+      static_cast<float*>(lse), static_cast<const int*>(sri), S, H, scale,
+      causal, n, Hp);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool Mask>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
-                      void* dq, int B, int S, int H, float scale, int causal,
+                      void* dq, const void* sri, int B, int S, int H,
+                      float scale, int causal, int n, int Hp,
                       cudaStream_t st) {
-  const size_t smem = dq_smem<T, D>();
-  cudaError_t err = allow_smem(flash_dq_kernel<T, D>, smem);
+  const size_t smem = dq_smem<T, D, Mask>();
+  cudaError_t err = allow_smem(flash_dq_kernel<T, D, Mask>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kRows - 1) / kRows, B * H);
-  flash_dq_kernel<T, D><<<grid, kThreads, smem, st>>>(
+  flash_dq_kernel<T, D, Mask><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), S, H, scale, causal);
+      static_cast<T*>(dq), static_cast<const int*>(sri), S, H, scale, causal,
+      n, Hp);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool Mask>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int B, int S, int H, float scale,
-                       int causal, cudaStream_t st) {
-  const size_t smem = dkv_smem<T, D>();
-  cudaError_t err = allow_smem(flash_dkv_kernel<T, D>, smem);
+                       void* dk, void* dv, const void* sri, int B, int S,
+                       int H, float scale, int causal, int n, int Hp,
+                       cudaStream_t st) {
+  const size_t smem = dkv_smem<T, D, Mask>();
+  cudaError_t err = allow_smem(flash_dkv_kernel<T, D, Mask>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kCols - 1) / kCols, B * H);
-  flash_dkv_kernel<T, D><<<grid, kThreads, smem, st>>>(
+  flash_dkv_kernel<T, D, Mask><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, scale, causal);
+      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<const int*>(sri),
+      S, H, scale, causal, n, Hp);
   return cudaGetLastError();
 }
 
-bool bad_shape(int B, int S, int H) {
-  return B <= 0 || S <= 0 || H <= 0 || B * H > 65535;
+// A FlashMask (sri not null) needs 1 <= n <= 4 and H' in {1, H}.
+bool bad_shape(int B, int S, int H, const void* sri, int n, int Hp) {
+  if (B <= 0 || S <= 0 || H <= 0 || B * H > 65535) return true;
+  return sri != nullptr && (n < 1 || n > 4 || (Hp != 1 && Hp != H));
 }
 
 }  // namespace
@@ -460,51 +579,62 @@ bool bad_shape(int B, int S, int H) {
 // Each entry returns a cudaError_t (0 on success). dtype: 0 = float32,
 // 1 = bfloat16; D: 64 or 128. Pointers are device pointers of contiguous
 // tensors, 16-byte aligned; `stream` is a cudaStream_t (PyTorch's current
-// stream). Nothing is allocated here.
-#define FLASH_DISPATCH(CALL)                                        \
-  do {                                                              \
-    if (dtype == 0 && D == 64) return (int)CALL(float, 64);         \
-    if (dtype == 0 && D == 128) return (int)CALL(float, 128);       \
-    if (dtype == 1 && D == 64) return (int)CALL(bf16, 64);          \
-    if (dtype == 1 && D == 128) return (int)CALL(bf16, 128);        \
-    return (int)cudaErrorInvalidValue;                              \
+// stream). Nothing is allocated here. `sri` is null for the unmasked
+// kernels, or the FlashMask: int32 [B, Hp, S, n], Hp = 1 or H, n <= 4.
+#define FLASH_DISPATCH(CALL)                                          \
+  do {                                                                \
+    const bool m = sri != nullptr;                                    \
+    if (dtype == 0 && D == 64)                                        \
+      return m ? (int)CALL(float, 64, true) : (int)CALL(float, 64, false); \
+    if (dtype == 0 && D == 128)                                       \
+      return m ? (int)CALL(float, 128, true)                          \
+               : (int)CALL(float, 128, false);                        \
+    if (dtype == 1 && D == 64)                                        \
+      return m ? (int)CALL(bf16, 64, true) : (int)CALL(bf16, 64, false); \
+    if (dtype == 1 && D == 128)                                       \
+      return m ? (int)CALL(bf16, 128, true) : (int)CALL(bf16, 128, false); \
+    return (int)cudaErrorInvalidValue;                                \
   } while (0)
 
 extern "C" int flash_attention_forward(const void* q, const void* k,
                                        const void* v, void* out, void* lse,
-                                       int B, int S, int H, int D, int dtype,
-                                       float scale, int causal,
+                                       const void* sri, int B, int S, int H,
+                                       int D, int dtype, float scale,
+                                       int causal, int n, int Hp,
                                        void* stream) {
-  if (bad_shape(B, S, H)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, S, H, sri, n, Hp)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(T, DD) launch_fwd<T, DD>(q, k, v, out, lse, B, S, H, scale, causal, st)
+#define CALL(T, DD, M)                                                   \
+  launch_fwd<T, DD, M>(q, k, v, out, lse, sri, B, S, H, scale, causal, n, \
+                       Hp, st)
   FLASH_DISPATCH(CALL);
 #undef CALL
 }
 
-extern "C" int flash_attention_backward_dq(const void* q, const void* k,
-                                           const void* v, const void* dout,
-                                           const void* lse, const void* delta,
-                                           void* dq, int B, int S, int H,
-                                           int D, int dtype, float scale,
-                                           int causal, void* stream) {
-  if (bad_shape(B, S, H)) return (int)cudaErrorInvalidValue;
+extern "C" int flash_attention_backward_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, const void* sri, int B,
+    int S, int H, int D, int dtype, float scale, int causal, int n, int Hp,
+    void* stream) {
+  if (bad_shape(B, S, H, sri, n, Hp)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(T, DD) \
-  launch_dq<T, DD>(q, k, v, dout, lse, delta, dq, B, S, H, scale, causal, st)
+#define CALL(T, DD, M)                                                    \
+  launch_dq<T, DD, M>(q, k, v, dout, lse, delta, dq, sri, B, S, H, scale, \
+                      causal, n, Hp, st)
   FLASH_DISPATCH(CALL);
 #undef CALL
 }
 
 extern "C" int flash_attention_backward_dkv(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int B, int S,
-    int H, int D, int dtype, float scale, int causal, void* stream) {
-  if (bad_shape(B, S, H)) return (int)cudaErrorInvalidValue;
+    const void* lse, const void* delta, void* dk, void* dv, const void* sri,
+    int B, int S, int H, int D, int dtype, float scale, int causal, int n,
+    int Hp, void* stream) {
+  if (bad_shape(B, S, H, sri, n, Hp)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(T, DD)                                                    \
-  launch_dkv<T, DD>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale, \
-                    causal, st)
+#define CALL(T, DD, M)                                                       \
+  launch_dkv<T, DD, M>(q, k, v, dout, lse, delta, dk, dv, sri, B, S, H,      \
+                       scale, causal, n, Hp, st)
   FLASH_DISPATCH(CALL);
 #undef CALL
 }

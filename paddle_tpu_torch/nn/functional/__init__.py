@@ -1,11 +1,16 @@
-"""nn.functional of the port: the attention dispatcher."""
+"""nn.functional of the port: the attention dispatcher and the packed
+attention forms of ``extra``."""
+from .extra import flash_attn_qkvpacked, flash_attn_varlen_qkvpacked
 from .flash_attention import (
     flash_attention,
     flash_attn_unpadded,
     flashmask_attention,
     get_last_attention_backend,
     scaled_dot_product_attention,
+    sdp_kernel,
 )
 
 __all__ = ["flash_attention", "flash_attn_unpadded", "flashmask_attention",
-           "scaled_dot_product_attention", "get_last_attention_backend"]
+           "flash_attn_qkvpacked", "flash_attn_varlen_qkvpacked",
+           "scaled_dot_product_attention", "sdp_kernel",
+           "get_last_attention_backend"]

@@ -8,14 +8,19 @@ on anything else; there is no fallback. The JAX package's TPU crossover (the
 Pallas kernel only at S >= 1024, ``_use_pallas`` :70-84) is not copied: the
 kernel-against-library times at the training shape are in PERF.md. CPU
 tensors run the kernels' plain versions (or ``_sdpa_core`` for shapes the
-kernels do not take). ``get_last_attention_backend()`` reports which ran:
-"kernel" or "plain".
+kernels do not take). ``flashmask_attention`` and ``flash_attn_unpadded``
+(packed documents, with one set of boundaries for q and k) run the masked
+form of the same kernels. ``sdp_kernel(enable_flash=False)`` switches the
+kernels off for all three, as ``_use_pallas`` does in JAX: they then
+compute the JAX package's XLA routes in plain PyTorch on any device.
+``get_last_attention_backend()`` reports which ran: "kernel" or "plain".
 
 Dropout is not ported: the JAX package draws its mask from ``jax.random``
 on the XLA path, which the port cannot replay, so ``dropout > 0`` raises.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -23,8 +28,11 @@ import torch
 from ...ops import flash_attention as _fa
 
 __all__ = ["flash_attention", "flash_attn_unpadded", "flashmask_attention",
-           "scaled_dot_product_attention", "get_last_attention_backend"]
+           "scaled_dot_product_attention", "sdp_kernel",
+           "get_last_attention_backend"]
 
+_sdp_config = {"enable_flash": True, "enable_math": True,
+               "enable_mem_efficient": True}
 _last_backend = {"name": None}
 
 
@@ -35,6 +43,41 @@ def get_last_attention_backend():
 
 def _mark(name):
     _last_backend["name"] = name
+
+
+@contextlib.contextmanager
+def sdp_kernel(enable_flash=True, enable_math=True, enable_mem_efficient=True):
+    """Within the block, ``enable_flash=False`` keeps the attention
+    functionals off the flash kernels (JAX :41-51); the other two flags are
+    recorded and read by nothing, as in JAX."""
+    prev = dict(_sdp_config)
+    _sdp_config.update(enable_flash=enable_flash, enable_math=enable_math,
+                       enable_mem_efficient=enable_mem_efficient)
+    try:
+        yield
+    finally:
+        _sdp_config.update(prev)
+
+
+def _takes_kernel(query, key, what):
+    """True when the flash kernels' module serves the call: the kernel on
+    CUDA, its plain version on CPU. False for the XLA route's plain math:
+    sdp_kernel switched the kernels off, or CPU tensors of shapes the
+    kernels do not take. Such shapes raise on CUDA."""
+    if not _sdp_config["enable_flash"]:
+        return False
+    if _fa.supports(tuple(query.shape), tuple(key.shape)):
+        return True
+    if query.device.type != "cpu":
+        raise ValueError(
+            f"{what}: no kernel for q {tuple(query.shape)}, k "
+            f"{tuple(key.shape)} on {query.device} (self-attention "
+            f"[B, S, H, D] with kv heads dividing q heads)")
+    return False
+
+
+def _kernel_mark(query):
+    _mark("kernel" if query.device.type == "cuda" else "plain")
 
 
 def _no_dropout(p, training):
@@ -77,15 +120,10 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     """Reference: flash_attention.py:358. Returns ``(out, None)``."""
     _no_dropout(dropout, training)
     scale = 1.0 / math.sqrt(query.shape[-1])
-    if _fa.supports(tuple(query.shape), tuple(key.shape)):
-        _mark("kernel" if query.device.type == "cuda" else "plain")
+    if _takes_kernel(query, key, "flash_attention"):
+        _kernel_mark(query)
         return _fa.flash_attention(query, key, value, causal=causal,
                                    scale=scale), None
-    if query.device.type != "cpu":
-        raise ValueError(
-            f"flash_attention: no kernel for q {tuple(query.shape)}, k "
-            f"{tuple(key.shape)} on {query.device} (self-attention "
-            f"[B, S, H, D] with kv heads dividing q heads)")
     _mark("plain")
     return _sdpa_core(query, key, value, None, scale, causal, dropout,
                       training), None
@@ -100,13 +138,123 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                       dropout_p, training)
 
 
-def flashmask_attention(*args, **kwargs):
-    raise NotImplementedError(
-        "flashmask_attention is not ported yet: it needs the FlashMask form "
-        "of the flash kernels (ROADMAP B6)")
+def _same_cu(cu_q, cu_k):
+    """True iff the q and k document boundaries are the same (JAX :54-67):
+    the masked kernel masks by k's documents only. Compares the values, one
+    host sync on CUDA, unless both are the one object."""
+    if cu_q is cu_k:
+        return True
+    a, b = torch.as_tensor(cu_q).long(), torch.as_tensor(cu_k).long()
+    return a.shape == b.shape and bool(torch.equal(a, b.to(a.device)))
 
 
-def flash_attn_unpadded(*args, **kwargs):
-    raise NotImplementedError(
-        "flash_attn_unpadded is not ported yet: the packed varlen path runs "
-        "on the FlashMask form of the flash kernels (ROADMAP B6)")
+def _segments(cu, total):
+    """Each packed token's document index under the int64 boundaries cu:
+    the count of inner boundaries at or before it (JAX's cumsum of
+    boundary marks, :171-173)."""
+    return torch.searchsorted(cu[1:-1], torch.arange(total, device=cu.device),
+                              right=True)
+
+
+def _document_mask(cu, total, causal):
+    """The FlashMask of packed documents (JAX :170-194), built on cu's
+    device: per key column its document's [start, end) from the
+    boundaries; causal masks rows >= end (n = 1), non-causal rows outside
+    [start, end) (``[end, total, 0, start]``). [1, 1, total, n]."""
+    cu = cu.long()
+    seg = _segments(cu, total)
+    end, start = cu[seg + 1], cu[seg]
+    if causal:
+        return end[None, None, :, None]
+    return torch.stack([end, torch.full_like(end, total),
+                        torch.zeros_like(end), start], -1)[None, None]
+
+
+def _segment_attention(q, k, v, cu_q, cu_k, scale, causal):
+    """The XLA route of ``flash_attn_unpadded`` (JAX :204-226): scores in
+    the inputs' dtype over [total_q, total_k], kept where the q and k
+    segments agree (and, causal, the position within the document allows),
+    softmax in f32, probabilities cast back to q's dtype."""
+    cu_q, cu_k = cu_q.long(), cu_k.long()
+    seg_q, seg_k = _segments(cu_q, q.shape[0]), _segments(cu_k, k.shape[0])
+    scores = torch.einsum("qhd,khd->hqk", q, k) * scale
+    keep = seg_q[:, None] == seg_k[None, :]
+    if causal:
+        pos_q = torch.arange(q.shape[0], device=q.device) - cu_q[seg_q]
+        pos_k = torch.arange(k.shape[0], device=k.device) - cu_k[seg_k]
+        keep = keep & (pos_q[:, None] >= pos_k[None, :])
+    fill = torch.full((), torch.finfo(scores.dtype).min, dtype=scores.dtype,
+                      device=scores.device)
+    scores = torch.where(keep[None], scores, fill)
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("hqk,khd->qhd", probs, v)
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale, dropout=0.0,
+                        causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None):
+    """Varlen attention (reference :756, JAX :141-226): documents packed as
+    [total, heads, head_dim] with ``cu_seqlens`` boundaries. Returns
+    ``(out, None)``.
+
+    With one set of boundaries for q and k, the packed row is one batch of
+    ``[1, total, H, D]`` through the masked flash kernels, under the
+    document FlashMask built from ``cu_seqlens_k`` on the device
+    (``_document_mask``); the kernels take any total, so nothing is padded
+    (JAX pads to its 128-row block). Different boundaries take the XLA
+    route's segment mask in plain PyTorch on any device, reported as
+    "plain"."""
+    _no_dropout(dropout, training)
+    total = int(query.shape[0])
+    cu_k = torch.as_tensor(cu_seqlens_k).to(query.device)
+    q, k, v = query[None], key[None], value[None]
+    if (key.shape[0] == total and _same_cu(cu_seqlens_q, cu_seqlens_k)
+            and _takes_kernel(q, k, "flash_attn_unpadded")):
+        _kernel_mark(query)
+        out = _fa.flashmask_attention(q, k, v,
+                                      _document_mask(cu_k, total, causal),
+                                      causal=causal, scale=scale)
+        return out[0], None
+    _mark("plain")
+    cu_q = torch.as_tensor(cu_seqlens_q).to(query.device)
+    return _segment_attention(query, key, value, cu_q, cu_k, scale,
+                              causal), None
+
+
+def flashmask_attention(query, key, value, startend_row_indices=None,
+                        dropout=0.0, causal=False, window_size=None,
+                        return_softmax_lse=False, return_seed_offset=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None):
+    """Reference: flash_attention.py:1299 (JAX :229-298).
+    ``startend_row_indices`` [B, H' in {1, H}, S, n in {1, 2, 4}]: per key
+    column the query rows it hides (``ops.flash_attention.
+    flashmask_allowed``), evaluated inside the masked kernel. Without it,
+    the call is ``flash_attention``'s. A row with no allowed column gives 0
+    (the kernel's contract, JAX's Pallas kernel too; JAX's XLA route gives
+    the mean of V there). ``return_softmax_lse`` / ``return_seed_offset``
+    add ``None`` per flag, as in JAX."""
+    if window_size is not None:
+        raise NotImplementedError(
+            "flashmask_attention: window_size is not ported (the JAX "
+            "package accepts it and never reads it)")
+    _no_dropout(dropout, training)
+    scale = 1.0 / math.sqrt(query.shape[-1])
+    sri = startend_row_indices
+    if sri is None:
+        out, _ = flash_attention(query, key, value, causal=causal,
+                                 training=training)
+    elif _takes_kernel(query, key, "flashmask_attention"):
+        _kernel_mark(query)
+        out = _fa.flashmask_attention(query, key, value, sri, causal=causal,
+                                      scale=scale)
+    else:
+        _mark("plain")
+        sri = torch.as_tensor(sri).to(query.device)
+        out = _sdpa_core(query, key, value,
+                         _fa.flashmask_allowed(query.shape[1], sri, causal),
+                         scale, False, dropout, training)
+    extras = [None] * (int(return_softmax_lse) + int(return_seed_offset))
+    return (out, *extras) if extras else out

@@ -43,12 +43,14 @@ SOURCES = {
     "flash_attention": (
         "flash_attention.cu",
         {
+            # the tensors, then the FlashMask sri (null: unmasked); B, S,
+            # H, D, dtype; scale; causal, n, H'; the stream
             "flash_attention_forward": (
-                [_P] * 5 + [_I] * 5 + [_F, _I, _P], ctypes.c_int),
+                [_P] * 6 + [_I] * 5 + [_F] + [_I] * 3 + [_P], ctypes.c_int),
             "flash_attention_backward_dq": (
-                [_P] * 7 + [_I] * 5 + [_F, _I, _P], ctypes.c_int),
+                [_P] * 8 + [_I] * 5 + [_F] + [_I] * 3 + [_P], ctypes.c_int),
             "flash_attention_backward_dkv": (
-                [_P] * 8 + [_I] * 5 + [_F, _I, _P], ctypes.c_int),
+                [_P] * 9 + [_I] * 5 + [_F] + [_I] * 3 + [_P], ctypes.c_int),
             "flash_attention_error_string": ([_I], ctypes.c_char_p),
         },
     ),

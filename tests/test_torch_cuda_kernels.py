@@ -271,3 +271,126 @@ def test_generate_on_the_card_matches_the_plain_path(cuda):
     plain = m.generate(prompt, max_new_tokens=9, dtype=None,
                        decode_kernel="plain")
     assert torch.equal(got, plain)
+
+
+def _doc_sri(B, Hp, S, n, causal, device, seed=0):
+    """A FlashMask for the card tests: n = 1 (causal) the document ends of
+    random packed documents, rows >= end hidden; n = 2 (causal) random
+    [start, end) bands at or below the diagonal; n = 4 (non-causal) the
+    rows outside each column's document ([end, S) and [0, start))."""
+    rng = np.random.default_rng(seed)
+    cut = np.sort(rng.choice(np.arange(1, S), size=min(6, S - 1),
+                             replace=False))
+    cu = np.concatenate([[0], cut, [S]])
+    seg = np.searchsorted(cu[1:-1], np.arange(S), side="right")
+    end, start = cu[seg + 1], cu[seg]
+    if n == 1:
+        cols = [end]
+    elif n == 2:
+        lo = rng.integers(np.arange(S), S + 1, (B, Hp, S))
+        cols = [lo, lo + rng.integers(0, S // 2, (B, Hp, S))]
+    else:
+        cols = [end, np.full(S, S), np.zeros(S, np.int64), start]
+    cols = [np.broadcast_to(c, (B, Hp, S)) for c in cols]
+    return torch.as_tensor(np.stack(cols, -1).astype(np.int32),
+                           device=device).contiguous()
+
+
+def _masked_run(q, k, v, do, causal, sri, plain):
+    ro, rl = tfa.flash_attention_fwd_ref(q, k, v, causal, sri=sri)
+    delta = tfa.attention_delta(ro, do)
+    if plain:
+        out = dict(out=ro, lse=rl, dq=tfa.flash_attention_dq_ref(
+            q, k, v, do, rl, delta, causal, sri=sri))
+        out["dk"], out["dv"] = tfa.flash_attention_dkv_ref(
+            q, k, v, do, rl, delta, causal, sri=sri)
+        return out
+    o, lse = tfa.flashmask_fwd(q, k, v, sri, causal)
+    out = dict(out=o, lse=lse, dq=tfa.flashmask_bwd_dq(q, k, v, do, rl,
+                                                       delta, sri, causal))
+    out["dk"], out["dv"] = tfa.flashmask_bwd_dkv(q, k, v, do, rl, delta, sri,
+                                                 causal)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,n,Hp,S,D", [(True, 1, 1, 256, 64),
+                                             (True, 2, 3, 200, 64),
+                                             (False, 4, 1, 100, 128),
+                                             (True, 1, 3, 1000, 64)])
+def test_flashmask_kernels_match_plain(cuda, dtype, causal, n, Hp, S, D):
+    q, k, v, do = _flash_case(cuda, 2, S, 3, D, dtype, seed=S + n)
+    sri = _doc_sri(2, Hp, S, n, causal, cuda, seed=S)
+    names = ("fm_fwd", "fm_dq", "fm_dkv", "fwd", "dq", "dkv")
+    before = [tfa._WRAPPERS[m].launches for m in names]
+    got = _masked_run(q, k, v, do, causal, sri, plain=False)
+    torch.cuda.synchronize()
+    assert [tfa._WRAPPERS[m].launches for m in names] == [
+        b + (i < 3) for i, b in enumerate(before)]
+    ref = _masked_run(q, k, v, do, causal, sri, plain=True)
+    lim = tfa.kernel_tolerance(q, k, v, ref, causal, dout=do, sri=sri)
+    for name, x in got.items():
+        assert x.dtype == ref[name].dtype and x.shape == ref[name].shape
+        err = (x.float() - ref[name].float()).abs()
+        assert bool((err <= lim[name]).all()), (
+            f"{name}: max |kernel - plain| {float(err.max())}, "
+            f"{float((err / lim[name]).max())} of the limit")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flashmask_kernels_all_masked_and_mask_nothing(cuda, dtype):
+    """start 0 under causal hides every row: every output exactly 0. start
+    S hides none: bit for bit the unmasked causal kernels."""
+    S = 300
+    q, k, v, do = _flash_case(cuda, 1, S, 2, 64, dtype, seed=5)
+    zero = _masked_run(q, k, v, do, True,
+                       torch.zeros((1, 1, S, 1), dtype=torch.int32,
+                                   device=cuda), plain=False)
+    for name, x in zero.items():
+        assert bool((x == 0).all()), name
+    none = _masked_run(q, k, v, do, True,
+                       torch.full((1, 2, S, 1), S, dtype=torch.int32,
+                                  device=cuda), plain=False)
+    o, lse = tfa.flash_fwd(q, k, v, True)
+    ro, rl = tfa.flash_attention_fwd_ref(q, k, v, True)
+    delta = tfa.attention_delta(ro, do)
+    plain = dict(out=o, lse=lse,
+                 dq=tfa.flash_bwd_dq(q, k, v, do, rl, delta, True))
+    plain["dk"], plain["dv"] = tfa.flash_bwd_dkv(q, k, v, do, rl, delta, True)
+    for name, x in none.items():
+        assert torch.equal(x, plain[name]), name
+
+
+@pytest.mark.cuda
+def test_flashmask_attention_casts_int64_and_its_gradients_match_plain(cuda):
+    """An int64 sri (as numpy and torch make it) is cast by the wrapper;
+    FlashMaskFunction's gradients (GQA 4/2) against the plain backward on
+    the same inputs, in f32."""
+    B, S, H, Hkv, D = 2, 190, 4, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, do = (torch.randn((B, S, H, D), generator=g, device=cuda)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=g, device=cuda)
+            for _ in range(2))
+    sri = _doc_sri(B, 1, S, 1, True, cuda, seed=12).long()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = tfa.flashmask_attention(*leaves, sri, causal=True)
+    out.backward(do)
+    kr, vr = (x.repeat_interleave(H // Hkv, dim=2) for x in (k, v))
+    s32 = sri.to(torch.int32)
+    ro, rl = tfa.flash_attention_fwd_ref(q, kr, vr, True, sri=s32)
+    grads = tfa.flash_attention_bwd_ref(q, kr, vr, ro, rl, do, True,
+                                        sri=s32)
+    ref = dict(out=ro, lse=rl, dq=grads[0], dk=grads[1], dv=grads[2])
+    lim = tfa.kernel_tolerance(q, kr, vr, ref, True, dout=do, sri=s32)
+    assert bool(((out.detach() - ro).abs() <= lim["out"]).all())
+    assert bool(((leaves[0].grad - grads[0]).abs() <= lim["dq"]).all())
+    for got, want, name in ((leaves[1].grad, grads[1], "dk"),
+                            (leaves[2].grad, grads[2], "dv")):
+        summed = want.reshape(B, S, Hkv, H // Hkv, D).sum(3)
+        bound = lim[name].reshape(B, S, Hkv, H // Hkv, D).sum(3)
+        assert bool(((got - summed).abs() <= bound).all()), name
+    with pytest.raises(TypeError, match="int32"):
+        tfa.flashmask_fwd(q, kr, vr, sri, True)

@@ -274,9 +274,17 @@ def test_dropout_and_unported_forms_raise():
     out, _ = TF.flash_attention(q, q, q, dropout=0.1, causal=True,
                                 training=False)
     assert torch.isfinite(out).all()
-    for fn in (TF.flashmask_attention, TF.flash_attn_unpadded):
-        with pytest.raises(NotImplementedError, match="B6"):
-            fn(q, q, q)
+    # FlashMask and packed varlen are ported; dropout still raises there
+    sri = torch.full((1, 1, 16, 1), 16)
+    cu = torch.tensor([0, 9, 16])
+    assert TF.flashmask_attention(q, q, q, sri, causal=True).shape == q.shape
+    assert TF.flash_attn_unpadded(q[0], q[0], q[0], cu, cu, 9, 9, 0.25,
+                                  causal=True)[0].shape == q[0].shape
+    with pytest.raises(NotImplementedError, match="dropout"):
+        TF.flashmask_attention(q, q, q, sri, dropout=0.1)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        TF.flash_attn_unpadded(q[0], q[0], q[0], cu, cu, 9, 9, 0.25,
+                               dropout=0.1)
 
 
 def test_backend_marker_names_the_path():

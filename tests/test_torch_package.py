@@ -107,8 +107,10 @@ def test_unported_paths_raise_not_implemented():
     ids = torch.zeros((1, 3), dtype=torch.int64)
     assert m(ids).shape == (1, 3, 64)         # the cache-free forward runs
     assert m.generate(ids, max_new_tokens=2).shape == (1, 5)    # ported
-    with pytest.raises(NotImplementedError):
-        F.flashmask_attention(ids, ids, ids)
+    x = torch.ones((1, 3, 2, 16))
+    out = F.flashmask_attention(x, x, x, torch.full((1, 1, 3, 1), 3),
+                                causal=True)                   # ported
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
 
 
 def test_seeded_weights_are_reproducible():
