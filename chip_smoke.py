@@ -12,7 +12,9 @@ non-zero without the final line:
 3. kernel vs plain — each kernel's wrapper against its plain PyTorch
    version on the card, at the main path's shapes (decode S=1 and prefill
    S=64 over a 1024-token paged cache, GQA, padded tables, an empty slot)
-   plus the other supported block sizes / head dims / group sizes, in f32
+   plus the other supported block sizes / head dims / group sizes, a
+   64-column tile over four pages ending mid-page, horizons one short of
+   and one past a tile edge, and split boundaries inside a page, in f32
    (tolerance 1e-4: another summation order) and bf16 (elementwise
    2^-7 (|ref| + sum_j p_j |v_j|): probabilities and outputs rounded to
    bf16 at different places; ``paged_attention.kernel_tolerance``).
@@ -135,6 +137,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 INSITU_REL_TOL = 2.5e-2
 # first training loss, flash kernels vs plain attention: a coarse bound
 LOSS_REL_TOL = 1e-2
+# The kernels this version redesigned (their earlier times: PERF.md
+# section 6).
+REDESIGNED = "PR 5"
+REDESIGNED_KERNELS = ("paged_decode_attention", "flash_attention_fwd",
+                      "flashmask_fwd")
 
 
 def card_line():
@@ -203,9 +210,29 @@ def check_kernels(torch, pa, device):
         cases.append(("bs64-d128", 4, 5, 4, 4, 128, 64,
                       [3, 64, 700, 250], dtype))
         cases.append(("bs128-s128", 2, 128, 2, 1, 64, 128, [0, 777], dtype))
+        # a 64-column tile over 4 pages, the live prefix ending mid-page
+        cases.append(("bs16-g2-d128-s64", 4, 64, 4, 2, 128, 16,
+                      [0, 37, 300, 129], dtype))
+        # horizons one short of and one past a tile edge (decode, prefill)
+        cases.append(("bs32-tile-edge", 4, 1, 8, 1, 64, 32,
+                      [126, 128, 62, 64], dtype))
+        cases.append(("bs32-tile-edge-s64", 4, 64, 8, 1, 64, 32,
+                      [63, 65, 127, 0], dtype))
+        # split boundaries every 64 columns, half of them inside a page
+        cases.append(("bs128-split-mid-page", 2, 8, 2, 2, 64, 128,
+                      [300, 700], dtype))
     results = []
     worst = {}
     for n, (name, B, S, Hkv, G, D, BS, lengths, dtype) in enumerate(cases):
+        if name == "bs128-split-mid-page":
+            _, tps, splits = pa.kernel_launch_config(B, S, G, Hkv,
+                                                     1024 // BS, BS)
+            inside = [j * tps * 64 for j in range(1, splits)
+                      if (j * tps * 64) % BS
+                      and j * tps * 64 < max(lengths) + S]
+            if not inside:
+                raise AssertionError(f"{name}: no split boundary inside a "
+                                     f"live page (tiles per split {tps})")
         args = make_case(torch, B, S, Hkv, G, D, BS, list(lengths), dtype,
                          device, seed=100 + n)
         got = pa.paged_decode_attention(*args)
@@ -2107,6 +2134,9 @@ def main():
             "library_ms": t["library_ms"], "library_call": t["library_call"],
             "library_backend": t["library_backend"],
             "unmasked_ms": t["unmasked_ms"]})
+    for kern in kernels:
+        if kern["name"] in REDESIGNED_KERNELS:
+            kern["redesigned"] = REDESIGNED
     record = dict(card=card, build_s=build_s, checks=checks, timing=timing,
                   insitu=insitu, profile=steps, serving=serving,
                   flash_checks=flash_checks, flash_timing=flash_timing,

@@ -1,8 +1,11 @@
 // Helpers shared by the port's attention kernels (flash_attention.cu,
 // paged_attention.cu, decode_attention.cu): warp-level bf16 tensor-core
-// products (mma.sync m16n8k16 with ldmatrix operands) and their f32
-// CUDA-core twin, fragment stores, quad reductions over an m16n8 row, the
-// dynamic shared memory opt-in, and the split-KV combine pass.
+// products (mma.sync m16n8k16 with ldmatrix operands, or with the A operand
+// already in registers) and their f32 CUDA-core twin, fragment stores and
+// the packing of f32 score fragments into bf16 A fragments, quad reductions
+// over an m16n8 row, the base-2 online softmax of a score tile, 16-byte
+// cp.async copies, the dynamic shared memory opt-in, and the split-KV
+// combine pass.
 //
 // The combine pass replaces the TPU package's XLA stage-2 reduction
 // `_combine_partials` (paddle_tpu/ops/pallas/decode_attention.py:153): it
@@ -54,6 +57,98 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// 16 bytes global -> shared without passing through registers. With
+// `live` false nothing is read and the 16 bytes are zero-filled (source
+// size 0), so `src` need only be some valid address.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until every group this thread committed has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// f32 score fragments (m16n8 accumulators, columns 8j..8j+7 in s[j]) as the
+// bf16 A fragments of the next m16n8k16 product: the accumulator layout of
+// columns 16kk..16kk+15 is the A layout of k-block kk, so P never leaves
+// the registers. Each value is rounded to bf16 (round to nearest even).
+template <int NC>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[NC / 2][4],
+                                       const float (&s)[NC][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NC / 2; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float* f = &s[2 * kk + (i >> 1)][(i & 1) * 2];
+      const __nv_bfloat162 p = __floats2bfloat162_rn(f[0], f[1]);
+      a[kk][i] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+  }
+}
+
+// One warp's bf16 products with the A operand (16 x K) in registers, as
+// `pack_a` or `load_a` leave it: a[ks] is k-block ks.
+template <int NB, int K>
+struct WarpMmaA {
+  static_assert(NB % 2 == 0 && K % 16 == 0, "tile shape");
+  // A rows 0..15 of a row-major bf16 tile (stride lda) into registers.
+  static __device__ __forceinline__ void load_a(uint32_t (&a)[K / 16][4],
+                                                const bf16* A, int lda) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int ks = 0; ks < K / 16; ++ks)
+      ldsm_x4(a[ks], A + (lane & 15) * lda + ks * 16 + (lane >> 4) * 8);
+  }
+  // B n-major: element (k, n) at B[n * ldb + k].
+  static __device__ __forceinline__ void nk(float (&acc)[NB][4],
+                                            const uint32_t (&a)[K / 16][4],
+                                            const bf16* B, int ldb) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int ks = 0; ks < K / 16; ++ks) {
+#pragma unroll
+      for (int j = 0; j < NB; j += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, B + (j * 8 + (lane & 7) + (lane >> 4) * 8) * ldb +
+                       ks * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(acc[j], a[ks], b[0], b[1]);
+        mma_bf16(acc[j + 1], a[ks], b[2], b[3]);
+      }
+    }
+  }
+  // B k-major: element (k, n) at B[k * ldb + n].
+  static __device__ __forceinline__ void kn(float (&acc)[NB][4],
+                                            const uint32_t (&a)[K / 16][4],
+                                            const bf16* B, int ldb) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int ks = 0; ks < K / 16; ++ks) {
+#pragma unroll
+      for (int j = 0; j < NB; j += 2) {
+        uint32_t b[4];
+        ldsm_x4_t(b, B + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb +
+                         j * 8 + (lane >> 4) * 8);
+        mma_bf16(acc[j], a[ks], b[0], b[1]);
+        mma_bf16(acc[j + 1], a[ks], b[2], b[3]);
+      }
+    }
+  }
+};
+
+// Scores are kept in base-2 units: s * scale * log2(e), so that each
+// probability is one exp2 (ex2.approx) and the maxima m are base-2 too.
+// Natural-log quantities (lse, the split-KV partials' m) are m * ln 2.
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // One warp's product into m16n8 accumulator fragments: acc[j] holds rows
 // 0..15 and columns 8j..8j+7 of C += A . B, lane l owning rows l/4 and
@@ -176,6 +271,50 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// The online softmax of one tile of a warp's m16n8 score fragments s,
+// already in base-2 units (s * scale * log2 e, any sign of scale) and -inf
+// where a column is masked: raises the row maxima m, leaves the
+// unnormalised probabilities exp2(s - m) in s (one ex2 each), and rescales
+// this lane's share of the row sums l and the output accumulators o by
+// alpha = exp2(m_old - m) before adding the new probabilities to l. While
+// every column so far is masked, m stays -inf and the probabilities are
+// taken against 0, so exp2(-inf) = 0 needs no test per element; a tile
+// with every column masked leaves m, l and o exactly as they were.
+template <int NC, int ND>
+__device__ __forceinline__ void online_softmax(float (&s)[NC][4],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&o)[ND][4]) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+  float ref[2], alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = quad_max(mx[i]);
+    ref[i] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[i] = exp2f(m[i] - ref[i]);
+    m[i] = m_new;
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = exp2f(s[j][e] - ref[e >> 1]);
+      l[e >> 1] += s[j][e];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    o[j][0] *= alpha[0];
+    o[j][1] *= alpha[0];
+    o[j][2] *= alpha[1];
+    o[j][3] *= alpha[1];
+  }
+}
+
 // Dynamic shared memory above 48 KB must be asked for per kernel.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -192,7 +331,8 @@ constexpr int kCombineThreads = 128;
 // [splits, BH, SG]; row r of (b, h) = b * Hkv + h is query step r / G of
 // query head h * G + r % G. One warp per (bh, row) rescales and sums the
 // splits: out = sum_j o_j e^(m_j - m*) / sum_j l_j e^(m_j - m*), 0 where the
-// sum of l is 0. out is [B, S, Hq, D].
+// sum of l is 0. out is [B, S, Hq, D]. A split whose m is -inf saw no
+// column of the row: its o is neither read nor needs to be written.
 template <typename T, int D>
 __global__ void __launch_bounds__(kCombineThreads)
 split_kv_combine_kernel(const float* __restrict__ o_part,
@@ -216,6 +356,7 @@ split_kv_combine_kernel(const float* __restrict__ o_part,
   if (m_star != -INFINITY) {
     for (int j = 0; j < splits; ++j) {
       const size_t base = ((size_t)j * BH + bh) * SG + r;
+      if (m_part[base] == -INFINITY) continue;  // o of such a split unread
       const float w = expf(m_part[base] - m_star);
       l_star += l_part[base] * w;
 #pragma unroll

@@ -39,7 +39,10 @@
 //     partials without reading K/V, as `_write_dead` does.
 //   * Probabilities are rounded to the cache dtype before P.V, where
 //     `_partials_body` rounds them (`e.astype(v.dtype)`, :121); l sums the
-//     unrounded f32 values, as there.
+//     unrounded f32 values, as there. Scores are kept in base 2 (one ex2
+//     per probability, `online_softmax` of attention_common.cuh, shared
+//     with the paged and flash kernels); the partials' m is written back in
+//     natural units.
 // No wgmma, TMA or loads in flight across tiles: this is the simple,
 // correct first version.
 
@@ -103,7 +106,7 @@ constexpr size_t partials_smem() {
 
 // grid (splits, B * Hkv, ceil(S * G / 64)), block 128. Partials are
 // o [splits, B * Hkv, S * G, D] (unnormalised) and m, l [splits, B * Hkv,
-// S * G], all f32.
+// S * G], all f32. `scale2` is scale * log2(e).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 dense_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -111,7 +114,7 @@ dense_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const int* __restrict__ lengths, int uniform_length,
                       float* __restrict__ o_part, float* __restrict__ m_part,
                       float* __restrict__ l_part, int S, int Hq, int Hkv,
-                      int T_len, int G, float scale, int tiles_per_split) {
+                      int T_len, int G, float scale2, int tiles_per_split) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int LD = D + VEC;
   constexpr int LDP = kCols + VEC;
@@ -169,45 +172,15 @@ dense_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NC; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
     WarpMma<T, NC, D>::nk(s, q_s + warp * 16 * LD, LD, k_s, LD);
-    float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = c0 + j * 8 + cq + (e & 1);
-        const bool allowed = col < horizon[e >> 1];
-        s[j][e] = allowed ? s[j][e] * scale : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        s[j][e] = col < horizon[e >> 1] ? s[j][e] * scale2 : -INFINITY;
       }
     }
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = quad_max(mx[i]);
-      alpha[i] = mx[i] == -INFINITY ? 1.f : expf(m[i] - mx[i]);
-    }
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p =
-            s[j][e] == -INFINITY ? 0.f : expf(s[j][e] - mx[e >> 1]);
-        s[j][e] = p;
-        rs[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] = l[i] * alpha[i] + quad_sum(rs[i]);
-      m[i] = mx[i];
-    }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
+    online_softmax<NC, D / 8>(s, m, l, o);
     store_frag<T, NC>(p_w, LDP, s);  // P rounded to the cache dtype
     __syncwarp();
     WarpMma<T, D / 8, kCols>::kn(o, p_w, LDP, v_s, LD);
@@ -216,6 +189,7 @@ dense_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
+    const float l_row = quad_sum(l[i]);
     const int row = row_lo + 8 * i;
     if (row >= SG) continue;
     const size_t base = ((size_t)split * gridDim.y + bh) * SG + row;
@@ -226,8 +200,8 @@ dense_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dst[j * 8 + 1] = o[j][2 * i + 1];
     }
     if ((lane & 3) == 0) {
-      m_part[base] = m[i];
-      l_part[base] = l[i];
+      m_part[base] = m[i] * kLn2;  // natural units, as the combine reads m
+      l_part[base] = l_row;
     }
   }
 }
@@ -250,7 +224,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const int*>(lengths),
       uniform_length, static_cast<float*>(o_part),
       static_cast<float*>(m_part), static_cast<float*>(l_part), S, Hq, Hkv,
-      T_len, G, scale, tiles_per_split);
+      T_len, G, scale * kLog2e, tiles_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_split_kv_combine<T, D>(o_part, m_part, l_part, out, splits,

@@ -36,7 +36,7 @@ SOURCES = {
         "paged_attention.cu",
         {
             "paged_attention_forward": (
-                [_P] * 9 + [_I] * 9 + [_F] + [_I] * 3 + [_P], ctypes.c_int),
+                [_P] * 9 + [_I] * 9 + [_F] + [_I] * 2 + [_P], ctypes.c_int),
             "paged_attention_error_string": ([_I], ctypes.c_char_p),
         },
     ),

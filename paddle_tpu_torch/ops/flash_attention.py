@@ -328,7 +328,8 @@ def _mask_args(sri):
 
 
 def flash_fwd(q, k, v, causal=False, scale=None, sri=None):
-    """(out, lse) of ``flash_fwd_kernel`` on CUDA tensors (q, k, v of one
+    """(out, lse) of the forward kernel (bf16: ``flash_fwd_wgmma_kernel``,
+    f32: ``flash_fwd_f32_kernel``) on CUDA tensors (q, k, v of one
     shape [B, S, H, D]), its masked form under a FlashMask ``sri``;
     ``flash_attention_fwd_ref`` on CPU tensors."""
     scale = _scale(q, scale)

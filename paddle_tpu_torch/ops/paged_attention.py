@@ -36,8 +36,8 @@ __all__ = ["paged_decode_attention", "paged_decode_attention_ref",
            "paged_scatter_", "kernel_launch_config"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_WARPS = 4          # csrc/paged_attention.cu kWarps
-_TILE_COLS = 32     # csrc/paged_attention.cu kTileCols
+_ROWS = 64          # csrc/paged_attention.cu kRows: query rows of a block
+_COLS = 64          # csrc/paged_attention.cu kCols: cache columns of a tile
 
 
 # ----------------------------------------------------------------- plain
@@ -74,21 +74,20 @@ def kernel_tolerance(q, k_pages, v_pages, block_tables, lengths, ref,
 
 # ---------------------------------------------------------------- kernel
 def kernel_launch_config(B, S, G, Hkv, NB, BS, num_sms=132):
-    """(rows per warp, tiles per split, splits) for one launch.
+    """(row tiles, tiles per split, splits) for one launch.
 
-    One block covers 4 warps x rpw query rows of one (request, kv head);
-    the KV columns (32 per tile) are cut into splits so that at least ~4
-    blocks per SM exist even at decode, where a (request, kv head) has only
-    G query rows. Dead splits (past the live prefix) exit without reading
-    K/V."""
-    sg = S * G
-    rpw = 1 if sg <= _WARPS else 2 if sg <= 2 * _WARPS else 4
-    row_tiles = -(-sg // (_WARPS * rpw))
-    num_tiles = -(-(NB * BS) // _TILE_COLS)
-    target = max(1, -(-4 * num_sms // (B * Hkv * row_tiles)))
-    tiles_per_split = -(-num_tiles // min(target, num_tiles))
+    A block covers 64 query rows of one (request, kv head) and walks
+    64-column cache tiles; the columns are cut into splits so that at
+    least 4 blocks per SM exist even at decode, where a (request, kv head)
+    has only G query rows, wherever the columns allow that many. Dead splits (past the live prefix) exit without
+    reading the tables or K/V. A split spans at most 32 * BS tiles, so the
+    page ids it keeps in shared memory stay under ~8 KB."""
+    row_tiles = -(-(S * G) // _ROWS)
+    num_tiles = -(-(NB * BS) // _COLS)
+    target = -(-4 * num_sms // (B * Hkv * row_tiles))
+    tiles_per_split = min(max(1, num_tiles // target), 32 * BS)
     splits = -(-num_tiles // tiles_per_split)
-    return rpw, tiles_per_split, splits
+    return row_tiles, tiles_per_split, splits
 
 
 def _launch_kernel(q, k_pages, v_pages, block_tables, lengths, scale):
@@ -120,7 +119,7 @@ def _launch_kernel(q, k_pages, v_pages, block_tables, lengths, scale):
         qk = qk.clone()
     G = Hq // Hkv
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rpw, tps, splits = kernel_launch_config(B, S, G, Hkv, NB, BS, sms)
+    _, tps, splits = kernel_launch_config(B, S, G, Hkv, NB, BS, sms)
     rows = B * Hkv * S * G
     o_part = torch.empty((splits, rows, D), dtype=torch.float32, device=dev)
     m_part = torch.empty((splits, rows), dtype=torch.float32, device=dev)
@@ -132,7 +131,7 @@ def _launch_kernel(q, k_pages, v_pages, block_tables, lengths, scale):
         block_tables.data_ptr(), lengths.data_ptr(), o_part.data_ptr(),
         m_part.data_ptr(), l_part.data_ptr(), out.data_ptr(),
         B, S, Hq, Hkv, P, BS, NB, D, _DTYPE_CODE[k_pages.dtype],
-        float(scale), rpw, tps, splits,
+        float(scale), tps, splits,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.paged_attention_error_string(err).decode()

@@ -52,8 +52,17 @@ def _case(device, B, S, Hkv, G, D, BS, lengths, dtype, seed=0):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("G,S,BS,D", [(1, 1, 32, 64), (4, 1, 16, 64),
                                       (1, 64, 32, 64), (4, 5, 64, 128),
-                                      (8, 3, 128, 64), (1, 128, 32, 128)])
+                                      (8, 3, 128, 64), (1, 128, 32, 128),
+                                      # prefill width at every block size:
+                                      # a 64-column tile spans 4, 2, 1 or
+                                      # half a page
+                                      (1, 64, 16, 64), (4, 64, 16, 64),
+                                      (4, 64, 32, 64), (1, 64, 64, 64),
+                                      (4, 64, 64, 64), (1, 64, 128, 64),
+                                      (4, 64, 128, 64)])
 def test_paged_attention_kernel_matches_plain(cuda, dtype, G, S, BS, D):
+    """Lengths 0, 37, 300 and 129: an empty slot, and live prefixes that
+    end inside a tile and inside a page at every block size."""
     args = _case(cuda, 4, S, 2, G, D, BS, [0, 37, 300, 129], dtype)
     before = tpa.paged_decode_attention.launches
     got = tpa.paged_decode_attention(*args)
@@ -75,6 +84,11 @@ def test_paged_attention_kernel_rejects_what_it_cannot_run(cuda):
                                    vp[..., :32].contiguous(), tbl, ln)
     with pytest.raises(TypeError, match="int32"):
         tpa.paged_decode_attention(q, kp, vp, tbl.long(), ln)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tpa.paged_decode_attention(q.half(), kp.half(), vp.half(), tbl, ln)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpa.paged_decode_attention(q, kp.transpose(2, 3).contiguous()
+                                   .transpose(2, 3), vp, tbl, ln)
 
 
 @pytest.mark.cuda
@@ -111,7 +125,11 @@ def _flash_case(device, B, S, H, D, dtype, seed=0):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,S,D", [(True, 256, 64), (False, 100, 64),
                                         (True, 77, 128), (False, 1, 128),
-                                        (True, 1000, 64)])
+                                        (True, 1000, 64), (False, 1000, 64),
+                                        (True, 1000, 128), (False, 1000, 128),
+                                        (True, 1025, 64), (False, 1025, 64),
+                                        (True, 1025, 128),
+                                        (False, 1025, 128)])
 def test_flash_kernels_match_plain(cuda, dtype, causal, S, D):
     q, k, v, do = _flash_case(cuda, 2, S, 3, D, dtype, seed=S)
     before = (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
@@ -145,11 +163,38 @@ def test_flash_kernels_reject_what_they_cannot_run(cuda):
         tfa.flash_fwd(q[..., :32], k[..., :32], v[..., :32])
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tfa.flash_fwd(q.half(), k.half(), v.half())
+    sri = torch.full((1, 1, 16, 2), 16, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flashmask_fwd(q, k, v, sri[..., ::2], True)
     from paddle_tpu_torch.nn import functional as F
     with pytest.raises(NotImplementedError, match="dropout"):
         F.flash_attention(q, k, v, dropout=0.1)
     with pytest.raises(ValueError, match="no kernel"):
         F.flash_attention(q, k[:, :8], v[:, :8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scale", [-0.2, 0.0])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_forward_takes_any_sign_of_scale(cuda, dtype, scale, masked):
+    """A negative scale (the row max of the scaled scores is then the
+    scaled min of the raw ones) and scale 0 (every allowed score 0) match
+    the plain forward. The limit is that of the same scores written with a
+    positive scale: -q at -scale."""
+    S = 200
+    q, k, v, _ = _flash_case(cuda, 2, S, 3, 64, dtype, seed=9)
+    sri = _doc_sri(2, 1, S, 1, True, cuda, seed=S) if masked else None
+    out, lse = tfa.flash_fwd(q, k, v, True, scale, sri=sri)
+    ro, rl = tfa.flash_attention_fwd_ref(q, k, v, True, scale, sri=sri)
+    lim = tfa.kernel_tolerance(-q, k, v, dict(out=ro, lse=rl), True,
+                               scale=-scale, sri=sri)
+    for name, x, r in (("out", out, ro), ("lse", lse, rl)):
+        assert bool(torch.isfinite(x.float()).all()), name
+        err = (x.float() - r.float()).abs()
+        assert bool((err <= lim[name]).all()), (
+            f"{name}: max |kernel - plain| {float(err.max())}, "
+            f"{float((err / lim[name]).max())} of the limit")
 
 
 @pytest.mark.cuda
@@ -318,7 +363,11 @@ def _masked_run(q, k, v, do, causal, sri, plain):
 @pytest.mark.parametrize("causal,n,Hp,S,D", [(True, 1, 1, 256, 64),
                                              (True, 2, 3, 200, 64),
                                              (False, 4, 1, 100, 128),
-                                             (True, 1, 3, 1000, 64)])
+                                             (True, 1, 3, 1000, 64),
+                                             (True, 1, 1, 1025, 128),
+                                             (True, 2, 3, 1025, 64),
+                                             (False, 4, 3, 1000, 128),
+                                             (False, 4, 1, 1025, 64)])
 def test_flashmask_kernels_match_plain(cuda, dtype, causal, n, Hp, S, D):
     q, k, v, do = _flash_case(cuda, 2, S, 3, D, dtype, seed=S + n)
     sri = _doc_sri(2, Hp, S, n, causal, cuda, seed=S)

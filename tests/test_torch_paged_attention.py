@@ -122,19 +122,38 @@ def test_paged_cache_update_matches_jax_and_drops_padding(dtype):
                                   np.asarray(rv.astype(jnp.float32)))
 
 
-def test_kernel_launch_config_covers_the_grid():
-    for B, S, G, Hkv, NB, BS in [(8, 1, 1, 16, 32, 32), (8, 64, 1, 16, 32, 32),
-                                 (1, 1, 8, 2, 4, 16), (3, 70, 4, 2, 9, 128)]:
-        rpw, tps, splits = tpa.kernel_launch_config(B, S, G, Hkv, NB, BS)
-        assert rpw in (1, 2, 4)
-        num_tiles = -(-(NB * BS) // 32)
-        assert splits * tps >= num_tiles > (splits - 1) * tps
-        assert 4 * rpw * -(-(S * G) // (4 * rpw)) >= S * G
+@pytest.mark.parametrize("B,S,G,Hkv,NB,BS", [
+    (8, 1, 1, 16, 32, 32),      # decode at the serving shape
+    (8, 64, 1, 16, 32, 32),     # a prefill chunk at the serving shape
+    (1, 1, 8, 2, 4, 16),        # few columns: fewer blocks than the card
+    (3, 70, 4, 2, 9, 128),      # rows past one tile; a tile is half a page
+    (2, 5, 4, 4, 64, 64),       # speculative verify rows, GQA 4
+    (1, 1, 1, 1, 2048, 16),     # one request, a long context
+    (64, 1, 1, 16, 4096, 16),   # a long context and a large batch: the
+                                # cap of 32 * BS tiles per split binds
+    (16, 1, 2, 8, 40, 16),      # a large batch: one split suffices
+])
+def test_kernel_launch_config_covers_the_grid(B, S, G, Hkv, NB, BS):
+    """Every query row falls in a row tile; every column below NB * BS
+    falls in exactly one split; at decode the grid has at least 4 blocks per
+    SM of 132 wherever the columns allow that many."""
+    row_tiles, tps, splits = tpa.kernel_launch_config(B, S, G, Hkv, NB, BS)
+    assert (row_tiles - 1) * 64 < S * G <= row_tiles * 64
+    cols = np.arange(NB * BS)
+    owner = cols // (tps * 64)                  # the split each column is in
+    starts = np.arange(splits) * tps * 64
+    assert ((owner >= 0) & (owner < splits)).all()
+    assert (np.searchsorted(starts, cols, side="right") - 1 == owner).all()
+    assert starts[-1] < NB * BS                 # no split is empty
+    assert -(-(tps * 64) // BS) + 1 <= 2049     # page ids a block keeps
+    if S == 1:
+        blocks = splits * B * Hkv * row_tiles
+        assert blocks >= min(4 * 132, B * Hkv * row_tiles * -(-NB * BS // 64))
 
 
 def _kernel_arithmetic(q, kp, vp, tables, lengths):
     """The bf16 kernel's rounding on the CPU: f32 scores, unnormalised
-    probabilities rounded to bf16 before P.V (per 32-column tile, against
+    probabilities rounded to bf16 before P.V (per 64-column tile, against
     the running max), f32 sums, one division by l, the output rounded to
     bf16 once."""
     B, S, Hq, D = q.shape
@@ -148,8 +167,8 @@ def _kernel_arithmetic(q, kp, vp, tables, lengths):
     pos_q = lengths.long()[:, None] + torch.arange(S)
     allowed = torch.arange(T)[None, None] <= pos_q[:, :, None]
     sc = sc.masked_fill(~allowed[:, None, None], -float("inf"))
-    m = sc.reshape(*sc.shape[:-1], -1, 32).amax(-1).cummax(-1).values
-    m = m.repeat_interleave(32, -1)              # running max per tile
+    m = sc.reshape(*sc.shape[:-1], -1, 64).amax(-1).cummax(-1).values
+    m = m.repeat_interleave(64, -1)              # running max per tile
     p = torch.exp(sc - m).nan_to_num()
     w = torch.exp(m - m[..., -1:]).nan_to_num()  # rescale to the final max
     l = (p * w).sum(-1, keepdim=True)
