@@ -31,7 +31,8 @@ non-zero without the final line:
 6. flash timing — kernel, plain and library (scaled_dot_product_attention
    forward, and its backward, a yardstick only) at the training shape and
    at S=8192 (B=1, H=4), CUDA events, median of 25, L2 flushed; the bounds
-   from this run's shapes.
+   from this run's shapes; then dq + dk/dv against the library's whole
+   backward, with the ratio.
 7. serving — GPT-350M at full width (24 layers, random seeded weights) in
    bf16 behind ContinuousGenerateBatchingPredictor (8 slots, chunk 64,
    4 decode steps) and InferenceServer: 12 threaded requests of 50-700
@@ -94,7 +95,9 @@ non-zero without the final line:
    boolean mask, a yardstick only, with the backend it picked) at
    B = 1, S = 8192, H = 16, D = 64, bf16, causal, under the document mask
    of [2048, 1536, 1024, 1024, 768, 512, 512, 384, 256, 128] (14.9% of
-   the causal pairs), and the unmasked causal kernels on the same inputs.
+   the causal pairs), and the unmasked causal kernels on the same inputs;
+   then masked dq + dk/dv against the library's whole backward, with the
+   ratio.
 14. varlen training — the slice's main path: 24 blocks of RMSNorm ->
    ColumnParallelLinear(1024 -> 3072) -> F.flash_attn_varlen_qkvpacked
    (causal) -> RowParallelLinear(1024 -> 1024) -> residual, bf16, AdamW,
@@ -106,9 +109,10 @@ non-zero without the final line:
    24 launches of each masked kernel per step (none unmasked), and a
    profiled step by kernel kind.
 
-Last lines: the kernels JSON, then {"ok": true, "device": {...}}. With
-``--json PATH`` the full record (every check, timing, profile and serving
-number) is also written to PATH.
+Last lines: the kernels JSON (a kernel redesigned since it was first
+ported names the change in "redesigned"), then {"ok": true, "device":
+{...}}. With ``--json PATH`` the full record (every check, timing, profile
+and serving number) is also written to PATH.
 """
 from __future__ import annotations
 
@@ -116,6 +120,7 @@ import argparse
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -137,11 +142,58 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 INSITU_REL_TOL = 2.5e-2
 # first training loss, flash kernels vs plain attention: a coarse bound
 LOSS_REL_TOL = 1e-2
-# The kernels this version redesigned (their earlier times: PERF.md
-# section 6).
-REDESIGNED = "PR 5"
-REDESIGNED_KERNELS = ("paged_decode_attention", "flash_attention_fwd",
-                      "flashmask_fwd")
+# The kernels redesigned since they were first ported, and the change that
+# redesigned each (their earlier times: PERF.md section 6).
+REDESIGNED = {"paged_decode_attention": "PR 5", "flash_attention_fwd": "PR 5",
+              "flashmask_fwd": "PR 5", "flash_attention_dq": "PR 6",
+              "flash_attention_dkv": "PR 6", "flashmask_dq": "PR 6",
+              "flashmask_dkv": "PR 6"}
+
+
+def ptxas_summary(log):
+    """[(kernel, registers, spill store bytes)] of every entry function in
+    the ``nvcc -Xptxas -v`` output ``log``; a template kernel is named with
+    its arguments (``flash_dq_wgmma_kernel<64,0>``,
+    ``paged_partials_kernel<bf16,64>``)."""
+    def names(rest):            # <length><name>... -> (last name, rest)
+        name = ""
+        while rest[:1].isdigit():
+            n = re.match(r"\d+", rest).group()
+            end = len(n) + int(n)
+            name, rest = rest[len(n):end], rest[end:]
+        return name, rest
+
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '_ZN?([^']+)'", line)
+        if entry:
+            name, rest = names(entry.group(1))
+            args = []
+            rest = rest[1:] if rest.startswith("I") else "E"
+            while rest and rest[0] != "E":
+                lit = re.match(r"L[ib](\d+)E", rest)
+                if lit:
+                    args.append(lit.group(1))
+                    rest = rest[lit.end():]
+                elif rest[0].isdigit():
+                    t, rest = names(rest)
+                    args.append({"__nv_bfloat16": "bf16"}.get(t, t))
+                elif rest[0] == "f":
+                    args.append("float")
+                    rest = rest[1:]
+                else:
+                    break
+            name += f"<{','.join(args)}>" if args else ""
+            spill = 0
+            continue
+        stores = re.search(r"(\d+) bytes spill stores", line)
+        if stores:
+            spill = int(stores.group(1))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            out.append((name, int(regs.group(1)), spill))
+            name = None
+    return out
 
 
 def card_line():
@@ -634,8 +686,25 @@ def time_flash(torch, fa, device):
                        bound_ms=bounds[kern][0], bound_by=bounds[kern][1])
             print("flash-time", json.dumps(rec), flush=True)
             out[shape][kern] = rec
+        out[shape]["bwd"] = whole_backward(out[shape], shape=shape, B=B, S=S,
+                                           H=H, D=D)
         del q, k, v, do, ro, rl, delta, qt, kt, vt, dot, lib_out, calls
     return out
+
+
+def whole_backward(recs, **shape):
+    """dq + dk/dv of one timed shape against the library's one backward
+    call (dq, dk and dv together), with the ratio; printed."""
+    dq, dkv = recs["dq"], recs["dkv"]
+    rec = dict(shape, kernel="dq+dkv", ms=dq["ms"] + dkv["ms"],
+               library_ms=dq["library_ms"],
+               library_call=dq["library_call"],
+               over_library=(dq["ms"] + dkv["ms"]) / dq["library_ms"],
+               bound_ms=dq["bound_ms"] + dkv["bound_ms"])
+    if "unmasked_ms" in dq:
+        rec["unmasked_ms"] = dq["unmasked_ms"] + dkv["unmasked_ms"]
+    print("backward-time", json.dumps(rec), flush=True)
+    return rec
 
 
 # --------------------------------------------------------------- phase 7
@@ -1725,6 +1794,7 @@ def time_flashmask(torch, fa, device):
                    unmasked_bound_by=ubounds[kern][1])
         print("flashmask-time", json.dumps(rec), flush=True)
         out[kern] = rec
+    out["bwd"] = whole_backward(out, B=B, S=S, H=H, D=D, masked=True)
     del q, k, v, do, o, uo, qt, kt, vt, dot, lib_out, allowed, calls
     torch.cuda.empty_cache()
     return out
@@ -2015,11 +2085,12 @@ def main():
     t0 = time.perf_counter()
     log = _build.build_all()
     build_s = time.perf_counter() - t0
+    ptxas = {}
     for name, rec in log.items():
-        regs = [ln.strip() for ln in rec["ptxas"].splitlines()
-                if "registers" in ln]
-        print(f"build {name}: {rec['seconds']:.1f} s nvcc; "
-              f"{len(regs)} kernels; e.g. {regs[:2]}", flush=True)
+        ptxas[name] = ptxas_summary(rec["ptxas"])
+        print(f"build {name}: {rec['seconds']:.1f} s nvcc; ptxas "
+              + "; ".join(f"{k} {r} registers, {s} bytes spilled"
+                          for k, r, s in ptxas[name]), flush=True)
     print(f"build: {build_s:.1f} s total", flush=True)
 
     checks, worst = check_kernels(torch, pa, device)
@@ -2135,9 +2206,10 @@ def main():
             "library_backend": t["library_backend"],
             "unmasked_ms": t["unmasked_ms"]})
     for kern in kernels:
-        if kern["name"] in REDESIGNED_KERNELS:
-            kern["redesigned"] = REDESIGNED
-    record = dict(card=card, build_s=build_s, checks=checks, timing=timing,
+        if kern["name"] in REDESIGNED:
+            kern["redesigned"] = REDESIGNED[kern["name"]]
+    record = dict(card=card, build_s=build_s, ptxas=ptxas, checks=checks,
+                  timing=timing,
                   insitu=insitu, profile=steps, serving=serving,
                   flash_checks=flash_checks, flash_timing=flash_timing,
                   dense_checks=dense_checks, dense_timing=dense_timing,

@@ -355,7 +355,8 @@ def flash_fwd(q, k, v, causal=False, scale=None, sri=None):
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal=False, scale=None,
                  sri=None):
-    """dq of ``flash_dq_kernel`` on CUDA tensors, its masked form under a
+    """dq of the dq kernel (bf16: ``flash_dq_wgmma_kernel``, f32:
+    ``flash_dq_f32_kernel``) on CUDA tensors, its masked form under a
     FlashMask ``sri``; ``flash_attention_dq_ref`` on CPU tensors."""
     scale = _scale(q, scale)
     if sri is not None:
@@ -382,9 +383,9 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal=False, scale=None,
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal=False, scale=None,
                   sri=None):
-    """(dk, dv) of ``flash_dkv_kernel`` on CUDA tensors, its masked form
-    under a FlashMask ``sri``; ``flash_attention_dkv_ref`` on CPU
-    tensors."""
+    """(dk, dv) of the dk/dv kernel (bf16: ``flash_dkv_wgmma_kernel``, f32:
+    ``flash_dkv_f32_kernel``) on CUDA tensors, its masked form under a
+    FlashMask ``sri``; ``flash_attention_dkv_ref`` on CPU tensors."""
     scale = _scale(q, scale)
     if sri is not None:
         _check_sri("flash_bwd_dkv", sri, q)

@@ -129,7 +129,15 @@ def _flash_case(device, B, S, H, D, dtype, seed=0):
                                         (True, 1000, 128), (False, 1000, 128),
                                         (True, 1025, 64), (False, 1025, 64),
                                         (True, 1025, 128),
-                                        (False, 1025, 128)])
+                                        (False, 1025, 128),
+                                        # the rings' edges: one row, a tile
+                                        # one short, one full, one row past,
+                                        # a tile and a row past two
+                                        (True, 1, 64), (False, 1, 64),
+                                        (True, 63, 64), (False, 63, 64),
+                                        (True, 64, 64), (False, 64, 64),
+                                        (True, 65, 64), (False, 65, 64),
+                                        (True, 129, 64), (False, 129, 64)])
 def test_flash_kernels_match_plain(cuda, dtype, causal, S, D):
     q, k, v, do = _flash_case(cuda, 2, S, 3, D, dtype, seed=S)
     before = (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
@@ -341,20 +349,24 @@ def _doc_sri(B, Hp, S, n, causal, device, seed=0):
                            device=device).contiguous()
 
 
-def _masked_run(q, k, v, do, causal, sri, plain):
-    ro, rl = tfa.flash_attention_fwd_ref(q, k, v, causal, sri=sri)
+def _masked_run(q, k, v, do, causal, sri, plain, scale=None):
+    """out, lse, dq, dk and dv of the kernels (their masked forms under
+    ``sri``; the unmasked ones for ``sri=None``) or of their plain
+    versions; the backward takes the plain forward's lse and delta."""
+    ro, rl = tfa.flash_attention_fwd_ref(q, k, v, causal, scale, sri=sri)
     delta = tfa.attention_delta(ro, do)
     if plain:
         out = dict(out=ro, lse=rl, dq=tfa.flash_attention_dq_ref(
-            q, k, v, do, rl, delta, causal, sri=sri))
+            q, k, v, do, rl, delta, causal, scale, sri=sri))
         out["dk"], out["dv"] = tfa.flash_attention_dkv_ref(
-            q, k, v, do, rl, delta, causal, sri=sri)
+            q, k, v, do, rl, delta, causal, scale, sri=sri)
         return out
-    o, lse = tfa.flashmask_fwd(q, k, v, sri, causal)
-    out = dict(out=o, lse=lse, dq=tfa.flashmask_bwd_dq(q, k, v, do, rl,
-                                                       delta, sri, causal))
-    out["dk"], out["dv"] = tfa.flashmask_bwd_dkv(q, k, v, do, rl, delta, sri,
-                                                 causal)
+    o, lse = tfa.flash_fwd(q, k, v, causal, scale, sri=sri)
+    out = dict(out=o, lse=lse, dq=tfa.flash_bwd_dq(q, k, v, do, rl, delta,
+                                                   causal, scale, sri=sri))
+    out["dk"], out["dv"] = tfa.flash_bwd_dkv(q, k, v, do, rl, delta, causal,
+                                             scale, sri=sri)
+    torch.cuda.synchronize()
     return out
 
 
@@ -443,3 +455,96 @@ def test_flashmask_attention_casts_int64_and_its_gradients_match_plain(cuda):
         assert bool(((got - summed).abs() <= bound).all()), name
     with pytest.raises(TypeError, match="int32"):
         tfa.flashmask_fwd(q, kr, vr, sri, True)
+
+
+# ---------------------------------------------------------------- backward
+def _within(got, ref, lim, names=("dq", "dk", "dv")):
+    for name in names:
+        x = got[name]
+        assert x.dtype == ref[name].dtype and x.shape == ref[name].shape
+        assert bool(torch.isfinite(x.float()).all()), name
+        err = (x.float() - ref[name].float()).abs()
+        assert bool((err <= lim[name]).all()), (
+            f"{name}: max |kernel - plain| {float(err.max())}, "
+            f"{float((err / lim[name]).max())} of the limit")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scale", [-0.2, 0.0])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_backward_takes_any_sign_of_scale(cuda, dtype, scale, masked):
+    """dq, dk and dv at a negative scale and at scale 0 (ds then 0) match the
+    plain backward. The limit is that of the same scores written with a
+    positive scale: -q at -scale."""
+    S = 200
+    q, k, v, do = _flash_case(cuda, 2, S, 3, 64, dtype, seed=9)
+    sri = _doc_sri(2, 1, S, 1, True, cuda, seed=S) if masked else None
+    got = _masked_run(q, k, v, do, True, sri, plain=False, scale=scale)
+    ref = _masked_run(q, k, v, do, True, sri, plain=True, scale=scale)
+    _within(got, ref, tfa.kernel_tolerance(-q, k, v, ref, True, scale=-scale,
+                                           dout=do, sri=sri))
+
+
+def _gap_sri(B, S, causal, device):
+    """A FlashMask whose covered 64 x 64 tiles sit between live ones: key
+    columns 0..63 hide query rows [64, 128) and columns 64..127 hide every
+    row, the others none. The dq walk of query rows 192..255 (and of rows
+    0..63 when non-causal) skips key tile 1 between tiles 0 and 2; the
+    dk/dv walk of keys 0..63 skips query tile 1 between tiles 0 and 2."""
+    c = np.arange(S)
+    lo = np.where(c < 64, 64, np.where(c < 128, 0, S))
+    hi = np.where(c < 64, 128, S)
+    cols = [lo, hi] if causal else [lo, hi, np.zeros(S), np.zeros(S)]
+    sri = np.broadcast_to(np.stack(cols, -1), (B, 1, S, len(cols)))
+    return torch.as_tensor(sri.astype(np.int32), device=device).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [256, 300])
+def test_flashmask_backward_skips_a_covered_tile_inside_the_ring(
+        cuda, dtype, causal, S):
+    q, k, v, do = _flash_case(cuda, 2, S, 3, 64, dtype, seed=S + causal)
+    sri = _gap_sri(2, S, causal, cuda)
+    got = _masked_run(q, k, v, do, causal, sri, plain=False)
+    ref = _masked_run(q, k, v, do, causal, sri, plain=True)
+    _within(got, ref, tfa.kernel_tolerance(q, k, v, ref, causal, dout=do,
+                                           sri=sri))
+    if causal:      # rows 64..127 see no column: exactly 0
+        assert bool((got["dq"][:, 64:128] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_backward_d128_gqa(cuda, dtype, masked):
+    """D = 128 with 16 query heads over 4 kv heads, repeated as the wrapper
+    repeats them; under a mask per head."""
+    B, S, H, Hkv, D = 2, 300, 16, 4, 128
+    g = torch.Generator(device=cuda).manual_seed(21)
+    td = getattr(torch, dtype)
+    q, do = (torch.randn((B, S, H, D), generator=g, device=cuda).to(td)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=g, device=cuda).to(td)
+            .repeat_interleave(H // Hkv, dim=2) for _ in range(2))
+    sri = _doc_sri(B, H, S, 2, True, cuda, seed=22) if masked else None
+    got = _masked_run(q, k, v, do, True, sri, plain=False)
+    ref = _masked_run(q, k, v, do, True, sri, plain=True)
+    _within(got, ref, tfa.kernel_tolerance(q, k, v, ref, True, dout=do,
+                                           sri=sri))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_backward_is_deterministic(cuda, dtype, masked):
+    """No atomics: two calls give dq, dk and dv bit for bit."""
+    S = 1000
+    q, k, v, do = _flash_case(cuda, 2, S, 3, 64, dtype, seed=31)
+    sri = _doc_sri(2, 1, S, 1, True, cuda, seed=32) if masked else None
+    runs = [_masked_run(q, k, v, do, True, sri, plain=False)
+            for _ in range(2)]
+    for name in ("dq", "dk", "dv"):
+        assert torch.equal(runs[0][name], runs[1][name]), name
