@@ -42,17 +42,21 @@ non-zero without the final line:
    of the full model hold every layer's kernel call against the plain
    version on the same inputs, and the logits against the plain attention
    path; a planted fault (lengths one short) must fail the per-layer check.
-8. dense kernel vs plain — the dense split-KV kernel against its plain
-   version, within ``decode_attention.kernel_tolerance`` (f32 1e-4, bf16
-   the paged bound), in f32 and bf16: the generation shapes (B=8, 16 heads
-   of 64, T=640; decode S=1 at lengths 512-639, prefill S=512 at 0, and
-   both with the one int length generate() passes), GQA 4 and 8 at D=128,
-   T=1000 (no multiple of a tile), and requests whose live prefix ends
-   inside the first tile.
+8. dense kernel vs plain — the dense split-KV kernel (decode form up to 16
+   query rows per (request, kv head) and in f32, prefill form above) against
+   its plain version, within ``decode_attention.kernel_tolerance`` (f32
+   1e-4, bf16 the paged bound), in f32 and bf16: the generation shapes
+   (B=8, 16 heads of 64, T=640; decode S=1 at lengths 512-639, prefill
+   S=512 at 0, and both with the one int length generate() passes), GQA 4
+   and 8 at D=128, T=1000 (no multiple of a tile), requests whose live
+   prefix ends inside the first tile, the forms' threshold (16, 17 and 24
+   rows) at the full cache, and one request over a long cache in each form
+   (many splits).
 9. dense timing — kernel, plain and library (SDPA over the dense cache
    with the length mask, a yardstick only) at the decode and prefill
    shapes, CUDA events, median of 25, L2 flushed; the bound from this run's
-   live bytes and operations.
+   live bytes and operations, the time over each; and one request
+   decoding at length 4000 of T=4096 (split, combined by a second launch).
 10. generation — GPT-350M at full width (random seeded f32 weights, cast
    to bf16 by generate()). In situ first: the prompt's prefill (512 rows at
    length 0), its second half again (256 rows at length 256) and one
@@ -145,6 +149,7 @@ LOSS_REL_TOL = 1e-2
 # The kernels redesigned since they were first ported, and the change that
 # redesigned each (their earlier times: PERF.md section 6).
 REDESIGNED = {"paged_decode_attention": "PR 5", "flash_attention_fwd": "PR 5",
+              "decode_attention": "PR 7",
               "flashmask_fwd": "PR 5", "flash_attention_dq": "PR 6",
               "flash_attention_dkv": "PR 6", "flashmask_dq": "PR 6",
               "flashmask_dkv": "PR 6"}
@@ -430,8 +435,10 @@ def check_dense_kernels(torch, da, device):
     generation shapes (B = 8, 16 heads of 64, T = 640; decode S = 1 at
     lengths 512-639, prefill S = 512 at 0; both again with the one int
     length generate() passes), GQA 4 and 8 at D = 128, a T that is no
-    multiple of any tile, and requests whose live prefix ends inside the
-    first tile; f32 and bf16."""
+    multiple of any tile, requests whose live prefix ends inside the first
+    tile, the two forms' threshold (16 and 17, 24 rows per (request, kv
+    head)) at the full cache, and one request over a long cache (many
+    splits) in either form; f32 and bf16."""
     rng = np.random.default_rng(20)
     cases = []
     for dtype in ("bfloat16", "float32"):
@@ -446,18 +453,31 @@ def check_dense_kernels(torch, da, device):
             ("g8-d128", 4, 3, 2, 8, 128, 300, [5, 64, 200, 297], dtype),
             ("ragged-t1000", 2, 7, 8, 1, 64, 1000, [500, 993], dtype),
             ("first-tile", 4, 1, 16, 1, 64, 640, [0, 3, 40, 63], dtype),
+            # the forms' threshold, 16 rows per (request, kv head) (decode
+            # form) and 17 and 24 (bf16: prefill form), at the full cache
+            ("rows16-g8-d128", 4, 2, 2, 8, 128, 300, [0, 77, 150, 298],
+             dtype),
+            ("rows17", 4, 17, 4, 1, 64, 300, [0, 77, 150, 283], dtype),
+            ("rows24-g8", 4, 3, 2, 8, 64, 300, [0, 77, 150, 297], dtype),
+            # one request over a long cache: many splits in either form
+            ("b1-decode-splits", 1, 1, 16, 1, 64, 4096, [4095], dtype),
+            ("b1-prefill-splits", 1, 64, 16, 1, 64, 2048, [1984], dtype),
         ]
     results, worst = [], {}
     for n, (name, B, S, Hkv, G, D, T, lengths, dtype) in enumerate(cases):
         args = dense_case(torch, B, S, Hkv, G, D, T, lengths, dtype, device,
                           seed=400 + n)
+        cfg = da.kernel_launch_config(B, S, G, Hkv, T, getattr(torch, dtype))
+        if "splits" in name and cfg.splits == 1:
+            raise AssertionError(f"{name}: expected several splits, {cfg}")
         got = da.decode_attention(*args)
         torch.cuda.synchronize()
         ref = da.decode_attention_ref(*args)
         err, over = held_to_plain(torch, da, args, got, ref)
         ok = bool(torch.isfinite(got).all()) and over <= 1.0
         rec = dict(case=name, dtype=dtype, B=B, S=S, Hq=Hkv * G, Hkv=Hkv,
-                   D=D, T=T, max_abs_err=err, err_over_limit=over, ok=ok)
+                   D=D, T=T, form=cfg.form, splits=cfg.splits,
+                   max_abs_err=err, err_over_limit=over, ok=ok)
         print("dense-check", json.dumps(rec), flush=True)
         results.append(rec)
         if name.startswith(("decode", "prefill")):
@@ -485,7 +505,8 @@ def dense_bound(B, S, Hq, Hkv, D, T, lengths, elt, dtype):
 
 
 def time_dense_kernels(torch, da, device):
-    """Kernel, plain and library at the generation shapes (bf16). The
+    """Kernel, plain and library at the generation shapes (bf16), and at
+    one request decoding at length 4000 of T = 4096 (the split path). The
     library yardstick is scaled_dot_product_attention over the same dense
     cache with the length mask; the port never calls it."""
     import torch.nn.functional as F
@@ -493,9 +514,11 @@ def time_dense_kernels(torch, da, device):
     rng = np.random.default_rng(21)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     out = {}
-    for name, S in (("decode", 1), ("prefill", 512)):
-        B, Hkv, D, T = 8, 16, 64, 640
-        lengths = generation_lengths(rng, B, S, T)
+    for name, B, S, T in (("decode", 8, 1, 640), ("prefill", 8, 512, 640),
+                          ("decode_b1", 1, 1, 4096)):
+        Hkv, D = 16, 64
+        lengths = (generation_lengths(rng, B, S, T) if B > 1
+                   else np.array([4000]))
         args = dense_case(torch, B, S, Hkv, 1, D, T, lengths, "bfloat16",
                           device, seed=7)
         q, k, v, ln = args
@@ -510,11 +533,14 @@ def time_dense_kernels(torch, da, device):
             qt, k, v, attn_mask=mask), flush)
         bound_ms, bound_by = dense_bound(B, S, Hkv, Hkv, D, T, lengths, 2,
                                          "bfloat16")
+        cfg = da.kernel_launch_config(B, S, 1, Hkv, T)
         rec = dict(shape=name, B=B, S=S, Hq=Hkv, Hkv=Hkv, D=D, T=T,
                    dtype="bfloat16",
                    live_tokens=int(np.minimum(lengths + S, T).sum()),
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   config=list(cfg), ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, over_bound=ms / bound_ms,
+                   over_library=ms / library_ms)
         print("dense-time", json.dumps(rec), flush=True)
         out[name] = rec
     return out
@@ -1143,13 +1169,15 @@ def profile_dense_step(torch, model, device):
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
     dev_us = sum(e.self_device_time_total for e in kernels)
-    attn_us = sum(e.self_device_time_total for e in kernels
-                  if "dense_partials_kernel" in e.key
-                  or "split_kv_combine_kernel" in e.key)
+    def dense(name):
+        return any(k in name for k in ("dense_decode_kernel",
+                                       "dense_prefill_kernel",
+                                       "split_kv_combine_kernel"))
+
+    attn_us = sum(e.self_device_time_total for e in kernels if dense(e.key))
     by_kind = {}
     for e in kernels:
-        kind = ("dense attention" if "dense_partials" in e.key
-                or "split_kv_combine" in e.key else kernel_kind(e.key))
+        kind = "dense attention" if dense(e.key) else kernel_kind(e.key)
         ms, n = by_kind.get(kind, (0.0, 0))
         by_kind[kind] = (ms + e.self_device_time_total / 1e3, n + e.count)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]

@@ -10,7 +10,7 @@
 // The combine pass replaces the TPU package's XLA stage-2 reduction
 // `_combine_partials` (paddle_tpu/ops/pallas/decode_attention.py:153): it
 // rescales and sums the per-split f32 partials (o, m, l) and writes 0 for a
-// row with l = 0.
+// row with l = 0, in a second launch (`split_kv_combine_kernel`).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -75,6 +75,12 @@ __device__ __forceinline__ void cp_async_commit() {
 // Wait until every group this thread committed has landed.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Wait until at most N of the groups this thread committed are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // f32 score fragments (m16n8 accumulators, columns 8j..8j+7 in s[j]) as the
@@ -326,6 +332,16 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 // ------------------------------------------------------ split-KV combine
 constexpr int kCombineThreads = 128;
+
+// Row r of (b, h) = b * Hkv + h is query step r / G of query head
+// h * G + r % G: its row of out [B, S, Hq, D].
+template <typename T, int D>
+__device__ __forceinline__ T* out_row(T* out, int bh, int r, int S, int Hq,
+                                      int Hkv, int G) {
+  const int b = bh / Hkv;
+  const int h = bh % Hkv;
+  return out + ((size_t)(b * S + r / G) * Hq + h * G + r % G) * D;
+}
 
 // Partials o [splits, BH, SG, D] (unnormalised, f32) and m, l
 // [splits, BH, SG]; row r of (b, h) = b * Hkv + h is query step r / G of

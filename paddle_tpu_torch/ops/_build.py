@@ -57,8 +57,11 @@ SOURCES = {
     "decode_attention": (
         "decode_attention.cu",
         {
+            # q, caches, lengths; the uniform length; partials, out;
+            # B, S, Hq, Hkv, T, D, dtype; scale; form, tiles per split,
+            # splits; the stream
             "decode_attention_forward": (
-                [_P] * 4 + [_I] + [_P] * 4 + [_I] * 7 + [_F] + [_I] * 2
+                [_P] * 4 + [_I] + [_P] * 4 + [_I] * 7 + [_F] + [_I] * 3
                 + [_P], ctypes.c_int),
             "decode_attention_error_string": ([_I], ctypes.c_char_p),
         },

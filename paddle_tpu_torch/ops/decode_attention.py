@@ -11,9 +11,15 @@ attends to cache columns ``c <= lengths[b] + s``.
 * ``decode_attention`` — the wrapper. On CUDA tensors it launches the
   hand-written kernel (``csrc/decode_attention.cu``) or raises; on CPU
   tensors it runs the plain version. ``decode_attention.launches`` counts
-  kernel launches, so a run can show the main path went through it. Unlike
-  the JAX wrapper, it never drops to the plain version for a cache length
-  its blocks do not divide: the kernel masks the ragged tail itself.
+  calls that launched the kernel, so a run can show the main path went
+  through it. Unlike the JAX wrapper, it never drops to the plain version
+  for a cache length its blocks do not divide: the kernel masks the ragged
+  tail itself.
+* ``kernel_launch_config`` — which of the kernel's two forms a call takes
+  (decode: 16-row blocks on ``mma.sync`` with K/V in flight through a
+  ring, for up to 16 query rows per (request, kv head) and for f32;
+  prefill: 64-row ``wgmma`` blocks, bf16) and how its cache tiles are
+  split across blocks.
 * ``decode_attention_ref`` — the plain PyTorch version, the JAX package's
   ``decode_attention_xla`` (``:64-92``): grouped einsum (K/V never
   repeated), f32 scores, probabilities cast to the cache dtype before P.V.
@@ -23,18 +29,25 @@ attends to cache columns ``c <= lengths[b] + s``.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 __all__ = ["decode_attention", "decode_attention_ref", "kernel_tolerance",
-           "kernel_launch_config"]
+           "kernel_launch_config", "LaunchConfig"]
 
 _NEG = torch.finfo(torch.float32).min
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ROWS = 64          # csrc/decode_attention.cu kRows
-_COLS = 64          # csrc/decode_attention.cu kCols
+_ROWS = 64          # prefill form: query rows of a block (kRows)
+_DECODE_ROWS = 16   # decode form: query rows of a block (kDecRows)
+_COLS = 64          # cache columns of a tile (kCols)
+# tiles a split streams at least: a bf16 split costs a combine against
+# bandwidth a block already has; f32 products are compute-bound on the
+# CUDA cores, so f32 calls split as far as one block per SM allows
+_MIN_TILES = {torch.bfloat16: 8, torch.float32: 1}
+_FORMS = {"decode": 0, "prefill": 1}
 
 
 def _norm_lengths(lengths, B, device):
@@ -84,23 +97,43 @@ def kernel_tolerance(q, k_cache, v_cache, lengths, ref, scale=None):
 
 
 # ---------------------------------------------------------------- kernel
-def kernel_launch_config(B, S, G, Hkv, T, num_sms=132):
-    """(tiles per split, splits) for one launch.
+class LaunchConfig(NamedTuple):
+    """How one call runs: the form (``"decode"``: 16-row blocks of
+    mma.sync; ``"prefill"``: 64-row wgmma blocks, bf16 only), the query
+    rows a block owns, and the cache tiles of 64 columns cut into
+    ``splits`` pieces of ``tiles_per_split``."""
+    form: str
+    rows: int
+    tiles_per_split: int
+    splits: int
 
-    A block covers 64 query rows of one (request, kv head) and walks
-    64-column cache tiles; the tiles are cut into splits so that at least
-    ~4 blocks per SM exist even at decode, where a (request, kv head) has
-    only G query rows. Splits past the live prefix exit without reading
-    K/V."""
-    row_tiles = -(-(S * G) // _ROWS)
+
+def kernel_launch_config(B, S, G, Hkv, T, dtype=torch.bfloat16,
+                         num_sms=132):
+    """The form and the split of one launch.
+
+    bf16 calls with more than 16 query rows per (request, kv head) take the
+    prefill form (64-row blocks); every other call the decode form (16-row
+    blocks). The cache tiles are split only as far as one block per SM and
+    ``_MIN_TILES`` tiles per split allow: a block keeps several tiles in
+    flight through its ring, and a split costs a combine. generate()'s
+    prefill and decode (8 requests of 16 heads) run unsplit, so their
+    blocks write the output directly. Splits past a request's live prefix
+    exit without reading K/V."""
+    form = ("prefill" if dtype == torch.bfloat16 and S * G > _DECODE_ROWS
+            else "decode")
+    rows = _ROWS if form == "prefill" else _DECODE_ROWS
+    blocks = B * Hkv * -(-(S * G) // rows)
     num_tiles = -(-T // _COLS)
-    target = max(1, -(-4 * num_sms // (B * Hkv * row_tiles)))
-    tiles_per_split = -(-num_tiles // min(target, num_tiles))
+    target = max(1, min(num_sms // blocks, num_tiles // _MIN_TILES[dtype]))
+    tiles_per_split = -(-num_tiles // target)
     splits = -(-num_tiles // tiles_per_split)
-    return tiles_per_split, splits
+    return LaunchConfig(form, rows, tiles_per_split, splits)
 
 
 def _launch_kernel(q, k_cache, v_cache, lengths, scale):
+    """Launch the kernel on CUDA tensors. A call of several splits writes
+    f32 partials that a second launch combines."""
     B, S, Hq, D = q.shape
     dev = q.device
     if k_cache.dtype not in _DTYPE_CODE:
@@ -140,19 +173,24 @@ def _launch_kernel(q, k_cache, v_cache, lengths, scale):
         qk = qk.clone()
     G = Hq // Hkv
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tps, splits = kernel_launch_config(B, S, G, Hkv, T, sms)
-    rows = B * Hkv * S * G
-    o_part = torch.empty((splits, rows, D), dtype=torch.float32, device=dev)
-    m_part = torch.empty((splits, rows), dtype=torch.float32, device=dev)
-    l_part = torch.empty((splits, rows), dtype=torch.float32, device=dev)
+    cfg = kernel_launch_config(B, S, G, Hkv, T, k_cache.dtype, sms)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty((B, S, Hq, D), dtype=k_cache.dtype, device=dev)
+    o_part = m_part = l_part = None   # one split: out directly
+    if cfg.splits > 1:
+        rows = B * Hkv * S * G
+        o_part = torch.empty((cfg.splits, rows, D), dtype=torch.float32,
+                             device=dev)
+        m_part, l_part = torch.empty((2, cfg.splits, rows),
+                                     dtype=torch.float32, device=dev)
     lib = _build.load("decode_attention")
     err = lib.decode_attention_forward(
         qk.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens_ptr,
-        uniform, o_part.data_ptr(), m_part.data_ptr(),
-        l_part.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, T, D,
-        _DTYPE_CODE[k_cache.dtype], float(scale), tps, splits,
-        torch.cuda.current_stream(dev).cuda_stream)
+        uniform, *(None if t is None else t.data_ptr()
+                   for t in (o_part, m_part, l_part)),
+        out.data_ptr(), B, S, Hq, Hkv, T, D,
+        _DTYPE_CODE[k_cache.dtype], float(scale), _FORMS[cfg.form],
+        cfg.tiles_per_split, cfg.splits, stream)
     if err != 0:
         msg = lib.decode_attention_error_string(err).decode()
         raise RuntimeError(f"decode attention kernel launch failed: {msg}")

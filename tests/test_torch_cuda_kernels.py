@@ -307,6 +307,115 @@ def test_decode_attention_kernel_rejects_what_it_cannot_run(cuda):
         tda.decode_attention(q, k, v, -1)
 
 
+def _held_to_plain(q, k, v, ln, got, scale=None):
+    ref = tda.decode_attention_ref(q, k, v, ln, scale)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    err = (got.float() - ref.float()).abs()
+    lim = tda.kernel_tolerance(q, k, v, ln, ref, scale)
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= lim).all()), (
+        f"max |kernel - plain| {float(err.max())}, "
+        f"worst over limit {float((err / lim).max())}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G,S", [(1, 16), (1, 17), (1, 63), (1, 64),
+                                 (1, 65), (4, 4), (4, 5), (4, 16), (4, 17),
+                                 (8, 2), (8, 3), (8, 8), (8, 9)])
+def test_decode_attention_kernel_forms_meet_at_16_rows(cuda, dtype, D, G, S):
+    """S*G rows per (request, kv head) at the forms' threshold (16: decode
+    form; 17 and up in bf16: prefill form) and at one 64-row tile's edges,
+    GQA 1 / 4 / 8, one request at the full cache (length T - S)."""
+    T = 200
+    q, k, v = _dense_case(cuda, 4, S, 2, G, D, T, dtype, seed=S * G + D)
+    ln = torch.tensor([0, 37, 130, T - S], dtype=torch.int32, device=cuda)
+    cfg = tda.kernel_launch_config(4, S, G, 2, T, getattr(torch, dtype))
+    assert cfg.form == ("prefill" if dtype == "bfloat16" and S * G > 16
+                        else "decode")
+    before = tda.decode_attention.launches
+    got = tda.decode_attention(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert tda.decode_attention.launches == before + 1
+    _held_to_plain(q, k, v, ln, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scale", [-0.2, 0.0])
+@pytest.mark.parametrize("G,S", [(4, 1), (1, 70)])
+def test_decode_attention_kernel_takes_any_sign_of_scale(cuda, dtype, scale,
+                                                         G, S):
+    """The scale is applied before the mask and the max: a negative scale
+    and scale 0 (uniform weights over the live prefix) hold to the plain
+    version in both forms."""
+    q, k, v = _dense_case(cuda, 3, S, 2, G, 64, 300, dtype, seed=S + G)
+    ln = torch.tensor([0, 100, 300 - S], dtype=torch.int32, device=cuda)
+    got = tda.decode_attention(q, k, v, ln, scale=scale)
+    torch.cuda.synchronize()
+    _held_to_plain(q, k, v, ln, got, scale)
+
+
+@pytest.mark.cuda
+def test_decode_attention_prefill_writes_the_output_in_one_launch(cuda):
+    """generate()'s bf16 prefill (8 requests of 512 rows at length 0, 16
+    heads of 64, T = 640) runs unsplit: one kernel, no partials (the call
+    allocates nothing beyond its output), within the tolerance."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B, S, H, D, T = 8, 512, 16, 64, 640
+    q, k, v = _dense_case(cuda, B, S, H, 1, D, T, "bfloat16", seed=3)
+    cfg = tda.kernel_launch_config(B, S, 1, H, T)
+    assert (cfg.form, cfg.splits) == ("prefill", 1)
+    tda.decode_attention(q, k, v, 0)                # build and warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = tda.decode_attention(q, k, v, 0)
+        torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base == got.nbytes
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.self_device_time_total > 0]
+    assert len(names) == 1 and "dense_prefill_kernel" in names[0], names
+    _held_to_plain(q, k, v, 0, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,S", [(1, 1), (8, 2), (1, 64), (4, 9)])
+def test_decode_attention_split_calls_repeat_and_hold(cuda, dtype, G, S):
+    """One request over a long cache runs many splits in either form,
+    combined by a second launch: two calls give the same bits, and they
+    hold to the plain version."""
+    T = 2000
+    q, k, v = _dense_case(cuda, 1, S, 2, G, 64, T, dtype, seed=G * S)
+    ln = torch.tensor([T - S], dtype=torch.int32, device=cuda)
+    cfg = tda.kernel_launch_config(1, S, G, 2, T, getattr(torch, dtype))
+    assert cfg.splits > 1
+    got = tda.decode_attention(q, k, v, ln)
+    again = tda.decode_attention(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _held_to_plain(q, k, v, ln, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 512])
+def test_decode_attention_kernel_is_deterministic(cuda, dtype, S):
+    """generate()'s shapes (decode and prefill) give the same bits call
+    after call."""
+    q, k, v = _dense_case(cuda, 8, S, 16, 1, 64, 640, dtype, seed=S)
+    ln = torch.randint(0, 640 - S + 1, (8,), dtype=torch.int32, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(S))
+    first = tda.decode_attention(q, k, v, ln)
+    for _ in range(3):
+        assert torch.equal(first, tda.decode_attention(q, k, v, ln))
+
+
 @pytest.mark.cuda
 def test_generate_on_the_card_matches_the_plain_path(cuda):
     """A small GPT (head dim 64) gives the same greedy tokens through the

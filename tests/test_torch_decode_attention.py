@@ -7,10 +7,11 @@ of ``test_splitkv_parity`` and ``test_splitkv_per_request_lengths_and_prefill``
 Tolerances: f32 1e-5 (the same arithmetic, summed in another order); bf16
 the elementwise bound of ``kernel_tolerance``, 2^-7 (|ref| + sum_j p_j |v_j|)
 (both sides round probabilities and the output to bf16, at slightly
-different places), which a mask one column short breaks. The CUDA kernel is held against the port's plain version
-on the card in ``test_torch_cuda_kernels.py``; here its bf16 limit
-(``kernel_tolerance``) is checked against a CPU emulation of the kernel's
-rounding.
+different places), which a mask one column short breaks. The CUDA kernel
+is held against the port's plain version on the card in
+``test_torch_cuda_kernels.py``; here its bf16 limit (``kernel_tolerance``)
+is checked against a CPU emulation of the kernel's rounding, in the order
+each of its two forms walks the cache.
 """
 import numpy as np
 import pytest
@@ -95,23 +96,62 @@ def test_wrapper_runs_the_plain_version_on_cpu_tensors():
 
 
 def test_kernel_launch_config_covers_the_grid():
+    """Every tile lies in exactly one split; bf16 calls past 16 rows per
+    (request, kv head) take the prefill form, the rest (and f32) the decode
+    form; generate()'s prefill and decode run unsplit (their blocks write
+    the output directly); and short batches split to fill the card where
+    the cache allows."""
     for B, S, G, Hkv, T in [(8, 1, 1, 16, 640), (8, 512, 1, 16, 640),
                             (1, 1, 8, 2, 100), (3, 70, 4, 2, 1000),
-                            (2, 1, 1, 1, 64)]:
-        tps, splits = tda.kernel_launch_config(B, S, G, Hkv, T)
-        num_tiles = -(-T // 64)
-        assert splits * tps >= num_tiles > (splits - 1) * tps
-        blocks = splits * B * Hkv * -(-(S * G) // 64)
-        # enough blocks for 4 per SM of 132, unless every tile has one
-        assert blocks >= min(4 * 132, B * Hkv * -(-(S * G) // 64)
-                             * num_tiles)
+                            (2, 1, 1, 1, 64), (1, 16, 1, 16, 2048),
+                            (1, 17, 1, 16, 2048), (2, 4, 4, 2, 300),
+                            (2, 5, 4, 2, 300), (1, 256, 1, 16, 336)]:
+        for dtype in (torch.bfloat16, torch.float32):
+            cfg = tda.kernel_launch_config(B, S, G, Hkv, T, dtype)
+            big = dtype == torch.bfloat16 and S * G > 16
+            assert cfg.form == ("prefill" if big else "decode")
+            assert cfg.rows == (64 if big else 16)
+            num_tiles = -(-T // 64)
+            tps, splits = cfg.tiles_per_split, cfg.splits
+            assert splits * tps >= num_tiles > (splits - 1) * tps
+            # one block per SM at most, a split streaming 8 tiles or more
+            # in bf16 (any number in f32), and no fewer splits than that
+            # allows, give or take the rounding of tiles per split
+            base = B * Hkv * -(-(S * G) // cfg.rows)
+            least = 8 if dtype == torch.bfloat16 else 1
+            assert splits == 1 or (splits * base <= 132 and tps >= least)
+            want = max(1, min(132 // base, num_tiles // least))
+            assert splits >= want * 3 // 4
+    prefill = tda.kernel_launch_config(8, 512, 1, 16, 640)
+    assert (prefill.form, prefill.splits) == ("prefill", 1)
+    decode = tda.kernel_launch_config(8, 1, 1, 16, 640)
+    assert (decode.form, decode.splits) == ("decode", 1)
+    single = tda.kernel_launch_config(1, 1, 1, 16, 4096)
+    assert (single.form, single.splits) == ("decode", 8)
+
+
+def _streams(cfg, T):
+    """The kernel's walk of the cache as streams of column chunks, each
+    with its own running max: per split, the 64-column tiles (prefill
+    form), or each warp's 16 columns of every tile (decode form)."""
+    tiles = -(-T // 64)
+    for j in range(cfg.splits):
+        own = range(j * cfg.tiles_per_split,
+                    min((j + 1) * cfg.tiles_per_split, tiles))
+        if cfg.form == "prefill":
+            yield [(t * 64, 64) for t in own]
+        else:
+            for w in range(4):
+                yield [(t * 64 + 16 * w, 16) for t in own]
 
 
 def _kernel_arithmetic(q, k, v, lengths):
-    """The bf16 kernel's rounding on the CPU: f32 scores, unnormalised
-    probabilities rounded to bf16 before P.V (per 64-column tile, against
-    the running max), f32 sums, one division by l, the output rounded to
-    bf16 once."""
+    """The bf16 kernel's rounding on the CPU, in its form's order
+    (``kernel_launch_config``): f32 scores; along each stream of
+    ``_streams`` the unnormalised probabilities rounded to bf16 against the
+    stream's running max before P.V, l summing them unrounded; the streams
+    (warps, then splits) merged in f32 by their final maxima; one division
+    by l, the output rounded to bf16 once."""
     B, S, Hq, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -124,14 +164,26 @@ def _kernel_arithmetic(q, k, v, lengths):
     allowed = torch.arange(T + pad)[None, None] <= pos_q[:, :, None]
     allowed &= torch.arange(T + pad)[None, None] < T
     sc = sc.masked_fill(~allowed[:, None, None], -float("inf"))
-    m = sc.reshape(*sc.shape[:-1], -1, 64).amax(-1).cummax(-1).values
-    m = m.repeat_interleave(64, -1)              # running max per tile
-    p = torch.exp(sc - m).nan_to_num()
-    w = torch.exp(m - m[..., -1:]).nan_to_num()  # rescale to the final max
-    l = (p * w).sum(-1, keepdim=True)
-    pv = p.to(torch.bfloat16).float() * w
-    out = torch.einsum("bngst,bntd->bsngd", pv / l.clamp(min=1e-30), vf)
-    return out.reshape(B, S, Hq, D).to(torch.bfloat16)
+    parts = []                                   # (m, l, o) per stream
+    for chunks in _streams(tda.kernel_launch_config(B, S, G, Hkv, T), T):
+        if not chunks:
+            continue
+        cols = torch.cat([torch.arange(c0, c0 + w) for c0, w in chunks])
+        width = chunks[0][1]
+        s = sc[..., cols]
+        m = s.reshape(*s.shape[:-1], -1, width).amax(-1).cummax(-1).values
+        m = m.repeat_interleave(width, -1)      # running max per chunk
+        p = torch.exp(s - m).nan_to_num()
+        w = torch.exp(m - m[..., -1:]).nan_to_num()  # to the final max
+        o = torch.einsum("bngst,bntd->bngsd",
+                         p.to(torch.bfloat16).float() * w, vf[:, :, cols])
+        parts.append((m[..., -1], (p * w).sum(-1), o))
+    m_star = torch.stack([m for m, _, _ in parts]).amax(0)
+    l = sum(l * torch.exp(m - m_star).nan_to_num() for m, l, _ in parts)
+    o = sum(o * torch.exp(m - m_star).nan_to_num()[..., None]
+            for m, _, o in parts)
+    out = o / l.clamp(min=1e-30)[..., None]           # [B, Hkv, G, S, D]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(torch.bfloat16)
 
 
 @pytest.mark.parametrize("G,S", [(1, 1), (4, 1), (1, 40), (4, 5)])
