@@ -42,6 +42,17 @@ non-zero without the final line:
    of the full model hold every layer's kernel call against the plain
    version on the same inputs, and the logits against the plain attention
    path; a planted fault (lengths one short) must fail the per-layer check.
+   Before the requests, the graphs phase: decode_step (8 slots x 4 steps
+   over 300-900 cached tokens), prefill_chunk (C = 64), verify_step (4
+   drafts) and generate(ids [8, 512], 128 new) each capture their CUDA
+   graphs on the first call (keys, captures, capture ms, graph-pool
+   bytes); a replay must give the same tokens as the body run without
+   capture on the same inputs, greedy and sampled, and a captured paged
+   forward's logits are held to its body's (max |diff|, 0 expected); each
+   step program is timed and profiled in both forms (host wall, device ms,
+   busy share, device kernels, host launch calls, and the graph's device
+   time by CUDA events). The launch counts below hold through replays: a
+   replay adds the launches its capture recorded.
 8. dense kernel vs plain — the dense split-KV kernel (decode form up to 16
    query rows per (request, kv head) and in f32, prefill form above) against
    its plain version, within ``decode_attention.kernel_tolerance`` (f32
@@ -65,9 +76,10 @@ non-zero without the final line:
    must fail that check at the second prefill and at the decode, each on
    its own. Then the main path: generate(ids [8, 512], max_new_tokens=128),
    greedy and sampled (temperature 0.8, top-k 40), prefill and decode
-   tokens/s, exactly num_layers x forwards dense launches; a profiled
-   decode forward; the whole-batch GenerateBatchingPredictor behind
-   InferenceServer (6 threaded requests of 64-500 prompt tokens, 32 new,
+   tokens/s, exactly num_layers x forwards dense launches (the replays
+   of the key's prefill and decode programs); a decode forward profiled
+   as its body and as its replay; the whole-batch
+   GenerateBatchingPredictor behind InferenceServer (6 threaded requests of 64-500 prompt tokens, 32 new,
    and one over HTTP: lengths, ids, pool conservation, paged launches);
    one request through a predictor whose pool signature does not match
    (served by dense generate(), the dense count rising, the pool
@@ -798,18 +810,194 @@ def insitu_check(torch, model, cache_cls, device, C=64, slots=8):
     return rec
 
 
-def profile_steps(torch, model, cache_cls, device, slots=8, chunk=64,
-                  decode_steps=4, seed=6):
-    """Where a serving step's time goes: one decode_step (``decode_steps``
-    tokens per slot) and one prefill_chunk over 8 slots with 300-900
-    cached tokens each, timed by the host clock without the profiler and
-    then traced by torch.profiler. Reports the device's busy share (the
-    sum of kernel times over the profiled wall; kernels run on one stream
-    and do not overlap), the attention kernel's share of device time and
-    the heaviest kernels. Device numbers are None where the profiler
-    recorded no device time."""
+# CUDA runtime calls that put work on the device, as the profiler names them
+HOST_LAUNCH_CALLS = re.compile(
+    r"^cu(da)?(LaunchKernel(ExC|Ex)?|GraphLaunch"
+    r"|Memcpy\w*Async|Memset\w*Async)$")
+
+
+def graph_pool_bytes(torch, model):
+    """Bytes the caching allocator holds in ``model``'s graph memory pool
+    (every capture of the model allocates from it); None where the
+    allocator's snapshot names no pools."""
+    pool = getattr(model, "_graph_pool_handle", None)
+    if pool is None:
+        return 0
+    segs = torch.cuda.memory_snapshot()
+    if segs and "segment_pool_id" not in segs[0]:
+        return None
+    return int(sum(s["total_size"] for s in segs
+                   if tuple(s["segment_pool_id"]) == tuple(pool)))
+
+
+def captures_total(model):
+    """Graphs captured so far by the model's live runners."""
+    return sum(r["captures"] for r in runner_stats(model).values())
+
+
+def runner_stats(model):
+    """{kind: keys, captures, replays, capture seconds} of the model's
+    step-program runners."""
+    out = {}
+    for key, run in list(model._runner_cache().items()):
+        rec = out.setdefault(key[0], dict(keys=0, captures=0, replays=0,
+                                          capture_s=0.0))
+        rec["keys"] += 1
+        rec["captures"] += run.captures
+        rec["replays"] += run.replays
+        rec["capture_s"] += run.capture_s
+    return out
+
+
+def profile_call(torch, fn, attention=()):
+    """Where one call's time goes: ``fn`` (ending in a host copy or a
+    synchronisation) timed by the host clock (median of 3 after a warm
+    call), then traced by torch.profiler over one call: the device time of
+    the kernels the profiler saw and their count, the device's busy share
+    (kernel time over the profiled wall; one stream, no overlap), the host's
+    launch calls (the CUDA runtime calls that put kernels, graphs and copies
+    on the device), the share of device time in kernels whose names hold
+    one of ``attention``, and the time by kernel kind."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    calls = {e.key: e.count for e in events
+             if HOST_LAUNCH_CALLS.match(e.key)}
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    attn_us = sum(e.self_device_time_total for e in kernels
+                  if any(a in e.key for a in attention))
+    by_kind = {}
+    for e in kernels:
+        kind = ("attention" if any(a in e.key for a in attention)
+                else kernel_kind(e.key))
+        ms, n = by_kind.get(kind, (0.0, 0))
+        by_kind[kind] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(wall_ms=float(np.median(walls)) * 1e3,
+                profiled_wall_ms=prof_wall * 1e3,
+                device_ms=dev_us / 1e3 if dev_us else None,
+                kernel_launches=int(sum(e.count for e in kernels)),
+                device_busy_share=(dev_us / 1e6 / prof_wall
+                                   if dev_us else None),
+                host_launch_calls=int(sum(calls.values())),
+                host_calls_by_name=calls,
+                attention_share_of_device=(attn_us / dev_us
+                                           if dev_us else None),
+                device_ms_by_kind=by_kind,
+                top_kernels=[(e.key[:80], e.count,
+                              e.self_device_time_total / 1e3) for e in top])
+
+
+def graph_device_ms(torch, run, name, reps=10):
+    """Device time of one replay of ``run``'s graph ``name``: CUDA events
+    around ``reps`` back-to-back replays on the same inputs (measurement
+    replays, left out of the wrappers' launch counts)."""
+    graph = run.graphs[name]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with run.lock:
+        graph.replay()
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_launch_ms(torch, run, name, reps=10):
+    """Host time of one ``replay()`` call of ``run``'s graph ``name``
+    (the device idle first, so the launches do not queue behind work)."""
+    graph = run.graphs[name]
+    out = []
+    with run.lock:
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph.replay()
+            out.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return float(np.median(out)) * 1e3
+
+
+def both_forms(torch, fn, run, name, attention):
+    """``profile_call`` of ``fn`` with ``run``'s bodies run without capture
+    (``body``) and replayed (``replay``), and the graph's device time."""
+    with run._eager():
+        body = profile_call(torch, fn, attention)
+    replay = profile_call(torch, fn, attention)
+    replay["graph_device_ms"] = graph_device_ms(torch, run, name)
+    replay["graph_launch_ms"] = graph_launch_ms(torch, run, name)
+    return dict(body=body, replay=replay)
+
+
+PAGED_ATTENTION = ("paged_partials_kernel", "combine_kernel")
+DENSE_ATTENTION = ("dense_decode_kernel", "dense_prefill_kernel",
+                   "split_kv_combine_kernel")
+
+
+def forward_logits_check(torch, model, kv, tables, offsets, ids, device):
+    """One paged forward (the prefill program's) captured into a graph of
+    its own, its last-position logits against the same forward's body on
+    the same inputs: max |replay - body| (0 expected)."""
+    from paddle_tpu_torch.jit.graphs import StepRunner
+
+    S, C = ids.shape
+    V = model.config.vocab_size
+
+    def body(inp, out):
+        valid = torch.ones((S, C), dtype=torch.bool, device=device)
+        step = model._device_step(inp["offsets"], C, inp["tables"], valid,
+                                  kv.block_size, kv.scratch_slot)
+        lg = model._decode_call(model._decode_state(kv.dtype), inp["ids"],
+                                kv.k_pages, kv.v_pages, step, "kernel")
+        out["logits"].copy_(lg[:, -1].float())
+
+    run = StepRunner(device, {"ids": ((S, C), torch.int64),
+                              "offsets": ((S,), torch.int64),
+                              "tables": (tables.shape, torch.int32)},
+                     {"logits": ((S, V), torch.float32)}, {"fwd": body},
+                     pool=model._graph_pool())
+    run.fill(ids=ids, offsets=offsets, tables=tables)
+    with run._eager():
+        run.run("fwd")
+    eager = run.read()["logits"]
+    run.run("fwd")                  # first run: the body, then the capture
+    run.run("fwd")                  # a replay
+    replay = run.read()["logits"]
+    if not np.isfinite(eager).all():
+        raise AssertionError("non-finite logits in the captured forward")
+    return float(np.abs(replay - eager).max())
+
+
+def profile_steps(torch, model, cache_cls, device, slots=8, chunk=64,
+                  decode_steps=4, spec_k=4, seed=6):
+    """The graphs phase of the paged step programs, and where their time
+    goes. decode_step (``decode_steps`` tokens per slot), prefill_chunk
+    (``chunk`` rows per slot) and verify_step (``spec_k`` drafts) over 8
+    slots with 300-900 cached tokens each, bf16. Per program: the first
+    call, which runs the body and captures its graph (capture time, the
+    graph pool's growth); the replay against the body run without capture
+    on the same inputs, greedy and sampled (temperature 0.8, top-k 40, one
+    seed): the tokens must be identical; then both forms through
+    ``profile_call``, and the graph's device time by CUDA events. Last, a
+    captured paged forward's logits against its body's."""
     rng = np.random.default_rng(seed)
     kv = cache_cls(*model._decode_cache_spec(), block_size=32,
                    num_blocks=slots * 1024 // 32, dtype=torch.bfloat16,
@@ -817,50 +1005,107 @@ def profile_steps(torch, model, cache_cls, device, slots=8, chunk=64,
     tables = np.stack([kv.reserve(i, 1024) for i in range(slots)])
     lengths = rng.integers(300, 900, slots)
     V = model.config.vocab_size
-    calls = {
-        "decode_step": lambda: model.decode_step(
-            rng.integers(0, V, slots), lengths, np.ones(slots, bool), kv,
-            tables, steps=decode_steps, max_lens=lengths + decode_steps),
-        "prefill_chunk": lambda: model.prefill_chunk(
-            rng.integers(0, V, (slots, chunk)), lengths,
-            np.full(slots, chunk), kv, tables),
+    tok = rng.integers(0, V, slots)
+    chunk_ids = rng.integers(0, V, (slots, chunk))
+    vchunk = rng.integers(0, V, (slots, spec_k + 1))
+    every = np.ones(slots, bool)
+    programs = {
+        "decode_step": (
+            lambda **kw: model.decode_step(
+                tok, lengths, every, kv, tables, steps=decode_steps,
+                max_lens=lengths + decode_steps, **kw),
+            lambda: model.compiled_decode_step_runner(slots, decode_steps),
+            slots * decode_steps),
+        "prefill_chunk": (
+            lambda **kw: model.prefill_chunk(
+                chunk_ids, lengths, np.full(slots, chunk), kv, tables, **kw),
+            lambda: model.compiled_prefill_chunk_runner(slots, chunk),
+            slots * chunk),
+        "verify_step": (
+            lambda **kw: model.verify_step(
+                vchunk, lengths, np.full(slots, spec_k), every, kv, tables,
+                max_lens=lengths + spec_k + 1, **kw),
+            lambda: model.compiled_verify_step_runner(slots, spec_k + 1),
+            slots * (spec_k + 1)),
     }
+    sampled = dict(temperature=0.8, top_k=40, seed=3)
     out = {}
-    for name, call in calls.items():
-        call()                                      # warm
+    for name, (call, runner, tokens) in programs.items():
+        pool0 = graph_pool_bytes(torch, model)
         t0 = time.perf_counter()
-        call()                                      # ends in a host copy
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            call()
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0]
-        dev_us = sum(e.self_device_time_total for e in kernels)
-        attn_us = sum(e.self_device_time_total for e in kernels
-                      if "paged_partials_kernel" in e.key
-                      or "combine_kernel" in e.key)
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-        rec = dict(call=name, slots=slots, tokens=int(
-                       slots * (decode_steps if name == "decode_step"
-                                else chunk)),
-                   wall_ms=wall * 1e3, profiled_wall_ms=prof_wall * 1e3,
-                   device_ms=dev_us / 1e3 if dev_us else None,
-                   kernel_launches=int(sum(e.count for e in kernels)),
-                   device_busy_share=(dev_us / 1e6 / prof_wall
-                                      if dev_us else None),
-                   attention_share_of_device=(attn_us / dev_us
-                                              if dev_us else None),
-                   top_kernels=[(e.key[:80], e.count,
-                                 e.self_device_time_total / 1e3)
-                                for e in top])
-        print("profile", json.dumps(rec), flush=True)
+        call()                                      # body, then capture
+        first_ms = (time.perf_counter() - t0) * 1e3
+        run = runner()
+        pool1 = graph_pool_bytes(torch, model)
+        equal = {}
+        for form, kw in (("greedy", {}), ("sampled", sampled)):
+            with run._eager():
+                body = call(**kw)
+            replay = call(**kw)
+            equal[form] = all(np.array_equal(a, b) for a, b in zip(
+                body if isinstance(body, tuple) else (body,),
+                replay if isinstance(replay, tuple) else (replay,)))
+        forms = both_forms(torch, call, run, "step", PAGED_ATTENTION)
+        rec = dict(program=name, slots=slots, tokens=tokens,
+                   keys=len(model._runners(name)), captures=run.captures,
+                   capture_ms=run.capture_s * 1e3, first_call_ms=first_ms,
+                   graph_pool_bytes=pool1,
+                   graph_pool_growth_bytes=(None if None in (pool0, pool1)
+                                            else pool1 - pool0),
+                   replay_equals_body=equal, **forms)
+        print("graphs", json.dumps(rec), flush=True)
         out[name] = rec
+        if not all(equal.values()):
+            raise AssertionError(f"{name}: replay differs from its body: "
+                                 f"{equal}")
+        if run.captures != (run.device.type == "cuda"):
+            raise AssertionError(f"{name}: {run.captures} captures")
+    out["forward_logits_max_abs_diff"] = forward_logits_check(
+        torch, model, kv, tables, lengths, chunk_ids, device)
+    print("graphs-logits", json.dumps(
+        {"max_abs_diff": out["forward_logits_max_abs_diff"]}), flush=True)
     return out
+
+
+def dense_graphs(torch, model, device):
+    """The graphs phase of generate(ids [8, 512], max_new_tokens=128),
+    bf16: the first call (the prefill and decode bodies, then their
+    capture), then the replayed call against the bodies run without
+    capture, greedy and sampled (tokens identical), and the host wall of
+    each form."""
+    rng = np.random.default_rng(21)
+    V = model.config.vocab_size
+    ids = torch.as_tensor(rng.integers(0, V, (GEN_B, GEN_P)), device=device)
+    pool0 = graph_pool_bytes(torch, model)
+    t0 = time.perf_counter()
+    model.generate(ids, max_new_tokens=GEN_NEW).cpu()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    run = model.compiled_generate_runner(GEN_B, GEN_P, GEN_NEW)
+    pool1 = graph_pool_bytes(torch, model)
+    equal, wall = {}, {}
+    for form, kw in (("greedy", {}), ("sampled", dict(temperature=0.8,
+                                                      top_k=40, seed=1))):
+        t0 = time.perf_counter()
+        with run._eager():
+            body = model.generate(ids, max_new_tokens=GEN_NEW, **kw).cpu()
+        t1 = time.perf_counter()
+        replay = model.generate(ids, max_new_tokens=GEN_NEW, **kw).cpu()
+        t2 = time.perf_counter()
+        equal[form] = bool(torch.equal(body, replay))
+        wall[form] = dict(body_ms=(t1 - t0) * 1e3, replay_ms=(t2 - t1) * 1e3)
+    rec = dict(program="generate", B=GEN_B, prompt=GEN_P,
+               new_tokens=GEN_NEW, keys=len(model._runners("dense")),
+               captures=run.captures, capture_ms=run.capture_s * 1e3,
+               first_call_ms=first_ms, graph_pool_bytes=pool1,
+               graph_pool_growth_bytes=(None if None in (pool0, pool1)
+                                        else pool1 - pool0),
+               replay_equals_body=equal, wall=wall)
+    print("graphs", json.dumps(rec), flush=True)
+    if not all(equal.values()) or run.captures != 2 * (
+            run.device.type == "cuda"):
+        raise AssertionError(f"generate(): replay differs from its body or "
+                             f"captured {run.captures} programs: {rec}")
+    return rec
 
 
 def serve(torch, model, device, n_requests=12, http_requests=2,
@@ -884,24 +1129,29 @@ def serve(torch, model, device, n_requests=12, http_requests=2,
         max_new_tokens=new_range[1], max_seq_len=max_seq_len, kv_cache=kv,
         device=device)
     stats = dict(prefill_s=0.0, prefill_tokens=0, prefill_calls=0,
-                 decode_s=0.0, decode_tokens=0, decode_calls=0)
+                 prefill_capture_s=0.0, decode_s=0.0, decode_tokens=0,
+                 decode_calls=0, decode_capture_s=0.0)
     pf, dc = model.prefill_chunk, model.decode_step
 
-    def timed_prefill(chunk_ids, offsets, chunk_lens, *a, **kw):
+    def timed(phase, call, tokens, *a, **kw):
+        seen = []
         t0 = time.perf_counter()
-        out = pf(chunk_ids, offsets, chunk_lens, *a, **kw)  # synced (.cpu)
-        stats["prefill_s"] += time.perf_counter() - t0
-        stats["prefill_tokens"] += int(np.sum(chunk_lens))
-        stats["prefill_calls"] += 1
+        out = call(*a, timing_hook=seen.append, **kw)    # ends in a copy
+        dt = time.perf_counter() - t0
+        stats[f"{phase}_s"] += dt
+        stats[f"{phase}_tokens"] += tokens
+        stats[f"{phase}_calls"] += 1
+        if seen[0]["compiled"]:         # the call that captured the graph
+            stats[f"{phase}_capture_s"] += dt
         return out
 
+    def timed_prefill(chunk_ids, offsets, chunk_lens, *a, **kw):
+        return timed("prefill", pf, int(np.sum(chunk_lens)), chunk_ids,
+                     offsets, chunk_lens, *a, **kw)
+
     def timed_decode(tokens, lengths, active, *a, steps=1, **kw):
-        t0 = time.perf_counter()
-        out = dc(tokens, lengths, active, *a, steps=steps, **kw)
-        stats["decode_s"] += time.perf_counter() - t0
-        stats["decode_tokens"] += int(np.sum(active)) * steps
-        stats["decode_calls"] += 1
-        return out
+        return timed("decode", dc, int(np.sum(active)) * steps, tokens,
+                     lengths, active, *a, steps=steps, **kw)
 
     model.prefill_chunk, model.decode_step = timed_prefill, timed_decode
     rng = np.random.default_rng(9)
@@ -921,6 +1171,7 @@ def serve(torch, model, device, n_requests=12, http_requests=2,
             errors[i] = repr(e)
 
     srv = InferenceServer(gp, device=device, default_timeout=600).start()
+    captures0 = captures_total(model)
     pa.paged_decode_attention.launches = 0          # main path starts here
     t0 = time.perf_counter()
     try:
@@ -977,9 +1228,17 @@ def serve(torch, model, device, n_requests=12, http_requests=2,
                decode_tokens=stats["decode_tokens"],
                decode_s=stats["decode_s"],
                decode_tok_per_s=stats["decode_tokens"] / stats["decode_s"],
+               prefill_capture_s=stats["prefill_capture_s"],
+               decode_capture_s=stats["decode_capture_s"],
+               prefill_tok_per_s_replayed=stats["prefill_tokens"] / (
+                   stats["prefill_s"] - stats["prefill_capture_s"]),
+               decode_tok_per_s_replayed=stats["decode_tokens"] / (
+                   stats["decode_s"] - stats["decode_capture_s"]),
                prefill_ticks=snap.get("prefill_ticks", 0),
                decode_ticks=snap.get("decode_ticks", 0),
-               kernel_launches=launches, expected_launches=expect)
+               kernel_launches=launches, expected_launches=expect,
+               captures=captures_total(model) - captures0,
+               runners=runner_stats(model))
     print("serving", json.dumps(rec), flush=True)
     if rec["completed"] != n_requests + http_requests:
         raise AssertionError(f"completed {rec['completed']} of "
@@ -1079,7 +1338,8 @@ def dense_insitu(torch, model, device):
 def generation(torch, model, device):
     """The dense main path: generate(ids [8, 512], max_new_tokens=128) in
     bf16, greedy and then sampled (temperature 0.8, top-k 40). A prefill-only
-    call (max_new_tokens=1) before it times the prefill; decode tokens/s is
+    call (max_new_tokens=1, the second of its key: a replay) before it
+    times the prefill; decode tokens/s is
     the remaining 127 tokens per request over the rest of the greedy call.
     The dense kernel must launch exactly num_layers x forwards times."""
     from paddle_tpu_torch.ops import decode_attention as da
@@ -1094,8 +1354,10 @@ def generation(torch, model, device):
         out = model.generate(ids, **kw).cpu()       # ends in a host copy
         return out, time.perf_counter() - t0
 
-    timed(max_new_tokens=GEN_NEW)                   # warm
+    timed(max_new_tokens=GEN_NEW)                   # warm: captures
+    timed(max_new_tokens=1)                         # its own key: captures
     _, prefill_s = timed(max_new_tokens=1)
+    captures0 = captures_total(model)
     da.decode_attention.launches = 0                # main path starts here
     greedy, greedy_s = timed(max_new_tokens=GEN_NEW)
     sampled, sampled_s = timed(max_new_tokens=GEN_NEW, temperature=0.8,
@@ -1117,6 +1379,8 @@ def generation(torch, model, device):
                decode_tok_per_s=GEN_B * (GEN_NEW - 1) / decode_s,
                sampled_tok_per_s=GEN_B * GEN_NEW / sampled_s,
                kernel_launches=launches, expected_launches=expect,
+               captures=captures_total(model) - captures0,
+               runners=runner_stats(model),
                sampled_differs_from_greedy=bool(
                    (greedy.numpy() != sampled.numpy()).any()))
     print("generation", json.dumps(rec), flush=True)
@@ -1127,71 +1391,28 @@ def generation(torch, model, device):
 
 
 def profile_dense_step(torch, model, device):
-    """Where a generate() decode step's time goes: one dense decode forward
-    (8 requests at length 512 of T = 640, bf16) timed by the host clock
-    and then traced by torch.profiler, as ``profile_steps`` does."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from paddle_tpu_torch.models.gpt import DenseStep
-
+    """Where a generate() decode step's time goes: one decode forward and
+    its sampler (8 requests at length 512 of T = 640, bf16 over the f32
+    model's cast state), generate()'s own decode program of the main
+    path's key, run as its body without capture and replayed, each through
+    ``profile_call``, and the graph's device time by CUDA events. About 20
+    decode runs after one prefill: rows 512-532 of the 640."""
     rng = np.random.default_rng(24)
     V = model.config.vocab_size
-    L, Hkv, D = model._decode_cache_spec()
-    state = model._decode_state(torch.bfloat16)
-    shape = (GEN_B, Hkv, GEN_P + GEN_NEW, D)
-    kc = [torch.zeros(shape, dtype=torch.bfloat16, device=device)
-          for _ in range(L)]
-    vc = [torch.zeros(shape, dtype=torch.bfloat16, device=device)
-          for _ in range(L)]
-    ids = torch.as_tensor(rng.integers(0, V, (GEN_B, GEN_P + 1)),
-                          device=device)
+    ids = rng.integers(0, V, (GEN_B, GEN_P))
+    model.generate(ids, max_new_tokens=GEN_NEW)
+    run = model.compiled_generate_runner(GEN_B, GEN_P, GEN_NEW)
+    run.fill(ids=ids, temps=np.zeros(GEN_B, np.float32),
+             top_ks=np.zeros(GEN_B, np.int64),
+             u=np.zeros((GEN_NEW, GEN_B), np.float32))
+    run.run("prefill")
 
     def step():
-        with torch.no_grad():
-            lg = model._decode_call(state, ids[:, GEN_P:], kc, vc,
-                                    DenseStep(GEN_P), "kernel")
-            return lg[:, -1].argmax(-1).cpu()
-
-    with torch.no_grad():
-        model._decode_call(state, ids[:, :GEN_P], kc, vc,
-                           DenseStep(0), "kernel")
-    step()                                          # warm
-    t0 = time.perf_counter()
-    step()
-    wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
+        run.run("decode")
         torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    dev_us = sum(e.self_device_time_total for e in kernels)
-    def dense(name):
-        return any(k in name for k in ("dense_decode_kernel",
-                                       "dense_prefill_kernel",
-                                       "split_kv_combine_kernel"))
 
-    attn_us = sum(e.self_device_time_total for e in kernels if dense(e.key))
-    by_kind = {}
-    for e in kernels:
-        kind = "dense attention" if dense(e.key) else kernel_kind(e.key)
-        ms, n = by_kind.get(kind, (0.0, 0))
-        by_kind[kind] = (ms + e.self_device_time_total / 1e3, n + e.count)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     rec = dict(call="generate decode forward", B=GEN_B, length=GEN_P,
-               wall_ms=wall * 1e3, profiled_wall_ms=prof_wall * 1e3,
-               device_ms=dev_us / 1e3 if dev_us else None,
-               kernel_launches=int(sum(e.count for e in kernels)),
-               device_busy_share=(dev_us / 1e6 / prof_wall
-                                  if dev_us else None),
-               attention_share_of_device=(attn_us / dev_us
-                                          if dev_us else None),
-               device_ms_by_kind=by_kind,
-               top_kernels=[(e.key[:80], e.count,
-                             e.self_device_time_total / 1e3) for e in top])
+               **both_forms(torch, step, run, "decode", DENSE_ATTENTION))
     print("dense-profile", json.dumps(rec), flush=True)
     return rec
 
@@ -1242,6 +1463,7 @@ def batch_serve(torch, model, device, n_requests=6, new=32,
             errors[i] = repr(e)
 
     srv = InferenceServer(gp, device=device, default_timeout=600).start()
+    captures0 = captures_total(model)
     pa.paged_decode_attention.launches = 0
     t0 = time.perf_counter()
     try:
@@ -1272,7 +1494,8 @@ def batch_serve(torch, model, device, n_requests=6, new=32,
                completed=snap.get("completed", 0),
                batch_sizes=list(gp.batch_sizes), new_tokens=new, wall_s=wall,
                tok_per_s=(n_requests + 1) * new / wall,
-               paged_launches=launches, expected_launches=expect)
+               paged_launches=launches, expected_launches=expect,
+               captures=captures_total(model) - captures0)
     print("batch-serving", json.dumps(rec), flush=True)
     if rec["completed"] != n_requests + 1:
         raise AssertionError(f"completed {rec['completed']} of "
@@ -1300,6 +1523,7 @@ def degrade_check(torch, model, device, new=16):
                                    device=device)
     prompt = np.random.default_rng(26).integers(
         0, model.config.vocab_size, 100).astype(np.int64)
+    captures0 = captures_total(model)
     try:
         before = da.decode_attention.launches
         out = gp.infer(prompt, timeout=600)
@@ -1310,7 +1534,8 @@ def degrade_check(torch, model, device, new=16):
     untouched = all(bool((p == 0).all()) for p in bad.k_pages + bad.v_pages)
     rec = dict(fallback_dense=gp.fallback_dense, dense_fallback_batches=
                fallback, dense_launches=launches, expected_launches=L * new,
-               out_len=int(out.shape[0]), pool_untouched=untouched)
+               out_len=int(out.shape[0]), pool_untouched=untouched,
+               captures=captures_total(model) - captures0)
     print("degrade", json.dumps(rec), flush=True)
     if not (gp.fallback_dense and fallback == 1 and launches == L * new
             and out.shape == (len(prompt) + new,)
@@ -1338,8 +1563,10 @@ def speculative(torch, model, device):
 
     rng = np.random.default_rng(27)
     prompt = rng.integers(0, model.config.vocab_size, SPEC_P).astype(np.int64)
-    model.generate_speculative(prompt[:32], max_new_tokens=8,
-                               spec_k=SPEC_K, drafter="self", dtype=None)
+    model.generate_speculative(prompt, max_new_tokens=SPEC_NEW,
+                               spec_k=SPEC_K, drafter="self",
+                               dtype=None)        # warm: captures
+    captures0 = captures_total(model)
     st = SpecStats()
     da.decode_attention.launches = pa.paged_decode_attention.launches = 0
     t0 = time.perf_counter()
@@ -1378,6 +1605,7 @@ def speculative(torch, model, device):
                wall_s=wall, tok_per_s=SPEC_NEW / wall,
                dense_launches=dense_n, paged_launches=paged_n,
                compared_tokens=compared, min_top2_gap=float(gap.min()),
+               captures=captures_total(model) - captures0,
                tokens_equal_greedy=agree,
                total_equal=bool(np.array_equal(spec, ref)),
                oracle=dict(stats=oracle_st.to_dict(), wall_s=oracle_wall,
@@ -2135,6 +2363,7 @@ def main():
           f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     insitu = insitu_check(torch, model, PagedKVCache, device)
     steps = profile_steps(torch, model, PagedKVCache, device)
+    steps["generate"] = dense_graphs(torch, model, device)
     serving = serve(torch, model, device)
     print(f"serving on {card}: prefill {serving['prefill_tok_per_s']:.0f} "
           f"tok/s, decode {serving['decode_tok_per_s']:.0f} tok/s",

@@ -9,8 +9,14 @@ eviction of finished-but-retained requests when the pool runs dry.
 
 The pools are torch tensors updated IN PLACE by the step programs, so
 there is no functional commit: ``commit()`` only checks that the pools it
-is handed are this cache's own. The prefix cache, fault injection, mesh
-sharding and metrics binding of the JAX class are not ported yet.
+is handed are this cache's own. Each pool holds one page more than
+``num_blocks``: page ``num_blocks`` is a scratch page that the allocator
+never hands out and no block table names. The step programs write every
+row of a step, and aim the rows a step drops (idle slots, padding, rows
+past a ceiling or a table) at its first slot, ``scratch_slot``; only
+pages ``[0, num_blocks)`` hold live rows. The prefix cache, fault
+injection, mesh sharding and metrics binding of the JAX class are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -24,6 +30,9 @@ import torch
 from ..framework import resolve_device
 
 __all__ = ["CacheOutOfBlocks", "BlockAllocator", "PagedKVCache"]
+
+
+_UIDS = itertools.count()    # process-unique cache ids (step-program keys)
 
 
 class CacheOutOfBlocks(RuntimeError):
@@ -92,8 +101,8 @@ class PagedKVCache:
         self.num_blocks = int(num_blocks)
         self.dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         self.device = resolve_device(device)
-        shape = (self.num_kv_heads, self.num_blocks, self.block_size,
-                 self.head_dim)
+        shape = (self.num_kv_heads, self.num_blocks + 1, self.block_size,
+                 self.head_dim)                 # + the scratch page
         self.k_pages = [torch.zeros(shape, dtype=self.dtype,
                                     device=self.device)
                         for _ in range(self.num_layers)]
@@ -101,6 +110,9 @@ class PagedKVCache:
                                     device=self.device)
                         for _ in range(self.num_layers)]
         self.allocator = BlockAllocator(self.num_blocks)
+        # the captured step programs hold these pools' addresses: their
+        # cache keys carry this id, never reused by another cache
+        self.uid = next(_UIDS)
         self._requests: dict = {}
         self._clock = itertools.count()
         self.evictions = 0          # finished-but-retained requests reclaimed
@@ -109,6 +121,18 @@ class PagedKVCache:
         # thread (reserve/release); re-entrant: reserve -> _evict_lru ->
         # release
         self._lock = threading.RLock()
+
+    def signature(self):
+        """Hashable shape identity for step-program cache keys (JAX
+        ``kv_cache.py:149-152``)."""
+        return (self.num_layers, self.num_kv_heads, self.head_dim,
+                self.block_size, self.num_blocks, str(self.dtype))
+
+    @property
+    def scratch_slot(self) -> int:
+        """The flat pool slot (page * block_size + row) that takes the rows
+        a fixed-length write drops: the first row of the scratch page."""
+        return self.num_blocks * self.block_size
 
     def blocks_for(self, seq_len: int) -> int:
         return max(1, math.ceil(seq_len / self.block_size))

@@ -30,6 +30,7 @@ ledger).
 from __future__ import annotations
 
 import itertools
+import threading
 
 import numpy as np
 import torch
@@ -165,6 +166,33 @@ class SpecStats:
 
 
 _RID = itertools.count(1)   # process-unique reservation ids (atomic draw)
+_SPARE_LOCK = threading.Lock()
+_BLOCK = 32                 # block size of the private pools
+
+
+def _lend_pool(model, total, dtype):
+    """A private pool for one request of ``total`` tokens: the model's
+    spare one when it has that size and dtype, else a new one. The step
+    programs are captured over a pool's addresses, so handing the same
+    pool to the next call of that size replays them instead of capturing
+    anew (JAX keys its programs on the pool's signature alone)."""
+    num_blocks = (total + _BLOCK - 1) // _BLOCK + 1
+    dtype = torch.float32 if dtype is None else (
+        getattr(torch, dtype) if isinstance(dtype, str) else dtype)
+    with _SPARE_LOCK:
+        kv = model.__dict__.pop("_spec_spare_pool", None)
+    if kv is not None and (kv.num_blocks, kv.dtype) == (num_blocks, dtype):
+        return kv
+    return PagedKVCache(*model._decode_cache_spec(), block_size=_BLOCK,
+                        num_blocks=num_blocks, dtype=dtype,
+                        device=model.device)
+
+
+def _return_pool(model, kv_cache):
+    """Keep ``kv_cache`` as the model's spare private pool (one at most: a
+    pool of another size that was kept goes, and its programs with it)."""
+    with _SPARE_LOCK:
+        model.__dict__["_spec_spare_pool"] = kv_cache
 
 
 def speculative_generate(model, input_ids, max_new_tokens=32, spec_k=4,
@@ -182,7 +210,8 @@ def speculative_generate(model, input_ids, max_new_tokens=32, spec_k=4,
 
     ``kv_cache``: an optional shared PagedKVCache; by default a private pool
     sized for this request, on the model's device, in ``dtype`` (None:
-    float32). ``stats``: an optional SpecStats accumulated in place."""
+    float32), lent from the model (``_lend_pool``). ``stats``: an optional
+    SpecStats accumulated in place."""
     ids = np.asarray(input_ids.cpu() if isinstance(input_ids, torch.Tensor)
                      else input_ids)
     batched = ids.ndim == 2
@@ -202,13 +231,9 @@ def speculative_generate(model, input_ids, max_new_tokens=32, spec_k=4,
     seed_iter = itertools.count(int(seed))
 
     total = plen + max_new
-    if kv_cache is None:
-        bs = 32
-        kv_cache = PagedKVCache(
-            *model._decode_cache_spec(), block_size=bs,
-            num_blocks=(total + bs - 1) // bs + 1,
-            dtype=torch.float32 if dtype is None else dtype,
-            device=model.device)
+    private = kv_cache is None
+    if private:
+        kv_cache = _lend_pool(model, total, dtype)
     rid = ("spec", next(_RID))
     kv_cache.reserve(rid, total)
     table = kv_cache.block_table(rid, pad_to=kv_cache.blocks_for(total))[None]
@@ -268,6 +293,8 @@ def speculative_generate(model, input_ids, max_new_tokens=32, spec_k=4,
     finally:
         kv_cache.mark_done(rid)
         kv_cache.release(rid)
+        if private:
+            _return_pool(model, kv_cache)
 
     out = np.concatenate([flat, np.asarray(generated, np.int64)])
     out = out.astype(ids.dtype)

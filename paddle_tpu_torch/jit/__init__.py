@@ -1,4 +1,6 @@
-"""jit of the port: ``TrainStep`` (eager PyTorch; nothing is compiled)."""
+"""jit of the port: ``TrainStep`` (eager PyTorch) and, in ``jit.graphs``,
+``StepRunner``: the step programs captured once per key as CUDA graphs and
+replayed."""
 from .train import TrainStep
 
 __all__ = ["TrainStep"]

@@ -1,0 +1,208 @@
+"""Captured step programs: one CUDA graph per cache key, then replays.
+
+The JAX package compiles each step program once per cache key and runs
+the compiled program for every later call of that key
+(``paddle_tpu/models/generation.py:195-220``). The port's counterpart is
+``StepRunner``: a program's body reads only static device buffers and
+writes static ones, so a CUDA graph captured from it once serves every
+later call with new inputs.
+
+* A runner's inputs share one byte buffer on the device, with a pinned
+  host twin on CUDA, so filling all of them is one host-to-device copy;
+  its outputs share another, read back in one copy.
+* On CUDA a program's first run is its body, run eagerly on a side
+  stream: that run gives the call its result (and warms cuBLAS and the
+  kernels' libraries). Its graph is captured right after (a capture
+  records kernels and runs none) and every later run replays it. A
+  failure to capture or to replay raises; nothing falls back to eager.
+* On the CPU, which the caller asks for explicitly (the tests do), the
+  same body runs on the same buffers every time, without capture.
+* Kernel launches that the wrappers count (``ops._build.count_launch``)
+  are recorded at capture and added to the wrappers' counts on every
+  replay, so the counts stay launches on the device.
+* A runner's buffers are its state: callers hold ``lock`` across fill,
+  run and read-back. The runners of one model share one graph memory
+  pool; every body writes its results into preallocated buffers, and the
+  replays are ordered by the stream they are issued to, so no replay
+  overwrites memory another runner still needs.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..ops._build import recording_launches
+
+__all__ = ["StaticBuffers", "StepRunner"]
+
+_ALIGN = 16                 # bytes: every view starts on a 16-byte line
+_CAPTURE_LOCK = threading.Lock()    # one capture (and its first run) at once
+_SIDE_STREAMS: dict = {}            # device -> the stream captures run on
+
+
+def _side_stream(device):
+    """The stream first runs and captures use on ``device`` (called under
+    ``_CAPTURE_LOCK``)."""
+    s = _SIDE_STREAMS.get(device)
+    if s is None:
+        s = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return s
+
+
+class StaticBuffers:
+    """Named tensors packed into one byte buffer on ``device`` (with a
+    pinned host twin on CUDA), so that filling or reading all of them is one
+    copy. ``spec``: {name: (shape, dtype)}; ``dev`` holds the device views
+    the bodies read and write."""
+
+    def __init__(self, spec, device):
+        self.device = torch.device(device)
+        layout, off = {}, 0
+        for name, (shape, dtype) in spec.items():
+            shape = tuple(int(d) for d in shape)
+            n = math.prod(shape) * torch.empty(0, dtype=dtype).element_size()
+            layout[name] = (off, n, shape, dtype)
+            off += -(-n // _ALIGN) * _ALIGN
+        cuda = self.device.type == "cuda"
+        self._dev_bytes = torch.zeros(max(off, _ALIGN), dtype=torch.uint8,
+                                      device=self.device)
+        self._host_bytes = (torch.zeros(max(off, _ALIGN), dtype=torch.uint8,
+                                        pin_memory=True)
+                            if cuda else self._dev_bytes)
+        self._copied = torch.cuda.Event() if cuda else None
+        self.dev = self._views(self._dev_bytes, layout)
+        self._host = self._views(self._host_bytes, layout)
+
+    @staticmethod
+    def _views(buf, layout):
+        return {name: buf[off:off + n].view(dtype).view(shape)
+                for name, (off, n, shape, dtype) in layout.items()}
+
+    def fill(self, values):
+        """Copy {name: value} into the buffers: host values (numpy arrays,
+        numbers, CPU tensors) through the host twin and one copy, tensors
+        already on the device by a device copy. Names not given keep their
+        contents."""
+        if self._copied is not None:
+            self._copied.synchronize()     # the last copy has left the twin
+        on_dev = {}
+        for name, v in values.items():
+            if isinstance(v, torch.Tensor) and v.device == self.device:
+                on_dev[name] = v
+            else:
+                self._host[name].copy_(v if isinstance(v, torch.Tensor)
+                                       else torch.from_numpy(np.array(v)))
+        if self._copied is not None:
+            self._dev_bytes.copy_(self._host_bytes, non_blocking=True)
+            self._copied.record()
+        for name, v in on_dev.items():
+            self.dev[name].copy_(v)
+
+    def read(self):
+        """{name: numpy array} of every buffer: one device-to-host copy,
+        which waits for the work queued before it."""
+        if self._copied is not None:
+            self._host_bytes.copy_(self._dev_bytes)
+        return {name: t.numpy().copy() for name, t in self._host.items()}
+
+
+class StepRunner:
+    """One step program at one cache key.
+
+    ``programs``: {name: body(inputs, outputs)} where ``inputs`` and
+    ``outputs`` are the ``dev`` views of the two ``StaticBuffers``; a body
+    reads only static buffers (and what the caller's closure holds for the
+    runner's lifetime: pools, caches, parameters) and writes its results
+    into them. ``run(name)`` runs one program as the module docstring says.
+    ``pool`` is the graph memory pool the captures allocate from (None on
+    the CPU). ``flops`` holds the FLOPs of one run of each program that a
+    caller asked to count (``run(name, count_flops=True)``)."""
+
+    def __init__(self, device, inputs, outputs, programs, pool=None):
+        self.device = torch.device(device)
+        self.inputs = StaticBuffers(inputs, self.device)
+        self.outputs = StaticBuffers(outputs, self.device)
+        self.programs = dict(programs)
+        self.pool = pool
+        self.lock = threading.Lock()
+        self.graphs: dict = {}          # name -> torch.cuda.CUDAGraph
+        self.launches: dict = {}        # name -> {wrapper: launches}
+        self.flops: dict = {}           # name -> FLOPs of one run
+        self.captures = 0
+        self.capture_s = 0.0
+        self.replays = 0
+        self._bodies_only = False
+
+    def fill(self, **values):
+        self.inputs.fill(values)
+
+    def read(self):
+        return self.outputs.read()
+
+    def run(self, name, count_flops=False):
+        """Run program ``name`` on the current buffers. ``count_flops``:
+        if ``flops`` has no count for it yet, this run is the body, under
+        ``torch.utils.flop_counter.FlopCounterMode`` (aten products only:
+        the hand-written attention kernels are not counted)."""
+        count = count_flops and name not in self.flops
+        if self.device.type != "cuda" or self._bodies_only:
+            self._body(name, count)
+            return
+        graph = self.graphs.get(name)
+        if graph is None:
+            self._first_run(name, count)
+            return
+        if count:
+            self._body(name, True)
+            return
+        graph.replay()
+        self.replays += 1
+        for wrapper, n in self.launches[name].items():
+            wrapper.launches += n
+
+    @contextlib.contextmanager
+    def _eager(self):
+        """Within: ``run`` runs the bodies without capture or replay. The
+        reference a replay is held to on the card; not a user option."""
+        prev, self._bodies_only = self._bodies_only, True
+        try:
+            yield self
+        finally:
+            self._bodies_only = prev
+
+    def _body(self, name, count_flops=False):
+        body = self.programs[name]
+        if not count_flops:
+            body(self.inputs.dev, self.outputs.dev)
+            return
+        from torch.utils.flop_counter import FlopCounterMode
+
+        with FlopCounterMode(display=False) as counter:
+            body(self.inputs.dev, self.outputs.dev)
+        self.flops[name] = float(counter.get_total_flops())
+
+    def _first_run(self, name, count_flops):
+        """The body eagerly on the side stream (this run's result), then the
+        capture of its graph on the same stream."""
+        with _CAPTURE_LOCK:
+            side = _side_stream(self.device)
+            cur = torch.cuda.current_stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                self._body(name, count_flops)
+            cur.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            with recording_launches() as launched:
+                with torch.cuda.graph(graph, pool=self.pool, stream=side,
+                                      capture_error_mode="thread_local"):
+                    self.programs[name](self.inputs.dev, self.outputs.dev)
+            self.capture_s += time.perf_counter() - t0
+            self.graphs[name] = graph
+            self.launches[name] = dict(launched)
+            self.captures += 1

@@ -117,7 +117,8 @@ class PagedStep:
     write targets, and the attention's tables and lengths (all on the
     model's device)."""
     positions: torch.Tensor     # [B, S] int64 absolute positions
-    write_rows: torch.Tensor    # [N] int64 flat rows b*S+s that write
+    write_rows: torch.Tensor | None   # [N] int64 flat rows b*S+s that
+                                # write; None: all B*S rows, in order
     write_slots: torch.Tensor   # [N] int64 flat pool targets page*BS+slot
     tables: torch.Tensor        # [B, NB] int32
     lengths: torch.Tensor       # [B] int32 live prefix before this step
@@ -126,10 +127,13 @@ class PagedStep:
 @dataclass
 class DenseStep:
     """What every layer of one dense-cache forward shares: the cache rows
-    present before it. Every request of a dense batch is at this length,
-    so the new rows sit at ``[length, length + S)``, which are also their
-    RoPE positions."""
-    length: int
+    present before it, one host int for the whole batch or an int32 [B]
+    tensor on the model's device. Request b's new rows sit at
+    ``[length[b], length[b] + S)``, which are also their RoPE positions.
+    A captured program passes the tensor (its value changes between
+    replays); its caller then sizes the cache so that the rows stay
+    inside it (``generate()``: P + bucket rows for at most P + n)."""
+    length: int | torch.Tensor
 
 
 class GPTAttention(nn.Module):
@@ -183,14 +187,21 @@ class GPTAttention(nn.Module):
     def _attend_dense(self, q, k, v, k_cache, v_cache, step, decode_kernel):
         """Write the S new K/V rows into the dense caches in place, then
         attend. JAX's ``dynamic_update_slice`` clamps a start past the end;
-        ``generate()`` never gets there, so a write past T raises here."""
-        S, T = k.shape[1], k_cache.shape[2]
+        ``generate()`` never gets there, so a host length whose rows would
+        pass T raises here (a device length is its caller's to bound)."""
+        B, S, T = k.shape[0], k.shape[1], k_cache.shape[2]
         lo = step.length
-        if lo + S > T:
-            raise ValueError(f"dense cache holds {T} rows; {S} new rows at "
-                             f"{lo} would pass its end")
-        k_cache[:, :, lo:lo + S] = k.transpose(1, 2).to(k_cache.dtype)
-        v_cache[:, :, lo:lo + S] = v.transpose(1, 2).to(v_cache.dtype)
+        if isinstance(lo, torch.Tensor):
+            pos = lo.long()[:, None] + torch.arange(S, device=k.device)
+            b = torch.arange(B, device=k.device)[:, None]
+            k_cache[b, :, pos] = k.to(k_cache.dtype)      # [B, S, Hkv, D]
+            v_cache[b, :, pos] = v.to(v_cache.dtype)
+        else:
+            if lo + S > T:
+                raise ValueError(f"dense cache holds {T} rows; {S} new rows "
+                                 f"at {lo} would pass its end")
+            k_cache[:, :, lo:lo + S] = k.transpose(1, 2).to(k_cache.dtype)
+            v_cache[:, :, lo:lo + S] = v.transpose(1, 2).to(v_cache.dtype)
         attend = (decode_attention if decode_kernel == "kernel"
                   else decode_attention_ref)
         return attend(q, k_cache, v_cache, lo,
@@ -261,7 +272,11 @@ class GPTModel(nn.Module):
             if decode_kernel not in DECODE_KERNELS:
                 raise ValueError(
                     f"decode_kernel must be one of {DECODE_KERNELS}")
-            if isinstance(step, DenseStep):
+            if isinstance(step, DenseStep) and isinstance(step.length,
+                                                          torch.Tensor):
+                pos = (step.length.long()[:, None]
+                       + torch.arange(S, device=x.device))
+            elif isinstance(step, DenseStep):
                 pos = torch.arange(step.length, step.length + S,
                                    device=x.device).expand(B, S)
             else:

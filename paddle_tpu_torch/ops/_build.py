@@ -11,9 +11,16 @@ module is imported: the CPU tests import every module on machines without
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
 them; ``load(name)`` returns the loaded library, building it if needed.
+
+Every kernel wrapper counts its launches on its own ``.launches`` through
+``count_launch``. While a thread records a CUDA graph
+(``jit.graphs``, under ``recording_launches``), a wrapper's kernel is
+recorded into the graph, not launched: the count goes to the recording,
+and each replay of the graph adds it to the wrappers.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,7 +30,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "load", "nvcc_path"]
+__all__ = ["SOURCES", "build_all", "load", "nvcc_path", "count_launch",
+           "recording_launches"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -74,6 +82,30 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: dict = {}
 build_log: dict = {}     # name -> {"seconds": float, "ptxas": str}
+_recording = threading.local()   # .launches: {wrapper: n} while capturing
+
+
+def count_launch(wrapper):
+    """One launch of ``wrapper``'s kernel: ``wrapper.launches`` grows by
+    one, or, while this thread records a CUDA graph, the recording's
+    count for ``wrapper`` does (its replays launch the kernel)."""
+    rec = getattr(_recording, "launches", None)
+    if rec is None:
+        wrapper.launches += 1
+    else:
+        rec[wrapper] = rec.get(wrapper, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within: this thread's wrapper launches go to the yielded
+    {wrapper: count} dict instead of the wrappers' counts."""
+    prev = getattr(_recording, "launches", None)
+    _recording.launches = rec = {}
+    try:
+        yield rec
+    finally:
+        _recording.launches = prev
 
 
 def nvcc_path() -> str:

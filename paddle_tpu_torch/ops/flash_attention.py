@@ -349,7 +349,7 @@ def flash_fwd(q, k, v, causal=False, scale=None, sri=None):
         int(bool(causal)), n, hp,
         torch.cuda.current_stream(q.device).cuda_stream)
     _check_launch(lib, err, "flash attention forward")
-    _WRAPPERS["fwd" if sri is None else "fm_fwd"].launches += 1
+    _build.count_launch(_WRAPPERS["fwd" if sri is None else "fm_fwd"])
     return out, lse
 
 
@@ -377,7 +377,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal=False, scale=None,
         _DTYPE_CODE[q.dtype], scale, int(bool(causal)), n, hp,
         torch.cuda.current_stream(q.device).cuda_stream)
     _check_launch(lib, err, "flash attention dq")
-    _WRAPPERS["dq" if sri is None else "fm_dq"].launches += 1
+    _build.count_launch(_WRAPPERS["dq" if sri is None else "fm_dq"])
     return dq
 
 
@@ -406,7 +406,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal=False, scale=None,
         B, S, H, D, _DTYPE_CODE[q.dtype], scale, int(bool(causal)), n, hp,
         torch.cuda.current_stream(q.device).cuda_stream)
     _check_launch(lib, err, "flash attention dk/dv")
-    _WRAPPERS["dkv" if sri is None else "fm_dkv"].launches += 1
+    _build.count_launch(_WRAPPERS["dkv" if sri is None else "fm_dkv"])
     return dk, dv
 
 

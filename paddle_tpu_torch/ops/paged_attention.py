@@ -20,6 +20,10 @@ request. Query row s of request b sits at absolute position
   XLA's out-of-bounds scatter (page id ``P``); torch indexing raises on that
   id, so rows past the table's capacity are masked out explicitly before
   the (in-place) scatter.
+* ``paged_write_slots`` — the same targets at a fixed length, computed on
+  the device with no host synchronisation, for the captured step programs:
+  every row gets a target, and a dropped row's is a scratch slot that no
+  block table names (``PagedKVCache.scratch_slot``).
 """
 from __future__ import annotations
 
@@ -32,8 +36,9 @@ from .decode_attention import decode_attention_ref
 from .decode_attention import kernel_tolerance as dense_tolerance
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_ref",
-           "kernel_tolerance", "paged_cache_update", "write_positions", "paged_write_index",
-           "paged_scatter_", "kernel_launch_config"]
+           "kernel_tolerance", "paged_cache_update", "write_positions",
+           "paged_write_index", "paged_write_slots", "paged_scatter_",
+           "kernel_launch_config"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ROWS = 64          # csrc/paged_attention.cu kRows: query rows of a block
@@ -136,7 +141,7 @@ def _launch_kernel(q, k_pages, v_pages, block_tables, lengths, scale):
     if err != 0:
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged attention kernel launch failed: {msg}")
-    paged_decode_attention.launches += 1
+    _build.count_launch(paged_decode_attention)
     return out if out.dtype == q.dtype else out.to(q.dtype)
 
 
@@ -190,12 +195,32 @@ def paged_write_index(block_tables, positions, block_size):
     return rows, page * block_size + p % block_size
 
 
+def paged_write_slots(block_tables, positions, valid, block_size,
+                      scratch_slot):
+    """[B*S] flat pool targets page*BS + slot of every row b*S + s, in
+    row order, built where the inputs lie with no host synchronisation.
+    A row that is not ``valid``, or whose position lies outside
+    [0, NB*BS), is aimed at ``scratch_slot``, a slot no block table
+    names: the fixed-length form of ``paged_write_index``'s drop."""
+    tbl = block_tables.long()
+    pos = positions.long()
+    NB = tbl.shape[1]
+    keep = valid.bool() & (pos >= 0) & (pos < NB * block_size)
+    page = tbl.gather(1, (pos // block_size).clamp(0, NB - 1))
+    slots = page * block_size + pos % block_size
+    return torch.where(keep, slots, torch.full_like(slots, scratch_slot)
+                       ).reshape(-1)
+
+
 def paged_scatter_(pool, new, rows, slots):
     """In place: pool[:, slot] <- new row, for each (row, slot) pair.
-    pool [Hkv, P, BS, D] (contiguous); new [B, S, Hkv, D]."""
+    pool [Hkv, P, BS, D] (contiguous); new [B, S, Hkv, D]; ``rows`` None
+    means every row in order (``paged_write_slots``' targets)."""
     Hkv, P, BS, D = pool.shape
-    vals = new.reshape(-1, Hkv, D)[rows].transpose(0, 1).to(pool.dtype)
-    pool.view(Hkv, P * BS, D)[:, slots] = vals
+    vals = new.reshape(-1, Hkv, D)
+    if rows is not None:
+        vals = vals[rows]
+    pool.view(Hkv, P * BS, D)[:, slots] = vals.transpose(0, 1).to(pool.dtype)
     return pool
 
 

@@ -1,0 +1,181 @@
+"""The step programs as CUDA graphs, on the card. Every test here is marked
+``cuda`` and skips without a GPU.
+
+This file imports torch and the port only (no JAX):
+
+    python -m pytest --noconftest -q tests/test_torch_cuda_graphs.py
+
+A small GPT with the kernels' head dim (2 layers, 2 heads of 64, bf16)
+runs each step program twice on the same inputs: once as its body without
+capture, once replayed from its graph. Greedy and sampled tokens must be
+identical at one seed, and a captured paged forward's logits equal to its
+body's (max |diff| 0: the same kernels on the same inputs). The kernel
+launch counts must go on counting through replays, and a body that
+synchronises with the host must make its capture raise.
+"""
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.inference import PagedKVCache
+from paddle_tpu_torch.jit.graphs import StepRunner
+from paddle_tpu_torch.models import gpt as tgpt
+from paddle_tpu_torch.ops import decode_attention as tda
+from paddle_tpu_torch.ops import paged_attention as tpa
+
+CFG = dict(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
+           max_position=256)
+
+
+@pytest.fixture(scope="module")
+def model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs have no CPU mode)")
+    return tgpt.GPTForCausalLM(tgpt.GPTConfig(**CFG), device="cuda",
+                               dtype=torch.bfloat16, seed=3)
+
+
+def _pool(m, slots=3):
+    kv = PagedKVCache(*m._decode_cache_spec(), block_size=16,
+                      num_blocks=slots * 8, dtype=torch.bfloat16,
+                      device="cuda")
+    return kv, np.stack([kv.reserve(i, 128) for i in range(slots)])
+
+
+def _programs(m, kv, tables):
+    rng = np.random.default_rng(0)
+    S = tables.shape[0]
+    lens = np.array([40, 7, 90])
+    chunk = rng.integers(0, 256, (S, 16))
+    vchunk = rng.integers(0, 256, (S, 4))
+    act = np.array([True, True, False])
+    return {
+        "prefill_chunk": (
+            lambda **kw: m.prefill_chunk(chunk, lens, np.array([16, 5, 0]),
+                                         kv, tables, **kw),
+            lambda: m.compiled_prefill_chunk_runner(S, 16)),
+        "decode_step": (
+            lambda **kw: m.decode_step(chunk[:, 0], lens, act, kv, tables,
+                                       steps=3, max_lens=lens + 2, **kw),
+            lambda: m.compiled_decode_step_runner(S, 3)),
+        "verify_step": (
+            lambda **kw: m.verify_step(vchunk, lens, np.array([3, 1, 2]),
+                                       act, kv, tables, **kw),
+            lambda: m.compiled_verify_step_runner(S, 4)),
+    }
+
+
+def _flat(x):
+    return np.concatenate([np.asarray(a).ravel() for a in
+                           (x if isinstance(x, tuple) else (x,))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", ["prefill_chunk", "decode_step",
+                                     "verify_step"])
+@pytest.mark.parametrize("sampler", [{}, dict(temperature=0.9, top_k=20,
+                                              seed=5)])
+def test_replay_gives_the_bodys_tokens(model, program, sampler):
+    kv, tables = _pool(model)
+    call, runner = _programs(model, kv, tables)[program]
+    first = call(**sampler)                  # the body, then the capture
+    run = runner()
+    assert run.captures == 1 and run.replays == 0
+    with run._eager():
+        body = call(**sampler)
+    replay = call(**sampler)
+    assert run.replays == 1 and run.captures == 1
+    np.testing.assert_array_equal(_flat(replay), _flat(body))
+    np.testing.assert_array_equal(_flat(first), _flat(body))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", [{}, dict(temperature=0.9, top_k=20,
+                                              seed=5)])
+def test_generate_replay_gives_the_bodys_tokens(model, sampler):
+    ids = torch.as_tensor(np.random.default_rng(1).integers(0, 256, (2, 24)),
+                          device="cuda")
+    first = model.generate(ids, max_new_tokens=6, **sampler)
+    run = model.compiled_generate_runner(2, 24, 6)
+    assert run.captures == 2                 # prefill and decode
+    replays = run.replays
+    with run._eager():
+        body = model.generate(ids, max_new_tokens=6, **sampler)
+    assert run.replays == replays
+    replay = model.generate(ids, max_new_tokens=6, **sampler)
+    assert run.captures == 2 and run.replays == replays + 6
+    assert torch.equal(replay, body) and torch.equal(first, body)
+
+
+@pytest.mark.cuda
+def test_captured_forward_logits_equal_the_bodys(model):
+    kv, tables = _pool(model)
+    S, C = 3, 16
+    ids = np.random.default_rng(2).integers(0, 256, (S, C))
+    offs = np.array([40, 7, 90])
+
+    def body(inp, out):
+        valid = torch.ones((S, C), dtype=torch.bool, device="cuda")
+        step = model._device_step(inp["offsets"], C, inp["tables"], valid,
+                                  kv.block_size, kv.scratch_slot)
+        lg = model._decode_call(None, inp["ids"], kv.k_pages, kv.v_pages,
+                                step, "kernel")
+        out["logits"].copy_(lg.float())
+
+    run = StepRunner("cuda", {"ids": ((S, C), torch.int64),
+                              "offsets": ((S,), torch.int64),
+                              "tables": (tables.shape, torch.int32)},
+                     {"logits": ((S, C, 256), torch.float32)}, {"fwd": body})
+    run.fill(ids=ids, offsets=offs, tables=tables)
+    with run._eager():
+        run.run("fwd")
+    eager = run.read()["logits"]
+    run.run("fwd")
+    run.run("fwd")
+    replay = run.read()["logits"]
+    assert np.isfinite(eager).all()
+    diff = float(np.abs(replay - eager).max())
+    print(f"captured forward: max |replay - body| = {diff}")
+    assert diff == 0.0
+
+
+@pytest.mark.cuda
+def test_launch_counts_go_on_through_replays(model):
+    kv, tables = _pool(model)
+    call, _ = _programs(model, kv, tables)["decode_step"]
+    L = model.config.num_layers
+    call()                                   # body + capture
+    before = tpa.paged_decode_attention.launches
+    for _ in range(4):
+        call()
+    assert tpa.paged_decode_attention.launches - before == 4 * 3 * L
+    ids = np.random.default_rng(4).integers(0, 256, (2, 8))
+    model.generate(ids, max_new_tokens=3)
+    before = tda.decode_attention.launches
+    model.generate(ids, max_new_tokens=4)    # the same bucket: replays
+    assert tda.decode_attention.launches - before == 4 * L
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sync", ["item", "nonzero", "cpu"])
+def test_a_host_sync_in_the_body_makes_the_capture_raise(model, sync):
+    def body(inp, out):
+        x = inp["x"] * 2
+        if sync == "item":
+            x = x + float(x.sum())
+        elif sync == "nonzero":
+            x = x[x.nonzero()[:, 0]].sum() + x
+        else:
+            x = x + torch.as_tensor(x.cpu().numpy(), device="cuda")
+        out["y"].copy_(x)
+
+    run = StepRunner("cuda", {"x": ((4,), torch.float32)},
+                     {"y": ((4,), torch.float32)}, {"f": body})
+    run.fill(x=np.arange(4, dtype=np.float32))
+    with pytest.raises(RuntimeError):
+        run.run("f")                         # the body runs; its capture
+    assert "f" not in run.graphs             # fails and nothing is kept
+    with pytest.raises(RuntimeError):
+        run.run("f")                         # no quiet fallback either
+    torch.cuda.synchronize()
+    assert float(torch.ones(3, device="cuda").sum()) == 3.0

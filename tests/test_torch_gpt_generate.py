@@ -155,8 +155,10 @@ def test_bucketed_cache_length_and_truncation(tiny, monkeypatch):
 
 
 def test_generate_timing_hook_and_deadline_gate(tiny):
-    """The timing hook gets one record per call; an expired deadline
-    raises before any forward runs (JAX ``generation.py:222-281``)."""
+    """The timing hook gets one record per call, ``compiled`` True only on
+    the call that built the key's runner (budgets 5 and 7 share bucket 8);
+    an expired deadline raises before any forward runs (JAX
+    ``generation.py:222-281``)."""
     from paddle_tpu_torch.inference import Deadline, DeadlineExceeded
 
     _, tm = tiny
@@ -166,12 +168,15 @@ def test_generate_timing_hook_and_deadline_gate(tiny):
     assert len(seen) == 1
     rec = seen[0]
     assert (rec["path"], rec["batch"], rec["prompt_len"],
-            rec["new_tokens"]) == ("dense", 3, 4, 5)
+            rec["new_tokens"], rec["compiled"],
+            rec["flops"]) == ("dense", 3, 4, 5, True, None)
     assert rec["launch_s"] > 0 and rec["per_token_s"] == rec["launch_s"] / 5
+    tm.generate(ids, max_new_tokens=7, dtype=None, timing_hook=seen.append)
+    assert (seen[1]["new_tokens"], seen[1]["compiled"]) == (7, False)
     with pytest.raises(DeadlineExceeded):
         tm.generate(ids, max_new_tokens=5, dtype=None,
                     deadline=Deadline.after(-1.0), timing_hook=seen.append)
-    assert len(seen) == 1
+    assert len(seen) == 2
 
 
 @torch.no_grad()
