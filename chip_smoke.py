@@ -96,10 +96,29 @@ non-zero without the final line:
    plain versions on the same saved inputs; two planted faults (K rolled by
    one position into the forward, lse + 0.5 into the backward kernels) must
    each fail that check; the first loss through the kernels and through the
-   plain attention agree within 1%. Then the main path: 2 warm-up and 8
-   timed steps on the same batch, every loss finite, the last below the
-   first, exactly 3 flash launches per layer per step; step time, tokens/s,
-   the share of the bf16 peak, peak memory, and a torch.profiler step.
+   plain attention agree within 1%. Then, from one saved state
+   (``export_state`` / ``import_state``), 2 warm-up and 8 timed steps on
+   the same batch twice: as bodies run without capture (the reference),
+   then the main path: the captured TrainStep (the first call runs the
+   body and captures one CUDA graph, the other nine replay it). Replayed
+   losses and final parameters must be bit-equal to the bodies' (the same
+   kernels in the same order on the same inputs), every loss finite, the
+   last below the first, exactly 3 flash launches per layer per step
+   through the replays; step time as bodies and as replays, tokens/s, the
+   share of the bf16 peak, peak memory, capture ms and graph-pool bytes,
+   and one step of each form profiled (host wall, device ms, busy share,
+   host launch calls) with the graph's device time by CUDA events. Then
+   the LR-schedule leg on the same model: Momentum under
+   LinearWarmup(CosineAnnealingDecay) with ClipGradByNorm, the scheduler
+   stepped after each step, five steps as bodies and then captured (a body
+   with its capture, four replays): each replay's loss and parameters
+   equal to its body's, the five rates distinct.
+11b. long context — ``bench.py`` ``_long_context_impl`` as the port runs
+   it: ``gpt_350m(max_position=S)`` at S=4096, B=2 and S=8192, B=1, O2
+   bf16, AdamW, the captured TrainStep, 2 warm-up + 4 timed steps: step
+   ms, tokens/s, the share of the bf16 peak, peak memory; losses finite
+   and falling, and 3 flash launches per layer per step (S=8192 is the
+   length the TPU served with its chunked backward).
 12. FlashMask kernels vs plain — the masked forward, dq and dk/dv kernels
    against their plain versions, within ``flash_attention.kernel_tolerance``
    over the allowed positions, in f32 and bf16: uneven causal documents
@@ -820,7 +839,12 @@ def graph_pool_bytes(torch, model):
     """Bytes the caching allocator holds in ``model``'s graph memory pool
     (every capture of the model allocates from it); None where the
     allocator's snapshot names no pools."""
-    pool = getattr(model, "_graph_pool_handle", None)
+    return pool_bytes(torch, getattr(model, "_graph_pool_handle", None))
+
+
+def pool_bytes(torch, pool):
+    """Bytes the caching allocator holds in the graph memory pool
+    ``pool`` (0 for None); None where the snapshot names no pools."""
     if pool is None:
         return 0
     segs = torch.cuda.memory_snapshot()
@@ -904,27 +928,31 @@ def profile_call(torch, fn, attention=()):
 
 
 def graph_device_ms(torch, run, name, reps=10):
-    """Device time of one replay of ``run``'s graph ``name``: CUDA events
-    around ``reps`` back-to-back replays on the same inputs (measurement
-    replays, left out of the wrappers' launch counts)."""
-    graph = run.graphs[name]
+    """Device time of one replay of ``run``'s graph ``name``."""
+    with run.lock:
+        return replay_device_ms(torch, run.graphs[name].graph, reps)
+
+
+def replay_device_ms(torch, graph, reps=10):
+    """Device time of one replay of ``graph``: CUDA events around ``reps``
+    back-to-back replays on the same inputs (measurement replays, left out
+    of the wrappers' launch counts)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with run.lock:
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
         graph.replay()
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            graph.replay()
-        end.record()
-        torch.cuda.synchronize()
+    end.record()
+    torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
 def graph_launch_ms(torch, run, name, reps=10):
     """Host time of one ``replay()`` call of ``run``'s graph ``name``
     (the device idle first, so the launches do not queue behind work)."""
-    graph = run.graphs[name]
+    graph = run.graphs[name].graph
     out = []
     with run.lock:
         for _ in range(reps):
@@ -1747,13 +1775,31 @@ def gpt_step_flops(config, B, S):
     return 6.0 * matmul_params * B * S + attn
 
 
+def timed_steps(torch, step, args, kwargs, warmup, timed):
+    """(losses, seconds per timed step): ``warmup`` then ``timed`` calls of
+    ``step``, the timed ones between two synchronisations."""
+    losses = [step(*args, **kwargs) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(*args, **kwargs) for _ in range(timed)]
+    torch.cuda.synchronize()
+    return losses, (time.perf_counter() - t0) / timed
+
+
+def params_diff(torch, a, b):
+    """max |a - b| over two lists of tensors (as f32)."""
+    return max(float((x.detach().float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
 def train(torch, fa, device, B=8, S=1024, warmup=2, timed=8, seed=12,
           cfg=None):
     """The training main path: GPT-350M (or ``cfg``) at full width, O2
-    bf16, AdamW under TrainStep, as ``bench.py`` ``_gpt_train_phase`` runs
-    the JAX package."""
-    from torch.profiler import ProfilerActivity, profile
-
+    bf16, AdamW under the captured TrainStep, as ``bench.py``
+    ``_gpt_train_phase`` runs the JAX package. From one saved state the
+    same steps run twice: as bodies without capture (the reference, and
+    the body wall), then captured and replayed (the main path: launch
+    counts, the replay wall); losses and parameters must be bit-equal."""
     from paddle_tpu_torch import amp, optimizer
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_350m
@@ -1775,38 +1821,39 @@ def train(torch, fa, device, B=8, S=1024, warmup=2, timed=8, seed=12,
           f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     insitu = train_insitu(torch, fa, model, ids, labels)
 
+    batch = ((ids,), {"labels": labels})
+    start = step.export_state()
+    with step._eager():                     # the reference: bodies
+        body_losses, body_s = timed_steps(torch, step, *batch, warmup,
+                                          timed)
+    body_params = [p.detach().clone() for p in model.parameters()]
+    step.import_state(start)
+    del start
+
     torch.cuda.reset_peak_memory_stats()
     fa.flash_fwd.launches = fa.flash_bwd_dq.launches = 0   # main path
     fa.flash_bwd_dkv.launches = 0
-    losses = [step(ids, labels=labels) for _ in range(warmup)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    losses += [step(ids, labels=labels) for _ in range(timed)]
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / timed
+    losses, step_s = timed_steps(torch, step, *batch, warmup, timed)
     launches = flash_launches(fa)                          # main path ends
     backend = F.get_last_attention_backend()
     peak = torch.cuda.max_memory_allocated()
+    (prog,) = step._programs.values()
+    loss_equal = bool(torch.equal(torch.stack(losses),
+                                  torch.stack(body_losses)))
+    param_diff = params_diff(torch, model.parameters(), body_params)
     losses = [float(x.float()) for x in losses]
+    body_losses = [float(x.float()) for x in body_losses]
+    del body_params
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
+    def one_step():
         step(ids, labels=labels)
         torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t1
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    dev_us = sum(e.self_device_time_total for e in kernels)
-    attn_us = sum(e.self_device_time_total for e in kernels
-                  if "flash_" in e.key)
-    by_kind = {}
-    for e in kernels:
-        kind = kernel_kind(e.key)
-        ms, n = by_kind.get(kind, (0.0, 0))
-        by_kind[kind] = (ms + e.self_device_time_total / 1e3, n + e.count)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+
+    with step._eager():
+        body = profile_call(torch, one_step, ("flash_",))
+    replay = profile_call(torch, one_step, ("flash_",))
+    # measurement replays: they go on training the model
+    replay["graph_device_ms"] = replay_device_ms(torch, prog.capture.graph)
     # the forward and backward alone (no clip, no update), host clock
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1818,33 +1865,152 @@ def train(torch, fa, device, B=8, S=1024, warmup=2, timed=8, seed=12,
     flops = gpt_step_flops(cfg, B, S)
     steps = warmup + timed
     rec = dict(B=B, S=S, layers=cfg.num_layers, warmup=warmup, timed=timed,
-               losses=losses, step_ms=step_s * 1e3,
+               losses=losses, body_losses=body_losses,
+               replay_losses_equal_body=loss_equal,
+               replay_params_max_abs_diff=param_diff,
+               step_ms=step_s * 1e3, body_step_ms=body_s * 1e3,
                tokens_per_s=B * S / step_s, step_flops=flops,
                bf16_peak_share=flops / step_s / PEAK_FLOPS["bfloat16"],
+               body_bf16_peak_share=flops / body_s / PEAK_FLOPS["bfloat16"],
                max_memory_allocated=peak, flash_launches=launches,
                expected_launches_each=cfg.num_layers * steps,
                attention_backend=backend,
-               profiled_wall_ms=prof_wall * 1e3,
-               device_ms=dev_us / 1e3 if dev_us else None,
-               kernel_launches=int(sum(e.count for e in kernels)),
-               device_busy_share=(dev_us / 1e6 / prof_wall
-                                  if dev_us else None),
-               attention_share_of_device=(attn_us / dev_us
-                                          if dev_us else None),
-               device_ms_by_kind=by_kind, fwd_bwd_ms=fwd_bwd_ms,
-               top_kernels=[(e.key[:80], e.count,
-                             e.self_device_time_total / 1e3) for e in top])
+               capture_ms=prog.capture.seconds * 1e3,
+               graph_pool_bytes=pool_bytes(torch, step._pool),
+               body=body, replay=replay, fwd_bwd_ms=fwd_bwd_ms)
     print("train", json.dumps(rec), flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite or not falling: {losses}")
+    if not loss_equal or param_diff != 0.0:
+        raise AssertionError(
+            f"replayed steps differ from their bodies: losses {losses} vs "
+            f"{body_losses}, parameters max |diff| {param_diff}")
     if any(n != cfg.num_layers * steps for n in launches.values()):
         raise AssertionError(f"flash launches {launches} != "
                              f"{cfg.num_layers} layers x {steps} steps each")
     if backend != "kernel":
         raise AssertionError(f"attention backend {backend!r} != 'kernel'")
-    del model, opt, step
+    del step, opt, prog
+    torch.cuda.empty_cache()
+    rec["lr_schedule"] = lr_schedule_leg(torch, model, ids, labels)
+    del model
     torch.cuda.empty_cache()
     return rec, insitu
+
+
+def lr_schedule_leg(torch, model, ids, labels, replays=4):
+    """Momentum under LinearWarmup(CosineAnnealingDecay) with
+    ClipGradByNorm on ``model``, the scheduler stepped after every step:
+    from one saved state, ``replays + 1`` steps as bodies, then the same
+    captured (a body and its capture, then ``replays`` replays). Every
+    captured step's loss and parameters must equal its body's, and the
+    rates must differ from step to step."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import ClipGradByNorm
+    from paddle_tpu_torch.optimizer import lr
+
+    def make():
+        sched = lr.LinearWarmup(
+            learning_rate=lr.CosineAnnealingDecay(learning_rate=0.01,
+                                                  T_max=replays),
+            warmup_steps=2, start_lr=0.001, end_lr=0.01)
+        opt = optimizer.Momentum(learning_rate=sched, momentum=0.9,
+                                 parameters=model.parameters(),
+                                 grad_clip=ClipGradByNorm(1.0))
+        return TrainStep(model, lambda logits, loss: loss, opt), sched
+
+    saved = [p.detach().clone() for p in model.parameters()]
+    ref, sched = make()
+    rates, body = [], []
+    with ref._eager():
+        for _ in range(replays + 1):
+            rates.append(ref.optimizer.get_lr())
+            loss = ref(ids, labels=labels)
+            body.append((loss, [p.detach().clone()
+                                for p in model.parameters()]))
+            sched.step()
+    with torch.no_grad():
+        for p, v in zip(model.parameters(), saved):
+            p.copy_(v)
+    del ref, saved
+    step, sched = make()
+    equal = []
+    for want_loss, want_params in body:
+        loss = step(ids, labels=labels)
+        equal.append(bool(torch.equal(loss, want_loss)) and params_diff(
+            torch, model.parameters(), want_params) == 0.0)
+        sched.step()
+    (prog,) = step._programs.values()
+    rec = dict(rates=rates, losses=[float(x.float()) for x, _ in body],
+               captured=prog.capture is not None, replays=len(body) - 1,
+               equal_per_step=equal)
+    print("train-lr-schedule", json.dumps(rec), flush=True)
+    if (not all(equal) or not rec["captured"]
+            or len(set(rates)) != len(rates)):
+        raise AssertionError(f"scheduled replays differ from their bodies "
+                             f"or the rates repeat: {rec}")
+    del step, body
+    torch.cuda.empty_cache()
+    return rec
+
+
+def long_context(torch, fa, device, shapes=((4096, 2), (8192, 1)),
+                 warmup=2, timed=4, seed=13):
+    """``bench.py`` ``_long_context_impl`` as the port runs it:
+    ``gpt_350m(max_position=S)`` trained at each (S, B) through the
+    captured TrainStep (O2 bf16, AdamW), ``warmup`` + ``timed`` steps on
+    one batch: step ms, tokens/s, share of the bf16 peak, peak memory;
+    losses finite and falling, and exactly one launch of each flash kernel
+    per layer per step (S 8192 runs rows 6-7's backward)."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_350m
+
+    out = {}
+    for S, B in shapes:
+        cfg = gpt_350m(max_position=S)
+        model = GPTForCausalLM(cfg, device=device, seed=seed)
+        amp.decorate(model, level="O2", dtype="bfloat16")
+        opt = optimizer.AdamW(learning_rate=1e-4,
+                              parameters=model.parameters(),
+                              weight_decay=0.01, multi_precision=True)
+        step = TrainStep(model, lambda logits, loss: loss, opt)
+        ids_np = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                      (B, S))
+        ids = torch.as_tensor(ids_np, device=device)
+        labels = torch.as_tensor(np.roll(ids_np, -1, axis=1), device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_fwd.launches = fa.flash_bwd_dq.launches = 0   # main path
+        fa.flash_bwd_dkv.launches = 0
+        losses, step_s = timed_steps(torch, step, (ids,), {"labels": labels},
+                                     warmup, timed)
+        launches = flash_launches(fa)                          # ends
+        (prog,) = step._programs.values()
+        losses = [float(x.float()) for x in losses]
+        flops = gpt_step_flops(cfg, B, S)
+        steps = warmup + timed
+        rec = dict(S=S, B=B, warmup=warmup, timed=timed, losses=losses,
+                   step_ms=step_s * 1e3, tokens_per_s=B * S / step_s,
+                   step_flops=flops,
+                   bf16_peak_share=flops / step_s / PEAK_FLOPS["bfloat16"],
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   capture_ms=prog.capture.seconds * 1e3,
+                   graph_pool_bytes=pool_bytes(torch, step._pool),
+                   flash_launches=launches,
+                   expected_launches_each=cfg.num_layers * steps)
+        print("long-context", json.dumps(rec), flush=True)
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"S={S}: losses not finite or not falling: "
+                                 f"{losses}")
+        if any(n != cfg.num_layers * steps for n in launches.values()):
+            raise AssertionError(f"S={S}: flash launches {launches} != "
+                                 f"{cfg.num_layers} x {steps} each")
+        out[f"s{S}"] = rec
+        del model, opt, step, prog
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------ phase 12/13/14
@@ -2392,9 +2558,15 @@ def main():
     del model
     torch.cuda.empty_cache()
     training, train_checks = train(torch, fa, device)
-    print(f"training on {card}: {training['step_ms']:.1f} ms/step, "
+    print(f"training on {card}: {training['step_ms']:.1f} ms/step replayed "
+          f"({training['body_step_ms']:.1f} as bodies), "
           f"{training['tokens_per_s']:.0f} tok/s, "
           f"{training['bf16_peak_share']:.3f} of the bf16 peak", flush=True)
+    long_ctx = long_context(torch, fa, device)
+    for key, r in long_ctx.items():
+        print(f"long-context {key} on {card}: {r['step_ms']:.1f} ms/step, "
+              f"{r['tokens_per_s']:.0f} tok/s, {r['bf16_peak_share']:.3f} "
+              f"of the bf16 peak", flush=True)
     fm_checks, fm_worst = check_flashmask_kernels(torch, fa, device)
     fm_timing = time_flashmask(torch, fa, device)
     varlen, varlen_checks = varlen_train(torch, fa, device)
@@ -2440,6 +2612,8 @@ def main():
             "source": "paddle_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces, "also_replaces": also,
             "launches": training["flash_launches"][kern],
+            "long_context_launches": {
+                k: r["flash_launches"][kern] for k, r in long_ctx.items()},
             "max_abs_err": flash_worst[kern],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -2474,6 +2648,7 @@ def main():
                   dense_profile=gen_profile, batch_serving=batch,
                   degrade=degrade, speculative=spec,
                   train_insitu=train_checks, training=training,
+                  long_context=long_ctx,
                   flashmask_checks=fm_checks, flashmask_timing=fm_timing,
                   varlen_insitu=varlen_checks, varlen_train=varlen,
                   kernels=kernels)

@@ -17,7 +17,10 @@ CUDA kernel), whole-batch ``generate_paged`` behind
 (``generate_speculative``, ``verify_step``); and FlashMask and packed
 varlen attention (``nn.functional.flashmask_attention``,
 ``flash_attn_unpadded`` and the qkvpacked forms), forward and backward,
-through the masked forms of the flash-attention CUDA kernels.
+through the masked forms of the flash-attention CUDA kernels. The step
+programs and the training step (``jit.TrainStep``: SGD, Momentum, Adam,
+AdamW, the schedulers of ``optimizer.lr``, three gradient clips) run as
+CUDA graphs captured once per signature and replayed.
 """
 from . import amp, jit, nn, optimizer
 from .bridge import from_paddle_tpu_state, to_paddle_tpu_state

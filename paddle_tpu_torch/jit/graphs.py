@@ -18,8 +18,12 @@ later call with new inputs.
 * On the CPU, which the caller asks for explicitly (the tests do), the
   same body runs on the same buffers every time, without capture.
 * Kernel launches that the wrappers count (``ops._build.count_launch``)
-  are recorded at capture and added to the wrappers' counts on every
-  replay, so the counts stay launches on the device.
+  are recorded at capture (those the capture's stream receives, from any
+  thread) and added to the wrappers' counts on every replay, so the counts
+  stay launches on the device.
+* ``first_run_then_capture`` and ``Capture`` are the two halves any
+  captured program uses; ``jit.train.TrainStep`` captures a whole training
+  step with them.
 * A runner's buffers are its state: callers hold ``lock`` across fill,
   run and read-back. The runners of one model share one graph memory
   pool; every body writes its results into preallocated buffers, and the
@@ -38,7 +42,8 @@ import torch
 
 from ..ops._build import recording_launches
 
-__all__ = ["StaticBuffers", "StepRunner"]
+__all__ = ["StaticBuffers", "StepRunner", "Capture",
+           "first_run_then_capture"]
 
 _ALIGN = 16                 # bytes: every view starts on a 16-byte line
 _CAPTURE_LOCK = threading.Lock()    # one capture (and its first run) at once
@@ -52,6 +57,51 @@ def _side_stream(device):
     if s is None:
         s = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
     return s
+
+
+class Capture:
+    """One captured CUDA graph: ``graph``; ``result``, what the captured
+    body returned (tensors in the graph's pool that every replay rewrites);
+    ``launches``, {wrapper: kernel launches} of one replay; ``seconds``, the
+    capture's host time."""
+
+    def __init__(self, graph, result, launches, seconds):
+        self.graph = graph
+        self.result = result
+        self.launches = launches
+        self.seconds = seconds
+
+    def replay(self):
+        """Launch the graph on the current stream; the wrappers' counts grow
+        by the launches it holds."""
+        self.graph.replay()
+        for wrapper, n in self.launches.items():
+            wrapper.launches += n
+
+
+def first_run_then_capture(device, first, body, pool=None,
+                           error_mode="thread_local"):
+    """(first's result, ``Capture`` of ``body``): ``first()`` runs eagerly
+    on the side stream (ordered after the current stream's work; the run
+    that gives a call its result and warms cuBLAS and the kernels'
+    libraries), then ``body()`` is captured on the same stream into a new
+    graph allocating from ``pool``, under ``capture_error_mode``
+    ``error_mode``. A failed capture raises."""
+    with _CAPTURE_LOCK:
+        side = _side_stream(device)
+        cur = torch.cuda.current_stream(device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = first()
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with recording_launches(side.cuda_stream) as launched:
+            with torch.cuda.graph(graph, pool=pool, stream=side,
+                                  capture_error_mode=error_mode):
+                result = body()
+        return out, Capture(graph, result, dict(launched),
+                            time.perf_counter() - t0)
 
 
 class StaticBuffers:
@@ -130,8 +180,7 @@ class StepRunner:
         self.programs = dict(programs)
         self.pool = pool
         self.lock = threading.Lock()
-        self.graphs: dict = {}          # name -> torch.cuda.CUDAGraph
-        self.launches: dict = {}        # name -> {wrapper: launches}
+        self.graphs: dict = {}          # name -> Capture
         self.flops: dict = {}           # name -> FLOPs of one run
         self.captures = 0
         self.capture_s = 0.0
@@ -162,8 +211,6 @@ class StepRunner:
             return
         graph.replay()
         self.replays += 1
-        for wrapper, n in self.launches[name].items():
-            wrapper.launches += n
 
     @contextlib.contextmanager
     def _eager(self):
@@ -189,20 +236,10 @@ class StepRunner:
     def _first_run(self, name, count_flops):
         """The body eagerly on the side stream (this run's result), then the
         capture of its graph on the same stream."""
-        with _CAPTURE_LOCK:
-            side = _side_stream(self.device)
-            cur = torch.cuda.current_stream(self.device)
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                self._body(name, count_flops)
-            cur.wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            t0 = time.perf_counter()
-            with recording_launches() as launched:
-                with torch.cuda.graph(graph, pool=self.pool, stream=side,
-                                      capture_error_mode="thread_local"):
-                    self.programs[name](self.inputs.dev, self.outputs.dev)
-            self.capture_s += time.perf_counter() - t0
-            self.graphs[name] = graph
-            self.launches[name] = dict(launched)
-            self.captures += 1
+        _, cap = first_run_then_capture(
+            self.device, lambda: self._body(name, count_flops),
+            lambda: self.programs[name](self.inputs.dev, self.outputs.dev),
+            self.pool)
+        self.capture_s += cap.seconds
+        self.graphs[name] = cap
+        self.captures += 1

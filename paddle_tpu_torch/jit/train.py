@@ -1,65 +1,188 @@
 """TrainStep — the counterpart of ``paddle_tpu/jit/train.py``.
 
 The JAX package compiles forward, backward, clipping and the optimizer
-update into one XLA program. PyTorch runs eagerly, so here one call is the
-same sequence of launches: the forward, ``loss.backward()``, the global-norm
-clip of the optimizer's ``_grad_clip`` (``_functional_clip`` :29-36), and
-the optimizer's update rule applied to every trainable parameter IN ITS OWN
-DTYPE (:201-212), with the learning rate an f32 tensor and the step counter
-an int32 tensor, as they are traced there. So under O2 the parameters, the
-moments and the update are bf16 even when the optimizer was built with
-``multi_precision``: the JAX TrainStep keeps no master weights (the eager
-``Optimizer.step`` does).
+update into one XLA program per argument signature (``TrainStep._build``
+:100-251) and runs it for every later call. The port captures the same
+sequence into one CUDA graph per key and replays it:
 
-Not ported yet: AOT priming, ``run_steps`` (a ``lax.scan`` of steps), ZeRO
-stages, ``StepMonitor`` and ``export_state`` / ``import_state``.
+* a key is the batch's fingerprint (structure, shapes, dtypes:
+  ``jit.fingerprint``), the ``split_label`` and ``return_outputs`` flags,
+  and the addresses of the parameters and accumulators the step reads and
+  writes (a parameter or accumulator replaced by another tensor drops the
+  captured steps);
+* a key's batch, the step counter (int32) and the learning rate (f32) live
+  in one static input buffer (``jit.graphs.StaticBuffers``) filled before
+  each run, so every replay reads its own batch, counter and rate; Python
+  numbers in the batch go there as 0-d tensors, so a changed number is a
+  new value, not a new key (JAX traces them the same way);
+* the step: the forward, ``loss.backward()``, the optimizer's clip
+  (``_functional_clip`` :29-45: global norm, per-tensor norm or value) and
+  the optimizer's rule applied to every trainable parameter IN ITS OWN
+  DTYPE (:201-212), written into the parameter, with the accumulators
+  written in place (``Optimizer._set_acc``) and created before the first
+  run. So under O2 the parameters, the moments and the update are bf16 even
+  when the optimizer was built with ``multi_precision``: the JAX TrainStep
+  keeps no master weights (the eager ``Optimizer.step`` does).
+* On CUDA a key's first call runs the step eagerly on the side stream
+  (that call's result) and captures it (``jit.graphs``); later calls
+  replay the graph. The capture runs under ``capture_error_mode="global"``
+  (``_CAPTURE_MODE``): ``backward()`` launches from autograd's device
+  thread, and in this mode an unsafe call from any thread during the
+  capture fails it. Nothing in the step may wait on the host (``.item()``,
+  ``.cpu()``, ``nonzero``): the capture raises, and nothing falls back to
+  eager. A call that raises before its capture is made is undone: the
+  state it held (parameters, accumulators, counters, RNG, scheduler) is
+  copied to the host before the first run and restored, so, as in JAX,
+  a failed compile changes nothing.
+* On the CPU, which the caller asks for explicitly (the tests do), the
+  same step runs every call on the same buffers, without capture.
+
+``run_steps`` (JAX :254-360) replays one key's graph n times from one
+host fill of the n counters and rates, with device-to-device batch
+slices; ``aot_prime`` (:531-537) captures ahead and counts one step's
+FLOPs; ``export_state`` / ``import_state`` (:401-502) copy the state out
+and back into the tensors a graph holds, so a restored step replays.
+ZeRO stages and ``StepMonitor`` are not ported; ``lowered`` /
+``lowered_steps`` have no counterpart (a CUDA graph has no program text).
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
 from typing import Callable
 
+import numpy as np
 import torch
 
-from ..nn.clip import ClipGradByGlobalNorm
+from ..nn.clip import ClipGradBase
+from ..optimizer.lr import LRScheduler
+from .fingerprint import aval_fingerprint, flatten, unflatten
+from .graphs import StaticBuffers, first_run_then_capture
 
-__all__ = ["TrainStep"]
+__all__ = ["TrainStep", "StepProgram"]
+
+# backward() launches from autograd's device thread: "global" makes an
+# unsafe call from any thread fail the capture
+_CAPTURE_MODE = "global"
+
+
+def _leaf_spec(x):
+    """(shape, dtype) of a batch leaf's slot in the input buffer."""
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), x.dtype
+    if isinstance(x, (np.ndarray, np.generic)):
+        return tuple(x.shape), torch.from_numpy(np.empty(0, x.dtype)).dtype
+    if isinstance(x, bool):
+        return (), torch.bool
+    if isinstance(x, int):
+        return (), torch.int64
+    if isinstance(x, float):
+        return (), torch.float64
+    raise TypeError(f"TrainStep: a batch holds tensors, arrays and numbers, "
+                    f"not {type(x).__name__}")
+
+
+def _map_tensors(fn, tree):
+    leaves, structure = flatten(tree)
+    return unflatten(structure, [fn(x) if isinstance(x, torch.Tensor) else x
+                                 for x in leaves])
+
+
+def _as_tensor(v):
+    """A checkpoint value as a tensor; numpy arrays are copied (bf16 ones
+    to f32, which holds them exactly)."""
+    if isinstance(v, np.ndarray):
+        bf16 = v.dtype.name == "bfloat16"
+        return torch.from_numpy(np.array(v, np.float32 if bf16 else v.dtype))
+    return torch.as_tensor(v)
+
+
+class StepProgram:
+    """One key's step: the input buffer (batch leaves ``a0``, ``a1``, ...,
+    then ``step`` and ``lr``), the batch's structure, and on CUDA its
+    ``capture`` (``jit.graphs.Capture``). ``flops``: one step's FLOPs once
+    ``aot_prime`` counted them (aten products through
+    ``torch.utils.flop_counter.FlopCounterMode``; the hand-written
+    attention kernels are not counted)."""
+
+    def __init__(self, leaves, structure, device):
+        spec = {f"a{i}": _leaf_spec(x) for i, x in enumerate(leaves)}
+        spec["step"] = ((), torch.int32)
+        spec["lr"] = ((), torch.float32)
+        self.inputs = StaticBuffers(spec, device)
+        self.structure = structure
+        self.n_leaves = len(leaves)
+        self.capture = None
+        self.flops = None
+
+    def batch(self):
+        """(args, kwargs) over the buffer's device views."""
+        dev = self.inputs.dev
+        return unflatten(self.structure,
+                         [dev[f"a{i}"] for i in range(self.n_leaves)])
 
 
 class TrainStep:
     """loss = step(*batch): one training step of ``model`` under
     ``optimizer``.
 
-    Batch convention (:118-130): when the model's forward can bind every
-    argument it gets them all (``GPTForCausalLM(ids, labels=...)``, whose
-    output goes to ``loss_fn(*outputs)``); otherwise the last positional
-    argument is the label and goes to ``loss_fn(outputs, label)``."""
+    Batch convention (:118-130): with ``split_label`` the last positional
+    argument is the label; otherwise, when the model's forward can bind
+    every argument it gets them all (``GPTForCausalLM(ids, labels=...)``,
+    whose output goes to ``loss_fn(*outputs)``), else the last positional
+    argument is the label and goes to ``loss_fn(outputs, label)``.
+    ``return_outputs``: the call returns (loss, forward outputs).
+    ``donate_state`` is accepted: parameters and accumulators are always
+    updated in place here."""
 
-    def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer):
+    def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer,
+                 donate_state=True, return_outputs=False, split_label=False):
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
-        self._fwd_sig = inspect.signature(type(model).forward)
-        self._params = [p for p in model.parameters()
-                        if p.requires_grad and p.is_floating_point()]
-
-    def _split(self, args, kwargs):
+        self._return_outputs = return_outputs
+        self._split_label = split_label
         try:
-            self._fwd_sig.bind(self.model, *args, **kwargs)
-        except TypeError:
+            self._fwd_sig = inspect.signature(type(model).forward)
+        except (TypeError, ValueError):
+            self._fwd_sig = None
+        self._trainable = {k: p for k, p in model.named_parameters()
+                           if p.requires_grad and p.is_floating_point()}
+        self._params = list(self._trainable.values())
+        if not self._params:
+            raise ValueError("TrainStep: the model has no trainable "
+                             "floating-point parameters")
+        self.device = self._params[0].device
+        self._seed = 0
+        self._programs: dict = {}       # key -> StepProgram
+        self._state_key = None
+        self._pool = None
+        self._bodies_only = False
+
+    # ------------------------------------------------------------ the step
+    def _split(self, args, kwargs):
+        if self._split_label:
             return args[:-1], args[-1]
+        if self._fwd_sig is not None:
+            try:
+                self._fwd_sig.bind(self.model, *args, **kwargs)
+            except TypeError:
+                return args[:-1], args[-1]
         return args, None
 
     def _clip(self, grads):
         clip = self.optimizer._grad_clip
         if clip is None:
             return grads
-        if not isinstance(clip, ClipGradByGlobalNorm):
+        if not isinstance(clip, ClipGradBase):
             raise NotImplementedError(
-                f"TrainStep clips by global norm only, got {type(clip)}")
+                f"TrainStep clips by global norm, norm or value, got "
+                f"{type(clip)}")
         return clip.clip(grads)
 
-    def __call__(self, *args, **kwargs):
+    def _step(self, args, kwargs, lr, step):
+        """(loss, forward outputs or None) of one step over ``args`` /
+        ``kwargs``; the parameters and accumulators are updated in place."""
         opt = self.optimizer
         model_args, label = self._split(args, kwargs)
         for p in self._params:
@@ -74,12 +197,277 @@ class TrainStep:
         loss.backward()
         grads = self._clip([p.grad if p.grad is not None
                             else torch.zeros_like(p) for p in self._params])
-        opt._step_count += 1
-        dev = self._params[0].device
-        step = torch.tensor(opt._step_count, dtype=torch.int32, device=dev)
-        lr = torch.tensor(opt.get_lr(), dtype=torch.float32, device=dev)
         with torch.no_grad():
             for p, g in zip(self._params, grads):
                 p.grad = None
                 p.copy_(opt._update(p, p.detach(), g.to(p.dtype), lr, step))
-        return loss.detach()
+        outs = (_map_tensors(torch.Tensor.detach, out)
+                if self._return_outputs else None)
+        return loss.detach(), outs
+
+    def _body(self, prog, count_flops=False):
+        args, kwargs = prog.batch()
+        inp = prog.inputs.dev
+        if not count_flops:
+            return self._step(args, kwargs, inp["lr"], inp["step"])
+        from torch.utils.flop_counter import FlopCounterMode
+
+        with FlopCounterMode(display=False) as counter:
+            result = self._step(args, kwargs, inp["lr"], inp["step"])
+        prog.flops = float(counter.get_total_flops())
+        return result
+
+    # ------------------------------------------------------ keys, programs
+    def _state_tensors(self):
+        accs = self.optimizer._accumulators
+        return self._params + [store[id(p)] for store in accs.values()
+                               for p in self._params if id(p) in store]
+
+    def _program(self, args, kwargs):
+        """The StepProgram of this batch's key, made on first use (the
+        accumulators the update reads exist before the key is taken)."""
+        self.optimizer._materialize_accumulators(self._params)
+        state = tuple(t.data_ptr() for t in self._state_tensors())
+        if state != self._state_key:        # graphs of the old tensors go
+            self._programs.clear()
+            self._state_key = state
+        key = (aval_fingerprint(args, kwargs), self._split_label,
+               self._return_outputs, state)
+        prog = self._programs.get(key)
+        if prog is None:
+            leaves, structure = flatten((tuple(args), dict(kwargs)))
+            prog = self._programs[key] = StepProgram(leaves, structure,
+                                                     self.device)
+        return prog
+
+    def _fill(self, prog, args, kwargs, **scalars):
+        leaves, _ = flatten((tuple(args), dict(kwargs)))
+        values = {f"a{i}": x for i, x in enumerate(leaves)}
+        values.update(scalars)
+        prog.inputs.fill(values)
+
+    def _run(self, prog, count_flops=False):
+        """(result, replayed): one step on the program's buffers — its body,
+        or on CUDA its first run and capture, or a replay (whose result is
+        the capture's own tensors, rewritten by the next replay)."""
+        if self.device.type != "cuda" or self._bodies_only:
+            return self._body(prog, count_flops), False
+        if prog.capture is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            out, prog.capture = first_run_then_capture(
+                self.device, lambda: self._body(prog, count_flops),
+                lambda: self._body(prog), self._pool, _CAPTURE_MODE)
+            return out, False
+        if count_flops:
+            return self._body(prog, True), False
+        prog.capture.replay()
+        return prog.capture.result, True
+
+    @contextlib.contextmanager
+    def _eager(self):
+        """Within: every step runs its body without capture or replay. The
+        reference a replay is held to on the card; not a user option."""
+        prev, self._bodies_only = self._bodies_only, True
+        try:
+            yield self
+        finally:
+            self._bodies_only = prev
+
+    @contextlib.contextmanager
+    def _undone_on_failure(self, prog):
+        """Within: a call that may capture ``prog``. When a capture is due,
+        the state is copied to the host first and restored if the call
+        raises (the first run has updated it by then)."""
+        if (self.device.type != "cuda" or self._bodies_only
+                or prog.capture is not None):
+            yield
+            return
+        saved = self._copy_state(lambda t: t.detach().to("cpu", copy=True))
+        try:
+            yield
+        except BaseException:
+            self.import_state(saved)
+            raise
+
+    # ---------------------------------------------------------- public api
+    def __call__(self, *args, **kwargs):
+        prog = self._program(args, kwargs)
+        opt = self.optimizer
+        with self._undone_on_failure(prog):
+            opt._step_count += 1
+            self._seed += 1
+            self._fill(prog, args, kwargs, step=opt._step_count,
+                       lr=np.float32(opt.get_lr()))
+            (loss, outs), replayed = self._run(prog)
+        if replayed:
+            loss, outs = loss.clone(), _map_tensors(torch.Tensor.clone, outs)
+        return (loss, outs) if self._return_outputs else loss
+
+    def run_steps(self, n_steps: int, *args, stacked=False, **kwargs):
+        """``n_steps`` steps -> their losses, a device tensor [n_steps].
+
+        ``stacked=True``: every positional argument carries a leading dim
+        of ``n_steps``, one slice per step (copied on the device into the
+        step's buffer); otherwise the same batch serves every step. The
+        counters and the rate (the optimizer's current one, as n calls
+        would read it without a scheduler step between them) reach the
+        device in one copy; nothing waits on the host between steps. Equal
+        to ``n_steps`` sequential calls (JAX :288-360)."""
+        if self._return_outputs:
+            raise ValueError("run_steps does not support return_outputs=True")
+        if stacked:
+            stacks = []
+            for a in args:
+                if (not isinstance(a, (torch.Tensor, np.ndarray))
+                        or a.ndim == 0 or a.shape[0] != n_steps):
+                    raise ValueError(
+                        f"stacked=True: every batch arg needs leading dim "
+                        f"{n_steps}, got {getattr(a, 'shape', type(a))}")
+                stacks.append(torch.as_tensor(a).to(self.device))
+            args = tuple(s[0] for s in stacks)
+        prog = self._program(args, kwargs)
+        opt = self.optimizer
+        steps = np.arange(opt._step_count + 1, opt._step_count + 1 + n_steps,
+                          dtype=np.int32)
+        lrs = np.full(n_steps, opt.get_lr(), dtype=np.float32)
+        sched = torch.from_numpy(np.concatenate(
+            [steps.view(np.uint8), lrs.view(np.uint8)])).to(self.device)
+        step_dev = sched[:4 * n_steps].view(torch.int32)
+        lr_dev = sched[4 * n_steps:].view(torch.float32)
+        with self._undone_on_failure(prog):
+            opt._step_count += n_steps
+            self._seed += n_steps
+            self._fill(prog, args, kwargs)
+            inp = prog.inputs.dev
+            losses = None
+            for i in range(n_steps):
+                inp["step"].copy_(step_dev[i])
+                inp["lr"].copy_(lr_dev[i])
+                if stacked:
+                    for j, s in enumerate(stacks):
+                        inp[f"a{j}"].copy_(s[i])
+                (loss, _), _ = self._run(prog)
+                if losses is None:
+                    losses = torch.empty(n_steps, dtype=loss.dtype,
+                                         device=loss.device)
+                losses[i].copy_(loss)
+        return losses
+
+    def aot_prime(self, *args, **kwargs):
+        """Prepare the step of this batch's key ahead of its first call: on
+        CUDA capture it (a body run first, as a first call does), and count
+        one step's FLOPs. The parameters, accumulators, step counter, seed,
+        RNG and scheduler are left as they were (the run is undone by
+        ``import_state``), so the next call replays. Returns the
+        ``StepProgram`` (``.flops``)."""
+        prog = self._program(args, kwargs)
+        opt = self.optimizer
+        if prog.flops is None or (self.device.type == "cuda"
+                                  and prog.capture is None
+                                  and not self._bodies_only):
+            saved = self.export_state()
+            try:
+                self._fill(prog, args, kwargs, step=opt._step_count + 1,
+                           lr=np.float32(opt.get_lr()))
+                self._run(prog, count_flops=prog.flops is None)
+            finally:
+                self.import_state(saved)
+        return prog
+
+    def lowered(self, *args, **kwargs):
+        raise NotImplementedError(
+            "TrainStep.lowered: a CUDA graph has no program text to lower; "
+            "aot_prime(...).flops gives one step's FLOP count")
+
+    def lowered_steps(self, n_steps, *args, stacked=False, **kwargs):
+        raise NotImplementedError(
+            "TrainStep.lowered_steps: a CUDA graph has no program text to "
+            "lower; aot_prime(...).flops gives one step's FLOP count")
+
+    # ------------------------------------------------- checkpoint state
+    def _rng_state(self):
+        rng = {"cpu": torch.get_rng_state().tolist()}
+        if self.device.type == "cuda":
+            rng["cuda"] = torch.cuda.get_rng_state(self.device).tolist()
+        return rng
+
+    def export_state(self):
+        """Copies of everything a bit-exact resume needs: ``params`` (the
+        model's state dict), ``acc`` ({accumulator: {param name: tensor}},
+        created first if missing, as JAX :370-398 does), ``master`` (the
+        eager path's f32 masters, when any) and ``meta`` (``step_count``,
+        ``seed``, ``rng``, and ``lr_sched`` under a scheduler)."""
+        return self._copy_state(lambda t: t.detach().clone())
+
+    def _copy_state(self, copy):
+        """``export_state``'s record with every tensor made by ``copy``."""
+        opt = self.optimizer
+        opt._materialize_accumulators(self._params)
+        with torch.no_grad():
+            state = {
+                "params": {k: copy(t) for k, t in
+                           self.model.state_dict(keep_vars=True).items()},
+                "acc": {name: {k: copy(store[id(p)])
+                               for k, p in self._trainable.items()
+                               if id(p) in store}
+                        for name, store in opt._accumulators.items()},
+            }
+            masters = {k: copy(opt._master_weights[id(p)])
+                       for k, p in self._trainable.items()
+                       if id(p) in opt._master_weights}
+        if masters:
+            state["master"] = masters
+        meta = {"step_count": int(opt._step_count), "seed": int(self._seed),
+                "rng": self._rng_state()}
+        if isinstance(opt._learning_rate, LRScheduler):
+            meta["lr_sched"] = opt._learning_rate.state_dict()
+        state["meta"] = meta
+        return state
+
+    def import_state(self, state):
+        """The reverse of ``export_state`` (JAX :432-483): every value is
+        copied INTO the live tensor it replaces, in that tensor's dtype, so
+        a captured step replays on the restored state without a new
+        capture; counters, RNG and scheduler state are set."""
+        opt = self.optimizer
+        opt._materialize_accumulators(self._params)
+        live = self.model.state_dict(keep_vars=True)
+        with torch.no_grad():
+            for k, v in (state.get("params") or {}).items():
+                if k in live:
+                    live[k].copy_(_as_tensor(v))
+            for name, per in (state.get("acc") or {}).items():
+                store = opt._accumulators.setdefault(name, {})
+                for k, v in per.items():
+                    p = self._trainable.get(k)
+                    if p is None:
+                        continue
+                    if id(p) in store:
+                        store[id(p)].copy_(_as_tensor(v))
+                    else:
+                        store[id(p)] = _as_tensor(v).to(p.device).clone()
+            for k, v in (state.get("master") or {}).items():
+                p = self._trainable.get(k)
+                if p is None:
+                    continue
+                cur = opt._master_weights.get(id(p))
+                if cur is not None:
+                    cur.copy_(_as_tensor(v))
+                else:
+                    opt._master_weights[id(p)] = _as_tensor(v).to(
+                        p.device, torch.float32).clone()
+        meta = state.get("meta") or {}
+        if "step_count" in meta:
+            opt._step_count = int(meta["step_count"])
+        if "seed" in meta:
+            self._seed = int(meta["seed"])
+        rng = meta.get("rng") or {}
+        if "cpu" in rng:
+            torch.set_rng_state(torch.tensor(rng["cpu"], dtype=torch.uint8))
+        if "cuda" in rng and self.device.type == "cuda":
+            torch.cuda.set_rng_state(
+                torch.tensor(rng["cuda"], dtype=torch.uint8), self.device)
+        if ("lr_sched" in meta
+                and isinstance(opt._learning_rate, LRScheduler)):
+            opt._learning_rate.set_state_dict(meta["lr_sched"])

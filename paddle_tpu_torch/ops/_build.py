@@ -13,10 +13,13 @@ module is imported: the CPU tests import every module on machines without
 them; ``load(name)`` returns the loaded library, building it if needed.
 
 Every kernel wrapper counts its launches on its own ``.launches`` through
-``count_launch``. While a thread records a CUDA graph
-(``jit.graphs``, under ``recording_launches``), a wrapper's kernel is
-recorded into the graph, not launched: the count goes to the recording,
-and each replay of the graph adds it to the wrappers.
+``count_launch``, naming the stream it launched on. While a CUDA graph
+records a stream (``jit.graphs``, under ``recording_launches``), a kernel
+put on that stream is recorded into the graph, not launched: the count
+goes to the recording, and each replay of the graph adds it to the
+wrappers. The recording follows the stream, not the thread, so the kernels
+that autograd's device thread puts on the stream during a captured
+``backward()`` are recorded with the forward's.
 """
 from __future__ import annotations
 
@@ -82,14 +85,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: dict = {}
 build_log: dict = {}     # name -> {"seconds": float, "ptxas": str}
-_recording = threading.local()   # .launches: {wrapper: n} while capturing
+_recordings: dict = {}   # captured stream handle -> {wrapper: n}
 
 
-def count_launch(wrapper):
-    """One launch of ``wrapper``'s kernel: ``wrapper.launches`` grows by
-    one, or, while this thread records a CUDA graph, the recording's
-    count for ``wrapper`` does (its replays launch the kernel)."""
-    rec = getattr(_recording, "launches", None)
+def count_launch(wrapper, stream):
+    """One launch of ``wrapper``'s kernel on ``stream`` (a cudaStream_t
+    handle): ``wrapper.launches`` grows by one, or, while a CUDA graph
+    records that stream, the recording's count for ``wrapper`` does (its
+    replays launch the kernel)."""
+    rec = _recordings.get(stream)
     if rec is None:
         wrapper.launches += 1
     else:
@@ -97,15 +101,15 @@ def count_launch(wrapper):
 
 
 @contextlib.contextmanager
-def recording_launches():
-    """Within: this thread's wrapper launches go to the yielded
-    {wrapper: count} dict instead of the wrappers' counts."""
-    prev = getattr(_recording, "launches", None)
-    _recording.launches = rec = {}
+def recording_launches(stream):
+    """Within: wrapper launches onto ``stream`` (a cudaStream_t handle),
+    from any thread, go to the yielded {wrapper: count} dict instead of
+    the wrappers' counts."""
+    rec = _recordings[stream] = {}
     try:
         yield rec
     finally:
-        _recording.launches = prev
+        del _recordings[stream]
 
 
 def nvcc_path() -> str:

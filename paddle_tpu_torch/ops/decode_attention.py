@@ -194,7 +194,7 @@ def _launch_kernel(q, k_cache, v_cache, lengths, scale):
     if err != 0:
         msg = lib.decode_attention_error_string(err).decode()
         raise RuntimeError(f"decode attention kernel launch failed: {msg}")
-    _build.count_launch(decode_attention)
+    _build.count_launch(decode_attention, stream)
     return out if out.dtype == q.dtype else out.to(q.dtype)
 
 

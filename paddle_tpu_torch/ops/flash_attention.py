@@ -343,13 +343,15 @@ def flash_fwd(q, k, v, causal=False, scale=None, sri=None):
     out = torch.empty_like(q)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), mask, B, S, H, D, _DTYPE_CODE[q.dtype], scale,
         int(bool(causal)), n, hp,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        stream)
     _check_launch(lib, err, "flash attention forward")
-    _build.count_launch(_WRAPPERS["fwd" if sri is None else "fm_fwd"])
+    _build.count_launch(_WRAPPERS["fwd" if sri is None else "fm_fwd"],
+                        stream)
     return out, lse
 
 
@@ -371,13 +373,15 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal=False, scale=None,
     mask, n, hp = _mask_args(sri)
     dq = torch.empty_like(q)
     lib = _build.load("flash_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_backward_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), mask, B, S, H, D,
         _DTYPE_CODE[q.dtype], scale, int(bool(causal)), n, hp,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        stream)
     _check_launch(lib, err, "flash attention dq")
-    _build.count_launch(_WRAPPERS["dq" if sri is None else "fm_dq"])
+    _build.count_launch(_WRAPPERS["dq" if sri is None else "fm_dq"],
+                        stream)
     return dq
 
 
@@ -400,13 +404,15 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal=False, scale=None,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _build.load("flash_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_backward_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), mask,
         B, S, H, D, _DTYPE_CODE[q.dtype], scale, int(bool(causal)), n, hp,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        stream)
     _check_launch(lib, err, "flash attention dk/dv")
-    _build.count_launch(_WRAPPERS["dkv" if sri is None else "fm_dkv"])
+    _build.count_launch(_WRAPPERS["dkv" if sri is None else "fm_dkv"],
+                        stream)
     return dk, dv
 
 

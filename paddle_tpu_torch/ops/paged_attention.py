@@ -131,17 +131,17 @@ def _launch_kernel(q, k_pages, v_pages, block_tables, lengths, scale):
     l_part = torch.empty((splits, rows), dtype=torch.float32, device=dev)
     out = torch.empty((B, S, Hq, D), dtype=k_pages.dtype, device=dev)
     lib = _build.load("paged_attention")
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.paged_attention_forward(
         qk.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), o_part.data_ptr(),
         m_part.data_ptr(), l_part.data_ptr(), out.data_ptr(),
         B, S, Hq, Hkv, P, BS, NB, D, _DTYPE_CODE[k_pages.dtype],
-        float(scale), tps, splits,
-        torch.cuda.current_stream(dev).cuda_stream)
+        float(scale), tps, splits, stream)
     if err != 0:
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged attention kernel launch failed: {msg}")
-    _build.count_launch(paged_decode_attention)
+    _build.count_launch(paged_decode_attention, stream)
     return out if out.dtype == q.dtype else out.to(q.dtype)
 
 

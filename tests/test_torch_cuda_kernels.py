@@ -15,6 +15,8 @@ Flash attention:
 magnitude for another summation order (``flash_attention.kernel_tolerance``
 states each term).
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -369,6 +371,7 @@ def test_decode_attention_prefill_writes_the_output_in_one_launch(cuda):
     cfg = tda.kernel_launch_config(B, S, 1, H, T)
     assert (cfg.form, cfg.splits) == ("prefill", 1)
     tda.decode_attention(q, k, v, 0)                # build and warm
+    gc.collect()        # earlier tests' garbage must not be freed inside
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()

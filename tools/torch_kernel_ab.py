@@ -12,7 +12,8 @@ order other, this, this, other, each in a process of its own that imports
 from its own sources. Both sides are timed by this checkout's
 ``chip_smoke.py``, so only the kernels differ. Prints the card, each turn's
 times, and each kernel and shape's mean time per side with this side's over
-the other's. Needs one CUDA card.
+the other's. Needs one CUDA card. ``drive`` is the A/B command line that
+``tools/train_step_ab.py`` shares.
 """
 from __future__ import annotations
 
@@ -59,8 +60,15 @@ def turn(package_root):
     return out
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def drive(turn, tool_file, description):
+    """The command line of an A/B tool: ``tool_file OTHER_ROOT [--json
+    PATH]`` runs ``turn(root)`` (a JSON-able dict holding ``package``, the
+    package directory it imported) in four processes of ``tool_file --turn
+    ROOT``, in ``ORDER``; then, per key, each side's mean of numbers and
+    this side's over the other's, and whether every turn's lists (losses)
+    are equal bit for bit. Prints the card and each turn's record."""
+    name = os.path.splitext(os.path.basename(tool_file))[0]
+    ap = argparse.ArgumentParser(description=description)
     ap.add_argument("other", nargs="?", metavar="OTHER_ROOT")
     ap.add_argument("--json", help="write the record to this file")
     ap.add_argument("--turn", help=argparse.SUPPRESS)
@@ -77,35 +85,44 @@ def main():
     roots = {"this": ROOT, "other": os.path.abspath(args.other)}
     turns = []
     for side in ORDER:
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+        r = subprocess.run([sys.executable, os.path.abspath(tool_file),
                             "--turn", roots[side]], capture_output=True,
                            text=True, timeout=1200)
         lines = [ln for ln in r.stdout.splitlines() if ln.startswith("AB ")]
         if r.returncode or not lines:
             print(r.stdout[-4000:], r.stderr[-4000:])
-            raise SystemExit(f"torch_kernel_ab: the {side} turn failed")
-        times = json.loads(lines[-1][3:])
+            raise SystemExit(f"{name}: the {side} turn failed")
+        rec = json.loads(lines[-1][3:])
         want = os.path.join(roots[side], "paddle_tpu_torch")
-        if os.path.realpath(times.pop("package")) != os.path.realpath(want):
-            raise SystemExit(f"torch_kernel_ab: the {side} turn imported "
+        if os.path.realpath(rec.pop("package")) != os.path.realpath(want):
+            raise SystemExit(f"{name}: the {side} turn imported "
                              f"another checkout's package")
-        turns.append((side, times))
-        print(side, json.dumps(times), flush=True)
-    summary = {}
-    for key in turns[0][1]:
-        mean = {side: float(np.mean([t[key] for s, t in turns if s == side]))
+        turns.append((side, rec))
+        print(side, json.dumps(rec), flush=True)
+    summary, lists = {}, []
+    for key in dict.fromkeys(k for _, rec in turns for k in rec):
+        vals = [(s, rec[key]) for s, rec in turns if key in rec]
+        if isinstance(vals[0][1], list):
+            lists += [v for _, v in vals]
+            continue
+        mean = {side: float(np.mean([v for s, v in vals if s == side]))
+                if any(s == side for s, _ in vals) else None
                 for side in ("this", "other")}
-        summary[key] = dict(this_ms=mean["this"], other_ms=mean["other"],
-                            ratio=mean["this"] / mean["other"])
-        print(f"{key}: this {mean['this']} ms, other {mean['other']} ms, "
-              f"ratio {mean['this'] / mean['other']}", flush=True)
+        summary[key] = dict(this_ms=mean["this"], other_ms=mean["other"])
+        if None not in mean.values():
+            summary[key]["ratio"] = mean["this"] / mean["other"]
+        print(f"{key}: {json.dumps(summary[key])}", flush=True)
+    record = dict(card=card, order=ORDER, turns=turns, summary=summary)
+    if lists:
+        record["lists_equal"] = all(v == lists[0] for v in lists)
+        print("lists equal in every turn:", record["lists_equal"],
+              flush=True)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump(dict(card=card, order=ORDER, turns=turns,
-                           summary=summary), f, indent=1)
+            json.dump(record, f, indent=1)
 
 
 if __name__ == "__main__":
-    main()
+    drive(turn, __file__, __doc__.splitlines()[0])
