@@ -14,7 +14,8 @@ non-zero without the final line:
    S=64 over a 1024-token paged cache, GQA, padded tables, an empty slot)
    plus the other supported block sizes / head dims / group sizes, a
    64-column tile over four pages ending mid-page, horizons one short of
-   and one past a tile edge, and split boundaries inside a page, in f32
+   and one past a tile edge, split boundaries inside a page, and
+   serve_knobs' verify_step (S=5, G=1, lengths past 512), in f32
    (tolerance 1e-4: another summation order) and bf16 (elementwise
    2^-7 (|ref| + sum_j p_j |v_j|): probabilities and outputs rounded to
    bf16 at different places; ``paged_attention.kernel_tolerance``).
@@ -53,6 +54,26 @@ non-zero without the final line:
    busy share, device kernels, host launch calls, and the graph's device
    time by CUDA events). The launch counts below hold through replays: a
    replay adds the launches its capture recorded.
+7b. serve_knobs — the same model behind a ContinuousGenerateBatchingPredictor
+   with its serving knobs (spec_k 4 with the n-gram drafter, the prefix
+   cache, shortest-prompt-first, warmup; 8 slots x 1024, chunk 64, 4
+   decode steps, block 32) and InferenceServer: /readyz 503 while the warm
+   thread captures prefill_chunk, decode_step and verify_step, then 200;
+   four chat sessions of four turns over a shared 512-token system prompt
+   of repeated motifs (16 requests, 16-64 new tokens, a quarter sampled);
+   the time to the first streamed token of a 600-token prompt, cold and as
+   a prefix hit; an SSE request against its buffered twin, a sampled
+   request through X-Temperature / X-Top-K / X-Spec, a Prometheus scrape.
+   Gated: greedy tokens equal to a plain scheduler's (FIFO, no
+   speculation, no prefix cache) on the same prompts up to each request's
+   first near-tie, with tokens compared among the prefix-hit requests; each
+   session's last history as the pool holds it indexed (shared pages,
+   resumed-prefill, decode and verify rows) equal per layer to a cold
+   plain-path prefill of the same tokens, and a control with one page
+   swapped failing that; SSE = buffered, conservation with blocks shared during
+   the run, prefix hits, drafted = accepted + wasted, no capture after the
+   warmup, a well-formed scrape with the bound families, and the paged
+   kernel's launches.
 8. dense kernel vs plain — the dense split-KV kernel (decode form up to 16
    query rows per (request, kv head) and in f32, prefill form above) against
    its plain version, within ``decode_attention.kernel_tolerance`` (f32
@@ -80,7 +101,10 @@ non-zero without the final line:
    of the key's prefill and decode programs); a decode forward profiled
    as its body and as its replay; the whole-batch
    GenerateBatchingPredictor behind InferenceServer (6 threaded requests of 64-500 prompt tokens, 32 new,
-   and one over HTTP: lengths, ids, pool conservation, paged launches);
+   and one over HTTP: lengths, ids, pool conservation, paged launches),
+   then generate_paged's captured runner at [4, 256] + 32: replays equal
+   to the bodies, greedy and sampled, with their walls, and a replayed
+   call profiled: at most 3 host launch calls (fill, graph, read);
    one request through a predictor whose pool signature does not match
    (served by dense generate(), the dense count rising, the pool
    untouched); and generate_speculative(prompt of 256, 64 new, spec_k=4,
@@ -160,6 +184,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -269,6 +294,14 @@ def decode_lengths(rng, B=8):
     return ln
 
 
+def verify_lengths(rng, B=8, S=5):
+    """serve_knobs' verify ticks: histories past its 512-token system
+    prompt, one idle slot."""
+    ln = rng.integers(512, 1024 - S + 1, B)
+    ln[3] = 0
+    return ln
+
+
 def prefill_offsets(rng, B=8, S=64):
     off = rng.integers(1, 1024 - S, B)
     off[off % 32 == 0] += 1                     # never on a block boundary
@@ -309,6 +342,9 @@ def check_kernels(torch, pa, device):
         # split boundaries every 64 columns, half of them inside a page
         cases.append(("bs128-split-mid-page", 2, 8, 2, 2, 64, 128,
                       [300, 700], dtype))
+        # serve_knobs' verify_step: K + 1 = 5 rows of a 64-row tile, G 1
+        cases.append(("verify", 8, 5, 16, 1, 64, 32,
+                      verify_lengths(np.random.default_rng(5)), dtype))
     results = []
     worst = {}
     for n, (name, B, S, Hkv, G, D, BS, lengths, dtype) in enumerate(cases):
@@ -1161,10 +1197,16 @@ def serve(torch, model, device, n_requests=12, http_requests=2,
                  decode_calls=0, decode_capture_s=0.0)
     pf, dc = model.prefill_chunk, model.decode_step
 
-    def timed(phase, call, tokens, *a, **kw):
+    def timed(phase, call, tokens, *a, timing_hook=None, **kw):
         seen = []
+
+        def hook(info):                 # the scheduler's own hook, chained
+            seen.append(info)
+            if timing_hook is not None:
+                timing_hook(info)
+
         t0 = time.perf_counter()
-        out = call(*a, timing_hook=seen.append, **kw)    # ends in a copy
+        out = call(*a, timing_hook=hook, **kw)          # ends in a copy
         dt = time.perf_counter() - t0
         stats[f"{phase}_s"] += dt
         stats[f"{phase}_tokens"] += tokens
@@ -1274,6 +1316,417 @@ def serve(torch, model, device, n_requests=12, http_requests=2,
     if launches != expect or launches == 0:
         raise AssertionError(f"kernel launches {launches} != num_layers x "
                              f"forwards = {expect}")
+    return rec
+
+
+# -------------------------------------------------------------- phase 7b
+KNOB_SYSTEM, KNOB_SESSIONS, KNOB_TURNS = 512, 4, 4
+# a greedy token is compared only before the reference's first near-tie:
+# top-2 gap under this share of the row's max |logit| (the coarse bound of
+# kernel-path drift, INSITU_REL_TOL; verify and decode launches round bf16
+# at different places)
+NEAR_TIE_REL = INSITU_REL_TOL
+# a sample line of the Prometheus text format 0.0.4
+PROM_SAMPLE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*"'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*")*)?\})? '
+    r'(-?[0-9.e+-]+|[+-]Inf|NaN)$')
+PROM_FAMILIES = ("paddle_serving_events_total",
+                 "paddle_serving_request_latency_seconds",
+                 "paddle_kv_pool_blocks", "paddle_kv_pool_live_utilization",
+                 "paddle_decode_launch_seconds", "paddle_sched_slots",
+                 "paddle_spec_tokens_total", "paddle_spec_acceptance_rate",
+                 "paddle_prefix_cache_blocks",
+                 "paddle_prefix_hit_tokens_total",
+                 "paddle_serving_recompiles_total",
+                 "paddle_http_responses_total")
+
+
+def _http(port, path, data=None, headers=None):
+    """(status, headers, body) of one request; an HTTP error is a status."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers=headers or {},
+                                 method="POST" if data is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def _npz(ids):
+    buf = io.BytesIO()
+    np.savez(buf, ids=ids)
+    return buf.getvalue()
+
+
+def chat_sessions(rng, V):
+    """The serve_knobs traffic's shape: a 512-token system prompt of
+    repeated 8-token motifs (so the n-gram drafter proposes) shared by
+    every session; per session a unique first user message of 32-200
+    tokens, three follow-ups of 8-16, each turn 16-64 new tokens, and a
+    quarter of the turns sampled (temperature 0.8, top-k 40)."""
+    motifs = rng.integers(0, V, (4, 8))
+    system = np.concatenate([motifs[j] for j in rng.integers(0, 4, 64)])
+    plan = []
+    for i in range(KNOB_SESSIONS):
+        turns = []
+        for t in range(KNOB_TURNS):
+            n = int(rng.integers(32, 201) if t == 0 else rng.integers(8, 17))
+            turns.append(dict(user=rng.integers(0, V, n).astype(np.int64),
+                              new=int(rng.integers(16, 65)),
+                              sampled=(i + t) % 4 == 3))
+        plan.append(turns)
+    return system.astype(np.int64), plan
+
+
+def first_tie(torch, model, seq, plen, device):
+    """Generated positions of ``seq`` before the first near-tie of a
+    cache-free forward over it (all of them when there is none)."""
+    with torch.no_grad():
+        lg = model(torch.as_tensor(seq[None], device=device)).float()[
+            0, plen - 1:-1]
+    top2 = lg.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    scale = lg.abs().amax(dim=-1).cpu().numpy()
+    ties = np.nonzero(gap < NEAR_TIE_REL * scale)[0]
+    return int(ties[0]) if len(ties) else len(seq) - plen
+
+
+def prefix_rows_check(torch, model, kv, pc, outs, device, chunk=64,
+                      swap=KNOB_SYSTEM // 32):
+    """Each of ``outs``' full blocks as the scheduler left them indexed in
+    ``kv`` (the shared system pages, the rows its resumed prefills, decode
+    and verify ticks wrote), held against a cold prefill of the same tokens
+    through the plain attention path in a fresh pool: per layer
+    max |K - K_cold| / max |K_cold|, and the same of V, the worst kept.
+    Tokens only decide these rows, so no near-tie cuts the comparison. A
+    control swaps block ``swap`` (the first past the shared prompt) of the
+    first history for the second's and must exceed INSITU_REL_TOL."""
+    from paddle_tpu_torch.inference import PagedKVCache
+
+    bs = kv.block_size
+    pages = [[b for _, b in pc.lookup(out).pairs] for out in outs]
+    nbs = [len(p) for p in pages]
+    S, NB = len(outs), max(nbs)
+    ref = PagedKVCache(kv.num_layers, kv.num_kv_heads, kv.head_dim,
+                       block_size=bs, num_blocks=S * NB, dtype=kv.dtype,
+                       device=device)
+    for i in range(S):
+        ref.reserve(i, nbs[i] * bs)
+    tables = np.stack([ref.block_table(i, pad_to=NB) for i in range(S)])
+    ids = np.zeros((S, -(-NB * bs // chunk) * chunk), np.int64)
+    for i, out in enumerate(outs):
+        ids[i, :nbs[i] * bs] = out[:nbs[i] * bs]
+    for off in range(0, NB * bs, chunk):
+        lens = np.clip(np.asarray(nbs) * bs - off, 0, chunk)
+        model.chunk_logits(ids[:, off:off + chunk], np.full(S, off), lens,
+                           ref, tables, decode_kernel="plain")
+
+    def worst(i, held):
+        cold = torch.as_tensor(tables[i, :nbs[i]], device=device)
+        held = torch.as_tensor(held, device=device)
+        err = 0.0
+        for pools, refs in ((kv.k_pages, ref.k_pages),
+                            (kv.v_pages, ref.v_pages)):
+            for a, r in zip(pools, refs):
+                r = r[:, cold].float()
+                err = max(err, float((a[:, held].float() - r).abs().max()
+                                     / r.abs().max()))
+        return err
+
+    rel = [worst(i, pages[i]) for i in range(S)]
+    control = None
+    if S > 1 and min(nbs[:2]) > swap:
+        planted = list(pages[0])
+        planted[swap] = pages[1][swap]
+        control = worst(0, planted)
+    return dict(blocks=nbs, rel=rel, control=control,
+                rel_tol=INSITU_REL_TOL, shared_prompt_pages_common=len(
+                    {tuple(p[:swap]) for p in pages}) == 1)
+
+
+def serve_knobs(torch, model, device, slots=8, chunk=64, decode_steps=4,
+                block_size=32, max_seq_len=1024, spec_k=4):
+    """The continuous scheduler with its serving knobs — spec_k 4 with the
+    n-gram drafter, the prefix cache, shortest-prompt-first and warmup —
+    behind InferenceServer, GPT-350M bf16. /readyz is polled from the
+    start (503 while the warm thread captures, then 200); four chat
+    sessions of four turns each (``chat_sessions``) run threaded, session
+    0 first and the others once its system prompt is indexed; then the
+    time to the first streamed token of a fresh 600-token prompt, cold and
+    again as a prefix hit; then over HTTP one SSE request, the same prompt
+    buffered, one sampled request with X-Temperature / X-Top-K / X-Spec:
+    off, and a Prometheus scrape. Gates: the SSE chunks equal the buffered
+    answer; the pool conserves after the drain, and blocks were shared
+    during the run; prefix hits skipped prompt tokens; drafted = accepted
+    + wasted and verify ticks ran; the warmup missed no program and no
+    capture followed it; every scrape line is a comment or a sample, with
+    the bound families; the paged kernel launched num_layers times per
+    forward; and the greedy requests, served again by a plain scheduler
+    (FIFO, no speculation, no prefix cache) on the same prompts, give the
+    same tokens up to each request's first near-tie."""
+    from paddle_tpu_torch.inference import (
+        ContinuousGenerateBatchingPredictor,
+        InferenceServer,
+        PagedKVCache,
+    )
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    spec = model._decode_cache_spec()
+    L = spec[0]
+    V = model.config.vocab_size
+    rng = np.random.default_rng(31)
+    system, plan = chat_sessions(rng, V)
+    num_blocks = slots * max_seq_len // block_size
+
+    def pool():
+        return PagedKVCache(*spec, block_size=block_size,
+                            num_blocks=num_blocks, dtype=torch.bfloat16,
+                            device=device)
+
+    kv = pool()
+    base = dict(max_slots=slots, prefill_chunk=chunk,
+                decode_steps=decode_steps, max_new_tokens=64,
+                max_seq_len=max_seq_len, device=device)
+    t_build = time.perf_counter()
+    gp = ContinuousGenerateBatchingPredictor(
+        model, kv_cache=kv, spec_k=spec_k, drafter="ngram",
+        prefix_cache=True, admit_policy="shortest_prompt_first",
+        warmup=True, **base)
+    hits = {}               # prompt bytes -> its prefix hit, per request
+    install = gp._install_seq
+
+    def recording_install(idx, req):    # host bookkeeping, tick thread
+        ok = install(idx, req)
+        if ok:
+            hits[np.asarray(req.arrays[0], np.int64).tobytes()] = (
+                gp._slots[idx].prefix_hit)
+        return ok
+
+    gp._install_seq = recording_install
+    srv = InferenceServer(gp, device=device, default_timeout=600).start()
+    readyz = []
+    while True:
+        readyz.append(_http(srv.port, "/readyz")[0])
+        if readyz[-1] == 200 or time.perf_counter() - t_build > 600:
+            break
+        time.sleep(0.02)
+    warm_wall = time.perf_counter() - t_build
+    stats = gp.warm_stats()
+    pool_keys = {k: r.captures for k, r in model._runner_cache().items()
+                 if ("pool", kv.uid) in k}
+    records = [[None] * KNOB_TURNS for _ in range(KNOB_SESSIONS)]
+    errors = {}
+    shared_max = [0]
+    watching = threading.Event()
+
+    def watch():            # host bookkeeping only, no device work
+        while not watching.is_set():
+            shared_max[0] = max(shared_max[0], kv.shared_block_count)
+            time.sleep(0.002)
+
+    def session(i):
+        hist = system
+        try:
+            for t, turn in enumerate(plan[i]):
+                prompt = np.concatenate([hist, turn["user"]])
+                kw = (dict(temperature=0.8, top_k=40) if turn["sampled"]
+                      else {})
+                out = gp.infer(prompt, timeout=600,
+                               max_new_tokens=turn["new"], **kw)
+                records[i][t] = (prompt, out)
+                hist = out
+        except Exception as e:      # reported below, fails the phase
+            errors[i] = repr(e)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    pa.paged_decode_attention.launches = 0          # main path starts here
+    t0 = time.perf_counter()
+    try:
+        first = threading.Thread(target=session, args=(0,))
+        first.start()
+        while (gp.prefix_cache.indexed_blocks() < KNOB_SYSTEM // block_size
+               and first.is_alive()):
+            time.sleep(0.002)
+        rest = [threading.Thread(target=session, args=(i,))
+                for i in range(1, KNOB_SESSIONS)]
+        for t in rest:
+            t.start()
+        for t in [first] + rest:
+            t.join(timeout=900)
+        traffic_wall = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in [first] + rest):
+            raise AssertionError(f"chat sessions failed: {errors}")
+        ttft = {}
+        probe = rng.integers(0, V, 600).astype(np.int64)
+        for form in ("cold", "prefix_hit"):
+            hit0 = gp.metrics.get("prefix_hit_tokens")
+            t1 = time.perf_counter()
+            it = gp.infer_stream(probe, timeout=600, max_new_tokens=16)
+            chunks = [next(it)]
+            ttft[form] = dict(seconds=time.perf_counter() - t1,
+                              hit_tokens=gp.metrics.get("prefix_hit_tokens")
+                              - hit0)
+            chunks += list(it)
+            ttft[form]["tokens"] = int(sum(len(c) for c in chunks))
+        sse_prompt = rng.integers(0, V, 24).astype(np.int64)
+        status, hdrs, body = _http(srv.port, "/generate", _npz(sse_prompt),
+                                   {"X-Stream": "sse"})
+        events = []
+        for block in body.decode().split("\n\n"):
+            if block.strip():
+                fields = dict(ln.split(": ", 1) for ln in block.split("\n"))
+                events.append((fields["event"], json.loads(fields["data"])))
+        sse_tokens = [tok for ev, d in events if ev == "tokens"
+                      for tok in d["tokens"]]
+        b_status, _, b_body = _http(srv.port, "/generate", _npz(sse_prompt))
+        buffered = np.load(io.BytesIO(b_body))["out0"]
+        s_status, _, s_body = _http(
+            srv.port, "/generate", _npz(sse_prompt),
+            {"X-Temperature": "0.8", "X-Top-K": "40", "X-Spec": "off"})
+        sampled_http = np.load(io.BytesIO(s_body))["out0"]
+        p_status, p_hdrs, prom = _http(srv.port, "/metrics?format=prom")
+        prom = prom.decode()
+    finally:
+        watching.set()
+        srv.stop(drain_timeout=60)                  # drains, closes gp
+    launches = pa.paged_decode_attention.launches   # main path ends here
+    conservation = kv.check_conservation()
+    snap = gp.metrics.snapshot()
+    counts = {kind: gp._spec_counter.labels("continuous", kind).value
+              for kind in ("drafted", "accepted", "wasted")}
+    recompiles = sum(c.value for _, c in
+                     gp._recompile_counter.children())
+    after_keys = {k: r.captures for k, r in model._runner_cache().items()
+                  if ("pool", kv.uid) in k}
+    generated = sum(len(out) - len(p) for sess in records
+                    for p, out in sess)
+    forwards = (snap.get("prefill_ticks", 0) + snap.get("verify_ticks", 0)
+                + decode_steps * snap.get("decode_ticks", 0))
+    bad_lines = [ln for ln in prom.splitlines()
+                 if not (ln.startswith("# ") or PROM_SAMPLE.match(ln))]
+    missing_fams = [f for f in PROM_FAMILIES if f"# TYPE {f} " not in prom]
+
+    # the plain scheduler on the greedy requests' prompts
+    greedy = [(i, t) for i in range(KNOB_SESSIONS) for t in range(KNOB_TURNS)
+              if not plan[i][t]["sampled"]]
+    plain_kv = pool()
+    plain = ContinuousGenerateBatchingPredictor(model, kv_cache=plain_kv,
+                                                **base)
+    plain_out, plain_err = {}, {}
+
+    def plain_client(i, t):
+        try:
+            plain_out[(i, t)] = plain.infer(
+                records[i][t][0], timeout=600,
+                max_new_tokens=plan[i][t]["new"])
+        except Exception as e:      # reported below, fails the phase
+            plain_err[(i, t)] = repr(e)
+
+    try:
+        ts = [threading.Thread(target=plain_client, args=it)
+              for it in greedy]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=900)
+    finally:
+        plain.close()
+    if plain_err or len(plain_out) != len(greedy):
+        raise AssertionError(f"plain scheduler failed: {plain_err}")
+    compared, first_ties, agree = {"prefix_hit": 0, "cold": 0}, [], True
+    greedy_hits = []
+    for i, t in greedy:
+        prompt, out = records[i][t]
+        ref = plain_out[(i, t)]
+        c = first_tie(torch, model, ref, len(prompt), device)
+        first_ties.append(c)
+        greedy_hits.append(hits.get(prompt.tobytes(), 0))
+        compared["prefix_hit" if greedy_hits[-1] > 0 else "cold"] += c
+        agree &= bool(np.array_equal(out[:len(prompt) + c],
+                                     ref[:len(prompt) + c]))
+    rows = prefix_rows_check(torch, model, kv, gp.prefix_cache,
+                             [sess[-1][1] for sess in records], device,
+                             chunk=chunk, swap=KNOB_SYSTEM // block_size)
+    rec = dict(
+        config=dict(slots=slots, chunk=chunk, decode_steps=decode_steps,
+                    block_size=block_size, max_seq_len=max_seq_len,
+                    spec_k=spec_k, drafter="ngram", prefix_cache=True,
+                    admit_policy="shortest_prompt_first", warmup=True),
+        requests=KNOB_SESSIONS * KNOB_TURNS, greedy_requests=len(greedy),
+        http_requests=3, readyz=readyz[:3] + readyz[-1:],
+        readyz_polls=len(readyz), warm_wall_s=warm_wall, warm_stats=dict(
+            stats or {}, missing=[str(k) for k in (stats or {}).get(
+                "missing", ["no stats"])]),
+        warm_errors=[repr(e) for e in gp.warm_errors()],
+        traffic_wall_s=traffic_wall, generated_tokens=generated,
+        tok_per_s=generated / traffic_wall,
+        prefill_tokens_saved=snap.get("prefix_hit_tokens", 0),
+        prefill_ticks=snap.get("prefill_ticks", 0),
+        verify_ticks=snap.get("verify_ticks", 0),
+        decode_ticks=snap.get("decode_ticks", 0),
+        spec_tokens=counts, acceptance_rate=gp._acceptance_rate(),
+        shared_blocks_max=shared_max[0], conservation=conservation,
+        ttft=ttft, sse_events=len(events), sse_status=status,
+        sse_equals_buffered=bool(
+            b_status == 200 and status == 200 and events
+            and events[-1][0] == "done"
+            and np.array_equal(np.asarray(sse_tokens, np.int64),
+                               buffered[len(sse_prompt):])),
+        sampled_http=dict(status=s_status, shape=list(sampled_http.shape)),
+        prometheus=dict(status=p_status, lines=len(prom.splitlines()),
+                        bad_lines=bad_lines[:5],
+                        missing_families=missing_fams),
+        recompiles=recompiles, runner_keys=len(pool_keys),
+        captures_after_warm=sum(after_keys.values())
+        - sum(pool_keys.values()),
+        kernel_launches=launches, expected_launches=L * forwards,
+        compared_tokens=compared, first_ties=first_ties,
+        greedy_prefix_hits=greedy_hits, greedy_equal_plain=agree,
+        prefix_rows=rows)
+    print("serve-knobs", json.dumps(rec), flush=True)
+    checks = {
+        "greedy tokens equal the plain scheduler's": agree,
+        "greedy tokens compared among prefix hits":
+            compared["prefix_hit"] > 0,
+        "indexed rows equal a cold prefill, the swapped page fails": (
+            min(rows["blocks"]) > KNOB_SYSTEM // block_size
+            and max(rows["rel"]) <= INSITU_REL_TOL
+            and rows["control"] is not None
+            and rows["control"] > INSITU_REL_TOL),
+        "SSE equals the buffered answer": rec["sse_equals_buffered"],
+        "sampled HTTP request": (s_status == 200 and sampled_http.shape
+                                 == (len(sse_prompt) + 64,)
+                                 and 0 <= sampled_http.min()
+                                 and sampled_http.max() < V),
+        "pool conserved and drained": (conservation["requests"] == 0
+                                       and kv.blocks_in_use
+                                       == gp.prefix_cache.cached_blocks()),
+        "blocks shared during the run": shared_max[0] > 0,
+        "prefix hits skipped prompt tokens":
+            rec["prefill_tokens_saved"] > 0
+            and ttft["prefix_hit"]["hit_tokens"] > 0,
+        "spec counters": (counts["wasted"] == counts["drafted"]
+                          - counts["accepted"] and counts["drafted"] > 0
+                          and counts["drafted"] == gp._spec_drafted
+                          and rec["verify_ticks"] > 0),
+        "readyz 503 then 200": (readyz[0] == 503 and readyz[-1] == 200),
+        "warmup complete, no capture after": (
+            stats is not None and stats["missing"] == []
+            and stats["programs"] == 3 and len(pool_keys) == 3
+            and recompiles == 0 and after_keys == pool_keys),
+        "prometheus text": (p_status == 200 and not bad_lines
+                            and not missing_fams),
+        "paged launches = layers x forwards": (launches == L * forwards
+                                               and launches > 0),
+        "every request served": all(r is not None for sess in records
+                                    for r in sess),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"serve_knobs: {failed}: {rec}")
     return rec
 
 
@@ -1457,10 +1910,15 @@ def _post_npz(port, ids):
 def batch_serve(torch, model, device, n_requests=6, new=32,
                 prompt_range=(64, 500), block_size=32):
     """The whole-batch GenerateBatchingPredictor behind InferenceServer
-    over a bf16 pool: threaded requests of mixed prompt lengths, then one
-    over HTTP. Each batch is one generate_paged call (one prefill + new - 1
-    decode forwards through the paged kernel). Checks lengths, ids, pool
-    conservation and the paged kernel's launches."""
+    over a bf16 pool: threaded requests of mixed prompt lengths in two
+    rounds, the second resending the first's prompts (a cold round that
+    captures, a warm one that replays where its batches repeat a shape),
+    then one over HTTP. Each batch is one generate_paged call: one graph
+    per (batch, prompt width rounded up to a power of two) (the prefill
+    and new - 1 decode forwards through the paged kernel), captured on the
+    key's first call and replayed after. Checks lengths, ids, pool
+    conservation and the paged kernel's launches, then
+    ``paged_runner_check``."""
     from paddle_tpu_torch.inference import (
         GenerateBatchingPredictor,
         InferenceServer,
@@ -1482,11 +1940,11 @@ def batch_serve(torch, model, device, n_requests=6, new=32,
     prompts = [rng.integers(0, V, n).astype(np.int64) for n in plens]
     http_prompt = rng.integers(0, V, int(rng.integers(*prompt_range))
                                ).astype(np.int64)
-    results, errors = {}, {}
+    results, errors, rounds = [], {}, []
 
     def client(i):
         try:
-            results[i] = gp.infer(prompts[i], timeout=600)
+            results[-1][i] = gp.infer(prompts[i], timeout=600)
         except Exception as e:      # reported below, fails the phase
             errors[i] = repr(e)
 
@@ -1495,21 +1953,30 @@ def batch_serve(torch, model, device, n_requests=6, new=32,
     pa.paged_decode_attention.launches = 0
     t0 = time.perf_counter()
     try:
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(n_requests)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        if any(t.is_alive() for t in threads) or errors:
-            raise AssertionError(f"requests failed: {errors}")
+        for name in ("cold", "warm"):
+            results.append({})
+            c0, b0 = captures_total(model), len(gp.batch_sizes)
+            t1 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(n_requests)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            if any(t.is_alive() for t in threads) or errors:
+                raise AssertionError(f"requests failed: {errors}")
+            dt = time.perf_counter() - t1
+            rounds.append(dict(round=name, wall_s=dt,
+                               tok_per_s=n_requests * new / dt,
+                               batch_sizes=list(gp.batch_sizes[b0:]),
+                               captures=captures_total(model) - c0))
         http_out = _post_npz(srv.port, http_prompt)
     finally:
         wall = time.perf_counter() - t0
         srv.stop()
     launches = pa.paged_decode_attention.launches
-    for p, out in [(prompts[i], results[i]) for i in range(n_requests)] + [
-            (http_prompt, http_out)]:
+    for p, out in [(prompts[i], res[i]) for res in results
+                   for i in range(n_requests)] + [(http_prompt, http_out)]:
         if (out.shape != (len(p) + new,) or not np.array_equal(out[:len(p)], p)
                 or out.min() < 0 or out.max() >= V):
             raise AssertionError("whole-batch request: wrong length or ids")
@@ -1518,19 +1985,85 @@ def batch_serve(torch, model, device, n_requests=6, new=32,
         raise AssertionError(f"{kv.blocks_in_use} KV blocks leaked")
     snap = gp.metrics.snapshot()
     expect = spec[0] * new * len(gp.batch_sizes)
-    rec = dict(requests=n_requests, http_requests=1,
+    rec = dict(requests=2 * n_requests, http_requests=1,
                completed=snap.get("completed", 0),
                batch_sizes=list(gp.batch_sizes), new_tokens=new, wall_s=wall,
-               tok_per_s=(n_requests + 1) * new / wall,
+               tok_per_s=(2 * n_requests + 1) * new / wall, rounds=rounds,
+               warm_equals_cold=all(np.array_equal(results[0][i],
+                                                   results[1][i])
+                                    for i in range(n_requests)),
                paged_launches=launches, expected_launches=expect,
                captures=captures_total(model) - captures0)
     print("batch-serving", json.dumps(rec), flush=True)
-    if rec["completed"] != n_requests + 1:
+    if rec["completed"] != 2 * n_requests + 1:
         raise AssertionError(f"completed {rec['completed']} of "
-                             f"{n_requests + 1}")
+                             f"{2 * n_requests + 1}")
     if launches != expect or launches == 0:
         raise AssertionError(f"paged launches {launches} != num_layers x "
                              f"forwards = {expect}")
+    rec["runner"] = paged_runner_check(torch, model, kv, new, rng)
+    return rec
+
+
+def paged_runner_check(torch, model, kv, new, rng, B=4, P=256):
+    """generate_paged's captured runner at one key (B 4, P 256, ``new``
+    tokens, prompts of 256 / 200 / 131 / 64 over ``kv``): the first call
+    (body, then capture), then greedy and sampled (temperature 0.8, top-k
+    40, one seed) calls as bodies without capture and replayed, tokens
+    identical, with the host wall of each form; then one call of each form
+    through ``profile_call``: a replayed call is one fill, one graph
+    launch and one read (at most 3 host launch calls)."""
+    V = model.config.vocab_size
+    plens = np.array([P, 200, 131, 64])
+    ids = rng.integers(0, V, (B, P))
+    tables = np.stack([kv.reserve(("runner", b), P + new)
+                       for b in range(B)])
+    try:
+        def call(**kw):
+            return model.generate_paged(ids, plens, kv, tables,
+                                        max_new_tokens=new, **kw)
+
+        pool0 = graph_pool_bytes(torch, model)
+        t0 = time.perf_counter()
+        call()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        run = model.compiled_generate_paged_runner(B, P, new)
+        equal, wall = {}, {}
+        for form, kw in (("greedy", {}), ("sampled", dict(
+                temperature=0.8, top_k=40, seed=2))):
+            t0 = time.perf_counter()
+            with run._eager():
+                body = call(**kw)
+            t1 = time.perf_counter()
+            replay = call(**kw)
+            t2 = time.perf_counter()
+            equal[form] = bool(np.array_equal(body, replay))
+            wall[form] = dict(body_ms=(t1 - t0) * 1e3,
+                              replay_ms=(t2 - t1) * 1e3)
+        with run._eager():
+            body_prof = profile_call(torch, call, PAGED_ATTENTION)
+        replay_prof = profile_call(torch, call, PAGED_ATTENTION)
+        rec = dict(B=B, prompt=P, new_tokens=new, captures=run.captures,
+                   capture_ms=run.capture_s * 1e3, first_call_ms=first_ms,
+                   graph_pool_growth_bytes=(
+                       None if None in (pool0, graph_pool_bytes(
+                           torch, model)) else graph_pool_bytes(
+                               torch, model) - pool0),
+                   replay_equals_body=equal, wall=wall,
+                   body=body_prof, replay=replay_prof,
+                   replay_device_ms=replay_device_ms(
+                       torch, run.graphs["step"].graph))
+    finally:
+        for b in range(B):
+            kv.release(("runner", b))
+    print("paged-runner", json.dumps(rec), flush=True)
+    if not all(equal.values()) or run.captures != 1:
+        raise AssertionError(f"generate_paged: replay differs from its body "
+                             f"or {run.captures} captures: {rec}")
+    if replay_prof["host_launch_calls"] > 3:
+        raise AssertionError(f"a replayed generate_paged call made "
+                             f"{replay_prof['host_launch_calls']} host "
+                             f"launch calls (> 3): {rec}")
     return rec
 
 
@@ -2534,6 +3067,16 @@ def main():
     print(f"serving on {card}: prefill {serving['prefill_tok_per_s']:.0f} "
           f"tok/s, decode {serving['decode_tok_per_s']:.0f} tok/s",
           flush=True)
+    knobs = serve_knobs(torch, model, device)
+    print(f"serve_knobs on {card}: {knobs['tok_per_s']:.0f} tok/s, "
+          f"{knobs['prefill_tokens_saved']} prefill tokens saved, "
+          f"acceptance {knobs['acceptance_rate']:.3f}, first token "
+          f"{knobs['ttft']['cold']['seconds'] * 1e3:.1f} ms cold / "
+          f"{knobs['ttft']['prefix_hit']['seconds'] * 1e3:.1f} ms prefix "
+          f"hit, greedy tokens compared {knobs['compared_tokens']}, "
+          f"indexed rows vs cold {max(knobs['prefix_rows']['rel']):.2e} "
+          f"(swapped page {knobs['prefix_rows']['control']:.2e})",
+          flush=True)
     del model
     torch.cuda.empty_cache()
     dense_checks, dense_worst = check_dense_kernels(torch, da, device)
@@ -2550,6 +3093,10 @@ def main():
           f"tok/s, decode {gen['decode_tok_per_s']:.0f} tok/s", flush=True)
     gen_profile = profile_dense_step(torch, model, device)
     batch = batch_serve(torch, model, device)
+    print(f"batch-serve on {card}: " + ", ".join(
+        f"{r['round']} {r['tok_per_s']:.1f} tok/s ({r['captures']} "
+        f"captures, batches {r['batch_sizes']})" for r in batch["rounds"]),
+        flush=True)
     degrade = degrade_check(torch, model, device)
     spec = speculative(torch, model, device)
     print(f"speculative on {card}: acceptance "
@@ -2580,6 +3127,8 @@ def main():
         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/ops/pallas/decode_attention.py:245",
         "launches": serving["kernel_launches"],
+        "serve_knobs_launches": knobs["kernel_launches"],
+        "batch_serve_launches": batch["paged_launches"],
         "max_abs_err": worst["bfloat16"],
         "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": d["library_ms"],
@@ -2642,6 +3191,7 @@ def main():
     record = dict(card=card, build_s=build_s, ptxas=ptxas, checks=checks,
                   timing=timing,
                   insitu=insitu, profile=steps, serving=serving,
+                  serve_knobs=knobs,
                   flash_checks=flash_checks, flash_timing=flash_timing,
                   dense_checks=dense_checks, dense_timing=dense_timing,
                   dense_insitu=gen_insitu, generation=gen,

@@ -4,8 +4,9 @@
 One shared per-layer page pool on the device, head-leading
 ``[Hkv, P, BS, D]``; each request owns a block table (host ints) that the
 paged attention kernel reads. Host side is bookkeeping only: a free-list
-allocator with LIFO reuse, per-request tables and lengths, and LRU
-eviction of finished-but-retained requests when the pool runs dry.
+allocator with LIFO reuse, per-request tables and lengths, per-block
+refcounts, and LRU eviction of finished-but-retained requests (then of the
+prefix cache's parked tier) when the pool runs dry.
 
 The pools are torch tensors updated IN PLACE by the step programs, so
 there is no functional commit: ``commit()`` only checks that the pools it
@@ -14,9 +15,14 @@ is handed are this cache's own. Each pool holds one page more than
 never hands out and no block table names. The step programs write every
 row of a step, and aim the rows a step drops (idle slots, padding, rows
 past a ceiling or a table) at its first slot, ``scratch_slot``; only
-pages ``[0, num_blocks)`` hold live rows. The prefix cache, fault
-injection, mesh sharding and metrics binding of the JAX class are not
-ported yet.
+pages ``[0, num_blocks)`` hold live rows. The scratch page is never
+handed out, indexed, parked or counted.
+
+With a ``PrefixCache`` attached (``attach_prefix_cache``), a reservation
+can lead with shared blocks (``reserve(..., shared=pairs)``), release frees
+a block only when its last holder lets go, and a refcount-zero indexed
+block parks in the prefix tier instead of freeing. Fault injection and
+mesh sharding of the JAX class are not ported.
 """
 from __future__ import annotations
 
@@ -117,9 +123,13 @@ class PagedKVCache:
         self._clock = itertools.count()
         self.evictions = 0          # finished-but-retained requests reclaimed
         self.evicted_blocks = 0     # blocks those evictions returned
+        # holders per allocated block: exactly 1 without a prefix cache;
+        # reserve(shared=...) bumps them, release frees only at zero
+        self._block_refs: dict[int, int] = {}
+        self._prefix = None         # PrefixCache | None
         # hit from HTTP handler threads (admission checks) and the batcher
         # thread (reserve/release); re-entrant: reserve -> _evict_lru ->
-        # release
+        # release; taken before PrefixCache._lock, never after
         self._lock = threading.RLock()
 
     def signature(self):
@@ -137,28 +147,107 @@ class PagedKVCache:
     def blocks_for(self, seq_len: int) -> int:
         return max(1, math.ceil(seq_len / self.block_size))
 
+    def pool_bytes(self) -> int:
+        """Bytes of the K and V pools of every layer, the scratch page
+        included (what the device holds)."""
+        return sum(p.numel() * p.element_size()
+                   for p in self.k_pages + self.v_pages)
+
+    def attach_prefix_cache(self, prefix):
+        """Wire a PrefixCache into release and eviction (JAX
+        ``kv_cache.py:170-177``)."""
+        with self._lock:
+            if self._prefix is not None and self._prefix is not prefix:
+                raise ValueError("a prefix cache is already attached")
+            self._prefix = prefix
+
+    def bind_metrics(self, registry, pool="kv"):
+        """The pool's state as scrape-time series (JAX
+        ``kv_cache.py:180-222``): ``paddle_kv_pool_blocks{pool, state=
+        live|free|evictable}`` (they partition the pool),
+        ``paddle_kv_pool_size_blocks``, ``paddle_kv_pool_live_utilization``,
+        ``paddle_kv_pool_evictions_total`` and
+        ``paddle_kv_pool_per_chip_bytes`` (the pools' bytes on the card,
+        the scratch page included: the port does not shard the pool)."""
+        blocks = registry.gauge(
+            "paddle_kv_pool_blocks",
+            "KV page-pool blocks by state; live+free+evictable == pool size",
+            labels=("pool", "state"))
+        blocks.labels(pool, "live").set_function(
+            lambda: self.blocks_in_use - self.evictable_blocks)
+        blocks.labels(pool, "free").set_function(lambda: self.free_blocks)
+        blocks.labels(pool, "evictable").set_function(
+            lambda: self.evictable_blocks)
+        registry.gauge(
+            "paddle_kv_pool_size_blocks", "Total blocks in the KV page pool",
+            labels=("pool",)).labels(pool).set_function(
+                lambda: self.num_blocks)
+        registry.gauge(
+            "paddle_kv_pool_live_utilization",
+            "Fraction of the pool held by still-decoding requests "
+            "(the admission-control pressure signal)",
+            labels=("pool",)).labels(pool).set_function(
+                lambda: self.live_utilization)
+        registry.counter(
+            "paddle_kv_pool_evictions_total",
+            "Finished-but-retained requests evicted LRU to cover new "
+            "reservations", labels=("pool",)).labels(pool).set_function(
+                lambda: self.evictions)
+        registry.gauge(
+            "paddle_kv_pool_per_chip_bytes",
+            "KV pool bytes resident PER CHIP — 1/tp of the logical pool "
+            "when the pool is head-sharded over the serving mesh's tp axis",
+            labels=("pool",)).labels(pool).set_function(self.pool_bytes)
+        return self
+
     # ----------------------------------------------------------- allocation
-    def reserve(self, request_id, max_seq_len: int, evict: bool = True):
+    def reserve(self, request_id, max_seq_len: int, evict: bool = True,
+                shared=None):
         """Allocate blocks covering max_seq_len for a new request; returns
         its block table as int32. When the free list runs dry and ``evict``,
         finished-but-retained requests are evicted least recently used
-        first. Atomic: nothing is evicted when eviction still could not
-        cover the allocation."""
+        first, then the prefix cache's parked tier.
+
+        ``shared``: (digest, block) pairs of a ``PrefixCache.lookup``,
+        revalidated here under the lock (truncated at the first stale
+        link). The validated blocks take a refcount and lead the table; the
+        request's committed length starts at ``n_shared * block_size``.
+
+        Atomic: either the request is fully reserved or the cache is as it
+        was — nothing is evicted when eviction still could not cover the
+        allocation, and a failed reservation re-parks what it acquired."""
         with self._lock:
             if request_id in self._requests:
                 raise ValueError(f"request {request_id!r} already reserved")
             n = self.blocks_for(max_seq_len)
-            if self.allocator.available < n:
-                shortfall = n - self.allocator.available
-                evictable = self._evictable_locked() if evict else 0
-                if evictable < shortfall:
-                    raise CacheOutOfBlocks(
-                        f"need {n} blocks, {self.allocator.available} free "
-                        f"+ {evictable} evictable of {self.num_blocks}")
-                self._evict_lru(shortfall)
-            blocks = self.allocator.allocate(n)
-            self._requests[request_id] = _Request(blocks, 0,
-                                                  next(self._clock))
+            acquired: list[int] = []
+            if shared and self._prefix is not None:
+                # refcounts first, so an eviction below can neither free
+                # nor park these blocks
+                acquired = self._prefix._acquire(list(shared)[:n])
+                for b in acquired:
+                    self._block_refs[b] = self._block_refs.get(b, 0) + 1
+            try:
+                need_new = n - len(acquired)
+                if self.allocator.available < need_new:
+                    shortfall = need_new - self.allocator.available
+                    evictable = self._evictable_locked() if evict else 0
+                    if evictable < shortfall:
+                        raise CacheOutOfBlocks(
+                            f"need {need_new} blocks, "
+                            f"{self.allocator.available} free + {evictable} "
+                            f"evictable of {self.num_blocks}")
+                    self._evict_lru(shortfall)
+                fresh = self.allocator.allocate(need_new)
+            except BaseException:
+                for b in acquired:     # undo: the cache as it was
+                    self._unref(b)
+                raise
+            for b in fresh:
+                self._block_refs[b] = 1
+            blocks = acquired + fresh
+            self._requests[request_id] = _Request(
+                blocks, len(acquired) * self.block_size, next(self._clock))
             return np.asarray(blocks, np.int32)
 
     def _evict_lru(self, need: int):
@@ -166,13 +255,22 @@ class PagedKVCache:
             done = sorted((r for r in self._requests.items() if r[1].done),
                           key=lambda kv: kv[1].touch)
             freed = 0
-            for rid, req in done:
+            for rid, _ in done:
                 if freed >= need:
                     break
+                # blocks shared with live requests (or parked by the index)
+                # do not come home: count what the release actually freed
+                avail0 = self.allocator.available
                 self.evictions += 1
                 self.release(rid)
-                freed += len(req.blocks)
-                self.evicted_blocks += len(req.blocks)
+                got = self.allocator.available - avail0
+                freed += got
+                self.evicted_blocks += got
+            if freed < need and self._prefix is not None:
+                got = self._prefix._reclaim(need - freed)
+                if got:
+                    self.allocator.free(got)
+                    self.evicted_blocks += len(got)
 
     def mark_done(self, request_id):
         """Request finished; its pages stay readable but become evictable."""
@@ -182,7 +280,21 @@ class PagedKVCache:
     def release(self, request_id):
         with self._lock:
             req = self._requests.pop(request_id)
-            self.allocator.free(req.blocks)
+            for b in req.blocks:
+                self._unref(b)
+
+    def _unref(self, block: int):
+        """Drop one holder. At zero an indexed block parks in the prefix
+        tier; any other goes back to the allocator."""
+        with self._lock:
+            r = self._block_refs[block] - 1
+            if r > 0:
+                self._block_refs[block] = r
+                return
+            del self._block_refs[block]
+            if self._prefix is not None and self._prefix._park(block):
+                return
+            self.allocator.free([block])
 
     # ------------------------------------------------------------- metadata
     def block_table(self, request_id, pad_to=None):
@@ -233,8 +345,28 @@ class PagedKVCache:
     def free_blocks(self) -> int:
         return self.allocator.available
 
+    @property
+    def evictable_blocks(self) -> int:
+        """Blocks reclaimable on demand: held only by finished-but-retained
+        requests, plus the prefix cache's parked tier."""
+        with self._lock:
+            return self._evictable_locked()
+
     def _evictable_locked(self) -> int:
-        return sum(len(r.blocks) for r in self._requests.values() if r.done)
+        done_held: set[int] = set()
+        live_held: set[int] = set()
+        for r in self._requests.values():
+            (done_held if r.done else live_held).update(r.blocks)
+        n = len(done_held - live_held)
+        if self._prefix is not None:
+            n += self._prefix.cached_blocks()
+        return n
+
+    @property
+    def shared_block_count(self) -> int:
+        """Blocks that two or more request tables hold."""
+        with self._lock:
+            return sum(1 for v in self._block_refs.values() if v > 1)
 
     @property
     def live_utilization(self) -> float:
@@ -245,27 +377,52 @@ class PagedKVCache:
 
     # ----------------------------------------------------------- invariants
     def check_conservation(self) -> dict:
-        """Audit of the allocator + request bookkeeping; raises
-        AssertionError on a violation, returns the recomputed stats. Every
-        allocated block has exactly one owner; free and live partition the
-        pool; every length fits its reservation."""
+        """Audit of the allocator, request and refcount bookkeeping (JAX
+        ``kv_cache.py:421-494``); raises AssertionError on a violation,
+        returns the recomputed stats. No block twice in one table; every
+        refcount equals a recount of its holders; held and parked blocks
+        are disjoint and together the allocator's live set; parked blocks
+        are indexed and indexed blocks live; free and live partition the
+        pool (the scratch page is in neither); every length fits its
+        reservation."""
         with self._lock:
-            owner: dict[int, object] = {}
+            holders: dict[int, int] = {}
             for rid, req in self._requests.items():
+                seen_here: set[int] = set()
                 for b in req.blocks:
                     assert 0 <= b < self.num_blocks, \
                         f"request {rid!r} holds out-of-pool block {b}"
-                    assert b not in owner, \
-                        f"block {b} held by {owner[b]!r} and {rid!r}"
-                    owner[b] = rid
+                    assert b not in seen_here, \
+                        f"block {b} appears twice in {rid!r}'s table"
+                    seen_here.add(b)
+                    holders[b] = holders.get(b, 0) + 1
                 cap = len(req.blocks) * self.block_size
                 assert req.length <= cap, \
                     (f"request {rid!r} length {req.length} exceeds "
                      f"capacity {cap}")
+            if holders != self._block_refs:
+                diff = {b: (holders.get(b), self._block_refs.get(b))
+                        for b in set(holders) | set(self._block_refs)
+                        if holders.get(b) != self._block_refs.get(b)}
+                raise AssertionError(
+                    f"refcounts diverge from recounted holders "
+                    f"(block: (recount, refs)) = {diff}")
+            held = set(holders)
+            if self._prefix is not None:
+                parked, indexed = self._prefix._tier_snapshot()
+            else:
+                parked, indexed = set(), set()
+            assert not (held & parked), \
+                f"blocks both held and parked: {held & parked}"
             live = self.allocator._live
-            assert set(owner) == live, \
-                (f"held != allocator live set (held-not-live="
-                 f"{set(owner) - live}, live-not-held={live - set(owner)})")
+            assert held | parked == live, \
+                (f"held | parked != allocator live set "
+                 f"(not live={(held | parked) - live}, "
+                 f"unaccounted={live - held - parked})")
+            assert parked <= indexed, \
+                f"parked blocks missing from index: {parked - indexed}"
+            assert indexed <= live, \
+                f"index names freed blocks: {indexed - live}"
             free = set(self.allocator._free)
             assert len(free) == len(self.allocator._free), \
                 "free list contains duplicates"
@@ -274,12 +431,15 @@ class PagedKVCache:
                 (f"free ({len(free)}) + live ({len(live)}) != "
                  f"pool size {self.num_blocks}")
             evictable = self._evictable_locked()
-            stats = {"live": len(live), "free": len(free),
-                     "evictable": evictable,
-                     "requests": len(self._requests),
-                     "live_utilization": (len(live) - evictable)
-                     / self.num_blocks}
-        return stats
+            expect_live_util = (len(live) - evictable) / self.num_blocks
+            n_requests = len(self._requests)
+            got = self.live_utilization
+        assert abs(got - expect_live_util) < 1e-9, \
+            f"live_utilization {got} != ground truth {expect_live_util}"
+        return {"live": len(live), "free": len(free), "evictable": evictable,
+                "cached": len(parked), "shared":
+                    sum(1 for v in holders.values() if v > 1),
+                "requests": n_requests, "live_utilization": got}
 
     # ------------------------------------------------------------ device I/O
     def commit(self, k_pages, v_pages):

@@ -6,15 +6,22 @@ Every request carries one deadline from the HTTP header through the queue
 into the scheduler's ticks and reaches exactly one terminal outcome
 (result | failure | cancel) through a compare-and-swap on its state.
 ``InferenceServer`` speaks the JAX package's protocol: ``POST /generate``
-with an npz body ``{ids}`` answers npz ``{out0}``; ``GET /health`` and
-``GET /readyz``. Not ported yet: SSE streaming, the sampler/adapter/tenant
-headers, ``/metrics``, ``/debug/*``, the circuit breaker, the thread
-supervisor and ``ReplicaFleet``.
+with an npz body ``{ids}`` answers npz ``{out0}``, or Server-Sent Events
+(``X-Stream: sse`` / ``Accept: text/event-stream``) from a streaming
+generator; ``X-Temperature``, ``X-Top-K`` and ``X-Spec`` are per-request
+sampler knobs; ``GET /health``, ``GET /readyz`` and ``GET /metrics`` (JSON
+counters, or the Prometheus text of every registry with ``?format=prom``
+or an Accept header naming text/plain). Not ported: the adapter and tenant
+headers, ``/slo``, ``/utilization``, ``/debug/*``, the circuit breaker,
+the thread supervisor and ``ReplicaFleet`` (ROADMAP A7).
 """
 from __future__ import annotations
 
 import io
 import itertools
+import json
+import math
+import os
 import queue
 import threading
 import time
@@ -23,6 +30,7 @@ import numpy as np
 import torch
 
 from ..framework import resolve_device
+from ..observability.metrics import MetricsRegistry, render_prometheus
 from .kv_cache import CacheOutOfBlocks, PagedKVCache
 from .resilience import (
     AdmissionController,
@@ -44,8 +52,8 @@ class _Request:
     exactly one of finish()/fail()/cancel() wins; the losers see False."""
 
     __slots__ = ("arrays", "event", "result", "error", "deadline", "retries",
-                 "defers", "t0", "max_new", "temperature", "top_k", "_lock",
-                 "_state")
+                 "defers", "t0", "max_new", "temperature", "top_k", "spec",
+                 "on_tokens", "_lock", "_state")
 
     def __init__(self, arrays, deadline=None):
         self.arrays = arrays
@@ -59,6 +67,8 @@ class _Request:
         self.max_new = None     # per-request token budget
         self.temperature = None
         self.top_k = None
+        self.spec = None        # speculation opt-out (None: the default)
+        self.on_tokens = None   # streaming flush callback (infer_stream)
         self._lock = threading.Lock()
         self._state = _PENDING
 
@@ -99,8 +109,10 @@ class GenerateBatchingPredictor:
 
     A batcher thread collects up to ``max_batch_size`` requests within
     ``max_delay_ms`` (waking early once the batch fills) and serves them in
-    one ``generate_paged`` call: prompts right-padded to the batch's
-    longest, each request reserving only ceil((len + max_new_tokens) /
+    one ``generate_paged`` call: prompts right-padded to the power of two
+    at or above the batch's longest (at most the model's ``max_position``),
+    so batches of nearby lengths replay one captured program, each request
+    reserving only ceil((len + max_new_tokens) /
     block_size) blocks of the pool. A request that cannot reserve RIGHT NOW
     is deferred to a later batch at most ``max_defers`` times, then shed
     with ServerBusy; the rest of its batch proceeds. Every reserved block is
@@ -114,9 +126,17 @@ class GenerateBatchingPredictor:
     ``device`` defaults to CUDA and raises on a machine without it unless
     the caller passes ``device="cpu"``; it must be the model's device, and
     the pool's. Subclasses may replace ``_loop`` (the batcher thread's
-    body), as the continuous scheduler does."""
+    body), as the continuous scheduler does.
+
+    ``metrics.registry`` (a ``MetricsRegistry``) holds the predictor's
+    series under the ``component`` label: the serving events, the pool's
+    state, the launch-latency histogram and the generated-token counter
+    (JAX ``serving.py:636-652``)."""
 
     _component = "generator"
+    decode_kernel = "kernel"        # the step programs' attention route
+    supports_sampler_knobs = False  # per-request headers: continuous only
+    supports_streaming = False      # SSE: continuous only
 
     def __init__(self, model, max_batch_size=8, max_delay_ms=2.0,
                  max_new_tokens=32, kv_cache=None, block_size=32,
@@ -137,6 +157,8 @@ class GenerateBatchingPredictor:
         self.fallback_dense = (kv_cache.num_layers, kv_cache.num_kv_heads,
                                kv_cache.head_dim) != spec
         self.model = model
+        self._max_position = int(getattr(getattr(model, "config", None),
+                                         "max_position", 1 << 62))
         self.kv_cache = kv_cache
         self.max_batch_size = int(max_batch_size)
         self.max_delay = float(max_delay_ms) / 1000.0
@@ -145,7 +167,16 @@ class GenerateBatchingPredictor:
         self.max_defers = int(max_defers)
         self.admission = (admission if admission is not None
                           else AdmissionController())
-        self.metrics = ServingMetrics()
+        self.metrics = ServingMetrics(component=self._component)
+        reg = self.metrics.registry
+        kv_cache.bind_metrics(reg, pool=self._component)
+        self._decode_hist = reg.histogram(
+            "paddle_decode_launch_seconds",
+            "Host wall of one decode launch (prefill + compiled scan "
+            "dispatch) by path", labels=("component", "path"))
+        self._tokens_total = reg.counter(
+            "paddle_generated_tokens_total", "Tokens generated (batch * new)",
+            labels=("component",))
         self.batch_sizes: list[int] = []
         self._clock = time.monotonic
         self._rid = itertools.count(1)      # atomic id draws
@@ -157,6 +188,13 @@ class GenerateBatchingPredictor:
             target=self._loop, daemon=True,
             name=f"batching-predictor[{self._component}]")
         self._thread.start()
+
+    def _gen_timing(self, info):
+        """The generation timing hook -> the registry's series."""
+        self._decode_hist.labels(self._component, info["path"]).observe(
+            info["launch_s"])
+        self._tokens_total.labels(self._component).inc(
+            info["batch"] * info["new_tokens"])
 
     # ---------------------------------------------------------------- worker
     def _loop(self):
@@ -211,12 +249,14 @@ class GenerateBatchingPredictor:
             self.batch_sizes.append(n)
             plens = np.asarray([len(r.arrays[0]) for _, r in admitted],
                                np.int64)
+            # the prompts right-padded to a power-of-two width (masked by
+            # plens): batches of nearby lengths replay one program
             P = int(plens.max())
+            P = max(P, min(1 << (P - 1).bit_length(), self._max_position))
             prompts = np.zeros((n, P), np.int64)
             for i, (_, r) in enumerate(admitted):
                 prompts[i, :plens[i]] = r.arrays[0]
-            nb = max(cache.blocks_for(int(p) + self.max_new_tokens)
-                     for p in plens)
+            nb = cache.blocks_for(P + self.max_new_tokens)
             tbl = np.stack([cache.block_table(rid, pad_to=nb)
                             for rid, _ in admitted])
             dls = [r.deadline for _, r in admitted]
@@ -224,7 +264,9 @@ class GenerateBatchingPredictor:
                         if all(d is not None for d in dls) else None)
             toks = self.model.generate_paged(
                 prompts, plens, cache, tbl,
-                max_new_tokens=self.max_new_tokens, deadline=batch_dl)
+                max_new_tokens=self.max_new_tokens,
+                decode_kernel=self.decode_kernel, deadline=batch_dl,
+                timing_hook=self._gen_timing)
             self.metrics.inc("generated_tokens", n * self.max_new_tokens)
             for i, (rid, r) in enumerate(admitted):
                 cache.set_length(rid, int(plens[i]) + self.max_new_tokens)
@@ -254,7 +296,8 @@ class GenerateBatchingPredictor:
             try:
                 out = self.model.generate(
                     r.arrays[0][None], max_new_tokens=self.max_new_tokens,
-                    dtype=dtype, deadline=r.deadline)
+                    dtype=dtype, decode_kernel=self.decode_kernel,
+                    deadline=r.deadline, timing_hook=self._gen_timing)
                 self.metrics.inc("generated_tokens", self.max_new_tokens)
                 self._finish_req(r, out[0].cpu().numpy().astype(
                     r.arrays[0].dtype))
@@ -310,6 +353,7 @@ class GenerateBatchingPredictor:
                 if rem <= 0:
                     if req.cancel():
                         self.metrics.inc("timeouts")
+                        self._observe(req)
                         raise DeadlineExceeded("inference request timed out")
                     break   # lost the race: a terminal outcome just landed
                 step = min(0.1, rem)
@@ -322,9 +366,14 @@ class GenerateBatchingPredictor:
         return req.result
 
     # --------------------------------------------------------- terminal CAS
+    def _observe(self, req):
+        if req.t0 is not None:
+            self.metrics.observe_latency(self._clock() - req.t0)
+
     def _finish_req(self, req, result) -> bool:
         if req.finish(result):
             self.metrics.inc("completed")
+            self._observe(req)
             return True
         self.metrics.inc("wasted_results")  # the client already gave up
         return False
@@ -334,6 +383,7 @@ class GenerateBatchingPredictor:
             return False
         self.metrics.inc("timeouts" if isinstance(error, DeadlineExceeded)
                          else "failed")
+        self._observe(req)
         return True
 
     def _fail_or_retry(self, req, error):
@@ -401,11 +451,51 @@ class GenerateBatchingPredictor:
             self._fail(r, ServiceUnavailable("predictor closed"))
 
 
+def _http_status(e):
+    """Exception -> (HTTP status, load-shed?): 429/503 shed (Retry-After),
+    504 a deadline, 503 a dry pool, 400 a malformed request, 500 the rest."""
+    if isinstance(e, Rejected):
+        return e.status, True
+    if isinstance(e, TimeoutError):
+        return 504, False
+    if isinstance(e, CacheOutOfBlocks):
+        return 503, True
+    if isinstance(e, ValueError):
+        return 400, False
+    return 500, False
+
+
+_TRACE_SESSION = os.urandom(4).hex()
+_TRACE_SEQ = itertools.count(1)
+
+
+def new_trace_id() -> str:
+    """Process-unique trace id: <random session>-<sequence>."""
+    return f"{_TRACE_SESSION}-{next(_TRACE_SEQ):08x}"
+
+
 class InferenceServer:
-    """HTTP npz endpoint over a generation predictor: ``POST /generate``
-    (npz {ids} -> npz {out0}; ``X-Timeout-Ms`` caps the wait),
-    ``GET /health`` and ``GET /readyz``. Overload answers 429/503 with
-    Retry-After, deadline expiry 504, a malformed request 400.
+    """HTTP npz endpoint over a generation predictor (JAX
+    ``serving.py:799-1406``, the generation surface):
+
+    * ``POST /generate``: npz {ids} -> npz {out0}; ``X-Timeout-Ms`` caps the
+      wait; ``X-Temperature`` / ``X-Top-K`` / ``X-Spec`` (on|off) are the
+      request's sampler knobs, a malformed value a 400, and a 400 too on a
+      generator that batches whole requests with one sampler; ``X-Stream:
+      sse`` (or ``Accept: text/event-stream`` without ``X-Stream: off``)
+      answers Server-Sent Events — ``tokens`` events as the scheduler
+      flushes them, then ``done`` (or ``error`` with the status), each with
+      the trace id in its ``id:`` field and its JSON;
+    * ``GET /health``; ``GET /readyz``, 200 only while started, not
+      draining and the generator ``ready()`` (a warming scheduler answers
+      503);
+    * ``GET /metrics``: the JSON counters, or the Prometheus text of the
+      server's, the generator's and the pool's series with ``?format=prom``
+      or an Accept header naming text/plain or openmetrics.
+
+    Overload answers 429/503 with Retry-After, deadline expiry 504, a
+    malformed request 400; every response carries ``X-Trace-Id`` (the
+    client's, or minted here).
 
     ``device`` defaults to CUDA and raises on a machine without it unless
     the caller passes ``device="cpu"``; it must be the generator's."""
@@ -422,35 +512,52 @@ class InferenceServer:
         self.default_timeout = float(default_timeout)
         self._ready = threading.Event()
         self._draining = threading.Event()
+        self.registry = MetricsRegistry()
+        self.registry.gauge(
+            "paddle_server_draining",
+            "1 while draining (readyz answers 503)").set_function(
+                lambda: 1 if self._draining.is_set() else 0)
+        self._http_responses = self.registry.counter(
+            "paddle_http_responses_total", "HTTP responses by path and status",
+            labels=("path", "status"))
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
             def log_message(self, *a):  # quiet
                 pass
 
+            def _trace_id(self):
+                tid = getattr(self, "_tid", None)
+                if tid is None:
+                    tid = self.headers.get("X-Trace-Id") or new_trace_id()
+                    self._tid = tid
+                return tid
+
+            def _metric_path(self):
+                p = self.path.split("?", 1)[0]
+                return p if p in ("/health", "/readyz", "/metrics",
+                                  "/generate") else "other"
+
+            def _count(self, status):
+                # counted before any byte is written: a client that saw the
+                # response never scrapes a page that has not counted it
+                outer._http_responses.labels(self._metric_path(),
+                                             str(status)).inc()
+
             def _reply(self, status, body, headers=()):
+                self._count(status)
                 self.send_response(status)
                 for k, v in headers:
                     self.send_header(k, v)
+                self.send_header("X-Trace-Id", self._trace_id())
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
                 self.wfile.write(body)
 
             def _fail_http(self, e):
-                headers = []
-                if isinstance(e, Rejected):
-                    status = e.status
-                    headers.append(("Retry-After", "1"))
-                elif isinstance(e, TimeoutError):
-                    status = 504
-                elif isinstance(e, CacheOutOfBlocks):
-                    status = 503
-                    headers.append(("Retry-After", "1"))
-                elif isinstance(e, ValueError):
-                    status = 400
-                else:
-                    status = 500
-                self._reply(status, repr(e).encode(), headers)
+                status, shed = _http_status(e)
+                self._reply(status, repr(e).encode(),
+                            [("Retry-After", "1")] if shed else [])
 
             def _timeout(self):
                 ms = self.headers.get("X-Timeout-Ms")
@@ -461,8 +568,65 @@ class InferenceServer:
                 except ValueError:
                     return outer.default_timeout
 
+            def _sampler_knobs(self):
+                """X-Temperature / X-Top-K / X-Spec -> infer() kwargs; a
+                malformed value raises ValueError (400), as does any of
+                them on a generator without per-request knobs."""
+                kw = {}
+                t = self.headers.get("X-Temperature")
+                if t is not None:
+                    try:
+                        tv = float(t)
+                    except ValueError:
+                        raise ValueError(
+                            f"malformed X-Temperature {t!r}") from None
+                    if not math.isfinite(tv) or tv < 0:
+                        raise ValueError(
+                            f"X-Temperature out of range: {t!r} "
+                            "(need a finite value >= 0)")
+                    kw["temperature"] = tv
+                k = self.headers.get("X-Top-K")
+                if k is not None:
+                    try:
+                        kv = int(k)
+                    except ValueError:
+                        raise ValueError(
+                            f"malformed X-Top-K {k!r}") from None
+                    if kv < 0:
+                        raise ValueError(
+                            f"X-Top-K out of range: {k!r} (need >= 0)")
+                    kw["top_k"] = kv
+                sp = self.headers.get("X-Spec")
+                if sp is not None:
+                    sv = sp.strip().lower()
+                    if sv not in ("on", "off"):
+                        raise ValueError(
+                            f"malformed X-Spec {sp!r} (on|off)")
+                    kw["spec"] = sv == "on"
+                if kw and not outer.generator.supports_sampler_knobs:
+                    raise ValueError(
+                        "per-request sampler headers need the continuous "
+                        "scheduler (ContinuousGenerateBatchingPredictor); "
+                        "this server's generator batches whole requests "
+                        "with a fixed sampler config")
+                return kw
+
+            def _wants_stream(self):
+                """SSE opt-in: ``X-Stream: sse``, or Accept:
+                text/event-stream with no X-Stream; a malformed X-Stream is
+                a 400."""
+                xs = self.headers.get("X-Stream")
+                if xs is not None:
+                    sv = xs.strip().lower()
+                    if sv not in ("sse", "off"):
+                        raise ValueError(
+                            f"malformed X-Stream {xs!r} (sse|off)")
+                    return sv == "sse"
+                return "text/event-stream" in (
+                    self.headers.get("Accept") or "")
+
             def do_GET(self):
-                path = self.path.split("?", 1)[0]
+                path, _, query = self.path.partition("?")
                 if path == "/health":
                     self._reply(200, b"ok")
                 elif path == "/readyz":
@@ -470,9 +634,77 @@ class InferenceServer:
                             and outer.generator.ready()):
                         self._reply(200, b"ready")
                     else:
-                        self._reply(503, b"not ready", [("Retry-After", "1")])
+                        body = (b"draining" if outer._draining.is_set()
+                                else b"not ready" if outer._ready.is_set()
+                                else b"not started")
+                        self._reply(503, body, [("Retry-After", "1")])
+                elif path == "/metrics":
+                    accept = self.headers.get("Accept", "")
+                    if ("format=prom" in query or "text/plain" in accept
+                            or "openmetrics" in accept):
+                        try:
+                            body = outer.render_prometheus().encode()
+                        except ValueError as e:   # conflicting registries
+                            self._fail_http(e)
+                            return
+                        self._reply(200, body, [
+                            ("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")])
+                        return
+                    snap = {"draining": outer._draining.is_set(),
+                            "generator": outer.generator.metrics.snapshot()}
+                    self._reply(200, json.dumps(snap).encode(),
+                                [("Content-Type", "application/json")])
                 else:
                     self._reply(404, b"")
+
+            def _generate_sse(self, ids):
+                """Server-Sent Events for /generate: admission errors raise
+                before any byte is written (so 429/503/400 stay HTTP
+                statuses); after the headers a failure travels as an
+                ``error`` event with its status. Close-delimited: no
+                Content-Length, ``done`` or ``error`` ends the stream."""
+                gen = outer.generator
+                if not gen.supports_streaming:
+                    raise ValueError(
+                        "streaming needs the continuous scheduler "
+                        "(ContinuousGenerateBatchingPredictor); this "
+                        "server's generator buffers whole responses")
+                it = gen.infer_stream(ids, timeout=self._timeout(),
+                                      **self._sampler_knobs())
+                tid = self._trace_id()
+                self._count(200)
+                self.send_response(200)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.send_header("X-Trace-Id", tid)
+                self.end_headers()
+
+                def emit(event, payload):
+                    payload["trace_id"] = tid
+                    self.wfile.write(
+                        (f"id: {tid}\nevent: {event}\n"
+                         f"data: {json.dumps(payload)}\n\n").encode())
+                    self.wfile.flush()
+
+                sent = 0
+                try:
+                    for chunk in it:
+                        toks = [int(t) for t in
+                                np.asarray(chunk).reshape(-1)]
+                        sent += len(toks)
+                        emit("tokens", {"tokens": toks})
+                    emit("done", {"generated": sent,
+                                  "prompt_len": int(len(ids))})
+                except Exception as e:
+                    try:
+                        emit("error", {"status": _http_status(e)[0],
+                                       "error": repr(e)})
+                    except OSError:     # the client went away mid-stream
+                        pass
+                finally:
+                    # a broken pipe cancels the sequence now, not at GC
+                    it.close()
 
             def do_POST(self):
                 if outer._draining.is_set():
@@ -485,7 +717,11 @@ class InferenceServer:
                     n = int(self.headers.get("Content-Length", 0))
                     data = np.load(io.BytesIO(self.rfile.read(n)))
                     ids = data[data.files[0]]
-                    out = outer.generator.infer(ids, timeout=self._timeout())
+                    if self._wants_stream():
+                        self._generate_sse(ids)
+                        return
+                    out = outer.generator.infer(ids, timeout=self._timeout(),
+                                                **self._sampler_knobs())
                     buf = io.BytesIO()
                     np.savez(buf, out0=out)
                     self._reply(200, buf.getvalue(),
@@ -497,6 +733,12 @@ class InferenceServer:
         self.port = self._httpd.server_address[1]
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True, name="inference-server")
+
+    def render_prometheus(self) -> str:
+        """One Prometheus text exposition over the server's and the
+        generator's registries."""
+        return render_prometheus(self.registry,
+                                 self.generator.metrics.registry)
 
     def start(self):
         self._thread.start()

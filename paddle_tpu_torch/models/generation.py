@@ -8,14 +8,15 @@ continuous-batching step programs ``prefill_chunk`` (:565) and
 
 The JAX package compiles one program per cache key and replays it
 (``_runner_for``, :195-220). The port does the same with CUDA graphs
-(``jit/graphs.py``): ``prefill_chunk``, ``decode_step``, ``verify_step``
-and dense ``generate()`` are bodies that read static device buffers —
+(``jit/graphs.py``): ``prefill_chunk``, ``decode_step``, ``verify_step``,
+dense ``generate()`` and ``generate_paged`` are bodies that read static
+device buffers —
 positions, write targets, validity, the sampler and the loop over
 ``steps`` are computed on the device — captured once per key on CUDA and
 replayed for every later call; on the CPU the same bodies run on the same
 buffers every call. A call fills its inputs with one host-to-device copy
-and reads its result back with one copy. ``generate_paged`` and
-``chunk_logits`` run the same forwards eagerly, one launch per kernel.
+and reads its result back with one copy. ``chunk_logits`` runs the same
+forward eagerly, one launch per kernel.
 Every paged forward builds its pool write targets on the device at a
 fixed length (``paged_write_slots``), the rows it drops aimed at the
 pool's scratch slot.
@@ -28,7 +29,8 @@ Sampler knobs are inputs, not key parts: the sort and the draw always run
 and ``torch.where(temps > 0, ...)`` picks, so greedy and sampled traffic
 share one program. The pools of a ``PagedKVCache`` are updated IN PLACE
 (no donation, no commit of returned pools); dense ``generate()`` keeps its
-caches in its runner, at most ``_DENSE_RUNNERS`` of them per model.
+caches in its runner, at most ``_DENSE_RUNNERS`` of them per model, and at
+most ``_PAGED_RUNNERS`` ``generate_paged`` graphs are kept.
 
 Sampling per slot: temperature <= 0 is greedy argmax; otherwise softmax
 sampling at that temperature with top-k truncation (top_k <= 0: none), by
@@ -59,6 +61,9 @@ _TRACE_LOCK = threading.Lock()
 # ([B, Hkv, P + bucket, D] per layer, K and V), 0.5 GB at B 8, P 512,
 # bucket 128 for GPT-350M in bf16
 _DENSE_RUNNERS = 4
+# generate_paged runners kept per model, least recently used dropped first:
+# a whole-batch server makes one per (batch, prompt bucket) it meets
+_PAGED_RUNNERS = 16
 
 
 def bucket_new_tokens(max_new_tokens):
@@ -216,15 +221,16 @@ class GenerationMixin:
             weakref.finalize(kv_cache, _drop_runners, weakref.ref(self),
                              ("pool", kv_cache.uid))
 
-    def _keep_recent_dense(self, cache_key):
-        """Mark a dense runner used; drop the least recently used beyond
-        ``_DENSE_RUNNERS``."""
+    def _keep_recent(self, cache_key, limit):
+        """Mark a runner used; drop the least recently used of its kind
+        (``cache_key[0]``) beyond ``limit``."""
         with _TRACE_LOCK:
-            order = self.__dict__.setdefault("_dense_order", [])
+            order = self.__dict__.setdefault("_recent", {}).setdefault(
+                cache_key[0], [])
             if cache_key in order:
                 order.remove(cache_key)
             order.append(cache_key)
-            while len(order) > _DENSE_RUNNERS:
+            while len(order) > limit:
                 self._runner_cache().pop(order.pop(0), None)
 
     def _runners(self, kind, *shape):
@@ -268,34 +274,24 @@ class GenerationMixin:
     @staticmethod
     def _make_slot_sampler(eos):
         """Per-slot sampler: ``sample(lg [S, V], noise, finished, temps
-        [S], top_ks [S], sampled)``. ``noise`` is [S] uniforms in [0, 1)
-        or a ``torch.Generator`` to draw them from; ``sampled`` False (the
-        host knows every slot is greedy) skips the sort and the draw."""
+        [S], top_ks [S])``. ``noise`` is [S] uniforms in [0, 1) or a
+        ``torch.Generator`` to draw them from. The sort and the draw always
+        run; ``temps > 0`` picks the draw over the argmax."""
 
-        def sample(lg, noise, finished, temps, top_ks, sampled=True):
+        def sample(lg, noise, finished, temps, top_ks):
             lg32 = lg.float()
-            nxt = lg32.argmax(dim=-1)
-            if sampled:
-                if isinstance(noise, torch.Generator):
-                    noise = torch.rand(lg32.shape[0], generator=noise,
-                                       device=noise.device).to(lg32.device)
-                probs = torch.softmax(_cut_logits(lg32, temps, top_ks),
-                                      dim=-1)
-                nxt = torch.where(temps > 0, _inverse_cdf(probs, noise), nxt)
+            if isinstance(noise, torch.Generator):
+                noise = torch.rand(lg32.shape[0], generator=noise,
+                                   device=noise.device).to(lg32.device)
+            probs = torch.softmax(_cut_logits(lg32, temps, top_ks), dim=-1)
+            nxt = torch.where(temps > 0, _inverse_cdf(probs, noise),
+                              lg32.argmax(dim=-1))
             if eos >= 0:
                 nxt = torch.where(finished, torch.full_like(nxt, eos), nxt)
                 finished = finished | (nxt == eos)
             return nxt, finished
 
         return sample
-
-    def _sampler_inputs(self, temperature, top_k, S):
-        temps = np.broadcast_to(np.asarray(temperature, np.float32), (S,))
-        tks = np.broadcast_to(np.asarray(top_k, np.int64), (S,))
-        dev = self.device
-        return (torch.as_tensor(temps.copy(), device=dev),
-                torch.as_tensor(tks.copy(), device=dev),
-                bool((temps > 0).any()))
 
     @staticmethod
     def _uniforms(seed, shape):
@@ -353,7 +349,7 @@ class GenerationMixin:
         run, compiled_now = self._runner_for(
             cache_key, lambda: self._make_dense_runner(
                 B, P, bucket, eos, state, dtype, decode_kernel))
-        self._keep_recent_dense(cache_key)
+        self._keep_recent(cache_key, _DENSE_RUNNERS)
         self._check_deadline(deadline, "dense decode launch")
         u = self._uniforms(seed, (bucket, B))
         t0 = time.perf_counter()
@@ -444,22 +440,31 @@ class GenerationMixin:
     def generate_paged(self, input_ids, prompt_lens, kv_cache, block_tables,
                        max_new_tokens=32, temperature=0.0, top_k=0,
                        eos_token_id=None, seed=0, decode_kernel="kernel",
-                       deadline=None):
+                       deadline=None, timing_hook=None):
         """Whole-batch autoregressive decoding over a SHARED paged pool.
 
         input_ids [B, P] prompts right-padded to a common P; prompt_lens [B]
         each request's true length (padding rows write nothing and are
         masked by the per-request lengths); kv_cache a ``PagedKVCache``
         whose pools are updated in place; block_tables [B, NB] page ids
-        covering each request's prompt + max_new_tokens rows. One prefill
-        forward, then max_new_tokens - 1 decode forwards, each writing its
-        input token's row at the request's next position.
+        covering each request's prompt + max_new_tokens rows.
+
+        One program per key (B, P, n, NB, pool signature, eos, decode
+        kernel, pool, decode state), JAX's ``("paged", B, P, n, ...)``
+        key: the prefill forward and n - 1 decode forwards, each writing
+        its input token's row at the request's next position, captured as
+        ONE graph on CUDA and replayed (the ``_PAGED_RUNNERS`` most
+        recently used are kept). Prompt lengths, tables, sampler knobs and
+        the uniforms ride the key's static buffers. A call is one fill,
+        one replay and one read.
 
         Returns [B, max_new_tokens] int64 new tokens (numpy): per request b
         the continuation of input_ids[b, :prompt_lens[b]], the same tokens
         as dense ``generate()`` of that prompt alone. (The JAX scan writes
         the first decode row one position late, ``generation.py:503-504``;
-        the port writes it at prompt_lens[b], ROADMAP C.)"""
+        the port writes it at prompt_lens[b], ROADMAP C.) ``deadline``
+        raises DeadlineExceeded instead of starting an expired call;
+        ``timing_hook`` receives the call's host timing (path "paged")."""
         ids = np.asarray(input_ids, np.int64)
         B, P = ids.shape
         plens = np.asarray(prompt_lens, np.int64).reshape(B)
@@ -468,39 +473,64 @@ class GenerationMixin:
         n = int(max_new_tokens)
         if n < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        dev = self.device
-        tables = torch.as_tensor(np.asarray(block_tables, np.int32),
-                                 device=dev)
-        bs, scratch = kv_cache.block_size, kv_cache.scratch_slot
-        state = self._decode_state(kv_cache.dtype)
-        sample = self._make_slot_sampler(-1 if eos_token_id is None
-                                         else int(eos_token_id))
-        temps, tks, sampled = self._sampler_inputs(
-            0.0 if temperature is None else temperature, top_k or 0, B)
-        gen = make_generator(seed, dev)
+        tables = np.asarray(block_tables, np.int32)
+        eos = -1 if eos_token_id is None else int(eos_token_id)
+        sample = self._make_slot_sampler(eos)
+
+        def make_body(state, k_pages, v_pages, bs, scratch):
+            def body(inp, out):
+                lens, tbl = inp["plens"], inp["tables"]
+                dev = lens.device
+                valid = torch.arange(P, device=dev)[None, :] < lens[:, None]
+                step = self._device_step(torch.zeros_like(lens), P, tbl,
+                                         valid, bs, scratch)
+                lg = self._decode_call(state, inp["ids"], k_pages, v_pages,
+                                       step, decode_kernel)
+                last = lg[torch.arange(B, device=dev), lens - 1]
+                tok, finished = sample(
+                    last, inp["u"][0], torch.zeros(B, dtype=torch.bool,
+                                                   device=dev),
+                    inp["temps"], inp["top_ks"])
+                out["tokens"][:, 0] = tok
+                every = torch.ones((B, 1), dtype=torch.bool, device=dev)
+                for j in range(1, n):
+                    # forward j writes row lens + j - 1
+                    step = self._device_step(lens + (j - 1), 1, tbl, every,
+                                             bs, scratch)
+                    lg = self._decode_call(state, tok[:, None], k_pages,
+                                           v_pages, step, decode_kernel)
+                    tok, finished = sample(lg[:, -1], inp["u"][j], finished,
+                                           inp["temps"], inp["top_ks"])
+                    out["tokens"][:, j] = tok
+            return body
+
+        run, compiled_now = self._step_runner(
+            "paged", (B, P, n), kv_cache, eos, decode_kernel,
+            {"ids": ((B, P), torch.int64), "plens": ((B,), torch.int64),
+             "tables": (tables.shape, torch.int32),
+             "temps": ((B,), torch.float32), "top_ks": ((B,), torch.int64),
+             "u": ((n, B), torch.float32)},
+            {"tokens": ((B, n), torch.int64)}, make_body,
+            keep=_PAGED_RUNNERS)
         self._check_deadline(deadline, "paged decode launch")
-        lengths = torch.as_tensor(plens, device=dev)
-        step = self._device_step(
-            torch.zeros_like(lengths), P, tables,
-            torch.arange(P, device=dev)[None, :] < lengths[:, None], bs,
-            scratch)
-        lg = self._decode_call(state, torch.as_tensor(ids, device=dev),
-                               kv_cache.k_pages, kv_cache.v_pages, step,
-                               decode_kernel)
-        last = lg[torch.arange(B, device=dev), lengths - 1]
-        finished = torch.zeros(B, dtype=torch.bool, device=dev)
-        tok, finished = sample(last, gen, finished, temps, tks, sampled)
-        toks = [tok]
-        every = torch.ones((B, 1), dtype=torch.bool, device=dev)
-        for _ in range(n - 1):
-            step = self._device_step(lengths, 1, tables, every, bs, scratch)
-            lg = self._decode_call(state, tok[:, None], kv_cache.k_pages,
-                                   kv_cache.v_pages, step, decode_kernel)
-            tok, finished = sample(lg[:, -1], gen, finished, temps, tks,
-                                   sampled)
-            toks.append(tok)
-            lengths = lengths + 1
-        return torch.stack(toks, dim=1).cpu().numpy()
+        out = self._run_step(
+            run, compiled_now, timing_hook, "paged", (B, P, n),
+            dict(ids=ids, plens=plens, tables=tables,
+                 temps=np.broadcast_to(np.asarray(
+                     0.0 if temperature is None else temperature,
+                     np.float32), (B,)),
+                 top_ks=np.broadcast_to(np.asarray(top_k or 0, np.int64),
+                                        (B,)),
+                 u=self._uniforms(seed, (n, B))))
+        return out["tokens"]
+
+    def compiled_generate_paged_runner(self, batch, prompt_len,
+                                       max_new_tokens):
+        """The cached runner of a prior generate_paged() shape, or None
+        (JAX ``generation.py:420-431``)."""
+        found = self._runners("paged", batch, prompt_len,
+                              int(max_new_tokens))
+        return found[0] if found else None
 
     # --------------------------------------------- continuous-batching steps
     @torch.no_grad()
@@ -525,12 +555,14 @@ class GenerationMixin:
         return logits[torch.arange(S, device=dev), (lens - 1).clamp(min=0)]
 
     def _step_runner(self, kind, shape, kv_cache, eos, decode_kernel,
-                     inputs, outputs, make_body):
+                     inputs, outputs, make_body, keep=None):
         """(run, compiled_now) of a paged step program:
         ``kind`` and ``shape`` (slots, width) lead the key as in JAX, then
         the table width, the pool signature, eos, the ids dtype, the decode
         kernel, the pool and the decode state. ``make_body(state, k_pages,
-        v_pages, block_size, scratch_slot)`` -> body(inputs, outputs)."""
+        v_pages, block_size, scratch_slot)`` -> body(inputs, outputs).
+        ``keep`` bounds the runners of ``kind`` kept, least recently used
+        dropped first."""
         state, state_key = self._state_for_key(kv_cache.dtype)
         NB = inputs["tables"][0][1]
         cache_key = (kind, *shape, NB, kv_cache.signature(), eos, "int64",
@@ -543,7 +575,10 @@ class GenerationMixin:
             return StepRunner(self.device, inputs, outputs, {"step": body},
                               pool=self._graph_pool())
 
-        return self._runner_for(cache_key, make_run)
+        found = self._runner_for(cache_key, make_run)
+        if keep is not None:
+            self._keep_recent(cache_key, keep)
+        return found
 
     def _run_step(self, run, compiled_now, timing_hook, path, timing,
                   values):

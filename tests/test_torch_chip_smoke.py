@@ -1,7 +1,8 @@
 """The pure helpers of ``chip_smoke.py`` (the port's measurement script),
 on the CPU: the per-kernel register and spill summary it reads from the
-``nvcc -Xptxas -v`` log, and the record that sets dq + dk/dv against the
-library's one backward call."""
+``nvcc -Xptxas -v`` log, the record that sets dq + dk/dv against the
+library's one backward call, and the serve_knobs phase's chat traffic,
+Prometheus line pattern and near-tie cut."""
 import pathlib
 import sys
 
@@ -64,3 +65,90 @@ def test_whole_backward_sets_dq_plus_dkv_against_the_library(masked,
     else:
         assert "unmasked_ms" not in out
     assert capsys.readouterr().out.startswith("backward-time {")
+
+
+def test_chat_sessions_fit_the_pool_and_share_the_system_prompt():
+    import numpy as np
+
+    system, plan = chip_smoke.chat_sessions(np.random.default_rng(31),
+                                            50304)
+    assert system.shape == (chip_smoke.KNOB_SYSTEM,)
+    motifs = {tuple(system[i:i + 8]) for i in range(0, len(system), 8)}
+    assert len(motifs) <= 4                 # repeated motifs: drafts
+    assert len(plan) == chip_smoke.KNOB_SESSIONS
+    turns = [t for sess in plan for t in sess]
+    assert len(turns) == 16 and sum(t["sampled"] for t in turns) == 4
+    for sess in plan:
+        assert 32 <= len(sess[0]["user"]) <= 200
+        assert all(8 <= len(t["user"]) <= 16 for t in sess[1:])
+        assert all(16 <= t["new"] <= 64 for t in sess)
+        # the last turn's prompt plus the server cap fits max_seq_len
+        last = (len(system) + sum(len(t["user"]) for t in sess)
+                + sum(t["new"] for t in sess[:-1]))
+        assert last + 64 <= 1024
+
+
+def test_prometheus_sample_pattern():
+    from paddle_tpu_torch.observability.metrics import MetricsRegistry
+
+    reg = MetricsRegistry()
+    reg.counter("paddle_a_total", "x", labels=("k",)).labels('q"\\').inc()
+    reg.histogram("paddle_h_seconds", "h").observe(0.3)
+    reg.gauge("paddle_g", "g").set(float("nan"))
+    lines = reg.render().splitlines()
+    assert all(ln.startswith("# ") or chip_smoke.PROM_SAMPLE.match(ln)
+               for ln in lines)
+    for bad in ("paddle_a_total{k=q} 1", "paddle a 1", "paddle_a_total",
+                'paddle_a_total{k="v"} one'):
+        assert not chip_smoke.PROM_SAMPLE.match(bad), bad
+
+
+def test_first_tie_counts_the_tokens_before_a_near_tie(monkeypatch):
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import gpt as tgpt
+
+    m = tgpt.GPTForCausalLM(tgpt.GPTConfig(
+        vocab_size=64, hidden_size=32, num_layers=1, num_heads=2,
+        max_position=32), device="cpu", seed=0)
+    seq = np.arange(12, dtype=np.int64) % 64
+    monkeypatch.setattr(chip_smoke, "NEAR_TIE_REL", 0.0)
+    assert chip_smoke.first_tie(torch, m, seq, 5, "cpu") == 7
+    monkeypatch.setattr(chip_smoke, "NEAR_TIE_REL", 10.0)
+    assert chip_smoke.first_tie(torch, m, seq, 5, "cpu") == 0
+
+
+def test_prefix_rows_check_holds_indexed_rows_and_fails_a_swapped_page():
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.inference import (
+        ContinuousGenerateBatchingPredictor,
+        PagedKVCache,
+    )
+    from paddle_tpu_torch.models import gpt as tgpt
+
+    m = tgpt.GPTForCausalLM(tgpt.GPTConfig(
+        vocab_size=96, hidden_size=32, num_layers=2, num_heads=2,
+        max_position=64), device="cpu", seed=0)
+    kv = PagedKVCache(*m._decode_cache_spec(), block_size=8, num_blocks=24,
+                      dtype=torch.float32, device="cpu")
+    gp = ContinuousGenerateBatchingPredictor(
+        m, kv_cache=kv, device="cpu", max_slots=2, prefill_chunk=4,
+        decode_steps=2, max_new_tokens=6, max_seq_len=40, spec_k=2,
+        drafter="ngram", prefix_cache=True)
+    rng = np.random.default_rng(3)
+    system = np.tile(rng.integers(0, 96, 4), 4).astype(np.int64)
+    try:
+        outs = [gp.infer(np.concatenate(
+            [system, rng.integers(0, 96, 7)]).astype(np.int64), timeout=60)
+            for _ in range(2)]
+    finally:
+        gp.close()
+    assert gp.metrics.get("prefix_hit_tokens") == 16   # the second request
+    rec = chip_smoke.prefix_rows_check(torch, m, kv, gp.prefix_cache, outs,
+                                       "cpu", chunk=4, swap=2)
+    assert rec["blocks"] == [3, 3] and rec["shared_prompt_pages_common"]
+    assert max(rec["rel"]) < 1e-5
+    assert rec["control"] > chip_smoke.INSITU_REL_TOL

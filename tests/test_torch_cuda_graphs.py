@@ -11,13 +11,22 @@ capture, once replayed from its graph. Greedy and sampled tokens must be
 identical at one seed, and a captured paged forward's logits equal to its
 body's (max |diff| 0: the same kernels on the same inputs). The kernel
 launch counts must go on counting through replays, and a body that
-synchronises with the host must make its capture raise.
+synchronises with the host must make its capture raise. generate_paged
+replays its one graph per key with the body's tokens; a scheduler's warmup
+captures every program and leaves the pool's live pages bit-equal; a
+speculative scheduler captures verify_step once per pool.
 """
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.inference import PagedKVCache
+from paddle_tpu_torch.inference import (
+    ContinuousGenerateBatchingPredictor,
+    PagedKVCache,
+)
 from paddle_tpu_torch.jit.graphs import StepRunner
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.ops import decode_attention as tda
@@ -179,3 +188,93 @@ def test_a_host_sync_in_the_body_makes_the_capture_raise(model, sync):
         run.run("f")                         # no quiet fallback either
     torch.cuda.synchronize()
     assert float(torch.ones(3, device="cuda").sum()) == 3.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", [{}, dict(temperature=0.9, top_k=20,
+                                              seed=5)])
+def test_generate_paged_replay_gives_the_bodys_tokens(model, sampler):
+    kv, tables = _pool(model, slots=2)
+    rng = np.random.default_rng(6)
+    plens = np.array([24, 11])
+    ids = rng.integers(0, 256, (2, 24))
+
+    def call():
+        return model.generate_paged(ids, plens, kv, tables, max_new_tokens=8,
+                                    **sampler)
+
+    first = call()                           # the body, then the capture
+    run = model.compiled_generate_paged_runner(2, 24, 8)
+    assert run.captures == 1 and run.replays == 0
+    with run._eager():
+        body = call()
+    replay = call()
+    assert run.captures == 1 and run.replays == 1
+    np.testing.assert_array_equal(replay, body)
+    np.testing.assert_array_equal(first, body)
+
+
+def _wait_ready(gp, limit=120):
+    t0 = time.monotonic()
+    while not gp.ready() and time.monotonic() - t0 < limit:
+        time.sleep(0.01)
+    assert gp.ready()
+
+
+@pytest.mark.cuda
+def test_warmup_captures_and_leaves_the_live_pages_bit_equal(model):
+    kv = PagedKVCache(*model._decode_cache_spec(), block_size=16,
+                      num_blocks=24, dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for p in kv.k_pages + kv.v_pages:
+        p.copy_(torch.randn(p.shape, generator=g, device="cuda"))
+    before = [p[:, :kv.num_blocks].clone() for p in kv.k_pages + kv.v_pages]
+    gp = ContinuousGenerateBatchingPredictor(
+        model, kv_cache=kv, max_slots=3, prefill_chunk=16, decode_steps=2,
+        max_new_tokens=8, max_seq_len=128, spec_k=3, warmup=True,
+        device="cuda")
+    try:
+        _wait_ready(gp)
+        st = gp.warm_stats()
+        assert st["missing"] == [] and st["programs"] == 3
+        caps = {k[0]: r.captures for k, r in model._generate_cache.items()
+                if ("pool", kv.uid) in k}
+        assert caps == {"prefill_chunk": 1, "decode_step": 1,
+                        "verify_step": 1}
+    finally:
+        gp.close()
+    torch.cuda.synchronize()
+    for a, b in zip(before, kv.k_pages + kv.v_pages):
+        assert torch.equal(a, b[:, :kv.num_blocks])
+
+
+@pytest.mark.cuda
+def test_spec_scheduler_captures_verify_step_once_per_pool(model):
+    rng = np.random.default_rng(8)
+    prompts = [np.tile(rng.integers(0, 256, 4), 6)[:n].astype(np.int64)
+               for n in (9, 17, 23, 12)]
+    for _ in range(2):
+        kv = PagedKVCache(*model._decode_cache_spec(), block_size=16,
+                          num_blocks=24, dtype=torch.bfloat16, device="cuda")
+        gp = ContinuousGenerateBatchingPredictor(
+            model, kv_cache=kv, max_slots=3, prefill_chunk=16,
+            decode_steps=2, max_new_tokens=12, max_seq_len=128, spec_k=3,
+            device="cuda")
+        outs = {}
+        try:
+            ts = [threading.Thread(target=lambda i=i: outs.update(
+                {i: gp.infer(prompts[i], timeout=120)}))
+                for i in range(len(prompts))]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=120)
+            assert len(outs) == len(prompts)
+            assert gp.metrics.get("verify_ticks") >= 2
+            kv.check_conservation()
+        finally:
+            gp.close()
+        verify = [r for k, r in model._generate_cache.items()
+                  if k[0] == "verify_step" and ("pool", kv.uid) in k]
+        assert len(verify) == 1 and verify[0].captures == 1
+        assert verify[0].replays == gp.metrics.get("verify_ticks") - 1

@@ -21,7 +21,11 @@ CUDA captures into a graph, so these tests exercise the captured code:
   only its own pool; a pool's runners go when the pool does;
 * a second call at a key reports ``compiled: False`` and makes no key; the
   timing hook carries JAX's fields, ``flops`` when asked;
-* one seed gives the same sampled tokens, another seed others.
+* one seed gives the same sampled tokens, another seed others;
+* ``generate_paged`` runs one program per (B, P, n) key, a shorter budget
+  the longer one's prefix, writes nothing live past its budget, and keeps
+  the most recently used runners; the whole-batch predictor's prompts of
+  one power-of-two width share a key.
 
 Greedy tokens are compared only after a top-1 / top-2 logit margin of
 1e-3 is asserted (f32 near-ties would make identity a coin flip).
@@ -385,3 +389,85 @@ def test_same_seed_same_draws_other_seed_others(model, kind):
     first, again, other = draw(4), draw(4), draw(5)
     np.testing.assert_array_equal(first, again)
     assert not np.array_equal(first, other)
+
+
+def test_generate_paged_runs_one_program_per_key():
+    """generate_paged through its runner: budgets 3 and 4 key
+    ("paged", B, P, n, ...) apart and budget 3 is budget 4 truncated; the
+    tokens are dense generate()'s per request; budget 3 writes no row past
+    its budget; a second call at a key replays it; the timing hook carries
+    JAX's fields (path "paged", compiled on the building call only);
+    compiled_generate_paged_runner returns the key's runner."""
+    m = _fresh()
+    kv = _cache(m, num_blocks=16, block_size=4)
+    plens = np.array([7, 4])
+    rng = np.random.default_rng(3)
+    ids = np.zeros((2, 7), np.int64)
+    for b, n in enumerate(plens):
+        ids[b, :n] = rng.integers(0, 160, n)
+    tables = np.stack([kv.reserve(b, 7 + 4) for b in range(2)])
+    seen = []
+    o3 = m.generate_paged(ids, plens, kv, tables, max_new_tokens=3,
+                          timing_hook=seen.append)
+    live = [p[:, :kv.num_blocks].clone() for p in kv.k_pages]
+    # budget 3 ran 2 decode forwards: row plen + 2 was never written
+    for b, n in enumerate(plens):
+        page, row = tables[b, (n + 2) // 4], (n + 2) % 4
+        assert all(bool((p[:, page, row] == 0).all()) for p in live)
+    o4 = m.generate_paged(ids, plens, kv, tables, max_new_tokens=4,
+                          timing_hook=seen.append)
+    again = m.generate_paged(ids, plens, kv, tables, max_new_tokens=4,
+                             timing_hook=seen.append)
+    assert o3.shape == (2, 3) and o4.shape == (2, 4)
+    np.testing.assert_array_equal(o4, again)
+    np.testing.assert_array_equal(o3, o4[:, :3])
+    for b, n in enumerate(plens):
+        ref = m.generate(ids[b:b + 1, :n], 4, dtype=None)[0].numpy()
+        _assert_margins(m, ref, n)
+        np.testing.assert_array_equal(o4[b], ref[n:])
+    keys = sorted(_keys(m, "paged"), key=lambda k: k[3])
+    assert [k[:5] for k in keys] == [("paged", 2, 7, 3, 3),
+                                     ("paged", 2, 7, 4, 3)]
+    assert [(r["path"], r["batch"], r["prompt_len"], r["new_tokens"],
+             r["compiled"]) for r in seen] == [("paged", 2, 7, 3, True),
+                                               ("paged", 2, 7, 4, True),
+                                               ("paged", 2, 7, 4, False)]
+    for n, key in zip((3, 4), keys):
+        assert m.compiled_generate_paged_runner(2, 7, n) is \
+            m._generate_cache[key]
+    assert m.compiled_generate_paged_runner(2, 7, 5) is None
+
+
+def test_generate_paged_keeps_the_most_recent_runners(monkeypatch):
+    from paddle_tpu_torch.models import generation as tgen
+
+    monkeypatch.setattr(tgen, "_PAGED_RUNNERS", 2)
+    m = _fresh()
+    kv = _cache(m, num_blocks=16, block_size=4)
+    tables = kv.reserve(0, 8 + 2)[None]
+    for P in (3, 5, 8, 3):
+        m.generate_paged(np.arange(P, dtype=np.int64)[None], [P], kv,
+                         tables, max_new_tokens=2)
+    assert sorted(k[2] for k in _keys(m, "paged")) == [3, 8]
+
+
+def test_whole_batch_prompts_share_a_power_of_two_key():
+    """The whole-batch predictor pads its prompts to a power of two: 5 and
+    7 tokens share the P = 8 key, 9 tokens make P = 16; the tokens are
+    dense generate()'s of each prompt alone."""
+    from paddle_tpu_torch.inference import GenerateBatchingPredictor
+
+    m = _fresh()
+    gp = GenerateBatchingPredictor(m, max_batch_size=1, max_new_tokens=3,
+                                   kv_cache=_cache(m), device="cpu")
+    rng = np.random.default_rng(8)
+    try:
+        for n in (5, 7, 9):
+            ids = rng.integers(0, 160, n).astype(np.int64)
+            out = gp.infer(ids, timeout=60)
+            ref = m.generate(ids[None], 3, dtype=None)[0].numpy()
+            _assert_margins(m, ref, n)
+            np.testing.assert_array_equal(out, ref)
+    finally:
+        gp.close()
+    assert sorted(k[2] for k in _keys(m, "paged")) == [8, 16]
