@@ -25,13 +25,15 @@ non-zero without the final line:
    and operations.
 5. flash kernels vs plain — the forward, dq and dk/dv kernels against
    their plain versions on the same inputs, each output within
-   ``flash_attention.kernel_tolerance``, in f32 and bf16: the training shape
-   (B=8, S=1024, H=16, D=64, causal), non-causal, D=128, GQA (Hkv=4,
-   repeated as the wrapper repeats it), a ragged S=1000, and S=8192 (B=1,
-   H=4), the sequence length the TPU served with its chunked backward.
+   ``flash_attention.kernel_tolerance``, in f32, bf16 and f16 (the AMP
+   float16 path): the training shape (B=8, S=1024, H=16, D=64, causal),
+   non-causal, D=128, GQA (Hkv=4, repeated as the wrapper repeats it), a
+   ragged S=1000, and S=8192 (B=1, H=4), the sequence length the TPU
+   served with its chunked backward.
 6. flash timing — kernel, plain and library (scaled_dot_product_attention
-   forward, and its backward, a yardstick only) at the training shape and
-   at S=8192 (B=1, H=4), CUDA events, median of 25, L2 flushed; the bounds
+   forward, and its backward, a yardstick only) at the training shape (in
+   bf16 and f16) and at S=8192 (B=1, H=4), CUDA events, median of 25, L2
+   flushed; the bounds
    from this run's shapes; then dq + dk/dv against the library's whole
    backward, with the ratio.
 7. serving — GPT-350M at full width (24 layers, random seeded weights) in
@@ -112,7 +114,9 @@ non-zero without the final line:
    up to the first near-tie (top two logits within 1e-3), over at least 32
    tokens, with its acceptance, both kernels' launches and tokens/s; then
    the same with an oracle drafter replaying generate()'s tokens, which
-   must accept every draft when no near-tie cut the comparison.
+   must accept every draft when no near-tie cut the comparison. The
+   whole-batch predictor pads its batch to a power of two (padding rows
+   write only the scratch page).
 11. training — GPT-350M at full width, O2 bf16 (``amp.decorate``), AdamW
    (lr 1e-4, weight decay 0.01, multi_precision) under TrainStep, B=8,
    S=1024, seeded ids and labels rolled by one. In situ first: one forward
@@ -143,9 +147,27 @@ non-zero without the final line:
    ms, tokens/s, the share of the bf16 peak, peak memory; losses finite
    and falling, and 3 flash launches per layer per step (S=8192 is the
    length the TPU served with its chunked backward).
+11c. train_recipes — GPT-350M at full width and depth, B 8, S 1024, AdamW,
+   2 + 6 steps per leg from the same seeded weights: (a) O2 bf16 with
+   recompute "block" and (b) "dots", each as bodies first (the first
+   step's loss and parameters bit-equal to a no-recompute body's), then
+   captured (replays bit-equal to the bodies); (c) O2 bf16 with dropout
+   0.1 (attention on the plain route, as in JAX), captured: a replay after
+   ``import_state`` draws the same masks, one with the generator moved on
+   draws new ones; (d) AMP O1 bf16 over f32 parameters, bodies then
+   captured, bit-equal; (e) O2 f16, eager steps under GradScaler with one
+   planted inf in a warm-up step (step skipped, scale halved). Each leg's
+   model is built through GPTConfig(dropout=, recompute=). Per leg: step
+   ms, tokens/s, peak memory against the leg-less 22,648,100,864 bytes,
+   busy share and host launch calls of one profiled step, flash launches;
+   losses fall.
+11d. optimizers — each of the nine optimizers of this slice (Adamax,
+   Adagrad, Adadelta, RMSProp, Lamb, ASGD, Rprop, NAdam, RAdam) for 3
+   captured steps of a small GPT (f32): replays bit-equal to bodies, and
+   close to eager ``Optimizer.step`` on a copy.
 12. FlashMask kernels vs plain — the masked forward, dq and dk/dv kernels
    against their plain versions, within ``flash_attention.kernel_tolerance``
-   over the allowed positions, in f32 and bf16: uneven causal documents
+   over the allowed positions, in f32, bf16 and f16: uneven causal documents
    (n = 1, one mask for all heads), causal n = 2 bands per head,
    non-causal n = 4 bands, GQA 16/4 at D = 128 with a mask per head,
    S = 1000; an all-zero causal mask (every output exactly 0) and a mask
@@ -156,17 +178,23 @@ non-zero without the final line:
    of [2048, 1536, 1024, 1024, 768, 512, 512, 384, 256, 128] (14.9% of
    the causal pairs), and the unmasked causal kernels on the same inputs;
    then masked dq + dk/dv against the library's whole backward, with the
-   ratio.
-14. varlen training — the slice's main path: 24 blocks of RMSNorm ->
+   ratio; in bf16 and in f16. At that shape each masked kernel's outputs
+   are held to the plain versions (four heads at a time) within
+   ``kernel_tolerance``: the max |kernel - plain| the kernels line reports.
+14. varlen training — 24 blocks of RMSNorm ->
    ColumnParallelLinear(1024 -> 3072) -> F.flash_attn_varlen_qkvpacked
    (causal) -> RowParallelLinear(1024 -> 1024) -> residual, bf16, AdamW,
    8192 tokens a step packed from those documents in a seeded shuffled
-   order. In situ first: layers 0, 11 and 23's masked kernel calls held
-   to the plain versions on their own inputs, and every document's end
-   one short planted into the kernels must fail each. Then 2 warm-up and
-   5 timed steps: step ms, tokens/s, losses finite and falling, exactly
-   24 launches of each masked kernel per step (none unmasked), and a
-   profiled step by kernel kind.
+   order, through the captured TrainStep with ``cu_seqlens`` the step's
+   batch tensor (one key for every order). In situ first: layers 0, 11
+   and 23's masked kernel calls held to the plain versions on their own
+   inputs, and every document's end one short planted into the kernels
+   must fail each. Then 2 warm-up and 5 timed steps: step ms, tokens/s,
+   the first order's loss falling, exactly 24 launches of each masked
+   kernel per step (none unmasked), and a profiled replay (busy, host
+   launch calls). Then the stack in f16 (``decorate``): the same in-situ
+   check and planted fault on its scaled loss, then 3 f16 eager steps
+   under GradScaler, the masked kernels' f16 forms.
 
 Last lines: the kernels JSON (a kernel redesigned since it was first
 ported names the change in "redesigned"), then {"ok": true, "device":
@@ -176,6 +204,7 @@ and serving number) is also written to PATH.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -661,6 +690,20 @@ def flash_inputs(torch, B, S, H, Hkv, D, dtype, device, seed):
     return q, k, v, do
 
 
+# the flash kernels' storage dtypes: the wgmma forms (bf16, and f16 for AMP
+# in float16) and the CUDA-core f32 forms
+FLASH_DTYPES = ("bfloat16", "float16", "float32")
+
+
+def worst_of(worst, dtype, res):
+    """Fold one case's max |kernel - plain| per output into ``worst``
+    {dtype: {kernel: max abs err}} (lse left out)."""
+    per = worst.setdefault(dtype, {})
+    for kern, outs in FLASH_OUTPUTS.items():
+        per[kern] = max([per.get(kern, 0.0)]
+                        + [res[o][0] for o in outs if o != "lse"])
+
+
 def check_flash_kernels(torch, fa, device):
     cases = [("train", 8, 1024, 16, 16, 64, True),
              ("noncausal", 2, 1024, 8, 8, 64, False),
@@ -670,7 +713,7 @@ def check_flash_kernels(torch, fa, device):
              ("s8192", 1, 8192, 4, 4, 64, True)]
     results, worst = [], {}
     for n, (name, B, S, H, Hkv, D, causal) in enumerate(cases):
-        for dtype in ("bfloat16", "float32"):
+        for dtype in FLASH_DTYPES:
             q, k, v, do = flash_inputs(torch, B, S, H, Hkv, D, dtype, device,
                                        seed=200 + n)
             got, _ = flash_run(fa, q, k, v, do, causal)
@@ -688,11 +731,7 @@ def check_flash_kernels(torch, fa, device):
                           for o, (_, r) in res.items()})
             print("flash-check", json.dumps(rec), flush=True)
             results.append(rec)
-            if dtype == "bfloat16":
-                for kern, outs in FLASH_OUTPUTS.items():
-                    worst[kern] = max([worst.get(kern, 0.0)]
-                                      + [res[o][0] for o in outs
-                                         if o != "lse"])
+            worst_of(worst, dtype, res)
             if not ok:
                 raise AssertionError(f"flash kernel disagrees with plain: "
                                      f"{rec}")
@@ -725,14 +764,17 @@ def flash_bounds(B, S, H, D, causal, elt=2, pairs=None, mask_bytes=0):
     return out
 
 
-FLASH_TIMED_SHAPES = {"train": (8, 1024, 16, 64),   # the main path's
-                      "s8192": (1, 8192, 4, 64)}    # TPU's chunked range
+# (B, S, H, D, dtype): the main path's, the TPU's chunked range, and the
+# main path's shape in f16 (AMP in float16)
+FLASH_TIMED_SHAPES = {"train": (8, 1024, 16, 64, "bfloat16"),
+                      "s8192": (1, 8192, 4, 64, "bfloat16"),
+                      "train_f16": (8, 1024, 16, 64, "float16")}
 
 
 def time_flash(torch, fa, device):
-    """Kernel, plain and library times of the three kernels (bf16, causal)
-    at the training shape and at S = 8192, where the TPU ran its chunked
-    backward (rows 6-7). The library yardstick is
+    """Kernel, plain and library times of the three kernels (causal) at the
+    training shape in bf16 and f16 and at S = 8192, where the TPU ran its
+    chunked backward (rows 6-7). The library yardstick is
     scaled_dot_product_attention on the same inputs ([B, H, S, D]
     contiguous copies made outside the timing): its forward for the
     forward, its one backward (dq, dk and dv together) for dq and dk/dv.
@@ -741,8 +783,8 @@ def time_flash(torch, fa, device):
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     out = {}
-    for shape, (B, S, H, D) in FLASH_TIMED_SHAPES.items():
-        q, k, v, do = flash_inputs(torch, B, S, H, H, D, "bfloat16", device,
+    for shape, (B, S, H, D, dtype) in FLASH_TIMED_SHAPES.items():
+        q, k, v, do = flash_inputs(torch, B, S, H, H, D, dtype, device,
                                    seed=300)
         ro, rl = fa.flash_attention_fwd_ref(q, k, v, True)
         delta = fa.attention_delta(ro, do)
@@ -769,7 +811,7 @@ def time_flash(torch, fa, device):
         out[shape] = {}
         for kern, (kernel, plain) in calls.items():
             rec = dict(shape=shape, kernel=kern, B=B, S=S, H=H, D=D,
-                       dtype="bfloat16", causal=True,
+                       dtype=dtype, causal=True,
                        ms=time_ms(torch, kernel, flush),
                        plain_ms=time_ms(torch, plain, flush),
                        library_ms=lib_fwd if kern == "fwd" else lib_bwd,
@@ -780,7 +822,7 @@ def time_flash(torch, fa, device):
             print("flash-time", json.dumps(rec), flush=True)
             out[shape][kern] = rec
         out[shape]["bwd"] = whole_backward(out[shape], shape=shape, B=B, S=S,
-                                           H=H, D=D)
+                                           H=H, D=D, dtype=dtype)
         del q, k, v, do, ro, rl, delta, qt, kt, vt, dot, lib_out, calls
     return out
 
@@ -1940,36 +1982,13 @@ def batch_serve(torch, model, device, n_requests=6, new=32,
     prompts = [rng.integers(0, V, n).astype(np.int64) for n in plens]
     http_prompt = rng.integers(0, V, int(rng.integers(*prompt_range))
                                ).astype(np.int64)
-    results, errors, rounds = [], {}, []
-
-    def client(i):
-        try:
-            results[-1][i] = gp.infer(prompts[i], timeout=600)
-        except Exception as e:      # reported below, fails the phase
-            errors[i] = repr(e)
-
     srv = InferenceServer(gp, device=device, default_timeout=600).start()
     captures0 = captures_total(model)
     pa.paged_decode_attention.launches = 0
     t0 = time.perf_counter()
     try:
-        for name in ("cold", "warm"):
-            results.append({})
-            c0, b0 = captures_total(model), len(gp.batch_sizes)
-            t1 = time.perf_counter()
-            threads = [threading.Thread(target=client, args=(i,))
-                       for i in range(n_requests)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=600)
-            if any(t.is_alive() for t in threads) or errors:
-                raise AssertionError(f"requests failed: {errors}")
-            dt = time.perf_counter() - t1
-            rounds.append(dict(round=name, wall_s=dt,
-                               tok_per_s=n_requests * new / dt,
-                               batch_sizes=list(gp.batch_sizes[b0:]),
-                               captures=captures_total(model) - c0))
+        results, rounds = serve_rounds(gp, model, prompts, new,
+                                       ("cold", "warm"))
         http_out = _post_npz(srv.port, http_prompt)
     finally:
         wall = time.perf_counter() - t0
@@ -2003,6 +2022,38 @@ def batch_serve(torch, model, device, n_requests=6, new=32,
                              f"forwards = {expect}")
     rec["runner"] = paged_runner_check(torch, model, kv, new, rng)
     return rec
+
+
+def serve_rounds(gp, model, prompts, new, names):
+    """Rounds of the same threaded requests through predictor ``gp``: per
+    round its wall, tokens/s, batch sizes and graph captures. Returns
+    ([{request: output}] per round, [round record])."""
+    results, errors, rounds = [], {}, []
+
+    def client(i):
+        try:
+            results[-1][i] = gp.infer(prompts[i], timeout=600)
+        except Exception as e:      # reported below, fails the phase
+            errors[i] = repr(e)
+
+    for name in names:
+        results.append({})
+        c0, b0 = captures_total(model), len(gp.batch_sizes)
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads) or errors:
+            raise AssertionError(f"requests failed: {errors}")
+        dt = time.perf_counter() - t1
+        rounds.append(dict(round=name, wall_s=dt,
+                           tok_per_s=len(prompts) * new / dt,
+                           batch_sizes=list(gp.batch_sizes[b0:]),
+                           captures=captures_total(model) - c0))
+    return results, rounds
 
 
 def paged_runner_check(torch, model, kv, new, rng, B=4, P=256):
@@ -2608,7 +2659,7 @@ def check_flashmask_kernels(torch, fa, device):
     for n, (name, B, S, H, Hkv, D, causal, cols) in enumerate(
             flashmask_cases(rng)):
         sri = fm_sri(torch, cols, device)
-        for dtype in ("bfloat16", "float32"):
+        for dtype in FLASH_DTYPES:
             q, k, v, do = flash_inputs(torch, B, S, H, Hkv, D, dtype, device,
                                        seed=500 + n)
             got, _ = flash_run(fa, q, k, v, do, causal, sri=sri)
@@ -2628,17 +2679,13 @@ def check_flashmask_kernels(torch, fa, device):
                           for o, (_, r) in res.items()})
             print("flashmask-check", json.dumps(rec), flush=True)
             results.append(rec)
-            if dtype == "bfloat16":
-                for kern, outs in FLASH_OUTPUTS.items():
-                    worst[kern] = max([worst.get(kern, 0.0)]
-                                      + [res[o][0] for o in outs
-                                         if o != "lse"])
+            worst_of(worst, dtype, res)
             if not ok:
                 raise AssertionError(f"masked flash kernel disagrees with "
                                      f"plain: {rec}")
             del got, ref, lim
     S = 640
-    for dtype in ("bfloat16", "float32"):
+    for dtype in FLASH_DTYPES:
         q, k, v, do = flash_inputs(torch, 2, S, 8, 8, 64, dtype, device,
                                    seed=520)
         zero = torch.zeros((2, 1, S, 1), dtype=torch.int32, device=device)
@@ -2671,9 +2718,9 @@ def sdpa_backend(torch, q, k, v, mask):
                                               False)).name
 
 
-def time_flashmask(torch, fa, device):
-    """Kernel, plain, bound and library times of the masked kernels (bf16,
-    causal) at B = 1, S = 8192, H = 16, D = 64 under the document mask of
+def time_flashmask(torch, fa, device, dtype="bfloat16"):
+    """Kernel, plain, bound and library times of the masked kernels (causal,
+    in ``dtype``) at B = 1, S = 8192, H = 16, D = 64 under the document mask of
     FM_DOCS (one mask for all heads), and the unmasked causal kernels on
     the same inputs: the work a mask-blind kernel would do. The library
     yardstick is scaled_dot_product_attention with the boolean [1, 1, S, S]
@@ -2681,18 +2728,38 @@ def time_flashmask(torch, fa, device):
     copies made outside the timing; ``sdpa_backend`` names the backend.
     The port never calls it. The backward kernels take the masked kernel's
     lse and delta. The plain versions (median of 5) are timed call by
-    call (``time_ms`` ``queued=False``)."""
+    call (``time_ms`` ``queued=False``). Before the timing, each masked
+    kernel's outputs at this shape are held to the plain versions on the
+    same inputs (``held_by_heads``; the backward on the kernel's lse and
+    delta): their max |kernel - plain| is the main path's reading, and a
+    reading over ``kernel_tolerance`` fails the phase."""
     import torch.nn.functional as F
 
     B, S, H, D = 1, sum(FM_DOCS), 16, 64
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
-    q, k, v, do = flash_inputs(torch, B, S, H, H, D, "bfloat16", device,
+    q, k, v, do = flash_inputs(torch, B, S, H, H, D, dtype, device,
                                seed=310)
     sri = fm_sri(torch, [[doc_columns(FM_DOCS, True)]], device)
     allowed = fa.flashmask_allowed(S, sri, True)             # [1, 1, S, S]
     pairs = int(allowed.sum())
     o, lse = fa.flashmask_fwd(q, k, v, sri, True)
     delta = fa.attention_delta(o, do)
+    got = {"fwd": dict(out=o, lse=lse),
+           "dq": dict(dq=fa.flashmask_bwd_dq(q, k, v, do, lse, delta, sri,
+                                             True)),
+           "dkv": dict(zip(("dk", "dv"), fa.flashmask_bwd_dkv(
+               q, k, v, do, lse, delta, sri, True)))}
+    held = {}
+    for kern, outs in got.items():
+        finite = all(bool(torch.isfinite(x).all()) for x in outs.values())
+        ratio, err = held_by_heads(torch, fa, kern, outs, q, k, v, sri, True,
+                                   None, do, lse, delta)
+        held[kern] = dict(max_abs_err=err, err_over_limit=ratio)
+        if not finite or ratio > 1.0:
+            raise AssertionError(f"masked {kern} ({dtype}) at the main "
+                                 f"path's shape disagrees with plain: "
+                                 f"{held[kern]}, finite {finite}")
+    del got
     uo, ulse = fa.flash_fwd(q, k, v, True)
     udelta = fa.attention_delta(uo, do)
     calls = {
@@ -2732,7 +2799,7 @@ def time_flashmask(torch, fa, device):
     out = {}
     for kern, (kernel, plain, unmasked) in calls.items():
         side = "fwd" if kern == "fwd" else "bwd"
-        rec = dict(kernel=kern, B=B, S=S, H=H, D=D, dtype="bfloat16",
+        rec = dict(kernel=kern, B=B, S=S, H=H, D=D, dtype=dtype,
                    causal=True, documents=FM_DOCS, allowed_pairs_per_head=
                    pairs, causal_share=pairs / (S * (S + 1) / 2),
                    ms=time_ms(torch, kernel, flush),
@@ -2746,10 +2813,11 @@ def time_flashmask(torch, fa, device):
                    bound_ms=bounds[kern][0], bound_by=bounds[kern][1],
                    unmasked_ms=time_ms(torch, unmasked, flush),
                    unmasked_bound_ms=ubounds[kern][0],
-                   unmasked_bound_by=ubounds[kern][1])
+                   unmasked_bound_by=ubounds[kern][1], **held[kern])
         print("flashmask-time", json.dumps(rec), flush=True)
         out[kern] = rec
-    out["bwd"] = whole_backward(out, B=B, S=S, H=H, D=D, masked=True)
+    out["bwd"] = whole_backward(out, B=B, S=S, H=H, D=D, dtype=dtype,
+                                masked=True)
     del q, k, v, do, o, uo, qt, kt, vt, dot, lib_out, allowed, calls
     torch.cuda.empty_cache()
     return out
@@ -2757,16 +2825,16 @@ def time_flashmask(torch, fa, device):
 
 def held_by_heads(torch, fa, kind, got, q, k, v, sri, causal, scale,
                   dout=None, lse=None, delta=None, chunk=4):
-    """Worst |kernel - plain| / ``kernel_tolerance`` over the outputs
-    ``got`` of one masked kernel call ("fwd", "dq" or "dkv") on its own
-    inputs, taken ``chunk`` heads at a time (the plain versions hold
-    [chunk, S, S] f32 scores)."""
+    """(worst |kernel - plain| / ``kernel_tolerance``, max |kernel - plain|
+    with lse left out) over the outputs ``got`` of one masked kernel call
+    ("fwd", "dq" or "dkv") on its own inputs, taken ``chunk`` heads at a
+    time (the plain versions hold [chunk, S, S] f32 scores)."""
     B, S, H, _ = q.shape
 
     def rows(x, a, b):                  # [B * H, S] -> heads a:b
         return x.reshape(B, H, S)[:, a:b].reshape(-1, S)
 
-    worst = 0.0
+    worst = err = 0.0
     for a in range(0, H, chunk):
         b = min(a + chunk, H)
         qs, ks, vs = (t[:, :, a:b] for t in (q, k, v))
@@ -2789,7 +2857,8 @@ def held_by_heads(torch, fa, kind, got, q, k, v, sri, causal, scale,
                                       dout=dos, delta=ds, sri=sri)
         res = over_limit(torch, part, ref, lim)
         worst = max([worst] + [r for _, r in res.values()])
-    return worst
+        err = max([err] + [e for o, (e, _) in res.items() if o != "lse"])
+    return worst, err
 
 
 INSITU_LAYERS = (0, 11, 23)
@@ -2820,7 +2889,7 @@ def varlen_insitu(torch, fa, loss_of, cu, max_len, blocks):
             if checked("fwd"):
                 worst["fwd"] = max(worst["fwd"], held_by_heads(
                     torch, fa, "fwd", dict(out=out, lse=lse), q, k, v, sri,
-                    causal, scale))
+                    causal, scale)[0])
             return out, lse
 
         def bwd(kind, kernel, names):
@@ -2832,7 +2901,7 @@ def varlen_insitu(torch, fa, loss_of, cu, max_len, blocks):
                     outs = got if isinstance(got, tuple) else (got,)
                     worst[kind] = max(worst[kind], held_by_heads(
                         torch, fa, kind, dict(zip(names, outs)), q, k, v,
-                        sri, causal, scale, dout, lse, delta))
+                        sri, causal, scale, dout, lse, delta)[0])
                 return got
             return call
 
@@ -2850,7 +2919,8 @@ def varlen_insitu(torch, fa, loss_of, cu, max_len, blocks):
             raise AssertionError(f"masked kernel calls {calls} != {L} each")
         return worst
 
-    rec = dict(layers=list(INSITU_LAYERS), sound=run(False),
+    rec = dict(dtype=str(next(blocks.parameters()).dtype)[6:],
+               layers=list(INSITU_LAYERS), sound=run(False),
                doc_end_one_short=run(True))
     print("varlen-insitu", json.dumps(rec), flush=True)
     if max(rec["sound"].values()) > 1.0:
@@ -2902,115 +2972,555 @@ def packed_stack(torch, layers, hidden, heads, device, seed,
     return blocks
 
 
-def varlen_train(torch, fa, device, docs=FM_DOCS, layers=24, hidden=1024,
-                 heads=16, warmup=2, timed=5, seed=40):
-    """The slice's main path: training on packed documents. ``layers``
-    packed-attention blocks (``packed_stack``) in bf16 under the port's
-    AdamW (lr 3e-5: 1e-3 made the 24-block stack's loss climb; weight decay
-    0.01, f32 master weights), the loss the
-    mean square error of the last block's output against a seeded target;
-    each step packs the documents ``docs`` in an order shuffled by a seeded
-    generator (its boundaries built on the host, one copy to the card).
-    In situ first (``varlen_insitu``, on the first step's order), then
-    ``warmup`` + ``timed`` steps: step ms and tokens/s on the host clock,
-    every loss finite and the last below the first, exactly layers x steps
-    launches of each masked kernel and none of the unmasked ones, and one
-    profiled step by kernel kind."""
-    from torch.profiler import ProfilerActivity, profile
+def packed_model(torch, blocks, x, target, max_len):
+    """The packed-attention stack as one module for ``TrainStep``:
+    forward(cu) is the mean square error of the last block's output on the
+    fixed tokens ``x`` against ``target``, the documents' boundaries ``cu``
+    one batch tensor that q and k share."""
+    class Stack(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.blocks = blocks
+            self.register_buffer("x", x)
+            self.register_buffer("target", target)
 
-    from paddle_tpu_torch import optimizer
+        def forward(self, cu):
+            h = self.x
+            for blk in self.blocks:
+                h = blk(h, cu, max_len)
+            return ((h.float() - self.target) ** 2).mean()
+
+    return Stack()
+
+
+def varlen_train(torch, fa, device, docs=FM_DOCS, layers=24, hidden=1024,
+                 heads=16, warmup=2, timed=5, seed=40, f16_steps=3):
+    """The slice's main path: training on packed documents through the
+    captured TrainStep. ``layers`` packed-attention blocks
+    (``packed_stack``) in bf16 under the port's AdamW (lr 1e-4, weight
+    decay 0.01; the captured update runs in bf16, as JAX's TrainStep runs
+    it in each parameter's dtype), the loss the mean square error of the
+    last block's output against a seeded target (``packed_model``); each
+    step packs the documents ``docs`` in an order shuffled by a seeded
+    generator (its boundaries built on the host and passed as the step's
+    one batch tensor, so every order replays one graph). In situ first
+    (``varlen_insitu``, eager, on the first step's order), then ``warmup``
+    + ``timed`` steps (a body and its capture, then replays): step ms and
+    tokens/s on the host clock, every loss finite and the first order's
+    loss lower after the steps than before (each step's loss depends on
+    its order), exactly layers x steps launches of each masked kernel and none
+    of the unmasked ones, and one profiled replay by kernel kind (the
+    earlier eager loop on an NVIDIA H100 80GB HBM3 at 700.00 W: 103.73 ms
+    a step, busy 0.41). Then the stack in f16
+    (``decorate``): ``varlen_insitu`` again on its scaled loss, then
+    ``f16_steps`` eager steps under ``GradScaler``: the masked kernels'
+    f16 forms on the main path, losses finite."""
+    from paddle_tpu_torch import amp, optimizer
     from paddle_tpu_torch.framework.random import make_generator
+    from paddle_tpu_torch.jit import TrainStep
 
     t0 = time.perf_counter()
     blocks = packed_stack(torch, layers, hidden, heads, device, seed)
-    opt = optimizer.AdamW(learning_rate=3e-5, parameters=blocks.parameters(),
-                          weight_decay=0.01, multi_precision=True)
     T = int(sum(docs))
     gen = make_generator(seed + 1, device)
     x = torch.randn((T, hidden), generator=gen, device=device).to(
         torch.bfloat16)
     target = torch.randn((T, hidden), generator=gen, device=device)
     order = np.random.default_rng(seed)
+    max_len = int(max(docs))
+    stack = packed_model(torch, blocks, x, target, max_len)
+    step = TrainStep(stack, lambda loss: loss, optimizer.AdamW(
+        learning_rate=1e-4, parameters=stack.parameters(), weight_decay=0.01,
+        multi_precision=True))
 
     def batch():
         lens = order.permutation(docs)
-        cu = np.concatenate([[0], np.cumsum(lens)])
-        return torch.as_tensor(cu, device=device), int(lens.max())
+        return torch.as_tensor(np.concatenate([[0], np.cumsum(lens)]),
+                               device=device)
 
     def loss_of(cu, max_len):
-        h = x
-        for blk in blocks:
-            h = blk(h, cu, max_len)
-        return ((h.float() - target) ** 2).mean()
-
-    def step():
-        loss = loss_of(*batch())
-        loss.backward()
-        opt.step()
-        opt.clear_grad()
-        return loss.detach()
+        return stack(cu)
 
     n_params = sum(p.numel() for p in blocks.parameters())
     print(f"varlen model: {layers} packed-attention blocks bf16, "
           f"{n_params / 1e6:.1f} M params, built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    insitu = varlen_insitu(torch, fa, loss_of, *batch(), blocks)
+    insitu = varlen_insitu(torch, fa, loss_of, batch(), max_len, blocks)
 
+    cus = [batch() for _ in range(warmup + timed)]
+    with torch.no_grad():       # the first order's loss, before training
+        before = float(stack(cus[0]))
     names = ("fm_fwd", "fm_dq", "fm_dkv", "fwd", "dq", "dkv")
     for n in names:                                   # main path starts
         fa._WRAPPERS[n].launches = 0
-    losses = [step() for _ in range(warmup)]
+    losses = [step(cu) for cu in cus[:warmup]]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    losses += [step() for _ in range(timed)]
+    losses += [step(cu) for cu in cus[warmup:]]
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t1) / timed
     launches = {n: fa._WRAPPERS[n].launches for n in names}   # ends
     losses = [float(v) for v in losses]
+    with torch.no_grad():       # and after (each step packs another order)
+        after = float(stack(cus[0]))
+    (prog,) = step._programs.values()
+    keys = len(step._programs)
+    cu_next = batch()
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        step()
+    def one_step():
+        step(cu_next)
         torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t1
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    dev_us = sum(e.self_device_time_total for e in kernels)
-    by_kind = {}
-    for e in kernels:
-        kind = kernel_kind(e.key)
-        ms, n = by_kind.get(kind, (0.0, 0))
-        by_kind[kind] = (ms + e.self_device_time_total / 1e3, n + e.count)
-    attn_ms = by_kind.get("flash attention", (0.0, 0))[0]
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+
+    prof = profile_call(torch, one_step, ("flash_",))
     steps = warmup + timed
     rec = dict(layers=layers, hidden=hidden, heads=heads, tokens=T,
                documents=list(docs), warmup=warmup, timed=timed,
-               losses=losses, step_ms=step_s * 1e3, tokens_per_s=T / step_s,
+               losses=losses, first_order_loss_before_after=[before, after],
+               step_ms=step_s * 1e3, tokens_per_s=T / step_s,
+               captured=prog.capture is not None, keys=keys,
+               capture_ms=prog.capture.seconds * 1e3,
                masked_launches=launches,
                expected_launches_each=layers * steps,
-               profiled_wall_ms=prof_wall * 1e3,
-               device_ms=dev_us / 1e3 if dev_us else None,
-               kernel_launches=int(sum(e.count for e in kernels)),
-               device_busy_share=(dev_us / 1e6 / prof_wall
-                                  if dev_us else None),
-               attention_share_of_device=(attn_ms * 1e3 / dev_us
-                                          if dev_us else None),
-               device_ms_by_kind=by_kind,
-               top_kernels=[(e.key[:80], e.count,
-                             e.self_device_time_total / 1e3) for e in top])
+               profiled_wall_ms=prof["profiled_wall_ms"],
+               device_ms=prof["device_ms"],
+               kernel_launches=prof["kernel_launches"],
+               host_launch_calls=prof["host_launch_calls"],
+               device_busy_share=prof["device_busy_share"],
+               attention_share_of_device=prof["attention_share_of_device"],
+               device_ms_by_kind=prof["device_ms_by_kind"],
+               top_kernels=prof["top_kernels"])
     print("varlen-train", json.dumps(rec), flush=True)
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"losses not finite or not falling: {losses}")
+    if not all(np.isfinite(losses)) or not after < before:
+        raise AssertionError(f"losses not finite, or the first order's "
+                             f"loss not falling: {losses}, {before} -> "
+                             f"{after}")
     want = dict(fm_fwd=layers * steps, fm_dq=layers * steps,
                 fm_dkv=layers * steps, fwd=0, dq=0, dkv=0)
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
-    del blocks, opt, x, target
+    if not rec["captured"] or keys != 1:
+        raise AssertionError(f"the packed steps were not one captured key: "
+                             f"{keys} keys")
+    del step, prog
+    torch.cuda.empty_cache()
+
+    # the f16 forms of the masked kernels on the same path: eager steps
+    # under GradScaler with f32 master weights, as an f16 script trains (an
+    # update in f16 itself loses AdamW's epsilon, 1e-8, below f16's range)
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=stack.parameters(),
+                          weight_decay=0.01)
+    amp.decorate(stack, opt, level="O2", dtype="float16")
+    stack.x = stack.x.half()
+    scaler = amp.GradScaler(init_loss_scaling=1024.0)
+    # the f16 kernels in situ, on the scaled loss the steps differentiate
+    # (unscaled, dO underflows f16 at this loss's 2 / (T hidden) gradient)
+    f16_insitu = varlen_insitu(torch, fa, lambda cu, _: scaler.scale(
+        stack(cu)), batch(), max_len, blocks)
+
+    def f16_step():
+        loss = stack(batch())
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        return float(loss)
+
+    for n in names:                                   # main path starts
+        fa._WRAPPERS[n].launches = 0
+    f16_losses = [f16_step() for _ in range(f16_steps)]
+    f16_launches = {n: fa._WRAPPERS[n].launches for n in names}   # ends
+    rec["f16"] = dict(losses=f16_losses, masked_launches=f16_launches,
+                      steps=f16_steps, insitu=f16_insitu)
+    print("varlen-train-f16", json.dumps(rec["f16"]), flush=True)
+    want = dict(fm_fwd=layers * f16_steps, fm_dq=layers * f16_steps,
+                fm_dkv=layers * f16_steps, fwd=0, dq=0, dkv=0)
+    if f16_launches != want or not all(np.isfinite(f16_losses)):
+        raise AssertionError(f"f16 packed steps: launches {f16_launches} "
+                             f"!= {want}, or losses {f16_losses}")
+    del blocks, stack, opt, x, target
     torch.cuda.empty_cache()
     return rec, insitu
+
+# peak device memory of the leg-less training step (O2 bf16, AdamW, B 8,
+# S 1024) as this script's training phase first recorded it, NVIDIA H100
+# 80GB HBM3, 700.00 W
+LEGLESS_PEAK_BYTES = 22_648_100_864
+# one parameter of a full model, for the planted inf of the f16 leg
+INF_PARAM = "gpt.blocks.0.mlp.down.weight"
+
+
+def recipe_leg(torch, fa, model, ids, labels, name, dtype, warmup, timed,
+               recompute=None, dropout=0.0, o1=False, base=None):
+    """One training recipe of GPT-350M through the captured TrainStep (see
+    ``train_recipes``), on ``model`` built with this leg's ``recompute``
+    and ``dropout``; returns its record, and raises when a gate fails."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.framework import default_generator
+    from paddle_tpu_torch.jit import TrainStep
+
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                          weight_decay=0.01, multi_precision=True)
+    step = TrainStep(model, lambda logits, loss: loss, opt)
+    gen = default_generator(ids.device)
+    gen.manual_seed(7)
+    def cast():
+        return (amp.auto_cast(dtype="bfloat16") if o1
+                else contextlib.nullcontext())
+
+    batch = ((ids,), {"labels": labels})
+    rec = dict(leg=name, dtype=dtype, recompute=recompute, dropout=dropout,
+               amp="O1 bf16" if o1 else "O2", warmup=warmup, timed=timed)
+    start = step.export_state()
+    body_losses = body_params = None
+    if not dropout:                     # the reference: bodies
+        with cast(), step._eager():
+            first = step(*batch[0], **batch[1])
+            if base is not None:        # recompute against none
+                rec["first_step_loss_equal_no_recompute"] = bool(
+                    torch.equal(first, base[0]))
+                rec["first_step_params_max_abs_diff_no_recompute"] = (
+                    params_diff(torch, model.parameters(), base[1]))
+            rest, _ = timed_steps(torch, step, *batch, warmup - 1, timed)
+        body_losses = [first] + rest
+        body_params = [p.detach().clone() for p in model.parameters()]
+        step.import_state(start)
+    torch.cuda.reset_peak_memory_stats()
+    for w in fa._WRAPPERS.values():                 # main path starts
+        w.launches = 0
+    with cast():
+        losses, step_s = timed_steps(torch, step, *batch, warmup, timed)
+    launches = {k: w.launches for k, w in fa._WRAPPERS.items()}  # ends
+    peak = torch.cuda.max_memory_allocated()
+    (prog,) = step._programs.values()
+    if body_losses is not None:
+        rec["replay_losses_equal_body"] = bool(torch.equal(
+            torch.stack(losses), torch.stack(body_losses)))
+        rec["replay_params_max_abs_diff"] = params_diff(
+            torch, model.parameters(), body_params)
+        del body_params
+    if dropout:
+        # replays from one exported state: the first layer's updated
+        # weight (its gradient passes every layer's masks; the bf16 loss
+        # is too coarse to tell masks apart) is the same after
+        # import_state, and differs once the generator has moved on
+        probe = model.gpt.blocks[0].attn.qkv_proj.weight
+        snap = step.export_state()
+
+        def replay():
+            step(*batch[0], **batch[1])
+            return probe.detach().clone()
+
+        a = replay()
+        advanced = gen.get_state()
+        step.import_state(snap)
+        again = replay()
+        step.import_state(snap)
+        gen.set_state(advanced)
+        b = replay()
+        rec["import_state_repeats_masks"] = bool(torch.equal(a, again))
+        rec["next_replay_draws_new_masks"] = not bool(torch.equal(a, b))
+        rec["mask_probe_weight_max_abs_diff"] = float(
+            (a.float() - b.float()).abs().max())
+        del a, again, b, snap
+    losses = [float(x.float()) for x in losses]
+
+    def one_step():
+        step(*batch[0], **batch[1])
+        torch.cuda.synchronize()
+
+    with cast():
+        prof = profile_call(torch, one_step, ("flash_",))
+    steps = warmup + timed
+    rec.update(losses=losses, step_ms=step_s * 1e3,
+               tokens_per_s=ids.numel() / step_s,
+               max_memory_allocated=peak,
+               memory_over_recorded_legless=peak / LEGLESS_PEAK_BYTES,
+               device_busy_share=prof["device_busy_share"],
+               host_launch_calls=prof["host_launch_calls"],
+               device_ms=prof["device_ms"],
+               device_ms_by_kind=prof["device_ms_by_kind"],
+               capture_ms=prog.capture.seconds * 1e3,
+               kernel_launches=launches, steps=steps)
+    print("train-recipe", json.dumps(rec), flush=True)
+    L = model.config.num_layers
+    # per layer and step: the forward (twice under recompute: the flash
+    # forward is no product, so the backward runs it again), dq and dk/dv;
+    # none under dropout (the plain route)
+    want = (0, 0, 0) if dropout else ((2 if recompute else 1) * L * steps,
+                                      L * steps, L * steps)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: losses not finite or not falling: "
+                             f"{losses}")
+    if (launches["fwd"], launches["dq"], launches["dkv"]) != want:
+        raise AssertionError(f"{name}: flash launches {launches}, "
+                             f"{want} expected")
+    for gate in ("replay_losses_equal_body", "import_state_repeats_masks",
+                 "next_replay_draws_new_masks",
+                 "first_step_loss_equal_no_recompute"):
+        if gate in rec and not rec[gate]:
+            raise AssertionError(f"{name}: {gate} failed: {rec}")
+    for gate in ("replay_params_max_abs_diff",
+                 "first_step_params_max_abs_diff_no_recompute"):
+        if rec.get(gate, 0.0) != 0.0:
+            raise AssertionError(f"{name}: {gate} = {rec[gate]}")
+    del step, opt, prog, start
+    torch.cuda.empty_cache()
+    return rec
+
+
+def f16_scaler_leg(torch, fa, model, ids, labels, warmup, timed, plant=1):
+    """O2 f16 (``decorate(dtype="float16")`` of the f32 ``model``, f32
+    master weights) through eager steps under ``GradScaler`` (init scale
+    1024: the f16 loss times the scale stays finite), as a Paddle f16
+    script trains: forward, ``scaler.scale(loss).backward()``,
+    ``scaler.step``, ``clear_grad``. Step ``plant``, a warm-up step, gets
+    one inf in a gradient: that step must be skipped (parameters
+    unchanged) and the scale halved; every timed step runs the full
+    update. The flash kernels run their f16 forms."""
+    from paddle_tpu_torch import amp, optimizer
+
+    if not plant < warmup:
+        raise ValueError(f"the planted inf (step {plant}) must fall in the "
+                         f"warm-up ({warmup} steps)")
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                          weight_decay=0.01)
+    amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = amp.GradScaler(init_loss_scaling=1024.0)
+    params = dict(model.named_parameters())
+    skipped = None
+
+    def step(i):
+        nonlocal skipped
+        _, loss = model(ids, labels=labels)
+        scaler.scale(loss).backward()
+        if i == plant:
+            before = [p.detach().clone() for p in model.parameters()]
+            scale = scaler.get_init_loss_scaling()
+            with torch.no_grad():
+                params[INF_PARAM].grad.view(-1)[0] = float("inf")
+        scaler.step(opt)
+        opt.clear_grad()
+        if i == plant:
+            skipped = dict(
+                params_unchanged=params_diff(torch, model.parameters(),
+                                             before) == 0.0,
+                scale_before=scale, scale_after=scaler.get_init_loss_scaling())
+            del before
+        return loss.detach()
+
+    for w in fa._WRAPPERS.values():                 # main path starts
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(i) for i in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(warmup + i) for i in range(timed)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / timed
+    launches = {k: w.launches for k, w in fa._WRAPPERS.items()}  # ends
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x.float()) for x in losses]
+
+    def one_step():
+        step(-1)
+        torch.cuda.synchronize()
+
+    prof = profile_call(torch, one_step, ("flash_",))
+    steps = warmup + timed
+    rec = dict(leg="o2_f16_grad_scaler", dtype="float16", warmup=warmup,
+               timed=timed, losses=losses, step_ms=step_s * 1e3,
+               tokens_per_s=ids.numel() / step_s, max_memory_allocated=peak,
+               memory_over_recorded_legless=peak / LEGLESS_PEAK_BYTES,
+               device_busy_share=prof["device_busy_share"],
+               host_launch_calls=prof["host_launch_calls"],
+               device_ms=prof["device_ms"],
+               device_ms_by_kind=prof["device_ms_by_kind"],
+               planted_inf_step=plant, skipped=skipped,
+               scaler=scaler.state_dict(), kernel_launches=launches,
+               steps=steps)
+    print("train-recipe", json.dumps(rec), flush=True)
+    L = model.config.num_layers
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"f16: losses not finite or not falling: "
+                             f"{losses}")
+    if not (skipped["params_unchanged"]
+            and skipped["scale_after"] == skipped["scale_before"] / 2):
+        raise AssertionError(f"f16: the planted inf did not skip the step "
+                             f"and halve the scale: {skipped}")
+    if (launches["fwd"], launches["dq"], launches["dkv"]) != (L * steps,) * 3:
+        raise AssertionError(f"f16: flash launches {launches}")
+    return rec
+
+
+def train_recipes(torch, fa, device, legless_peak, B=8, S=1024, warmup=2,
+                  timed=6, seed=12):
+    """The slice's training recipes on GPT-350M at full width and depth
+    (``gpt_350m()``: 24 layers, hidden 1024, 16 heads of 64), B 8, S 1024,
+    AdamW (lr 1e-4, weight decay 0.01), seeded ids and labels rolled by
+    one, each leg's model built through ``GPTConfig(dropout=,
+    recompute=)`` from the same seeded weights, ``warmup`` + ``timed``
+    steps:
+
+    (a) O2 bf16, ``recompute="block"``; (b) O2 bf16, ``recompute="dots"``
+    — each first as bodies (the reference), its first step's loss and
+    parameters bit-equal to a no-recompute body step's, then captured, the
+    replays bit-equal to the bodies; (c) O2 bf16 with ``dropout=0.1``
+    (attention on the plain route, as in JAX), captured: replays from one
+    exported state draw the same masks again after ``import_state`` and
+    new ones when the generator has moved on; (d) AMP O1 (``auto_cast``
+    bf16) over f32 parameters, bodies then captured, bit-equal; (e) O2
+    f16 eager steps under ``GradScaler``, one planted inf in a warm-up
+    step.
+
+    Each leg: step ms, tokens/s, peak memory (and its ratio to the
+    leg-less step's, ``legless_peak``, measured in this run by ``train``,
+    and to the recorded 22,648,100,864 bytes), the device's busy share and
+    the host's launch calls over one profiled step, and the flash kernels'
+    launches (24 per step each, the forward 48 under recompute; none under
+    dropout). Losses must be finite and fall."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import (
+        GPTConfig,
+        GPTForCausalLM,
+        gpt_350m,
+    )
+
+    fields = vars(gpt_350m())
+
+    def build(dtype, **kw):
+        """GPT-350M as a user builds it for this leg:
+        ``GPTConfig(dropout=, recompute=)``, the same seeded f32 weights
+        for every leg, then ``decorate`` to ``dtype`` (O2) where it is not
+        f32."""
+        model = GPTForCausalLM(GPTConfig(**{**fields, **kw}), device=device,
+                               seed=seed)
+        if dtype != "float32":
+            amp.decorate(model, level="O2", dtype=dtype)
+        return model
+
+    t0 = time.perf_counter()
+    model = build("bfloat16")
+    V = model.config.vocab_size
+    ids_np = np.random.default_rng(seed).integers(0, V, (B, S))
+    ids = torch.as_tensor(ids_np, device=device)
+    labels = torch.as_tensor(np.roll(ids_np, -1, axis=1), device=device)
+    torch.cuda.synchronize()
+    print(f"train-recipes model: GPT-350M, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # the no-recompute reference of the first step (a body)
+    base_step = TrainStep(model, lambda logits, loss: loss, optimizer.AdamW(
+        learning_rate=1e-4, parameters=model.parameters(), weight_decay=0.01,
+        multi_precision=True))
+    with base_step._eager():
+        base_loss = base_step(ids, labels=labels)
+    base = (base_loss, [p.detach().clone() for p in model.parameters()])
+    del base_step, model
+    legs = {}
+    for name, kw in (("recompute_block", dict(recompute="block")),
+                     ("recompute_dots", dict(recompute="dots")),
+                     ("dropout_0.1", dict(dropout=0.1)),
+                     ("o1_bf16_f32_params", dict(o1=True))):
+        dtype = "float32" if kw.get("o1") else "bfloat16"
+        model = build(dtype, recompute=kw.get("recompute"),
+                      dropout=kw.get("dropout", 0.0))
+        legs[name] = recipe_leg(
+            torch, fa, model, ids, labels, name, dtype, warmup,
+            timed, base=base if "recompute" in kw else None, **kw)
+        del model
+        torch.cuda.empty_cache()
+    del base
+    legs["o2_f16_grad_scaler"] = f16_scaler_leg(
+        torch, fa, build("float32"), ids, labels, warmup, timed)
+    for rec in legs.values():
+        rec["legless_max_memory_allocated"] = legless_peak
+        rec["memory_over_legless"] = (rec["max_memory_allocated"]
+                                      / legless_peak)
+    amp_off = not amp.is_auto_cast_enabled()
+    torch.cuda.empty_cache()
+    if not amp_off:
+        raise AssertionError("auto_cast left enabled after the O1 leg")
+    return legs
+
+
+OPTIMIZER_NAMES = ("Adamax", "Adagrad", "Adadelta", "RMSProp", "Lamb",
+                   "ASGD", "Rprop", "NAdam", "RAdam")
+# learning rates: 1e-2, and 1e-3 for RMSProp, whose first steps are
+# g / sqrt((1 - rho) g^2) ~ 4.5 rates long (at 1e-2 the third loss rose)
+OPT_LR = {"RMSProp": 1e-3}
+# captured steps against eager Optimizer.step: the bias corrections and
+# momentum schedules are f32 math on the device counter in the step and
+# float64 math eagerly; an element whose gradient is near 0 moves by up to
+# a normalised step on that difference, so parameters are held to a tenth
+# of the rate (a wrong rule moves them by about the rate), losses to 1e-5
+OPT_LOSS_RTOL = 1e-5
+
+
+def optimizer_steps(torch, device, steps=3, B=2, S=128, seed=3):
+    """Each of the nine optimizers ported in this slice trains a small GPT
+    (2 layers, hidden 128, 2 heads of 64, vocab 256; f32) for ``steps``
+    captured steps (the first a body and its capture, then replays): the
+    replays bit-equal to the same steps run as bodies (``_eager()``), and
+    within OPT_LOSS_RTOL (losses) and a tenth of the rate (parameters) of
+    eager steps (forward, backward, ``Optimizer.step``) on a copy of the
+    model."""
+    import copy
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
+                    num_heads=2, max_position=256)
+    rng = np.random.default_rng(seed)
+    ids_np = rng.integers(0, 256, (B, S))
+    ids = torch.as_tensor(ids_np, device=device)
+    labels = torch.as_tensor(np.roll(ids_np, -1, 1), device=device)
+    out = {}
+    for name in OPTIMIZER_NAMES:
+        model = GPTForCausalLM(cfg, device=device, seed=seed)
+        bodies, eager = copy.deepcopy(model), copy.deepcopy(model)
+        make = getattr(optimizer, name)
+        rate = OPT_LR.get(name, 1e-2)
+
+        def train_step(m):
+            return TrainStep(m, lambda logits, loss: loss,
+                             make(learning_rate=rate,
+                                  parameters=m.parameters()))
+
+        step, ref = train_step(model), train_step(bodies)
+        opt = make(learning_rate=rate, parameters=eager.parameters())
+        got, body, want = [], [], []
+        for _ in range(steps):
+            got.append(step(ids, labels=labels))
+            with ref._eager():
+                body.append(ref(ids, labels=labels))
+            _, loss = eager(ids, labels=labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            want.append(float(loss.detach()))
+        (prog,) = step._programs.values()
+        rec = dict(learning_rate=rate, losses=[float(x) for x in got],
+                   eager_losses=want,
+                   captured=prog.capture is not None,
+                   replays_equal_bodies=bool(torch.equal(
+                       torch.stack(got), torch.stack(body)))
+                   and params_diff(torch, model.parameters(),
+                                   list(bodies.parameters())) == 0.0,
+                   params_max_abs_diff_eager=params_diff(
+                       torch, model.parameters(),
+                       [p.detach() for p in eager.parameters()]))
+        out[name] = rec
+        print("optimizer", name, json.dumps(rec), flush=True)
+        if (not rec["captured"] or not rec["replays_equal_bodies"]
+                or not np.allclose(rec["losses"], want, rtol=OPT_LOSS_RTOL,
+                                   atol=0.0)
+                or rec["params_max_abs_diff_eager"] > rate / 10
+                or not rec["losses"][-1] < rec["losses"][0]):
+            raise AssertionError(f"{name}: captured steps differ from the "
+                                 f"bodies or the eager steps, or do not "
+                                 f"train: {rec}")
+    return out
 
 
 def main():
@@ -3114,11 +3624,21 @@ def main():
         print(f"long-context {key} on {card}: {r['step_ms']:.1f} ms/step, "
               f"{r['tokens_per_s']:.0f} tok/s, {r['bf16_peak_share']:.3f} "
               f"of the bf16 peak", flush=True)
+    recipes = train_recipes(torch, fa, device,
+                            training["max_memory_allocated"])
+    for key, r in recipes.items():
+        print(f"train-recipe {key} on {card}: {r['step_ms']:.1f} ms/step, "
+              f"{r['tokens_per_s']:.0f} tok/s, peak "
+              f"{r['max_memory_allocated']} bytes, busy "
+              f"{r['device_busy_share']:.2f}", flush=True)
+    optimizers = optimizer_steps(torch, device)
     fm_checks, fm_worst = check_flashmask_kernels(torch, fa, device)
-    fm_timing = time_flashmask(torch, fa, device)
+    fm_timing = {dt: time_flashmask(torch, fa, device, dt)
+                 for dt in ("bfloat16", "float16")}
     varlen, varlen_checks = varlen_train(torch, fa, device)
-    print(f"varlen training on {card}: {varlen['step_ms']:.1f} ms/step, "
-          f"{varlen['tokens_per_s']:.0f} tok/s", flush=True)
+    print(f"varlen training on {card}: {varlen['step_ms']:.1f} ms/step "
+          f"captured, {varlen['tokens_per_s']:.0f} tok/s, busy "
+          f"{varlen['device_busy_share']:.2f}", flush=True)
 
     d = timing["decode"]
     kernels = [{
@@ -3151,6 +3671,7 @@ def main():
                      "library_ms")},
     })
     src = "paddle_tpu/ops/pallas/flash_attention.py"
+    f16_leg = recipes["o2_f16_grad_scaler"]["kernel_launches"]
     for kern, name, replaces, also in (
             ("fwd", "flash_attention_fwd", f"{src}:89", []),
             ("dq", "flash_attention_dq", f"{src}:166", [f"{src}:230"]),
@@ -3163,28 +3684,48 @@ def main():
             "launches": training["flash_launches"][kern],
             "long_context_launches": {
                 k: r["flash_launches"][kern] for k, r in long_ctx.items()},
-            "max_abs_err": flash_worst[kern],
+            "train_recipes_launches": {
+                k: r["kernel_launches"][kern] for k, r in recipes.items()
+                if k != "o2_f16_grad_scaler"},
+            "max_abs_err": flash_worst["bfloat16"][kern],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "library_call": t["library_call"],
             "s8192": {k: flash_timing["s8192"][kern][k] for k in
                       ("ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms")}})
+        t = flash_timing["train_f16"][kern]
+        kernels.append({
+            "name": f"{name}_f16", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces, "also_replaces": also, "dtype": "float16",
+            "launches": f16_leg[kern],
+            "max_abs_err": flash_worst["float16"][kern],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "library_call": t["library_call"]})
     for kern, name, line in (("fwd", "flashmask_fwd", 89),
                              ("dq", "flashmask_dq", 166),
                              ("dkv", "flashmask_dkv", 196)):
-        t = fm_timing[kern]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
-            "replaces": f"{src}:{line}", "has_sri": True,
-            "launches": varlen["masked_launches"][f"fm_{kern}"],
-            "max_abs_err": fm_worst[kern],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "library_call": t["library_call"],
-            "library_backend": t["library_backend"],
-            "unmasked_ms": t["unmasked_ms"]})
+        for dt, suffix, launches in (
+                ("bfloat16", "", varlen["masked_launches"][f"fm_{kern}"]),
+                ("float16", "_f16",
+                 varlen["f16"]["masked_launches"][f"fm_{kern}"])):
+            t = fm_timing[dt][kern]
+            kernels.append({
+                "name": name + suffix, "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                "replaces": f"{src}:{line}", "has_sri": True, "dtype": dt,
+                "launches": launches,
+                "max_abs_err": t["max_abs_err"],
+                "err_over_limit": t["err_over_limit"],
+                "small_cases_max_abs_err": fm_worst[dt][kern],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"],
+                "library_call": t["library_call"],
+                "library_backend": t["library_backend"],
+                "unmasked_ms": t["unmasked_ms"]})
     for kern in kernels:
         if kern["name"] in REDESIGNED:
             kern["redesigned"] = REDESIGNED[kern["name"]]
@@ -3198,7 +3739,8 @@ def main():
                   dense_profile=gen_profile, batch_serving=batch,
                   degrade=degrade, speculative=spec,
                   train_insitu=train_checks, training=training,
-                  long_context=long_ctx,
+                  long_context=long_ctx, train_recipes=recipes,
+                  optimizers=optimizers,
                   flashmask_checks=fm_checks, flashmask_timing=fm_timing,
                   varlen_insitu=varlen_checks, varlen_train=varlen,
                   kernels=kernels)

@@ -20,7 +20,12 @@ varlen attention (``nn.functional.flashmask_attention``,
 through the masked forms of the flash-attention CUDA kernels. The step
 programs and the training step (``jit.TrainStep``: SGD, Momentum, Adam,
 AdamW, the schedulers of ``optimizer.lr``, three gradient clips) run as
-CUDA graphs captured once per signature and replayed.
+CUDA graphs captured once per signature and replayed. Training also takes
+dropout (masks from the port's default generator, registered with every
+captured step), recompute (``distributed.fleet.recompute``), AMP O1
+(``amp.auto_cast``, by the JAX package's op names) and ``GradScaler``,
+float16 (the flash kernels' f16 forms), nine more optimizers (and eager
+LBFGS), and packed documents through the captured step.
 """
 from . import amp, jit, nn, optimizer
 from .bridge import from_paddle_tpu_state, to_paddle_tpu_state

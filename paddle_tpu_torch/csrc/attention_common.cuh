@@ -2,10 +2,10 @@
 // paged_attention.cu, decode_attention.cu): warp-level bf16 tensor-core
 // products (mma.sync m16n8k16 with ldmatrix operands, or with the A operand
 // already in registers) and their f32 CUDA-core twin, fragment stores and
-// the packing of f32 score fragments into bf16 A fragments, quad reductions
-// over an m16n8 row, the base-2 online softmax of a score tile, 16-byte
-// cp.async copies, the dynamic shared memory opt-in, and the split-KV
-// combine pass.
+// the packing of f32 score fragments into bf16 or f16 A fragments, quad
+// reductions over an m16n8 row, the base-2 online softmax of a score tile,
+// 16-byte cp.async copies, the dynamic shared memory opt-in, and the
+// split-KV combine pass.
 //
 // The combine pass replaces the TPU package's XLA stage-2 reduction
 // `_combine_partials` (paddle_tpu/ops/pallas/decode_attention.py:153): it
@@ -14,13 +14,17 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -29,6 +33,10 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_float<bf16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ f16 from_float<f16>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -84,10 +92,11 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // f32 score fragments (m16n8 accumulators, columns 8j..8j+7 in s[j]) as the
-// bf16 A fragments of the next m16n8k16 product: the accumulator layout of
-// columns 16kk..16kk+15 is the A layout of k-block kk, so P never leaves
-// the registers. Each value is rounded to bf16 (round to nearest even).
-template <int NC>
+// 16-bit A fragments (element type T: bf16 or f16) of the next m16n8k16 or
+// wgmma product: the accumulator layout of columns 16kk..16kk+15 is the A
+// layout of k-block kk, so P never leaves the registers. Each value is
+// rounded to T (round to nearest even; f16 keeps subnormals).
+template <int NC, typename T = bf16>
 __device__ __forceinline__ void pack_a(uint32_t (&a)[NC / 2][4],
                                        const float (&s)[NC][4]) {
 #pragma unroll
@@ -95,8 +104,13 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[NC / 2][4],
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float* f = &s[2 * kk + (i >> 1)][(i & 1) * 2];
-      const __nv_bfloat162 p = __floats2bfloat162_rn(f[0], f[1]);
-      a[kk][i] = *reinterpret_cast<const uint32_t*>(&p);
+      if constexpr (std::is_same<T, f16>::value) {
+        const __half2 p = __floats2half2_rn(f[0], f[1]);
+        a[kk][i] = *reinterpret_cast<const uint32_t*>(&p);
+      } else {
+        const __nv_bfloat162 p = __floats2bfloat162_rn(f[0], f[1]);
+        a[kk][i] = *reinterpret_cast<const uint32_t*>(&p);
+      }
     }
   }
 }

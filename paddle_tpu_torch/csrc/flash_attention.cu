@@ -2,12 +2,12 @@
 // plain C interface and loaded with ctypes (paddle_tpu_torch/ops/_build.py).
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
-//   * flash_fwd_wgmma_kernel (bf16), flash_fwd_f32_kernel (f32)
+//   * flash_fwd_wgmma_kernel (bf16, f16), flash_fwd_f32_kernel (f32)
 //                       <- `_fwd_kernel` (:89), launched by `_mha_fwd` (:146);
-//   * flash_dq_wgmma_kernel (bf16), flash_dq_f32_kernel (f32)
+//   * flash_dq_wgmma_kernel (bf16, f16), flash_dq_f32_kernel (f32)
 //                       <- `_dq_kernel` (:166, launched at :394) and
 //                          `_dq_kernel_chunked` (:230, launched at :327);
-//   * flash_dkv_wgmma_kernel (bf16), flash_dkv_f32_kernel (f32)
+//   * flash_dkv_wgmma_kernel (bf16, f16), flash_dkv_f32_kernel (f32)
 //                       <- `_dkv_kernel` (:196, launched at :420) and
 //                          `_dkv_kernel_chunked` (:272, launched at :343).
 // The TPU backward has two forms: full-sequence blocks for S <= 4096 and
@@ -95,6 +95,13 @@
 // The warp-level products and helpers live in attention_common.cuh, the
 // warpgroup ones (wgmma, descriptors, the swizzled copy) in
 // wgmma_common.cuh.
+// f16. The wgmma kernels are templated on the 16-bit element type: the f16
+// forms (AMP in float16) are the bf16 ones with `.f16` products, and P, p
+// and ds rounded to f16 where the bf16 forms round to bf16 (the TPU kernels
+// round to the storage dtype). f16 keeps 11 significant bits against
+// bf16's 8 but a narrower range; P, p <= 1 and ds are small, and a
+// subnormal keeps its absolute spacing of 2^-24, which the plain version
+// rounds alike.
 //
 // FlashMask. Each kernel has a masked form (template flag Mask) that
 // replaces the has_sri=True form of the same TPU kernel: `_fwd_kernel`
@@ -422,26 +429,27 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ------------------------------------------------------ forward, wgmma
-// The bf16 forward on Hopper's warpgroup products (wgmma_common.cuh):
+// The 16-bit forward on Hopper's warpgroup products (wgmma_common.cuh):
 // one warpgroup owns 64 query rows; S = Q.K^T reads Q and K from
 // swizzled shared memory, P.V takes P from registers.
 
-// Q, then K and V two stages each; under Mask the bands of two tiles.
+// Q, then K and V two stages each (2-byte elements); under Mask the bands
+// of two tiles.
 template <int D, bool Mask>
 constexpr size_t fwd_wgmma_smem() {
-  return 1024 + 5 * (size_t)kRows * D * sizeof(bf16) + 2 * bands_smem<Mask>();
+  return 1024 + 5 * (size_t)kRows * D * 2 + 2 * bands_smem<Mask>();
 }
 
-// The bf16 forward. grid (ceil(S / 64), B * H), block 128 (one warpgroup);
-// `scale2` is scale * log2(e). The heaviest causal tiles first.
-template <int D, bool Mask>
+// The bf16 / f16 forward. grid (ceil(S / 64), B * H), block 128 (one
+// warpgroup); `scale2` is scale * log2(e). The heaviest causal tiles first.
+template <typename T, int D, bool Mask>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ out,
+flash_fwd_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out,
                        float* __restrict__ lse, const int* __restrict__ sri,
                        int S, int H, float scale2, int causal, int n, int Hp) {
   constexpr int NC = kCols / 8;
-  constexpr int TILE = kRows * D * sizeof(bf16);  // bytes of a 64-row tile
+  constexpr int TILE = kRows * D * sizeof(T);  // bytes of a 64-row tile
   extern __shared__ unsigned char smem_raw[];
   unsigned char* q_s =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -493,7 +501,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // S = Q . K^T, both K-major in shared memory
     wgmma_fence();
     fence_regs<NC>(s);
-    wgmma_abt<D>(s, q_s, k_s + stage * TILE);
+    wgmma_abt<D, T>(s, q_s, k_s + stage * TILE);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<NC>(s);
@@ -502,20 +510,20 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      scale2, !Mask && full_tile(t * kCols, row0, S, causal));
     online_softmax<NC, D / 8>(s, m, l, o);
     uint32_t pa[NC / 2][4];
-    pack_a<NC>(pa, s);  // P rounded to V's dtype
+    pack_a<NC, T>(pa, s);  // P rounded to V's dtype
 
     // O += P . V, P from registers
     wgmma_fence();
     fence_regs<D / 8>(o);
     fence_regs<NC / 2>(pa);
-    wgmma_pv<D>(o, pa, v_s + stage * TILE);
+    wgmma_pv<D, T>(o, pa, v_s + stage * TILE);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<D / 8>(o);
     fence_regs<NC / 2>(pa);
     t = nt;
   }
-  write_fwd<bf16, D>(out, lse, o, m, l, b, h, bh, row_lo, S, H);
+  write_fwd<T, D>(out, lse, o, m, l, b, h, bh, row_lo, S, H);
 }
 
 // ----------------------------------------------------- backward, wgmma
@@ -580,26 +588,26 @@ __device__ __forceinline__ void dq_grads(float (&s)[kCols / 8][4],
 // of two tiles.
 template <int D, bool Mask>
 constexpr size_t dq_wgmma_smem() {
-  return 1024 + 6 * (size_t)kRows * D * sizeof(bf16) + 2 * bands_smem<Mask>();
+  return 1024 + 6 * (size_t)kRows * D * 2 + 2 * bands_smem<Mask>();
 }
 
-// The bf16 dq. grid (ceil(S / 64), B * H), block 128 (one warpgroup) owning
-// 64 query rows; the K/V tiles walked up to the diagonal, heaviest blocks
-// first. Per tile: S = Q.K^T and dP = dO.V^T (wgmma, both operands from
-// shared memory, K-major), issued together; while they run the next tile
-// is chosen and its loads started; ds in registers, packed to bf16 as the A
-// operand of dq += ds.K (the same K tile read MN-major).
-template <int D, bool Mask>
+// The bf16 / f16 dq. grid (ceil(S / 64), B * H), block 128 (one
+// warpgroup) owning 64 query rows; the K/V tiles walked up to the
+// diagonal, heaviest blocks first. Per tile: S = Q.K^T and dP = dO.V^T
+// (wgmma, both operands from shared memory, K-major), issued together;
+// while they run the next tile is chosen and its loads started; ds in
+// registers, packed to T as the A operand of dq += ds.K (the same K tile
+// read MN-major).
+template <typename T, int D, bool Mask>
 __global__ void __launch_bounds__(kThreads, bwd_min_blocks<D>())
-flash_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout,
+flash_dq_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dq,
+                      const float* __restrict__ delta, T* __restrict__ dq,
                       const int* __restrict__ sri, int S, int H, float scale,
                       int causal, int n, int Hp) {
   constexpr int NC = kCols / 8;
-  constexpr int TILE = kRows * D * sizeof(bf16);  // bytes of a 64-row tile
+  constexpr int TILE = kRows * D * sizeof(T);  // bytes of a 64-row tile
   extern __shared__ unsigned char smem_raw[];
   unsigned char* q_s =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -657,8 +665,8 @@ flash_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
     fence_regs<NC>(s);
     fence_regs<NC>(dp);
-    wgmma_abt<D>(s, q_s, k_t);
-    wgmma_abt<D>(dp, do_s, v_s + stage * TILE);
+    wgmma_abt<D, T>(s, q_s, k_t);
+    wgmma_abt<D, T>(dp, do_s, v_s + stage * TILE);
     wgmma_commit();
     // the next tile's bands and loads while the products run
     const int nt = next_tile<Mask>(t + 1, tiles, bands + (stage ^ 1) * kCols,
@@ -681,13 +689,13 @@ flash_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       dq_grads<Mask, true>(s, dp, nl2, dl, bands + stage * kCols, c0, row_lo,
                            S, causal, scale2, scale);
     uint32_t dsa[NC / 2][4];
-    pack_a<NC>(dsa, s);  // ds rounded to K's dtype
+    pack_a<NC, T>(dsa, s);  // ds rounded to K's dtype
 
     // dq += ds . K, ds from registers
     wgmma_fence();
     fence_regs<D / 8>(acc);
     fence_regs<NC / 2>(dsa);
-    wgmma_pv<D>(acc, dsa, k_t);
+    wgmma_pv<D, T>(acc, dsa, k_t);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<D / 8>(acc);
@@ -695,7 +703,7 @@ flash_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     t = nt;
     clear = next_clear;
   }
-  write_rows<bf16, D>(dq, acc, b, h, row_lo, S, H, 1.f, 1.f);
+  write_rows<T, D>(dq, acc, b, h, row_lo, S, H, 1.f, 1.f);
 }
 
 // The first query tile at or after t that the dk/dv block of key columns
@@ -766,31 +774,28 @@ __device__ __forceinline__ void dkv_grads(float (&st)[kRows / 8][4],
 // two query tiles; under Mask the bands of the block's keys.
 template <int D, bool Mask>
 constexpr size_t dkv_wgmma_smem() {
-  return 1024 + 6 * (size_t)kRows * D * sizeof(bf16) +
+  return 1024 + 6 * (size_t)kRows * D * 2 +
          2 * 2 * kRows * sizeof(float) + bands_smem<Mask>();
 }
 
-// The bf16 dk/dv. grid (ceil(S / 64), B * H), block 128 (one warpgroup)
-// owning 64 key columns; the query tiles walked from the diagonal down (the
-// heaviest blocks, the first columns, first in grid order). Per tile:
-// S^T = K.Q^T and dP^T = V.dO^T (wgmma, K-major operands from shared
-// memory), issued together; while they run the next live query tile is
-// chosen and its loads started; p^T and ds^T in registers, whose
+// The bf16 / f16 dk/dv. grid (ceil(S / 64), B * H), block 128 (one
+// warpgroup) owning 64 key columns; the query tiles walked from the
+// diagonal down (the heaviest blocks, the first columns, first in grid
+// order). Per tile: S^T = K.Q^T and dP^T = V.dO^T (wgmma, K-major operands
+// from shared memory), issued together; while they run the next live query
+// tile is chosen and its loads started; p^T and ds^T in registers, whose
 // accumulator layout (rows keys, columns queries) is the A layout of
 // dv += p^T.dO and dk += ds^T.Q (the Q and dO tiles read MN-major).
-template <int D, bool Mask>
+template <typename T, int D, bool Mask>
 __global__ void __launch_bounds__(kThreads, bwd_min_blocks<D>())
-flash_dkv_wgmma_kernel(const bf16* __restrict__ q,
-                       const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
+flash_dkv_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
                        const float* __restrict__ lse,
-                       const float* __restrict__ delta,
-                       bf16* __restrict__ dk, bf16* __restrict__ dv,
-                       const int* __restrict__ sri, int S, int H, float scale,
-                       int causal, int n, int Hp) {
+                       const float* __restrict__ delta, T* __restrict__ dk,
+                       T* __restrict__ dv, const int* __restrict__ sri, int S,
+                       int H, float scale, int causal, int n, int Hp) {
   constexpr int NR = kRows / 8;
-  constexpr int TILE = kRows * D * sizeof(bf16);  // bytes of a 64-row tile
+  constexpr int TILE = kRows * D * sizeof(T);  // bytes of a 64-row tile
   static_assert(kThreads == 2 * kRows, "one stat copy per thread");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* k_s =
@@ -865,8 +870,8 @@ flash_dkv_wgmma_kernel(const bf16* __restrict__ q,
     wgmma_fence();
     fence_regs<NR>(st);
     fence_regs<NR>(dpt);
-    wgmma_abt<D>(st, k_s, q_t);
-    wgmma_abt<D>(dpt, v_s, do_t);
+    wgmma_abt<D, T>(st, k_s, q_t);
+    wgmma_abt<D, T>(dpt, v_s, do_t);
     wgmma_commit();
     // the next live query tile's loads while the products run
     const int nt = next_query_tile<Mask>(t + 1, q_tiles, mine, col0, S,
@@ -887,8 +892,8 @@ flash_dkv_wgmma_kernel(const bf16* __restrict__ q,
       dkv_grads<Mask, true>(st, dpt, ls, ls + kRows, bands, col0, key_lo, q0,
                             S, causal, scale2, scale);
     uint32_t pa[NR / 2][4], dsa[NR / 2][4];
-    pack_a<NR>(pa, st);    // p^T rounded to dO's dtype
-    pack_a<NR>(dsa, dpt);  // ds^T rounded to Q's dtype
+    pack_a<NR, T>(pa, st);    // p^T rounded to dO's dtype
+    pack_a<NR, T>(dsa, dpt);  // ds^T rounded to Q's dtype
 
     // dv += p^T . dO and dk += ds^T . Q, p^T and ds^T from registers
     wgmma_fence();
@@ -896,8 +901,8 @@ flash_dkv_wgmma_kernel(const bf16* __restrict__ q,
     fence_regs<D / 8>(dk_acc);
     fence_regs<NR / 2>(pa);
     fence_regs<NR / 2>(dsa);
-    wgmma_pv<D>(dv_acc, pa, do_t);
-    wgmma_pv<D>(dk_acc, dsa, q_t);
+    wgmma_pv<D, T>(dv_acc, pa, do_t);
+    wgmma_pv<D, T>(dk_acc, dsa, q_t);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<D / 8>(dv_acc);
@@ -907,8 +912,8 @@ flash_dkv_wgmma_kernel(const bf16* __restrict__ q,
     t = nt;
     clear = next_clear;
   }
-  write_rows<bf16, D>(dk, dk_acc, b, h, key_lo, S, H, 1.f, 1.f);
-  write_rows<bf16, D>(dv, dv_acc, b, h, key_lo, S, H, 1.f, 1.f);
+  write_rows<T, D>(dk, dk_acc, b, h, key_lo, S, H, 1.f, 1.f);
+  write_rows<T, D>(dv, dv_acc, b, h, key_lo, S, H, 1.f, 1.f);
 }
 
 // ------------------------------------------------------- backward, f32
@@ -1181,7 +1186,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
   float* tlse = static_cast<float*>(lse);
   const int* tsri = static_cast<const int*>(sri);
   if constexpr (sizeof(T) == 2)
-    return launch_kernel(flash_fwd_wgmma_kernel<D, Mask>, grid, kThreads,
+    return launch_kernel(flash_fwd_wgmma_kernel<T, D, Mask>, grid, kThreads,
                          fwd_wgmma_smem<D, Mask>(), st, tq, tk, tv, tout, tlse,
                          tsri, S, H, scale * kLog2e, causal, n, Hp);
   else
@@ -1206,7 +1211,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   T* tdq = static_cast<T*>(dq);
   const int* tsri = static_cast<const int*>(sri);
   if constexpr (sizeof(T) == 2)
-    return launch_kernel(flash_dq_wgmma_kernel<D, Mask>, grid, kThreads,
+    return launch_kernel(flash_dq_wgmma_kernel<T, D, Mask>, grid, kThreads,
                          dq_wgmma_smem<D, Mask>(), st, tq, tk, tv, tdo, tlse,
                          tdelta, tdq, tsri, S, H, scale, causal, n, Hp);
   else
@@ -1232,7 +1237,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   T* tdv = static_cast<T*>(dv);
   const int* tsri = static_cast<const int*>(sri);
   if constexpr (sizeof(T) == 2)
-    return launch_kernel(flash_dkv_wgmma_kernel<D, Mask>, grid, kThreads,
+    return launch_kernel(flash_dkv_wgmma_kernel<T, D, Mask>, grid, kThreads,
                          dkv_wgmma_smem<D, Mask>(), st, tq, tk, tv, tdo, tlse,
                          tdelta, tdk, tdv, tsri, S, H, scale, causal, n, Hp);
   else
@@ -1250,7 +1255,7 @@ bool bad_shape(int B, int S, int H, const void* sri, int n, int Hp) {
 }  // namespace
 
 // Each entry returns a cudaError_t (0 on success). dtype: 0 = float32,
-// 1 = bfloat16; D: 64 or 128. Pointers are device pointers of contiguous
+// 1 = bfloat16, 2 = float16; D: 64 or 128. Pointers are device pointers of contiguous
 // tensors, 16-byte aligned; `stream` is a cudaStream_t (PyTorch's current
 // stream). Nothing is allocated here. `sri` is null for the unmasked
 // kernels, or the FlashMask: int32 [B, Hp, S, n], Hp = 1 or H, n <= 4.
@@ -1266,6 +1271,10 @@ bool bad_shape(int B, int S, int H, const void* sri, int n, int Hp) {
       return m ? (int)CALL(bf16, 64, true) : (int)CALL(bf16, 64, false); \
     if (dtype == 1 && D == 128)                                       \
       return m ? (int)CALL(bf16, 128, true) : (int)CALL(bf16, 128, false); \
+    if (dtype == 2 && D == 64)                                        \
+      return m ? (int)CALL(f16, 64, true) : (int)CALL(f16, 64, false); \
+    if (dtype == 2 && D == 128)                                       \
+      return m ? (int)CALL(f16, 128, true) : (int)CALL(f16, 128, false); \
     return (int)cudaErrorInvalidValue;                                \
   } while (0)
 

@@ -1,9 +1,11 @@
-// Hopper warpgroup helpers shared by the bf16 attention kernels of
-// flash_attention.cu (forward, dq, dk/dv) and decode_attention.cu (the
-// prefill form): wgmma products with operands in 128-byte-swizzled shared
-// memory (through hand-written descriptors) or A in registers, the fences
-// around them, and the cp.async copy of a 64-row tile into the swizzled
-// layout.
+// Hopper warpgroup helpers shared by the 16-bit attention kernels of
+// flash_attention.cu (forward, dq, dk/dv; bf16 and f16) and
+// decode_attention.cu (the prefill form, bf16): wgmma products with operands
+// in 128-byte-swizzled shared memory (through hand-written descriptors) or A
+// in registers, the fences around them, and the cp.async copy of a 64-row
+// tile into the swizzled layout. The element type T (bf16 or f16) picks the
+// wgmma's `.bf16` or `.f16` form: the same m64nNk16 shapes, fragment layouts
+// and descriptors, f32 accumulators either way.
 //
 // A block is one warpgroup (4 warps, 128 threads) owning a 64-row tile.
 // Q, K and V tiles sit in shared memory in the 128-byte swizzled layout
@@ -11,9 +13,11 @@
 // rows of 128 bytes, the 16-byte chunk c of row r stored at chunk
 // c ^ (r % 8), tiles 1024-byte aligned. S = Q.K^T reads both from shared
 // memory (K-major); P.V takes P from registers as the A operand (the score
-// accumulators packed to bf16 by `pack_a`) and V from shared memory
-// (MN-major, V's rows are the k dimension).
+// accumulators packed to the element type by `pack_a`) and V from shared
+// memory (MN-major, V's rows are the k dimension).
 #pragma once
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 
@@ -68,90 +72,112 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo) {
 }
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B in shared memory
-// (descriptors), both K-major; scale_d = 0 ignores D's old values.
+// (descriptors), both K-major; scale_d = 0 ignores D's old values. TY is
+// the element type's PTX name ("bf16" or "f16").
+#define WGMMA_M64N64K16_SS(TY)                                               \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"           \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                               \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                             \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                               \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                     \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),          \
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),          \
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),          \
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),          \
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),          \
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),          \
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),          \
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])           \
+      : "l"(da), "l"(db), "r"(scale_d))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[8][4],
                                                    uint64_t da, uint64_t db,
                                                    int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (std::is_same<T, f16>::value)
+    WGMMA_M64N64K16_SS("f16");
+  else
+    WGMMA_M64N64K16_SS("bf16");
 }
 
 // D[64 x 64] += A[64 x 16] . B[16 x 64], A in registers (each warp's
 // m16n8k16 A fragments of its 16 rows), B in shared memory, MN-major.
+#define WGMMA_M64N64K16_RS(TY)                                               \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"           \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                               \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                             \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                               \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                       \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),          \
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),          \
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),          \
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),          \
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),          \
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),          \
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),          \
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[8][4],
                                                    const uint32_t (&a)[4],
                                                    uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (std::is_same<T, f16>::value)
+    WGMMA_M64N64K16_RS("f16");
+  else
+    WGMMA_M64N64K16_RS("bf16");
 }
 
 // D[64 x 128] += A[64 x 16] . B[16 x 128], A in registers (each warp's
 // m16n8k16 A fragments of its 16 rows), B in shared memory, MN-major.
+#define WGMMA_M64N128K16_RS(TY)                                              \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                               \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                             \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                             \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                             \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                             \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                             \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                               \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                       \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),          \
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),          \
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),          \
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),          \
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),          \
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),          \
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),          \
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),          \
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),          \
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),          \
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),      \
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),      \
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),      \
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),      \
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),      \
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])       \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[16][4],
-                                                   const uint32_t (&a)[4],
-                                                   uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  if constexpr (std::is_same<T, f16>::value)
+    WGMMA_M64N128K16_RS("f16");
+  else
+    WGMMA_M64N128K16_RS("bf16");
 }
 
-// One thread's share of the 16-byte copies of a 64-row bf16 tile into a
+// One thread's share of the 16-byte copies of a 64-row 16-bit tile into a
 // swizzled tile (see above), from rows H * D elements apart: one head of a
 // [B, S, H, D] tensor, or (H = 1) a contiguous [T, D] slab. Copy i of a
 // thread is chunk c = tid % CPR of row r = tid / CPR + i * STEP, STEP a
@@ -172,10 +198,12 @@ struct SwizzledCopy {
         src_step(STEP * H * D) {}
   // Rows [row0, row0 + 64) of the head whose element (0, 0) is at `head`
   // into `tile`; rows at or past S are zero-filled and not read.
+  template <typename T>
   __device__ __forceinline__ void load(unsigned char* tile,
-                                       const bf16* __restrict__ head,
+                                       const T* __restrict__ head,
                                        int row0, int S, int H) const {
-    const bf16* first = head + (size_t)row0 * H * D + src;
+    static_assert(sizeof(T) == 2, "a 16-bit element type");
+    const T* first = head + (size_t)row0 * H * D + src;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const bool live = row0 + row + i * STEP < S;
@@ -187,7 +215,7 @@ struct SwizzledCopy {
 
 // D[64 x 64] = A . B^T over D for two swizzled 64-row tiles (A rows x D,
 // B columns x D), both K-major: D / 16 wgmma, the first with scale_d = 0.
-template <int D>
+template <int D, typename T = bf16>
 __device__ __forceinline__ void wgmma_abt(float (&d)[kCols / 8][4],
                                           const unsigned char* a,
                                           const unsigned char* b) {
@@ -195,14 +223,14 @@ __device__ __forceinline__ void wgmma_abt(float (&d)[kCols / 8][4],
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
     const int off = (ks >> 2) * PANEL + (ks & 3) * 32;
-    wgmma_m64n64k16_ss(d, sw128_desc(a + off, 16), sw128_desc(b + off, 16),
-                       ks > 0);
+    wgmma_m64n64k16_ss<T>(d, sw128_desc(a + off, 16),
+                          sw128_desc(b + off, 16), ks > 0);
   }
 }
 
 // O += P . V for one tile: P in registers (k-block kk in pa[kk]), V the
 // swizzled tile at v_t.
-template <int D>
+template <int D, typename T = bf16>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 8][4],
                                          const uint32_t (&pa)[kCols / 16][4],
                                          const unsigned char* v_t) {
@@ -210,10 +238,14 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 8][4],
   for (int kk = 0; kk < kCols / 16; ++kk) {
     const uint64_t dv = sw128_desc(v_t + kk * 16 * 128, kRows * 128);
     if constexpr (D == 64)
-      wgmma_m64n64k16_rs(o, pa[kk], dv);
+      wgmma_m64n64k16_rs<T>(o, pa[kk], dv);
     else
-      wgmma_m64n128k16_rs(o, pa[kk], dv);
+      wgmma_m64n128k16_rs<T>(o, pa[kk], dv);
   }
 }
+
+#undef WGMMA_M64N64K16_SS
+#undef WGMMA_M64N64K16_RS
+#undef WGMMA_M64N128K16_RS
 
 }  // namespace

@@ -5,12 +5,17 @@
 Weights keep paddle's ``[in, out]`` layout, so ``bridge.py`` copies the JAX
 package's arrays without transposing them. The products are plain
 ``torch.matmul``: the JAX package left them to XLA outside any Pallas
-kernel. Sharding over ranks waits for the distributed slice.
+kernel. Sharding over ranks waits for the distributed slice. Under AMP O1
+(``amp.auto_cast``) the products are the op ``linear`` and the
+cross-entropy's ``exp``, ``sum`` and ``log`` are black-listed, as the JAX
+package dispatches them (``amp._amp_cast``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ...amp import _amp_cast
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
            "RowParallelLinear", "ParallelCrossEntropy"]
@@ -46,8 +51,9 @@ class _Linear(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        out = x @ self.weight
-        return out + self.bias if self.bias is not None else out
+        x, w, b = _amp_cast("linear", x, self.weight, self.bias)
+        out = x @ w
+        return out + b if b is not None else out
 
 
 class ParallelCrossEntropy(nn.Module):
@@ -68,10 +74,15 @@ class ParallelCrossEntropy(nn.Module):
         squeeze = label.dim() == input.dim() and label.shape[-1] == 1
         lab = label.squeeze(-1) if squeeze else label
         m = input.amax(dim=-1, keepdim=True).detach()
-        lse = torch.log(torch.exp(input - m).sum(dim=-1)) + m.squeeze(-1)
+        (e,) = _amp_cast("exp", input - m)
+        (e,) = _amp_cast("sum", torch.exp(e))
+        (e,) = _amp_cast("log", e.sum(dim=-1))
+        lse = torch.log(e) + m.squeeze(-1)
         in_vocab = (lab >= 0) & (lab < vocab)
         tgt = input.gather(-1, lab.clamp(0, vocab - 1).unsqueeze(-1))
-        tgt = torch.where(in_vocab, tgt.squeeze(-1), torch.zeros_like(lse))
+        # JAX sums the masked row ("sum", f32 under O1): the one value
+        tgt = torch.where(in_vocab, _amp_cast("sum", tgt.squeeze(-1))[0],
+                          torch.zeros_like(lse))
         loss = lse - tgt
         loss = torch.where(lab == self.ignore_index, torch.zeros_like(loss),
                            loss)

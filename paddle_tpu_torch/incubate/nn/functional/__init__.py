@@ -32,6 +32,9 @@ def rope_cos_sin(position_ids, head_dim, dtype, base=10000.0):
 
 
 def apply_rope(t, cos, sin):
+    """The rotation of t, with the tables cast to t's dtype (JAX casts them
+    to q's, ``fused_rotary_position_embedding``: under AMP O1 q and k come
+    from a white-listed linear in the amp dtype)."""
     half = t.shape[-1] // 2
     rot = torch.cat([-t[..., half:], t[..., :half]], dim=-1)
-    return t * cos + rot * sin
+    return t * cos.to(t.dtype) + rot * sin.to(t.dtype)

@@ -4,8 +4,11 @@
 Another entry point onto the flash kernels: with no bias or the causal one
 the call is ``F.flash_attention`` (the kernel on CUDA), with q pre-scaled
 by ``scale * sqrt(D)`` in q's dtype when ``scale`` is given, as JAX does,
-since the kernel applies 1/sqrt(D). A bias tensor takes the JAX package's
-XLA route in plain PyTorch: scores plus the bias, softmax in f32.
+since the kernel applies 1/sqrt(D); with dropout in training that call
+takes the plain route (``F.flash_attention``). A bias tensor takes the JAX
+package's XLA route in plain PyTorch: scores plus the bias, softmax in f32,
+dropout on the f32 probabilities (the mask from the port's default
+generator, ``nn.functional.common.keep_mask``).
 """
 from __future__ import annotations
 
@@ -20,9 +23,9 @@ def memory_efficient_attention(query, key, value, attn_bias=None, p=0.0,
                                scale=None, training=True):
     """query/key/value: [B, S, H, D] (paddle layout). attn_bias: None, the
     string "causal", or a tensor broadcastable to [B, H, Sq, Sk]. Returns
-    [B, S, H, D]. ``p > 0`` under training raises (dropout is not
-    ported)."""
+    [B, S, H, D]. ``p``: attention dropout, applied in training."""
     from ...nn import functional as F
+    from ...nn.functional.common import keep_mask
 
     if isinstance(attn_bias, str) and attn_bias.lower() != "causal":
         raise ValueError(f"attn_bias: 'causal', None or a tensor, got "
@@ -38,12 +41,12 @@ def memory_efficient_attention(query, key, value, attn_bias=None, p=0.0,
                                    dropout=p if training else 0.0,
                                    causal=causal, training=training)
         return out
-    if p and training:
-        raise NotImplementedError(
-            "memory_efficient_attention: dropout is not ported (the JAX "
-            "package draws its mask from jax.random)")
     s = scale if scale is not None else 1.0 / math.sqrt(query.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", query, key) * s
     logits = logits + attn_bias.to(logits.dtype)
     probs = torch.softmax(logits.float(), dim=-1)
+    if p and training:
+        keep = 1.0 - p
+        probs = torch.where(keep_mask(probs.shape, keep, probs.device),
+                            probs / keep, torch.zeros((), device=probs.device))
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(value.dtype), value)

@@ -109,9 +109,12 @@ class GenerateBatchingPredictor:
 
     A batcher thread collects up to ``max_batch_size`` requests within
     ``max_delay_ms`` (waking early once the batch fills) and serves them in
-    one ``generate_paged`` call: prompts right-padded to the power of two
-    at or above the batch's longest (at most the model's ``max_position``),
-    so batches of nearby lengths replay one captured program, each request
+    one ``generate_paged`` call: the batch padded to the power of two at
+    or above its size (at most ``max_batch_size``; a padding row writes
+    only the pool's scratch page and its tokens are dropped), prompts
+    right-padded to the power of two at or above the batch's longest (at
+    most the model's ``max_position``), so batches of nearby sizes and
+    lengths replay one captured program, each request
     reserving only ceil((len + max_new_tokens) /
     block_size) blocks of the pool. A request that cannot reserve RIGHT NOW
     is deferred to a later batch at most ``max_defers`` times, then shed
@@ -247,18 +250,25 @@ class GenerateBatchingPredictor:
                 return
             n = len(admitted)
             self.batch_sizes.append(n)
-            plens = np.asarray([len(r.arrays[0]) for _, r in admitted],
-                               np.int64)
-            # the prompts right-padded to a power-of-two width (masked by
-            # plens): batches of nearby lengths replay one program
+            # the batch padded to a power-of-two size and the prompts
+            # right-padded to a power-of-two width (masked by plens), so
+            # that batches of nearby sizes and lengths replay one program.
+            # A padding row has a 1-token prompt, no reservation, and a
+            # table of the scratch page only: every row it writes lands
+            # there, and its tokens are dropped.
+            B = max(n, min(1 << (n - 1).bit_length(), self.max_batch_size))
+            plens = np.ones(B, np.int64)
+            plens[:n] = [len(r.arrays[0]) for _, r in admitted]
             P = int(plens.max())
             P = max(P, min(1 << (P - 1).bit_length(), self._max_position))
-            prompts = np.zeros((n, P), np.int64)
+            prompts = np.zeros((B, P), np.int64)
             for i, (_, r) in enumerate(admitted):
                 prompts[i, :plens[i]] = r.arrays[0]
             nb = cache.blocks_for(P + self.max_new_tokens)
-            tbl = np.stack([cache.block_table(rid, pad_to=nb)
-                            for rid, _ in admitted])
+            tbl = np.full((B, nb), cache.scratch_slot // cache.block_size,
+                          np.int32)
+            for i, (rid, _) in enumerate(admitted):
+                tbl[i] = cache.block_table(rid, pad_to=nb)
             dls = [r.deadline for _, r in admitted]
             batch_dl = (max(dls, key=lambda d: d.remaining())
                         if all(d is not None for d in dls) else None)

@@ -36,6 +36,7 @@ import contextlib
 import math
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -80,13 +81,17 @@ class Capture:
 
 
 def first_run_then_capture(device, first, body, pool=None,
-                           error_mode="thread_local"):
+                           error_mode="thread_local", generators=()):
     """(first's result, ``Capture`` of ``body``): ``first()`` runs eagerly
     on the side stream (ordered after the current stream's work; the run
     that gives a call its result and warms cuBLAS and the kernels'
     libraries), then ``body()`` is captured on the same stream into a new
     graph allocating from ``pool``, under ``capture_error_mode``
-    ``error_mode``. A failed capture raises."""
+    ``error_mode``. Each CUDA generator of ``generators`` is registered
+    with the graph (``CUDAGraph.register_generator_state``): the body may
+    draw from it, and every replay draws anew from its current state (an
+    unregistered generator makes the capture raise). A failed capture
+    raises."""
     with _CAPTURE_LOCK:
         side = _side_stream(device)
         cur = torch.cuda.current_stream(device)
@@ -95,13 +100,36 @@ def first_run_then_capture(device, first, body, pool=None,
             out = first()
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
         t0 = time.perf_counter()
-        with recording_launches(side.cuda_stream) as launched:
-            with torch.cuda.graph(graph, pool=pool, stream=side,
-                                  capture_error_mode=error_mode):
-                result = body()
+        try:
+            with recording_launches(side.cuda_stream) as launched:
+                with torch.cuda.graph(graph, pool=pool, stream=side,
+                                      capture_error_mode=error_mode):
+                    result = body()
+        except BaseException:
+            if generators:
+                _end_generator_capture(generators, side)
+            raise
         return out, Capture(graph, result, dict(launched),
                             time.perf_counter() - t0)
+
+
+def _end_generator_capture(generators, stream):
+    """Take ``generators`` out of capture mode after a failed capture.
+
+    A failed capture raises in ``capture_end`` before it ends the capture of
+    the generator states it registered, which stay in capture mode: every
+    later draw from them outside a capture would raise. An empty capture
+    with them registered begins and ends their capture again."""
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # "The CUDA Graph is empty"
+        with torch.cuda.graph(graph, stream=stream):
+            pass
 
 
 class StaticBuffers:

@@ -23,6 +23,16 @@ sequence into one CUDA graph per key and replays it:
   run. So under O2 the parameters, the moments and the update are bf16 even
   when the optimizer was built with ``multi_precision``: the JAX TrainStep
   keeps no master weights (the eager ``Optimizer.step`` does).
+* Random ops in the step (dropout) draw from the port's default
+  generator of the step's device (``framework.default_generator``),
+  registered with every capture, so each replay draws new masks, as JAX
+  folds a new key into every compiled step (:136, :299, :519). Its state
+  is part of ``export_state``: a restored step draws the same masks again.
+  The AMP state (``amp.auto_cast``) is not part of the key, as in JAX
+  (ROADMAP C): a key's program runs under the AMP state of its first call
+  (JAX traces it then) on the CPU and on the card alike, so a step
+  captured under ``auto_cast`` keeps its casts.
+* ``LBFGS`` is refused: it evaluates a closure and decides on the host.
 * On CUDA a key's first call runs the step eagerly on the side stream
   (that call's result) and captures it (``jit.graphs``); later calls
   replay the graph. The capture runs under ``capture_error_mode="global"``
@@ -54,7 +64,10 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import amp
+from ..framework import default_generator
 from ..nn.clip import ClipGradBase
+from ..optimizer import LBFGS
 from ..optimizer.lr import LRScheduler
 from .fingerprint import aval_fingerprint, flatten, unflatten
 from .graphs import StaticBuffers, first_run_then_capture
@@ -114,6 +127,7 @@ class StepProgram:
         self.n_leaves = len(leaves)
         self.capture = None
         self.flops = None
+        self.amp_state = amp._snapshot()    # the first call's AMP state
 
     def batch(self):
         """(args, kwargs) over the buffer's device views."""
@@ -137,6 +151,11 @@ class TrainStep:
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer,
                  donate_state=True, return_outputs=False, split_label=False):
+        if isinstance(optimizer, LBFGS):
+            raise NotImplementedError(
+                "TrainStep(LBFGS): LBFGS evaluates a closure and decides on "
+                "the host between evaluations, so it is not one captured "
+                "step; call LBFGS.step(closure) eagerly")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -208,12 +227,13 @@ class TrainStep:
     def _body(self, prog, count_flops=False):
         args, kwargs = prog.batch()
         inp = prog.inputs.dev
-        if not count_flops:
-            return self._step(args, kwargs, inp["lr"], inp["step"])
-        from torch.utils.flop_counter import FlopCounterMode
+        with amp._restored(prog.amp_state):
+            if not count_flops:
+                return self._step(args, kwargs, inp["lr"], inp["step"])
+            from torch.utils.flop_counter import FlopCounterMode
 
-        with FlopCounterMode(display=False) as counter:
-            result = self._step(args, kwargs, inp["lr"], inp["step"])
+            with FlopCounterMode(display=False) as counter:
+                result = self._step(args, kwargs, inp["lr"], inp["step"])
         prog.flops = float(counter.get_total_flops())
         return result
 
@@ -257,7 +277,8 @@ class TrainStep:
                 self._pool = torch.cuda.graph_pool_handle()
             out, prog.capture = first_run_then_capture(
                 self.device, lambda: self._body(prog, count_flops),
-                lambda: self._body(prog), self._pool, _CAPTURE_MODE)
+                lambda: self._body(prog), self._pool, _CAPTURE_MODE,
+                generators=(default_generator(self.device),))
             return out, False
         if count_flops:
             return self._body(prog, True), False
@@ -387,7 +408,9 @@ class TrainStep:
 
     # ------------------------------------------------- checkpoint state
     def _rng_state(self):
-        rng = {"cpu": torch.get_rng_state().tolist()}
+        rng = {"cpu": torch.get_rng_state().tolist(),
+               "generator": default_generator(self.device).get_state()
+               .tolist()}
         if self.device.type == "cuda":
             rng["cuda"] = torch.cuda.get_rng_state(self.device).tolist()
         return rng
@@ -397,7 +420,9 @@ class TrainStep:
         model's state dict), ``acc`` ({accumulator: {param name: tensor}},
         created first if missing, as JAX :370-398 does), ``master`` (the
         eager path's f32 masters, when any) and ``meta`` (``step_count``,
-        ``seed``, ``rng``, and ``lr_sched`` under a scheduler)."""
+        ``seed``, ``rng`` (torch's global states and the port's default
+        generator of the device, which dropout draws from), and
+        ``lr_sched`` under a scheduler)."""
         return self._copy_state(lambda t: t.detach().clone())
 
     def _copy_state(self, copy):
@@ -468,6 +493,9 @@ class TrainStep:
         if "cuda" in rng and self.device.type == "cuda":
             torch.cuda.set_rng_state(
                 torch.tensor(rng["cuda"], dtype=torch.uint8), self.device)
+        if "generator" in rng:
+            default_generator(self.device).set_state(
+                torch.tensor(rng["generator"], dtype=torch.uint8))
         if ("lr_sched" in meta
                 and isinstance(opt._learning_rate, LRScheduler)):
             opt._learning_rate.set_state_dict(meta["lr_sched"])

@@ -15,9 +15,13 @@ divides ``num_heads``, on three branches of ``GPTAttention``:
   caches ``[B, Hkv, T, D]`` written in place, attention through
   ``decode_attention`` — the path of dense ``generate()``.
 
-Not ported yet, and refused with ``NotImplementedError``: the GPT-2-style
-variant (learned positions, LayerNorm, GELU, ``gpt3_1p3b``), dropout,
-recompute.
+Training options, as in JAX: ``dropout`` in the block (after attention and
+after the MLP, ``gpt.py:220``, ``:231-232``) and in attention (``:181``),
+which puts attention on the plain route in training, as JAX's XLA route;
+``recompute`` "block" or "dots" (``:53-58``, ``:282-290``) through
+``distributed.fleet.recompute``. Not ported yet, and refused with
+``NotImplementedError``: the GPT-2-style variant (learned positions,
+LayerNorm, GELU, ``gpt3_1p3b``).
 """
 from __future__ import annotations
 
@@ -27,15 +31,17 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..amp import _amp_cast
 from ..distributed.fleet.meta_parallel import (
     ColumnParallelLinear,
     ParallelCrossEntropy,
     RowParallelLinear,
     VocabParallelEmbedding,
 )
+from ..distributed.fleet.recompute import recompute
 from ..framework import make_generator, resolve_device
 from ..incubate.nn.functional import apply_rope, rope_cos_sin, swiglu
-from ..nn import RMSNorm
+from ..nn import Dropout, RMSNorm
 from ..nn import functional as F
 from ..ops.decode_attention import decode_attention, decode_attention_ref
 from ..ops.paged_attention import (
@@ -58,13 +64,11 @@ class GPTConfig:
                  max_position=2048, dropout=0.0, use_rope=True,
                  use_rms_norm=True, use_swiglu=True, tie_embeddings=True,
                  dtype="float32", recompute=None):
-        if dropout != 0.0:
-            raise NotImplementedError(
-                "dropout is not ported yet (the JAX package draws its masks "
-                "from jax.random); use dropout=0.0")
-        if recompute is not None:
-            raise NotImplementedError(
-                f"recompute={recompute!r} is not ported yet; use None")
+        # None | "block" (save only block inputs) | "dots" (save matmul
+        # outputs, recompute the rest)
+        if recompute not in (None, "block", "dots"):
+            raise ValueError(f"recompute must be None, 'block' or 'dots', "
+                             f"got {recompute!r}")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -143,6 +147,7 @@ class GPTAttention(nn.Module):
         self.num_heads = c.num_heads
         self.num_kv_heads = c.num_kv_heads
         self.head_dim = c.hidden_size // c.num_heads
+        self.dropout = c.dropout
         q_size = c.hidden_size
         kv_size = self.num_kv_heads * self.head_dim
         self.qkv_proj = ColumnParallelLinear(c.hidden_size,
@@ -156,7 +161,8 @@ class GPTAttention(nn.Module):
     def forward(self, x, rope, k_pool=None, v_pool=None,
                 step: PagedStep | DenseStep | None = None,
                 decode_kernel="kernel"):
-        """Without ``step``: causal flash attention over the S rows of x.
+        """Without ``step``: causal flash attention over the S rows of x
+        (attention dropout in training: the plain route).
         With a ``PagedStep``, the paged cache branch: RoPE at absolute
         positions, the new K/V rows scattered into the pools IN PLACE,
         attention over the live prefix plus the causal new rows. With a
@@ -170,7 +176,8 @@ class GPTAttention(nn.Module):
         k = apply_rope(k.reshape(B, S, Hkv, D), *rope)
         v = v.reshape(B, S, Hkv, D)
         if step is None:
-            out, _ = F.flash_attention(q, k, v, causal=True)
+            out, _ = F.flash_attention(q, k, v, dropout=self.dropout,
+                                       causal=True, training=self.training)
             return self.out_proj(out.reshape(B, S, H * D))
         if isinstance(step, DenseStep):
             return self.out_proj(self._attend_dense(q, k, v, k_pool, v_pool,
@@ -232,9 +239,13 @@ class GPTBlock(nn.Module):
         self.attn = GPTAttention(c, device=device, dtype=dtype)
         self.ln2 = RMSNorm(c.hidden_size, device=device, dtype=dtype)
         self.mlp = GPTMLP(c, device=device, dtype=dtype)
+        self.dropout = Dropout(c.dropout)
 
     def forward(self, x, rope, k_pool=None, v_pool=None, step=None,
                 decode_kernel="kernel"):
+        if step is None:
+            x = x + self.dropout(self.attn(self.ln1(x), rope))
+            return x + self.dropout(self.mlp(self.ln2(x)))
         x = x + self.attn(self.ln1(x), rope, k_pool, v_pool, step,
                           decode_kernel)
         return x + self.mlp(self.ln2(x))
@@ -256,7 +267,8 @@ class GPTModel(nn.Module):
                 decode_kernel="kernel", position_ids=None):
         """input_ids [B, S] -> logits [B, S, V]. Without ``step``: the
         cache-free causal forward, RoPE at ``position_ids`` ([S] or [B, S],
-        default ``arange(S)``). With a ``PagedStep`` or ``DenseStep``:
+        default ``arange(S)``), each block under ``recompute`` in training
+        when the config sets it. With a ``PagedStep`` or ``DenseStep``:
         attends through (and writes into) the per-layer paged pools or
         dense caches ``k_pools[i]`` / ``v_pools[i]``."""
         x = self.embed_tokens(input_ids)
@@ -266,8 +278,10 @@ class GPTModel(nn.Module):
             pos = (torch.arange(S, device=x.device) if position_ids is None
                    else torch.as_tensor(position_ids, device=x.device))
             rope = rope_cos_sin(pos.expand(B, S), head_dim, x.dtype)
+            remat = self.config.recompute if self.training else None
             for blk in self.blocks:
-                x = blk(x, rope)
+                x = (recompute(blk, x, rope, policy=remat) if remat
+                     else blk(x, rope))
         else:
             if decode_kernel not in DECODE_KERNELS:
                 raise ValueError(
@@ -285,7 +299,8 @@ class GPTModel(nn.Module):
             for blk, kp, vp in zip(self.blocks, k_pools, v_pools):
                 x = blk(x, rope, kp, vp, step, decode_kernel)
         x = self.ln_f(x)
-        return x @ self.embed_tokens.weight.T
+        h, w = _amp_cast("lm_head_tied", x, self.embed_tokens.weight)
+        return h @ w.T
 
 
 class GPTForCausalLM(nn.Module, GenerationMixin):
@@ -294,7 +309,9 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
     Weights are drawn from a seeded ``torch.Generator`` on ``device``
     (Xavier as in the JAX package; nothing is downloaded). ``device``
     defaults to CUDA and raises on a machine without it unless the caller
-    passes ``device="cpu"``."""
+    passes ``device="cpu"``. The model starts in training mode, as a JAX
+    ``Layer`` does: dropout and recompute apply to the cache-free forward
+    until ``eval()``; the cache branches never apply them."""
 
     def __init__(self, config: GPTConfig, device="cuda", dtype=None, seed=0):
         super().__init__()
@@ -304,7 +321,6 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
         self.config = config
         self.gpt = GPTModel(config, device=dev, dtype=dtype)
         self.reset_parameters(make_generator(seed, dev))
-        self.eval()
 
     @property
     def device(self) -> torch.device:
@@ -327,7 +343,7 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
         labels = torch.as_tensor(labels, device=self.device)
         per_token = ParallelCrossEntropy()(
             logits.reshape(-1, logits.shape[-1]), labels.reshape(-1))
-        return logits, per_token.mean()
+        return logits, _amp_cast("mean", per_token)[0].mean()
 
     # --------------------------------------- GenerationMixin hooks
     def _decode_layer(self):

@@ -15,8 +15,12 @@ kernels off for all three, as ``_use_pallas`` does in JAX: they then
 compute the JAX package's XLA routes in plain PyTorch on any device.
 ``get_last_attention_backend()`` reports which ran: "kernel" or "plain".
 
-Dropout is not ported: the JAX package draws its mask from ``jax.random``
-on the XLA path, which the port cannot replay, so ``dropout > 0`` raises.
+Attention dropout, as in JAX (:108-112), runs on the XLA route's plain
+math only: with ``dropout > 0`` in training, ``flash_attention`` and
+``flashmask_attention`` take ``_sdpa_core``, which drops probabilities
+with a mask from the port's default generator (``keep_mask``); no kernel
+has a dropout form. ``flash_attn_unpadded`` raises on dropout in training:
+JAX's XLA route there ignores it (ROADMAP C).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import math
 import torch
 
 from ...ops import flash_attention as _fa
+from .common import keep_mask
 
 __all__ = ["flash_attention", "flash_attn_unpadded", "flashmask_attention",
            "scaled_dot_product_attention", "sdp_kernel",
@@ -80,17 +85,16 @@ def _kernel_mark(query):
     _mark("kernel" if query.device.type == "cuda" else "plain")
 
 
-def _no_dropout(p, training):
-    if p and training:
-        raise NotImplementedError(
-            "attention dropout is not ported: the JAX package draws its "
-            "mask from jax.random, which the port cannot replay")
+def _dropped(p, training):
+    """True when attention dropout applies to this call."""
+    return bool(p) and bool(training)
 
 
 def _sdpa_core(q, k, v, mask, scale, is_causal, dropout_p, training):
     """q/k/v: [B, S, H, D]; scores in the inputs' dtype, softmax in f32,
-    probabilities cast back to q's dtype (JAX ``_sdpa_core`` :87-114)."""
-    _no_dropout(dropout_p, training)
+    probabilities cast back to q's dtype, then dropped with probability
+    ``dropout_p`` in training (kept ones scaled by 1 / (1 - p), in q's
+    dtype) (JAX ``_sdpa_core`` :87-114)."""
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
     if kh.shape[1] != qh.shape[1]:
         rep = qh.shape[1] // kh.shape[1]
@@ -110,6 +114,11 @@ def _sdpa_core(q, k, v, mask, scale, is_causal, dropout_p, training):
         else:
             scores = scores + mask
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    if _dropped(dropout_p, training):
+        keep = keep_mask(probs.shape, 1.0 - dropout_p, probs.device)
+        probs = torch.where(keep, probs / (1.0 - dropout_p),
+                            torch.zeros((), dtype=probs.dtype,
+                                        device=probs.device))
     out = torch.einsum("bhst,bhtd->bhsd", probs, vh)
     return out.transpose(1, 2)
 
@@ -117,10 +126,11 @@ def _sdpa_core(q, k, v, mask, scale, is_causal, dropout_p, training):
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, fixed_seed_offset=None, rng_name="",
                     training=True, name=None):
-    """Reference: flash_attention.py:358. Returns ``(out, None)``."""
-    _no_dropout(dropout, training)
+    """Reference: flash_attention.py:358. Returns ``(out, None)``. With
+    dropout in training the call is the plain route's, as in JAX."""
     scale = 1.0 / math.sqrt(query.shape[-1])
-    if _takes_kernel(query, key, "flash_attention"):
+    if (not _dropped(dropout, training)
+            and _takes_kernel(query, key, "flash_attention")):
         _kernel_mark(query)
         return _fa.flash_attention(query, key, value, causal=causal,
                                    scale=scale), None
@@ -205,8 +215,12 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     (``_document_mask``); the kernels take any total, so nothing is padded
     (JAX pads to its 128-row block). Different boundaries take the XLA
     route's segment mask in plain PyTorch on any device, reported as
-    "plain"."""
-    _no_dropout(dropout, training)
+    "plain". Dropout in training raises: JAX's XLA route accepts it and
+    ignores it (ROADMAP C), and the port does not copy a silent no-op."""
+    if _dropped(dropout, training):
+        raise NotImplementedError(
+            "flash_attn_unpadded: dropout is not ported (the JAX package's "
+            "route for packed documents ignores it; ROADMAP C)")
     total = int(query.shape[0])
     cu_k = torch.as_tensor(cu_seqlens_k).to(query.device)
     q, k, v = query[None], key[None], value[None]
@@ -234,19 +248,20 @@ def flashmask_attention(query, key, value, startend_row_indices=None,
     flashmask_allowed``), evaluated inside the masked kernel. Without it,
     the call is ``flash_attention``'s. A row with no allowed column gives 0
     (the kernel's contract, JAX's Pallas kernel too; JAX's XLA route gives
-    the mean of V there). ``return_softmax_lse`` / ``return_seed_offset``
+    the mean of V there). With dropout in training the call is the plain
+    route's (JAX :253-292). ``return_softmax_lse`` / ``return_seed_offset``
     add ``None`` per flag, as in JAX."""
     if window_size is not None:
         raise NotImplementedError(
             "flashmask_attention: window_size is not ported (the JAX "
             "package accepts it and never reads it)")
-    _no_dropout(dropout, training)
     scale = 1.0 / math.sqrt(query.shape[-1])
     sri = startend_row_indices
     if sri is None:
-        out, _ = flash_attention(query, key, value, causal=causal,
-                                 training=training)
-    elif _takes_kernel(query, key, "flashmask_attention"):
+        out, _ = flash_attention(query, key, value, dropout=dropout,
+                                 causal=causal, training=training)
+    elif (not _dropped(dropout, training)
+          and _takes_kernel(query, key, "flashmask_attention")):
         _kernel_mark(query)
         out = _fa.flashmask_attention(query, key, value, sri, causal=causal,
                                       scale=scale)

@@ -20,8 +20,8 @@ no ``[B * H, S, D]`` transposes (JAX ``_to_bhsd``, :480-488).
   ``torch.autograd.Function`` (sri gets no gradient).
 * ``flash_fwd`` / ``flash_bwd_dq`` / ``flash_bwd_dkv`` — one per kernel of
   ``csrc/flash_attention.cu``. On CUDA tensors each launches its kernel or
-  raises (float32 / bfloat16, head_dim 64 or 128, any S); on CPU tensors
-  each runs its plain version. With ``sri`` they run the masked form of
+  raises (float32 / bfloat16 / float16, head_dim 64 or 128, any S); on CPU
+  tensors each runs its plain version. With ``sri`` they run the masked form of
   their kernel; ``flashmask_fwd`` / ``flashmask_bwd_dq`` /
   ``flashmask_bwd_dkv`` are those calls under their own names. Each
   wrapper counts its kernel launches on ``.launches``: the masked launches
@@ -55,19 +55,24 @@ __all__ = ["flash_attention", "FlashAttentionFunction", "supports",
            "attention_delta", "kernel_tolerance"]
 
 _NEG = torch.finfo(torch.float32).min
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
 # Limits of kernel_tolerance: twice the unit roundoff of the storage dtype
-# (a value rounded on both sides, or a rounding that flips), and the slack of
-# f32 sums taken in another order (~256 ulps of the sum of |terms|).
-_ROUND2 = {torch.bfloat16: 2.0 ** -7, torch.float32: 0.0}
+# (a value rounded on both sides, or a rounding that flips: bf16 keeps 8
+# significant bits, f16 11), and the slack of f32 sums taken in another
+# order (~256 ulps of the sum of |terms|). f16's range is narrow: below
+# 2^-14 a rounded value keeps the absolute spacing 2^-24, so a rounded term
+# may be off by 2^-25 on each side whatever its size (_TINY).
+_ROUND2 = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
+           torch.float32: 0.0}
+_TINY = {torch.bfloat16: 0.0, torch.float16: 2.0 ** -24, torch.float32: 0.0}
 _ACC = 2.0 ** -16
 
 
 def supports(q_shape, k_shape) -> bool:
     """Static check: self-attention ``[B, S, H, D]`` with ``k_shape``'s kv
     heads dividing the query heads. The kernels further take head_dim 64 or
-    128 and float32 / bfloat16, and raise on anything else."""
+    128 and float32 / bfloat16 / float16, and raise on anything else."""
     if len(q_shape) != 4 or len(k_shape) != 4:
         return False
     b, s, h, d = q_shape
@@ -207,7 +212,8 @@ def kernel_tolerance(q, k, v, ref, causal=False, scale=None, dout=None,
 
     With p the normalised probabilities, smag = scale * max_c |q|.|k_c| the
     size of a row's scores (both over the allowed columns only, under a
-    FlashMask ``sri`` too), and r = 2^-7 for bf16 (0 for f32):
+    FlashMask ``sri`` too), r = 2^-7 for bf16, 2^-10 for f16 (0 for f32),
+    and t = 2^-24 for f16 (0 otherwise):
 
     * out: r (|out| + sum_c p |v_c|) — each side rounds every probability
       (the kernel against its running max) and the output to bf16 — plus
@@ -217,13 +223,17 @@ def kernel_tolerance(q, k, v, ref, causal=False, scale=None, dout=None,
     * dq: r (|dq| + sum_c |ds| |k_c|) + 2^-16 sum_c dsmag |k_c|, where
       dsmag = p scale (|dO|.|v| + |delta| + |dp - delta| (1 + smag)) bounds
       ds and its f32 noise; dk likewise over the query rows with |q|; dv:
-      r (|dv| + sum_r p |dO_r|) + 2^-16 sum_r p (1 + smag) |dO_r|.
+      r (|dv| + sum_r p |dO_r|) + 2^-16 sum_r p (1 + smag) |dO_r|;
+    * f16 adds t (1 + sum_c |v_c|) to out (t (1 + sum_c |k_c|) to dq, over
+      the rows |q| to dk and |dO| to dv): a rounded probability, ds or
+      output below 2^-14 is off by up to 2^-25 on each side.
     """
     scale = _scale(q, scale)
-    r = _ROUND2[q.dtype]
+    r, tiny = _ROUND2[q.dtype], _TINY[q.dtype]
     B, S, H, _ = q.shape
     qf, kf, vf = _heads(q), _heads(k), _heads(v)
     allowed = _allowed(S, causal, q.device, sri)
+    live = allowed.float()
     smag = ((qf.abs() @ kf.abs().mT) * scale * allowed).amax(-1,
                                                              keepdim=True)
     lse = ref["lse"].reshape(B, H, S, 1)
@@ -232,7 +242,8 @@ def kernel_tolerance(q, k, v, ref, causal=False, scale=None, dout=None,
     if "out" in ref:
         mag = p @ vf.abs()
         lim["out"] = _to_bshd(r * (_heads(ref["out"]).abs() + mag)
-                              + _ACC * (1 + smag) * mag, torch.float32)
+                              + _ACC * (1 + smag) * mag
+                              + tiny * (1 + live @ vf.abs()), torch.float32)
     grads = [n for n in ("dq", "dk", "dv") if n in ref]
     if not grads:
         return lim
@@ -244,13 +255,14 @@ def kernel_tolerance(q, k, v, ref, causal=False, scale=None, dout=None,
     ds = p * (dp - delta) * scale
     dsmag = p * scale * (do.abs() @ vf.abs().mT + delta.abs()
                          + (dp - delta).abs() * (1 + smag))
-    terms = {"dq": lambda: (ds.abs(), dsmag, kf.abs()),
-             "dk": lambda: (ds.abs().mT, dsmag.mT, qf.abs()),
-             "dv": lambda: (p.mT, (p * (1 + smag)).mT, do.abs())}
+    terms = {"dq": lambda: (ds.abs(), dsmag, live, kf.abs()),
+             "dk": lambda: (ds.abs().mT, dsmag.mT, live.mT, qf.abs()),
+             "dv": lambda: (p.mT, (p * (1 + smag)).mT, live.mT, do.abs())}
     for name in grads:
-        a, b, c = terms[name]()
+        a, b, n, c = terms[name]()
         lim[name] = _to_bshd(r * (_heads(ref[name]).abs() + a @ c)
-                             + _ACC * (b @ c), torch.float32)
+                             + _ACC * (b @ c) + tiny * (1 + n @ c),
+                             torch.float32)
     return lim
 
 
@@ -261,8 +273,8 @@ def _kernel_inputs(what, *tensors):
     q = tensors[0]
     B, S, H, D = q.shape
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"{what}: the kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
+        raise TypeError(f"{what}: the kernel takes float32, bfloat16 or "
+                        f"float16, got {q.dtype}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"{what}: head_dim {D} unsupported by the kernel "
                          f"{_HEAD_DIMS}")
@@ -328,8 +340,8 @@ def _mask_args(sri):
 
 
 def flash_fwd(q, k, v, causal=False, scale=None, sri=None):
-    """(out, lse) of the forward kernel (bf16: ``flash_fwd_wgmma_kernel``,
-    f32: ``flash_fwd_f32_kernel``) on CUDA tensors (q, k, v of one
+    """(out, lse) of the forward kernel (bf16 / f16:
+    ``flash_fwd_wgmma_kernel``, f32: ``flash_fwd_f32_kernel``) on CUDA tensors (q, k, v of one
     shape [B, S, H, D]), its masked form under a FlashMask ``sri``;
     ``flash_attention_fwd_ref`` on CPU tensors."""
     scale = _scale(q, scale)
@@ -357,7 +369,7 @@ def flash_fwd(q, k, v, causal=False, scale=None, sri=None):
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal=False, scale=None,
                  sri=None):
-    """dq of the dq kernel (bf16: ``flash_dq_wgmma_kernel``, f32:
+    """dq of the dq kernel (bf16 / f16: ``flash_dq_wgmma_kernel``, f32:
     ``flash_dq_f32_kernel``) on CUDA tensors, its masked form under a
     FlashMask ``sri``; ``flash_attention_dq_ref`` on CPU tensors."""
     scale = _scale(q, scale)
@@ -387,8 +399,8 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal=False, scale=None,
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal=False, scale=None,
                   sri=None):
-    """(dk, dv) of the dk/dv kernel (bf16: ``flash_dkv_wgmma_kernel``, f32:
-    ``flash_dkv_f32_kernel``) on CUDA tensors, its masked form under a
+    """(dk, dv) of the dk/dv kernel (bf16 / f16: ``flash_dkv_wgmma_kernel``,
+    f32: ``flash_dkv_f32_kernel``) on CUDA tensors, its masked form under a
     FlashMask ``sri``; ``flash_attention_dkv_ref`` on CPU tensors."""
     scale = _scale(q, scale)
     if sri is not None:

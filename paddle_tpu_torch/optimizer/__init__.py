@@ -1,11 +1,14 @@
 """Optimizers — the counterpart of ``paddle_tpu/optimizer/__init__.py``
 (``Optimizer`` :39-194, ``SGD`` :196-206, ``Momentum`` :209-227, ``Adam``
-:230-265, ``AdamW`` :268-303) and of its learning-rate schedulers
-(``lr.py``).
+:230-265, ``AdamW`` :268-303, ``Adamax`` :306, ``Adagrad`` :326,
+``Adadelta`` :343, ``RMSProp`` :363, ``Lamb`` :390, ``LBFGS`` :423,
+``ASGD`` :487, ``Rprop`` :521, ``NAdam`` :559, ``RAdam`` :601) and of its
+learning-rate schedulers (``lr.py``).
 
-Accumulators (moments, velocities) are kept per parameter, created as zeros
-in the parameter's dtype at first use or, under
-``jit.TrainStep``, before the step's first run (``_acc_names``). A stored
+Accumulators (moments, velocities) are kept per parameter, created by
+``_acc_init`` (zeros in the parameter's dtype unless an optimizer says
+otherwise) at first use or, under ``jit.TrainStep``, before the step's
+first run (``_acc_names``). A stored
 accumulator is overwritten IN PLACE when the new value has its dtype and
 shape (``_set_acc``), so a captured step writes the tensors it read; a
 value of another dtype (an f32 moment over a bf16 parameter, from the eager
@@ -22,7 +25,9 @@ by two callers, as in the JAX package:
   does in JAX; Python floats do not.
 
 The learning rate is a float or an ``lr.LRScheduler``; ``get_lr`` reads the
-scheduler's current rate and the caller steps it.
+scheduler's current rate and the caller steps it. ``LBFGS`` takes a closure
+and decides on the host between evaluations: it runs eagerly only
+(``jit.TrainStep`` refuses it).
 """
 from __future__ import annotations
 
@@ -33,7 +38,9 @@ import torch
 from . import lr
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "lr"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
+           "Adagrad", "Adadelta", "RMSProp", "Lamb", "LBFGS", "ASGD", "NAdam",
+           "RAdam", "Rprop", "lr"]
 
 
 def _pow_step(base, t):
@@ -55,6 +62,26 @@ def _promoted(x, *scalars):
         if isinstance(s, torch.Tensor):
             dt = torch.promote_types(dt, s.dtype)
     return x.to(dt)
+
+
+def _mul(s, x):
+    """s * x with x promoted by the scalar s first (JAX's strong-scalar
+    rule, see ``_promoted``)."""
+    return s * _promoted(x, s)
+
+
+def _div(x, s):
+    """x / s with x promoted by the scalar s first."""
+    return _promoted(x, s) / s
+
+
+def _step_f32(step, like):
+    """The step counter as an f32 0-d tensor on ``like``'s device (JAX's
+    ``jnp.asarray(t, jnp.float32)``, a strong scalar in either path)."""
+    if isinstance(step, torch.Tensor):
+        return step.float()
+    return torch.full((), float(step), dtype=torch.float32,
+                      device=like.device)
 
 
 def _named(items, start):
@@ -123,10 +150,18 @@ class Optimizer:
         return self._names.get(id(p), "")
 
     # --------------------------------------------------- accumulators
-    def _acc(self, name, p):
+    def _acc_init(self, name, p):
+        """The first value of accumulator ``name`` of ``p`` (JAX
+        ``_acc_init`` :67-72): zeros like the parameter."""
+        return torch.zeros_like(p.detach())
+
+    def _acc(self, name, p, init=None):
+        """The stored accumulator, made on first use by ``init()`` when
+        given (the eager path's own first value), else ``_acc_init``."""
         store = self._accumulators.setdefault(name, {})
         if id(p) not in store:
-            store[id(p)] = torch.zeros_like(p.detach())
+            store[id(p)] = init() if init is not None else self._acc_init(
+                name, p)
         return store[id(p)]
 
     def _set_acc(self, name, p, value):
@@ -344,3 +379,352 @@ class AdamW(Adam):
         mhat, vhat = self._moments(p, g, step)
         pnew = _promoted(pval, lr) * (1.0 - lr * decay)
         return pnew - lr * mhat / (torch.sqrt(vhat) + self._eps)
+
+
+class Adamax(Optimizer):
+    """m = b1 m + (1 - b1) g; u = max(b2 u, |g|); p - lr / (1 - b1^t) m /
+    (u + eps)."""
+
+    _acc_names = ("moment", "inf_norm")
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+
+    def _update(self, p, pval, g, lr, step):
+        g = self._apply_decay(pval, g)
+        m = self._beta1 * self._acc("moment", p) + (1 - self._beta1) * g
+        u = torch.maximum(self._beta2 * self._acc("inf_norm", p), g.abs())
+        self._set_acc("moment", p, m)
+        self._set_acc("inf_norm", p, u)
+        c = lr / (1 - _pow_step(self._beta1, step))
+        return _promoted(pval, c) - _mul(c, m) / (u + self._eps)
+
+
+class Adagrad(Optimizer):
+    """acc += g^2; p - lr g / (sqrt(acc) + eps). The eager path starts acc
+    at ``initial_accumulator_value``; under ``jit.TrainStep`` it starts at
+    0, as the JAX package's TrainStep does (``_acc_init``)."""
+
+    _acc_names = ("moment",)
+
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None,
+                 initial_accumulator_value=0.0, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._eps = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def _update(self, p, pval, g, lr, step):
+        g = self._apply_decay(pval, g)
+        acc = self._acc("moment", p, lambda: torch.full_like(
+            p.detach(), self._init_acc)) + torch.square(g)
+        self._set_acc("moment", p, acc)
+        return _promoted(pval, lr) - _mul(lr, g) / (torch.sqrt(acc)
+                                                    + self._eps)
+
+
+class Adadelta(Optimizer):
+    _acc_names = ("avg_squared_grad", "avg_squared_update")
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._eps, self._rho = epsilon, rho
+
+    def _update(self, p, pval, g, lr, step):
+        g = self._apply_decay(pval, g)
+        rho = self._rho
+        avg_sq = (rho * self._acc("avg_squared_grad", p)
+                  + (1 - rho) * torch.square(g))
+        avg_upd = self._acc("avg_squared_update", p)
+        delta = (torch.sqrt(avg_upd + self._eps)
+                 / torch.sqrt(avg_sq + self._eps) * g)
+        avg_upd = rho * avg_upd + (1 - rho) * torch.square(delta)
+        self._set_acc("avg_squared_grad", p, avg_sq)
+        self._set_acc("avg_squared_update", p, avg_upd)
+        return _promoted(pval, lr) - _mul(lr, delta)
+
+
+class RMSProp(Optimizer):
+    """ms = rho ms + (1 - rho) g^2 (centered: minus the square of the mean
+    gradient); mom = momentum mom + lr g / sqrt(ms + eps); p - mom."""
+
+    _acc_names = ("mean_square", "mean_grad", "momentum")
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._rho, self._eps = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _update(self, p, pval, g, lr, step):
+        g = self._apply_decay(pval, g)
+        rho = self._rho
+        ms = rho * self._acc("mean_square", p) + (1 - rho) * torch.square(g)
+        self._set_acc("mean_square", p, ms)
+        if self._centered:
+            mg = rho * self._acc("mean_grad", p) + (1 - rho) * g
+            self._set_acc("mean_grad", p, mg)
+            denom = torch.sqrt(ms - torch.square(mg) + self._eps)
+        else:
+            denom = torch.sqrt(ms + self._eps)
+        mom = (self._momentum * self._acc("momentum", p)
+               + _mul(lr, g) / denom)
+        self._set_acc("momentum", p, mom)
+        return pval - mom
+
+
+class Lamb(Optimizer):
+    """Adam's direction r plus ``lamb_weight_decay`` p, scaled by the trust
+    ratio ||p|| / ||update|| (1 where either norm is 0);
+    ``exclude_from_weight_decay_fn(p)`` True exempts p from the decay."""
+
+    _acc_names = ("moment1", "moment2")
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip, name,
+                         multi_precision)
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+        self._lamb_wd = lamb_weight_decay
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _update(self, p, pval, g, lr, step):
+        b1, b2 = self._beta1, self._beta2
+        m = b1 * self._acc("moment1", p) + (1 - b1) * g
+        v = b2 * self._acc("moment2", p) + (1 - b2) * torch.square(g)
+        self._set_acc("moment1", p, m)
+        self._set_acc("moment2", p, v)
+        mhat = _div(m, 1 - _pow_step(b1, step))
+        vhat = _div(v, 1 - _pow_step(b2, step))
+        r = mhat / (torch.sqrt(vhat) + self._eps)
+        wd = self._lamb_wd
+        if self._exclude_fn is not None and self._exclude_fn(p):
+            wd = 0.0
+        update = r + wd * pval
+        w_norm = torch.linalg.vector_norm(pval.float())
+        u_norm = torch.linalg.vector_norm(update.float())
+        trust = torch.where((w_norm > 0) & (u_norm > 0), w_norm / u_norm,
+                            torch.ones((), device=pval.device)).to(pval.dtype)
+        return pval - _mul(lr * trust, update)
+
+
+class LBFGS(Optimizer):
+    """Limited-memory BFGS over all parameters flattened in f32 (JAX
+    :423-484, reference ``python/paddle/optimizer/lbfgs.py``): ``step``
+    evaluates the closure, records the (s, y) pair when y.s > 1e-10, and
+    moves every parameter by lr along the two-loop direction. It reads y.s
+    on the host each step: eager only."""
+
+    def __init__(self, learning_rate=1.0, max_iter=20, max_eval=None,
+                 tolerance_grad=1e-7, tolerance_change=1e-9, history_size=100,
+                 line_search_fn=None, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._max_iter = max_iter
+        self._history_size = history_size
+        self._tol_grad = tolerance_grad
+        self._tol_change = tolerance_change
+        self._history = []          # (s, y, rho)
+        self._prev_flat_grad = None
+        self._prev_flat_w = None
+
+    @staticmethod
+    def _flatten(vals):
+        return torch.cat([v.reshape(-1) for v in vals])
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is None:
+            raise ValueError("LBFGS.step requires a closure")
+        params = self._params
+        with torch.enable_grad():
+            loss = closure()
+        flat_g = self._flatten([p.grad if p.grad is not None
+                                else torch.zeros_like(p)
+                                for p in params]).float()
+        flat_w = self._flatten([p.detach() for p in params]).float()
+        if self._prev_flat_grad is not None:
+            s = flat_w - self._prev_flat_w
+            y = flat_g - self._prev_flat_grad
+            ys = float(torch.dot(y, s))
+            if ys > 1e-10:
+                self._history.append((s, y, 1.0 / ys))
+                if len(self._history) > self._history_size:
+                    self._history.pop(0)
+        q = flat_g
+        alphas = []
+        for s, y, rho in reversed(self._history):
+            a = rho * torch.dot(s, q)
+            alphas.append(a)
+            q = q - a * y
+        if self._history:
+            s, y, _ = self._history[-1]
+            q = q * (torch.dot(s, y) / torch.dot(y, y))
+        for (s, y, rho), a in zip(self._history, reversed(alphas)):
+            b = rho * torch.dot(y, q)
+            q = q + (a - b) * s
+        new_w = flat_w - self.get_lr() * q
+        offset = 0
+        for p in params:
+            n = p.numel()
+            p.copy_(new_w[offset:offset + n].reshape(p.shape).to(p.dtype))
+            offset += n
+        self._prev_flat_grad = flat_g
+        self._prev_flat_w = flat_w
+        self._step_count += 1
+        return loss
+
+
+class ASGD(Optimizer):
+    """Averaged SGD (JAX :487-518): d is the sum of the last ``batch_num``
+    gradients, kept with a ring of them (``ys``, written in place at slot
+    (t - 1) mod n); p - lr d / min(t, n)."""
+
+    _acc_names = ("d", "ys")
+
+    def __init__(self, learning_rate=0.001, batch_num=1, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=False,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._n = max(1, int(batch_num))
+
+    def _acc_init(self, name, p):
+        if name == "ys":
+            return torch.zeros((self._n,) + tuple(p.shape), dtype=p.dtype,
+                               device=p.device)
+        return super()._acc_init(name, p)
+
+    def _update(self, p, pval, g, lr, step):
+        g = self._apply_decay(pval, g)
+        ys = self._acc("ys", p)
+        # the slot of this step, on the device when the counter is there
+        i = (step - 1) % self._n
+        idx = (i.reshape(1).long() if isinstance(i, torch.Tensor)
+               else torch.full((1,), i, dtype=torch.long, device=g.device))
+        d = self._acc("d", p) - ys.index_select(0, idx)[0] + g
+        # in the ring's dtype (JAX's .at[].set): the parameter's
+        ys.index_copy_(0, idx, g[None].to(ys.dtype))
+        self._set_acc("d", p, d)
+        self._set_acc("ys", p, ys)
+        seen = torch.clamp(_step_f32(step, g), max=float(self._n))
+        return _promoted(pval, lr, seen) - _div(_mul(lr, d), seen)
+
+
+class Rprop(Optimizer):
+    """Resilient backprop, iRprop- (JAX :521-556): per-element step sizes
+    (f32, starting at the learning rate) grown by ``etas[1]`` where the
+    gradient keeps its sign, shrunk by ``etas[0]`` where it flips (and the
+    gradient taken as 0 there), clipped to ``learning_rate_range``;
+    p - sign(g) step."""
+
+    _acc_names = ("prev_grad", "step_size")
+
+    def __init__(self, learning_rate=0.001, learning_rate_range=(1e-5, 50.0),
+                 parameters=None, etas=(0.5, 1.2), grad_clip=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip, name,
+                         multi_precision)
+        self._lr_min, self._lr_max = learning_rate_range
+        self._eta_minus, self._eta_plus = etas
+
+    def _acc_init(self, name, p):
+        if name == "step_size":
+            return torch.full(tuple(p.shape), float(self.get_lr()),
+                              dtype=torch.float32, device=p.device)
+        return super()._acc_init(name, p)
+
+    def _update(self, p, pval, g, lr, step):
+        prev = self._acc("prev_grad", p)
+        size = self._acc("step_size", p)
+        sign = torch.sign(g * prev)
+        grow = (sign > 0).float()
+        shrink = (sign < 0).float()
+        same = (sign == 0).float()
+        size = torch.clamp(size * (grow * self._eta_plus
+                                   + shrink * self._eta_minus + same),
+                           self._lr_min, self._lr_max)
+        g_eff = torch.where(sign < 0, torch.zeros((), dtype=g.dtype,
+                                                  device=g.device), g)
+        self._set_acc("prev_grad", p, g_eff)
+        self._set_acc("step_size", p, size)
+        return pval - torch.sign(g_eff).to(pval.dtype) * size.to(pval.dtype)
+
+
+class NAdam(Adam):
+    """Adam with Nesterov momentum (Dozat 2016; JAX :559-598): the momentum
+    schedule mu_t = b1 (1 - 0.5 * 0.96^(t psi)), its running product
+    (an f32 scalar accumulator), and the look-ahead first moment."""
+
+    _acc_names = ("moment1", "moment2", "mu_prod")
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, momentum_decay=0.004, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=False,
+                 name=None):
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         weight_decay, grad_clip,
+                         multi_precision=multi_precision, name=name)
+        self._psi = momentum_decay
+
+    def _acc_init(self, name, p):
+        if name == "mu_prod":
+            return torch.ones((), dtype=torch.float32, device=p.device)
+        return super()._acc_init(name, p)
+
+    def _update(self, p, pval, g, lr, step):
+        g = self._apply_decay(pval, g)
+        b1, b2 = self._beta1, self._beta2
+        mu_t = b1 * (1 - 0.5 * _pow_step(0.96, step * self._psi))
+        mu_t1 = b1 * (1 - 0.5 * _pow_step(0.96, (step + 1) * self._psi))
+        mu_prod = self._acc("mu_prod", p) * mu_t
+        self._set_acc("mu_prod", p, mu_prod)
+        m = b1 * self._acc("moment1", p) + (1 - b1) * g
+        v = b2 * self._acc("moment2", p) + (1 - b2) * torch.square(g)
+        self._set_acc("moment1", p, m)
+        self._set_acc("moment2", p, v)
+        mhat = (_div(_mul(mu_t1, m), 1 - mu_prod * mu_t1)
+                + _div(_mul(1 - mu_t, g), 1 - mu_prod))
+        vhat = _div(v, 1 - _pow_step(b2, step))
+        return _promoted(pval, lr) - _mul(lr, mhat) / (torch.sqrt(vhat)
+                                                       + self._eps)
+
+
+class RAdam(Adam):
+    """Rectified Adam (JAX :601-628): SGD with momentum while the variance
+    estimate is unreliable (rho_t <= 5), the rectified Adam step after."""
+
+    def _update(self, p, pval, g, lr, step):
+        g = self._apply_decay(pval, g)
+        b1, b2 = self._beta1, self._beta2
+        m = b1 * self._acc("moment1", p) + (1 - b1) * g
+        v = b2 * self._acc("moment2", p) + (1 - b2) * torch.square(g)
+        self._set_acc("moment1", p, m)
+        self._set_acc("moment2", p, v)
+        mhat = _div(m, 1 - _pow_step(b1, step))
+        rho_inf = 2.0 / (1 - b2) - 1.0
+        tf = _step_f32(step, g)
+        b2t = torch.pow(torch.full((), b2, dtype=torch.float32,
+                                   device=g.device), tf)
+        rho_t = rho_inf - 2.0 * tf * b2t / (1 - b2t)
+        vhat = torch.sqrt(_div(v, 1 - b2t))
+        rect_num = torch.clamp((rho_t - 4) * (rho_t - 2) * rho_inf, min=0.0)
+        r = torch.sqrt(rect_num / ((rho_inf - 4) * (rho_inf - 2)
+                                   * torch.clamp(rho_t, min=1e-6)))
+        adapted = (_promoted(pval, lr, r)
+                   - _mul(lr * r, mhat) / (vhat + self._eps))
+        plain = _promoted(pval, lr) - _mul(lr, mhat)
+        return torch.where(rho_t > 5.0, adapted, plain)

@@ -11,9 +11,12 @@ dense split-KV attention: f32 1e-4 (another summation order over up to ~1k
 columns); bf16 2^-7 (|ref| + sum_j p_j |v_j|) (unnormalised probabilities
 and the output rounded to bf16 at other places than the plain version's).
 Flash attention:
-2^-7 (|ref| + the magnitude of the sum) for bf16 plus 2^-16 of the f32 sums'
-magnitude for another summation order (``flash_attention.kernel_tolerance``
-states each term).
+2^-7 (|ref| + the magnitude of the sum) for bf16, 2^-10 of the same for
+f16 (plus 2^-24 per rounded term: f16's subnormal spacing), plus 2^-16 of
+the f32 sums' magnitude for another summation order
+(``flash_attention.kernel_tolerance`` states each term). The f16 forms of
+the flash kernels are the bf16 ones with f16 products; the paged and
+dense kernels take no f16 and raise.
 """
 import gc
 
@@ -124,7 +127,7 @@ def _flash_case(device, B, S, H, D, dtype, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("causal,S,D", [(True, 256, 64), (False, 100, 64),
                                         (True, 77, 128), (False, 1, 128),
                                         (True, 1000, 64), (False, 1000, 64),
@@ -171,20 +174,21 @@ def test_flash_kernels_reject_what_they_cannot_run(cuda):
     q, k, v, _ = _flash_case(cuda, 1, 16, 2, 64, "float32")
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_fwd(q[..., :32], k[..., :32], v[..., :32])
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tfa.flash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        tfa.flash_fwd(q.double(), k.double(), v.double())
     sri = torch.full((1, 1, 16, 2), 16, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flashmask_fwd(q, k, v, sri[..., ::2], True)
     from paddle_tpu_torch.nn import functional as F
-    with pytest.raises(NotImplementedError, match="dropout"):
-        F.flash_attention(q, k, v, dropout=0.1)
+    # attention dropout in training takes the plain route, as in JAX
+    F.flash_attention(q, k, v, dropout=0.1)
+    assert F.get_last_attention_backend() == "plain"
     with pytest.raises(ValueError, match="no kernel"):
         F.flash_attention(q, k[:, :8], v[:, :8])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("scale", [-0.2, 0.0])
 @pytest.mark.parametrize("masked", [False, True])
 def test_flash_forward_takes_any_sign_of_scale(cuda, dtype, scale, masked):
@@ -483,7 +487,7 @@ def _masked_run(q, k, v, do, causal, sri, plain, scale=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("causal,n,Hp,S,D", [(True, 1, 1, 256, 64),
                                              (True, 2, 3, 200, 64),
                                              (False, 4, 1, 100, 128),
@@ -512,7 +516,7 @@ def test_flashmask_kernels_match_plain(cuda, dtype, causal, n, Hp, S, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flashmask_kernels_all_masked_and_mask_nothing(cuda, dtype):
     """start 0 under causal hides every row: every output exactly 0. start
     S hides none: bit for bit the unmasked causal kernels."""
@@ -582,7 +586,7 @@ def _within(got, ref, lim, names=("dq", "dk", "dv")):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("scale", [-0.2, 0.0])
 @pytest.mark.parametrize("masked", [False, True])
 def test_flash_backward_takes_any_sign_of_scale(cuda, dtype, scale, masked):
@@ -613,7 +617,7 @@ def _gap_sri(B, S, causal, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S", [256, 300])
 def test_flashmask_backward_skips_a_covered_tile_inside_the_ring(
@@ -629,7 +633,7 @@ def test_flashmask_backward_skips_a_covered_tile_inside_the_ring(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("masked", [False, True])
 def test_flash_backward_d128_gqa(cuda, dtype, masked):
     """D = 128 with 16 query heads over 4 kv heads, repeated as the wrapper
@@ -649,7 +653,7 @@ def test_flash_backward_d128_gqa(cuda, dtype, masked):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("masked", [False, True])
 def test_flash_backward_is_deterministic(cuda, dtype, masked):
     """No atomics: two calls give dq, dk and dv bit for bit."""

@@ -15,12 +15,22 @@ rate read per replay, ``run_steps`` against calls, and a step replayed
 after ``import_state``, which must capture nothing new. A host sync in
 the loss must make the capture raise and leave the state as it was, and
 the flash launch counts must go on counting through replays.
+
+The slice's training options, captured: dropout (each replay draws new
+masks from the port's generator, registered with the graph; a replay
+equals a body from the same generator state; ``import_state`` brings the
+masks back), recompute ("block" and "dots" equal to no recompute, with
+and without dropout), AMP O1 (the casts of the key's first call), the
+other optimizers (replays equal bodies), and packed documents with
+``cu_seqlens`` as a batch tensor (a second boundaries object makes the
+capture raise: comparing them is a host sync).
 """
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch import amp, optimizer
+from paddle_tpu_torch.framework import default_generator
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.jit import train as jit_train
 from paddle_tpu_torch.models import gpt as tgpt
@@ -47,9 +57,9 @@ def _batch(seed=0, n=None):
             torch.as_tensor(np.roll(ids, -1, axis=-1), device="cuda"))
 
 
-def _step(dtype="float32", make_opt=None, seed=3):
-    model = tgpt.GPTForCausalLM(tgpt.GPTConfig(**CFG), device="cuda",
-                                seed=seed)
+def _step(dtype="float32", make_opt=None, seed=3, **config):
+    model = tgpt.GPTForCausalLM(tgpt.GPTConfig(**CFG, **config),
+                                device="cuda", seed=seed)
     opt = (make_opt or (lambda params: optimizer.AdamW(
         learning_rate=1e-3, parameters=params, weight_decay=0.01,
         multi_precision=True)))(model.parameters())
@@ -223,3 +233,163 @@ def test_flash_launch_counts_go_on_through_replays(cuda):
     grew = {k: w.launches - before[k] for k, w in fa._WRAPPERS.items()}
     assert grew == {"fwd": 4 * L, "dq": 4 * L, "dkv": 4 * L,
                     "fm_fwd": 0, "fm_dq": 0, "fm_dkv": 0}
+
+
+def _sgd(rate):
+    return lambda params: optimizer.SGD(learning_rate=rate,
+                                        parameters=params)
+
+
+@pytest.mark.cuda
+def test_dropout_replays_draw_new_masks_and_import_state_repeats_them(cuda):
+    """lr 0 keeps the parameters, so losses differ only by their masks."""
+    ids, labels = _batch(8)
+    gen = default_generator(cuda)
+    m, step = _step(make_opt=_sgd(0.0), dropout=0.1)
+    ref_m, ref = _step(make_opt=_sgd(0.0), dropout=0.1)
+    first = step(ids, labels=labels)                # body, then capture
+    snap = step.export_state()
+    state = gen.get_state()
+    a = step(ids, labels=labels)                    # replays
+    b = step(ids, labels=labels)
+    assert len(_captures(step)) == 1
+    assert not torch.equal(a, b) and not torch.equal(a, first)
+    step.import_state(snap)
+    assert torch.equal(step(ids, labels=labels), a)
+    gen.set_state(state)
+    with ref._eager():
+        assert torch.equal(ref(ids, labels=labels), a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("policy", ["block", "dots"])
+def test_captured_recompute_equals_no_recompute(cuda, policy, dropout):
+    ids, labels = _batch(9)
+    gen = default_generator(cuda)
+    runs = {}
+    for name, remat in (("plain", None), ("recompute", policy)):
+        m, step = _step("bfloat16", make_opt=_sgd(0.5), dropout=dropout,
+                        recompute=remat)
+        gen.manual_seed(17)
+        runs[name] = ([step(ids, labels=labels) for _ in range(3)],
+                      _params(m))
+        assert len(_captures(step)) == 1
+    assert torch.equal(torch.stack(runs["plain"][0]),
+                       torch.stack(runs["recompute"][0]))
+    assert _equal(runs["plain"][1], runs["recompute"][1])
+
+
+@pytest.mark.cuda
+def test_an_o1_step_keeps_the_casts_of_its_first_call(cuda):
+    ids, labels = _batch(10)
+    ref_m, ref = _step(make_opt=_sgd(0.5))
+    m, step = _step(make_opt=_sgd(0.5))
+    with amp.auto_cast(dtype="bfloat16"):
+        with ref._eager():
+            want = [ref(ids, labels=labels) for _ in range(3)]
+        got = [step(ids, labels=labels)]
+    got += [step(ids, labels=labels) for _ in range(2)]     # outside it
+    assert torch.equal(torch.stack(got), torch.stack(want))
+    assert _equal(_params(m), _params(ref_m))
+    assert len(_captures(step)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["Adamax", "Adagrad", "Adadelta", "RMSProp",
+                                  "Lamb", "ASGD", "Rprop", "NAdam", "RAdam"])
+def test_the_other_optimizers_replay_their_bodies(cuda, name):
+    def make(params):
+        return getattr(optimizer, name)(learning_rate=1e-2,
+                                        parameters=params)
+
+    ids, labels = _batch(11)
+    ref_m, ref = _step(make_opt=make)
+    m, step = _step(make_opt=make)
+    with ref._eager():
+        want = [ref(ids, labels=labels) for _ in range(3)]
+    got = [step(ids, labels=labels) for _ in range(3)]
+    assert torch.equal(torch.stack(got), torch.stack(want))
+    assert _equal(_params(m), _params(ref_m))
+
+
+class _Packed(torch.nn.Module):
+    """Two packed-attention blocks over [T, 128] tokens (2 heads of 64);
+    ``clone_k`` hands k its own copy of the boundaries."""
+
+    def __init__(self, clone_k=False):
+        super().__init__()
+        from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+            ColumnParallelLinear,
+            RowParallelLinear,
+        )
+        from paddle_tpu_torch.framework import make_generator
+
+        gen = make_generator(5, "cuda")
+        self.clone_k = clone_k
+        self.qkv = torch.nn.ModuleList(
+            ColumnParallelLinear(128, 384, has_bias=False, device="cuda")
+            for _ in range(2))
+        self.proj = torch.nn.ModuleList(
+            RowParallelLinear(128, 128, has_bias=False, device="cuda")
+            for _ in range(2))
+        for lin in (*self.qkv, *self.proj):
+            lin.reset_parameters(gen)
+
+    def forward(self, x, cu, target):
+        from paddle_tpu_torch.nn import functional as F
+
+        T = x.shape[0]
+        for qkv, proj in zip(self.qkv, self.proj):
+            q, k, v = qkv(x).reshape(T, 3, 2, 64).unbind(1)
+            out, _ = F.flash_attn_unpadded(
+                q, k, v, cu, cu.clone() if self.clone_k else cu, 512, 512,
+                0.125, causal=True)
+            x = x + proj(out.reshape(T, 128))
+        return ((x - target) ** 2).mean()
+
+
+def _packed_batch(seed, dtype=torch.bfloat16):
+    rng = np.random.default_rng(seed)
+    lens = rng.permutation([300, 200, 150, 100, 74])
+    cu = torch.as_tensor(np.concatenate([[0], np.cumsum(lens)]),
+                         device="cuda")
+    x = torch.as_tensor(rng.standard_normal((824, 128)), dtype=torch.float32,
+                        device="cuda")
+    return x.to(dtype), cu, x.roll(1, 0)
+
+
+@pytest.mark.cuda
+def test_packed_steps_capture_with_cu_seqlens_a_batch_tensor(cuda):
+    def make():
+        model = _Packed()
+        amp.decorate(model, level="O2", dtype="bfloat16")
+        return model, TrainStep(model, lambda loss: loss, optimizer.AdamW(
+            learning_rate=1e-3, parameters=model.parameters()))
+
+    ref_m, ref = make()
+    m, step = make()
+    batches = [_packed_batch(s) for s in range(4)]   # a new order each
+    with ref._eager():
+        want = [ref(*b) for b in batches]
+    before = fa.flashmask_fwd.launches
+    got = [step(*b) for b in batches]
+    assert fa.flashmask_fwd.launches - before == 2 * 4
+    assert len(_captures(step)) == 1 and len(step._programs) == 1
+    assert torch.equal(torch.stack(got), torch.stack(want))
+    assert _equal(_params(m), _params(ref_m))
+    assert {p.dtype for p in m.parameters()} == {torch.bfloat16}
+
+
+@pytest.mark.cuda
+def test_two_boundaries_objects_make_the_packed_capture_raise(cuda):
+    model = _Packed(clone_k=True)
+    step = TrainStep(model, lambda loss: loss, optimizer.SGD(
+        learning_rate=0.1, parameters=model.parameters()))
+    before = _params(model)
+    with pytest.raises(RuntimeError):
+        step(*_packed_batch(0, torch.float32))  # the capture syncs
+    assert not _captures(step) and _equal(_params(model), before)
+    # the generator the capture registered draws again outside captures
+    from paddle_tpu_torch.nn.functional.common import keep_mask
+    assert keep_mask((64,), 0.5, "cuda").shape == (64,)

@@ -246,8 +246,9 @@ def test_kernel_wrappers_refuse_what_the_kernels_cannot_run():
     ok = torch.zeros((1, 8, 2, 64))
     with pytest.raises(ValueError, match="head_dim"):
         tfa._kernel_inputs("t", torch.zeros((1, 8, 2, 32)))
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tfa._kernel_inputs("t", ok.half())
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        tfa._kernel_inputs("t", ok.double())
+    assert tfa._kernel_inputs("t", ok.half())[0].dtype == torch.float16
     with pytest.raises(TypeError, match="dtypes differ"):
         tfa._kernel_inputs("t", ok, ok.bfloat16())
     with pytest.raises(ValueError, match="repeat GQA"):
@@ -266,22 +267,25 @@ def test_supports_matches_the_self_attention_contract():
 
 
 def test_dropout_and_unported_forms_raise():
+    """Attention dropout in training takes the plain route (JAX's XLA
+    route); packed varlen attention still raises on it (ROADMAP C)."""
     q = _t(_rand((1, 16, 2, 16), 70))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        TF.flash_attention(q, q, q, dropout=0.1, causal=True)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        TF.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    out, _ = TF.flash_attention(q, q, q, dropout=0.1, causal=True)
+    assert TF.get_last_attention_backend() == "plain"
+    assert torch.isfinite(out).all()
+    assert torch.isfinite(TF.scaled_dot_product_attention(
+        q, q, q, dropout_p=0.1)).all()
     out, _ = TF.flash_attention(q, q, q, dropout=0.1, causal=True,
                                 training=False)
     assert torch.isfinite(out).all()
-    # FlashMask and packed varlen are ported; dropout still raises there
     sri = torch.full((1, 1, 16, 1), 16)
     cu = torch.tensor([0, 9, 16])
     assert TF.flashmask_attention(q, q, q, sri, causal=True).shape == q.shape
     assert TF.flash_attn_unpadded(q[0], q[0], q[0], cu, cu, 9, 9, 0.25,
                                   causal=True)[0].shape == q[0].shape
-    with pytest.raises(NotImplementedError, match="dropout"):
-        TF.flashmask_attention(q, q, q, sri, dropout=0.1)
+    assert TF.flashmask_attention(q, q, q, sri,
+                                  dropout=0.1).shape == q.shape
+    assert TF.get_last_attention_backend() == "plain"
     with pytest.raises(NotImplementedError, match="dropout"):
         TF.flash_attn_unpadded(q[0], q[0], q[0], cu, cu, 9, 9, 0.25,
                                dropout=0.1)

@@ -204,8 +204,9 @@ def test_window_size_dropout_and_bad_masks_raise():
     sri = torch.full((1, 1, 16, 1), 16)
     with pytest.raises(NotImplementedError, match="window_size"):
         TF.flashmask_attention(q, q, q, sri, window_size=(4, 4))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        TF.flashmask_attention(q, q, q, sri, dropout=0.1)
+    # dropout in training: the plain route's masked softmax, as in JAX
+    assert TF.flashmask_attention(q, q, q, sri, dropout=0.1).shape == q.shape
+    assert TF.get_last_attention_backend() == "plain"
     with pytest.raises(ValueError, match="1 or H"):
         tfa.flashmask_attention(q, q, q, sri.expand(1, 3, 16, 1).clone())
     with pytest.raises(ValueError, match="n <= 4"):

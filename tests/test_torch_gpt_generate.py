@@ -270,6 +270,59 @@ def test_generate_batching_predictor_serves_mixed_lengths(small):
     gp.kv_cache.check_conservation()
 
 
+@torch.no_grad()
+def test_whole_batch_pads_the_batch_to_a_power_of_two(small, monkeypatch):
+    """Three requests in one batch run as one generate_paged call of B = 4
+    (max_batch_size 8), the padding row writing only the scratch page: the
+    real rows' tokens equal JAX's dense tokens and an unpadded call's, and
+    the live pages [:, :num_blocks] are bit-equal to the unpadded call's."""
+    from paddle_tpu_torch.inference.serving import _Request
+
+    jm, tm = small
+    NEW = 4
+    prompts = _mixed(np.random.default_rng(3), (6, 3, 9), 128)
+    refs = [_jax_generate(jm, p[None], NEW)[0] for p in prompts]
+    for p, ref in zip(prompts, refs):
+        _assert_margins(tm, ref[None], len(p))
+    gp = GenerateBatchingPredictor(tm, max_batch_size=8, max_new_tokens=NEW,
+                                   block_size=8, num_blocks=16, device="cpu")
+    shapes = []
+    real_generate_paged = tm.generate_paged
+
+    def spy(ids, *a, **k):
+        shapes.append(np.asarray(ids).shape)
+        return real_generate_paged(ids, *a, **k)
+
+    monkeypatch.setattr(tm, "generate_paged", spy)
+    try:
+        reqs = [_Request([p]) for p in prompts]
+        gp._run_batch(reqs)
+    finally:
+        gp.close()
+    monkeypatch.undo()
+    assert shapes == [(4, 16)]
+    for r, ref in zip(reqs, refs):
+        np.testing.assert_array_equal(r.result, ref)
+    # the same three requests unpadded, on a fresh pool reserved alike
+    cache = PagedKVCache(*tm._decode_cache_spec(), block_size=8,
+                         num_blocks=16, dtype=gp.kv_cache.dtype, device="cpu")
+    plens = np.asarray([len(p) for p in prompts])
+    batch = np.zeros((3, 16), np.int64)
+    for i, p in enumerate(prompts):
+        batch[i, :len(p)] = p
+    nb = cache.blocks_for(16 + NEW)
+    for i, p in enumerate(prompts):
+        cache.reserve(i, len(p) + NEW)
+    tables = np.stack([cache.block_table(i, pad_to=nb) for i in range(3)])
+    toks = tm.generate_paged(batch, plens, cache, tables, max_new_tokens=NEW)
+    for i, (p, ref) in enumerate(zip(prompts, refs)):
+        np.testing.assert_array_equal(toks[i], ref[len(p):])
+    nbk = cache.num_blocks                  # pages [Hkv, NB + 1, BS, D]
+    for a, b in zip(gp.kv_cache.k_pages + gp.kv_cache.v_pages,
+                    cache.k_pages + cache.v_pages):
+        assert torch.equal(a[:, :nbk], b[:, :nbk])
+
+
 @pytest.mark.parametrize("kind", ["whole_batch", "continuous"])
 def test_signature_mismatch_degrades_to_dense_with_parity(small, kind):
     """The twin of test_signature_mismatch_degrades_to_dense_with_parity

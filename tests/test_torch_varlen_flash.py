@@ -223,12 +223,15 @@ def test_memory_efficient_attention_matches_jax(bias, scale):
 
 
 def test_memory_efficient_attention_refuses_dropout_and_other_strings():
+    """Dropout is ported (the plain route, or the bias route's f32
+    probabilities, dropped with the port's mask); a bias string other than
+    "causal" is refused."""
     q = _t(_rand((1, 8, 2, 16), 21))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        memory_efficient_attention(q, q, q, p=0.1)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        memory_efficient_attention(q, q, q, attn_bias=torch.zeros(8, 8),
-                                   p=0.1)
+    assert memory_efficient_attention(q, q, q, p=0.1).shape == q.shape
+    assert TF.get_last_attention_backend() == "plain"
+    out = memory_efficient_attention(q, q, q, attn_bias=torch.zeros(8, 8),
+                                     p=0.1)
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
     with pytest.raises(ValueError, match="causal"):
         memory_efficient_attention(q, q, q, attn_bias="upper")
 
