@@ -196,8 +196,49 @@ non-zero without the final line:
    check and planted fault on its scaled loss, then 3 f16 eager steps
    under GradScaler, the masked kernels' f16 forms.
 
-Last lines: the kernels JSON (a kernel redesigned since it was first
-ported names the change in "redesigned"), then {"ok": true, "device":
+15. llama_serve — the card released of everything before (``release``;
+   ``memory_reserved()`` must be under 1 GiB), LLaMA-2-7B bf16 at full
+   size (32 layers, hidden 4096, 32 heads of 128, vocab 32000, random
+   seeded weights): the in-situ paged check at layers 0, 15 and 31 over two
+   prefill chunks and a decode forward (a length one short must fail it);
+   the graphs phase of its step programs; the continuous scheduler behind
+   InferenceServer (8 slots of 2048 tokens, 12 threaded requests of
+   128-1500 prompt tokens and 64 new, half sampled, then 2 over HTTP;
+   launches exactly num_layers per forward); the greedy answers served
+   again on the plain route, equal up to each one's first near-tie; and,
+   free of near-ties, two greedy answers prefilled again through the
+   kernel path held row by row to a cold plain-path prefill, a swapped
+   page failing (``served_rows_check``).
+16. llama_generate — the same model: the in-situ dense check at layers 0,
+   15 and 31 (``dense_insitu`` at [4, 512], T 640), then generate(ids [4,
+   512], 128 new) greedy and sampled, exactly num_layers x forwards dense
+   launches.
+17. llama_train — LLaMA-2-7B at full depth (cut only if the host cannot
+   hold TrainStep's 40.5 GB state copy), O2 bf16, AdamW, recompute
+   "block", B 1, S 2048: in situ (``train_insitu``), then from a host copy
+   of the state 4 steps as bodies and the same 4 through the captured
+   TrainStep: losses bit-equal, each parameter's f64 digest equal, losses
+   falling, flash launches 2 / 1 / 1 per layer and step; step ms, tokens/s,
+   share of the bf16 peak, peak memory (under 90% of the card), a
+   profiled replay.
+18. gpt3_1p3b — full size (24 layers, hidden 2048, 16 heads of 128,
+   learned positions, LayerNorm, GELU, biases): trained as phase 11 (B 4,
+   S 2048), then served in bf16 (in situ at layers 0, 11, 23; 6 + 1
+   requests of 100-1000 tokens and 32 new; greedy held to the plain
+   route), and a request of 2000 + 64 tokens refused by
+   ``_decode_validate`` through the scheduler and generate().
+19. bert_base — full size, MLM on ``bert_mlm_mask`` batches (B 32, S
+   512), O2 bf16 (LayerNorm f32), AdamW, dropout 0.1, captured: no flash
+   launch in training (plain attention, as in JAX), losses falling; then
+   an eval forward through the non-causal flash forward, in situ at
+   layers 0 and 11 (K rolled by one must fail). Phases 3-6 and 8-9 also
+   check and time the kernels at these phases' shapes (paged: 8 slots,
+   32 kv heads of 128; dense: [4, 512] over T 640; flash: B 1, S 2048, 32
+   heads of 128 causal, and B 32, S 512, 12 heads of 64 non-causal).
+
+Last lines: each phase's seconds, the card, the kernels JSON (a kernel
+redesigned since it was first ported names the change in "redesigned";
+rows 1-5 carry their D = 128 readings), then {"ok": true, "device":
 {...}}. With ``--json PATH`` the full record (every check, timing, profile
 and serving number) is also written to PATH.
 """
@@ -205,6 +246,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import os
@@ -331,6 +373,17 @@ def verify_lengths(rng, B=8, S=5):
     return ln
 
 
+LLAMA_SLOT = 2048                # llama_serve's tokens per slot
+
+
+def llama_lengths(rng, B=8, S=1):
+    """Per-slot lengths of llama_serve's step programs: histories of its
+    128-1500-token prompts and 64 new tokens, one idle slot."""
+    ln = rng.integers(128, 1500 + 64 - S + 1, B)
+    ln[3] = 0
+    return ln
+
+
 def prefill_offsets(rng, B=8, S=64):
     off = rng.integers(1, 1024 - S, B)
     off[off % 32 == 0] += 1                     # never on a block boundary
@@ -348,6 +401,7 @@ def held_to_plain(torch, pa, args, got, ref, scale=None):
 
 def check_kernels(torch, pa, device):
     rng = np.random.default_rng(0)
+    llama_rng = np.random.default_rng(40)
     cases = []
     for dtype in ("bfloat16", "float32"):
         for G in (1, 4):
@@ -374,6 +428,12 @@ def check_kernels(torch, pa, device):
         # serve_knobs' verify_step: K + 1 = 5 rows of a 64-row tile, G 1
         cases.append(("verify", 8, 5, 16, 1, 64, 32,
                       verify_lengths(np.random.default_rng(5)), dtype))
+        # llama_serve's step programs: LLaMA-2-7B's 32 kv heads of 128, G 1,
+        # over 2048-token slots (its decode and prefill-chunk shapes)
+        cases.append(("llama-decode", 8, 1, 32, 1, 128, 32,
+                      llama_lengths(llama_rng), dtype))
+        cases.append(("llama-prefill", 8, 64, 32, 1, 128, 32,
+                      llama_lengths(llama_rng, S=64), dtype))
     results = []
     worst = {}
     for n, (name, B, S, Hkv, G, D, BS, lengths, dtype) in enumerate(cases):
@@ -387,7 +447,9 @@ def check_kernels(torch, pa, device):
                 raise AssertionError(f"{name}: no split boundary inside a "
                                      f"live page (tiles per split {tps})")
         args = make_case(torch, B, S, Hkv, G, D, BS, list(lengths), dtype,
-                         device, seed=100 + n)
+                         device, seed=100 + n,
+                         capacity=LLAMA_SLOT if name.startswith("llama")
+                         else 1024)
         got = pa.paged_decode_attention(*args)
         torch.cuda.synchronize()
         ref = pa.paged_decode_attention_ref(*args)
@@ -399,6 +461,10 @@ def check_kernels(torch, pa, device):
         results.append(rec)
         if name in ("decode", "prefill"):
             worst[dtype] = max(worst.get(dtype, 0.0), err)
+        if name.startswith("llama") and dtype == "bfloat16":
+            d128 = worst.setdefault("d128", {})
+            d128[name[len("llama-"):]] = dict(max_abs_err=err,
+                                              err_over_limit=over)
         if not ok:
             raise AssertionError(f"kernel disagrees with plain: {rec}")
     return results, worst
@@ -466,11 +532,15 @@ def time_kernels(torch, pa, device):
     rng = np.random.default_rng(1)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     out = {}
-    for name, S, lengths in (("decode", 1, decode_lengths(rng)),
-                             ("prefill", 64, prefill_offsets(rng))):
-        B, Hkv, G, D, BS = 8, 16, 1, 64, 32
+    for name, S, lengths, Hkv, D, cap in (
+            ("decode", 1, decode_lengths(rng), 16, 64, 1024),
+            ("prefill", 64, prefill_offsets(rng), 16, 64, 1024),
+            ("decode_d128", 1, llama_lengths(rng), 32, 128, LLAMA_SLOT),
+            ("prefill_d128", 64, llama_lengths(rng, S=64), 32, 128,
+             LLAMA_SLOT)):
+        B, G, BS = 8, 1, 32
         args = make_case(torch, B, S, Hkv, G, D, BS, list(lengths),
-                         "bfloat16", device, seed=7)
+                         "bfloat16", device, seed=7, capacity=cap)
         q, kp, vp, tbl, ln = args
         before = pa.paged_decode_attention.launches
         ms = time_ms(torch, lambda: pa.paged_decode_attention(*args), flush)
@@ -518,6 +588,11 @@ def dense_case(torch, B, S, Hkv, G, D, T, lengths, dtype, device, seed):
                                     device=device)
 
 
+# llama_generate: generate(ids [B, P], P + new tokens) and its cache rows
+LLAMA_GEN = (4, 512, 128)
+LLAMA_T = LLAMA_GEN[1] + LLAMA_GEN[2]
+
+
 def generation_lengths(rng, B=8, S=1, T=640):
     """Per-request lengths of the generation shapes: decode (S = 1) at
     512-639, where generate()'s 128 decode steps put them; prefill at 0."""
@@ -536,6 +611,7 @@ def check_dense_kernels(torch, da, device):
     head)) at the full cache, and one request over a long cache (many
     splits) in either form; f32 and bf16."""
     rng = np.random.default_rng(20)
+    llama_rng = np.random.default_rng(41)
     cases = []
     for dtype in ("bfloat16", "float32"):
         cases += [
@@ -558,6 +634,12 @@ def check_dense_kernels(torch, da, device):
             # one request over a long cache: many splits in either form
             ("b1-decode-splits", 1, 1, 16, 1, 64, 4096, [4095], dtype),
             ("b1-prefill-splits", 1, 64, 16, 1, 64, 2048, [1984], dtype),
+            # llama_generate: generate([4, 512] + 128) of LLaMA-2-7B, 32 kv
+            # heads of 128, G 1 (its decode and prefill shapes)
+            ("llama-decode", LLAMA_GEN[0], 1, 32, 1, 128, LLAMA_T,
+             generation_lengths(llama_rng, LLAMA_GEN[0], 1, LLAMA_T), dtype),
+            ("llama-prefill", LLAMA_GEN[0], LLAMA_GEN[1], 32, 1, 128,
+             LLAMA_T, 0, dtype),
         ]
     results, worst = [], {}
     for n, (name, B, S, Hkv, G, D, T, lengths, dtype) in enumerate(cases):
@@ -578,6 +660,10 @@ def check_dense_kernels(torch, da, device):
         results.append(rec)
         if name.startswith(("decode", "prefill")):
             worst[dtype] = max(worst.get(dtype, 0.0), err)
+        if name.startswith("llama") and dtype == "bfloat16":
+            d128 = worst.setdefault("d128", {})
+            d128[name[len("llama-"):]] = dict(max_abs_err=err,
+                                              err_over_limit=over)
         if not ok:
             raise AssertionError(f"dense kernel disagrees with plain: {rec}")
     return results, worst
@@ -610,9 +696,11 @@ def time_dense_kernels(torch, da, device):
     rng = np.random.default_rng(21)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     out = {}
-    for name, B, S, T in (("decode", 8, 1, 640), ("prefill", 8, 512, 640),
-                          ("decode_b1", 1, 1, 4096)):
-        Hkv, D = 16, 64
+    for name, B, S, T, Hkv, D in (
+            ("decode", 8, 1, 640, 16, 64), ("prefill", 8, 512, 640, 16, 64),
+            ("decode_b1", 1, 1, 4096, 16, 64),
+            ("decode_d128", LLAMA_GEN[0], 1, LLAMA_T, 32, 128),
+            ("prefill_d128", LLAMA_GEN[0], LLAMA_GEN[1], LLAMA_T, 32, 128)):
         lengths = (generation_lengths(rng, B, S, T) if B > 1
                    else np.array([4000]))
         args = dense_case(torch, B, S, Hkv, 1, D, T, lengths, "bfloat16",
@@ -710,7 +798,11 @@ def check_flash_kernels(torch, fa, device):
              ("d128", 2, 512, 8, 8, 128, True),
              ("gqa", 2, 1024, 16, 4, 64, True),
              ("ragged", 2, 1000, 8, 8, 64, True),
-             ("s8192", 1, 8192, 4, 4, 64, True)]
+             ("s8192", 1, 8192, 4, 4, 64, True),
+             # llama_train (LLaMA-2-7B, B 1, S 2048, 32 heads of 128) and
+             # bert_base's eval forward (B 32, S 512, 12 heads of 64)
+             ("llama", 1, 2048, 32, 32, 128, True),
+             ("bert", 32, 512, 12, 12, 64, False)]
     results, worst = [], {}
     for n, (name, B, S, H, Hkv, D, causal) in enumerate(cases):
         for dtype in FLASH_DTYPES:
@@ -731,7 +823,16 @@ def check_flash_kernels(torch, fa, device):
                           for o, (_, r) in res.items()})
             print("flash-check", json.dumps(rec), flush=True)
             results.append(rec)
-            worst_of(worst, dtype, res)
+            if name in ("llama", "bert"):
+                if dtype == "bfloat16":
+                    worst.setdefault(name, {}).update(
+                        {kern: dict(
+                            max_abs_err=max(res[o][0] for o in outs
+                                            if o != "lse"),
+                            err_over_limit=max(res[o][1] for o in outs))
+                         for kern, outs in FLASH_OUTPUTS.items()})
+            else:
+                worst_of(worst, dtype, res)
             if not ok:
                 raise AssertionError(f"flash kernel disagrees with plain: "
                                      f"{rec}")
@@ -764,17 +865,21 @@ def flash_bounds(B, S, H, D, causal, elt=2, pairs=None, mask_bytes=0):
     return out
 
 
-# (B, S, H, D, dtype): the main path's, the TPU's chunked range, and the
-# main path's shape in f16 (AMP in float16)
-FLASH_TIMED_SHAPES = {"train": (8, 1024, 16, 64, "bfloat16"),
-                      "s8192": (1, 8192, 4, 64, "bfloat16"),
-                      "train_f16": (8, 1024, 16, 64, "float16")}
+# (B, S, H, D, dtype, causal): the main path's, the TPU's chunked range,
+# the main path's shape in f16 (AMP in float16), llama_train's (D 128) and
+# bert_base's eval forward (non-causal)
+FLASH_TIMED_SHAPES = {"train": (8, 1024, 16, 64, "bfloat16", True),
+                      "s8192": (1, 8192, 4, 64, "bfloat16", True),
+                      "train_f16": (8, 1024, 16, 64, "float16", True),
+                      "llama": (1, 2048, 32, 128, "bfloat16", True),
+                      "bert": (32, 512, 12, 64, "bfloat16", False)}
 
 
 def time_flash(torch, fa, device):
-    """Kernel, plain and library times of the three kernels (causal) at the
-    training shape in bf16 and f16 and at S = 8192, where the TPU ran its
-    chunked backward (rows 6-7). The library yardstick is
+    """Kernel, plain and library times of the three kernels at the shapes
+    of FLASH_TIMED_SHAPES: the training shape in bf16 and f16, S = 8192,
+    where the TPU ran its chunked backward (rows 6-7), llama_train's D 128
+    and bert_base's non-causal shape. The library yardstick is
     scaled_dot_product_attention on the same inputs ([B, H, S, D]
     contiguous copies made outside the timing): its forward for the
     forward, its one backward (dq, dk and dv together) for dq and dk/dv.
@@ -783,35 +888,37 @@ def time_flash(torch, fa, device):
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     out = {}
-    for shape, (B, S, H, D, dtype) in FLASH_TIMED_SHAPES.items():
+    for shape, (B, S, H, D, dtype, causal) in FLASH_TIMED_SHAPES.items():
         q, k, v, do = flash_inputs(torch, B, S, H, H, D, dtype, device,
                                    seed=300)
-        ro, rl = fa.flash_attention_fwd_ref(q, k, v, True)
+        ro, rl = fa.flash_attention_fwd_ref(q, k, v, causal)
         delta = fa.attention_delta(ro, do)
         calls = {
-            "fwd": (lambda: fa.flash_fwd(q, k, v, True),
-                    lambda: fa.flash_attention_fwd_ref(q, k, v, True)),
-            "dq": (lambda: fa.flash_bwd_dq(q, k, v, do, rl, delta, True),
+            "fwd": (lambda: fa.flash_fwd(q, k, v, causal),
+                    lambda: fa.flash_attention_fwd_ref(q, k, v, causal)),
+            "dq": (lambda: fa.flash_bwd_dq(q, k, v, do, rl, delta, causal),
                    lambda: fa.flash_attention_dq_ref(q, k, v, do, rl, delta,
-                                                     True)),
-            "dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, rl, delta, True),
+                                                     causal)),
+            "dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, rl, delta,
+                                             causal),
                     lambda: fa.flash_attention_dkv_ref(q, k, v, do, rl,
-                                                       delta, True)),
+                                                       delta, causal)),
         }
         qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
                            for x in (q, k, v, do))
         for t in (qt, kt, vt):
             t.requires_grad_()
         lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), flush)
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            qt, kt, vt, is_causal=causal), flush)
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                 is_causal=causal)
         lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
             lib_out, (qt, kt, vt), dot, retain_graph=True), flush)
-        bounds = flash_bounds(B, S, H, D, True)
+        bounds = flash_bounds(B, S, H, D, causal)
         out[shape] = {}
         for kern, (kernel, plain) in calls.items():
             rec = dict(shape=shape, kernel=kern, B=B, S=S, H=H, D=D,
-                       dtype=dtype, causal=True,
+                       dtype=dtype, causal=causal,
                        ms=time_ms(torch, kernel, flush),
                        plain_ms=time_ms(torch, plain, flush),
                        library_ms=lib_fwd if kern == "fwd" else lib_bwd,
@@ -843,47 +950,62 @@ def whole_backward(recs, **shape):
 
 
 # --------------------------------------------------------------- phase 7
-def insitu_check(torch, model, cache_cls, device, C=64, slots=8):
+def insitu_check(torch, model, cache_cls, device, C=64, slots=8, mod=None,
+                 layers=None, decode=False):
     """Two prefill chunks of the full model per path, the second over a
-    cache the first filled. On the kernel path every layer's kernel call is
-    held to the plain version on the same inputs (the limit of
-    ``kernel_tolerance``), and the logits to the plain attention path's. A
-    control runs the kernel with each request's length one short (every
-    query row misses its own key) and must fail the per-layer check."""
+    cache the first filled (and with ``decode`` a one-token decode forward
+    after them). On the kernel path every layer's kernel call (or those of
+    ``layers``) is held to the plain version on the same inputs (the limit
+    of ``kernel_tolerance``), and the logits to the plain attention path's.
+    A control runs the kernel with each request's length one short (every
+    query row misses its own key) and must fail the per-layer check.
+    ``mod``: the model's module, whose ``paged_decode_attention`` the check
+    rebinds (GPT's by default)."""
     from paddle_tpu_torch.models import gpt as gpt_mod
     from paddle_tpu_torch.ops import paged_attention as pa
 
+    mod = mod or gpt_mod
     rng = np.random.default_rng(4)
     V = model.config.vocab_size
-    ids = rng.integers(0, V, (slots, 2 * C))
+    L = model._decode_cache_spec()[0]
+    ids = rng.integers(0, V, (slots, 2 * C + 1))
     lens = np.full(slots, C)
     lens[2] = max(1, C * 37 // 64)              # a short chunk
-    kernel = gpt_mod.paged_decode_attention
+    kernel = mod.paged_decode_attention
 
     def run(path, fault=False):
-        over = []
+        over, calls = [], [0]
 
         def checked(q, kp, vp, tbl, ln, scale=None):
+            layer = calls[0] % L
+            calls[0] += 1
             bad = (ln - 1).clamp(min=0) if fault else ln
             got = kernel(q, kp, vp, tbl, bad, scale=scale)
-            args = (q, kp, vp, tbl, ln)
-            ref = pa.paged_decode_attention_ref(*args, scale=scale)
-            over.append(held_to_plain(torch, pa, args, got, ref, scale)[1])
+            if layers is None or layer in layers:
+                args = (q, kp, vp, tbl, ln)
+                ref = pa.paged_decode_attention_ref(*args, scale=scale)
+                over.append(held_to_plain(torch, pa, args, got, ref,
+                                          scale)[1])
             return got
 
         kv = cache_cls(*model._decode_cache_spec(), block_size=32,
-                       num_blocks=slots * 4, dtype=torch.bfloat16,
+                       num_blocks=slots * 5, dtype=torch.bfloat16,
                        device=device)
-        tables = np.stack([kv.reserve(i, 2 * C) for i in range(slots)])
-        gpt_mod.paged_decode_attention = checked
+        tables = np.stack([kv.reserve(i, 2 * C + 1) for i in range(slots)])
+        mod.paged_decode_attention = checked
         try:
-            first = model.chunk_logits(ids[:, :C], np.zeros(slots), lens, kv,
-                                       tables, decode_kernel=path)
-            second = model.chunk_logits(ids[:, C:], lens, np.full(slots, C),
-                                        kv, tables, decode_kernel=path)
+            rows = [model.chunk_logits(ids[:, :C], np.zeros(slots), lens, kv,
+                                       tables, decode_kernel=path),
+                    model.chunk_logits(ids[:, C:2 * C], lens,
+                                       np.full(slots, C), kv, tables,
+                                       decode_kernel=path)]
+            if decode:
+                rows.append(model.chunk_logits(
+                    ids[:, 2 * C:], lens + C, np.ones(slots, np.int64), kv,
+                    tables, decode_kernel=path))
         finally:
-            gpt_mod.paged_decode_attention = kernel
-        logits = torch.stack([first, second]).float()
+            mod.paged_decode_attention = kernel
+        logits = torch.stack(rows).float()
         if not torch.isfinite(logits).all():
             raise AssertionError(f"non-finite logits on the {path} path")
         return logits, max(over, default=None)
@@ -898,6 +1020,8 @@ def insitu_check(torch, model, cache_cls, device, C=64, slots=8):
             layer_err_over_limit=over, max_abs_dlogit=diff,
             rel=diff / scale, greedy_agreement=float(
                 (logits.argmax(-1) == plain.argmax(-1)).float().mean()))
+    rec.update(layers="all" if layers is None else list(layers),
+               decode=decode)
     print("insitu", json.dumps(rec), flush=True)
     k, f = rec["kernel"], rec["fault"]
     if k["layer_err_over_limit"] > 1.0 or k["rel"] > INSITU_REL_TOL:
@@ -1216,9 +1340,10 @@ def dense_graphs(torch, model, device):
 
 def serve(torch, model, device, n_requests=12, http_requests=2,
           prompt_range=(50, 700), new_range=(16, 64), slots=8, chunk=64,
-          decode_steps=4, block_size=32, max_seq_len=1024):
+          decode_steps=4, block_size=32, max_seq_len=1024, outputs=None):
     """The main path: threaded requests through the continuous scheduler,
-    then requests over HTTP. Returns the serving record."""
+    then requests over HTTP. Returns the serving record; ``outputs``, when
+    given, receives {request: (prompt, output, sampled)}."""
     from paddle_tpu_torch.inference import (
         ContinuousGenerateBatchingPredictor,
         InferenceServer,
@@ -1320,6 +1445,9 @@ def serve(torch, model, device, n_requests=12, http_requests=2,
                                  f"({want},) or prompt not echoed")
         if out.min() < 0 or out.max() >= V:
             raise AssertionError(f"request {i}: token ids out of range")
+    if outputs is not None:
+        outputs.update({i: (prompts[i], out, i % 2 == 1)
+                        for i, out in results.items()})
     for p, out in http_out:
         if (out.shape != (len(p) + new_range[1],)
                 or not np.array_equal(out[:len(p)], p)
@@ -1439,16 +1567,27 @@ def prefix_rows_check(torch, model, kv, pc, outs, device, chunk=64,
                       swap=KNOB_SYSTEM // 32):
     """Each of ``outs``' full blocks as the scheduler left them indexed in
     ``kv`` (the shared system pages, the rows its resumed prefills, decode
-    and verify ticks wrote), held against a cold prefill of the same tokens
-    through the plain attention path in a fresh pool: per layer
+    and verify ticks wrote), held to a cold plain-path prefill
+    (``rows_check``); the control swaps block ``swap``, the first past the
+    shared prompt."""
+    pages = [[b for _, b in pc.lookup(out).pairs] for out in outs]
+    rec = rows_check(torch, model, kv, pages, outs, device, chunk, swap)
+    rec["shared_prompt_pages_common"] = len(
+        {tuple(p[:swap]) for p in pages}) == 1
+    return rec
+
+
+def rows_check(torch, model, kv, pages, outs, device, chunk, swap):
+    """The K/V rows that ``kv`` holds for each of ``outs`` on its pages
+    (``pages[i]``, one per full block), held against a cold prefill of the
+    same tokens through the plain attention path in a fresh pool: per layer
     max |K - K_cold| / max |K_cold|, and the same of V, the worst kept.
     Tokens only decide these rows, so no near-tie cuts the comparison. A
-    control swaps block ``swap`` (the first past the shared prompt) of the
-    first history for the second's and must exceed INSITU_REL_TOL."""
+    control swaps block ``swap`` of the first sequence for the second's and
+    must exceed INSITU_REL_TOL."""
     from paddle_tpu_torch.inference import PagedKVCache
 
     bs = kv.block_size
-    pages = [[b for _, b in pc.lookup(out).pairs] for out in outs]
     nbs = [len(p) for p in pages]
     S, NB = len(outs), max(nbs)
     ref = PagedKVCache(kv.num_layers, kv.num_kv_heads, kv.head_dim,
@@ -1484,8 +1623,7 @@ def prefix_rows_check(torch, model, kv, pc, outs, device, chunk=64,
         planted[swap] = pages[1][swap]
         control = worst(0, planted)
     return dict(blocks=nbs, rel=rel, control=control,
-                rel_tol=INSITU_REL_TOL, shared_prompt_pages_common=len(
-                    {tuple(p[:swap]) for p in pages}) == 1)
+                rel_tol=INSITU_REL_TOL)
 
 
 def serve_knobs(torch, model, device, slots=8, chunk=64, decode_steps=4,
@@ -1776,62 +1914,70 @@ def serve_knobs(torch, model, device, slots=8, chunk=64, decode_steps=4,
 GEN_B, GEN_P, GEN_NEW = 8, 512, 128         # generate() at full width
 
 
-def dense_insitu(torch, model, device):
-    """Three forwards of the full model over dense bf16 caches of T = 640:
-    the prompt's prefill ([8, 512] at length 0, the main path's), its second
-    half prefilled again ([8, 256] at length 256: four 64-row tiles, each
-    with its own causal limit, at a length a fault can shorten) and one
-    decode forward (length 512). On the kernel path every layer's kernel
-    call is held to the plain version on the same inputs
-    (``kernel_tolerance``), each forward's worst reading kept apart, and
-    the logits to the plain attention path's (a coarse bound). A control
-    runs the kernel with the length one short: it must fail the per-layer
-    check at the second prefill and at the decode, each on its own (at
-    length 0 it clamps to no change)."""
+def dense_insitu(torch, model, device, B=None, P=None, new=None, mod=None,
+                 layers=None):
+    """Three forwards of the full model over dense bf16 caches of T = P +
+    new (640 by default): the prompt's prefill ([B, P] = [8, 512] at length
+    0, the main path's), its second half prefilled again ([8, 256] at
+    length 256: four 64-row tiles, each with its own causal limit, at a
+    length a fault can shorten) and one decode forward (length 512). On the
+    kernel path every layer's kernel call (or those of ``layers``) is held
+    to the plain version on the same inputs (``kernel_tolerance``), each
+    forward's worst reading kept apart, and the logits to the plain
+    attention path's (a coarse bound). A control runs the kernel with the
+    length one short: it must fail the per-layer check at the second
+    prefill and at the decode, each on its own (at length 0 it clamps to
+    no change). ``mod``: the model's module, whose ``decode_attention``
+    the check rebinds (GPT's by default)."""
     from paddle_tpu_torch.models import gpt as gpt_mod
+    from paddle_tpu_torch.models.steps import DenseStep
     from paddle_tpu_torch.ops import decode_attention as da
 
+    B, P, new = B or GEN_B, P or GEN_P, new or GEN_NEW
+    mod = mod or gpt_mod
     rng = np.random.default_rng(22)
     V = model.config.vocab_size
-    ids = torch.as_tensor(rng.integers(0, V, (GEN_B, GEN_P + 1)),
-                          device=device)
+    ids = torch.as_tensor(rng.integers(0, V, (B, P + 1)), device=device)
     L, Hkv, D = model._decode_cache_spec()
     state = model._decode_state(torch.bfloat16)
-    kernel = gpt_mod.decode_attention
-    half = GEN_P // 2
-    forwards = (("prefill_at_0", 0, GEN_P),
-                (f"prefill_at_{half}", half, GEN_P),
-                (f"decode_at_{GEN_P}", GEN_P, GEN_P + 1))
+    kernel = mod.decode_attention
+    half = P // 2
+    forwards = (("prefill_at_0", 0, P),
+                (f"prefill_at_{half}", half, P),
+                (f"decode_at_{P}", P, P + 1))
     faultable = [name for name, lo, _ in forwards if lo > 0]
 
     def run(path, fault=False):
-        over, current = {}, [None]
+        over, current, calls = {}, [None], [0]
 
         def checked(q, k, v, length, scale=None):
+            layer = calls[0] % L
+            calls[0] += 1
             got = kernel(q, k, v, max(length - 1, 0) if fault else length,
                          scale=scale)
-            args = (q, k, v, length)
-            ref = da.decode_attention_ref(*args, scale=scale)
-            r = held_to_plain(torch, da, args, got, ref, scale)[1]
-            over[current[0]] = max(over.get(current[0], 0.0), r)
+            if layers is None or layer in layers:
+                args = (q, k, v, length)
+                ref = da.decode_attention_ref(*args, scale=scale)
+                r = held_to_plain(torch, da, args, got, ref, scale)[1]
+                over[current[0]] = max(over.get(current[0], 0.0), r)
             return got
 
-        shape = (GEN_B, Hkv, GEN_P + GEN_NEW, D)
+        shape = (B, Hkv, P + new, D)
         kc = [torch.zeros(shape, dtype=torch.bfloat16, device=device)
               for _ in range(L)]
         vc = [torch.zeros(shape, dtype=torch.bfloat16, device=device)
               for _ in range(L)]
         rows = []
-        gpt_mod.decode_attention = checked
+        mod.decode_attention = checked
         try:
             with torch.no_grad():
                 for name, lo, hi in forwards:
                     current[0] = name
                     rows.append(model._decode_call(
-                        state, ids[:, lo:hi], kc, vc, gpt_mod.DenseStep(lo),
+                        state, ids[:, lo:hi], kc, vc, DenseStep(lo),
                         path)[:, -1])
         finally:
-            gpt_mod.decode_attention = kernel
+            mod.decode_attention = kernel
         logits = torch.stack(rows).float()
         if not torch.isfinite(logits).all():
             raise AssertionError(f"non-finite logits on the {path} path")
@@ -1839,7 +1985,8 @@ def dense_insitu(torch, model, device):
 
     plain, _ = run("plain")
     scale = float(plain.abs().max())
-    rec = dict(max_abs_logit=scale, rel_tol=INSITU_REL_TOL)
+    rec = dict(max_abs_logit=scale, rel_tol=INSITU_REL_TOL, B=B, P=P,
+               layers="all" if layers is None else list(layers))
     for name, fault in (("kernel", False), ("fault", True)):
         logits, over = run("kernel", fault)
         diff = float((logits - plain).abs().max())
@@ -1858,49 +2005,51 @@ def dense_insitu(torch, model, device):
     return rec
 
 
-def generation(torch, model, device):
-    """The dense main path: generate(ids [8, 512], max_new_tokens=128) in
-    bf16, greedy and then sampled (temperature 0.8, top-k 40). A prefill-only
-    call (max_new_tokens=1, the second of its key: a replay) before it
-    times the prefill; decode tokens/s is
-    the remaining 127 tokens per request over the rest of the greedy call.
-    The dense kernel must launch exactly num_layers x forwards times."""
+def generation(torch, model, device, B=None, P=None, new=None):
+    """The dense main path: generate(ids [B, P], max_new_tokens=new) in
+    bf16 ([8, 512] + 128 by default), greedy and then sampled (temperature
+    0.8, top-k 40). A prefill-only call (max_new_tokens=1, the second of
+    its key: a replay) before it times the prefill; decode tokens/s is
+    the remaining new - 1 tokens per request over the rest of the greedy
+    call. The dense kernel must launch exactly num_layers x forwards
+    times."""
     from paddle_tpu_torch.ops import decode_attention as da
 
+    B, P, N = B or GEN_B, P or GEN_P, new or GEN_NEW
     rng = np.random.default_rng(23)
     V = model.config.vocab_size
     L = model.config.num_layers
-    ids = torch.as_tensor(rng.integers(0, V, (GEN_B, GEN_P)), device=device)
+    ids = torch.as_tensor(rng.integers(0, V, (B, P)), device=device)
 
     def timed(**kw):
         t0 = time.perf_counter()
         out = model.generate(ids, **kw).cpu()       # ends in a host copy
         return out, time.perf_counter() - t0
 
-    timed(max_new_tokens=GEN_NEW)                   # warm: captures
+    timed(max_new_tokens=N)                         # warm: captures
     timed(max_new_tokens=1)                         # its own key: captures
     _, prefill_s = timed(max_new_tokens=1)
     captures0 = captures_total(model)
     da.decode_attention.launches = 0                # main path starts here
-    greedy, greedy_s = timed(max_new_tokens=GEN_NEW)
-    sampled, sampled_s = timed(max_new_tokens=GEN_NEW, temperature=0.8,
+    greedy, greedy_s = timed(max_new_tokens=N)
+    sampled, sampled_s = timed(max_new_tokens=N, temperature=0.8,
                                top_k=40, seed=1)
     launches = da.decode_attention.launches         # main path ends here
-    expect = L * 2 * GEN_NEW
+    expect = L * 2 * N
     ids_np = ids.cpu().numpy()
     for name, out in (("greedy", greedy), ("sampled", sampled)):
         out = out.numpy()
-        if (out.shape != (GEN_B, GEN_P + GEN_NEW)
-                or not np.array_equal(out[:, :GEN_P], ids_np)
+        if (out.shape != (B, P + N)
+                or not np.array_equal(out[:, :P], ids_np)
                 or out.min() < 0 or out.max() >= V):
             raise AssertionError(f"{name} generate(): wrong shape or ids")
     decode_s = greedy_s - prefill_s
-    rec = dict(B=GEN_B, prompt=GEN_P, new_tokens=GEN_NEW, dtype="bfloat16",
+    rec = dict(B=B, prompt=P, new_tokens=N, dtype="bfloat16",
                prefill_s=prefill_s,
-               prefill_tok_per_s=GEN_B * GEN_P / prefill_s,
+               prefill_tok_per_s=B * P / prefill_s,
                greedy_s=greedy_s, sampled_s=sampled_s, decode_s=decode_s,
-               decode_tok_per_s=GEN_B * (GEN_NEW - 1) / decode_s,
-               sampled_tok_per_s=GEN_B * GEN_NEW / sampled_s,
+               decode_tok_per_s=B * (N - 1) / decode_s,
+               sampled_tok_per_s=B * N / sampled_s,
                kernel_launches=launches, expected_launches=expect,
                captures=captures_total(model) - captures0,
                runners=runner_stats(model),
@@ -2377,13 +2526,15 @@ def params_diff(torch, a, b):
 
 
 def train(torch, fa, device, B=8, S=1024, warmup=2, timed=8, seed=12,
-          cfg=None):
+          cfg=None, flops_fn=gpt_step_flops, lr_leg=True):
     """The training main path: GPT-350M (or ``cfg``) at full width, O2
     bf16, AdamW under the captured TrainStep, as ``bench.py``
     ``_gpt_train_phase`` runs the JAX package. From one saved state the
     same steps run twice: as bodies without capture (the reference, and
     the body wall), then captured and replayed (the main path: launch
-    counts, the replay wall); losses and parameters must be bit-equal."""
+    counts, the replay wall); losses and parameters must be bit-equal.
+    ``flops_fn(cfg, B, S)``: the step's operations; ``lr_leg``: run the
+    LR-schedule leg after."""
     from paddle_tpu_torch import amp, optimizer
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_350m
@@ -2446,7 +2597,7 @@ def train(torch, fa, device, B=8, S=1024, warmup=2, timed=8, seed=12,
         model.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
     fwd_bwd_ms = (time.perf_counter() - t1) / 3 * 1e3
-    flops = gpt_step_flops(cfg, B, S)
+    flops = flops_fn(cfg, B, S)
     steps = warmup + timed
     rec = dict(B=B, S=S, layers=cfg.num_layers, warmup=warmup, timed=timed,
                losses=losses, body_losses=body_losses,
@@ -2476,7 +2627,8 @@ def train(torch, fa, device, B=8, S=1024, warmup=2, timed=8, seed=12,
         raise AssertionError(f"attention backend {backend!r} != 'kernel'")
     del step, opt, prog
     torch.cuda.empty_cache()
-    rec["lr_schedule"] = lr_schedule_leg(torch, model, ids, labels)
+    if lr_leg:
+        rec["lr_schedule"] = lr_schedule_leg(torch, model, ids, labels)
     del model
     torch.cuda.empty_cache()
     return rec, insitu
@@ -3523,6 +3675,576 @@ def optimizer_steps(torch, device, steps=3, B=2, S=128, seed=3):
     return out
 
 
+# ------------------------------------------------------------ phases 15-19
+def matmul_params(kind, c):
+    """Weights that enter a matrix product once per token of a forward,
+    read off each model's code: GPT ``qkv_proj``, ``out_proj``, the SwiGLU
+    ``gate_up`` + ``down`` (three h x I matrices) or the GELU ``fc1`` +
+    ``down`` (two), and the head, tied or untied (the same product);
+    LLaMA q / k / v / o, gate / up / down and ``lm_head``; BERT ``qkv``,
+    ``out``, ``fc1``, ``fc2``, the MLM ``transform`` and the decoder tied
+    to the word embeddings. Lookups, norms and biases are no product."""
+    h, inner, V = c.hidden_size, c.intermediate_size, c.vocab_size
+    if kind == "bert":
+        return c.num_layers * (4 * h * h + 2 * h * inner) + h * h + V * h
+    kv = c.num_kv_heads * (h // c.num_heads)
+    mlp = (3 if getattr(c, "use_swiglu", True) else 2) * h * inner
+    return c.num_layers * (h * (h + 2 * kv) + h * h + mlp) + V * h
+
+
+def forward_flops(kind, c, B, S, pairs=None):
+    """Operations of one forward over [B, S]: 2 per weight per token, and
+    per layer and head attention's two [S, S] products (scores, weighted
+    sum) at 2 D per allowed (row, column) pair: the causal pairs for GPT
+    and LLaMA, all S^2 for BERT, or ``pairs``."""
+    if pairs is None:
+        pairs = S * S if kind == "bert" else S * (S + 1) // 2
+    D = c.hidden_size // c.num_heads
+    attn = c.num_layers * 2 * 2 * D * c.num_heads * B * pairs
+    return 2.0 * matmul_params(kind, c) * B * S + attn
+
+
+def step_flops(kind, c, B, S):
+    """Model operations of one training step: the forward and a backward
+    of twice its operations (a recomputed forward is not counted)."""
+    return 3.0 * forward_flops(kind, c, B, S)
+
+
+def release(torch):
+    """Collect garbage and return the allocator's cached blocks; the bytes
+    it still reserves."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def host_available_bytes():
+    """MemAvailable of /proc/meminfo (``free``'s available column)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def plain_route_tokens(torch, model, device, outputs, max_seq_len, slots=8,
+                       chunk=64, decode_steps=4, block_size=32):
+    """The greedy requests of ``outputs`` ({i: (prompt, output, sampled)})
+    served again by a continuous scheduler on the plain attention route
+    (``decode_kernel`` "plain": the paged kernel's plain version in every
+    step program), threaded, over a fresh pool. Each kernel-path answer
+    must equal the plain one up to that request's first near-tie of the
+    plain answer (``first_tie``), and at least one token must be compared
+    over all requests."""
+    from paddle_tpu_torch.inference import (
+        ContinuousGenerateBatchingPredictor,
+        PagedKVCache,
+    )
+
+    greedy = sorted(i for i, (_, _, sampled) in outputs.items()
+                    if not sampled)
+    new = {i: len(outputs[i][1]) - len(outputs[i][0]) for i in greedy}
+    kv = PagedKVCache(*model._decode_cache_spec(), block_size=block_size,
+                      num_blocks=slots * max_seq_len // block_size,
+                      dtype=torch.bfloat16, device=device)
+    gp = ContinuousGenerateBatchingPredictor(
+        model, kv_cache=kv, max_slots=slots, prefill_chunk=chunk,
+        decode_steps=decode_steps, max_new_tokens=max(new.values()),
+        max_seq_len=max_seq_len, device=device)
+    gp.decode_kernel = "plain"
+    plain, errors = {}, {}
+
+    def client(i):
+        try:
+            plain[i] = gp.infer(outputs[i][0], timeout=600,
+                                max_new_tokens=new[i])
+        except Exception as e:      # reported below, fails the phase
+            errors[i] = repr(e)
+
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in greedy]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+    finally:
+        gp.close()
+    if errors or len(plain) != len(greedy):
+        raise AssertionError(f"plain-route scheduler failed: {errors}")
+    compared, agree = [], True
+    for i in greedy:
+        prompt, out, _ = outputs[i]
+        c = first_tie(torch, model, plain[i], len(prompt), device)
+        compared.append(c)
+        agree &= bool(np.array_equal(out[:len(prompt) + c],
+                                     plain[i][:len(prompt) + c]))
+    rec = dict(greedy_requests=len(greedy), compared_tokens=compared,
+               greedy_equal_plain=agree)
+    print("plain-route-tokens", json.dumps(rec), flush=True)
+    if not agree or sum(compared) == 0:
+        raise AssertionError(f"greedy tokens differ from the plain route's "
+                             f"or none was free of a near-tie: {rec}")
+    return rec
+
+
+def served_rows_check(torch, model, device, seqs, chunk=64):
+    """A near-tie-free gate on served sequences: each of ``seqs`` (prompt
+    and greedy answer) prefilled again through the kernel path in chunks
+    into a fresh pool, and its full pages held per layer to a cold
+    plain-path prefill of the same tokens (``rows_check``: within
+    INSITU_REL_TOL; a page of the second sequence swapped into the first
+    must fail)."""
+    from paddle_tpu_torch.inference import PagedKVCache
+
+    bs = 32
+    full = [len(s) // bs for s in seqs]
+    NB = max(full)
+    kv = PagedKVCache(*model._decode_cache_spec(), block_size=bs,
+                      num_blocks=len(seqs) * NB, dtype=torch.bfloat16,
+                      device=device)
+    for i in range(len(seqs)):
+        kv.reserve(i, NB * bs)
+    tables = np.stack([kv.block_table(i, pad_to=NB) for i in range(len(seqs))])
+    ids = np.zeros((len(seqs), -(-NB * bs // chunk) * chunk), np.int64)
+    for i, s in enumerate(seqs):
+        ids[i, :full[i] * bs] = s[:full[i] * bs]
+    for off in range(0, NB * bs, chunk):
+        lens = np.clip(np.asarray(full) * bs - off, 0, chunk)
+        model.chunk_logits(ids[:, off:off + chunk], np.full(len(seqs), off),
+                           lens, kv, tables, decode_kernel="kernel")
+    rec = rows_check(torch, model, kv,
+                     [tables[i, :n].tolist() for i, n in enumerate(full)],
+                     seqs, device, chunk, swap=min(full) // 2)
+    print("served-rows", json.dumps(rec), flush=True)
+    if max(rec["rel"]) > INSITU_REL_TOL or not (
+            rec["control"] is not None
+            and rec["control"] > INSITU_REL_TOL):
+        raise AssertionError(f"served rows drift from the plain path, or "
+                             f"the swapped page passed: {rec}")
+    return rec
+
+
+def llama_serve(torch, model, device):
+    """LLaMA-2-7B bf16 at full size served: the in-situ paged check at
+    layers 0, 15 and 31 over two prefill chunks and a decode forward; the
+    graphs phase of the step programs (``profile_steps``); the continuous
+    scheduler behind InferenceServer with 8 slots of 2048 tokens, 12
+    threaded requests of 128-1500 prompt tokens and 64 new (half sampled)
+    and two over HTTP; the greedy answers held to the plain route's
+    (``plain_route_tokens``) and, free of near-ties, two of them prefilled
+    again and held row by row to the plain path (``served_rows_check``)."""
+    from paddle_tpu_torch.inference import PagedKVCache
+    from paddle_tpu_torch.models import llama as llama_mod
+
+    L = model.config.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    insitu = insitu_check(torch, model, PagedKVCache, device, mod=llama_mod,
+                          layers=(0, L // 2 - 1, L - 1), decode=True)
+    steps = profile_steps(torch, model, PagedKVCache, device)
+    outputs = {}
+    serving = serve(torch, model, device, prompt_range=(128, 1500),
+                    new_range=(64, 64), max_seq_len=LLAMA_SLOT,
+                    outputs=outputs)
+    peak = torch.cuda.max_memory_allocated()
+    plain = plain_route_tokens(torch, model, device, outputs, LLAMA_SLOT)
+    greedy = sorted(i for i, (_, _, sampled) in outputs.items()
+                    if not sampled)
+    rows = served_rows_check(torch, model, device,
+                             [outputs[i][1] for i in greedy[:2]])
+    rec = dict(insitu=insitu, profile=steps, serving=serving,
+               plain_route=plain, served_rows=rows,
+               max_memory_allocated=peak)
+    print(f"llama_serve: prefill {serving['prefill_tok_per_s']:.0f} tok/s, "
+          f"decode {serving['decode_tok_per_s']:.0f} tok/s, peak {peak} "
+          f"bytes", flush=True)
+    return rec
+
+
+def llama_generate(torch, model, device):
+    """LLaMA-2-7B dense generate() at [4, 512] + 128 new, bf16: the in-situ
+    dense check at layers 0, 15 and 31 (``dense_insitu``), then the main
+    path (``generation``)."""
+    from paddle_tpu_torch.models import llama as llama_mod
+
+    B, P, new = LLAMA_GEN
+    L = model.config.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    insitu = dense_insitu(torch, model, device, B=B, P=P, new=new,
+                          mod=llama_mod, layers=(0, L // 2 - 1, L - 1))
+    gen = generation(torch, model, device, B=B, P=P, new=new)
+    gen["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return dict(insitu=insitu, generation=gen)
+
+
+def param_digests(torch, params):
+    """Per parameter (sum, sum of squares) in f64: a digest that one
+    changed element moves."""
+    return [(float(p.detach().double().sum()),
+             float(p.detach().double().square().sum())) for p in params]
+
+
+LLAMA_TRAIN = (1, 2048)         # llama_train's B, S
+
+
+def llama_train(torch, fa, device, steps=4, seed=12):
+    """LLaMA-2-7B trained: O2 bf16, AdamW (no masters, as JAX's TrainStep),
+    recompute "block", B 1, S 2048, through the captured TrainStep. The
+    depth is cut only if the host cannot hold the state's copy (TrainStep
+    copies it to the host before a capture). In situ first
+    (``train_insitu``). Then from one state saved on the host: ``steps``
+    steps as bodies, the state restored, the same steps through the
+    TrainStep (the first runs its body and captures, the rest replay):
+    losses bit-equal and every parameter's digest equal, the losses
+    falling, the flash forward launched twice per layer and step (the
+    recompute) and dq / dk/dv once."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
+
+    B, S = LLAMA_TRAIN
+    cfg = llama2_7b()
+    cfg.recompute = "block"
+    full_layers = cfg.num_layers
+    h, inner, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    per_layer = 4 * h * h + 3 * h * inner
+    params = cfg.num_layers * per_layer + 2 * V * h
+    state_bytes = 3 * 2 * params            # bf16 parameters, two moments
+    avail = host_available_bytes()
+    if avail < 1.25 * state_bytes:
+        fit = (avail / 1.25 / 6 - 2 * V * h) // per_layer
+        cfg.num_layers = max(1, int(fit))
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=device, dtype=torch.bfloat16,
+                             seed=seed)
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                          weight_decay=0.01, multi_precision=True)
+    amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    step = TrainStep(model, lambda logits, loss: loss, opt)
+    ids_np = np.random.default_rng(seed).integers(0, V, (B, S))
+    ids = torch.as_tensor(ids_np, device=device)
+    labels = torch.as_tensor(np.roll(ids_np, -1, axis=1), device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"llama_train model: {cfg.num_layers} of {full_layers} layers, "
+          f"{n_params / 1e9:.2f} B params, host available {avail} bytes, "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    insitu = train_insitu(torch, fa, model, ids, labels)
+
+    t0 = time.perf_counter()
+    saved = step._copy_state(lambda t: t.detach().to("cpu", copy=True))
+    copy_s = time.perf_counter() - t0
+    with step._eager():
+        body_losses = [step(ids, labels=labels) for _ in range(steps)]
+    body_digests = param_digests(torch, model.parameters())
+    step.import_state(saved)
+    del saved
+    gc.collect()
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_fwd.launches = fa.flash_bwd_dq.launches = 0   # main path
+    fa.flash_bwd_dkv.launches = 0
+    losses, step_s = timed_steps(torch, step, (ids,), {"labels": labels}, 1,
+                                 steps - 1)
+    launches = flash_launches(fa)                          # main path ends
+    peak = torch.cuda.max_memory_allocated()
+    digests_equal = param_digests(torch, model.parameters()) == body_digests
+    loss_equal = bool(torch.equal(torch.stack(losses),
+                                  torch.stack(body_losses)))
+    losses = [float(x.float()) for x in losses]
+    body_losses = [float(x.float()) for x in body_losses]
+    (prog,) = step._programs.values()
+
+    def one_step():
+        step(ids, labels=labels)
+        torch.cuda.synchronize()
+
+    replay = profile_call(torch, one_step, ("flash_",))
+    replay["graph_device_ms"] = replay_device_ms(torch, prog.capture.graph,
+                                                 reps=3)
+    flops = step_flops("llama", cfg, B, S)
+    L = cfg.num_layers
+    expect = dict(fwd=2 * L * steps, dq=L * steps, dkv=L * steps)
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    rec = dict(B=B, S=S, layers=L, full_layers=full_layers,
+               params=n_params, recompute="block", steps=steps,
+               losses=losses, body_losses=body_losses,
+               replay_losses_equal_body=loss_equal,
+               replay_param_digests_equal_body=digests_equal,
+               step_ms=step_s * 1e3, tokens_per_s=B * S / step_s,
+               step_flops=flops,
+               bf16_peak_share=flops / step_s / PEAK_FLOPS["bfloat16"],
+               max_memory_allocated=peak, card_bytes=card_bytes,
+               peak_share_of_card=peak / card_bytes,
+               host_available_bytes=avail, state_bytes=state_bytes,
+               host_copy_s=copy_s, flash_launches=launches,
+               expected_launches=expect,
+               capture_ms=prog.capture.seconds * 1e3,
+               graph_pool_bytes=pool_bytes(torch, step._pool),
+               replay=replay, insitu=insitu)
+    print("llama_train", json.dumps(rec), flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite or not falling: {losses}")
+    if not loss_equal or not digests_equal:
+        raise AssertionError(f"replayed steps differ from their bodies: "
+                             f"{losses} vs {body_losses}, digests equal "
+                             f"{digests_equal}")
+    if launches != expect:
+        raise AssertionError(f"flash launches {launches} != {expect}")
+    if peak > 0.9 * card_bytes:
+        raise AssertionError(f"peak {peak} bytes over 90% of the card")
+    del step, opt, prog, model
+    return rec
+
+
+def refused_past_table(torch, model, device, prompt_len=2000, new=64):
+    """A request whose prompt and new tokens pass the learned-position
+    table (2048) is refused by ``_decode_validate`` with a ValueError
+    naming max_position, through the scheduler's admission and through
+    generate(), before any forward; the pool is left as it was."""
+    from paddle_tpu_torch.inference import (
+        ContinuousGenerateBatchingPredictor,
+        PagedKVCache,
+    )
+
+    limit = model.config.max_position
+    kv = PagedKVCache(*model._decode_cache_spec(), block_size=32,
+                      num_blocks=(limit + 128) // 32, dtype=torch.bfloat16,
+                      device=device)
+    gp = ContinuousGenerateBatchingPredictor(
+        model, kv_cache=kv, max_slots=1, prefill_chunk=64, decode_steps=4,
+        max_new_tokens=new, max_seq_len=limit + 128, device=device)
+    prompt = np.arange(prompt_len, dtype=np.int64) % 1000
+    refusals = {}
+    try:
+        for name, call in (
+                ("scheduler", lambda: gp.infer(prompt, timeout=60)),
+                ("generate", lambda: model.generate(prompt[None],
+                                                    max_new_tokens=new))):
+            try:
+                call()
+                refusals[name] = None
+            except ValueError as e:
+                refusals[name] = str(e)
+    finally:
+        gp.close()
+    torch.cuda.synchronize()            # a device assert would raise here
+    rec = dict(prompt=prompt_len, new=new, max_position=limit,
+               refusals=refusals, blocks_in_use=kv.blocks_in_use)
+    print("refused-past-table", json.dumps(rec), flush=True)
+    if not all(r and "max_position" in r for r in refusals.values()):
+        raise AssertionError(f"a request past the table was not refused "
+                             f"by _decode_validate: {rec}")
+    return rec
+
+
+def gpt3_1p3b_phase(torch, fa, device):
+    """``gpt3_1p3b`` at full size (24 layers, hidden 2048, 16 heads of 128,
+    learned positions, LayerNorm, GELU, biases): trained as ``train`` does
+    (O2 bf16 with LayerNorm kept f32, AdamW, B 4, S 2048, its
+    max_position; bodies then replays, bit-equal), then served in bf16:
+    the in-situ paged check at layers 0, 11 and 23, six threaded requests
+    of 100-1000 prompt tokens and 32 new (half sampled) and one over HTTP
+    through the scheduler, the greedy answers held to the plain route's,
+    and a request past the table refused by ``_decode_validate``."""
+    from paddle_tpu_torch.inference import PagedKVCache
+    from paddle_tpu_torch.models import gpt as gpt_mod
+
+    cfg = gpt_mod.gpt3_1p3b()
+    training, insitu_train = train(
+        torch, fa, device, B=4, S=2048, warmup=2, timed=4, cfg=cfg,
+        flops_fn=lambda c, B, S: step_flops("gpt", c, B, S), lr_leg=False)
+    release(torch)
+    model = gpt_mod.GPTForCausalLM(cfg, device=device, dtype=torch.bfloat16,
+                                   seed=0)
+    model.eval()
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    insitu = insitu_check(torch, model, PagedKVCache, device, mod=gpt_mod,
+                          layers=(0, L // 2 - 1, L - 1), decode=True)
+    outputs = {}
+    serving = serve(torch, model, device, n_requests=6, http_requests=1,
+                    prompt_range=(100, 1000), new_range=(32, 32),
+                    max_seq_len=cfg.max_position, outputs=outputs)
+    plain = plain_route_tokens(torch, model, device, outputs,
+                               cfg.max_position)
+    refused = refused_past_table(torch, model, device)
+    rec = dict(training=training, train_insitu=insitu_train,
+               serve_insitu=insitu, serving=serving, plain_route=plain,
+               refused=refused,
+               serve_max_memory_allocated=torch.cuda.max_memory_allocated())
+    print(f"gpt3_1p3b: {training['step_ms']:.1f} ms/step, "
+          f"{training['bf16_peak_share']:.3f} of the bf16 peak; serving "
+          f"decode {serving['decode_tok_per_s']:.0f} tok/s", flush=True)
+    del model
+    return rec
+
+
+def flash_fwd_insitu(torch, fa, fn, layers, num_layers):
+    """``fn()`` (a forward) with the flash forward's calls at ``layers``
+    (call index modulo ``num_layers``) held to the plain version on the
+    same inputs; with K rolled by one position planted into those calls
+    the check must fail. Returns (worst err / limit, the fault's)."""
+    kernel = fa.flash_fwd
+
+    def run(fault):
+        worst, calls = [0.0], [0]
+
+        def fwd(q, k, v, causal=False, scale=None):
+            layer = calls[0] % num_layers
+            calls[0] += 1
+            if layer not in layers:
+                return kernel(q, k, v, causal, scale)
+            out, lse = kernel(q, k.roll(1, dims=1) if fault else k, v,
+                              causal, scale)
+            ro, rl = fa.flash_attention_fwd_ref(q, k, v, causal, scale)
+            lim = fa.kernel_tolerance(q, k, v, dict(out=ro, lse=rl), causal,
+                                      scale)
+            res = over_limit(torch, dict(out=out, lse=lse),
+                             dict(out=ro, lse=rl), lim)
+            worst[0] = max([worst[0]] + [r for _, r in res.values()])
+            return out, lse
+
+        fa.flash_fwd = fwd
+        try:
+            fn()
+        finally:
+            fa.flash_fwd = kernel
+        return worst[0]
+
+    return run(False), run(True)
+
+
+BERT_SHAPE = (32, 512)          # bert_base's B, S
+BERT_MASK_ID, BERT_SPECIAL = 103, (0, 101, 102)
+
+
+def bert_base_phase(torch, fa, device, warmup=2, timed=6, seed=13):
+    """``bert_base`` at full size trained with the MLM loss on
+    ``bert_mlm_mask`` batches (B 32, S 512), O2 bf16 (LayerNorm kept
+    f32), AdamW, at the config's dropout 0.1, through the captured
+    TrainStep (a body and its capture, then replays); losses falling;
+    attention on the plain route in training, as in JAX, so no flash
+    kernel launches. Then ``eval()`` and one forward
+    at the same shape: the non-causal flash forward once per layer, held
+    in situ to the plain version at layers 0 and 11 (K rolled by one must
+    fail), finite logits."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import (
+        BertForMaskedLM,
+        bert_base,
+        bert_mlm_mask,
+    )
+    from paddle_tpu_torch.nn import functional as F
+
+    B, S = BERT_SHAPE
+    cfg = bert_base()
+    model = BertForMaskedLM(cfg, device=device, seed=seed)
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                          weight_decay=0.01, multi_precision=True)
+    amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    step = TrainStep(model, lambda logits, loss: loss, opt)
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(1000, cfg.vocab_size, (B, S))
+    raw[:, 0], raw[:, -1] = 101, 102
+    masked, labels = bert_mlm_mask(raw, cfg.vocab_size, BERT_MASK_ID,
+                                   seed=seed, special_ids=BERT_SPECIAL)
+    ids = torch.as_tensor(masked, device=device)
+    lab = torch.as_tensor(labels, device=device)
+    batch = ((ids,), {"labels": lab})
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_fwd.launches = fa.flash_bwd_dq.launches = 0   # main path
+    fa.flash_bwd_dkv.launches = 0
+    losses, step_s = timed_steps(torch, step, *batch, warmup, timed)
+    train_launches = flash_launches(fa)                    # main path ends
+    backend = F.get_last_attention_backend()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x.float()) for x in losses]
+    (prog,) = step._programs.values()
+
+    def one_step():
+        step(ids, labels=lab)
+        torch.cuda.synchronize()
+
+    replay = profile_call(torch, one_step)
+    del step, opt, prog
+    model.eval()
+    L = cfg.num_layers
+
+    def forward():
+        with torch.no_grad():
+            return model(ids)
+
+    sound, fault = flash_fwd_insitu(torch, fa, forward, (0, L - 1), L)
+    fa.flash_fwd.launches = 0                              # main path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = forward()
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    eval_launches = fa.flash_fwd.launches                  # main path ends
+    eval_backend = F.get_last_attention_backend()
+    finite = bool(torch.isfinite(logits).all())
+    flops = step_flops("bert", cfg, B, S)
+    rec = dict(B=B, S=S, layers=L, dropout=cfg.dropout, param_dtypes=dtypes,
+               masked_share=float((labels != -100).mean()),
+               losses=losses, step_ms=step_s * 1e3,
+               tokens_per_s=B * S / step_s, step_flops=flops,
+               bf16_peak_share=flops / step_s / PEAK_FLOPS["bfloat16"],
+               max_memory_allocated=peak,
+               train_flash_launches=train_launches,
+               train_attention_backend=backend, replay=replay,
+               eval_ms=eval_ms, eval_flash_launches=eval_launches,
+               eval_attention_backend=eval_backend,
+               eval_insitu=dict(layers=[0, L - 1], sound=sound,
+                                k_rolled=fault),
+               logits_shape=list(logits.shape), logits_finite=finite)
+    print("bert_base", json.dumps(rec), flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite or not falling: {losses}")
+    if any(train_launches.values()) or backend != "plain":
+        raise AssertionError(f"training took a flash kernel: "
+                             f"{train_launches}, {backend}")
+    if (eval_launches != L or eval_backend != "kernel" or sound > 1.0
+            or fault <= 1.0 or not finite
+            or list(logits.shape) != [B, S, cfg.vocab_size]):
+        raise AssertionError(f"eval forward: {rec}")
+    del model, logits
+    return rec
+
+
+READING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
+def d128_reading(timing, checked):
+    """A paged or dense kernel's D = 128 readings for the kernels line:
+    decode and prefill, each its times and its check's error."""
+    return {form: dict({k: timing[f"{form}_d128"][k] for k in READING_KEYS},
+                       **checked[form])
+            for form in ("decode", "prefill")}
+
+
+def flash_reading(timed, checked):
+    """A flash kernel's readings at one shape for the kernels line."""
+    return dict({k: timed[k] for k in READING_KEYS}, **checked)
+
+
+PHASE_S = {}
+
+
+@contextlib.contextmanager
+def phase(name):
+    """Record the wall seconds of the block under ``name``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_S[name] = time.perf_counter() - t0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="write the full record to this file")
@@ -3548,7 +4270,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    log = _build.build_all()
+    with phase("build"):
+        log = _build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {}
     for name, rec in log.items():
@@ -3558,10 +4281,11 @@ def main():
                           for k, r, s in ptxas[name]), flush=True)
     print(f"build: {build_s:.1f} s total", flush=True)
 
-    checks, worst = check_kernels(torch, pa, device)
-    timing = time_kernels(torch, pa, device)
-    flash_checks, flash_worst = check_flash_kernels(torch, fa, device)
-    flash_timing = time_flash(torch, fa, device)
+    with phase("kernel_checks_and_times"):
+        checks, worst = check_kernels(torch, pa, device)
+        timing = time_kernels(torch, pa, device)
+        flash_checks, flash_worst = check_flash_kernels(torch, fa, device)
+        flash_timing = time_flash(torch, fa, device)
 
     t0 = time.perf_counter()
     model = GPTForCausalLM(gpt_350m(), device=device, dtype=torch.bfloat16,
@@ -3570,14 +4294,16 @@ def main():
     print(f"model: GPT-350M bf16, "
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, "
           f"built in {time.perf_counter() - t0:.1f} s", flush=True)
-    insitu = insitu_check(torch, model, PagedKVCache, device)
-    steps = profile_steps(torch, model, PagedKVCache, device)
-    steps["generate"] = dense_graphs(torch, model, device)
-    serving = serve(torch, model, device)
+    with phase("serve"):
+        insitu = insitu_check(torch, model, PagedKVCache, device)
+        steps = profile_steps(torch, model, PagedKVCache, device)
+        steps["generate"] = dense_graphs(torch, model, device)
+        serving = serve(torch, model, device)
     print(f"serving on {card}: prefill {serving['prefill_tok_per_s']:.0f} "
           f"tok/s, decode {serving['decode_tok_per_s']:.0f} tok/s",
           flush=True)
-    knobs = serve_knobs(torch, model, device)
+    with phase("serve_knobs"):
+        knobs = serve_knobs(torch, model, device)
     print(f"serve_knobs on {card}: {knobs['tok_per_s']:.0f} tok/s, "
           f"{knobs['prefill_tokens_saved']} prefill tokens saved, "
           f"acceptance {knobs['acceptance_rate']:.3f}, first token "
@@ -3589,56 +4315,107 @@ def main():
           flush=True)
     del model
     torch.cuda.empty_cache()
-    dense_checks, dense_worst = check_dense_kernels(torch, da, device)
-    dense_timing = time_dense_kernels(torch, da, device)
+    with phase("dense_checks_and_times"):
+        dense_checks, dense_worst = check_dense_kernels(torch, da, device)
+        dense_timing = time_dense_kernels(torch, da, device)
 
     t0 = time.perf_counter()
     model = GPTForCausalLM(gpt_350m(), device=device, seed=0)   # f32
     torch.cuda.synchronize()
     print(f"model: GPT-350M f32 (bf16 cast for generate), built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    gen_insitu = dense_insitu(torch, model, device)
-    gen = generation(torch, model, device)
+    with phase("generation"):
+        gen_insitu = dense_insitu(torch, model, device)
+        gen = generation(torch, model, device)
     print(f"generate() on {card}: prefill {gen['prefill_tok_per_s']:.0f} "
           f"tok/s, decode {gen['decode_tok_per_s']:.0f} tok/s", flush=True)
-    gen_profile = profile_dense_step(torch, model, device)
-    batch = batch_serve(torch, model, device)
+    with phase("batch_serve"):
+        gen_profile = profile_dense_step(torch, model, device)
+        batch = batch_serve(torch, model, device)
     print(f"batch-serve on {card}: " + ", ".join(
         f"{r['round']} {r['tok_per_s']:.1f} tok/s ({r['captures']} "
         f"captures, batches {r['batch_sizes']})" for r in batch["rounds"]),
         flush=True)
-    degrade = degrade_check(torch, model, device)
-    spec = speculative(torch, model, device)
+    with phase("speculative"):
+        degrade = degrade_check(torch, model, device)
+        spec = speculative(torch, model, device)
     print(f"speculative on {card}: acceptance "
           f"{spec['stats']['acceptance_rate']}, {spec['tok_per_s']:.1f} "
           f"tok/s, {spec['compared_tokens']} tokens compared", flush=True)
     del model
     torch.cuda.empty_cache()
-    training, train_checks = train(torch, fa, device)
+    with phase("train"):
+        training, train_checks = train(torch, fa, device)
     print(f"training on {card}: {training['step_ms']:.1f} ms/step replayed "
           f"({training['body_step_ms']:.1f} as bodies), "
           f"{training['tokens_per_s']:.0f} tok/s, "
           f"{training['bf16_peak_share']:.3f} of the bf16 peak", flush=True)
-    long_ctx = long_context(torch, fa, device)
+    with phase("long_context"):
+        long_ctx = long_context(torch, fa, device)
     for key, r in long_ctx.items():
         print(f"long-context {key} on {card}: {r['step_ms']:.1f} ms/step, "
               f"{r['tokens_per_s']:.0f} tok/s, {r['bf16_peak_share']:.3f} "
               f"of the bf16 peak", flush=True)
-    recipes = train_recipes(torch, fa, device,
-                            training["max_memory_allocated"])
+    with phase("train_recipes"):
+        recipes = train_recipes(torch, fa, device,
+                                training["max_memory_allocated"])
     for key, r in recipes.items():
         print(f"train-recipe {key} on {card}: {r['step_ms']:.1f} ms/step, "
               f"{r['tokens_per_s']:.0f} tok/s, peak "
               f"{r['max_memory_allocated']} bytes, busy "
               f"{r['device_busy_share']:.2f}", flush=True)
-    optimizers = optimizer_steps(torch, device)
-    fm_checks, fm_worst = check_flashmask_kernels(torch, fa, device)
-    fm_timing = {dt: time_flashmask(torch, fa, device, dt)
-                 for dt in ("bfloat16", "float16")}
-    varlen, varlen_checks = varlen_train(torch, fa, device)
+    with phase("optimizers"):
+        optimizers = optimizer_steps(torch, device)
+    with phase("flashmask"):
+        fm_checks, fm_worst = check_flashmask_kernels(torch, fa, device)
+        fm_timing = {dt: time_flashmask(torch, fa, device, dt)
+                     for dt in ("bfloat16", "float16")}
+    with phase("varlen_train"):
+        varlen, varlen_checks = varlen_train(torch, fa, device)
     print(f"varlen training on {card}: {varlen['step_ms']:.1f} ms/step "
           f"captured, {varlen['tokens_per_s']:.0f} tok/s, busy "
           f"{varlen['device_busy_share']:.2f}", flush=True)
+
+    # the other model families, each on a card released of the earlier ones
+    reserved = release(torch)
+    print(f"reserved before the LLaMA-2-7B phases: {reserved} bytes",
+          flush=True)
+    if reserved > 1 << 30:
+        raise AssertionError(f"{reserved} bytes still reserved: an earlier "
+                             f"model, pool or graph is alive")
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
+
+    t0 = time.perf_counter()
+    llama = LlamaForCausalLM(llama2_7b(), device=device,
+                             dtype=torch.bfloat16, seed=0)
+    llama.eval()
+    torch.cuda.synchronize()
+    print(f"model: LLaMA-2-7B bf16, "
+          f"{sum(p.numel() for p in llama.parameters()) / 1e9:.2f} B params, "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    with phase("llama_serve"):
+        l_serve = llama_serve(torch, llama, device)
+    with phase("llama_generate"):
+        l_gen = llama_generate(torch, llama, device)
+    print(f"llama_generate on {card}: decode "
+          f"{l_gen['generation']['decode_tok_per_s']:.0f} tok/s", flush=True)
+    del llama
+    release(torch)
+    with phase("llama_train"):
+        l_train = llama_train(torch, fa, device)
+    print(f"llama_train on {card}: {l_train['layers']} layers, "
+          f"{l_train['step_ms']:.1f} ms/step, {l_train['tokens_per_s']:.0f} "
+          f"tok/s, {l_train['bf16_peak_share']:.3f} of the bf16 peak, peak "
+          f"{l_train['max_memory_allocated']} bytes", flush=True)
+    release(torch)
+    with phase("gpt3_1p3b"):
+        g3 = gpt3_1p3b_phase(torch, fa, device)
+    release(torch)
+    with phase("bert_base"):
+        bert = bert_base_phase(torch, fa, device)
+    print(f"bert_base on {card}: {bert['step_ms']:.1f} ms/step, eval "
+          f"forward {bert['eval_ms']:.1f} ms", flush=True)
+    release(torch)
 
     d = timing["decode"]
     kernels = [{
@@ -3655,6 +4432,9 @@ def main():
         "prefill": {k: timing["prefill"][k] for k in
                     ("ms", "plain_ms", "bound_ms", "bound_by",
                      "library_ms")},
+        "d128": d128_reading(timing, worst["d128"]),
+        "llama_serve_launches": l_serve["serving"]["kernel_launches"],
+        "gpt3_1p3b_serve_launches": g3["serving"]["kernel_launches"],
     }]
     g = dense_timing["decode"]
     kernels.append({
@@ -3669,6 +4449,9 @@ def main():
         "prefill": {k: dense_timing["prefill"][k] for k in
                     ("ms", "plain_ms", "bound_ms", "bound_by",
                      "library_ms")},
+        "d128": d128_reading(dense_timing, dense_worst["d128"]),
+        "llama_generate_launches":
+            l_gen["generation"]["kernel_launches"],
     })
     src = "paddle_tpu/ops/pallas/flash_attention.py"
     f16_leg = recipes["o2_f16_grad_scaler"]["kernel_launches"]
@@ -3693,7 +4476,19 @@ def main():
             "library_ms": t["library_ms"], "library_call": t["library_call"],
             "s8192": {k: flash_timing["s8192"][kern][k] for k in
                       ("ms", "plain_ms", "bound_ms", "bound_by",
-                       "library_ms")}})
+                       "library_ms")},
+            "d128": dict(shape="llama_train B 1, S 2048, H 32, causal",
+                         **flash_reading(flash_timing["llama"][kern],
+                                         flash_worst["llama"][kern])),
+            "bert": dict(shape="bert_base B 32, S 512, H 12, non-causal",
+                         **flash_reading(flash_timing["bert"][kern],
+                                         flash_worst["bert"][kern])),
+            "llama_train_launches": l_train["flash_launches"][kern],
+            "gpt3_1p3b_train_launches":
+                g3["training"]["flash_launches"][kern],
+            "bert_eval_launches": (bert["eval_flash_launches"]
+                                   if kern == "fwd" else 0),
+            "bert_train_launches": bert["train_flash_launches"][kern]})
         t = flash_timing["train_f16"][kern]
         kernels.append({
             "name": f"{name}_f16", "route": "cuda",
@@ -3743,12 +4538,16 @@ def main():
                   optimizers=optimizers,
                   flashmask_checks=fm_checks, flashmask_timing=fm_timing,
                   varlen_insitu=varlen_checks, varlen_train=varlen,
-                  kernels=kernels)
+                  llama_serve=l_serve, llama_generate=l_gen,
+                  llama_train=l_train, gpt3_1p3b=g3, bert_base=bert,
+                  phase_s=PHASE_S, kernels=kernels)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(record, f, indent=1)
+    print("phases", json.dumps({k: round(v, 1) for k, v in
+                                PHASE_S.items()}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,11 @@ dropout (masks from the port's default generator, registered with every
 captured step), recompute (``distributed.fleet.recompute``), AMP O1
 (``amp.auto_cast``, by the JAX package's op names) and ``GradScaler``,
 float16 (the flash kernels' f16 forms), nine more optimizers (and eager
-LBFGS), and packed documents through the captured step.
+LBFGS), and packed documents through the captured step. Three model
+families beside that GPT go through the same entry points: the
+GPT-2-style GPT (learned positions, LayerNorm, GELU, biases;
+``gpt3_1p3b``), LLaMA (``llama2_7b``) and BERT's masked LM
+(``bert_base``, trained through ``TrainStep``).
 """
 from . import amp, jit, nn, optimizer
 from .bridge import from_paddle_tpu_state, to_paddle_tpu_state
@@ -35,9 +39,28 @@ from .inference import (
     InferenceServer,
     PagedKVCache,
 )
-from .models import GPTConfig, GPTForCausalLM, gpt_350m, gpt_tiny
+from .models import (
+    BertConfig,
+    BertForMaskedLM,
+    GPTConfig,
+    GPTForCausalLM,
+    LlamaConfig,
+    LlamaForCausalLM,
+    bert_base,
+    bert_mlm_mask,
+    bert_tiny,
+    gpt3_1p3b,
+    gpt_350m,
+    gpt_tiny,
+    llama2_7b,
+    llama_tiny,
+    masked_lm_loss,
+)
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "gpt_tiny", "gpt_350m",
+           "gpt3_1p3b", "LlamaConfig", "LlamaForCausalLM", "llama2_7b",
+           "llama_tiny", "BertConfig", "BertForMaskedLM", "bert_base",
+           "bert_tiny", "bert_mlm_mask", "masked_lm_loss",
            "PagedKVCache", "ContinuousGenerateBatchingPredictor",
            "GenerateBatchingPredictor",
            "InferenceServer", "from_paddle_tpu_state", "to_paddle_tpu_state",

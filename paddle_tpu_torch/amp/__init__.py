@@ -38,6 +38,8 @@ __all__ = ["auto_cast", "amp_guard", "decorate", "GradScaler",
            "white_list", "black_list", "check_numerics",
            "is_bfloat16_supported", "is_float16_supported"]
 
+# the layers O2 leaves in their dtype (JAX keeps batch norm and LayerNorm);
+# the port's LayerNorm joins them in ``decorate`` (``nn`` imports this module)
 _EXCLUDED = (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)
 
 _amp_state = {"enable": False, "dtype": torch.bfloat16, "level": "O1",
@@ -159,9 +161,11 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
     single = not isinstance(models, (list, tuple))
     model_list = [models] if single else list(models)
     if level == "O2":
+        from ..nn.layer_conv_norm import LayerNorm
+
         for m in model_list:
             for layer in m.modules():
-                if isinstance(layer, _EXCLUDED):
+                if isinstance(layer, (*_EXCLUDED, LayerNorm)):
                     continue
                 for p in layer.parameters(recurse=False):
                     if p.is_floating_point():

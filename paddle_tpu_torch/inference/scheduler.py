@@ -417,6 +417,7 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
             raise ValueError(
                 f"request needs {total} tokens but max_seq_len is "
                 f"{self.max_seq_len}; no retry can succeed")
+        self.model._decode_validate(plen, self.max_new_tokens)
         super()._admission_check(arrays, req)
 
     def pending(self) -> int:

@@ -224,6 +224,7 @@ def speculative_generate(model, input_ids, max_new_tokens=32, spec_k=4,
     K = int(spec_k)
     if K < 1:
         raise ValueError("spec_k must be >= 1")
+    model._decode_validate(plen, max_new)
     d = make_drafter(drafter, model, dtype=dtype,
                      decode_kernel=decode_kernel)
     st = stats if stats is not None else SpecStats()

@@ -1,0 +1,242 @@
+"""BERT masked LM — the counterpart of ``paddle_tpu/models/bert.py``.
+
+Post-norm encoder layers (``ln(x + sublayer(x))``) over learned word,
+position and token-type embeddings, the MLM head's transform (dense, GELU,
+LayerNorm) and the decoder tied to the word embeddings; the JAX package's
+parameter names, so ``bridge.py`` maps them by name.
+
+Attention takes JAX's two routes (``bert.py:91-99``): with an
+``attention_mask``, the plain ``scaled_dot_product_attention`` (a bool mask
+keeps, a float mask adds); without one, non-causal ``F.flash_attention`` —
+the flash kernels on CUDA, and the plain route in training when dropout is
+above 0, as in JAX. ``bert_mlm_mask`` is JAX's host-side 80/10/10 recipe on
+numpy, giving the same arrays for a seed; ``masked_lm_loss`` the mean NLL
+over the masked positions, in f32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..distributed.fleet.meta_parallel import (
+    ColumnParallelLinear,
+    RowParallelLinear,
+    VocabParallelEmbedding,
+)
+from ..framework import make_generator, resolve_device
+from ..nn import Dropout, Embedding, LayerNorm
+from ..nn import functional as F
+
+__all__ = ["BertConfig", "BertEmbeddings", "BertSelfAttention", "BertLayer",
+           "BertModel", "BertForMaskedLM", "masked_lm_loss", "bert_mlm_mask",
+           "bert_base", "bert_tiny"]
+
+IGNORE_INDEX = -100
+
+
+class BertConfig:
+    def __init__(self, vocab_size=30522, hidden_size=768, num_layers=12,
+                 num_heads=12, intermediate_size=None, max_position=512,
+                 type_vocab_size=2, dropout=0.1, layer_norm_eps=1e-12):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.intermediate_size = intermediate_size or 4 * hidden_size
+        self.max_position = max_position
+        self.type_vocab_size = type_vocab_size
+        self.dropout = dropout
+        self.layer_norm_eps = layer_norm_eps
+
+
+def bert_base():
+    """BERT-base (BASELINE config 3): 12 layers, hidden 768, 12 heads of
+    64, GELU 3072, 512 positions, vocab 30522, dropout 0.1."""
+    return BertConfig()
+
+
+def bert_tiny():
+    return BertConfig(vocab_size=512, hidden_size=64, num_layers=2,
+                      num_heads=4, max_position=128, dropout=0.0)
+
+
+class BertEmbeddings(nn.Module):
+    def __init__(self, config: BertConfig, device=None, dtype=None):
+        super().__init__()
+        c = config
+        kw = dict(device=device, dtype=dtype)
+        self.word_embeddings = VocabParallelEmbedding(c.vocab_size,
+                                                      c.hidden_size, **kw)
+        self.position_embeddings = Embedding(c.max_position, c.hidden_size,
+                                             **kw)
+        self.token_type_embeddings = Embedding(c.type_vocab_size,
+                                               c.hidden_size, **kw)
+        self.layer_norm = LayerNorm(c.hidden_size, epsilon=c.layer_norm_eps,
+                                    **kw)
+        self.dropout = Dropout(c.dropout)
+
+    def forward(self, input_ids, token_type_ids=None):
+        S = input_ids.shape[1]
+        if S > self.position_embeddings.weight.shape[0]:
+            raise ValueError(
+                f"sequence length {S} exceeds max_position "
+                f"{self.position_embeddings.weight.shape[0]}")
+        x = self.word_embeddings(input_ids)
+        x = x + self.position_embeddings(torch.arange(S,
+                                                      device=x.device))
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        x = x + self.token_type_embeddings(token_type_ids)
+        return self.dropout(self.layer_norm(x))
+
+
+class BertSelfAttention(nn.Module):
+    def __init__(self, config: BertConfig, device=None, dtype=None):
+        super().__init__()
+        c = config
+        self.num_heads = c.num_heads
+        self.head_dim = c.hidden_size // c.num_heads
+        self.qkv = ColumnParallelLinear(c.hidden_size, 3 * c.hidden_size,
+                                        device=device, dtype=dtype)
+        self.out = RowParallelLinear(c.hidden_size, c.hidden_size,
+                                     device=device, dtype=dtype)
+        self.dropout = c.dropout
+
+    def forward(self, x, attention_mask=None):
+        B, S = x.shape[0], x.shape[1]
+        H, D = self.num_heads, self.head_dim
+        q, k, v = (t.reshape(B, S, H, D)
+                   for t in self.qkv(x).split(H * D, dim=-1))
+        if attention_mask is not None:
+            out = F.scaled_dot_product_attention(
+                q, k, v, attn_mask=attention_mask, is_causal=False,
+                dropout_p=self.dropout if self.training else 0.0)
+        else:
+            out, _ = F.flash_attention(q, k, v, dropout=self.dropout,
+                                       causal=False, training=self.training)
+        return self.out(out.reshape(B, S, H * D))
+
+
+class BertLayer(nn.Module):
+    """Post-norm (original BERT): ln(x + sublayer(x))."""
+
+    def __init__(self, config: BertConfig, device=None, dtype=None):
+        super().__init__()
+        c = config
+        kw = dict(device=device, dtype=dtype)
+        self.attention = BertSelfAttention(c, **kw)
+        self.ln1 = LayerNorm(c.hidden_size, epsilon=c.layer_norm_eps, **kw)
+        self.fc1 = ColumnParallelLinear(c.hidden_size, c.intermediate_size,
+                                        **kw)
+        self.fc2 = RowParallelLinear(c.intermediate_size, c.hidden_size,
+                                     **kw)
+        self.ln2 = LayerNorm(c.hidden_size, epsilon=c.layer_norm_eps, **kw)
+        self.dropout = Dropout(c.dropout)
+
+    def forward(self, x, attention_mask=None):
+        x = self.ln1(x + self.dropout(self.attention(x, attention_mask)))
+        return self.ln2(x + self.dropout(self.fc2(F.gelu(self.fc1(x)))))
+
+
+class BertModel(nn.Module):
+    def __init__(self, config: BertConfig, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        self.embeddings = BertEmbeddings(config, device=device, dtype=dtype)
+        self.layers = nn.ModuleList([
+            BertLayer(config, device=device, dtype=dtype)
+            for _ in range(config.num_layers)])
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None):
+        x = self.embeddings(input_ids, token_type_ids)
+        for blk in self.layers:
+            x = blk(x, attention_mask)
+        return x
+
+
+class BertForMaskedLM(nn.Module):
+    """The encoder and the MLM head: transform (dense, GELU, LayerNorm),
+    then the decoder tied to the word embeddings. The loss ignores labels
+    equal to ``ignore_index`` (-100). Weights are drawn from a seeded
+    ``torch.Generator`` on ``device`` (Xavier, as in the JAX package);
+    ``device`` defaults to CUDA and raises without it unless the caller
+    passes ``device="cpu"``. The model starts in training mode."""
+
+    ignore_index = IGNORE_INDEX
+
+    def __init__(self, config: BertConfig, device="cuda", dtype=None,
+                 seed=0):
+        super().__init__()
+        c = config
+        dev = resolve_device(device)
+        self.config = c
+        self.bert = BertModel(c, device=dev, dtype=dtype)
+        self.transform = ColumnParallelLinear(c.hidden_size, c.hidden_size,
+                                              device=dev, dtype=dtype)
+        self.transform_ln = LayerNorm(c.hidden_size,
+                                      epsilon=c.layer_norm_eps, device=dev,
+                                      dtype=dtype)
+        self.reset_parameters(make_generator(seed, dev))
+
+    @property
+    def device(self) -> torch.device:
+        return self.transform.weight.device
+
+    @torch.no_grad()
+    def reset_parameters(self, generator):
+        for mod in self.modules():
+            if hasattr(mod, "reset_parameters") and mod is not self:
+                mod.reset_parameters(generator)
+
+    def forward(self, input_ids, labels=None, token_type_ids=None,
+                attention_mask=None):
+        """logits [B, S, V], or (logits, loss) with ``labels``."""
+        dev = self.device
+        input_ids = torch.as_tensor(input_ids, device=dev)
+        if token_type_ids is not None:
+            token_type_ids = torch.as_tensor(token_type_ids, device=dev)
+        if attention_mask is not None:
+            attention_mask = torch.as_tensor(attention_mask, device=dev)
+        h = self.bert(input_ids, token_type_ids, attention_mask)
+        h = self.transform_ln(F.gelu(self.transform(h)))
+        logits = h @ self.bert.embeddings.word_embeddings.weight.T
+        if labels is None:
+            return logits
+        return logits, masked_lm_loss(logits,
+                                      torch.as_tensor(labels, device=dev))
+
+
+def masked_lm_loss(logits, labels, ignore_index=IGNORE_INDEX):
+    """Mean NLL in f32 over the positions whose label is not
+    ``ignore_index``; 0 (not NaN) when nothing is masked (JAX
+    ``bert.py:154-171``)."""
+    lg = logits.reshape(-1, logits.shape[-1]).float()
+    lab = labels.reshape(-1)
+    valid = lab != ignore_index
+    lp = torch.log_softmax(lg, dim=-1)
+    nll = -lp.gather(1, torch.where(valid, lab, 0)[:, None])[:, 0]
+    nll = torch.where(valid, nll, torch.zeros((), device=nll.device))
+    return nll.sum() / valid.sum().clamp(min=1)
+
+
+def bert_mlm_mask(input_ids, vocab_size, mask_token_id, seed=0,
+                  mlm_prob=0.15, special_ids=()):
+    """Host-side BERT masking (JAX ``bert.py:174-192``): select
+    ``mlm_prob`` of the tokens that are not ``special_ids``; of those 80%
+    become ``mask_token_id``, 10% a random token, 10% stay. Returns numpy
+    (masked_ids, labels), labels -100 where unselected. The same draws
+    from ``np.random.RandomState(seed)`` in the same order as JAX's, so
+    the same arrays for a seed."""
+    ids = np.asarray(input_ids.cpu() if isinstance(input_ids, torch.Tensor)
+                     else input_ids)
+    rs = np.random.RandomState(seed)
+    selectable = ~np.isin(ids, list(special_ids))
+    sel = (rs.rand(*ids.shape) < mlm_prob) & selectable
+    labels = np.where(sel, ids, IGNORE_INDEX)
+    out = ids.copy()
+    r = rs.rand(*ids.shape)
+    out[sel & (r < 0.8)] = mask_token_id
+    rand_pos = sel & (r >= 0.8) & (r < 0.9)
+    out[rand_pos] = rs.randint(0, vocab_size, rand_pos.sum())
+    return out, labels

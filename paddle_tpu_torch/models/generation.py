@@ -49,6 +49,7 @@ import torch
 from ..framework import make_generator
 from ..jit.graphs import StepRunner
 from ..ops.paged_attention import paged_write_slots
+from .steps import DenseStep, PagedStep
 
 __all__ = ["GenerationMixin", "bucket_new_tokens"]
 
@@ -118,7 +119,10 @@ class GenerationMixin:
     ``(ids, k_caches, v_caches, step, decode_kernel)`` and returning
     logits, where the caches are paged pools under a ``PagedStep`` and
     dense caches under a ``DenseStep``), ``_decode_cache_spec()`` ->
-    (layers, kv heads, head dim) and ``device``."""
+    (layers, kv heads, head dim), ``_decode_validate(prompt_len,
+    max_new_tokens)`` (raises on a request the model cannot serve; called
+    by ``generate``, ``generate_paged``, the continuous scheduler's
+    admission and ``speculative_generate``, as in JAX) and ``device``."""
 
     # ------------------------------------------------------------ state cast
     def _decode_state(self, dtype, params=None):
@@ -171,8 +175,6 @@ class GenerationMixin:
         synchronisation (so a graph can capture it): ``offsets`` [B] int64,
         ``tables`` [B, NB] int32, ``valid`` [B, S]; every row gets a write
         target, dropped rows the pool's scratch slot."""
-        from .gpt import PagedStep
-
         pos = offsets[:, None] + torch.arange(S, device=offsets.device)
         slots = paged_write_slots(tables, pos, valid, block_size,
                                   scratch_slot)
@@ -337,6 +339,7 @@ class GenerationMixin:
             raise ValueError(f"input_ids [B, P] expected, got "
                              f"{tuple(ids.shape)}")
         B, P = ids.shape
+        self._decode_validate(P, max_new_tokens)
         n = int(max_new_tokens)
         if n < 1:
             raise ValueError("max_new_tokens must be >= 1")
@@ -376,8 +379,6 @@ class GenerationMixin:
         """The runner of one dense key: its caches, its device state (the
         current token, length, step index and EOS flags) and two programs.
         """
-        from .gpt import DenseStep
-
         dev = self.device
         cache_dtype = torch.float32 if dtype is None else dtype
         num_layers, kv_heads, head_dim = self._decode_cache_spec()
@@ -470,6 +471,8 @@ class GenerationMixin:
         plens = np.asarray(prompt_lens, np.int64).reshape(B)
         if (plens < 1).any() or (plens > P).any():
             raise ValueError(f"prompt_lens must lie in [1, {P}]: {plens}")
+        # the longest prompt, not P: the whole-batch predictor pads P
+        self._decode_validate(int(plens.max()), max_new_tokens)
         n = int(max_new_tokens)
         if n < 1:
             raise ValueError("max_new_tokens must be >= 1")

@@ -1,8 +1,12 @@
 """GPT causal LM — the counterpart of ``paddle_tpu/models/gpt.py``.
 
-This slice covers the default ``GPTConfig`` family: RoPE (neox, base 1e4),
-pre-norm RMSNorm, SwiGLU MLP, tied embeddings, any ``num_kv_heads`` that
-divides ``num_heads``, on three branches of ``GPTAttention``:
+Both of the JAX package's families: the default ``GPTConfig`` (RoPE,
+pre-norm RMSNorm, SwiGLU MLP, tied embeddings, ``gpt_350m``) and the
+GPT-2-style variant (``gpt3_1p3b``: learned positions
+``embed_positions``, LayerNorm, ``fc1`` -> GELU -> ``down`` with biases,
+biased ``qkv_proj`` / ``out_proj``, and an untied ``lm_head`` when
+``tie_embeddings=False``); any ``num_kv_heads`` that divides
+``num_heads``. ``GPTAttention`` has three branches:
 
 * the cache-free forward (JAX ``gpt.py:177-184``, ``:230-233``,
   ``:280-301``): RoPE at ``arange(S)`` (or the given ``position_ids``), then
@@ -15,18 +19,21 @@ divides ``num_heads``, on three branches of ``GPTAttention``:
   caches ``[B, Hkv, T, D]`` written in place, attention through
   ``decode_attention`` — the path of dense ``generate()``.
 
+Learned positions index ``embed_positions`` at the rows' absolute
+positions clipped to ``[0, max_position - 1]``, as JAX clips the paged
+branch's (``gpt.py:257-266``): padding and scratch rows reach past the
+table, and an index past it is a device-side assert on CUDA.
+``_decode_validate`` refuses a request whose prompt and new tokens pass
+``max_position`` (JAX ``gpt.py:330-337``), and the cache-free forward a
+sequence longer than the table.
+
 Training options, as in JAX: ``dropout`` in the block (after attention and
 after the MLP, ``gpt.py:220``, ``:231-232``) and in attention (``:181``),
 which puts attention on the plain route in training, as JAX's XLA route;
 ``recompute`` "block" or "dots" (``:53-58``, ``:282-290``) through
-``distributed.fleet.recompute``. Not ported yet, and refused with
-``NotImplementedError``: the GPT-2-style variant (learned positions,
-LayerNorm, GELU, ``gpt3_1p3b``).
+``distributed.fleet.recompute``.
 """
 from __future__ import annotations
-
-import math
-from dataclasses import dataclass
 
 import torch
 from torch import nn
@@ -41,21 +48,25 @@ from ..distributed.fleet.meta_parallel import (
 from ..distributed.fleet.recompute import recompute
 from ..framework import make_generator, resolve_device
 from ..incubate.nn.functional import apply_rope, rope_cos_sin, swiglu
-from ..nn import Dropout, RMSNorm
+from ..nn import Dropout, Embedding, LayerNorm, RMSNorm
 from ..nn import functional as F
 from ..ops.decode_attention import decode_attention, decode_attention_ref
 from ..ops.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_ref,
-    paged_scatter_,
 )
 from .generation import GenerationMixin
+from .steps import (
+    DECODE_KERNELS,
+    DenseStep,
+    PagedStep,
+    attend_cached,
+    step_positions,
+)
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
            "GPTForCausalLM", "PagedStep", "DenseStep", "gpt_tiny",
-           "gpt_350m"]
-
-DECODE_KERNELS = ("kernel", "plain")
+           "gpt_350m", "gpt3_1p3b"]
 
 
 class GPTConfig:
@@ -99,45 +110,26 @@ def gpt_350m(max_position=1024):
                      use_rms_norm=True, use_swiglu=True)
 
 
+def gpt3_1p3b():
+    """GPT-3 1.3B (BASELINE config 4) at full width, the GPT-2-style
+    variant: 24 layers, hidden 2048, 16 heads of 128, learned positions to
+    2048, LayerNorm, GELU 8192 with biases, tied embeddings, vocab
+    50304."""
+    return GPTConfig(vocab_size=50304, hidden_size=2048, num_layers=24,
+                     num_heads=16, use_rope=False, use_rms_norm=False,
+                     use_swiglu=False)
+
+
 def _check_supported(c: GPTConfig):
-    missing = [name for name, ok in (
-        ("learned positions (use_rope=False)", c.use_rope),
-        ("LayerNorm (use_rms_norm=False)", c.use_rms_norm),
-        ("GELU MLP (use_swiglu=False)", c.use_swiglu),
-        ("untied lm_head (tie_embeddings=False)", c.tie_embeddings))
-        if not ok]
-    if missing:
-        raise NotImplementedError(
-            "the GPT-2-style variant is not ported yet: "
-            + ", ".join(missing))
     if c.num_heads % c.num_kv_heads:
         raise ValueError(f"num_kv_heads {c.num_kv_heads} must divide "
                          f"num_heads {c.num_heads}")
 
 
-@dataclass
-class PagedStep:
-    """What every layer of one forward shares: RoPE positions, the pool
-    write targets, and the attention's tables and lengths (all on the
-    model's device)."""
-    positions: torch.Tensor     # [B, S] int64 absolute positions
-    write_rows: torch.Tensor | None   # [N] int64 flat rows b*S+s that
-                                # write; None: all B*S rows, in order
-    write_slots: torch.Tensor   # [N] int64 flat pool targets page*BS+slot
-    tables: torch.Tensor        # [B, NB] int32
-    lengths: torch.Tensor       # [B] int32 live prefix before this step
-
-
-@dataclass
-class DenseStep:
-    """What every layer of one dense-cache forward shares: the cache rows
-    present before it, one host int for the whole batch or an int32 [B]
-    tensor on the model's device. Request b's new rows sit at
-    ``[length[b], length[b] + S)``, which are also their RoPE positions.
-    A captured program passes the tensor (its value changes between
-    replays); its caller then sizes the cache so that the rows stay
-    inside it (``generate()``: P + bucket rows for at most P + n)."""
-    length: int | torch.Tensor
+def _norm(c: GPTConfig, device, dtype):
+    if c.use_rms_norm:
+        return RMSNorm(c.hidden_size, device=device, dtype=dtype)
+    return LayerNorm(c.hidden_size, device=device, dtype=dtype)
 
 
 class GPTAttention(nn.Module):
@@ -152,11 +144,11 @@ class GPTAttention(nn.Module):
         kv_size = self.num_kv_heads * self.head_dim
         self.qkv_proj = ColumnParallelLinear(c.hidden_size,
                                              q_size + 2 * kv_size,
-                                             has_bias=False, device=device,
-                                             dtype=dtype)
+                                             has_bias=not c.use_rms_norm,
+                                             device=device, dtype=dtype)
         self.out_proj = RowParallelLinear(c.hidden_size, c.hidden_size,
-                                          has_bias=False, device=device,
-                                          dtype=dtype)
+                                          has_bias=not c.use_rms_norm,
+                                          device=device, dtype=dtype)
 
     def forward(self, x, rope, k_pool=None, v_pool=None,
                 step: PagedStep | DenseStep | None = None,
@@ -168,76 +160,60 @@ class GPTAttention(nn.Module):
         attention over the live prefix plus the causal new rows. With a
         ``DenseStep``, the same over the dense caches [B, Hkv, T, D]
         (``k_pool`` / ``v_pool``): the new rows are written in place at
-        ``[length, length + S)``."""
+        ``[length, length + S)``. ``rope``: the (cos, sin) tables, or None
+        with learned positions."""
         B, S = x.shape[0], x.shape[1]
         H, Hkv, D = self.num_heads, self.num_kv_heads, self.head_dim
         q, k, v = self.qkv_proj(x).split([H * D, Hkv * D, Hkv * D], dim=-1)
-        q = apply_rope(q.reshape(B, S, H, D), *rope)
-        k = apply_rope(k.reshape(B, S, Hkv, D), *rope)
+        q = q.reshape(B, S, H, D)
+        k = k.reshape(B, S, Hkv, D)
         v = v.reshape(B, S, Hkv, D)
+        if rope is not None:
+            q, k = apply_rope(q, *rope), apply_rope(k, *rope)
         if step is None:
             out, _ = F.flash_attention(q, k, v, dropout=self.dropout,
                                        causal=True, training=self.training)
-            return self.out_proj(out.reshape(B, S, H * D))
-        if isinstance(step, DenseStep):
-            return self.out_proj(self._attend_dense(q, k, v, k_pool, v_pool,
-                                                    step, decode_kernel)
-                                 .reshape(B, S, H * D))
-        paged_scatter_(k_pool, k, step.write_rows, step.write_slots)
-        paged_scatter_(v_pool, v, step.write_rows, step.write_slots)
-        attend = (paged_decode_attention if decode_kernel == "kernel"
-                  else paged_decode_attention_ref)
-        out = attend(q, k_pool, v_pool, step.tables, step.lengths,
-                     scale=1.0 / math.sqrt(D))
-        return self.out_proj(out.reshape(B, S, H * D))
-
-    def _attend_dense(self, q, k, v, k_cache, v_cache, step, decode_kernel):
-        """Write the S new K/V rows into the dense caches in place, then
-        attend. JAX's ``dynamic_update_slice`` clamps a start past the end;
-        ``generate()`` never gets there, so a host length whose rows would
-        pass T raises here (a device length is its caller's to bound)."""
-        B, S, T = k.shape[0], k.shape[1], k_cache.shape[2]
-        lo = step.length
-        if isinstance(lo, torch.Tensor):
-            pos = lo.long()[:, None] + torch.arange(S, device=k.device)
-            b = torch.arange(B, device=k.device)[:, None]
-            k_cache[b, :, pos] = k.to(k_cache.dtype)      # [B, S, Hkv, D]
-            v_cache[b, :, pos] = v.to(v_cache.dtype)
         else:
-            if lo + S > T:
-                raise ValueError(f"dense cache holds {T} rows; {S} new rows "
-                                 f"at {lo} would pass its end")
-            k_cache[:, :, lo:lo + S] = k.transpose(1, 2).to(k_cache.dtype)
-            v_cache[:, :, lo:lo + S] = v.transpose(1, 2).to(v_cache.dtype)
-        attend = (decode_attention if decode_kernel == "kernel"
-                  else decode_attention_ref)
-        return attend(q, k_cache, v_cache, lo,
-                      scale=1.0 / math.sqrt(self.head_dim))
+            kernel = decode_kernel == "kernel"
+            out = attend_cached(
+                q, k, v, k_pool, v_pool, step,
+                paged_decode_attention if kernel
+                else paged_decode_attention_ref,
+                decode_attention if kernel else decode_attention_ref)
+        return self.out_proj(out.reshape(B, S, H * D))
 
 
 class GPTMLP(nn.Module):
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
         c = config
-        self.gate_up = ColumnParallelLinear(c.hidden_size,
-                                            2 * c.intermediate_size,
-                                            has_bias=False, device=device,
+        self.use_swiglu = c.use_swiglu
+        inner = c.intermediate_size
+        if c.use_swiglu:
+            self.gate_up = ColumnParallelLinear(c.hidden_size, 2 * inner,
+                                                has_bias=False, device=device,
+                                                dtype=dtype)
+        else:
+            self.fc1 = ColumnParallelLinear(c.hidden_size, inner,
+                                            has_bias=True, device=device,
                                             dtype=dtype)
-        self.down = RowParallelLinear(c.intermediate_size, c.hidden_size,
-                                      has_bias=False, device=device,
-                                      dtype=dtype)
+        self.down = RowParallelLinear(inner, c.hidden_size,
+                                      has_bias=not c.use_swiglu,
+                                      device=device, dtype=dtype)
 
     def forward(self, x):
-        return self.down(swiglu(self.gate_up(x)))
+        if self.use_swiglu:
+            return self.down(swiglu(self.gate_up(x)))
+        return self.down(F.gelu(self.fc1(x)))
 
 
 class GPTBlock(nn.Module):
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
         c = config
-        self.ln1 = RMSNorm(c.hidden_size, device=device, dtype=dtype)
+        self.ln1 = _norm(c, device, dtype)
         self.attn = GPTAttention(c, device=device, dtype=dtype)
-        self.ln2 = RMSNorm(c.hidden_size, device=device, dtype=dtype)
+        self.ln2 = _norm(c, device, dtype)
         self.mlp = GPTMLP(c, device=device, dtype=dtype)
         self.dropout = Dropout(c.dropout)
 
@@ -259,46 +235,57 @@ class GPTModel(nn.Module):
         self.embed_tokens = VocabParallelEmbedding(c.vocab_size,
                                                    c.hidden_size,
                                                    device=device, dtype=dtype)
+        if not c.use_rope:
+            self.embed_positions = Embedding(c.max_position, c.hidden_size,
+                                             device=device, dtype=dtype)
         self.blocks = nn.ModuleList([GPTBlock(c, device=device, dtype=dtype)
                                      for _ in range(c.num_layers)])
-        self.ln_f = RMSNorm(c.hidden_size, device=device, dtype=dtype)
+        self.ln_f = _norm(c, device, dtype)
+        if not c.tie_embeddings:
+            self.lm_head = ColumnParallelLinear(c.hidden_size, c.vocab_size,
+                                                has_bias=False, device=device,
+                                                dtype=dtype)
 
     def forward(self, input_ids, k_pools=None, v_pools=None, step=None,
                 decode_kernel="kernel", position_ids=None):
         """input_ids [B, S] -> logits [B, S, V]. Without ``step``: the
-        cache-free causal forward, RoPE at ``position_ids`` ([S] or [B, S],
+        cache-free causal forward at ``position_ids`` ([S] or [B, S],
         default ``arange(S)``), each block under ``recompute`` in training
         when the config sets it. With a ``PagedStep`` or ``DenseStep``:
         attends through (and writes into) the per-layer paged pools or
-        dense caches ``k_pools[i]`` / ``v_pools[i]``."""
+        dense caches ``k_pools[i]`` / ``v_pools[i]``, at the step's
+        positions."""
+        c = self.config
         x = self.embed_tokens(input_ids)
-        head_dim = self.config.hidden_size // self.config.num_heads
         B, S = input_ids.shape
         if step is None:
+            if not c.use_rope and position_ids is None and S > c.max_position:
+                raise ValueError(f"sequence length {S} exceeds max_position "
+                                 f"{c.max_position}")
             pos = (torch.arange(S, device=x.device) if position_ids is None
                    else torch.as_tensor(position_ids, device=x.device))
-            rope = rope_cos_sin(pos.expand(B, S), head_dim, x.dtype)
-            remat = self.config.recompute if self.training else None
-            for blk in self.blocks:
-                x = (recompute(blk, x, rope, policy=remat) if remat
-                     else blk(x, rope))
+            pos = pos.expand(B, S)
         else:
             if decode_kernel not in DECODE_KERNELS:
                 raise ValueError(
                     f"decode_kernel must be one of {DECODE_KERNELS}")
-            if isinstance(step, DenseStep) and isinstance(step.length,
-                                                          torch.Tensor):
-                pos = (step.length.long()[:, None]
-                       + torch.arange(S, device=x.device))
-            elif isinstance(step, DenseStep):
-                pos = torch.arange(step.length, step.length + S,
-                                   device=x.device).expand(B, S)
-            else:
-                pos = step.positions
-            rope = rope_cos_sin(pos, head_dim, x.dtype)
+            pos = step_positions(step, B, S, x.device)
+        rope = None
+        if c.use_rope:
+            rope = rope_cos_sin(pos, c.hidden_size // c.num_heads, x.dtype)
+        else:
+            x = x + self.embed_positions(pos.clamp(0, c.max_position - 1))
+        if step is None:
+            remat = c.recompute if self.training else None
+            for blk in self.blocks:
+                x = (recompute(blk, x, rope, policy=remat) if remat
+                     else blk(x, rope))
+        else:
             for blk, kp, vp in zip(self.blocks, k_pools, v_pools):
                 x = blk(x, rope, kp, vp, step, decode_kernel)
         x = self.ln_f(x)
+        if not c.tie_embeddings:
+            return self.lm_head(x)
         h, w = _amp_cast("lm_head_tied", x, self.embed_tokens.weight)
         return h @ w.T
 
@@ -352,3 +339,12 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
     def _decode_cache_spec(self):
         c = self.config
         return c.num_layers, c.num_kv_heads, c.hidden_size // c.num_heads
+
+    def _decode_validate(self, prompt_len, max_new_tokens):
+        """Learned positions end at ``max_position``: refuse a request that
+        would pass it (JAX ``gpt.py:330-337``); RoPE extrapolates."""
+        c = self.config
+        if not c.use_rope and prompt_len + max_new_tokens > c.max_position:
+            raise ValueError(
+                f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds max_position ({c.max_position})")

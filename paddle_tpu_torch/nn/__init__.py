@@ -1,5 +1,6 @@
-"""nn layers of the port: RMSNorm, dropout, gradient clipping, and
-``functional`` (dropout and the attention dispatcher)."""
+"""nn layers of the port: LayerNorm, RMSNorm, Embedding, dropout, gradient
+clipping, and ``functional`` (activations, norms, dropout and the
+attention dispatcher)."""
 from . import functional
 from .clip import (
     ClipGradByGlobalNorm,
@@ -8,10 +9,16 @@ from .clip import (
     clip_grad_norm_,
     clip_grad_value_,
 )
-from .layer_common import AlphaDropout, Dropout, Dropout2D, Dropout3D
-from .layer_conv_norm import RMSNorm, rms_norm
+from .layer_common import (
+    AlphaDropout,
+    Dropout,
+    Dropout2D,
+    Dropout3D,
+    Embedding,
+)
+from .layer_conv_norm import LayerNorm, RMSNorm, rms_norm
 
-__all__ = ["RMSNorm", "rms_norm", "Dropout", "Dropout2D", "Dropout3D",
-           "AlphaDropout", "ClipGradByGlobalNorm", "ClipGradByNorm",
-           "ClipGradByValue", "clip_grad_norm_", "clip_grad_value_",
-           "functional"]
+__all__ = ["LayerNorm", "RMSNorm", "rms_norm", "Embedding", "Dropout",
+           "Dropout2D", "Dropout3D", "AlphaDropout", "ClipGradByGlobalNorm",
+           "ClipGradByNorm", "ClipGradByValue", "clip_grad_norm_",
+           "clip_grad_value_", "functional"]

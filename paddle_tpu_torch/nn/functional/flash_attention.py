@@ -142,8 +142,10 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None):
-    """Plain math over [B, S, H, D], as the JAX package has it (no kernel)."""
+    """Plain math over [B, S, H, D], as the JAX package has it (no kernel;
+    reported as "plain")."""
     scale = 1.0 / math.sqrt(query.shape[-1])
+    _mark("plain")
     return _sdpa_core(query, key, value, attn_mask, scale, is_causal,
                       dropout_p, training)
 

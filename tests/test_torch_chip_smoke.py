@@ -2,7 +2,10 @@
 on the CPU: the per-kernel register and spill summary it reads from the
 ``nvcc -Xptxas -v`` log, the record that sets dq + dk/dv against the
 library's one backward call, and the serve_knobs phase's chat traffic,
-Prometheus line pattern and near-tie cut."""
+Prometheus line pattern and near-tie cut; the model families' FLOP counts
+(``forward_flops`` held to ``torch.utils.flop_counter`` on tiny models of
+each family), the D = 128 bounds, the served-rows gate and the kernels
+line's D = 128 readings."""
 import pathlib
 import sys
 
@@ -151,4 +154,131 @@ def test_prefix_rows_check_holds_indexed_rows_and_fails_a_swapped_page():
                                        "cpu", chunk=4, swap=2)
     assert rec["blocks"] == [3, 3] and rec["shared_prompt_pages_common"]
     assert max(rec["rel"]) < 1e-5
+    assert rec["control"] > chip_smoke.INSITU_REL_TOL
+
+
+def _tiny(kind):
+    from paddle_tpu_torch.models import bert, gpt, llama
+
+    if kind == "llama":
+        cfg = llama.LlamaConfig(vocab_size=96, hidden_size=64, num_layers=2,
+                                num_heads=4, num_kv_heads=2,
+                                intermediate_size=80)
+        return cfg, llama.LlamaForCausalLM(cfg, device="cpu")
+    if kind == "bert":
+        cfg = bert.BertConfig(vocab_size=96, hidden_size=64, num_layers=2,
+                              num_heads=4, intermediate_size=80,
+                              max_position=32, dropout=0.0)
+        return cfg, bert.BertForMaskedLM(cfg, device="cpu")
+    gpt2 = kind == "gpt2"
+    cfg = gpt.GPTConfig(vocab_size=96, hidden_size=64, num_layers=2,
+                        num_heads=4, intermediate_size=80, max_position=32,
+                        use_rope=not gpt2, use_rms_norm=not gpt2,
+                        use_swiglu=not gpt2, tie_embeddings=not gpt2)
+    return cfg, gpt.GPTForCausalLM(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["llama", "bert", "gpt", "gpt2"])
+def test_forward_flops_count_each_family_s_products(kind):
+    """The products of a forward on the CPU, where the attention's plain
+    version computes every (row, column) pair, equal ``forward_flops``
+    with all S^2 pairs; the causal count is the triangle (BERT: all)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    cfg, model = _tiny(kind)
+    model.eval()
+    B, S = 2, 12
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        model(torch.zeros((B, S), dtype=torch.int64))
+    family = "gpt" if kind.startswith("gpt") else kind
+    assert counter.get_total_flops() == chip_smoke.forward_flops(
+        family, cfg, B, S, pairs=S * S)
+    D = cfg.hidden_size // cfg.num_heads
+    causal_gap = (cfg.num_layers * 4 * D * cfg.num_heads * B
+                  * (S * S - S * (S + 1) // 2))
+    want = counter.get_total_flops() - (0 if kind == "bert" else causal_gap)
+    assert chip_smoke.forward_flops(family, cfg, B, S) == want
+    assert chip_smoke.step_flops(family, cfg, B, S) == 3 * want
+
+
+def test_full_size_flops_read_off_the_published_shapes():
+    """LLaMA-2-7B's products: 6.48 B weights in products (the 6.74 B less
+    the 131 M embedding rows); gpt3_1p3b's GELU MLP has two matrices, not
+    SwiGLU's three; bert_base's decoder is the tied 30522 x 768."""
+    from paddle_tpu_torch.models import bert, gpt, llama
+
+    c = llama.llama2_7b()
+    assert chip_smoke.matmul_params("llama", c) == (
+        32 * (4 * 4096 ** 2 + 3 * 4096 * 11008) + 32000 * 4096)
+    g = gpt.gpt3_1p3b()
+    assert chip_smoke.matmul_params("gpt", g) == (
+        24 * (4 * 2048 ** 2 + 2 * 2048 * 8192) + 50304 * 2048)
+    b = bert.bert_base()
+    assert chip_smoke.matmul_params("bert", b) == (
+        12 * (4 * 768 ** 2 + 2 * 768 * 3072) + 768 ** 2 + 30522 * 768)
+    # the older GPT count holds for LLaMA too, apart from the norm weights
+    # it counts as products (2 h per layer: 4e-5 of the total)
+    assert chip_smoke.step_flops("llama", c, 1, 2048) == pytest.approx(
+        chip_smoke.gpt_step_flops(c, 1, 2048), rel=1e-4)
+
+
+def test_d128_bounds_of_the_llama_shapes():
+    """llama_serve's decode and llama_generate's prefill (bytes: the live
+    K/V rows at 32 kv heads of 128, q and the output) and llama_train's
+    flash kernels (operations at the bf16 peak)."""
+    import numpy as np
+
+    lengths = np.array([100, 0, 1500, 7, 64, 128, 1999, 30])
+    ms, by = chip_smoke.attention_bound(8, 1, 32, 32, 128, 64, 32, lengths,
+                                        2, "bfloat16")
+    kv = 2 * int((lengths + 1).sum()) * 32 * 128 * 2
+    io = 2 * 8 * 32 * 128 * 2 + (8 * 64 + 8) * 4
+    assert by == "bytes"
+    assert ms == pytest.approx((kv + io) / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    ms, by = chip_smoke.dense_bound(4, 512, 32, 32, 128, 640,
+                                    np.zeros(4, np.int64), 2, "bfloat16")
+    nbytes = 2 * 4 * 512 * 32 * 128 * 2 * 2 + 4 * 4     # K, V, q, out
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    bounds = chip_smoke.flash_bounds(1, 2048, 32, 128, True)
+    pairs = 32 * 2048 * 2049 // 2
+    for kern, products in (("fwd", 2), ("dq", 3), ("dkv", 4)):
+        assert bounds[kern][1] == "operations"
+        assert bounds[kern][0] == pytest.approx(
+            2 * 128 * pairs * products / 989e12 * 1e3)
+    # bert_base's non-causal forward: its q, k, v, out and lse bytes
+    noncausal = chip_smoke.flash_bounds(32, 512, 12, 64, False)
+    tile = 32 * 512 * 12 * 64 * 2
+    assert noncausal["fwd"] == pytest.approx(
+        ((4 * tile + 32 * 12 * 512 * 4) / chip_smoke.HBM_BYTES_PER_S * 1e3,
+         "bytes"))
+
+
+def test_kernels_line_d128_readings_carry_time_bound_and_error():
+    timing = {f"{form}_d128": dict(ms=1.0, plain_ms=2.0, bound_ms=0.5,
+                                   bound_by="bytes", library_ms=3.0,
+                                   extra=9)
+              for form in ("decode", "prefill")}
+    checked = {form: dict(max_abs_err=1e-3, err_over_limit=0.2)
+               for form in ("decode", "prefill")}
+    got = chip_smoke.d128_reading(timing, checked)
+    assert set(got) == {"decode", "prefill"}
+    assert set(got["decode"]) == set(chip_smoke.READING_KEYS) | {
+        "max_abs_err", "err_over_limit"}
+    flash = chip_smoke.flash_reading(timing["decode_d128"],
+                                     checked["decode"])
+    assert flash["library_ms"] == 3.0 and "extra" not in flash
+
+
+def test_served_rows_check_holds_rewritten_rows_and_fails_a_swap():
+    import numpy as np
+    import torch
+
+    _, model = _tiny("llama")
+    rng = np.random.default_rng(0)
+    seqs = [rng.integers(0, 96, n).astype(np.int64) for n in (70, 100)]
+    rec = chip_smoke.served_rows_check(torch, model, "cpu", seqs, chunk=16)
+    assert rec["blocks"] == [2, 3]
+    assert max(rec["rel"]) < 1e-6
     assert rec["control"] > chip_smoke.INSITU_REL_TOL

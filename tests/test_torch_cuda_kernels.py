@@ -664,3 +664,73 @@ def test_flash_backward_is_deterministic(cuda, dtype, masked):
             for _ in range(2)]
     for name in ("dq", "dk", "dv"):
         assert torch.equal(runs[0][name], runs[1][name]), name
+
+
+# ----------------------------------------------- LLaMA-2-7B shapes (D 128)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 64, 5])
+def test_paged_attention_kernel_at_llama_2_7b_serving_shapes(cuda, dtype, S):
+    """8 slots of LLaMA-2-7B serving (32 kv heads of 128, G 1, block 32):
+    decode, a 64-row prefill chunk and a 5-row verify over histories of
+    its 128-1500-token prompts, one slot idle."""
+    lengths = [0, 128, 1563 - S, 700, 33, 1024, 1499, 257]
+    args = _case(cuda, 8, S, 32, 1, 128, 32, lengths, dtype, seed=S)
+    before = tpa.paged_decode_attention.launches
+    got = tpa.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert tpa.paged_decode_attention.launches == before + 1
+    ref = tpa.paged_decode_attention_ref(*args)
+    err = (got.float() - ref.float()).abs()
+    assert bool((err <= tpa.kernel_tolerance(*args, ref)).all()), (
+        f"max |kernel - plain| {float(err.max())}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,lengths", [(1, [512, 639, 575, 600]),
+                                       (512, [0, 0, 0, 0])])
+def test_decode_attention_kernel_at_llama_2_7b_generate_shapes(cuda, dtype,
+                                                               S, lengths):
+    """generate([4, 512] + 128) of LLaMA-2-7B: 32 kv heads of 128 over
+    dense caches of 640 rows, its decode and prefill."""
+    q, k, v = _dense_case(cuda, 4, S, 32, 1, 128, 640, dtype, seed=S)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = tda.decode_attention.launches
+    got = tda.decode_attention(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert tda.decode_attention.launches == before + 1
+    ref = tda.decode_attention_ref(q, k, v, ln)
+    err = (got.float() - ref.float()).abs()
+    assert bool((err <= tda.kernel_tolerance(q, k, v, ln, ref)).all()), (
+        f"max |kernel - plain| {float(err.max())}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("B,S,H,D,causal", [(1, 2048, 32, 128, True),
+                                            (4, 512, 12, 64, False)])
+def test_flash_kernels_at_llama_2_7b_and_bert_base_shapes(cuda, dtype, B, S,
+                                                          H, D, causal):
+    """llama_train's attention (B 1, S 2048, 32 heads of 128, causal) and
+    bert_base's eval forward (S 512, 12 heads of 64, non-causal; B cut to
+    4 here)."""
+    q, k, v, do = _flash_case(cuda, B, S, H, D, dtype, seed=S)
+    out, lse = tfa.flash_fwd(q, k, v, causal)
+    ro, rl = tfa.flash_attention_fwd_ref(q, k, v, causal)
+    delta = tfa.attention_delta(ro, do)
+    got = dict(out=out, lse=lse,
+               dq=tfa.flash_bwd_dq(q, k, v, do, rl, delta, causal))
+    got["dk"], got["dv"] = tfa.flash_bwd_dkv(q, k, v, do, rl, delta, causal)
+    ref = dict(out=ro, lse=rl,
+               dq=tfa.flash_attention_dq_ref(q, k, v, do, rl, delta, causal))
+    ref["dk"], ref["dv"] = tfa.flash_attention_dkv_ref(q, k, v, do, rl,
+                                                       delta, causal)
+    lim = tfa.kernel_tolerance(q, k, v, ref, causal, dout=do)
+    for name, x in got.items():
+        err = (x.float() - ref[name].float()).abs()
+        assert bool((err <= lim[name]).all()), (
+            f"{name}: max |kernel - plain| {float(err.max())}")
+    del q, k, v, do, got, ref, lim
+    gc.collect()
+    torch.cuda.empty_cache()

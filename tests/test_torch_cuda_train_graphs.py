@@ -393,3 +393,42 @@ def test_two_boundaries_objects_make_the_packed_capture_raise(cuda):
     # the generator the capture registered draws again outside captures
     from paddle_tpu_torch.nn.functional.common import keep_mask
     assert keep_mask((64,), 0.5, "cuda").shape == (64,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recompute", [None, "block"])
+def test_llama_at_full_width_captured_equals_its_bodies(cuda, recompute):
+    """Two LLaMA-2-7B layers at full width (hidden 4096, 32 heads of 128,
+    SwiGLU 11008, vocab 32000), O2 bf16, AdamW, B 1, S 512: three steps
+    as bodies and the same three captured and replayed from one state give
+    bit-equal losses and parameters, and the flash kernels launch per
+    layer and step (the forward twice under recompute)."""
+    from paddle_tpu_torch.models import llama as tllama
+
+    cfg = tllama.llama2_7b()
+    cfg.num_layers, cfg.recompute = 2, recompute
+    model = tllama.LlamaForCausalLM(cfg, device=cuda, dtype=torch.bfloat16,
+                                    seed=5)
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                          weight_decay=0.01, multi_precision=True)
+    amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    step = TrainStep(model, lambda logits, loss: loss, opt)
+    ids = torch.as_tensor(np.random.default_rng(1).integers(0, 32000,
+                                                            (1, 512)),
+                          device=cuda)
+    labels = ids.roll(-1, dims=1)
+    start = step.export_state()
+    with step._eager():
+        body = [step(ids, labels=labels) for _ in range(3)]
+    body_params = _params(model)
+    step.import_state(start)
+    for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        w.launches = 0
+    replay = [step(ids, labels=labels) for _ in range(3)]
+    assert torch.equal(torch.stack(replay), torch.stack(body))
+    assert _equal(_params(model), body_params)
+    assert float(replay[-1]) < float(replay[0])
+    assert len(_captures(step)) == 1
+    fwd = 2 if recompute else 1
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == (fwd * 2 * 3, 2 * 3, 2 * 3)

@@ -43,7 +43,9 @@ def test_import_leaves_jax_and_paddle_tpu_out():
                 "nn.clip", "optimizer", "amp", "jit.train",
                 "distributed.fleet.meta_parallel", "models.gpt", "bridge",
                 "ops.decode_attention", "models.generation",
-                "inference.speculative", "inference.serving"):
+                "inference.speculative", "inference.serving", "models.llama",
+                "models.bert", "models.steps", "nn.functional.activation",
+                "nn.functional.norm"):
         assert f"paddle_tpu_torch.{mod}" in walked, mod
 
 
@@ -78,6 +80,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     )
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GPTForCausalLM(gpt_tiny())
+    from paddle_tpu_torch import (
+        BertForMaskedLM,
+        LlamaForCausalLM,
+        bert_tiny,
+        llama_tiny,
+    )
+    for cls, cfg in ((LlamaForCausalLM, llama_tiny),
+                     (BertForMaskedLM, bert_tiny)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(cfg())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PagedKVCache(2, 4, 16)
     m = GPTForCausalLM(gpt_tiny(), device="cpu")
@@ -98,8 +110,12 @@ def test_unported_paths_raise_not_implemented():
     gpt2 = GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
                      num_heads=2, use_rope=False, use_rms_norm=False,
                      use_swiglu=False)
-    with pytest.raises(NotImplementedError, match="GPT-2-style"):
-        GPTForCausalLM(gpt2, device="cpu")
+    assert GPTForCausalLM(gpt2, device="cpu")(
+        torch.zeros((1, 3), dtype=torch.int64)).shape == (1, 3, 64)  # ported
+    x = torch.ones((1, 3, 2, 16))
+    with pytest.raises(NotImplementedError, match="window_size"):
+        F.flashmask_attention(x, x, x, torch.full((1, 1, 3, 1), 3),
+                              window_size=(1, 1))
     for kw in (dict(dropout=0.1), dict(recompute="dots")):
         assert GPTForCausalLM(GPTConfig(vocab_size=64, hidden_size=32,
                                         num_layers=1, num_heads=2, **kw),
