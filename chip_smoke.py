@@ -16,13 +16,14 @@ non-zero without the final line:
    64-column tile over four pages ending mid-page, horizons one short of
    and one past a tile edge, split boundaries inside a page, and
    serve_knobs' verify_step (S=5, G=1, lengths past 512), in f32
-   (tolerance 1e-4: another summation order) and bf16 (elementwise
+   (tolerance 1e-4: another summation order), bf16 (elementwise
    2^-7 (|ref| + sum_j p_j |v_j|): probabilities and outputs rounded to
-   bf16 at different places; ``paged_attention.kernel_tolerance``).
+   bf16 at different places; ``paged_attention.kernel_tolerance``) and
+   f16 (2^-10 of the same, plus 2^-24 (1 + sum_j |v_j|)).
 4. timing — kernel, plain and library (SDPA on the gathered cache, a
    yardstick only) at the decode and prefill shapes, CUDA events, median of
    25, L2 flushed between launches; the bound from this run's live bytes
-   and operations.
+   and operations; bf16, and f16 at the decode and prefill shapes.
 5. flash kernels vs plain — the forward, dq and dk/dv kernels against
    their plain versions on the same inputs, each output within
    ``flash_attention.kernel_tolerance``, in f32, bf16 and f16 (the AMP
@@ -85,12 +86,20 @@ non-zero without the final line:
    and 8 at D=128, T=1000 (no multiple of a tile), requests whose live
    prefix ends inside the first tile, the forms' threshold (16, 17 and 24
    rows) at the full cache, and one request over a long cache in each form
-   (many splits).
+   (many splits); in f16 too (the prefill form above 16 rows).
 9. dense timing — kernel, plain and library (SDPA over the dense cache
    with the length mask, a yardstick only) at the decode and prefill
    shapes, CUDA events, median of 25, L2 flushed; the bound from this run's
    live bytes and operations, the time over each; and one request
-   decoding at length 4000 of T=4096 (split, combined by a second launch).
+   decoding at length 4000 of T=4096 (split, combined by a second launch);
+   f16 at the decode and prefill shapes.
+9b. f16_serve — GPT-350M in f16 (seeded weights) through the continuous
+   scheduler over ``PagedKVCache(dtype="float16")``: 4 threaded greedy
+   requests of 100-600 prompt tokens and 32 new, the paged kernel's f16
+   form exactly num_layers times per forward, greedy tokens held to the
+   plain route's up to each request's first near-tie; then dense
+   ``generate(dtype="float16")`` over [4, 256] + 32 through the dense
+   kernel's f16 forms, held to its plain route the same way.
 10. generation — GPT-350M at full width (random seeded f32 weights, cast
    to bf16 by generate()). In situ first: the prompt's prefill (512 rows at
    length 0), its second half again (256 rows at length 256) and one
@@ -235,6 +244,22 @@ non-zero without the final line:
    check and time the kernels at these phases' shapes (paged: 8 slots,
    32 kv heads of 128; dense: [4, 512] over T 640; flash: B 1, S 2048, 32
    heads of 128 causal, and B 32, S 512, 12 heads of 64 non-causal).
+20. core — the paddle-style surface on the card. The golden op tables
+   (``tests/test_op_golden*.py``: UNARY ... LINALG, 196 cases, read by
+   ``paddle_tpu_torch.testing.load_tables`` with ``P`` bound to the port)
+   in f64 (the tables' tolerances) and f32 (GOLDEN_F32_TOL), eager
+   against numpy with gradients against central differences, every output
+   on the card; each case the tables run under jit captured once in a CUDA
+   graph and replayed, bit-equal to eager (but NOT_CAPTURABLE); the
+   planted ``exp`` fault must fail. Then GPT-350M's 24 blocks (B 8, S
+   1024, bf16, the port model's seeded weights) trained for 3 eager steps
+   through the op layer and ``F.flash_attention`` on Tensors (SGD under
+   ``no_grad``, then ``clear_grad``): the first loss and every gradient
+   held to the model's own backward, the loss falling, 24 launches of
+   each flash kernel a step, the model's own eager step timed beside it,
+   and one forward under ``auto_cast(level="O2")`` over f32 weights
+   (matmuls bf16, the black list f32). Last, the wrapper's host cost per
+   op against bare torch.
 
 Last lines: each phase's seconds, the card, the kernels JSON (a kernel
 redesigned since it was first ported names the change in "redesigned";
@@ -264,7 +289,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 # max |dlogit| / max |logit|, kernel path vs plain path: a coarse bound.
 # With random weights the residual stream hides attention errors (a planted
 # off-by-one mask moved the logits by 1.7% against 1.05% sound on an NVIDIA
@@ -403,7 +428,7 @@ def check_kernels(torch, pa, device):
     rng = np.random.default_rng(0)
     llama_rng = np.random.default_rng(40)
     cases = []
-    for dtype in ("bfloat16", "float32"):
+    for dtype in ("bfloat16", "float32", "float16"):
         for G in (1, 4):
             cases.append(("decode", 8, 1, 16 // G, G, 64, 32,
                           decode_lengths(rng), dtype))
@@ -526,7 +551,8 @@ def attention_bound(B, S, Hq, Hkv, D, NB, BS, lengths, elt, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_kernels(torch, pa, device):
+def time_kernels(torch, pa, device, dtype="bfloat16",
+                 shapes=("decode", "prefill", "decode_d128", "prefill_d128")):
     import torch.nn.functional as F
 
     rng = np.random.default_rng(1)
@@ -538,9 +564,11 @@ def time_kernels(torch, pa, device):
             ("decode_d128", 1, llama_lengths(rng), 32, 128, LLAMA_SLOT),
             ("prefill_d128", 64, llama_lengths(rng, S=64), 32, 128,
              LLAMA_SLOT)):
+        if name not in shapes:
+            continue
         B, G, BS = 8, 1, 32
         args = make_case(torch, B, S, Hkv, G, D, BS, list(lengths),
-                         "bfloat16", device, seed=7, capacity=cap)
+                         dtype, device, seed=7, capacity=cap)
         q, kp, vp, tbl, ln = args
         before = pa.paged_decode_attention.launches
         ms = time_ms(torch, lambda: pa.paged_decode_attention(*args), flush)
@@ -561,9 +589,9 @@ def time_kernels(torch, pa, device):
             qt, kd, vd, attn_mask=mask), flush)
         bound_ms, bound_by = attention_bound(B, S, Hkv * G, Hkv, D,
                                              tbl.shape[1], BS, lengths, 2,
-                                             "bfloat16")
+                                             dtype)
         rec = dict(shape=name, B=B, S=S, Hq=Hkv * G, Hkv=Hkv, D=D, BS=BS,
-                   dtype="bfloat16", live_tokens=int(np.minimum(
+                   dtype=dtype, live_tokens=int(np.minimum(
                        np.asarray(lengths) + S, T).sum()),
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by,
@@ -613,7 +641,7 @@ def check_dense_kernels(torch, da, device):
     rng = np.random.default_rng(20)
     llama_rng = np.random.default_rng(41)
     cases = []
-    for dtype in ("bfloat16", "float32"):
+    for dtype in ("bfloat16", "float32", "float16"):
         cases += [
             ("decode", 8, 1, 16, 1, 64, 640, generation_lengths(rng), dtype),
             ("prefill", 8, 512, 16, 1, 64, 640,
@@ -686,11 +714,14 @@ def dense_bound(B, S, Hq, Hkv, D, T, lengths, elt, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_dense_kernels(torch, da, device):
-    """Kernel, plain and library at the generation shapes (bf16), and at
-    one request decoding at length 4000 of T = 4096 (the split path). The
-    library yardstick is scaled_dot_product_attention over the same dense
-    cache with the length mask; the port never calls it."""
+def time_dense_kernels(torch, da, device, dtype="bfloat16",
+                       shapes=("decode", "prefill", "decode_b1",
+                               "decode_d128", "prefill_d128")):
+    """Kernel, plain and library at the generation shapes (bf16, or
+    ``dtype``), and at one request decoding at length 4000 of T = 4096
+    (the split path). The library yardstick is
+    scaled_dot_product_attention over the same dense cache with the length
+    mask; the port never calls it."""
     import torch.nn.functional as F
 
     rng = np.random.default_rng(21)
@@ -703,7 +734,9 @@ def time_dense_kernels(torch, da, device):
             ("prefill_d128", LLAMA_GEN[0], LLAMA_GEN[1], LLAMA_T, 32, 128)):
         lengths = (generation_lengths(rng, B, S, T) if B > 1
                    else np.array([4000]))
-        args = dense_case(torch, B, S, Hkv, 1, D, T, lengths, "bfloat16",
+        if name not in shapes:
+            continue
+        args = dense_case(torch, B, S, Hkv, 1, D, T, lengths, dtype,
                           device, seed=7)
         q, k, v, ln = args
         ms = time_ms(torch, lambda: da.decode_attention(*args), flush)
@@ -716,10 +749,10 @@ def time_dense_kernels(torch, da, device):
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, k, v, attn_mask=mask), flush)
         bound_ms, bound_by = dense_bound(B, S, Hkv, Hkv, D, T, lengths, 2,
-                                         "bfloat16")
-        cfg = da.kernel_launch_config(B, S, 1, Hkv, T)
+                                         dtype)
+        cfg = da.kernel_launch_config(B, S, 1, Hkv, T, getattr(torch, dtype))
         rec = dict(shape=name, B=B, S=S, Hq=Hkv, Hkv=Hkv, D=D, T=T,
-                   dtype="bfloat16",
+                   dtype=dtype,
                    live_tokens=int(np.minimum(lengths + S, T).sum()),
                    config=list(cfg), ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms,
@@ -3729,7 +3762,7 @@ def host_available_bytes():
 
 
 def plain_route_tokens(torch, model, device, outputs, max_seq_len, slots=8,
-                       chunk=64, decode_steps=4, block_size=32):
+                       chunk=64, decode_steps=4, block_size=32, dtype=None):
     """The greedy requests of ``outputs`` ({i: (prompt, output, sampled)})
     served again by a continuous scheduler on the plain attention route
     (``decode_kernel`` "plain": the paged kernel's plain version in every
@@ -3747,7 +3780,7 @@ def plain_route_tokens(torch, model, device, outputs, max_seq_len, slots=8,
     new = {i: len(outputs[i][1]) - len(outputs[i][0]) for i in greedy}
     kv = PagedKVCache(*model._decode_cache_spec(), block_size=block_size,
                       num_blocks=slots * max_seq_len // block_size,
-                      dtype=torch.bfloat16, device=device)
+                      dtype=dtype or torch.bfloat16, device=device)
     gp = ContinuousGenerateBatchingPredictor(
         model, kv_cache=kv, max_slots=slots, prefill_chunk=chunk,
         decode_steps=decode_steps, max_new_tokens=max(new.values()),
@@ -4219,6 +4252,475 @@ def bert_base_phase(torch, fa, device, warmup=2, timed=6, seed=13):
 READING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
+# ------------------------------------------------------- f16 serving
+def f16_serve(torch, device, n=4, new=32, max_seq_len=1024, slots=8,
+              prompt_range=(100, 600)):
+    """GPT-350M in f16 (seeded weights) served through the continuous
+    scheduler over ``PagedKVCache(dtype="float16")``: ``n`` threaded
+    greedy requests, every paged call in the kernel's f16 form (exactly
+    num_layers launches per forward); the greedy answers held to the plain
+    route's up to each one's first near-tie (``plain_route_tokens``). Then
+    dense ``generate(dtype="float16")`` over [4, 256] + 32, greedy, held
+    to its plain route the same way (the dense kernel's f16 forms)."""
+    from paddle_tpu_torch.inference import (
+        ContinuousGenerateBatchingPredictor,
+        PagedKVCache,
+    )
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_350m
+    from paddle_tpu_torch.ops import decode_attention as da
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    model = GPTForCausalLM(gpt_350m(), device=device, dtype=torch.float16,
+                           seed=0).eval()
+    L = model.config.num_layers
+    kv = PagedKVCache(*model._decode_cache_spec(), block_size=32,
+                      num_blocks=slots * max_seq_len // 32,
+                      dtype="float16", device=device)
+    gp = ContinuousGenerateBatchingPredictor(
+        model, kv_cache=kv, max_slots=slots, prefill_chunk=64,
+        decode_steps=4, max_new_tokens=new, max_seq_len=max_seq_len,
+        device=device)
+    rng = np.random.default_rng(31)
+    V = model.config.vocab_size
+    prompts = [rng.integers(0, V, int(rng.integers(*prompt_range)))
+               .astype(np.int64) for _ in range(n)]
+    outs, errors = {}, {}
+
+    def client(i):
+        try:
+            outs[i] = gp.infer(prompts[i], timeout=600, max_new_tokens=new)
+        except Exception as e:          # reported below, fails the phase
+            errors[i] = repr(e)
+
+    pa.paged_decode_attention.launches = 0      # the f16 main path
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        snap = gp.metrics.snapshot()
+    finally:
+        gp.close()
+    wall = time.perf_counter() - t0
+    launches = pa.paged_decode_attention.launches   # ... ends here
+    forwards = snap.get("prefill_ticks", 0) + 4 * snap.get("decode_ticks", 0)
+    if errors or len(outs) != n:
+        raise AssertionError(f"f16 serving failed: {errors}")
+    for i in range(n):
+        if len(outs[i]) != len(prompts[i]) + new or not np.array_equal(
+                outs[i][:len(prompts[i])], prompts[i]):
+            raise AssertionError(f"f16 request {i}: wrong output")
+    if launches != L * forwards or launches == 0:
+        raise AssertionError(f"f16 serving: {launches} paged launches for "
+                             f"{forwards} forwards of {L} layers")
+    plain = plain_route_tokens(
+        torch, model, device, {i: (prompts[i], outs[i], False)
+                               for i in range(n)}, max_seq_len,
+        dtype=torch.float16)
+    ids = np.stack([rng.integers(0, V, 256) for _ in range(4)])
+    da.decode_attention.launches = 0            # f16 generate() starts
+    got = model.generate(ids, max_new_tokens=32, dtype="float16")
+    dense_launches = da.decode_attention.launches       # ... ends here
+    want = model.generate(ids, max_new_tokens=32, dtype="float16",
+                          decode_kernel="plain")
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    compared = [first_tie(torch, model, want[b], 256, device)
+                for b in range(4)]
+    agree = all(np.array_equal(got[b, :256 + c], want[b, :256 + c])
+                for b, c in enumerate(compared))
+    if not agree or dense_launches != 32 * L:
+        raise AssertionError(f"f16 generate(): tokens {agree}, "
+                             f"{dense_launches} dense launches")
+    rec = dict(requests=n, new_tokens=new, wall_s=wall,
+               tok_per_s=n * new / wall, paged_launches=launches,
+               forwards=forwards, plain_route=plain,
+               generate=dict(dense_launches=dense_launches,
+                             compared_tokens=compared,
+                             greedy_equal_plain=agree))
+    print("f16-serve", json.dumps(rec), flush=True)
+    del model
+    return rec
+
+
+# ------------------------------------------------------------ core phase
+# f32 golden leg: the table's tolerances are float64's; float32 keeps 24
+# bits (unit roundoff 6e-8), and the tables' ops reach ~1e-6 relative
+# through their worst conditioning (4 x 4 solves of SPD matrices,
+# condition ~10, cumulative products, pinv): a limit 100x over that
+GOLDEN_F32_TOL = dict(rtol=2e-4, atol=2e-5)
+GOLDEN_F32_GRAD_TOL = 1e-3     # f32 gradients against f64 differences
+# jit cases torch cannot capture: the op reads a status back to the host
+# inside the library call (a copy a capture refuses)
+NOT_CAPTURABLE = {"pinv": "torch.linalg.svd copies its convergence status "
+                          "to the host"}
+
+
+def capture_case(torch, fn, ins, kwargs, eager):
+    """``fn`` on the Tensors ``ins`` captured once in a CUDA graph (after
+    one warm-up call on a side stream) and replayed; returns whether every
+    output of the replay equals ``eager``'s bit for bit."""
+    from paddle_tpu_torch import testing as T
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*ins, **kwargs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*ins, **kwargs)
+    graph.replay()
+    torch.cuda.synchronize()
+    return all(torch.equal(a._value, b._value)
+               for a, b in zip(T.leaves(out), T.leaves(eager)))
+
+
+def golden_on_card(torch, device, dtypes=("float64", "float32"),
+                   capture=True):
+    """The golden tables (196 cases, ``testing.load_tables``) on ``device``
+    in each of ``dtypes`` (float inputs cast; integer and bool ones as
+    they are): eager against numpy (f64 at the table's tolerances, f32 at
+    GOLDEN_F32_TOL against numpy on the same f32 inputs), gradients
+    against central differences in f64 at the table's tolerances (f32:
+    GOLDEN_F32_GRAD_TOL), every output on the device; then, with
+    ``capture``, each case the tables run under jit captured in a CUDA
+    graph and replayed, bit-equal to eager, but those in NOT_CAPTURABLE.
+    A planted fault (``exp`` times 1 + 1e-4, for that check alone) must
+    fail the f64 eager check."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import testing as T
+    from paddle_tpu_torch.framework import device as pdev
+
+    tables = T.load_tables(os.path.join(ROOT, "tests"), P, P.nn.functional)
+    specs = [c for t in tables.values() for c in t]
+    prev = pdev._current["place"]
+    P.set_device("cpu" if device == "cpu" else "gpu:0")
+    dev_type = "cpu" if device == "cpu" else "cuda"
+    drawn = [spec["inputs"]() for spec in specs]   # once, for every dtype
+    out = {}
+    try:
+        for dtype in dtypes:
+            worst = dict(value=0.0, grad=0.0)
+            captured, not_equal, errors = 0, [], {}
+            for spec, inputs in zip(specs, drawn):
+                opts = spec["opts"]
+                kwargs = opts.get("kwargs") or {}
+                f32 = dtype == "float32"
+                if f32:
+                    inputs = [a.astype(np.float32) if np.asarray(a).dtype
+                              == np.float64 else a for a in inputs]
+                    rtol, atol = (GOLDEN_F32_TOL["rtol"],
+                                  GOLDEN_F32_TOL["atol"])
+                else:
+                    rtol, atol = opts.get("rtol", 1e-6), opts.get("atol",
+                                                                  1e-8)
+                want = spec["ref"](*[np.copy(a) for a in inputs])
+                ins = [P.to_tensor(np.copy(a)) for a in inputs]
+                got = spec["fn"](*ins, **kwargs)
+                where = f"{spec['id']}:{dtype}"
+                for t in T.leaves(got):
+                    if t._value.device.type != dev_type:
+                        raise AssertionError(f"{where}: output on "
+                                             f"{t._value.device}")
+                worst["value"] = max(worst["value"], T.compare(
+                    got, want, rtol, atol, where))
+                if opts.get("check_grad", True):
+                    idx = opts.get("grad_indices")
+                    if idx is None:
+                        idx = [i for i, a in enumerate(inputs)
+                               if np.issubdtype(np.asarray(a).dtype,
+                                                np.floating)]
+                    if idx:
+                        g_rtol = (GOLDEN_F32_GRAD_TOL if f32
+                                  else opts.get("grad_rtol", 5e-4))
+                        worst["grad"] = max(worst["grad"], T.check_grad(
+                            where, spec["fn"], spec["ref"], inputs, kwargs,
+                            idx, g_rtol, opts.get("grad_atol", 1e-6),
+                            opts.get("grad_eps", 1e-5),
+                            opts.get("grad_samples", 6), P.to_tensor,
+                            ref_inputs=[np.asarray(a, np.float64)
+                                        if np.asarray(a).dtype == np.float32
+                                        else a for a in inputs]))
+                if (capture and opts.get("check_jit", True)
+                        and spec["id"] not in NOT_CAPTURABLE):
+                    try:
+                        if capture_case(torch, spec["fn"], ins, kwargs, got):
+                            captured += 1
+                        else:
+                            not_equal.append(spec["id"])
+                    except Exception as e:   # reported below, fails
+                        errors[spec["id"]] = repr(e)[:200]
+            rec = dict(dtype=dtype, cases=len(specs),
+                       worst_over_limit=worst["value"],
+                       worst_grad_dev=worst["grad"], captured=captured,
+                       not_capturable=sorted(NOT_CAPTURABLE),
+                       capture_not_equal=not_equal, capture_errors=errors)
+            print("golden", json.dumps(rec), flush=True)
+            if not_equal or errors:
+                raise AssertionError(f"golden capture: {rec}")
+            out[dtype] = rec
+        spec, inputs = next((s, d) for s, d in zip(specs, drawn)
+                            if s["id"] == "exp")
+        faulty = P.ops.unary_op(lambda v: torch.exp(v) * (1 + 1e-4), "exp")
+        try:
+            T.compare(faulty(P.to_tensor(inputs[0])), spec["ref"](inputs[0]),
+                      1e-6, 1e-8, "planted exp")
+            planted_failed = False
+        except AssertionError:
+            planted_failed = True
+        print("golden-planted", json.dumps(dict(failed=planted_failed)),
+              flush=True)
+        if not planted_failed:
+            raise AssertionError("the planted exp fault passed the check")
+        out["planted_failed"] = planted_failed
+    finally:
+        pdev._current["place"] = prev
+    return out
+
+
+OP_STACK_LR = 0.5   # the eager stack's SGD rate (bf16 weights, one batch)
+
+
+def op_stack_weights(P, model):
+    """The model's weights as op-layer Tensors (copies) that need a
+    gradient, by the model's parameter names."""
+    return {n: P.to_tensor(p.detach(), stop_gradient=False)
+            for n, p in model.named_parameters()}
+
+
+def op_stack_loss(P, w, ids, labels, cfg):
+    """The GPT forward and its mean token cross entropy written with the op
+    layer: the embedding gather, RoPE, RMSNorm (mean square in f32 from
+    ``square`` / ``mean`` / ``rsqrt``), the fused qkv product,
+    ``F.flash_attention`` on Tensors, SwiGLU (``a * sigmoid(a) * b``), the
+    tied head and ``log(sum(exp(logits - max))) + max - target``."""
+    F = P.nn.functional
+    B, S = ids.shape
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    D = cfg.hidden_size // H
+    x = w["gpt.embed_tokens.weight"][ids]
+    inv = 1.0 / (10000.0 ** (P.arange(0, D, 2, dtype="float32") / D))
+    freqs = P.arange(S).astype("float32").unsqueeze(-1) * inv
+    emb = P.concat([freqs, freqs], axis=-1).reshape([1, S, 1, D])
+    cos, sin = P.cos(emb).astype(x.dtype), P.sin(emb).astype(x.dtype)
+
+    def rope(t):
+        rot = P.concat([-t[..., D // 2:], t[..., :D // 2]], axis=-1)
+        return t * cos + rot * sin
+
+    def rms(h, weight):
+        h32 = h.astype("float32")
+        ms = P.mean(P.square(h32), axis=-1, keepdim=True)
+        return (h32 * P.rsqrt(ms + 1e-6)).astype(h.dtype) * weight
+
+    for i in range(cfg.num_layers):
+        pre = f"gpt.blocks.{i}."
+        h = rms(x, w[pre + "ln1.weight"])
+        qkv = P.matmul(h, w[pre + "attn.qkv_proj.weight"])
+        q, k, v = P.split(qkv, [H * D, Hkv * D, Hkv * D], axis=-1)
+        q = rope(q.reshape([B, S, H, D]))
+        k = rope(k.reshape([B, S, Hkv, D]))
+        o, _ = F.flash_attention(q, k, v.reshape([B, S, Hkv, D]),
+                                 causal=True)
+        x = x + P.matmul(o.reshape([B, S, H * D]),
+                         w[pre + "attn.out_proj.weight"])
+        h = rms(x, w[pre + "ln2.weight"])
+        a, b = P.split(P.matmul(h, w[pre + "mlp.gate_up.weight"]), 2,
+                       axis=-1)
+        x = x + P.matmul(a * P.sigmoid(a) * b, w[pre + "mlp.down.weight"])
+    x = rms(x, w["gpt.ln_f.weight"])
+    logits = P.matmul(x, w["gpt.embed_tokens.weight"], transpose_y=True)
+    m = P.max(logits, axis=-1, keepdim=True).detach()
+    lse = P.log(P.sum(P.exp(logits - m), axis=-1)) + m.squeeze(-1)
+    tgt = P.take_along_axis(logits, labels.unsqueeze(-1), axis=-1)
+    return P.mean(lse - tgt.squeeze(-1))
+
+
+def grad_rel(torch, a, b):
+    """||a - b|| / ||b|| in f32."""
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+GRAD_REL_TOL = 5e-2   # op stack vs model gradients, per parameter (bf16)
+
+
+def eager_stack(torch, fa, device, config=None, B=8, S=1024, steps=3,
+                seed=12, dtype=None):
+    """GPT-350M's 24 decoder blocks at full width (B 8, S 1024, bf16,
+    seeded weights of the port's ``gpt_350m()`` model) trained eagerly
+    through the paddle-style surface (``op_stack_loss``): ``steps`` steps
+    of ``loss.backward()``, each updating in place under ``no_grad`` (SGD,
+    OP_STACK_LR) and then ``clear_grad()``. Held: the first loss within
+    LOSS_REL_TOL of the model's own forward on the same batch and every
+    gradient within GRAD_REL_TOL (relative L2) of the model's own backward;
+    the loss falls; the flash forward, dq and dk/dv kernels launch
+    num_layers times each per step. The model's own eager steps (same
+    kernels, same update) are timed beside the stack's. Then one forward
+    and backward of the stack over f32 copies of the weights under
+    ``auto_cast(level="O2")``: the matmuls' outputs bf16, the black list
+    (exp, mean, square, log, sum) f32, the loss within LOSS_REL_TOL of the
+    bf16 stack's and the gradients f32."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.framework import device as pdev
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_350m
+
+    cfg = config or gpt_350m()
+    dtype = dtype or torch.bfloat16
+    model = GPTForCausalLM(cfg, device=device, dtype=dtype, seed=0)
+    L = cfg.num_layers
+    g = torch.Generator(device=device).manual_seed(seed)
+    ids_t = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                          device=device)
+    ids_t, labels_t = ids_t[:, :-1], ids_t[:, 1:]
+    prev = pdev._current["place"]
+    P.set_device("cpu" if device == "cpu" else "gpu:0")
+    sync = (torch.cuda.synchronize if device != "cpu" else (lambda: None))
+    try:
+        # the model's own forward and backward: the reference
+        t0 = time.perf_counter()
+        _, ref_loss = model(ids_t, labels_t)
+        ref_loss.backward()
+        sync()
+        ref_grads = {n: p.grad for n, p in model.named_parameters()}
+        w = op_stack_weights(P, model)
+        ids, labels = P.to_tensor(ids_t), P.to_tensor(labels_t)
+        losses, step_ms, launches = [], [], []
+        for step in range(steps):
+            before = flash_launches(fa)
+            sync()
+            t0 = time.perf_counter()
+            loss = op_stack_loss(P, w, ids, labels, cfg)
+            loss.backward()
+            if step == 0:
+                grads = {n: t.grad._value for n, t in w.items()}
+                rel = {n: grad_rel(torch, grads[n], ref_grads[n])
+                       for n in grads}
+            with P.no_grad():
+                for t in w.values():
+                    t.subtract_(t.grad * OP_STACK_LR)
+                    t.clear_grad()
+            losses.append(float(loss))
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            after = flash_launches(fa)
+            launches.append({k: after[k] - before[k] for k in after})
+        del grads
+        # the model's own eager steps, the same update
+        model_ms = []
+        for step in range(steps):
+            sync()
+            t0 = time.perf_counter()
+            model.zero_grad(set_to_none=True)
+            _, loss_m = model(ids_t, labels_t)
+            loss_m.backward()
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.sub_(p.grad * OP_STACK_LR)
+            sync()
+            model_ms.append((time.perf_counter() - t0) * 1e3)
+        model.zero_grad(set_to_none=True)
+        ref_grads = None
+        # O2 over f32 copies of the (updated) weights
+        w32 = {n: P.to_tensor(t._value.float(), stop_gradient=False)
+               for n, t in w.items()}
+        with P.amp.auto_cast(level="O2", dtype="bfloat16"):
+            probe = P.matmul(w32["gpt.ln_f.weight"].unsqueeze(0),
+                             w32["gpt.blocks.0.mlp.down.weight"].T)
+            black = P.exp(w32["gpt.ln_f.weight"])
+            o2_loss = op_stack_loss(P, w32, ids, labels, cfg)
+        o2_loss.backward()
+        bf16_loss = float(op_stack_loss(P, w, ids, labels, cfg).detach())
+        o2 = dict(loss=float(o2_loss), loss_dtype=str(o2_loss.dtype),
+                  bf16_stack_loss=bf16_loss,
+                  matmul_dtype=str(probe.dtype), exp_dtype=str(black.dtype),
+                  grad_dtype=str(w32["gpt.ln_f.weight"].grad.dtype))
+    finally:
+        pdev._current["place"] = prev
+    per_step = {k: L for k in ("fwd", "dq", "dkv")}
+    model_loss = float(ref_loss.detach())
+    rec = dict(layers=L, B=B, S=S, losses=losses, model_loss=model_loss,
+               loss_rel=abs(losses[0] - model_loss) / abs(model_loss),
+               grad_rel_max=max(rel.values()),
+               grad_rel_worst=max(rel, key=rel.get),
+               step_ms=step_ms, model_step_ms=model_ms,
+               flash_launches=launches, o2=o2)
+    print("eager-stack", json.dumps(rec), flush=True)
+    ok = (rec["loss_rel"] <= LOSS_REL_TOL
+          and rec["grad_rel_max"] <= GRAD_REL_TOL
+          and losses[-1] < losses[0]
+          and all(x == per_step for x in launches)
+          and o2["matmul_dtype"] == "torch.bfloat16"
+          and o2["exp_dtype"] == "torch.float32"
+          and o2["grad_dtype"] == "torch.float32"
+          and abs(o2["loss"] - bf16_loss) <= LOSS_REL_TOL * abs(bf16_loss))
+    if not ok:
+        raise AssertionError(f"eager op-layer stack: {rec}")
+    del model, w, w32
+    return rec
+
+
+def wrapper_costs(torch, device, reps=2000):
+    """The op layer's host cost per op, in microseconds of host clock per
+    call (``reps`` calls, then a synchronise): ``a + b`` on [1024] f32 and
+    ``matmul`` on [64, 64] f32, with and without a gradient, through the
+    Tensor wrapper against the same torch call on bare tensors."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.framework import device as pdev
+
+    prev = pdev._current["place"]
+    P.set_device("cpu" if device == "cpu" else "gpu:0")
+    sync = (torch.cuda.synchronize if device != "cpu" else (lambda: None))
+    out = {}
+    try:
+        for name, shapes, op, bare in (
+                ("add_1024", ([1024], [1024]), lambda a, b: a + b,
+                 torch.add),
+                ("matmul_64", ([64, 64], [64, 64]), P.matmul,
+                 torch.matmul)):
+            for grad in (False, True):
+                vals = [torch.randn(s, device=device, requires_grad=grad)
+                        for s in shapes]
+                wrapped = [P.Tensor(v) for v in vals]
+
+                def timed(fn, args):
+                    for _ in range(50):
+                        fn(*args)
+                    sync()
+                    t0 = time.perf_counter()
+                    for _ in range(reps):
+                        fn(*args)
+                    sync()
+                    return (time.perf_counter() - t0) / reps * 1e6
+
+                key = f"{name}{'_grad' if grad else ''}"
+                out[key] = dict(wrapped_us=timed(op, wrapped),
+                                torch_us=timed(bare, vals))
+    finally:
+        pdev._current["place"] = prev
+    print("wrapper-cost", json.dumps(out), flush=True)
+    return out
+
+
+def core_phase(torch, fa, device):
+    """The paddle-style core on the card: the golden tables (f64 and f32,
+    eager, gradients, captured), the eager GPT-350M stack through the op
+    layer, the wrapper's host cost per op."""
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        golden = golden_on_card(torch, device)
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+    stack = eager_stack(torch, fa, device)
+    costs = wrapper_costs(torch, device)
+    return dict(golden=golden, eager_stack=stack, wrapper_cost=costs)
+
+
 def d128_reading(timing, checked):
     """A paged or dense kernel's D = 128 readings for the kernels line:
     decode and prefill, each its times and its check's error."""
@@ -4284,6 +4786,8 @@ def main():
     with phase("kernel_checks_and_times"):
         checks, worst = check_kernels(torch, pa, device)
         timing = time_kernels(torch, pa, device)
+        timing_f16 = time_kernels(torch, pa, device, "float16",
+                                  ("decode", "prefill"))
         flash_checks, flash_worst = check_flash_kernels(torch, fa, device)
         flash_timing = time_flash(torch, fa, device)
 
@@ -4318,6 +4822,11 @@ def main():
     with phase("dense_checks_and_times"):
         dense_checks, dense_worst = check_dense_kernels(torch, da, device)
         dense_timing = time_dense_kernels(torch, da, device)
+        dense_timing_f16 = time_dense_kernels(torch, da, device, "float16",
+                                              ("decode", "prefill"))
+    with phase("f16_serve"):
+        f16 = f16_serve(torch, device)
+    release(torch)
 
     t0 = time.perf_counter()
     model = GPTForCausalLM(gpt_350m(), device=device, seed=0)   # f32
@@ -4416,6 +4925,16 @@ def main():
     print(f"bert_base on {card}: {bert['step_ms']:.1f} ms/step, eval "
           f"forward {bert['eval_ms']:.1f} ms", flush=True)
     release(torch)
+    with phase("core"):
+        core = core_phase(torch, fa, device)
+    st = core["eager_stack"]
+    print(f"core on {card}: golden {core['golden']['float64']['cases']} "
+          f"cases x 2 dtypes, {core['golden']['float64']['captured']} + "
+          f"{core['golden']['float32']['captured']} captured; eager "
+          f"op-layer stack {np.median(st['step_ms'][1:]):.1f} ms/step "
+          f"against the model's {np.median(st['model_step_ms'][1:]):.1f}",
+          flush=True)
+    release(torch)
 
     d = timing["decode"]
     kernels = [{
@@ -4436,6 +4955,18 @@ def main():
         "llama_serve_launches": l_serve["serving"]["kernel_launches"],
         "gpt3_1p3b_serve_launches": g3["serving"]["kernel_launches"],
     }]
+    d = timing_f16["decode"]
+    kernels.append({
+        "name": "paged_decode_attention_f16",
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas/decode_attention.py:245",
+        "dtype": "float16",
+        "launches": f16["paged_launches"],
+        "max_abs_err": worst["float16"],
+        "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+        "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+        "prefill": {k: timing_f16["prefill"][k] for k in READING_KEYS}})
     g = dense_timing["decode"]
     kernels.append({
         "name": "decode_attention",
@@ -4453,6 +4984,19 @@ def main():
         "llama_generate_launches":
             l_gen["generation"]["kernel_launches"],
     })
+    g = dense_timing_f16["decode"]
+    kernels.append({
+        "name": "decode_attention_f16",
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas/decode_attention.py:135",
+        "dtype": "float16",
+        "launches": f16["generate"]["dense_launches"],
+        "max_abs_err": dense_worst["float16"],
+        "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": g["bound_by"], "library_ms": g["library_ms"],
+        "prefill": {k: dense_timing_f16["prefill"][k]
+                    for k in READING_KEYS}})
     src = "paddle_tpu/ops/pallas/flash_attention.py"
     f16_leg = recipes["o2_f16_grad_scaler"]["kernel_launches"]
     for kern, name, replaces, also in (
@@ -4488,7 +5032,9 @@ def main():
                 g3["training"]["flash_launches"][kern],
             "bert_eval_launches": (bert["eval_flash_launches"]
                                    if kern == "fwd" else 0),
-            "bert_train_launches": bert["train_flash_launches"][kern]})
+            "bert_train_launches": bert["train_flash_launches"][kern],
+            "core_eager_stack_launches": [
+                x[kern] for x in core["eager_stack"]["flash_launches"]]})
         t = flash_timing["train_f16"][kern]
         kernels.append({
             "name": f"{name}_f16", "route": "cuda",
@@ -4525,7 +5071,9 @@ def main():
         if kern["name"] in REDESIGNED:
             kern["redesigned"] = REDESIGNED[kern["name"]]
     record = dict(card=card, build_s=build_s, ptxas=ptxas, checks=checks,
-                  timing=timing,
+                  timing=timing, timing_f16=timing_f16,
+                  dense_timing_f16=dense_timing_f16, f16_serve=f16,
+                  core=core,
                   insitu=insitu, profile=steps, serving=serving,
                   serve_knobs=knobs,
                   flash_checks=flash_checks, flash_timing=flash_timing,

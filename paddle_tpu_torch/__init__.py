@@ -30,8 +30,41 @@ families beside that GPT go through the same entry points: the
 GPT-2-style GPT (learned positions, LayerNorm, GELU, biases;
 ``gpt3_1p3b``), LLaMA (``llama2_7b``) and BERT's masked LM
 (``bert_base``, trained through ``TrainStep``).
+
+The paddle-style core (slice 13) sits beside them: ``Tensor`` (a wrapper
+over a ``torch.Tensor``: list shapes, ``stop_gradient`` True by default)
+and ``to_tensor``, autograd over torch's (``backward``, ``grad``,
+``PyLayer``), places (``set_device``; the card unless the CPU is asked
+for), flags, dtypes, and the op layer (``paddle_tpu_torch.exp``,
+``matmul``, ``linalg``, ... and the same ops as Tensor methods; AMP O1
+and O2 cast by op name). The attention functionals take a ``Tensor``;
+the models, ``TrainStep``, the optimizers and serving still run on
+``torch.Tensor``.
 """
-from . import amp, jit, nn, optimizer
+from .framework.dtype import (  # noqa: F401
+    bfloat16, bool_, complex64, complex128, finfo, float16, float32, float64,
+    get_default_dtype, iinfo, int8, int16, int32, int64, set_default_dtype,
+    uint8,
+)
+
+bool = bool_  # paddle.bool
+
+from .framework.device import (  # noqa: E402,F401
+    CPUPlace, CUDAPlace, Place, TPUPlace, XPUPlace, device_count, get_device,
+    get_place, is_compiled_with_cuda, is_compiled_with_xpu, set_device,
+)
+from .framework.flags import get_flags, set_flags  # noqa: E402,F401
+from .framework.random import (  # noqa: E402,F401
+    get_rng_state, seed, set_rng_state,
+)
+from .tensor import Tensor, to_tensor  # noqa: E402,F401
+from .autograd import (  # noqa: E402,F401
+    enable_grad, grad, is_grad_enabled, no_grad, set_grad_enabled,
+)
+from . import ops  # noqa: E402
+from .ops import *  # noqa: E402,F401,F403
+from . import autograd, framework, linalg  # noqa: E402,F401
+from . import amp, jit, nn, optimizer  # noqa: E402
 from .bridge import from_paddle_tpu_state, to_paddle_tpu_state
 from .inference import (
     ContinuousGenerateBatchingPredictor,
@@ -64,4 +97,14 @@ __all__ = ["GPTConfig", "GPTForCausalLM", "gpt_tiny", "gpt_350m",
            "PagedKVCache", "ContinuousGenerateBatchingPredictor",
            "GenerateBatchingPredictor",
            "InferenceServer", "from_paddle_tpu_state", "to_paddle_tpu_state",
-           "amp", "jit", "nn", "optimizer"]
+           "amp", "jit", "nn", "optimizer", "autograd", "framework",
+           "linalg", "ops", "Tensor", "to_tensor", "seed", "get_rng_state",
+           "set_rng_state", "no_grad", "enable_grad", "grad",
+           "is_grad_enabled", "set_grad_enabled", "set_flags", "get_flags",
+           "Place", "CPUPlace", "CUDAPlace", "TPUPlace", "XPUPlace",
+           "set_device", "get_device", "get_place", "device_count",
+           "is_compiled_with_cuda", "is_compiled_with_xpu",
+           "get_default_dtype", "set_default_dtype", "finfo", "iinfo",
+           "bool", "bool_", "uint8", "int8", "int16", "int32", "int64",
+           "float16", "bfloat16", "float32", "float64", "complex64",
+           "complex128"] + ops.__all__

@@ -16,8 +16,13 @@
   GPT's tied head; ``exp``, ``sum``, ``log`` in ``ParallelCrossEntropy``;
   ``mean`` in the loss). The cast happens inside autograd, so each
   gradient comes back in its input's dtype, as ``astype``'s VJP does in
-  JAX. Level O2 under ``auto_cast`` (every op cast by name) is not ported:
-  ``decorate(level="O2")`` already puts the parameters in the amp dtype.
+  JAX.
+* ``auto_cast(level="O2")`` casts every op of the paddle-style op layer
+  (``ops.apply_op``, by the op's name, JAX's single dispatch seam) to the
+  amp dtype except the black list, which runs in f32. The ported models
+  do not run on the op layer yet: their seams (``_amp_cast``) raise
+  ``NotImplementedError`` under O2 until the nn surface moves onto it
+  (ROADMAP A).
 * ``GradScaler`` is JAX's dynamic loss scaling state machine, eager as
   there (JAX's ``TrainStep`` takes no scaler); found-inf stays a device
   tensor until ``step`` or ``update`` reads it.
@@ -86,16 +91,30 @@ def get_amp_level():
     return _amp_state["level"]
 
 
-def _cast_target(name):
-    """The dtype op ``name`` runs in under the current amp state, or None
-    (its inputs' dtypes): JAX ``_amp_wrap`` at level O1."""
+def _op_cast_target(name):
+    """The dtype op ``name`` of the op layer runs in under the current amp
+    state, or None (its inputs' dtypes): JAX ``_amp_wrap``. O1: black list
+    f32, white list the amp dtype; O2: every op but the black list in the
+    amp dtype."""
     if not _amp_state["enable"]:
         return None
     if name in black_list():
         return torch.float32
-    if name in white_list():
+    if _amp_state["level"] == "O2" or name in white_list():
         return _amp_state["dtype"]
     return None
+
+
+def _cast_target(name):
+    """``_op_cast_target`` for the ported models' seams, which cast at O1
+    only: under O2 they raise, since O2 casts every op and the models do
+    not run on the op layer yet."""
+    if _amp_state["enable"] and _amp_state["level"] == "O2":
+        raise NotImplementedError(
+            f"auto_cast(level='O2') casts the ops of the paddle-style op "
+            f"layer; the ported models do not run on it yet (op {name!r}; "
+            f"ROADMAP A: the nn surface)")
+    return _op_cast_target(name)
 
 
 def _amp_cast(name, *tensors):
@@ -130,12 +149,9 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
               level="O1", dtype="bfloat16", use_promote=True):
     """Within: ops cast by name (see the module docstring). Nested blocks
     restore the outer state on exit."""
-    if level != "O1":
-        # JAX casts every op but the black list at any other level
+    if level not in ("O1", "O2"):
         raise NotImplementedError(
-            f"auto_cast(level={level!r}) is not ported: decorate(level="
-            f"'O2') casts the parameters, and the JAX package's O2 also "
-            f"casts every op's inputs by name (ROADMAP A)")
+            f"auto_cast(level={level!r}): the port casts at O1 and O2")
     with _restored(dict(
             enable=bool(enable), dtype=_dtype(dtype),
             level=level,

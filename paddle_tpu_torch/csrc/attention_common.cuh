@@ -1,11 +1,11 @@
 // Helpers shared by the port's attention kernels (flash_attention.cu,
-// paged_attention.cu, decode_attention.cu): warp-level bf16 tensor-core
+// paged_attention.cu, decode_attention.cu): warp-level bf16 and f16 tensor-core
 // products (mma.sync m16n8k16 with ldmatrix operands, or with the A operand
-// already in registers) and their f32 CUDA-core twin, fragment stores and
-// the packing of f32 score fragments into bf16 or f16 A fragments, quad
-// reductions over an m16n8 row, the base-2 online softmax of a score tile,
-// 16-byte cp.async copies, the dynamic shared memory opt-in, and the
-// split-KV combine pass.
+// already in registers) and their f32 CUDA-core twin, fragment stores and the
+// packing of f32 score fragments into bf16 or f16 A fragments, quad reductions
+// over an m16n8 row, the base-2 online softmax of a score tile, 16-byte
+// cp.async copies, the dynamic shared memory opt-in, and the split-KV combine
+// pass.
 //
 // The combine pass replaces the TPU package's XLA stage-2 reduction
 // `_combine_partials` (paddle_tpu/ops/pallas/decode_attention.py:153): it
@@ -57,13 +57,23 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
       : "r"(smem_u32(p)));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// c += a . b on the tensor cores, m16n8k16 with f32 accumulation; T (bf16
+// or f16) picks the `.bf16` or `.f16` form, same fragment layouts.
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, f16>::value)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 16 bytes global -> shared without passing through registers. With
@@ -91,6 +101,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Two floats rounded to the 16-bit type T (bf16 or f16, round to nearest
+// even) and packed into one 32-bit word, the first in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, f16>::value) {
+    const __half2 p = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&p);
+  } else {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&p);
+  }
+}
+
 // f32 score fragments (m16n8 accumulators, columns 8j..8j+7 in s[j]) as the
 // 16-bit A fragments (element type T: bf16 or f16) of the next m16n8k16 or
 // wgmma product: the accumulator layout of columns 16kk..16kk+15 is the A
@@ -104,25 +127,20 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[NC / 2][4],
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float* f = &s[2 * kk + (i >> 1)][(i & 1) * 2];
-      if constexpr (std::is_same<T, f16>::value) {
-        const __half2 p = __floats2half2_rn(f[0], f[1]);
-        a[kk][i] = *reinterpret_cast<const uint32_t*>(&p);
-      } else {
-        const __nv_bfloat162 p = __floats2bfloat162_rn(f[0], f[1]);
-        a[kk][i] = *reinterpret_cast<const uint32_t*>(&p);
-      }
+      a[kk][i] = pack2<T>(f[0], f[1]);
     }
   }
 }
 
-// One warp's bf16 products with the A operand (16 x K) in registers, as
-// `pack_a` or `load_a` leave it: a[ks] is k-block ks.
-template <int NB, int K>
+// One warp's 16-bit products (element type T: bf16 or f16) with the A
+// operand (16 x K) in registers, as `pack_a` or `load_a` leave it: a[ks] is
+// k-block ks.
+template <int NB, int K, typename T = bf16>
 struct WarpMmaA {
   static_assert(NB % 2 == 0 && K % 16 == 0, "tile shape");
-  // A rows 0..15 of a row-major bf16 tile (stride lda) into registers.
+  // A rows 0..15 of a row-major 16-bit tile (stride lda) into registers.
   static __device__ __forceinline__ void load_a(uint32_t (&a)[K / 16][4],
-                                                const bf16* A, int lda) {
+                                                const T* A, int lda) {
     const int lane = threadIdx.x & 31;
 #pragma unroll
     for (int ks = 0; ks < K / 16; ++ks)
@@ -131,7 +149,7 @@ struct WarpMmaA {
   // B n-major: element (k, n) at B[n * ldb + k].
   static __device__ __forceinline__ void nk(float (&acc)[NB][4],
                                             const uint32_t (&a)[K / 16][4],
-                                            const bf16* B, int ldb) {
+                                            const T* B, int ldb) {
     const int lane = threadIdx.x & 31;
 #pragma unroll
     for (int ks = 0; ks < K / 16; ++ks) {
@@ -140,15 +158,15 @@ struct WarpMmaA {
         uint32_t b[4];
         ldsm_x4(b, B + (j * 8 + (lane & 7) + (lane >> 4) * 8) * ldb +
                        ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(acc[j], a[ks], b[0], b[1]);
-        mma_bf16(acc[j + 1], a[ks], b[2], b[3]);
+        mma16<T>(acc[j], a[ks], b[0], b[1]);
+        mma16<T>(acc[j + 1], a[ks], b[2], b[3]);
       }
     }
   }
   // B k-major: element (k, n) at B[k * ldb + n].
   static __device__ __forceinline__ void kn(float (&acc)[NB][4],
                                             const uint32_t (&a)[K / 16][4],
-                                            const bf16* B, int ldb) {
+                                            const T* B, int ldb) {
     const int lane = threadIdx.x & 31;
 #pragma unroll
     for (int ks = 0; ks < K / 16; ++ks) {
@@ -157,8 +175,8 @@ struct WarpMmaA {
         uint32_t b[4];
         ldsm_x4_t(b, B + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb +
                          j * 8 + (lane >> 4) * 8);
-        mma_bf16(acc[j], a[ks], b[0], b[1]);
-        mma_bf16(acc[j + 1], a[ks], b[2], b[3]);
+        mma16<T>(acc[j], a[ks], b[0], b[1]);
+        mma16<T>(acc[j + 1], a[ks], b[2], b[3]);
       }
     }
   }
@@ -175,15 +193,13 @@ constexpr float kLn2 = 0.6931471805599453f;
 // l/4 + 8, columns 2(l%4) and 2(l%4) + 1. A (16 x K) is row-major with
 // stride lda. B is given either n-major (`nk`: element (k, n) at
 // B[n * ldb + k]) or k-major (`kn`: at B[k * ldb + n]). All in shared memory.
+// The primary template is the 16-bit one (T bf16 or f16, tensor cores).
 template <typename T, int NB, int K>
-struct WarpMma;
-
-template <int NB, int K>
-struct WarpMma<bf16, NB, K> {
+struct WarpMma {
   static_assert(NB % 2 == 0 && K % 16 == 0, "tile shape");
   static __device__ __forceinline__ void nk(float (&acc)[NB][4],
-                                            const bf16* A, int lda,
-                                            const bf16* B, int ldb) {
+                                            const T* A, int lda,
+                                            const T* B, int ldb) {
     const int lane = threadIdx.x & 31;
 #pragma unroll
     for (int ks = 0; ks < K / 16; ++ks) {
@@ -194,14 +210,14 @@ struct WarpMma<bf16, NB, K> {
         uint32_t b[4];
         ldsm_x4(b, B + (j * 8 + (lane & 7) + (lane >> 4) * 8) * ldb +
                        ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(acc[j], a, b[0], b[1]);
-        mma_bf16(acc[j + 1], a, b[2], b[3]);
+        mma16<T>(acc[j], a, b[0], b[1]);
+        mma16<T>(acc[j + 1], a, b[2], b[3]);
       }
     }
   }
   static __device__ __forceinline__ void kn(float (&acc)[NB][4],
-                                            const bf16* A, int lda,
-                                            const bf16* B, int ldb) {
+                                            const T* A, int lda,
+                                            const T* B, int ldb) {
     const int lane = threadIdx.x & 31;
 #pragma unroll
     for (int ks = 0; ks < K / 16; ++ks) {
@@ -212,8 +228,8 @@ struct WarpMma<bf16, NB, K> {
         uint32_t b[4];
         ldsm_x4_t(b, B + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb +
                          j * 8 + (lane >> 4) * 8);
-        mma_bf16(acc[j], a, b[0], b[1]);
-        mma_bf16(acc[j + 1], a, b[2], b[3]);
+        mma16<T>(acc[j], a, b[0], b[1]);
+        mma16<T>(acc[j + 1], a, b[2], b[3]);
       }
     }
   }
@@ -333,6 +349,20 @@ __device__ __forceinline__ void online_softmax(float (&s)[NC][4],
     o[j][2] *= alpha[1];
     o[j][3] *= alpha[1];
   }
+}
+
+// Grid folding. A launch over B * H (or B * Hkv) heads puts them on grid.y,
+// whose limit is 65535: grid.y = min(BH, 65535), and the heads past it fold
+// into another axis, `fold` = ceil(BH / grid.y) times over. A block's head
+// is fold * gridDim.y + blockIdx.y; the blocks of the last fold past BH
+// exit before any load or barrier.
+constexpr int kMaxGridY = 65535;
+inline unsigned grid_y(int BH) { return BH < kMaxGridY ? BH : kMaxGridY; }
+inline unsigned grid_fold(int BH) {
+  return (BH + grid_y(BH) - 1) / grid_y(BH);
+}
+__device__ __forceinline__ int folded_bh(unsigned fold) {
+  return (int)(fold * gridDim.y + blockIdx.y);
 }
 
 // Dynamic shared memory above 48 KB must be asked for per kernel.

@@ -31,7 +31,7 @@
 //   * All four warps do products: warp w takes columns [16w, 16w + 16) of
 //     every tile with its own online softmax (m, l, o), and the four are
 //     merged through shared memory at the end (m* = max m_w, each weighted
-//     by exp2(m_w - m*)). bf16: Q's fragments loaded once, Q.K^T and P.V
+//     by exp2(m_w - m*)). bf16, f16: Q's fragments loaded once, Q.K^T and P.V
 //     on mma.sync m16n8k16 with P packed from the score accumulators
 //     (`pack_a`). f32 (the speculative self-drafter, generate(dtype=None)):
 //     the same tiles through CUDA-core FMAs in full f32 (no TF32), P through
@@ -41,8 +41,8 @@
 //     several tiles each (grid.x), so each block streams several tiles and
 //     short batches still fill the 132 SMs.
 //
-// Prefill form (`dense_prefill_kernel`; S*G > 16, bf16). A block is one
-// warpgroup owning 64 query rows of one (b, h). Bound: 4*D operations per
+// Prefill form (`dense_prefill_kernel`; S*G > 16, bf16 or f16). A block is
+// one warpgroup owning 64 query rows of one (b, h). Bound: 4*D operations per
 // allowed pair, ~S/2 flops per K/V byte; at S = 512 in bf16 near the card's
 // ~295 flop/byte ridge, so tensor-core operations and bytes bound it about
 // equally. Built from the bf16 flash forward's pieces (wgmma_common.cuh):
@@ -145,7 +145,8 @@ __device__ __forceinline__ void load_q16(T* dst, const T* __restrict__ q,
   }
 }
 
-// grid (splits, B * Hkv, ceil(S * G / 16)), block 128. With one split the
+// grid (splits * fold, B * Hkv folded, ceil(S * G / 16)), block 128: grid.x
+// holds the split and the head fold (`grid_fold`). With one split the
 // output goes straight to out; otherwise partials o [splits, B * Hkv,
 // S * G, D] (unnormalised) and m, l [splits, B * Hkv, S * G], all f32.
 // `scale2` is scale * log2(e).
@@ -157,7 +158,7 @@ dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float* __restrict__ o_part, float* __restrict__ m_part,
                     float* __restrict__ l_part, int S, int Hq, int Hkv,
                     int T_len, int G, float scale2,
-                    int tiles_per_split) {
+                    int tiles_per_split, int splits, int BH) {
   using L = DecodeSmem<T, D>;
   constexpr int LD = L::LD;
   constexpr int NS = L::kStages;
@@ -171,10 +172,9 @@ dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* m_s = o_s + kWarps * kDecRows * D;     // [kWarps][16]
   float* l_s = m_s + kWarps * kDecRows;         // [kWarps][16]
 
-  const int splits = gridDim.x;
-  const int split = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int BH = gridDim.y;
+  const int split = blockIdx.x % splits;
+  const int bh = folded_bh(blockIdx.x / splits);
+  if (bh >= BH) return;  // past B * Hkv in the last fold
   const int b = bh / Hkv;
   const int h = bh % Hkv;
   const int SG = S * G;
@@ -218,7 +218,7 @@ dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     cp_async_commit();
   }
-  uint32_t qf[D / 16][4];  // bf16: Q's A fragments, loaded once
+  uint32_t qf[D / 16][4];  // bf16, f16: Q's A fragments, loaded once
   for (int i = 0; i < n; ++i) {  // block-uniform
     cp_async_wait<NS - 2>();
     __syncthreads();  // tile i landed for all; tile i - 1 consumed by all
@@ -236,8 +236,8 @@ dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NC; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
     if constexpr (kTensorCores) {
-      if (i == 0) WarpMmaA<NC, D>::load_a(qf, q_s, LD);
-      WarpMmaA<NC, D>::nk(s, qf, k_t, LD);
+      if (i == 0) WarpMmaA<NC, D, T>::load_a(qf, q_s, LD);
+      WarpMmaA<NC, D, T>::nk(s, qf, k_t, LD);
     } else {
       WarpMma<T, NC, D>::nk(s, q_s, LD, k_t, LD);
     }
@@ -252,8 +252,8 @@ dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     online_softmax<NC, D / 8>(s, m, l, o);
     if constexpr (kTensorCores) {
       uint32_t pa[NC / 2][4];
-      pack_a<NC>(pa, s);  // P rounded to the cache dtype
-      WarpMmaA<D / 8, kWarpCols>::kn(o, pa, v_t, LD);
+      pack_a<NC, T>(pa, s);  // P rounded to the cache dtype
+      WarpMmaA<D / 8, kWarpCols, T>::kn(o, pa, v_t, LD);
     } else {
       T* p_w = p_s + warp * kDecRows * L::LDP;
       store_frag<T, NC>(p_w, L::LDP, s);
@@ -332,9 +332,9 @@ dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Query rows [r0, r0 + 64) of (b, h) into the swizzled tile `dst` by
 // cp.async: row r = s * G + g is query head h * G + g at step s, gathered
 // row by row; rows at or past SG are zero-filled.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void gather_q_swizzled(unsigned char* dst,
-                                                  const bf16* __restrict__ q,
+                                                  const T* __restrict__ q,
                                                   int b, int h, int r0,
                                                   int SG, int S, int Hq,
                                                   int G) {
@@ -344,7 +344,7 @@ __device__ __forceinline__ void gather_q_swizzled(unsigned char* dst,
     const int c = idx % CPR;
     const int row = r0 + r;
     const bool live = row < SG;
-    const bf16* src = q;
+    const T* src = q;
     if (live)
       src = q + ((size_t)(b * S + row / G) * Hq + h * G + row % G) * D + c * 8;
     cp_async16(dst + (c >> 3) * (kRows * 128) + r * 128 +
@@ -353,36 +353,37 @@ __device__ __forceinline__ void gather_q_swizzled(unsigned char* dst,
   }
 }
 
-// Q, then K and V two stages each, 1024-byte aligned.
+// Q, then K and V two stages each, 1024-byte aligned (16-bit elements).
 template <int D>
 constexpr size_t prefill_smem() {
-  return 1024 + 5 * (size_t)kRows * D * sizeof(bf16);
+  return 1024 + 5 * (size_t)kRows * D * 2;
 }
 
-// grid (splits, B * Hkv, ceil(S * G / 64)), block 128 (one warpgroup).
+// grid (splits * fold, B * Hkv folded, ceil(S * G / 64)), block 128 (one
+// warpgroup); T is bf16 or f16 (the wgmma's `.bf16` or `.f16` form).
 // With one split the output goes straight to out; otherwise partials as
 // `dense_decode_kernel`'s, combined by a second launch.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-dense_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
+dense_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v,
                      const int* __restrict__ lengths, int uniform_length,
-                     bf16* __restrict__ out, float* __restrict__ o_part,
+                     T* __restrict__ out, float* __restrict__ o_part,
                      float* __restrict__ m_part, float* __restrict__ l_part,
                      int S, int Hq, int Hkv, int T_len, int G, float scale2,
-                     int tiles_per_split) {
+                     int tiles_per_split, int splits, int BH) {
+  static_assert(sizeof(T) == 2, "a 16-bit element type");
   constexpr int NC = kCols / 8;
-  constexpr int TILE = kRows * D * sizeof(bf16);  // bytes of a 64-row tile
+  constexpr int TILE = kRows * D * sizeof(T);  // bytes of a 64-row tile
   extern __shared__ unsigned char smem_raw[];
   unsigned char* q_s =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* k_s = q_s + TILE;      // [2]
   unsigned char* v_s = k_s + 2 * TILE;  // [2]
 
-  const int splits = gridDim.x;
-  const int split = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int BH = gridDim.y;
+  const int split = blockIdx.x % splits;
+  const int bh = folded_bh(blockIdx.x / splits);
+  if (bh >= BH) return;  // past B * Hkv in the last fold
   const int b = bh / Hkv;
   const int h = bh % Hkv;
   const int SG = S * G;
@@ -405,8 +406,8 @@ dense_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = row_lo + 8 * i;
     horizon[i] = row < SG ? min(length + row / G + 1, T_len) : 0;
   }
-  const bf16* k_slab = k + (size_t)bh * T_len * D;
-  const bf16* v_slab = v + (size_t)bh * T_len * D;
+  const T* k_slab = k + (size_t)bh * T_len * D;
+  const T* v_slab = v + (size_t)bh * T_len * D;
   const SwizzledCopy<D> copy(1);  // slab rows are D elements apart
 
   float o[D / 8][4];
@@ -419,7 +420,7 @@ dense_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < NC; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 
   if (tile0 < tile1) {
-    gather_q_swizzled<D>(q_s, q, b, h, r0, SG, S, Hq, G);
+    gather_q_swizzled<T, D>(q_s, q, b, h, r0, SG, S, Hq, G);
     copy.load(k_s, k_slab, tile0 * kCols, col_end, 1);
     copy.load(v_s, v_slab, tile0 * kCols, col_end, 1);
   }
@@ -440,7 +441,7 @@ dense_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // S = Q . K^T, both K-major in shared memory
     wgmma_fence();
     fence_regs<NC>(s);
-    wgmma_abt<D>(s, q_s, k_s + stage * TILE);
+    wgmma_abt<D, T>(s, q_s, k_s + stage * TILE);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<NC>(s);
@@ -463,13 +464,13 @@ dense_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     online_softmax<NC, D / 8>(s, m, l, o);
     uint32_t pa[NC / 2][4];
-    pack_a<NC>(pa, s);  // P rounded to the cache dtype
+    pack_a<NC, T>(pa, s);  // P rounded to the cache dtype
 
     // O += P . V, P from registers
     wgmma_fence();
     fence_regs<D / 8>(o);
     fence_regs<NC / 2>(pa);
-    wgmma_pv<D>(o, pa, v_s + stage * TILE);
+    wgmma_pv<D, T>(o, pa, v_s + stage * TILE);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<D / 8>(o);
@@ -482,13 +483,13 @@ dense_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = row_lo + 8 * i;
     if (row >= SG) continue;
     if (splits == 1) {  // out = o / l, as the combine of one split
-      bf16* dst = out_row<bf16, D>(out, bh, row, S, Hq, Hkv, G) + cq;
+      T* dst = out_row<T, D>(out, bh, row, S, Hq, Hkv, G) + cq;
       const bool any = l_row > 0.f;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
-            __floats2bfloat162_rn(any ? o[j][2 * i] / l_row : 0.f,
-                                  any ? o[j][2 * i + 1] / l_row : 0.f);
+        *reinterpret_cast<uint32_t*>(dst + j * 8) =
+            pack2<T>(any ? o[j][2 * i] / l_row : 0.f,
+                     any ? o[j][2 * i + 1] / l_row : 0.f);
       continue;
     }
     const size_t base = ((size_t)split * BH + bh) * SG + row;
@@ -522,7 +523,9 @@ cudaError_t launch(int form, const void* q, const void* k, const void* v,
       rows = kRows;
     }
   }
-  const dim3 grid(splits, B * Hkv, (SG + rows - 1) / rows);
+  const int BH = B * Hkv;
+  const dim3 grid(splits * grid_fold(BH), grid_y(BH),
+                  (SG + rows - 1) / rows);
   cudaError_t err;
   if (form == 0) {
     err = allow_smem(dense_decode_kernel<T, D>, smem);
@@ -532,16 +535,16 @@ cudaError_t launch(int form, const void* q, const void* k, const void* v,
         static_cast<const T*>(v), static_cast<const int*>(lengths),
         uniform_length, static_cast<T*>(out), static_cast<float*>(o_part),
         static_cast<float*>(m_part), static_cast<float*>(l_part), S, Hq, Hkv,
-        T_len, G, scale2, tiles_per_split);
+        T_len, G, scale2, tiles_per_split, splits, BH);
   } else if constexpr (sizeof(T) == 2) {
-    err = allow_smem(dense_prefill_kernel<D>, smem);
+    err = allow_smem(dense_prefill_kernel<T, D>, smem);
     if (err != cudaSuccess) return err;
-    dense_prefill_kernel<D><<<grid, kThreads, smem, stream>>>(
+    dense_prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const int*>(lengths),
         uniform_length, static_cast<T*>(out), static_cast<float*>(o_part),
         static_cast<float*>(m_part), static_cast<float*>(l_part), S, Hq, Hkv,
-        T_len, G, scale2, tiles_per_split);
+        T_len, G, scale2, tiles_per_split, splits, BH);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -553,15 +556,14 @@ cudaError_t launch(int form, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Returns a cudaError_t (0 on success). dtype: 0 = float32, 1 = bfloat16;
-// D: 64 or 128; form: 0 = decode (16-row blocks), 1 = prefill (64-row
-// wgmma blocks, bf16 only). q [B, S, Hq, D] in the cache dtype, caches
+// Returns a cudaError_t (0 on success). dtype: 0 = float32, 1 = bfloat16, 2 =
+// float16; D: 64 or 128; form: 0 = decode (16-row blocks), 1 = prefill (64-row
+// wgmma blocks, bf16 and f16 only). q [B, S, Hq, D] in the cache dtype, caches
 // [B, Hkv, T, D], lengths int32 [B] or null (then every request is at
-// `uniform_length`), out [B, S, Hq, D]. With splits > 1: the f32 partials
-// as the wrapper allocates them (null with one split), combined by a
-// second launch. All device pointers of contiguous, 16-byte aligned
-// tensors. `stream` is a cudaStream_t (PyTorch's current stream). Nothing
-// is allocated here.
+// `uniform_length`), out [B, S, Hq, D]. With splits > 1: the f32 partials as
+// the wrapper allocates them (null with one split), combined by a second
+// launch. All device pointers of contiguous, 16-byte aligned tensors. `stream`
+// is a cudaStream_t (PyTorch's current stream). Nothing is allocated here.
 extern "C" int decode_attention_forward(
     const void* q, const void* k_cache, const void* v_cache,
     const void* lengths, int uniform_length, void* o_part, void* m_part,
@@ -571,8 +573,8 @@ extern "C" int decode_attention_forward(
   const int rows = form == 1 ? kRows : kDecRows;
   if (B <= 0 || S <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
       uniform_length < 0 || splits <= 0 || tiles_per_split <= 0 ||
-      B * Hkv > 65535 || (S * (Hq / Hkv) + rows - 1) / rows > 65535 ||
-      (form != 0 && !(form == 1 && dtype == 1)) ||
+      (S * (Hq / Hkv) + rows - 1) / rows > 65535 ||
+      (form != 0 && !(form == 1 && (dtype == 1 || dtype == 2))) ||
       (splits > 1 && (o_part == nullptr || m_part == nullptr ||
                       l_part == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -585,6 +587,8 @@ extern "C" int decode_attention_forward(
   if (dtype == 0 && D == 128) return (int)CALL(float, 128);
   if (dtype == 1 && D == 64) return (int)CALL(bf16, 64);
   if (dtype == 1 && D == 128) return (int)CALL(bf16, 128);
+  if (dtype == 2 && D == 64) return (int)CALL(f16, 64);
+  if (dtype == 2 && D == 128) return (int)CALL(f16, 128);
 #undef CALL
   return (int)cudaErrorInvalidValue;
 }

@@ -352,7 +352,7 @@ constexpr size_t fwd_f32_smem() {
          2 * bands_smem<Mask>();
 }
 
-// The f32 forward. grid (ceil(S / 64), B * H), block 128; `scale2` is
+// The f32 forward. grid (ceil(S / 64), B * H folded), block 128; `scale2` is
 // scale * log2(e). The heaviest causal tiles (the last query rows) are
 // scheduled first. Products by CUDA-core FMAs in full f32, P through shared
 // memory; K/V through a two-stage cp.async ring, one barrier per tile.
@@ -361,7 +361,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, const int* __restrict__ sri,
-                     int S, int H, float scale2, int causal, int n, int Hp) {
+                     int S, int H, float scale2, int causal, int n, int Hp,
+                     int BH) {
   constexpr int LD = D + 4;
   constexpr int LDP = kCols + 4;
   constexpr int NC = kCols / 8;
@@ -372,7 +373,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* p_s = v_s + 2 * kCols * LD;    // [kRows][LDP]
   int4* bands = reinterpret_cast<int4*>(p_s + kRows * LDP);  // [2][kCols]
 
-  const int bh = blockIdx.y;
+  const int bh = folded_bh(blockIdx.z);
+  if (bh >= BH) return;  // past B * H in the last fold
   const int b = bh / H;
   const int h = bh % H;
   const int row0 = (gridDim.x - 1 - blockIdx.x) * kRows;
@@ -440,14 +442,15 @@ constexpr size_t fwd_wgmma_smem() {
   return 1024 + 5 * (size_t)kRows * D * 2 + 2 * bands_smem<Mask>();
 }
 
-// The bf16 / f16 forward. grid (ceil(S / 64), B * H), block 128 (one
+// The bf16 / f16 forward. grid (ceil(S / 64), B * H folded), block 128 (one
 // warpgroup); `scale2` is scale * log2(e). The heaviest causal tiles first.
 template <typename T, int D, bool Mask>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        float* __restrict__ lse, const int* __restrict__ sri,
-                       int S, int H, float scale2, int causal, int n, int Hp) {
+                       int S, int H, float scale2, int causal, int n, int Hp,
+                       int BH) {
   constexpr int NC = kCols / 8;
   constexpr int TILE = kRows * D * sizeof(T);  // bytes of a 64-row tile
   extern __shared__ unsigned char smem_raw[];
@@ -457,7 +460,8 @@ flash_fwd_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   unsigned char* v_s = k_s + 2 * TILE;  // [2]
   int4* bands = reinterpret_cast<int4*>(v_s + 2 * TILE);  // [2][kCols]
 
-  const int bh = blockIdx.y;
+  const int bh = folded_bh(blockIdx.z);
+  if (bh >= BH) return;  // past B * H in the last fold
   const int b = bh / H;
   const int h = bh % H;
   const int row0 = (gridDim.x - 1 - blockIdx.x) * kRows;
@@ -591,7 +595,7 @@ constexpr size_t dq_wgmma_smem() {
   return 1024 + 6 * (size_t)kRows * D * 2 + 2 * bands_smem<Mask>();
 }
 
-// The bf16 / f16 dq. grid (ceil(S / 64), B * H), block 128 (one
+// The bf16 / f16 dq. grid (ceil(S / 64), B * H folded), block 128 (one
 // warpgroup) owning 64 query rows; the K/V tiles walked up to the
 // diagonal, heaviest blocks first. Per tile: S = Q.K^T and dP = dO.V^T
 // (wgmma, both operands from shared memory, K-major), issued together;
@@ -605,7 +609,8 @@ flash_dq_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dq,
                       const int* __restrict__ sri, int S, int H, float scale,
-                      int causal, int n, int Hp) {
+                      int causal, int n, int Hp,
+                      int BH) {
   constexpr int NC = kCols / 8;
   constexpr int TILE = kRows * D * sizeof(T);  // bytes of a 64-row tile
   extern __shared__ unsigned char smem_raw[];
@@ -616,7 +621,8 @@ flash_dq_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   unsigned char* v_s = k_s + 2 * TILE;  // [2]
   int4* bands = reinterpret_cast<int4*>(v_s + 2 * TILE);  // [2][kCols]
 
-  const int bh = blockIdx.y;
+  const int bh = folded_bh(blockIdx.z);
+  if (bh >= BH) return;  // past B * H in the last fold
   const int b = bh / H;
   const int h = bh % H;
   const int row0 = (gridDim.x - 1 - blockIdx.x) * kRows;
@@ -778,7 +784,7 @@ constexpr size_t dkv_wgmma_smem() {
          2 * 2 * kRows * sizeof(float) + bands_smem<Mask>();
 }
 
-// The bf16 / f16 dk/dv. grid (ceil(S / 64), B * H), block 128 (one
+// The bf16 / f16 dk/dv. grid (ceil(S / 64), B * H folded), block 128 (one
 // warpgroup) owning 64 key columns; the query tiles walked from the
 // diagonal down (the heaviest blocks, the first columns, first in grid
 // order). Per tile: S^T = K.Q^T and dP^T = V.dO^T (wgmma, K-major operands
@@ -793,7 +799,8 @@ flash_dkv_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta, T* __restrict__ dk,
                        T* __restrict__ dv, const int* __restrict__ sri, int S,
-                       int H, float scale, int causal, int n, int Hp) {
+                       int H, float scale, int causal, int n, int Hp,
+                       int BH) {
   constexpr int NR = kRows / 8;
   constexpr int TILE = kRows * D * sizeof(T);  // bytes of a 64-row tile
   static_assert(kThreads == 2 * kRows, "one stat copy per thread");
@@ -807,7 +814,8 @@ flash_dkv_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* stats = reinterpret_cast<float*>(do_s + 2 * TILE);
   int4* bands = reinterpret_cast<int4*>(stats + 2 * 2 * kRows);  // [kCols]
 
-  const int bh = blockIdx.y;
+  const int bh = folded_bh(blockIdx.z);
+  if (bh >= BH) return;  // past B * H in the last fold
   const int b = bh / H;
   const int h = bh % H;
   const int col0 = blockIdx.x * kCols;
@@ -930,8 +938,8 @@ constexpr size_t dq_f32_smem() {
          2 * bands_smem<Mask>();
 }
 
-// grid (ceil(S / 64), B * H), block 128: one block per 64 query rows, the
-// K/V tiles walked up to the diagonal. Heaviest tiles first.
+// grid (ceil(S / 64), B * H folded), block 128: one block per 64 query rows,
+// the K/V tiles walked up to the diagonal. Heaviest tiles first.
 template <int D, bool Mask>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -940,7 +948,8 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     const int* __restrict__ sri, int S, int H, float scale,
-                    int causal, int n, int Hp) {
+                    int causal, int n, int Hp,
+                    int BH) {
   constexpr int LD = D + 4;
   constexpr int LDP = kCols + 4;
   constexpr int NC = kCols / 8;
@@ -952,7 +961,8 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* ds_s = v_s + 2 * kCols * LD;  // [kRows][LDP]
   int4* bands = reinterpret_cast<int4*>(ds_s + kRows * LDP);  // [2][kCols]
 
-  const int bh = blockIdx.y;
+  const int bh = folded_bh(blockIdx.z);
+  if (bh >= BH) return;  // past B * H in the last fold
   const int b = bh / H;
   const int h = bh % H;
   const int row0 = (gridDim.x - 1 - blockIdx.x) * kRows;
@@ -1042,9 +1052,9 @@ constexpr size_t dkv_f32_smem() {
          2 * 2 * kRows * sizeof(float) + bands_smem<Mask>();
 }
 
-// grid (ceil(S / 64), B * H), block 128: one block per 64 key columns, the
-// query tiles walked from the diagonal down (the heaviest blocks, the first
-// columns, are scheduled first by grid order).
+// grid (ceil(S / 64), B * H folded), block 128: one block per 64 key
+// columns, the query tiles walked from the diagonal down (the heaviest
+// blocks, the first columns, are scheduled first by grid order).
 template <int D, bool Mask>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_f32_kernel(const float* __restrict__ q,
@@ -1054,7 +1064,8 @@ flash_dkv_f32_kernel(const float* __restrict__ q,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, const int* __restrict__ sri,
-                     int S, int H, float scale, int causal, int n, int Hp) {
+                     int S, int H, float scale, int causal, int n, int Hp,
+                     int BH) {
   constexpr int LD = D + 4;
   constexpr int LDP = kRows + 4;
   constexpr int NR = kRows / 8;
@@ -1067,7 +1078,8 @@ flash_dkv_f32_kernel(const float* __restrict__ q,
   float* stats = pd_s + kCols * LDP;    // [2][lse, delta][kRows]
   int4* bands = reinterpret_cast<int4*>(stats + 2 * 2 * kRows);  // [kCols]
 
-  const int bh = blockIdx.y;
+  const int bh = folded_bh(blockIdx.z);
+  if (bh >= BH) return;  // past B * H in the last fold
   const int b = bh / H;
   const int h = bh % H;
   const int col0 = blockIdx.x * kCols;
@@ -1178,7 +1190,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
                        void* lse, const void* sri, int B, int S, int H,
                        float scale, int causal, int n, int Hp,
                        cudaStream_t st) {
-  const dim3 grid((S + kRows - 1) / kRows, B * H);
+  const dim3 grid((S + kRows - 1) / kRows, grid_y(B * H),
+                  grid_fold(B * H));
   const T* tq = static_cast<const T*>(q);
   const T* tk = static_cast<const T*>(k);
   const T* tv = static_cast<const T*>(v);
@@ -1188,11 +1201,13 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
   if constexpr (sizeof(T) == 2)
     return launch_kernel(flash_fwd_wgmma_kernel<T, D, Mask>, grid, kThreads,
                          fwd_wgmma_smem<D, Mask>(), st, tq, tk, tv, tout, tlse,
-                         tsri, S, H, scale * kLog2e, causal, n, Hp);
+                         tsri, S, H, scale * kLog2e, causal, n, Hp,
+                         B * H);
   else
     return launch_kernel(flash_fwd_f32_kernel<D, Mask>, grid, kThreads,
                          fwd_f32_smem<D, Mask>(), st, tq, tk, tv, tout, tlse,
-                         tsri, S, H, scale * kLog2e, causal, n, Hp);
+                         tsri, S, H, scale * kLog2e, causal, n, Hp,
+                         B * H);
 }
 
 template <typename T, int D, bool Mask>
@@ -1201,7 +1216,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       void* dq, const void* sri, int B, int S, int H,
                       float scale, int causal, int n, int Hp,
                       cudaStream_t st) {
-  const dim3 grid((S + kRows - 1) / kRows, B * H);
+  const dim3 grid((S + kRows - 1) / kRows, grid_y(B * H),
+                  grid_fold(B * H));
   const T* tq = static_cast<const T*>(q);
   const T* tk = static_cast<const T*>(k);
   const T* tv = static_cast<const T*>(v);
@@ -1213,11 +1229,13 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   if constexpr (sizeof(T) == 2)
     return launch_kernel(flash_dq_wgmma_kernel<T, D, Mask>, grid, kThreads,
                          dq_wgmma_smem<D, Mask>(), st, tq, tk, tv, tdo, tlse,
-                         tdelta, tdq, tsri, S, H, scale, causal, n, Hp);
+                         tdelta, tdq, tsri, S, H, scale, causal, n, Hp,
+                         B * H);
   else
     return launch_kernel(flash_dq_f32_kernel<D, Mask>, grid, kThreads,
                          dq_f32_smem<D, Mask>(), st, tq, tk, tv, tdo, tlse,
-                         tdelta, tdq, tsri, S, H, scale, causal, n, Hp);
+                         tdelta, tdq, tsri, S, H, scale, causal, n, Hp,
+                         B * H);
 }
 
 template <typename T, int D, bool Mask>
@@ -1226,7 +1244,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        void* dk, void* dv, const void* sri, int B, int S,
                        int H, float scale, int causal, int n, int Hp,
                        cudaStream_t st) {
-  const dim3 grid((S + kCols - 1) / kCols, B * H);
+  const dim3 grid((S + kCols - 1) / kCols, grid_y(B * H),
+                  grid_fold(B * H));
   const T* tq = static_cast<const T*>(q);
   const T* tk = static_cast<const T*>(k);
   const T* tv = static_cast<const T*>(v);
@@ -1239,16 +1258,18 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   if constexpr (sizeof(T) == 2)
     return launch_kernel(flash_dkv_wgmma_kernel<T, D, Mask>, grid, kThreads,
                          dkv_wgmma_smem<D, Mask>(), st, tq, tk, tv, tdo, tlse,
-                         tdelta, tdk, tdv, tsri, S, H, scale, causal, n, Hp);
+                         tdelta, tdk, tdv, tsri, S, H, scale, causal, n, Hp,
+                         B * H);
   else
     return launch_kernel(flash_dkv_f32_kernel<D, Mask>, grid, kThreads,
                          dkv_f32_smem<D, Mask>(), st, tq, tk, tv, tdo, tlse,
-                         tdelta, tdk, tdv, tsri, S, H, scale, causal, n, Hp);
+                         tdelta, tdk, tdv, tsri, S, H, scale, causal, n, Hp,
+                         B * H);
 }
 
 // A FlashMask (sri not null) needs 1 <= n <= 4 and H' in {1, H}.
 bool bad_shape(int B, int S, int H, const void* sri, int n, int Hp) {
-  if (B <= 0 || S <= 0 || H <= 0 || B * H > 65535) return true;
+  if (B <= 0 || S <= 0 || H <= 0) return true;
   return sri != nullptr && (n < 1 || n > 4 || (Hp != 1 && Hp != H));
 }
 

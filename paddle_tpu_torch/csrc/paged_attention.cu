@@ -31,13 +31,14 @@
 //     fill the 132 SMs, and `split_kv_combine_kernel`
 //     (attention_common.cuh) combines the f32 partials, writing 0 for a row
 //     with l = 0.
-//   * bf16 pools: Q.K^T and P.V on the tensor cores (mma.sync m16n8k16,
-//     f32 accumulation). Q's fragments are loaded once into registers; P
-//     goes from the score accumulators straight into the A fragments of
-//     P.V (`pack_a`), never through shared memory. f32 pools (the
-//     speculative phase's verify) take the same tiles through CUDA-core
-//     FMAs in full f32. K/V tiles stay in the pool dtype in shared memory,
-//     rows padded by 16 bytes so ldmatrix reads are conflict-free.
+//   * bf16 and f16 pools: Q.K^T and P.V on the tensor cores (mma.sync
+//     m16n8k16 in the `.bf16` or `.f16` form, f32 accumulation). Q's fragments
+//     are loaded once into registers; P goes from the score accumulators
+//     straight into the A fragments of P.V (`pack_a`), never through shared
+//     memory. f32 pools (the speculative phase's verify) take the same tiles
+//     through CUDA-core FMAs in full f32. K/V tiles stay in the pool dtype in
+//     shared memory, rows padded by 16 bytes so ldmatrix reads are
+//     conflict-free.
 //   * The paged gather is in flight while the products run: K/V tiles go
 //     through a two-stage ring filled by 16-byte cp.async copies, tile
 //     t + 1's gather started before tile t's products, one barrier per
@@ -127,7 +128,8 @@ __device__ __forceinline__ void gather_kv(T* k_dst, T* v_dst,
   }
 }
 
-// grid (splits, B*Hkv, ceil(S*G / 64)), block 128. Partials are
+// grid (splits * fold, B*Hkv folded, ceil(S*G / 64)), block 128: grid.x
+// holds the split and the head fold (`grid_fold`). Partials are
 // o [splits, B*Hkv, S*G, D] (unnormalised) and m, l [splits, B*Hkv, S*G],
 // all f32. `scale2` is scale * log2(e).
 template <typename T, int D>
@@ -139,7 +141,7 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                       float* __restrict__ o_part, float* __restrict__ m_part,
                       float* __restrict__ l_part, int S, int Hq, int Hkv,
                       int P, int BS, int NB, int G, float scale2,
-                      int tiles_per_split) {
+                      int tiles_per_split, int splits, int BH) {
   using L = Smem<T, D>;
   constexpr int LD = L::LD;
   constexpr int NC = kCols / 8;
@@ -152,8 +154,9 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   int* page_s = reinterpret_cast<int*>(smem + L::tile * (1 + 2 * kStages) +
                                        L::probs);
 
-  const int split = blockIdx.x;
-  const int bh = blockIdx.y;
+  const int split = blockIdx.x % splits;
+  const int bh = folded_bh(blockIdx.x / splits);
+  if (bh >= BH) return;  // past B * Hkv in the last fold
   const int b = bh / Hkv;
   const int h = bh % Hkv;
   const int SG = S * G;
@@ -196,7 +199,7 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     gather_kv<T, D>(k_s, v_s, k_pages + head, v_pages + head, page_s, pg0,
                     tile0 * kCols, col_end, BS);
     cp_async_commit();
-    uint32_t qf[D / 16][4];  // bf16: Q's A fragments, loaded once
+    uint32_t qf[D / 16][4];  // bf16, f16: Q's A fragments, loaded once
 
     for (int t = tile0; t < tile1; ++t) {
       const int stage = (t - tile0) & 1;
@@ -216,8 +219,9 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
       for (int j = 0; j < NC; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
       if constexpr (kTensorCores) {
-        if (t == tile0) WarpMmaA<NC, D>::load_a(qf, q_s + warp * 16 * LD, LD);
-        WarpMmaA<NC, D>::nk(s, qf, k_t, LD);
+        if (t == tile0)
+          WarpMmaA<NC, D, T>::load_a(qf, q_s + warp * 16 * LD, LD);
+        WarpMmaA<NC, D, T>::nk(s, qf, k_t, LD);
       } else {
         WarpMma<T, NC, D>::nk(s, q_s + warp * 16 * LD, LD, k_t, LD);
       }
@@ -232,8 +236,8 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       online_softmax<NC, D / 8>(s, m, l, o);
       if constexpr (kTensorCores) {
         uint32_t pa[NC / 2][4];
-        pack_a<NC>(pa, s);  // P rounded to the pool dtype
-        WarpMmaA<D / 8, kCols>::kn(o, pa, v_t, LD);
+        pack_a<NC, T>(pa, s);  // P rounded to the pool dtype
+        WarpMmaA<D / 8, kCols, T>::kn(o, pa, v_t, LD);
       } else {
         T* p_w = p_s + warp * 16 * L::LDP;
         store_frag<T, NC>(p_w, L::LDP, s);
@@ -249,7 +253,7 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     const float l_row = quad_sum(l[i]);
     const int row = row_lo + 8 * i;
     if (row >= SG) continue;
-    const size_t base = ((size_t)split * gridDim.y + bh) * SG + row;
+    const size_t base = ((size_t)split * BH + bh) * SG + row;
     float* dst = o_part + base * D + cq;
     if (m[i] != -INFINITY) {  // the combine reads no o where m is -inf
 #pragma unroll
@@ -277,13 +281,15 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   const size_t smem = Smem<T, D>::bytes(pages);
   cudaError_t err = allow_smem(paged_partials_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(splits, B * Hkv, (SG + kRows - 1) / kRows);
+  const int BH = B * Hkv;
+  const dim3 grid(splits * grid_fold(BH), grid_y(BH),
+                  (SG + kRows - 1) / kRows);
   paged_partials_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), static_cast<const int*>(block_tables),
       static_cast<const int*>(lengths), static_cast<float*>(o_part),
       static_cast<float*>(m_part), static_cast<float*>(l_part), S, Hq, Hkv,
-      P, BS, NB, G, scale * kLog2e, tiles_per_split);
+      P, BS, NB, G, scale * kLog2e, tiles_per_split, splits, BH);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_split_kv_combine<T, D>(o_part, m_part, l_part, out, splits,
@@ -292,7 +298,8 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
 
 }  // namespace
 
-// Returns a cudaError_t (0 on success). dtype: 0 = float32, 1 = bfloat16;
+// Returns a cudaError_t (0 on success). dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16;
 // D: 64 or 128. All pointers are device pointers of contiguous, 16-byte
 // aligned tensors; `stream` is a cudaStream_t (PyTorch's current stream).
 // Nothing is allocated here.
@@ -303,7 +310,7 @@ extern "C" int paged_attention_forward(
     int P, int BS, int NB, int D, int dtype, float scale,
     int tiles_per_split, int splits, void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || BS <= 0 || NB <= 0 ||
-      splits <= 0 || tiles_per_split <= 0 || B * Hkv > 65535 ||
+      splits <= 0 || tiles_per_split <= 0 ||
       (S * (Hq / Hkv) + kRows - 1) / kRows > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -315,6 +322,8 @@ extern "C" int paged_attention_forward(
   if (dtype == 0 && D == 128) return (int)CALL(float, 128);
   if (dtype == 1 && D == 64) return (int)CALL(bf16, 64);
   if (dtype == 1 && D == 128) return (int)CALL(bf16, 128);
+  if (dtype == 2 && D == 64) return (int)CALL(f16, 64);
+  if (dtype == 2 && D == 128) return (int)CALL(f16, 128);
 #undef CALL
   return (int)cudaErrorInvalidValue;
 }

@@ -8,7 +8,8 @@ since the kernel applies 1/sqrt(D); with dropout in training that call
 takes the plain route (``F.flash_attention``). A bias tensor takes the JAX
 package's XLA route in plain PyTorch: scores plus the bias, softmax in f32,
 dropout on the f32 probabilities (the mask from the port's default
-generator, ``nn.functional.common.keep_mask``).
+generator, ``nn.functional.common.keep_mask``). It takes the paddle-style
+``Tensor`` as well (``tensor_seam``) and returns the kind it was given.
 """
 from __future__ import annotations
 
@@ -16,9 +17,12 @@ import math
 
 import torch
 
+from ...tensor import tensor_seam
+
 __all__ = ["memory_efficient_attention"]
 
 
+@tensor_seam
 def memory_efficient_attention(query, key, value, attn_bias=None, p=0.0,
                                scale=None, training=True):
     """query/key/value: [B, S, H, D] (paddle layout). attn_bias: None, the

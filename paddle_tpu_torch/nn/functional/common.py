@@ -82,3 +82,13 @@ def alpha_dropout(x, p=0.5, training=True, name=None):
     b = -a * alpha_p * p
     fill = torch.full((), alpha_p, dtype=x.dtype, device=x.device)
     return (a * torch.where(keep, x, fill) + b).to(x.dtype)
+
+
+def pad(x, pad, mode="constant", value=0.0, data_format="NCHW", name=None):
+    """``paddle.nn.functional.pad`` (``ops.manipulation.pad``): a Tensor in
+    gives a Tensor out, a torch tensor a torch tensor."""
+    from ...ops import manipulation
+    from ...tensor import Tensor
+
+    out = manipulation.pad(x, pad, mode, value, data_format)
+    return out if isinstance(x, Tensor) else out._value

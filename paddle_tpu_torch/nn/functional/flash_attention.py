@@ -14,6 +14,9 @@ form of the same kernels. ``sdp_kernel(enable_flash=False)`` switches the
 kernels off for all three, as ``_use_pallas`` does in JAX: they then
 compute the JAX package's XLA routes in plain PyTorch on any device.
 ``get_last_attention_backend()`` reports which ran: "kernel" or "plain".
+The four functionals take the paddle-style ``Tensor`` as well as a bare
+``torch.Tensor`` (``tensor_seam``) and return the kind they were given;
+the kernels' ``autograd.Function``s give a Tensor its gradients.
 
 Attention dropout, as in JAX (:108-112), runs on the XLA route's plain
 math only: with ``dropout > 0`` in training, ``flash_attention`` and
@@ -30,6 +33,7 @@ import math
 import torch
 
 from ...ops import flash_attention as _fa
+from ...tensor import tensor_seam
 from .common import keep_mask
 
 __all__ = ["flash_attention", "flash_attn_unpadded", "flashmask_attention",
@@ -123,6 +127,7 @@ def _sdpa_core(q, k, v, mask, scale, is_causal, dropout_p, training):
     return out.transpose(1, 2)
 
 
+@tensor_seam
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, fixed_seed_offset=None, rng_name="",
                     training=True, name=None):
@@ -139,6 +144,7 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
                       training), None
 
 
+@tensor_seam
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None):
@@ -202,6 +208,7 @@ def _segment_attention(q, k, v, cu_q, cu_k, scale, causal):
     return torch.einsum("hqk,khd->qhd", probs, v)
 
 
+@tensor_seam
 def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
                         max_seqlen_q, max_seqlen_k, scale, dropout=0.0,
                         causal=False, return_softmax=False,
@@ -239,6 +246,7 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
                               causal), None
 
 
+@tensor_seam
 def flashmask_attention(query, key, value, startend_row_indices=None,
                         dropout=0.0, causal=False, window_size=None,
                         return_softmax_lse=False, return_seed_offset=False,

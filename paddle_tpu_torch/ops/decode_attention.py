@@ -18,8 +18,8 @@ attends to cache columns ``c <= lengths[b] + s``.
 * ``kernel_launch_config`` — which of the kernel's two forms a call takes
   (decode: 16-row blocks on ``mma.sync`` with K/V in flight through a
   ring, for up to 16 query rows per (request, kv head) and for f32;
-  prefill: 64-row ``wgmma`` blocks, bf16) and how its cache tiles are
-  split across blocks.
+  prefill: 64-row ``wgmma`` blocks, bf16 and f16) and how its cache tiles
+  are split across blocks.
 * ``decode_attention_ref`` — the plain PyTorch version, the JAX package's
   ``decode_attention_xla`` (``:64-92``): grouped einsum (K/V never
   repeated), f32 scores, probabilities cast to the cache dtype before P.V.
@@ -39,14 +39,19 @@ __all__ = ["decode_attention", "decode_attention_ref", "kernel_tolerance",
            "kernel_launch_config", "LaunchConfig"]
 
 _NEG = torch.finfo(torch.float32).min
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ROWS = 64          # prefill form: query rows of a block (kRows)
 _DECODE_ROWS = 16   # decode form: query rows of a block (kDecRows)
 _COLS = 64          # cache columns of a tile (kCols)
-# tiles a split streams at least: a bf16 split costs a combine against
+# tiles a split streams at least: a 16-bit split costs a combine against
 # bandwidth a block already has; f32 products are compute-bound on the
 # CUDA cores, so f32 calls split as far as one block per SM allows
-_MIN_TILES = {torch.bfloat16: 8, torch.float32: 1}
+_MIN_TILES = {torch.bfloat16: 8, torch.float16: 8, torch.float32: 1}
+# kernel_tolerance: twice the unit roundoff of the cache dtype (bf16 keeps
+# 8 significant bits, f16 11), and f16's absolute spacing 2^-24 below
+# 2^-14, where a rounded probability is off by up to 2^-25 on each side
+_ROUND2 = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+_TINY = {torch.bfloat16: 0.0, torch.float16: 2.0 ** -24}
 _FORMS = {"decode": 0, "prefill": 1}
 
 
@@ -88,18 +93,38 @@ def kernel_tolerance(q, k_cache, v_cache, lengths, ref, scale=None):
     columns. bf16 caches: each side rounds every probability (the kernel
     its unnormalised p, the plain version the normalised one) and the
     output to bf16, unit roundoff 2^-8, so the two differ by at most
-    2^-7 (|ref| + sum_j p_j |v_j|), plus 1e-5 of f32 accumulation noise."""
+    2^-7 (|ref| + sum_j p_j |v_j|), plus 1e-5 of f32 accumulation noise.
+    f16 caches: the same with f16's unit roundoff 2^-11, so 2^-10, plus
+    2^-24 (1 + sum_j |v_j|) over the visible columns j for probabilities
+    below f16's normal range."""
     if k_cache.dtype == torch.float32:
         return torch.full(ref.shape, 1e-4, device=ref.device)
     mag = decode_attention_ref(q.float(), k_cache.float(),
                                v_cache.float().abs(), lengths, scale)
-    return 1e-5 + 2.0 ** -7 * (ref.float().abs() + mag)
+    lim = 1e-5 + _ROUND2[k_cache.dtype] * (ref.float().abs() + mag)
+    tiny = _TINY[k_cache.dtype]
+    if tiny:
+        lim = lim + tiny * (1 + _visible_abs_sum(q, v_cache, lengths))
+    return lim
+
+
+def _visible_abs_sum(q, v_cache, lengths):
+    """[B, S, Hq, D]: sum_j |v_j| over the cache columns j each query row
+    sees (j <= lengths[b] + s)."""
+    B, S, Hq, D = q.shape
+    Hkv, T = v_cache.shape[1], v_cache.shape[2]
+    lengths = _norm_lengths(lengths, B, q.device).long()
+    pos_q = lengths[:, None] + torch.arange(S, device=q.device)[None, :]
+    allowed = (torch.arange(T, device=q.device)[None, None, :]
+               <= pos_q[:, :, None]).float()                     # [B, S, T]
+    per_kv = torch.einsum("bst,bntd->bsnd", allowed, v_cache.float().abs())
+    return per_kv.repeat_interleave(Hq // Hkv, dim=2)
 
 
 # ---------------------------------------------------------------- kernel
 class LaunchConfig(NamedTuple):
     """How one call runs: the form (``"decode"``: 16-row blocks of
-    mma.sync; ``"prefill"``: 64-row wgmma blocks, bf16 only), the query
+    mma.sync; ``"prefill"``: 64-row wgmma blocks, bf16 and f16), the query
     rows a block owns, and the cache tiles of 64 columns cut into
     ``splits`` pieces of ``tiles_per_split``."""
     form: str
@@ -112,15 +137,16 @@ def kernel_launch_config(B, S, G, Hkv, T, dtype=torch.bfloat16,
                          num_sms=132):
     """The form and the split of one launch.
 
-    bf16 calls with more than 16 query rows per (request, kv head) take the
-    prefill form (64-row blocks); every other call the decode form (16-row
-    blocks). The cache tiles are split only as far as one block per SM and
-    ``_MIN_TILES`` tiles per split allow: a block keeps several tiles in
-    flight through its ring, and a split costs a combine. generate()'s
+    bf16 and f16 calls with more than 16 query rows per (request, kv
+    head) take the prefill form (64-row blocks); every other call the
+    decode form (16-row blocks). The cache tiles are split only as far as
+    one block per SM and ``_MIN_TILES`` tiles per split allow: a block
+    keeps several tiles in flight through its ring, and a split costs a
+    combine. generate()'s
     prefill and decode (8 requests of 16 heads) run unsplit, so their
     blocks write the output directly. Splits past a request's live prefix
     exit without reading K/V."""
-    form = ("prefill" if dtype == torch.bfloat16 and S * G > _DECODE_ROWS
+    form = ("prefill" if dtype != torch.float32 and S * G > _DECODE_ROWS
             else "decode")
     rows = _ROWS if form == "prefill" else _DECODE_ROWS
     blocks = B * Hkv * -(-(S * G) // rows)
@@ -137,8 +163,8 @@ def _launch_kernel(q, k_cache, v_cache, lengths, scale):
     B, S, Hq, D = q.shape
     dev = q.device
     if k_cache.dtype not in _DTYPE_CODE:
-        raise TypeError(f"decode attention kernel takes float32 or bfloat16 "
-                        f"caches, got {k_cache.dtype}")
+        raise TypeError(f"decode attention kernel takes float32, bfloat16 "
+                        f"or float16 caches, got {k_cache.dtype}")
     if v_cache.dtype != k_cache.dtype or v_cache.shape != k_cache.shape:
         raise ValueError("k_cache and v_cache must match in shape and dtype")
     if k_cache.dim() != 4 or k_cache.shape[0] != B:

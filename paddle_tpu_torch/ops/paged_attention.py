@@ -40,7 +40,7 @@ __all__ = ["paged_decode_attention", "paged_decode_attention_ref",
            "paged_write_index", "paged_write_slots", "paged_scatter_",
            "kernel_launch_config"]
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ROWS = 64          # csrc/paged_attention.cu kRows: query rows of a block
 _COLS = 64          # csrc/paged_attention.cu kCols: cache columns of a tile
 
@@ -71,7 +71,8 @@ def kernel_tolerance(q, k_pages, v_pages, block_tables, lengths, ref,
     """Elementwise limit on |kernel - plain| for these inputs, where ``ref``
     is ``paged_decode_attention_ref`` of them: the dense kernel's bound
     (``decode_attention.kernel_tolerance``) on the gathered cache. f32
-    pools: 1e-4; bf16 pools: 2^-7 (|ref| + sum_j p_j |v_j|) + 1e-5."""
+    pools: 1e-4; bf16 pools: 2^-7 (|ref| + sum_j p_j |v_j|) + 1e-5; f16
+    pools: 2^-10 in place of 2^-7, plus 2^-24 (1 + sum_j |v_j|)."""
     return dense_tolerance(q, _gather_dense(k_pages, block_tables),
                            _gather_dense(v_pages, block_tables), lengths,
                            ref, scale)
@@ -101,8 +102,8 @@ def _launch_kernel(q, k_pages, v_pages, block_tables, lengths, scale):
     NB = block_tables.shape[1]
     dev = q.device
     if k_pages.dtype not in _DTYPE_CODE:
-        raise TypeError(f"paged attention kernel takes float32 or bfloat16 "
-                        f"pools, got {k_pages.dtype}")
+        raise TypeError(f"paged attention kernel takes float32, bfloat16 "
+                        f"or float16 pools, got {k_pages.dtype}")
     if v_pages.dtype != k_pages.dtype or v_pages.shape != k_pages.shape:
         raise ValueError("k_pages and v_pages must match in shape and dtype")
     if D not in (64, 128) or Dk != D:

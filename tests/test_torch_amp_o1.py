@@ -21,8 +21,8 @@ the JAX package on the CPU, on ``gpt_tiny`` (the same weights through
   entropy run in the amp dtype instead of f32 (a black-listed op planted
   into the amp dtype), each case where those ops are black-listed falls
   outside its limit.
-* Nested ``auto_cast`` blocks restore the outer state; ``level="O2"``
-  raises.
+* Nested ``auto_cast`` blocks restore the outer state; under
+  ``level="O2"`` (which casts the op layer) a model's seam raises.
 * ``GradScaler``: a scripted run of finite and non-finite gradients, with
   one optimizer and with two sharing a scaler, gives JAX's scale, good and
   bad counts and ``state_dict`` after every step, and the parameters move
@@ -237,8 +237,13 @@ def test_nested_auto_cast_restores_the_outer_state():
     assert not tamp.is_auto_cast_enabled()
     assert tamp.white_list() == paddle.amp.white_list()
     assert tamp.black_list() == paddle.amp.black_list()
-    with pytest.raises(NotImplementedError, match="O2"):
-        with tamp.auto_cast(level="O2"):
+    # O2 casts the op layer's ops; the ported models' seams refuse it
+    with tamp.auto_cast(level="O2"):
+        assert tamp.get_amp_level() == "O2"
+        with pytest.raises(NotImplementedError, match="O2"):
+            tamp._amp_cast("linear", torch.ones(2))
+    with pytest.raises(NotImplementedError, match="OD"):
+        with tamp.auto_cast(level="OD"):
             pass
 
 

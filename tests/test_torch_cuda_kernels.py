@@ -9,14 +9,17 @@ machine without JAX:
 Tolerances are each module's ``kernel_tolerance``, elementwise. Paged and
 dense split-KV attention: f32 1e-4 (another summation order over up to ~1k
 columns); bf16 2^-7 (|ref| + sum_j p_j |v_j|) (unnormalised probabilities
-and the output rounded to bf16 at other places than the plain version's).
+and the output rounded to bf16 at other places than the plain version's);
+f16 2^-10 of the same, plus 2^-24 (1 + sum_j |v_j|).
 Flash attention:
 2^-7 (|ref| + the magnitude of the sum) for bf16, 2^-10 of the same for
 f16 (plus 2^-24 per rounded term: f16's subnormal spacing), plus 2^-16 of
 the f32 sums' magnitude for another summation order
 (``flash_attention.kernel_tolerance`` states each term). The f16 forms of
-the flash kernels are the bf16 ones with f16 products; the paged and
-dense kernels take no f16 and raise.
+the flash kernels are the bf16 ones with f16 products, and so are those
+of the paged and dense kernels. Every kernel family takes B * H (or
+B * Hkv) past grid.y's 65535 by folding the excess into another grid axis;
+one case each runs just past it.
 """
 import gc
 
@@ -54,7 +57,7 @@ def _case(device, B, S, Hkv, G, D, BS, lengths, dtype, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("G,S,BS,D", [(1, 1, 32, 64), (4, 1, 16, 64),
                                       (1, 64, 32, 64), (4, 5, 64, 128),
                                       (8, 3, 128, 64), (1, 128, 32, 128),
@@ -89,8 +92,9 @@ def test_paged_attention_kernel_rejects_what_it_cannot_run(cuda):
                                    vp[..., :32].contiguous(), tbl, ln)
     with pytest.raises(TypeError, match="int32"):
         tpa.paged_decode_attention(q, kp, vp, tbl.long(), ln)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tpa.paged_decode_attention(q.half(), kp.half(), vp.half(), tbl, ln)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        tpa.paged_decode_attention(q.double(), kp.double(), vp.double(),
+                                   tbl, ln)
     with pytest.raises(ValueError, match="contiguous"):
         tpa.paged_decode_attention(q, kp.transpose(2, 3).contiguous()
                                    .transpose(2, 3), vp, tbl, ln)
@@ -253,7 +257,7 @@ def _dense_case(device, B, S, Hkv, G, D, T, dtype, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("G,S,D,T,lengths", [
     (1, 1, 64, 640, [512, 639, 575, 0]),     # decode, T = 640
     (4, 1, 128, 300, [3, 299, 64, 100]),     # GQA 4
@@ -302,8 +306,8 @@ def test_decode_attention_kernel_rejects_what_it_cannot_run(cuda):
                              v[..., :32].contiguous(), 5)
     with pytest.raises(TypeError, match="int32"):
         tda.decode_attention(q, k, v, torch.tensor([5, 5], device=cuda))
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tda.decode_attention(q.half(), k.half(), v.half(), 5)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        tda.decode_attention(q.double(), k.double(), v.double(), 5)
     with pytest.raises(ValueError, match="contiguous"):
         tda.decode_attention(q, k.transpose(2, 3).contiguous()
                              .transpose(2, 3), v, 5)
@@ -325,20 +329,21 @@ def _held_to_plain(q, k, v, ln, got, scale=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("G,S", [(1, 16), (1, 17), (1, 63), (1, 64),
                                  (1, 65), (4, 4), (4, 5), (4, 16), (4, 17),
                                  (8, 2), (8, 3), (8, 8), (8, 9)])
 def test_decode_attention_kernel_forms_meet_at_16_rows(cuda, dtype, D, G, S):
     """S*G rows per (request, kv head) at the forms' threshold (16: decode
-    form; 17 and up in bf16: prefill form) and at one 64-row tile's edges,
+    form; 17 and up in bf16 and f16: prefill form) and at one 64-row
+    tile's edges,
     GQA 1 / 4 / 8, one request at the full cache (length T - S)."""
     T = 200
     q, k, v = _dense_case(cuda, 4, S, 2, G, D, T, dtype, seed=S * G + D)
     ln = torch.tensor([0, 37, 130, T - S], dtype=torch.int32, device=cuda)
     cfg = tda.kernel_launch_config(4, S, G, 2, T, getattr(torch, dtype))
-    assert cfg.form == ("prefill" if dtype == "bfloat16" and S * G > 16
+    assert cfg.form == ("prefill" if dtype != "float32" and S * G > 16
                         else "decode")
     before = tda.decode_attention.launches
     got = tda.decode_attention(q, k, v, ln)
@@ -348,7 +353,7 @@ def test_decode_attention_kernel_forms_meet_at_16_rows(cuda, dtype, D, G, S):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("scale", [-0.2, 0.0])
 @pytest.mark.parametrize("G,S", [(4, 1), (1, 70)])
 def test_decode_attention_kernel_takes_any_sign_of_scale(cuda, dtype, scale,
@@ -391,7 +396,7 @@ def test_decode_attention_prefill_writes_the_output_in_one_launch(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("G,S", [(1, 1), (8, 2), (1, 64), (4, 9)])
 def test_decode_attention_split_calls_repeat_and_hold(cuda, dtype, G, S):
     """One request over a long cache runs many splits in either form,
@@ -410,7 +415,7 @@ def test_decode_attention_split_calls_repeat_and_hold(cuda, dtype, G, S):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("S", [1, 512])
 def test_decode_attention_kernel_is_deterministic(cuda, dtype, S):
     """generate()'s shapes (decode and prefill) give the same bits call
@@ -734,3 +739,63 @@ def test_flash_kernels_at_llama_2_7b_and_bert_base_shapes(cuda, dtype, B, S,
     del q, k, v, do, got, ref, lim
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------- past grid.y's 65535
+_PAST = 65535 + 65          # B * H just past grid.y's limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_kernel_folds_heads_past_the_grid_limit(cuda, dtype):
+    """B * Hkv = 65600 request heads at decode (S = 1, one page each)."""
+    B, Hkv, BS, D = _PAST // 4, 4, 16, 64
+    g = torch.Generator(device=cuda).manual_seed(11)
+    td = getattr(torch, dtype)
+    q = torch.randn((B, 1, Hkv, D), generator=g, device=cuda).to(td)
+    kp, vp = (torch.randn((Hkv, B, BS, D), generator=g, device=cuda).to(td)
+              for _ in range(2))
+    tables = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
+    ln = torch.randint(0, BS, (B,), generator=g, device=cuda,
+                       dtype=torch.int32)
+    got = tpa.paged_decode_attention(q, kp, vp, tables, ln)
+    ref = tpa.paged_decode_attention_ref(q, kp, vp, tables, ln)
+    err = (got.float() - ref.float()).abs()
+    assert bool((err <= tpa.kernel_tolerance(q, kp, vp, tables, ln,
+                                             ref)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,S", [("float32", 1), ("bfloat16", 1),
+                                     ("bfloat16", 20)])
+def test_decode_attention_kernel_folds_heads_past_the_grid_limit(cuda, dtype,
+                                                                 S):
+    """B * Hkv = 65600 request heads over a 64-row cache, in the decode
+    form and (bf16, 20 rows) the prefill form."""
+    B, Hkv, T = _PAST // 4, 4, 64
+    q, k, v = _dense_case(cuda, B, S, Hkv, 1, 64, T, dtype, seed=12)
+    ln = torch.randint(0, T - S + 1, (B,), dtype=torch.int32, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(3))
+    got = tda.decode_attention(q, k, v, ln)
+    _held_to_plain(q, k, v, ln, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_fold_heads_past_the_grid_limit(cuda, dtype):
+    """B * H = 65600 heads of 64 rows: forward, dq and dk/dv."""
+    q, k, v, do = _flash_case(cuda, _PAST // 64, 64, 64, 64, dtype, seed=13)
+    out, lse = tfa.flash_fwd(q, k, v, True)
+    ro, rl = tfa.flash_attention_fwd_ref(q, k, v, True)
+    delta = tfa.attention_delta(ro, do)
+    got = dict(out=out, lse=lse,
+               dq=tfa.flash_bwd_dq(q, k, v, do, rl, delta, True))
+    got["dk"], got["dv"] = tfa.flash_bwd_dkv(q, k, v, do, rl, delta, True)
+    ref = dict(out=ro, lse=rl,
+               dq=tfa.flash_attention_dq_ref(q, k, v, do, rl, delta, True))
+    ref["dk"], ref["dv"] = tfa.flash_attention_dkv_ref(q, k, v, do, rl,
+                                                       delta, True)
+    lim = tfa.kernel_tolerance(q, k, v, ref, True, dout=do)
+    for name, x in got.items():
+        err = (x.float() - ref[name].float()).abs()
+        assert bool((err <= lim[name]).all()), name

@@ -7,7 +7,8 @@ of ``test_splitkv_parity`` and ``test_splitkv_per_request_lengths_and_prefill``
 Tolerances: f32 1e-5 (the same arithmetic, summed in another order); bf16
 the elementwise bound of ``kernel_tolerance``, 2^-7 (|ref| + sum_j p_j |v_j|)
 (both sides round probabilities and the output to bf16, at slightly
-different places), which a mask one column short breaks. The CUDA kernel
+different places), which a mask one column short breaks; f16 the same
+bound with 2^-10 (f16 keeps 11 significant bits). The CUDA kernel
 is held against the port's plain version on the card in
 ``test_torch_cuda_kernels.py``; here its bf16 limit (``kernel_tolerance``)
 is checked against a CPU emulation of the kernel's rounding, in the order
@@ -66,7 +67,7 @@ def _assert_close_to_jax(args, lengths, dtype):
     return got
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("gqa", [1, 4, 8])
 def test_plain_decode_attention_matches_jax_reference(dtype, gqa):
     """S = 1 over a 64-row cache at length 37 (no block multiple), GQA
@@ -77,7 +78,7 @@ def test_plain_decode_attention_matches_jax_reference(dtype, gqa):
     assert got.shape == (B, S, Hq, D)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_per_request_lengths_and_prefill_match_jax(dtype):
     """S = 5 new rows (prefill into the cache) at per-request lengths 11
     and 60 of a 96-row cache, GQA 2, lengths as an int32 [B] tensor."""
@@ -106,9 +107,9 @@ def test_kernel_launch_config_covers_the_grid():
                             (2, 1, 1, 1, 64), (1, 16, 1, 16, 2048),
                             (1, 17, 1, 16, 2048), (2, 4, 4, 2, 300),
                             (2, 5, 4, 2, 300), (1, 256, 1, 16, 336)]:
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
             cfg = tda.kernel_launch_config(B, S, G, Hkv, T, dtype)
-            big = dtype == torch.bfloat16 and S * G > 16
+            big = dtype != torch.float32 and S * G > 16
             assert cfg.form == ("prefill" if big else "decode")
             assert cfg.rows == (64 if big else 16)
             num_tiles = -(-T // 64)
@@ -118,7 +119,7 @@ def test_kernel_launch_config_covers_the_grid():
             # in bf16 (any number in f32), and no fewer splits than that
             # allows, give or take the rounding of tiles per split
             base = B * Hkv * -(-(S * G) // cfg.rows)
-            least = 8 if dtype == torch.bfloat16 else 1
+            least = 1 if dtype == torch.float32 else 8
             assert splits == 1 or (splits * base <= 132 and tps >= least)
             want = max(1, min(132 // base, num_tiles // least))
             assert splits >= want * 3 // 4
@@ -146,12 +147,12 @@ def _streams(cfg, T):
 
 
 def _kernel_arithmetic(q, k, v, lengths):
-    """The bf16 kernel's rounding on the CPU, in its form's order
+    """The 16-bit kernel's rounding on the CPU, in its form's order
     (``kernel_launch_config``): f32 scores; along each stream of
-    ``_streams`` the unnormalised probabilities rounded to bf16 against the
-    stream's running max before P.V, l summing them unrounded; the streams
-    (warps, then splits) merged in f32 by their final maxima; one division
-    by l, the output rounded to bf16 once."""
+    ``_streams`` the unnormalised probabilities rounded to the cache dtype
+    against the stream's running max before P.V, l summing them unrounded;
+    the streams (warps, then splits) merged in f32 by their final maxima;
+    one division by l, the output rounded to the cache dtype once."""
     B, S, Hq, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -165,7 +166,8 @@ def _kernel_arithmetic(q, k, v, lengths):
     allowed &= torch.arange(T + pad)[None, None] < T
     sc = sc.masked_fill(~allowed[:, None, None], -float("inf"))
     parts = []                                   # (m, l, o) per stream
-    for chunks in _streams(tda.kernel_launch_config(B, S, G, Hkv, T), T):
+    for chunks in _streams(tda.kernel_launch_config(B, S, G, Hkv, T,
+                                                    k.dtype), T):
         if not chunks:
             continue
         cols = torch.cat([torch.arange(c0, c0 + w) for c0, w in chunks])
@@ -176,24 +178,33 @@ def _kernel_arithmetic(q, k, v, lengths):
         p = torch.exp(s - m).nan_to_num()
         w = torch.exp(m - m[..., -1:]).nan_to_num()  # to the final max
         o = torch.einsum("bngst,bntd->bngsd",
-                         p.to(torch.bfloat16).float() * w, vf[:, :, cols])
+                         p.to(k.dtype).float() * w, vf[:, :, cols])
         parts.append((m[..., -1], (p * w).sum(-1), o))
     m_star = torch.stack([m for m, _, _ in parts]).amax(0)
     l = sum(l * torch.exp(m - m_star).nan_to_num() for m, l, _ in parts)
     o = sum(o * torch.exp(m - m_star).nan_to_num()[..., None]
             for m, _, o in parts)
     out = o / l.clamp(min=1e-30)[..., None]           # [B, Hkv, G, S, D]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(torch.bfloat16)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(k.dtype)
 
 
 @pytest.mark.parametrize("G,S", [(1, 1), (4, 1), (1, 40), (4, 5)])
 def test_kernel_tolerance_covers_bf16_rounding_and_flags_a_short_length(G, S):
     """The bf16 limit the kernel is held to on the card admits the kernel's
     own rounding and rejects a mask one column short."""
+    _check_tolerance(G, S, "bfloat16")
+
+
+@pytest.mark.parametrize("G,S", [(1, 1), (4, 1), (1, 40), (4, 5)])
+def test_kernel_tolerance_covers_f16_rounding_and_flags_a_short_length(G, S):
+    """The same for f16 caches, whose limit is 2^-10 in place of 2^-7."""
+    _check_tolerance(G, S, "float16")
+
+
+def _check_tolerance(G, S, dtype):
     Hkv, D, T = 2, 64, 200                       # T no multiple of 64
     lengths = torch.tensor([0, 1, 37, 120, 200 - S], dtype=torch.int32)
-    q, k, v = _torch(_inputs(5 + G + S, 5, S, Hkv * G, Hkv, D, T),
-                     "bfloat16")
+    q, k, v = _torch(_inputs(5 + G + S, 5, S, Hkv * G, Hkv, D, T), dtype)
     ref = tda.decode_attention_ref(q, k, v, lengths)
     lim = tda.kernel_tolerance(q, k, v, lengths, ref)
     assert float(lim.median()) < 0.2 * float(ref.float().abs().median())

@@ -3,8 +3,9 @@ the JAX package's plain reference path (``kernel="xla"``: the table gather
 followed by ``decode_attention_xla``) on the same numpy inputs.
 
 Tolerances: f32 1e-5 (the same arithmetic, summed in another order);
-bf16 3e-2 (both sides round probabilities to bf16 before P.V, at slightly
-different places). The CUDA kernel is held against the port's plain
+bf16 3e-2 and f16 4e-3 (both sides round probabilities to the pool dtype
+before P.V, at slightly different places; f16 keeps 11 significant bits
+against bf16's 8). The CUDA kernel is held against the port's plain
 version on the card in ``test_torch_cuda_kernels.py``.
 """
 import numpy as np
@@ -16,7 +17,7 @@ import jax.numpy as jnp
 from paddle_tpu.ops.pallas import decode_attention as jda
 from paddle_tpu_torch.ops import paged_attention as tpa
 
-_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+_TOL = {"float32": 1e-5, "bfloat16": 3e-2, "float16": 4e-3}
 
 
 def _inputs(seed, B, S, Hq, Hkv, D, BS, P, NB, lengths):
@@ -52,7 +53,7 @@ def _torch_args(q, kp, vp, tables, lengths, dtype, device="cpu"):
             torch.from_numpy(lengths).to(device))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("S", [1, 5])
 def test_plain_paged_attention_matches_jax_reference(dtype, G, S):
@@ -152,10 +153,10 @@ def test_kernel_launch_config_covers_the_grid(B, S, G, Hkv, NB, BS):
 
 
 def _kernel_arithmetic(q, kp, vp, tables, lengths):
-    """The bf16 kernel's rounding on the CPU: f32 scores, unnormalised
-    probabilities rounded to bf16 before P.V (per 64-column tile, against
-    the running max), f32 sums, one division by l, the output rounded to
-    bf16 once."""
+    """The 16-bit kernel's rounding on the CPU: f32 scores, unnormalised
+    probabilities rounded to the pool dtype before P.V (per 64-column tile,
+    against the running max), f32 sums, one division by l, the output
+    rounded to the pool dtype once."""
     B, S, Hq, D = q.shape
     Hkv, _, BS, _ = kp.shape
     G, T = Hq // Hkv, tables.shape[1] * BS
@@ -172,19 +173,29 @@ def _kernel_arithmetic(q, kp, vp, tables, lengths):
     p = torch.exp(sc - m).nan_to_num()
     w = torch.exp(m - m[..., -1:]).nan_to_num()  # rescale to the final max
     l = (p * w).sum(-1, keepdim=True)
-    pv = p.to(torch.bfloat16).float() * w
+    pv = p.to(kp.dtype).float() * w
     out = torch.einsum("bngst,bntd->bsngd", pv / l.clamp(min=1e-30), vd)
-    return out.reshape(B, S, Hq, D).to(torch.bfloat16)
+    return out.reshape(B, S, Hq, D).to(kp.dtype)
 
 
 @pytest.mark.parametrize("G,S", [(1, 1), (4, 1), (1, 24), (4, 5)])
 def test_kernel_tolerance_covers_bf16_rounding_and_flags_a_short_length(G, S):
     """The bf16 limit the kernel is held to on the card admits the kernel's
     own rounding and rejects a mask one column short."""
+    _check_tolerance(G, S, "bfloat16")
+
+
+@pytest.mark.parametrize("G,S", [(1, 1), (4, 1), (1, 24), (4, 5)])
+def test_kernel_tolerance_covers_f16_rounding_and_flags_a_short_length(G, S):
+    """The same for f16 pools, whose limit is 2^-10 in place of 2^-7."""
+    _check_tolerance(G, S, "float16")
+
+
+def _check_tolerance(G, S, dtype):
     Hkv, D, BS = 2, 64, 32
     lengths = [0, 1, 37, 300, 511]              # short rows cancel least
     args = _torch_args(*_inputs(5 + G + S, 5, S, Hkv * G, Hkv, D, BS, 90,
-                                18, lengths), "bfloat16")
+                                18, lengths), dtype)
     ref = tpa.paged_decode_attention_ref(*args)
     lim = tpa.kernel_tolerance(*args, ref)
     assert float(lim.median()) < 0.2 * float(ref.float().abs().median())
