@@ -244,8 +244,26 @@ non-zero without the final line:
    check and time the kernels at these phases' shapes (paged: 8 slots,
    32 kv heads of 128; dense: [4, 512] over T 640; flash: B 1, S 2048, 32
    heads of 128 causal, and B 32, S 512, 12 heads of 64 non-causal).
-20. core — the paddle-style surface on the card. The golden op tables
-   (``tests/test_op_golden*.py``: UNARY ... LINALG, 196 cases, read by
+20. resnet50 — the nn surface's main path: ResNet-50 as ``bench.py``
+   ``bench_resnet`` trains it (BASELINE config 1), nothing cut:
+   ``vision.models.resnet50(num_classes=1000, data_format="NHWC")``
+   (seeded random weights), ``amp.decorate`` O2 bf16 (batch norm f32),
+   ``Momentum(0.1, 0.9, multi_precision=True)``, ``CrossEntropyLoss``,
+   the captured ``TrainStep`` at B 128 on 224 x 224 seeded bf16 images.
+   From one saved state 3 steps as bodies (the reference), then 3 through
+   the captured step (a capture and two replays): losses, parameters,
+   velocities and batch-norm running statistics bit-equal to the bodies';
+   then 8 timed replays: step ms (bodies and replays), images/s, the share
+   of the bf16 peak (FLOPs from the conv and linear shapes: 2 per MAC
+   forward, x3 for a step), peak memory, one step of each form profiled
+   (busy share, host launch calls, device time by kernel kind, the
+   layout-copy and cast ops of a body); cuDNN deterministic for the phase.
+   Then an eval forward (B 32) in NCHW f32 held to the NHWC f32 forward of
+   the same freshly seeded weights, with the batch's own statistics as
+   running statistics (logits O(1)).
+21. core — the paddle-style surface on the card. The golden tables
+   (``tests/test_op_golden*.py``: UNARY ... LINALG and the nn.functional
+   ACTIVATIONS, LOSSES, NN_SHAPE, 240 cases, read by
    ``paddle_tpu_torch.testing.load_tables`` with ``P`` bound to the port)
    in f64 (the tables' tolerances) and f32 (GOLDEN_F32_TOL), eager
    against numpy with gradients against central differences, every output
@@ -4380,7 +4398,7 @@ def capture_case(torch, fn, ins, kwargs, eager):
 
 def golden_on_card(torch, device, dtypes=("float64", "float32"),
                    capture=True):
-    """The golden tables (196 cases, ``testing.load_tables``) on ``device``
+    """The golden tables (240 cases, ``testing.load_tables``) on ``device``
     in each of ``dtypes`` (float inputs cast; integer and bool ones as
     they are): eager against numpy (f64 at the table's tolerances, f32 at
     GOLDEN_F32_TOL against numpy on the same f32 inputs), gradients
@@ -4706,6 +4724,238 @@ def wrapper_costs(torch, device, reps=2000):
     return out
 
 
+RESNET_B = 128          # bench.py bench_resnet on the accelerator
+RESNET_HW = 224
+RESNET_EVAL_B = 32
+# NCHW f32 eval logits against NHWC f32 on the same seeded weights: cuDNN
+# sums in other orders in the two layouts (TF32 off), and fifty batch
+# norms carry the rounding on; the largest |diff| over the largest |logit|
+# read 2.6e-5 on an H100 (logits ~4), and a layout fault gives O(1)
+RESNET_LAYOUT_TOL = 1e-4
+
+
+def conv_linear_macs(torch, model, x):
+    """Multiply-accumulates of one forward of ``model`` on ``x``, from the
+    shapes its Conv2D and Linear layers see (forward hooks)."""
+    from paddle_tpu_torch import nn
+
+    total = [0]
+
+    def conv_hook(layer, inputs, out):
+        o = out.shape
+        k = layer.weight.shape
+        total[0] += (int(np.prod(o)) * k[1] * int(np.prod(k[2:])))
+
+    def linear_hook(layer, inputs, out):
+        total[0] += int(np.prod(out.shape)) * layer.weight.shape[0]
+
+    hooks = [m.register_forward_post_hook(
+        conv_hook if isinstance(m, nn.Conv2D) else linear_hook)
+        for m in model.sublayers()
+        if isinstance(m, (nn.Conv2D, nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def resnet_state(torch, model, opt):
+    """Copies of every parameter, batch-norm statistic and velocity."""
+    out = {k: v._value.detach().clone()
+           for k, v in model.state_dict().items()}
+    for p in model.parameters():
+        out["velocity:" + opt._param_name(p._value)] = (
+            opt._accumulators["velocity"][id(p._value)].detach().clone())
+    return out
+
+
+def resnet_profile(torch, one_step):
+    """One step's cast and layout-copy ops (a body, by aten op) and the
+    kernels of the step by kind (conv, reduction, elementwise, copy)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    one_step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one_step()
+    ops = {e.key: e.count for e in prof.key_averages()
+           if e.key in ("aten::_to_copy", "aten::contiguous", "aten::clone",
+                        "aten::copy_", "aten::permute", "aten::movedim",
+                        "aten::convolution", "aten::cudnn_convolution",
+                        "aten::convolution_backward")}
+    kinds = {}
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.self_device_time_total <= 0):
+            continue
+        name = e.key
+        kind = ("conv" if any(t in name for t in (
+            "conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad", "nhwc",
+            "gemm", "nvjet", "cutlass", "sm90")) else
+            "copy / cast" if any(t in name for t in ("copy", "Copy",
+                                                     "transpose"))
+            else "reduction" if "reduce" in name
+            else "elementwise" if "elementwise" in name else "other")
+        ms, n = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    return dict(aten_ops=ops, device_ms_by_kind=kinds)
+
+
+def resnet50_phase(torch, device, timed=8, seed=14):
+    """ResNet-50 trained as bench_resnet trains it (BASELINE config 1),
+    captured; replays held to bodies bit for bit; see the module
+    docstring (phase 20)."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import amp, nn, optimizer
+    from paddle_tpu_torch.framework import device as pdev
+    from paddle_tpu_torch.jit import TrainStep
+
+    prev_place = pdev._current["place"]
+    prev_det = torch.backends.cudnn.deterministic
+    P.set_device("cpu" if device == "cpu" else "gpu:0")
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        P.seed(seed)
+        model = P.vision.models.resnet50(num_classes=1000,
+                                         data_format="NHWC")
+        amp.decorate(model, level="O2", dtype="bfloat16")
+        loss_fn = nn.CrossEntropyLoss()
+        opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                 parameters=model.parameters(),
+                                 multi_precision=True)
+        step = TrainStep(model, lambda out, y: loss_fn(out, y), opt)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        x = torch.randn(RESNET_B, RESNET_HW, RESNET_HW, 3, device=device,
+                        generator=gen).bfloat16()
+        y = torch.randint(0, 1000, (RESNET_B,), device=device,
+                          generator=gen)
+        xt, yt = P.Tensor(x), P.Tensor(y)
+        n_params = sum(p.size for p in model.parameters())
+        torch.cuda.synchronize()
+        print(f"resnet50 model: {n_params / 1e6:.1f} M params, built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        macs = conv_linear_macs(torch, model.eval(), xt[:1])
+        model.train()
+        step_flops = 3 * 2 * macs * RESNET_B
+
+        start = step.export_state()
+        with step._eager():     # the reference: 1 + 2 timed bodies
+            body_losses, body_s = timed_steps(torch, step, (xt, yt), {}, 1,
+                                              2)
+        body_state = resnet_state(torch, model, opt)
+        step.import_state(start)
+        del start
+        torch.cuda.reset_peak_memory_stats()
+        losses = [step(xt, yt) for _ in range(3)]   # capture, 2 replays
+        graph_state = resnet_state(torch, model, opt)
+        losses_equal = bool(torch.equal(torch.stack(losses),
+                                        torch.stack(body_losses)))
+        unequal = sorted(k for k in body_state
+                         if not torch.equal(body_state[k], graph_state[k]))
+        n_stats = sum(k.endswith(("_mean", "_variance")) for k in body_state)
+        n_compared = len(body_state)
+        del body_state, graph_state
+        more, step_s = timed_steps(torch, step, (xt, yt), {}, 0, timed)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(v.float()) for v in losses + more]
+        body_losses = [float(v.float()) for v in body_losses]
+        (prog,) = step._programs.values()
+
+        def one_step():
+            step(xt, yt)
+            torch.cuda.synchronize()
+
+        with step._eager():
+            body = profile_call(torch, one_step)
+            body_ops = resnet_profile(torch, one_step)
+        replay = profile_call(torch, one_step)
+        replay_kinds = resnet_profile(torch, one_step)["device_ms_by_kind"]
+        replay["graph_device_ms"] = replay_device_ms(torch,
+                                                     prog.capture.graph)
+        rec = dict(B=RESNET_B, hw=RESNET_HW, data_format="NHWC",
+                   params=n_params, body_steps=3, body_timed=2,
+                   timed=timed,
+                   cudnn_deterministic=True,
+                   losses=losses, body_losses=body_losses,
+                   replay_losses_equal_body=losses_equal,
+                   replay_state_unequal=unequal,
+                   compared_tensors=n_compared,
+                   bn_statistics_compared=n_stats,
+                   step_ms=step_s * 1e3, body_step_ms=body_s * 1e3,
+                   images_per_s=RESNET_B / step_s,
+                   body_images_per_s=RESNET_B / body_s,
+                   forward_macs_per_image=macs,
+                   step_flops=step_flops,
+                   flops_method="3 x 2 x (conv + linear MACs from the "
+                                "layers' shapes) x B",
+                   bf16_peak_share=step_flops / step_s
+                   / PEAK_FLOPS["bfloat16"],
+                   max_memory_allocated=peak,
+                   capture_ms=prog.capture.seconds * 1e3,
+                   graph_pool_bytes=pool_bytes(torch, step._pool),
+                   body=body, replay=replay, body_ops=body_ops,
+                   replay_device_ms_by_kind=replay_kinds)
+        del step, opt, prog, model
+        release(torch)
+        rec["layout_check"] = resnet_layouts(torch, device, seed)
+        release(torch)
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+        pdev._current["place"] = prev_place
+    print("resnet50", json.dumps(rec), flush=True)
+    if not all(np.isfinite(rec["losses"])):
+        raise AssertionError(f"resnet50 losses not finite: {rec['losses']}")
+    if not losses_equal or unequal:
+        raise AssertionError(
+            f"resnet50 replays differ from bodies: losses "
+            f"{rec['losses'][:3]} vs {body_losses}, unequal {unequal[:8]}")
+    if rec["layout_check"]["rel"] > RESNET_LAYOUT_TOL:
+        raise AssertionError(f"resnet50 NCHW vs NHWC: {rec['layout_check']}")
+    return rec
+
+
+def resnet_layouts(torch, device, seed):
+    """Eval logits of ResNet-50 in NCHW f32 and in NHWC f32 with the same
+    freshly seeded weights and, as running statistics, the eval batch's own
+    (one training-mode forward of the NHWC model at momentum 0; B
+    RESNET_EVAL_B, seeded images), so that the logits are O(1): max |diff|
+    over max |logit|."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.nn.layer_conv_norm import _BatchNormBase
+
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    x = torch.randn(RESNET_EVAL_B, 3, RESNET_HW, RESNET_HW, device=device,
+                    generator=gen)
+    P.seed(seed)
+    nhwc = P.vision.models.resnet50(num_classes=1000, data_format="NHWC")
+    bns = [m for m in nhwc.sublayers() if isinstance(m, _BatchNormBase)]
+    for m in bns:
+        m._momentum = 0.0
+    with torch.no_grad():
+        nhwc(P.Tensor(x.permute(0, 2, 3, 1).contiguous()))
+    for m in bns:
+        m._momentum = 0.9
+    nchw = P.vision.models.resnet50(num_classes=1000, data_format="NCHW")
+    nchw.set_state_dict(nhwc.state_dict())
+    out = {}
+    for fmt, m, xi in (("NCHW", nchw, x),
+                       ("NHWC", nhwc, x.permute(0, 2, 3, 1).contiguous())):
+        m.eval()
+        with torch.no_grad():
+            out[fmt] = m(P.Tensor(xi))._value.float()
+    del nchw, nhwc
+    diff = float((out["NCHW"] - out["NHWC"]).abs().max())
+    scale = float(out["NHWC"].abs().max())
+    return dict(B=RESNET_EVAL_B, weights="seeded", statistics="the batch's",
+                max_abs_diff=diff, max_abs_logit=scale, rel=diff / scale,
+                limit=RESNET_LAYOUT_TOL,
+                finite=bool(torch.isfinite(out["NCHW"]).all()))
+
+
 def core_phase(torch, fa, device):
     """The paddle-style core on the card: the golden tables (f64 and f32,
     eager, gradients, captured), the eager GPT-350M stack through the op
@@ -4925,6 +5175,14 @@ def main():
     print(f"bert_base on {card}: {bert['step_ms']:.1f} ms/step, eval "
           f"forward {bert['eval_ms']:.1f} ms", flush=True)
     release(torch)
+    with phase("resnet50"):
+        resnet = resnet50_phase(torch, device)
+    print(f"resnet50 on {card}: {resnet['step_ms']:.1f} ms/step replayed "
+          f"({resnet['body_step_ms']:.1f} as bodies), "
+          f"{resnet['images_per_s']:.0f} images/s, "
+          f"{resnet['bf16_peak_share']:.3f} of the bf16 peak, peak "
+          f"{resnet['max_memory_allocated']} bytes", flush=True)
+    release(torch)
     with phase("core"):
         core = core_phase(torch, fa, device)
     st = core["eager_stack"]
@@ -5088,6 +5346,7 @@ def main():
                   varlen_insitu=varlen_checks, varlen_train=varlen,
                   llama_serve=l_serve, llama_generate=l_gen,
                   llama_train=l_train, gpt3_1p3b=g3, bert_base=bert,
+                  resnet50=resnet,
                   phase_s=PHASE_S, kernels=kernels)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),

@@ -38,8 +38,15 @@ and ``to_tensor``, autograd over torch's (``backward``, ``grad``,
 for), flags, dtypes, and the op layer (``paddle_tpu_torch.exp``,
 ``matmul``, ``linalg``, ... and the same ops as Tensor methods; AMP O1
 and O2 cast by op name). The attention functionals take a ``Tensor``;
-the models, ``TrainStep``, the optimizers and serving still run on
-``torch.Tensor``.
+the GPT, LLaMA and BERT models and serving still run on ``torch.Tensor``.
+
+The nn surface (slice 14) is paddle's: ``nn.Layer`` (a
+``torch.nn.Module``), ``nn.Parameter`` (a Tensor over a
+``torch.nn.Parameter``), the initializers, the conv / norm / pool / loss /
+transformer layers and ``nn.functional``; ``vision.models`` builds the
+ResNet family from it, trained through ``TrainStep`` and the optimizers,
+which take a Layer's parameters with their per-parameter learning rates
+and regularizers.
 """
 from .framework.dtype import (  # noqa: F401
     bfloat16, bool_, complex64, complex128, finfo, float16, float32, float64,
@@ -64,7 +71,7 @@ from .autograd import (  # noqa: E402,F401
 from . import ops  # noqa: E402
 from .ops import *  # noqa: E402,F401,F403
 from . import autograd, framework, linalg  # noqa: E402,F401
-from . import amp, jit, nn, optimizer  # noqa: E402
+from . import amp, jit, nn, optimizer, vision  # noqa: E402
 from .bridge import from_paddle_tpu_state, to_paddle_tpu_state
 from .inference import (
     ContinuousGenerateBatchingPredictor,
@@ -97,7 +104,7 @@ __all__ = ["GPTConfig", "GPTForCausalLM", "gpt_tiny", "gpt_350m",
            "PagedKVCache", "ContinuousGenerateBatchingPredictor",
            "GenerateBatchingPredictor",
            "InferenceServer", "from_paddle_tpu_state", "to_paddle_tpu_state",
-           "amp", "jit", "nn", "optimizer", "autograd", "framework",
+           "amp", "jit", "nn", "optimizer", "vision", "autograd", "framework",
            "linalg", "ops", "Tensor", "to_tensor", "seed", "get_rng_state",
            "set_rng_state", "no_grad", "enable_grad", "grad",
            "is_grad_enabled", "set_grad_enabled", "set_flags", "get_flags",

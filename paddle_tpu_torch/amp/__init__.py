@@ -3,8 +3,9 @@
 
 * ``decorate(level="O2")`` casts a model's parameters to bf16 or f16 and
   turns on the optimizers' f32 master weights (``multi_precision``). As in
-  the JAX package (``amp/__init__.py:84-93``) only batch-norm and LayerNorm
-  layers keep their dtype, so RMSNorm weights go to the amp dtype too.
+  the JAX package (``amp/__init__.py:84-93``) only the port's batch-norm
+  layers (``nn._BatchNormBase``) and ``LayerNorm`` keep their dtype, so
+  RMSNorm weights go to the amp dtype too.
 * ``auto_cast(level="O1")`` casts by op NAME, as the JAX package's
   dispatch hook does (``paddle_tpu/ops/__init__.py:39-66``): a black-listed
   op runs in f32, a white-listed one in the amp dtype, any other in its
@@ -36,16 +37,11 @@ from __future__ import annotations
 import contextlib
 
 import torch
-from torch import nn
 
 __all__ = ["auto_cast", "amp_guard", "decorate", "GradScaler",
            "is_auto_cast_enabled", "get_amp_dtype", "get_amp_level",
            "white_list", "black_list", "check_numerics",
            "is_bfloat16_supported", "is_float16_supported"]
-
-# the layers O2 leaves in their dtype (JAX keeps batch norm and LayerNorm);
-# the port's LayerNorm joins them in ``decorate`` (``nn`` imports this module)
-_EXCLUDED = (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)
 
 _amp_state = {"enable": False, "dtype": torch.bfloat16, "level": "O1",
               "custom_white_list": frozenset(),
@@ -167,9 +163,11 @@ amp_guard = auto_cast
 def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
              master_weight=None, save_dtype=None, master_grad=False,
              excluded_layers=None):
-    """O2: every floating parameter outside batch-norm / LayerNorm layers is
-    cast IN PLACE to ``dtype`` (bfloat16 or float16; the Parameter objects
-    stay, so an optimizer built before keeps them); optimizers get
+    """O2: every floating parameter outside the port's batch-norm and
+    LayerNorm layers is cast IN PLACE to ``dtype`` (bfloat16 or float16;
+    the Parameter objects stay, so an optimizer built before keeps them;
+    buffers, such as batch norm's running statistics, stay f32); optimizers
+    get
     ``multi_precision`` unless ``master_weight`` is False. O1 leaves the
     parameters as they are, as in the JAX package. Returns the models (and
     optimizers when given)."""
@@ -177,11 +175,13 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
     single = not isinstance(models, (list, tuple))
     model_list = [models] if single else list(models)
     if level == "O2":
-        from ..nn.layer_conv_norm import LayerNorm
+        # the layers O2 leaves in their dtype, as JAX's (``nn`` imports
+        # this module, so the layers are looked up here)
+        from ..nn.layer_conv_norm import LayerNorm, _BatchNormBase
 
         for m in model_list:
             for layer in m.modules():
-                if isinstance(layer, (*_EXCLUDED, LayerNorm)):
+                if isinstance(layer, (_BatchNormBase, LayerNorm)):
                     continue
                 for p in layer.parameters(recurse=False):
                     if p.is_floating_point():

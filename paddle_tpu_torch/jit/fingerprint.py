@@ -23,44 +23,45 @@ def dtype_name(dtype) -> str:
     return str(np.dtype(dtype))
 
 
+def _walk(x, leaves):
+    if isinstance(x, (tuple, list)):
+        return (type(x).__name__, tuple(_walk(v, leaves) for v in x))
+    if isinstance(x, dict):
+        keys = tuple(sorted(x, key=str))     # as JAX orders them
+        return ("dict", keys, tuple(_walk(x[k], leaves) for k in keys))
+    if x is None:
+        return ("None",)
+    leaves.append(x)
+    return ("leaf",)
+
+
 def flatten(tree):
     """(leaves, structure): the leaves of nested tuples, lists and dicts in
     order (a dict's by sorted key), and a hashable description of the
     nesting that ``unflatten`` rebuilds it from. None is structure, not a
-    leaf."""
+    leaf. (The walkers are module functions: a recursive closure is a
+    reference cycle that would keep the leaves, and any autograd graph
+    they hold, alive until the garbage collector runs.)"""
     leaves = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(x):
-        if isinstance(x, (tuple, list)):
-            return (type(x).__name__, tuple(walk(v) for v in x))
-        if isinstance(x, dict):
-            keys = tuple(sorted(x, key=str))     # as JAX orders them
-            return ("dict", keys, tuple(walk(x[k]) for k in keys))
-        if x is None:
-            return ("None",)
-        leaves.append(x)
-        return ("leaf",)
 
-    return leaves, walk(tree)
+def _build(s, it):
+    kind = s[0]
+    if kind == "leaf":
+        return next(it)
+    if kind == "None":
+        return None
+    if kind == "dict":
+        return {k: _build(v, it) for k, v in zip(s[1], s[2])}
+    seq = [_build(v, it) for v in s[1]]
+    return tuple(seq) if kind == "tuple" else seq
 
 
 def unflatten(structure, leaves):
     """The tree ``flatten`` described, with ``leaves`` in its leaves'
     places (tuples and lists as tuples and lists, dicts with their keys)."""
-    it = iter(leaves)
-
-    def build(s):
-        kind = s[0]
-        if kind == "leaf":
-            return next(it)
-        if kind == "None":
-            return None
-        if kind == "dict":
-            return {k: build(v) for k, v in zip(s[1], s[2])}
-        seq = [build(v) for v in s[1]]
-        return tuple(seq) if kind == "tuple" else seq
-
-    return build(structure)
+    return _build(structure, iter(leaves))
 
 
 def _leaf_print(x):

@@ -46,6 +46,15 @@ sequence into one CUDA graph per key and replays it:
   a failed compile changes nothing.
 * On the CPU, which the caller asks for explicitly (the tests do), the
   same step runs every call on the same buffers, without capture.
+* A paddle-style model (``nn.Layer``) takes and returns the port's
+  ``Tensor``: the batch may hold Tensors (unwrapped into the buffers), the
+  step hands the model and the loss function Tensors over the buffers'
+  views and unwraps the loss and outputs. Parameters are keyed by their
+  torch storage either way; a parameter's ``optimize_attr`` learning rate
+  scales its update and its ``regularizer`` replaces ``weight_decay``, as
+  in JAX's step (:201-212). Batch norm's running statistics are buffers
+  written in place by the forward, so a replay updates them as a body
+  does.
 
 ``run_steps`` (JAX :254-360) replays one key's graph n times from one
 host fill of the n counters and rates, with device-to-device batch
@@ -67,8 +76,10 @@ import torch
 from .. import amp
 from ..framework import default_generator
 from ..nn.clip import ClipGradBase
+from ..nn.layer import Layer
 from ..optimizer import LBFGS
 from ..optimizer.lr import LRScheduler
+from ..tensor import Tensor
 from .fingerprint import aval_fingerprint, flatten, unflatten
 from .graphs import StaticBuffers, first_run_then_capture
 
@@ -98,6 +109,13 @@ def _leaf_spec(x):
 def _map_tensors(fn, tree):
     leaves, structure = flatten(tree)
     return unflatten(structure, [fn(x) if isinstance(x, torch.Tensor) else x
+                                 for x in leaves])
+
+
+def _unwrapped(tree):
+    """``tree`` with the port's Tensors replaced by their torch tensors."""
+    leaves, structure = flatten(tree)
+    return unflatten(structure, [x._value if isinstance(x, Tensor) else x
                                  for x in leaves])
 
 
@@ -165,8 +183,10 @@ class TrainStep:
             self._fwd_sig = inspect.signature(type(model).forward)
         except (TypeError, ValueError):
             self._fwd_sig = None
-        self._trainable = {k: p for k, p in model.named_parameters()
-                           if p.requires_grad and p.is_floating_point()}
+        self._paddle = isinstance(model, Layer)
+        self._trainable = {
+            k: p for k, p in torch.nn.Module.named_parameters(model)
+            if p.requires_grad and p.is_floating_point()}
         self._params = list(self._trainable.values())
         if not self._params:
             raise ValueError("TrainStep: the model has no trainable "
@@ -206,6 +226,9 @@ class TrainStep:
         model_args, label = self._split(args, kwargs)
         for p in self._params:
             p.grad = None
+        if self._paddle:
+            model_args, kwargs, label = _map_tensors(
+                Tensor, (model_args, kwargs, label))
         out = self.model(*model_args, **kwargs)
         if label is not None:
             loss = self.loss_fn(out, label)
@@ -213,13 +236,16 @@ class TrainStep:
             loss = self.loss_fn(*out)
         else:
             loss = self.loss_fn(out)
+        loss, out = _unwrapped((loss, out))
         loss.backward()
         grads = self._clip([p.grad if p.grad is not None
                             else torch.zeros_like(p) for p in self._params])
         with torch.no_grad():
             for p, g in zip(self._params, grads):
                 p.grad = None
-                p.copy_(opt._update(p, p.detach(), g.to(p.dtype), lr, step))
+                scale = opt._lr_scale(p)
+                plr = lr if scale == 1.0 else lr * scale
+                p.copy_(opt._update(p, p.detach(), g.to(p.dtype), plr, step))
         outs = (_map_tensors(torch.Tensor.detach, out)
                 if self._return_outputs else None)
         return loss.detach(), outs
@@ -313,6 +339,7 @@ class TrainStep:
 
     # ---------------------------------------------------------- public api
     def __call__(self, *args, **kwargs):
+        args, kwargs = _unwrapped((args, kwargs))
         prog = self._program(args, kwargs)
         opt = self.optimizer
         with self._undone_on_failure(prog):
@@ -337,6 +364,7 @@ class TrainStep:
         to ``n_steps`` sequential calls (JAX :288-360)."""
         if self._return_outputs:
             raise ValueError("run_steps does not support return_outputs=True")
+        args, kwargs = _unwrapped((args, kwargs))
         if stacked:
             stacks = []
             for a in args:

@@ -1,7 +1,8 @@
-"""nn layers of the port: LayerNorm, RMSNorm, Embedding, dropout, gradient
-clipping, and ``functional`` (activations, norms, dropout and the
-attention dispatcher)."""
-from . import functional
+"""paddle.nn of the port — the counterpart of ``paddle_tpu/nn``: ``Layer``
+(a ``torch.nn.Module``), ``Parameter``, ``ParamAttr``, the initializers,
+the layers (common, conv / norm / pool, losses, transformer), gradient
+clipping, ``utils`` and ``functional``."""
+from . import functional, initializer, utils
 from .clip import (
     ClipGradByGlobalNorm,
     ClipGradByNorm,
@@ -9,16 +10,18 @@ from .clip import (
     clip_grad_norm_,
     clip_grad_value_,
 )
-from .layer_common import (
-    AlphaDropout,
-    Dropout,
-    Dropout2D,
-    Dropout3D,
-    Embedding,
-)
-from .layer_conv_norm import LayerNorm, RMSNorm, rms_norm
+from .layer import Layer, Parameter, ParamAttr
+from .layer_common import *  # noqa: F401,F403
+from .layer_common import __all__ as _common
+from .layer_conv_norm import *  # noqa: F401,F403
+from .layer_conv_norm import _BatchNormBase  # noqa: F401
+from .layer_conv_norm import __all__ as _conv_norm
+from .layer_loss import *  # noqa: F401,F403
+from .layer_loss import __all__ as _loss
+from .layer_transformer import *  # noqa: F401,F403
+from .layer_transformer import __all__ as _transformer
 
-__all__ = ["LayerNorm", "RMSNorm", "rms_norm", "Embedding", "Dropout",
-           "Dropout2D", "Dropout3D", "AlphaDropout", "ClipGradByGlobalNorm",
-           "ClipGradByNorm", "ClipGradByValue", "clip_grad_norm_",
-           "clip_grad_value_", "functional"]
+__all__ = (["Layer", "Parameter", "ParamAttr", "ClipGradByGlobalNorm",
+            "ClipGradByNorm", "ClipGradByValue", "clip_grad_norm_",
+            "clip_grad_value_", "functional", "initializer", "utils"]
+           + _common + _conv_norm + _loss + _transformer)

@@ -92,9 +92,12 @@ class ClipGradByGlobalNorm(ClipGradBase):
 
 
 def _grads(parameters):
-    if isinstance(parameters, torch.Tensor):
+    """The torch tensors (a paddle-style Parameter's own) that hold a
+    gradient."""
+    if not isinstance(parameters, (list, tuple)):
         parameters = [parameters]
-    return [p for p in parameters if p.grad is not None]
+    params = [getattr(p, "_value", p) for p in parameters]
+    return [p for p in params if p.grad is not None]
 
 
 def clip_grad_norm_(parameters, max_norm, norm_type=2.0,

@@ -34,6 +34,8 @@ import warnings
 import numpy as np
 import torch
 
+from .. import amp as _amp
+from ..framework.flags import flag as _flag
 from ..tensor import Tensor
 from .paged_attention import (
     paged_cache_update,
@@ -53,8 +55,6 @@ def _amp_wrap(fn, name: str):
     each gradient comes back in its input's dtype). O1: black list f32,
     white list the amp dtype, any other op as it is. O2: every op in the
     amp dtype except the black list (f32)."""
-    from .. import amp as _amp
-
     target = _amp._op_cast_target(name)
     if target is None:
         return fn
@@ -77,13 +77,25 @@ def apply_op(fn, name: str, *args, **kwargs):
     return _wrap_outputs(out)
 
 
+def apply_like(fn, name: str, x, *args, **kwargs):
+    """``apply_op`` whose outputs are of ``x``'s kind: Tensors when ``x``
+    is a Tensor, torch tensors when it is a torch tensor. The nn
+    functionals dispatch through it, so the torch-level models, which call
+    them on torch tensors, get torch tensors back, and AMP reaches both by
+    the op's name. A torch ``x`` takes the short way, with no Tensor made
+    on the way."""
+    if isinstance(x, Tensor):
+        return apply_op(fn, name, x, *args, **kwargs)
+    out = _amp_wrap(fn, name)(x, *[_unwrap(a) for a in args], **kwargs)
+    _maybe_scan_nan_inf(name, out)
+    return out
+
+
 def _maybe_scan_nan_inf(name, out):
     """Per-op NaN/Inf scan under ``FLAGS_check_nan_inf`` (reference
     nan_inf_utils). It reads a count back to the host, so it is skipped
     while a CUDA graph is captured."""
-    from ..framework.flags import flag
-
-    if not flag("FLAGS_check_nan_inf") or _capturing():
+    if not _flag("FLAGS_check_nan_inf") or _capturing():
         return
     leaves = out if isinstance(out, (tuple, list)) else [out]
     for i, v in enumerate(leaves):
@@ -92,7 +104,7 @@ def _maybe_scan_nan_inf(name, out):
         bad = int((~torch.isfinite(v)).sum())
         if bad:
             msg = f"op {name!r} output {i} contains {bad} NaN/Inf values"
-            if flag("FLAGS_check_nan_inf_level") >= 1:
+            if _flag("FLAGS_check_nan_inf_level") >= 1:
                 warnings.warn(msg)
             else:
                 raise FloatingPointError(msg)

@@ -283,6 +283,10 @@ def pad(x, pad, mode="constant", value=0.0, data_format="NCHW", name=None):
         flat = [w for lo_hi in reversed(widths) for w in lo_hi]
         if mode == "constant":
             return tF.pad(v, flat, "constant", value)
+        # torch pads the last 1-3 dims in these modes: drop the unpadded
+        # leading dims' pairs
+        while len(flat) > 2 and flat[-2:] == [0, 0]:
+            flat = flat[:-2]
         return tF.pad(v, flat, _PAD_MODES[mode])
 
     return apply_op(f, "pad", x)

@@ -389,9 +389,12 @@ class LazyGuard:
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
                      default_initializer=None):
-    raise NotImplementedError(
-        "create_parameter makes a Layer parameter; the port's nn surface "
-        "(Layer, Parameter, initializers) is not ported yet (ROADMAP A6)")
+    """A new ``nn.Parameter`` on the current place, made as
+    ``Layer.create_parameter`` makes one (JAX :440-447)."""
+    from ..nn.layer import make_parameter
+
+    return make_parameter(list(shape), attr, dtype, is_bias,
+                          default_initializer)
 
 
 def rank(input):

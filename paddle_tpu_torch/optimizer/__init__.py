@@ -99,7 +99,12 @@ class Optimizer:
     ``"params"`` holds either (JAX :44-53; a group's other keys are kept and
     not read, as there). Names are what ``apply_decay_param_fun`` sees and
     what ``state_dict`` keys start with (unnamed parameters are
-    ``param_<i>``)."""
+    ``param_<i>``). A parameter is a torch tensor or an ``nn.Parameter``
+    (a ``Layer``'s); the optimizer updates the torch tensor and reads the
+    paddle attributes of the second: ``optimize_attr["learning_rate"]``
+    scales the rate (JAX :113-114), ``regularizer`` replaces
+    ``weight_decay`` (:133-146) and ``need_clip`` False exempts it from
+    the clip."""
 
     _acc_names: tuple = ()
 
@@ -114,8 +119,10 @@ class Optimizer:
         else:
             groups = [{"params": items}]
         self._param_groups, self._params, self._names = [], [], {}
+        self._attrs = {}      # id(torch tensor) -> its nn.Parameter
         for g in groups:
-            named = _named(g["params"], len(self._params))
+            named = [(n, self._torch(p)) for n, p in
+                     _named(g["params"], len(self._params))]
             g["params"] = [p for _, p in named]
             self._param_groups.append(g)
             for pname, p in named:
@@ -148,6 +155,21 @@ class Optimizer:
 
     def _param_name(self, p):
         return self._names.get(id(p), "")
+
+    def _torch(self, p):
+        """The torch tensor of parameter ``p``; an ``nn.Parameter``'s
+        paddle attributes are kept for it."""
+        value = getattr(p, "_value", None)
+        if value is None:
+            return p
+        self._attrs[id(value)] = p
+        return value
+
+    def _lr_scale(self, p):
+        """``optimize_attr["learning_rate"]`` of torch tensor ``p``'s
+        parameter (1.0 without one)."""
+        attr = getattr(self._attrs.get(id(p)), "optimize_attr", None)
+        return attr.get("learning_rate", 1.0) if attr else 1.0
 
     # --------------------------------------------------- accumulators
     def _acc_init(self, name, p):
@@ -189,15 +211,17 @@ class Optimizer:
     @torch.no_grad()
     def step(self):
         """One eager update of every parameter that has a gradient."""
-        params_grads = [(p, p.grad) for p in self._params
+        params_grads = [(self._attrs.get(id(p), p), p.grad)
+                        for p in self._params
                         if p.requires_grad and p.grad is not None]
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         self._step_count += 1
-        for p, g in params_grads:
+        for q, g in params_grads:
             if g is None:
                 continue
-            lr = self.get_lr()
+            p = getattr(q, "_value", q)
+            lr = self.get_lr() * self._lr_scale(p)
             gval = g.float() if self._multi_precision else g
             if (self._multi_precision and p.is_floating_point()
                     and p.dtype != torch.float32):
@@ -216,16 +240,19 @@ class Optimizer:
         (accumulators are stored through ``_set_acc``)."""
         raise NotImplementedError
 
-    def _apply_decay(self, pval, g):
+    def _apply_decay(self, p, pval, g):
         """L2 regularisation folded into the gradient (paddle's
-        weight_decay for optimizers other than AdamW), the coefficient
-        rounded to g's dtype first (JAX :133-146)."""
-        wd = self._weight_decay
+        weight_decay for optimizers other than AdamW): the parameter's own
+        ``regularizer``, else the optimizer's ``weight_decay``, either a
+        number or an object with ``_coeff`` (JAX :133-146), the coefficient
+        rounded to g's dtype first."""
+        wd = getattr(self._attrs.get(id(p)), "regularizer", None)
+        if wd is None:
+            wd = self._weight_decay
+        wd = getattr(wd, "_coeff", wd)
         if isinstance(wd, numbers.Real) and wd != 0.0:
             wd = float(torch.tensor(wd, dtype=g.dtype, device="cpu"))
             return g + wd * pval
-        if wd not in (None, 0.0):
-            raise NotImplementedError("regularizer objects are not ported")
         return g
 
     def minimize(self, loss, startup_program=None, parameters=None,
@@ -292,7 +319,7 @@ class SGD(Optimizer):
                          name, multi_precision)
 
     def _update(self, p, pval, g, lr, step):
-        g = self._apply_decay(pval, g)
+        g = self._apply_decay(p, pval, g)
         return _promoted(pval, lr) - lr * _promoted(g, lr)
 
 
@@ -311,7 +338,7 @@ class Momentum(Optimizer):
         self._nesterov = use_nesterov
 
     def _update(self, p, pval, g, lr, step):
-        g = self._apply_decay(pval, g)
+        g = self._apply_decay(p, pval, g)
         v = self._momentum * self._acc("velocity", p) + g
         self._set_acc("velocity", p, v)
         d = g + self._momentum * v if self._nesterov else v
@@ -345,7 +372,7 @@ class Adam(Optimizer):
         return (_promoted(m, b1p) / (1 - b1p), _promoted(v, b2p) / (1 - b2p))
 
     def _update(self, p, pval, g, lr, step):
-        g = self._apply_decay(pval, g)
+        g = self._apply_decay(p, pval, g)
         mhat, vhat = self._moments(p, g, step)
         return _promoted(pval, lr) - lr * mhat / (torch.sqrt(vhat) + self._eps)
 
@@ -363,9 +390,7 @@ class AdamW(Adam):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, lazy_mode, multi_precision,
                          amsgrad=amsgrad, name=name)
-        if not isinstance(weight_decay, numbers.Real):
-            raise NotImplementedError("regularizer objects are not ported")
-        self._wd_coeff = weight_decay
+        self._wd_coeff = getattr(weight_decay, "_coeff", weight_decay)
         self._apply_decay_param_fun = apply_decay_param_fun
         self._lr_ratio = lr_ratio
 
@@ -395,7 +420,7 @@ class Adamax(Optimizer):
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
 
     def _update(self, p, pval, g, lr, step):
-        g = self._apply_decay(pval, g)
+        g = self._apply_decay(p, pval, g)
         m = self._beta1 * self._acc("moment", p) + (1 - self._beta1) * g
         u = torch.maximum(self._beta2 * self._acc("inf_norm", p), g.abs())
         self._set_acc("moment", p, m)
@@ -420,7 +445,7 @@ class Adagrad(Optimizer):
         self._init_acc = initial_accumulator_value
 
     def _update(self, p, pval, g, lr, step):
-        g = self._apply_decay(pval, g)
+        g = self._apply_decay(p, pval, g)
         acc = self._acc("moment", p, lambda: torch.full_like(
             p.detach(), self._init_acc)) + torch.square(g)
         self._set_acc("moment", p, acc)
@@ -439,7 +464,7 @@ class Adadelta(Optimizer):
         self._eps, self._rho = epsilon, rho
 
     def _update(self, p, pval, g, lr, step):
-        g = self._apply_decay(pval, g)
+        g = self._apply_decay(p, pval, g)
         rho = self._rho
         avg_sq = (rho * self._acc("avg_squared_grad", p)
                   + (1 - rho) * torch.square(g))
@@ -467,7 +492,7 @@ class RMSProp(Optimizer):
         self._momentum, self._centered = momentum, centered
 
     def _update(self, p, pval, g, lr, step):
-        g = self._apply_decay(pval, g)
+        g = self._apply_decay(p, pval, g)
         rho = self._rho
         ms = rho * self._acc("mean_square", p) + (1 - rho) * torch.square(g)
         self._set_acc("mean_square", p, ms)
@@ -609,7 +634,7 @@ class ASGD(Optimizer):
         return super()._acc_init(name, p)
 
     def _update(self, p, pval, g, lr, step):
-        g = self._apply_decay(pval, g)
+        g = self._apply_decay(p, pval, g)
         ys = self._acc("ys", p)
         # the slot of this step, on the device when the counter is there
         i = (step - 1) % self._n
@@ -686,7 +711,7 @@ class NAdam(Adam):
         return super()._acc_init(name, p)
 
     def _update(self, p, pval, g, lr, step):
-        g = self._apply_decay(pval, g)
+        g = self._apply_decay(p, pval, g)
         b1, b2 = self._beta1, self._beta2
         mu_t = b1 * (1 - 0.5 * _pow_step(0.96, step * self._psi))
         mu_t1 = b1 * (1 - 0.5 * _pow_step(0.96, (step + 1) * self._psi))
@@ -708,7 +733,7 @@ class RAdam(Adam):
     estimate is unreliable (rho_t <= 5), the rectified Adam step after."""
 
     def _update(self, p, pval, g, lr, step):
-        g = self._apply_decay(pval, g)
+        g = self._apply_decay(p, pval, g)
         b1, b2 = self._beta1, self._beta2
         m = b1 * self._acc("moment1", p) + (1 - b1) * g
         v = b2 * self._acc("moment2", p) + (1 - b2) * torch.square(g)

@@ -24,7 +24,8 @@ __all__ = ["load_tables", "leaves", "to_numpy", "compare", "scalar_proj",
 
 TABLES = {"test_op_golden.py": ("UNARY", "BINARY", "LOGIC", "REDUCTION",
                                 "CREATION", "SEARCH"),
-          "test_op_golden2.py": ("MANIP", "LINALG")}
+          "test_op_golden2.py": ("MANIP", "LINALG", "ACTIVATIONS", "LOSSES",
+                                 "NN_SHAPE")}
 
 # op_test's draws, from a generator of its own seed
 _rng = {"gen": np.random.default_rng(2024)}
@@ -46,29 +47,28 @@ def randb(shape):
     return _rng["gen"].integers(0, 2, shape).astype(bool)
 
 
-class _Functional:
-    """The port's ``nn.functional`` as the tables' ``F``: a name it does not
-    have yet (the ``nn.functional`` tables, ROADMAP A6) resolves to a stub
-    that raises when called, so the tables before them still load."""
-
-    def __init__(self, F):
-        self._F = F
-
-    def __getattr__(self, name):
-        if hasattr(self._F, name):
-            return getattr(self._F, name)
-
-        def missing(*args, **kwargs):
-            raise NotImplementedError(f"nn.functional.{name} is not ported")
-
-        return missing
+def _draws(gen):
+    """op_test's draw functions over the numpy generator ``gen``."""
+    return {
+        "rand": lambda shape, dtype="float64", lo=-2.0, hi=2.0:
+            gen.uniform(lo, hi, shape).astype(dtype),
+        "randpos": lambda shape, dtype="float64", lo=0.1, hi=3.0:
+            gen.uniform(lo, hi, shape).astype(dtype),
+        "randint": lambda shape, lo=0, hi=10, dtype="int64":
+            gen.integers(lo, hi, shape).astype(dtype),
+        "randb": lambda shape: gen.integers(0, 2, shape).astype(bool),
+    }
 
 
-def load_tables(tests_dir, port, F):
+def load_tables(tests_dir, port, F, gen=None):
     """{table name: [case, ...]} from the two table files in ``tests_dir``,
     run over the port: their ``import paddle_tpu...`` and ``from op_test``
     lines are left out and the module body up to ``SPECS`` runs with
-    ``P`` / ``paddle`` bound to ``port`` and ``F`` to ``F``."""
+    ``P`` / ``paddle`` bound to ``port`` and ``F`` to ``F``. The cases'
+    inputs draw from ``gen`` (a numpy generator), else from this module's
+    own generator (``rand`` ...)."""
+    draws = (dict(rand=rand, randpos=randpos, randint=randint, randb=randb)
+             if gen is None else _draws(gen))
     out = {}
     for fname, names in TABLES.items():
         with open(os.path.join(tests_dir, fname)) as f:
@@ -76,9 +76,7 @@ def load_tables(tests_dir, port, F):
         src = src[:src.index("\nSPECS = ")]
         src = re.sub(r"^(import paddle_tpu.*|from op_test import .*)$", "",
                      src, flags=re.M)
-        g = {"__name__": "golden_tables", "paddle": port,
-             "F": _Functional(F), "rand": rand, "randpos": randpos,
-             "randint": randint, "randb": randb}
+        g = {"__name__": "golden_tables", "paddle": port, "F": F, **draws}
         exec(compile(src, os.path.join(tests_dir, fname), "exec"), g)
         for n in names:
             out[n] = [c for c in g[n] if c is not None]

@@ -5,7 +5,8 @@ library's one backward call, and the serve_knobs phase's chat traffic,
 Prometheus line pattern and near-tie cut; the model families' FLOP counts
 (``forward_flops`` held to ``torch.utils.flop_counter`` on tiny models of
 each family), the D = 128 bounds, the served-rows gate and the kernels
-line's D = 128 readings."""
+line's D = 128 readings; the resnet50 phase's MAC count (held to the flop
+counter) and its control flow rehearsed at a toy size."""
 import pathlib
 import sys
 
@@ -282,3 +283,144 @@ def test_served_rows_check_holds_rewritten_rows_and_fails_a_swap():
     assert rec["blocks"] == [2, 3]
     assert max(rec["rel"]) < 1e-6
     assert rec["control"] > chip_smoke.INSITU_REL_TOL
+
+
+@pytest.fixture
+def one_thread():
+    """torch on one CPU thread within the test: the conv net legs share
+    the machine with the other test workers, and torch's own threads would
+    oversubscribe it."""
+    import torch
+
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def test_conv_linear_macs_equal_the_flop_counter_on_resnet50(monkeypatch,
+                                                             one_thread):
+    """The resnet50 phase's FLOPs: its MAC count from the layers' shapes is
+    half of ``torch.utils.flop_counter``'s forward count (2 per MAC) on
+    the same forward, and ResNet-50's published 4.09 GMACs at 224 x 224."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.framework import device as pdev
+
+    monkeypatch.setitem(pdev._current, "place", pdev._current["place"])
+    P.set_device("cpu")
+    model = P.vision.models.resnet50(num_classes=1000, data_format="NHWC")
+    model.eval()
+    x = P.Tensor(torch.randn(1, 224, 224, 3))
+    macs = chip_smoke.conv_linear_macs(torch, model, x)
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        model(x)
+    assert 2 * macs == counter.get_total_flops()
+    assert macs == 4_089_184_256
+
+
+def test_resnet50_phase_rehearses_on_the_cpu(monkeypatch, one_thread):
+    """The resnet50 phase's control flow at B 2, 32 x 32 on the CPU (its
+    card calls stubbed, a dummy capture), over ResNet-18 (the same
+    blocks' code at a quarter of the work): bodies and the "captured" steps
+    run the same code, so their losses, parameters, velocities and
+    statistics are equal; the layout check agrees. The rate is 1e-3 here:
+    at this toy size the card's 0.1 drives the logits past f32's range
+    within five steps."""
+    import types
+
+    import torch
+
+    import paddle_tpu_torch as P
+    import paddle_tpu_torch.jit.train as train
+    from paddle_tpu_torch import optimizer
+
+    class SlowMomentum(optimizer.Momentum):
+        def __init__(self, learning_rate, *args, **kwargs):
+            super().__init__(1e-3, *args, **kwargs)
+
+    monkeypatch.setattr(optimizer, "Momentum", SlowMomentum)
+    monkeypatch.setattr(P.vision.models, "resnet50", P.vision.models.resnet18)
+
+    monkeypatch.setattr(chip_smoke, "RESNET_B", 2)
+    monkeypatch.setattr(chip_smoke, "RESNET_HW", 32)
+    monkeypatch.setattr(chip_smoke, "RESNET_EVAL_B", 2)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "memory_reserved"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    monkeypatch.setattr(chip_smoke, "profile_call",
+                        lambda torch, fn, attention=(): (fn(), {})[1])
+    monkeypatch.setattr(chip_smoke, "resnet_profile",
+                        lambda torch, fn: dict(device_ms_by_kind={}))
+    monkeypatch.setattr(chip_smoke, "replay_device_ms", lambda *a, **k: 0.0)
+    monkeypatch.setattr(chip_smoke, "pool_bytes", lambda *a: 0)
+    real = train.TrainStep._program
+
+    def program(self, args, kwargs):
+        prog = real(self, args, kwargs)
+        prog.capture = prog.capture or types.SimpleNamespace(graph=None,
+                                                             seconds=0.0)
+        return prog
+
+    monkeypatch.setattr(train.TrainStep, "_program", program)
+    rec = chip_smoke.resnet50_phase(torch, "cpu", timed=2)
+    assert rec["replay_losses_equal_body"] and not rec["replay_state_unequal"]
+    assert rec["compared_tensors"] == 164 and rec["bn_statistics_compared"] \
+        == 40
+    assert len(rec["losses"]) == 5 and len(rec["body_losses"]) == 3
+    assert rec["layout_check"]["rel"] < chip_smoke.RESNET_LAYOUT_TOL
+
+
+def test_smoke_ab_sets_the_shared_readings_side_by_side():
+    """``tools/smoke_ab.py`` compares the time, rate and share leaves that
+    every turn's record holds: ratio of the sides' means, the larger
+    turn-to-turn spread, and "apart" only where the sides do not
+    overlap."""
+    sys.path.insert(0, str(pathlib.Path(chip_smoke.__file__).parent
+                           / "tools"))
+    import smoke_ab
+
+    def rec(body, tok, rate):
+        return {"training": {"body_step_ms": body, "losses": [1.0],
+                             "replay_equals_body": True},
+                "serving": {"decode_tok_per_s": tok, "requests": 12},
+                "resnet50": {"images_per_s": rate},
+                "kernels": [{"ms": 1.0}]}
+
+    table = smoke_ab.compare([("other", rec(100.0, 10.0, 5.0)),
+                              ("this", rec(120.0, 10.5, 5.0)),
+                              ("this", rec(130.0, 9.5, 5.0)),
+                              ("other", rec(110.0, 11.0, 5.0))])
+    assert set(table) == {"training.body_step_ms",
+                          "serving.decode_tok_per_s",
+                          "resnet50.images_per_s"}
+    body = table["training.body_step_ms"]
+    assert body["other"] == [100.0, 110.0] and body["this"] == [120.0, 130.0]
+    assert body["ratio"] == pytest.approx(125.0 / 105.0)
+    assert body["spread"] == pytest.approx(10.0 / 105.0)
+    assert body["apart"]
+    assert not table["serving.decode_tok_per_s"]["apart"]
+    assert table["resnet50.images_per_s"]["spread"] == 0.0
+
+
+def test_eager_ab_reads_the_pairs():
+    """``tools/eager_ab.py`` sums up its alternating windows per form: each
+    side's quartiles, the ratio of the medians and the pairs the change
+    took longer in."""
+    sys.path.insert(0, str(pathlib.Path(chip_smoke.__file__).parent
+                           / "tools"))
+    import eager_ab
+
+    windows = [({f: 10.0 + i for f in eager_ab.FORMS},
+                {f: 10.0 + i + (1.0 if i < 3 else -1.0)
+                 for f in eager_ab.FORMS}) for i in range(4)]
+    rec = eager_ab.summarise(windows)
+    assert set(rec) == set(eager_ab.FORMS)
+    body = rec["train_body"]
+    assert body["other"] == [10.75, 11.5, 12.25]
+    assert body["this"] == [11.75, 12.0, 12.25]
+    assert body["ratio"] == 12.0 / 11.5
+    assert body["this_slower_pairs"] == 3 and body["pairs"] == 4

@@ -12,6 +12,7 @@ from paddle_tpu.nn import functional as JF
 from paddle_tpu_torch import amp as tamp
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.nn import functional as TF
+from port_bodies import on_cpu  # noqa: F401
 
 F32 = dict(atol=1e-6, rtol=1e-6)
 
@@ -61,13 +62,13 @@ def test_layer_norm_matches_jax(shape, dtype):
                                **tol)
 
 
-def test_layer_norm_layer_defaults_and_o1_cast():
+def test_layer_norm_layer_defaults_and_o1_cast(on_cpu):
     """Weight 1, bias 0, epsilon 1e-5 as JAX's ``LayerNorm``; under O1 the
     op ``layer_norm`` is black-listed, so it runs and returns in f32."""
     ln = tnn.LayerNorm(16)
     assert ln.epsilon == 1e-5
-    assert torch.equal(ln.weight, torch.ones(16))
-    assert torch.equal(ln.bias, torch.zeros(16))
+    assert torch.equal(ln.weight._value, torch.ones(16))
+    assert torch.equal(ln.bias._value, torch.zeros(16))
     x = _x()
     want = np.asarray(paddle.nn.LayerNorm(16)(paddle.to_tensor(x))._value)
     np.testing.assert_allclose(ln(torch.from_numpy(x)).detach().numpy(),
@@ -77,7 +78,7 @@ def test_layer_norm_layer_defaults_and_o1_cast():
     assert tnn.LayerNorm(16, weight_attr=False, bias_attr=False).weight is None
 
 
-def test_embedding_matches_jax_lookup_and_padding_row():
+def test_embedding_matches_jax_lookup_and_padding_row(on_cpu):
     with paddle.utils.unique_name.guard():
         je = paddle.nn.Embedding(10, 6, padding_idx=-1)
     te = tnn.Embedding(10, 6, padding_idx=-1)
@@ -91,12 +92,12 @@ def test_embedding_matches_jax_lookup_and_padding_row():
     assert float(np.abs(np.asarray(je.weight._value)[9]).max()) == 0.0
 
 
-def test_embedding_init_is_xavier_normal_and_seeded():
+def test_embedding_init_is_xavier_normal_and_seeded(on_cpu):
     a, b = tnn.Embedding(400, 300), tnn.Embedding(400, 300)
     a.reset_parameters(torch.Generator().manual_seed(0))
     b.reset_parameters(torch.Generator().manual_seed(0))
-    assert torch.equal(a.weight, b.weight)
-    std = float(a.weight.detach().std())
+    assert torch.equal(a.weight._value, b.weight._value)
+    std = float(a.weight._value.detach().std())
     assert abs(std - (2.0 / 700) ** 0.5) < 0.02 * (2.0 / 700) ** 0.5
     with paddle.utils.unique_name.guard():
         jstd = float(np.asarray(paddle.nn.Embedding(400, 300)

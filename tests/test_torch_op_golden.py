@@ -1,13 +1,14 @@
 """The golden op tables (``tests/test_op_golden.py``: UNARY, BINARY, LOGIC,
-REDUCTION, CREATION, SEARCH; ``tests/test_op_golden2.py``: MANIP, LINALG)
-run on the PyTorch port's op layer, on the CPU.
+REDUCTION, CREATION, SEARCH; ``tests/test_op_golden2.py``: MANIP, LINALG,
+and the ``nn.functional`` tables ACTIVATIONS, LOSSES, NN_SHAPE) run on the
+PyTorch port's op layer and nn functionals, on the CPU.
 
 The tables are imported by name and kept in one place: an entry's ``fn``
 is either an op of the JAX package, mapped to the port's op of the same
 name, or a lambda over the module globals ``P`` / ``paddle`` / ``F``,
 rebuilt here over the same code with those globals bound to the port.
-Each case draws its inputs once (``op_test.rand`` shares one generator)
-and feeds the same arrays to numpy, JAX and the port. Three checks, at the
+Each case draws its inputs once (see below) and feeds the same arrays to
+numpy, JAX and the port. Three checks, at the
 table's own tolerances (``rtol`` / ``atol``, ``grad_rtol`` / ``grad_atol``),
 through the harness ``chip_smoke.py`` uses on the card
 (``paddle_tpu_torch.testing``):
@@ -19,9 +20,16 @@ through the harness ``chip_smoke.py`` uses on the card
   JAX tape (the same projection weights and sampled coordinates).
 
 The tables' jit mode has its card counterpart in ``chip_smoke.py``'s core
-phase (each case captured in a CUDA graph and replayed). The
-``ACTIVATIONS`` / ``LOSSES`` / ``NN_SHAPE`` tables are ``nn.functional``
-and join with it (ROADMAP A6).
+phase (each case captured in a CUDA graph and replayed).
+
+The cases' inputs come from the harness's reading of the same tables
+(``testing.load_tables``), drawn from a generator of this module's own,
+seeded as op_test's is (2024) and drawn in the tables' order, as the card
+harness draws them; ``op_test``'s generator, which the JAX golden tests
+share within a worker process, is left alone. Some cases depend on the
+draw: ``hardsigmoid``'s slope 0.1666667 (paddle's, in both packages)
+against the reference's x / 6 is off by up to 2.7e-7, above the table's
+rtol 1e-6 wherever an output lies in (0, 0.1) (ROADMAP C, open).
 """
 import os
 import types
@@ -35,19 +43,29 @@ from paddle_tpu_torch import testing as harness
 from paddle_tpu_torch.nn import functional as port_F
 from port_bodies import dname, on_cpu  # noqa: F401
 from test_op_golden import BINARY, CREATION, LOGIC, REDUCTION, SEARCH, UNARY
-from test_op_golden2 import LINALG, MANIP
+from test_op_golden2 import ACTIVATIONS, LINALG, LOSSES, MANIP, NN_SHAPE
 
 TABLES = {"UNARY": UNARY, "BINARY": BINARY, "LOGIC": LOGIC,
           "REDUCTION": REDUCTION, "CREATION": CREATION, "SEARCH": SEARCH,
-          "MANIP": MANIP, "LINALG": LINALG}
+          "MANIP": MANIP, "LINALG": LINALG, "ACTIVATIONS": ACTIVATIONS,
+          "LOSSES": LOSSES, "NN_SHAPE": NN_SHAPE}
 SPECS = [s for t in TABLES.values() for s in t if s is not None]
 
 # the JAX package's op objects, by identity -> (port namespace, name)
 _JAX_OPS = {}
-for _ns, _pns in ((paddle_tpu, port), (paddle_tpu.linalg, port.linalg)):
+for _ns, _pns in ((paddle_tpu, port), (paddle_tpu.linalg, port.linalg),
+                  (paddle_tpu.nn.functional, port_F)):
     for _n, _obj in vars(_ns).items():
         if callable(_obj) and not _n.startswith("_"):
             _JAX_OPS.setdefault(id(_obj), (_pns, _n))
+
+
+# each case's inputs, by id, drawn from this module's generator
+INPUTS = {c["id"]: c["inputs"]
+          for cases in harness.load_tables(
+              os.path.dirname(__file__), port, port_F,
+              gen=np.random.default_rng(2024)).values()
+          for c in cases}
 
 
 def port_fn(fn):
@@ -65,7 +83,7 @@ def test_golden_port(on_cpu, spec):
     opts = dict(spec["opts"])
     rtol, atol = opts.get("rtol", 1e-6), opts.get("atol", 1e-8)
     kwargs = opts.get("kwargs") or {}
-    inputs = spec["inputs"]()
+    inputs = INPUTS[spec["id"]]()
     fn = port_fn(spec["fn"])
     want = spec["ref"](*[np.copy(a) for a in inputs])
     got = fn(*[port.to_tensor(np.copy(a)) for a in inputs], **kwargs)
@@ -91,10 +109,11 @@ def test_golden_port(on_cpu, spec):
 
 
 def test_tables_are_the_jax_packages_own(on_cpu):
-    """196 cases, the objects the JAX golden tests run; the harness's
+    """240 cases (the 196 op cases and the 44 nn.functional ones), the
+    objects the JAX golden tests run; the harness's
     loader (what ``chip_smoke.py`` runs on the card, without JAX) reads the
     same cases from the same files, ops bound to the port's."""
-    assert len(SPECS) == 196
+    assert len(SPECS) == 240 and len(INPUTS) == 240
     import test_op_golden
     import test_op_golden2
 

@@ -68,7 +68,9 @@ def _imported_roots(path):
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
                          [REPO / "chip_smoke.py",
                           REPO / "tools" / "torch_kernel_ab.py",
-                          REPO / "tools" / "train_step_ab.py"],
+                          REPO / "tools" / "train_step_ab.py",
+                          REPO / "tools" / "smoke_ab.py",
+                          REPO / "tools" / "eager_ab.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_module_names_jax_or_paddle_tpu(path):
     assert not _imported_roots(path) & {"jax", "jaxlib", "paddle_tpu"}

@@ -50,7 +50,7 @@ class _Packed(torch.nn.Module):
             # no biases, as GPT's linears: a K bias has an exactly zero
             # gradient, whose rounding noise AdamW scales to whole steps
             blk = torch.nn.ModuleDict(dict(
-                norm=RMSNorm(HIDDEN),
+                norm=RMSNorm(HIDDEN, device="cpu"),
                 qkv=ColumnParallelLinear(HIDDEN, 3 * HIDDEN, has_bias=False),
                 proj=RowParallelLinear(HIDDEN, HIDDEN, has_bias=False)))
             blk.qkv.reset_parameters(gen)

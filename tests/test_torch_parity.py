@@ -122,8 +122,13 @@ def test_constants_and_shims(on_cpu):
     t = port.to_tensor(A)
     back = port.from_dlpack(port.to_dlpack(t))
     np.testing.assert_array_equal(back.numpy(), A)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        port.create_parameter([2, 2], "float32")
+    made = port.create_parameter([2, 2], "float32")
+    want = paddle_tpu.create_parameter([2, 2], "float32")
+    assert isinstance(made, port.nn.Parameter)
+    assert (made.shape, dname(made)) == (want.shape, dname(want))
+    assert made.stop_gradient is want.stop_gradient is False
+    assert made.optimize_attr == want.optimize_attr == {"learning_rate": 1.0}
+    assert made.place.is_cpu_place()
     pdist = port.pdist(port.to_tensor(M))
     want = [np.linalg.norm(M[i] - M[j]) for i in range(4)
             for j in range(i + 1, 4)]
