@@ -164,8 +164,11 @@ non-zero without the final line:
    0.1 (attention on the plain route, as in JAX), captured: a replay after
    ``import_state`` draws the same masks, one with the generator moved on
    draws new ones; (d) AMP O1 bf16 over f32 parameters, bodies then
-   captured, bit-equal; (e) O2 f16, eager steps under GradScaler with one
-   planted inf in a warm-up step (step skipped, scale halved). Each leg's
+   captured, bit-equal; (d') Paddle's O2 recipe, ``decorate(level="O2")``
+   and every step under ``auto_cast(level="O2", dtype="bfloat16")``,
+   bodies then captured, bit-equal, the loss f32, and a replay outside
+   auto_cast equal to one inside; (e) O2 f16, eager steps under GradScaler
+   with one planted inf in a warm-up step (step skipped, scale halved). Each leg's
    model is built through GPTConfig(dropout=, recompute=). Per leg: step
    ms, tokens/s, peak memory against the leg-less 22,648,100,864 bytes,
    busy share and host launch calls of one profiled step, flash launches;
@@ -174,6 +177,21 @@ non-zero without the final line:
    Adagrad, Adadelta, RMSProp, Lamb, ASGD, Rprop, NAdam, RAdam) for 3
    captured steps of a small GPT (f32): replays bit-equal to bodies, and
    close to eager ``Optimizer.step`` on a copy.
+11e. rnn_lm — the recurrent layers at a published width: Zaremba,
+   Sutskever and Vinyals 2014 (arXiv:1409.2329), the large PTB LSTM
+   (``nn.Embedding(10000, 1500)``, ``nn.LSTM(1500, 1500, num_layers=2,
+   dropout=0.65)`` with dropout 0.65 on its input and output too,
+   ``nn.Linear(1500, 10000)``, 35 steps unrolled, batch 20, weights
+   uniform in [-0.04, 0.04], ``SGD(1.0)`` with a global-norm clip of 10,
+   f32, seeded weights and token ids), through the captured TrainStep:
+   2 + 6 steps as bodies, then the same captured from the same state and
+   generator seed: losses and parameters bit-equal, losses falling; one
+   more replay's LSTM output (copied by a hook inside the graph) held to
+   the layer run eagerly from the same state and masks; step ms, tokens/s,
+   host launch calls and device ms by kind of a body and of a replay.
+   Then ``dynamic_decode`` with a ``BeamSearchDecoder`` over the trained
+   ``LSTMCell``s (beam 4, batch 8, 16 steps), timed, its ids equal to a
+   plain beam search's on the same model.
 12. FlashMask kernels vs plain — the masked forward, dq and dk/dv kernels
    against their plain versions, within ``flash_attention.kernel_tolerance``
    over the allowed positions, in f32, bf16 and f16: uneven causal documents
@@ -277,7 +295,14 @@ non-zero without the final line:
    each flash kernel a step, the model's own eager step timed beside it,
    and one forward under ``auto_cast(level="O2")`` over f32 weights
    (matmuls bf16, the black list f32). Last, the wrapper's host cost per
-   op against bare torch.
+   op against bare torch. Before the stack: the recurrent layers, the
+   layer and functional fill-ins and grid sampling
+   (``tests/nn_fillin_cases.py``: 16 cases) on the card against the same
+   calls on the CPU in f64 and f32, outputs and gradients, each case
+   without a host read captured and replayed bit-equal to eager; and
+   ``F.flash_attention`` / ``F.flashmask_attention`` with q and k of
+   different lengths or batches on the plain route, reported "plain",
+   equal to ``_sdpa_core``, a head dim of 32 still raising.
 
 Last lines: each phase's seconds, the card, the kernels JSON (a kernel
 redesigned since it was first ported names the change in "redesigned";
@@ -3352,10 +3377,12 @@ INF_PARAM = "gpt.blocks.0.mlp.down.weight"
 
 
 def recipe_leg(torch, fa, model, ids, labels, name, dtype, warmup, timed,
-               recompute=None, dropout=0.0, o1=False, base=None):
+               recompute=None, dropout=0.0, o1=False, o2=False, base=None):
     """One training recipe of GPT-350M through the captured TrainStep (see
     ``train_recipes``), on ``model`` built with this leg's ``recompute``
-    and ``dropout``; returns its record, and raises when a gate fails."""
+    and ``dropout``, every step under ``auto_cast`` bf16 at O1 (``o1``) or
+    O2 (``o2``) or under none; returns its record, and raises when a gate
+    fails."""
     from paddle_tpu_torch import amp, optimizer
     from paddle_tpu_torch.framework import default_generator
     from paddle_tpu_torch.jit import TrainStep
@@ -3366,12 +3393,16 @@ def recipe_leg(torch, fa, model, ids, labels, name, dtype, warmup, timed,
     gen = default_generator(ids.device)
     gen.manual_seed(7)
     def cast():
+        if o2:
+            return amp.auto_cast(level="O2", dtype="bfloat16")
         return (amp.auto_cast(dtype="bfloat16") if o1
                 else contextlib.nullcontext())
 
     batch = ((ids,), {"labels": labels})
     rec = dict(leg=name, dtype=dtype, recompute=recompute, dropout=dropout,
-               amp="O1 bf16" if o1 else "O2", warmup=warmup, timed=timed)
+               amp=("O2 decorate + auto_cast(O2) bf16" if o2
+                    else "O1 bf16" if o1 else "O2"),
+               warmup=warmup, timed=timed)
     start = step.export_state()
     body_losses = body_params = None
     if not dropout:                     # the reference: bodies
@@ -3382,7 +3413,9 @@ def recipe_leg(torch, fa, model, ids, labels, name, dtype, warmup, timed,
                     torch.equal(first, base[0]))
                 rec["first_step_params_max_abs_diff_no_recompute"] = (
                     params_diff(torch, model.parameters(), base[1]))
-            rest, _ = timed_steps(torch, step, *batch, warmup - 1, timed)
+            rest, body_s = timed_steps(torch, step, *batch, warmup - 1,
+                                       timed)
+        rec["body_step_ms"] = body_s * 1e3
         body_losses = [first] + rest
         body_params = [p.detach().clone() for p in model.parameters()]
         step.import_state(start)
@@ -3424,6 +3457,18 @@ def recipe_leg(torch, fa, model, ids, labels, name, dtype, warmup, timed,
         rec["mask_probe_weight_max_abs_diff"] = float(
             (a.float() - b.float()).abs().max())
         del a, again, b, snap
+    if o2:
+        # the loss's dtype (JAX's black-listed mean: f32), and the step's
+        # own casts kept when it is called outside auto_cast: the replay
+        # from one exported state equals the replay under it, bit for bit
+        snap = step.export_state()
+        with cast():
+            inside = step(*batch[0], **batch[1])
+        step.import_state(snap)
+        outside = step(*batch[0], **batch[1])
+        rec["loss_dtype"] = str(inside.dtype).replace("torch.", "")
+        rec["outside_auto_cast_equal"] = bool(torch.equal(inside, outside))
+        del snap, inside, outside
     losses = [float(x.float()) for x in losses]
 
     def one_step():
@@ -3456,9 +3501,13 @@ def recipe_leg(torch, fa, model, ids, labels, name, dtype, warmup, timed,
     if (launches["fwd"], launches["dq"], launches["dkv"]) != want:
         raise AssertionError(f"{name}: flash launches {launches}, "
                              f"{want} expected")
+    if o2 and rec["loss_dtype"] != "float32":
+        raise AssertionError(f"{name}: loss dtype {rec['loss_dtype']}, "
+                             f"float32 expected")
     for gate in ("replay_losses_equal_body", "import_state_repeats_masks",
                  "next_replay_draws_new_masks",
-                 "first_step_loss_equal_no_recompute"):
+                 "first_step_loss_equal_no_recompute",
+                 "outside_auto_cast_equal"):
         if gate in rec and not rec[gate]:
             raise AssertionError(f"{name}: {gate} failed: {rec}")
     for gate in ("replay_params_max_abs_diff",
@@ -3570,9 +3619,13 @@ def train_recipes(torch, fa, device, legless_peak, B=8, S=1024, warmup=2,
     (attention on the plain route, as in JAX), captured: replays from one
     exported state draw the same masks again after ``import_state`` and
     new ones when the generator has moved on; (d) AMP O1 (``auto_cast``
-    bf16) over f32 parameters, bodies then captured, bit-equal; (e) O2
-    f16 eager steps under ``GradScaler``, one planted inf in a warm-up
-    step.
+    bf16) over f32 parameters, bodies then captured, bit-equal; (d') the
+    standard Paddle O2 recipe: ``decorate(level="O2")`` bf16 and every
+    step under ``auto_cast(level="O2", dtype="bfloat16")``, bodies then
+    captured, bit-equal; its loss f32 (JAX's black-listed ``mean``) and a
+    replay called outside ``auto_cast`` equal to one under it (the step
+    keeps the casts it captured); (e) O2 f16 eager steps under
+    ``GradScaler``, one planted inf in a warm-up step.
 
     Each leg: step ms, tokens/s, peak memory (and its ratio to the
     leg-less step's, ``legless_peak``, measured in this run by ``train``,
@@ -3622,7 +3675,8 @@ def train_recipes(torch, fa, device, legless_peak, B=8, S=1024, warmup=2,
     for name, kw in (("recompute_block", dict(recompute="block")),
                      ("recompute_dots", dict(recompute="dots")),
                      ("dropout_0.1", dict(dropout=0.1)),
-                     ("o1_bf16_f32_params", dict(o1=True))):
+                     ("o1_bf16_f32_params", dict(o1=True)),
+                     ("o2_autocast", dict(o2=True))):
         dtype = "float32" if kw.get("o1") else "bfloat16"
         model = build(dtype, recompute=kw.get("recompute"),
                       dropout=kw.get("dropout", 0.0))
@@ -3727,6 +3781,267 @@ def optimizer_steps(torch, device, steps=3, B=2, S=128, seed=3):
 
 
 # ------------------------------------------------------------ phases 15-19
+# Zaremba, Sutskever and Vinyals 2014, "Recurrent Neural Network
+# Regularization" (arXiv:1409.2329), the large PTB LSTM: 2 layers of 1500,
+# vocab 10000, 35 steps unrolled, batch 20, dropout 0.65 on the
+# non-recurrent connections, weights uniform in [-0.04, 0.04], SGD at 1.0
+# with the gradients' global norm clipped to 10; f32
+RNN_LM = dict(vocab=10000, hidden=1500, layers=2, dropout=0.65, steps=35,
+              batch=20, init=0.04, lr=1.0, clip=10.0)
+
+
+def rnn_lm_model(P, c):
+    """The large PTB LSTM as a Paddle script writes it: ``nn.Embedding``,
+    ``nn.Dropout``, ``nn.LSTM(num_layers=2, dropout=)``, ``nn.Linear``;
+    forward(ids, labels) -> (logits, mean cross entropy)."""
+    V = c["vocab"]
+
+    class RNNLM(P.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = P.nn.Embedding(V, c["hidden"])
+            self.drop = P.nn.Dropout(c["dropout"])
+            self.lstm = P.nn.LSTM(c["hidden"], c["hidden"],
+                                  num_layers=c["layers"],
+                                  dropout=c["dropout"])
+            self.head = P.nn.Linear(c["hidden"], V)
+
+        def forward(self, ids, labels):
+            out, _ = self.lstm(self.drop(self.embed(ids)))
+            logits = self.head(self.drop(out))
+            return logits, P.nn.functional.cross_entropy(
+                logits.reshape([-1, V]), labels.reshape([-1]))
+
+    return RNNLM()
+
+
+class _LSTMCapture:
+    """A forward hook that copies the LSTM's output into ``buf`` (a copy
+    kernel inside a captured step too)."""
+
+    def __init__(self, torch, layer, shape, device):
+        self.buf = torch.zeros(shape, device=device)
+        self.handle = layer.register_forward_hook(self)
+
+    def __call__(self, layer, inputs, outputs):
+        out = outputs[0]
+        self.buf.copy_(getattr(out, "_value", out).detach())
+
+
+def plain_beam_search(torch, step_fn, B, K, T, start, end):
+    """Beam search written plainly, for holding ``dynamic_decode`` to:
+    per step, on the host in f64, each batch row's K·V candidate totals
+    sorted with numpy (every beam but the first at -1e9 at the first step;
+    a finished beam only continues with ``end`` at no cost), the top K
+    kept, the states gathered by their beams' rows. ``step_fn(tok [B·K],
+    states) -> (logits [B·K, V], states)``."""
+    tok = torch.full((B * K,), start, dtype=torch.int64,
+                     device=step_fn.device)
+    scores = np.zeros((B, K))
+    scores[:, 1:] = -1e9
+    done = np.zeros((B, K), bool)
+    seqs = np.zeros((B, K, 0), np.int64)
+    states = None
+    for _ in range(T):
+        logits, states = step_fn(tok, states)
+        lp = torch.log_softmax(logits.float(), -1).double().cpu().numpy()
+        V = lp.shape[-1]
+        lp = lp.reshape(B, K, V)
+        stop = np.full(V, -1e9)
+        stop[end] = 0.0
+        lp[done] = stop
+        flat = (scores[:, :, None] + lp).reshape(B, K * V)
+        top = np.argsort(-flat, axis=1, kind="stable")[:, :K]
+        scores = np.take_along_axis(flat, top, 1)
+        src, new = top // V, top % V
+        seqs = np.concatenate([np.take_along_axis(seqs, src[..., None], 1),
+                               new[..., None]], -1)
+        done = np.take_along_axis(done, src, 1) | (new == end)
+        rows = torch.as_tensor((np.arange(B)[:, None] * K + src).reshape(-1),
+                               device=tok.device)
+        states = tuple(tuple(s.index_select(0, rows) for s in pair)
+                       for pair in states)
+        tok = torch.as_tensor(new.reshape(-1), device=tok.device)
+        if done.all():
+            break
+    return seqs, scores
+
+
+def rnn_lm(torch, device, warmup=2, timed=6, seed=21, beam=4, decode_B=8,
+           decode_T=16):
+    """The recurrent layers at a published width (``RNN_LM``): the model
+    built on the card from seeded weights, seeded token ids [20, 36] (input
+    the first 35, labels the last 35), ``SGD(1.0)`` with
+    ``ClipGradByGlobalNorm(10)``, through the captured ``TrainStep``. From
+    one exported state and generator seed, ``warmup`` + ``timed`` steps as
+    bodies (the reference), then the same steps captured (a capture and
+    replays): losses and parameters bit-equal, losses falling. One more
+    replay's LSTM output (a hook's copy inside the graph) held to the
+    layer run eagerly from the same state and generator state (the same
+    dropout masks). Step ms as bodies and replays, tokens/s, one step of
+    each form profiled (host launch calls, device ms by kind). Then, in
+    eval, ``dynamic_decode`` with a ``BeamSearchDecoder`` over the two
+    trained ``LSTMCell``s (stacked), the embedding and the head, beam
+    ``beam``, batch ``decode_B``, ``decode_T`` steps, timed cold and as
+    the median of three warm calls, its ids equal
+    to ``plain_beam_search``'s on the same model and its scores within
+    1e-9."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.framework import default_generator
+    from paddle_tpu_torch.framework import device as pdev
+    from paddle_tpu_torch.jit import TrainStep
+
+    c = RNN_LM
+    prev = pdev._current["place"]
+    P.set_device("cpu" if device == "cpu" else "gpu:0")
+    try:
+        P.seed(seed)
+        model = rnn_lm_model(P, c)
+        g = torch.Generator(device=device).manual_seed(seed)
+        with torch.no_grad():
+            for p in torch.nn.Module.parameters(model):
+                p.uniform_(-c["init"], c["init"], generator=g)
+        B, S, V = c["batch"], c["steps"], c["vocab"]
+        toks = np.random.default_rng(seed).integers(0, V, (B, S + 1))
+        ids = P.to_tensor(toks[:, :-1])
+        labels = P.to_tensor(toks[:, 1:])
+        opt = P.optimizer.SGD(learning_rate=c["lr"],
+                              parameters=model.parameters(),
+                              grad_clip=P.nn.ClipGradByGlobalNorm(c["clip"]))
+        step = TrainStep(model, lambda logits, loss: loss, opt)
+        hook = _LSTMCapture(torch, model.lstm, (B, S, c["hidden"]), device)
+        gen = default_generator(device)
+        batch = ((ids, labels), {})
+        start = step.export_state()
+        gen.manual_seed(7)
+        with step._eager():
+            body_losses, body_s = timed_steps(torch, step, *batch, warmup,
+                                              timed)
+        body_params = [p.detach().clone()
+                       for p in torch.nn.Module.parameters(model)]
+        step.import_state(start)
+        gen.manual_seed(7)
+        losses, step_s = timed_steps(torch, step, *batch, warmup, timed)
+        (prog,) = step._programs.values()
+        rec = dict(config=dict(c), layers=c["layers"], hidden=c["hidden"],
+                   warmup=warmup, timed=timed,
+                   replay_losses_equal_body=bool(torch.equal(
+                       torch.stack([x._value if hasattr(x, "_value") else x
+                                    for x in losses]),
+                       torch.stack([x._value if hasattr(x, "_value") else x
+                                    for x in body_losses]))),
+                   replay_params_max_abs_diff=params_diff(
+                       torch, torch.nn.Module.parameters(model),
+                       body_params))
+        del body_params, start
+        # one more replay; the LSTM output it copied, against the layer
+        # run eagerly from the state and generator state it started from
+        snap, gstate = step.export_state(), gen.get_state()
+        step(*batch[0])
+        captured = hook.buf.clone()
+        step.import_state(snap)
+        gen.set_state(gstate)
+        with torch.no_grad():
+            model(ids, labels)
+        rec["captured_lstm_output_max_abs_diff"] = float(
+            (captured - hook.buf).abs().max())
+        rec["captured_lstm_output_max_abs"] = float(captured.abs().max())
+        hook.handle.remove()
+        del snap, captured
+
+        def one_step():
+            step(*batch[0])
+            torch.cuda.synchronize()
+
+        with step._eager():
+            body_prof = profile_call(torch, one_step)
+        replay_prof = profile_call(torch, one_step)
+        losses = [float(x) for x in losses]
+        rec.update(losses=losses, body_losses=[float(x) for x in body_losses],
+                   step_ms=step_s * 1e3, body_step_ms=body_s * 1e3,
+                   tokens_per_s=B * S / step_s, body_tokens_per_s=B * S
+                   / body_s, capture_ms=prog.capture.seconds * 1e3,
+                   body_host_launch_calls=body_prof["host_launch_calls"],
+                   host_launch_calls=replay_prof["host_launch_calls"],
+                   body_device_ms=body_prof["device_ms"],
+                   device_ms=replay_prof["device_ms"],
+                   device_busy_share=replay_prof["device_busy_share"],
+                   body_device_busy_share=body_prof["device_busy_share"],
+                   device_ms_by_kind=replay_prof["device_ms_by_kind"],
+                   body_device_ms_by_kind=body_prof["device_ms_by_kind"])
+        del step, prog, opt
+        # beam search over the trained cells, in eval
+        model.eval()
+
+        class Stacked(P.nn.Layer):
+            def __init__(self, cells):
+                super().__init__()
+                self.c0, self.c1 = cells
+
+            def forward(self, x, states=None):
+                s0, s1 = states if states is not None else (None, None)
+                h, s0 = self.c0(x, s0)
+                h, s1 = self.c1(h, s1)
+                return h, (s0, s1)
+
+        cell = Stacked([model.lstm.cells[0], model.lstm.cells[1]])
+        dec = P.nn.BeamSearchDecoder(cell, start_token=0, end_token=1,
+                                     beam_size=beam,
+                                     embedding_fn=model.embed,
+                                     output_fn=model.head)
+        gc.collect()            # the step's graph and pool go before timing
+        walls = []
+        for _ in range(4):              # cold, then three warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dids, dscores = P.nn.dynamic_decode(dec, max_step_num=decode_T,
+                                                batch_size=decode_B)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        warm = float(np.median(walls[1:]))
+
+        def step_fn(tok, states):
+            with torch.no_grad():
+                out, states = cell(model.embed(P.Tensor(tok)), states)
+                return model.head(out)._value, tuple(
+                    tuple(t._value for t in pair) for pair in states)
+
+        step_fn.device = torch.device(device)
+        pids, pscores = plain_beam_search(torch, step_fn, decode_B, beam,
+                                          decode_T, 0, 1)
+        got = dscores.numpy()
+        rec["decode"] = dict(
+            beam=beam, batch=decode_B, max_steps=decode_T,
+            steps=int(dids.shape[-1]), cold_ms=walls[0] * 1e3,
+            ms=warm * 1e3, warm_ms=[w * 1e3 for w in walls[1:]],
+            tokens_per_s=decode_B * beam * int(dids.shape[-1]) / warm,
+            ids_equal_plain=bool(np.array_equal(dids.numpy(), pids)),
+            scores_max_rel_diff=float(np.abs(got - pscores).max()
+                                      / np.abs(pscores).max()))
+    finally:
+        pdev._current["place"] = prev
+    print("rnn-lm", json.dumps(rec), flush=True)
+    if not rec["replay_losses_equal_body"] or \
+            rec["replay_params_max_abs_diff"] != 0.0:
+        raise AssertionError(f"rnn_lm: replays differ from bodies: {rec}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"rnn_lm: losses not finite or not falling: "
+                             f"{losses}")
+    # the LSTM's outputs are tanh-bounded: f32 rounding of the same
+    # products summed in the same order leaves them equal; 1e-5 allows
+    # another cuBLAS algorithm under capture
+    if rec["captured_lstm_output_max_abs_diff"] > 1e-5:
+        raise AssertionError(f"rnn_lm: captured LSTM output against eager: "
+                             f"{rec['captured_lstm_output_max_abs_diff']}")
+    if not rec["decode"]["ids_equal_plain"] or \
+            rec["decode"]["scores_max_rel_diff"] > 1e-9:
+        raise AssertionError(f"rnn_lm: dynamic_decode against the plain "
+                             f"beam search: {rec['decode']}")
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
 def matmul_params(kind, c):
     """Weights that enter a matrix product once per token of a forward,
     read off each model's code: GPT ``qkv_proj``, ``out_proj``, the SwiGLU
@@ -4956,9 +5271,98 @@ def resnet_layouts(torch, device, seed):
                 finite=bool(torch.isfinite(out["NCHW"]).all()))
 
 
+def nn_fillins(torch, device, capture=True):
+    """The recurrent layers, the layer and functional fill-ins and grid
+    sampling on ``device`` against the same calls on the CPU, f64 and f32,
+    outputs and gradients (``tests/nn_fillin_cases.py``, its limits), and
+    each case without a host read captured in a CUDA graph and replayed,
+    bit-equal to eager."""
+    import paddle_tpu_torch as P
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    try:
+        import nn_fillin_cases as C
+    finally:
+        sys.path.pop(0)
+    place = "cpu" if device == "cpu" else "gpu:0"
+    cap = ((lambda fn, ins, eager: capture_case(torch, fn, ins, {}, eager))
+           if capture else None)
+    res = C.run_cases(P, place, capture_case=cap)
+    rec = dict(cases=len(C.CASES), tol=C.TOL, worst={
+        dt: max(res[dt].values()) for dt in ("float64", "float32")},
+        by_case=res)
+    print("nn-fillins", json.dumps(rec), flush=True)
+    return rec
+
+
+def cross_length_attention(torch, device, B=2, S=256, T=384, H=16, D=64):
+    """q and k of different lengths (and of batches B and 1), which JAX's
+    Pallas kernel refuses and its dispatcher sends to the XLA route:
+    ``F.flash_attention`` and ``F.flashmask_attention`` on CUDA take the
+    plain route, reported "plain": in bf16 bit-equal to ``_sdpa_core``
+    called directly on the same tensors; in f32 within 1e-4 of the largest
+    |output| of the same call on the CPU (sums in another order). A head
+    dim the kernels do not take (32) on self-attention shapes still raises
+    on CUDA."""
+    import importlib
+
+    import paddle_tpu_torch as P
+
+    F = P.nn.functional
+    fam = importlib.import_module(
+        "paddle_tpu_torch.nn.functional.flash_attention")
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q = torch.randn(B, S, H, D, generator=g)
+    scale = 1.0 / np.sqrt(D)
+    rec = {}
+
+    def call(form, q, k, v, sri, causal):
+        if form == "flash":
+            return F.flash_attention(q, k, v, causal=causal)[0]
+        return F.flashmask_attention(q, k, v, sri, causal=causal)
+
+    for kb, causal in ((B, True), (B, False), (1, True)):
+        k = torch.randn(kb, T, H, D, generator=g)
+        v = torch.randn(kb, T, H, D, generator=g)
+        sri = torch.sort(torch.randint(0, S + 1, (kb, 1, T, 1 if causal
+                                                   else 2), generator=g),
+                         -1).values.int()
+        sc = sri.to(device)
+        half = [t.to(device, torch.bfloat16) for t in (q, k, v)]
+        for form in ("flash", "flashmask"):
+            out = call(form, *half, sc, causal)
+            backend = F.get_last_attention_backend()
+            mask = (None if form == "flash" else
+                    P.ops.flash_attention.flashmask_allowed(S, sc, causal))
+            plain = fam._sdpa_core(*half, mask, scale,
+                                   causal and form == "flash", 0.0, False)
+            got32 = call(form, *(t.to(device) for t in (q, k, v)), sc,
+                         causal)
+            cpu = call(form, q, k, v, sri, causal)
+            rec[f"{form}:kb{kb}:{'causal' if causal else 'full'}"] = dict(
+                backend=backend, f32_backend=F.get_last_attention_backend(),
+                equal_plain=bool(torch.equal(out, plain)),
+                f32_cpu_rel_diff=float((got32.cpu() - cpu).abs().max()
+                                       / cpu.abs().max()))
+    x = torch.randn(1, 128, 4, 32, generator=g).to(device, torch.bfloat16)
+    try:
+        F.flash_attention(x, x, x, causal=True)
+        rec["head_dim_32_raises"] = False
+    except ValueError as e:
+        rec["head_dim_32_raises"] = "head_dim" in str(e)
+    print("cross-length", json.dumps(rec), flush=True)
+    bad = {k: r for k, r in rec.items() if k != "head_dim_32_raises" and (
+        r["backend"] != "plain" or r["f32_backend"] != "plain"
+        or not r["equal_plain"] or r["f32_cpu_rel_diff"] > 1e-4)}
+    if bad or not rec["head_dim_32_raises"]:
+        raise AssertionError(f"cross-length attention: {bad or rec}")
+    return rec
+
+
 def core_phase(torch, fa, device):
     """The paddle-style core on the card: the golden tables (f64 and f32,
-    eager, gradients, captured), the eager GPT-350M stack through the op
+    eager, gradients, captured), the nn fill-ins (``nn_fillins``), the
+    cross-length attention route, the eager GPT-350M stack through the op
     layer, the wrapper's host cost per op."""
     prev = torch.backends.cuda.preferred_linalg_library()
     torch.backends.cuda.preferred_linalg_library("cusolver")
@@ -4966,9 +5370,12 @@ def core_phase(torch, fa, device):
         golden = golden_on_card(torch, device)
     finally:
         torch.backends.cuda.preferred_linalg_library(prev)
+    fillins = nn_fillins(torch, device)
+    cross = cross_length_attention(torch, device)
     stack = eager_stack(torch, fa, device)
     costs = wrapper_costs(torch, device)
-    return dict(golden=golden, eager_stack=stack, wrapper_cost=costs)
+    return dict(golden=golden, nn_fillins=fillins, cross_length=cross,
+                eager_stack=stack, wrapper_cost=costs)
 
 
 def d128_reading(timing, checked):
@@ -5118,6 +5525,8 @@ def main():
     with phase("train_recipes"):
         recipes = train_recipes(torch, fa, device,
                                 training["max_memory_allocated"])
+    recipes["o2_autocast"]["legless_step_ms"] = training["step_ms"]
+    recipes["o2_autocast"]["legless_body_step_ms"] = training["body_step_ms"]
     for key, r in recipes.items():
         print(f"train-recipe {key} on {card}: {r['step_ms']:.1f} ms/step, "
               f"{r['tokens_per_s']:.0f} tok/s, peak "
@@ -5125,6 +5534,14 @@ def main():
               f"{r['device_busy_share']:.2f}", flush=True)
     with phase("optimizers"):
         optimizers = optimizer_steps(torch, device)
+    with phase("rnn_lm"):
+        lm = rnn_lm(torch, device)
+    print(f"rnn_lm on {card}: {lm['step_ms']:.1f} ms/step replayed "
+          f"({lm['body_step_ms']:.1f} as bodies), {lm['tokens_per_s']:.0f} "
+          f"tok/s, {lm['host_launch_calls']} host launch calls a replay "
+          f"({lm['body_host_launch_calls']} a body); beam search "
+          f"{lm['decode']['ms']:.1f} ms for {lm['decode']['steps']} steps",
+          flush=True)
     with phase("flashmask"):
         fm_checks, fm_worst = check_flashmask_kernels(torch, fa, device)
         fm_timing = {dt: time_flashmask(torch, fa, device, dt)
@@ -5186,6 +5603,9 @@ def main():
     with phase("core"):
         core = core_phase(torch, fa, device)
     st = core["eager_stack"]
+    print(f"core on {card}: nn fill-ins {core['nn_fillins']['cases']} "
+          f"cases x 2 dtypes, worst {core['nn_fillins']['worst']}; "
+          f"cross-length attention on the plain route", flush=True)
     print(f"core on {card}: golden {core['golden']['float64']['cases']} "
           f"cases x 2 dtypes, {core['golden']['float64']['captured']} + "
           f"{core['golden']['float32']['captured']} captured; eager "
@@ -5341,7 +5761,7 @@ def main():
                   degrade=degrade, speculative=spec,
                   train_insitu=train_checks, training=training,
                   long_context=long_ctx, train_recipes=recipes,
-                  optimizers=optimizers,
+                  optimizers=optimizers, rnn_lm=lm,
                   flashmask_checks=fm_checks, flashmask_timing=fm_timing,
                   varlen_insitu=varlen_checks, varlen_train=varlen,
                   llama_serve=l_serve, llama_generate=l_gen,

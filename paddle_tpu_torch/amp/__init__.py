@@ -1,29 +1,27 @@
 """AMP — the counterpart of ``paddle_tpu/amp/__init__.py``: ``decorate``
-(O2), ``auto_cast`` (O1), ``GradScaler`` and the numerics helpers.
+(O2), ``auto_cast`` (O1 and O2), ``GradScaler`` and the numerics helpers.
 
 * ``decorate(level="O2")`` casts a model's parameters to bf16 or f16 and
   turns on the optimizers' f32 master weights (``multi_precision``). As in
   the JAX package (``amp/__init__.py:84-93``) only the port's batch-norm
   layers (``nn._BatchNormBase``) and ``LayerNorm`` keep their dtype, so
   RMSNorm weights go to the amp dtype too.
-* ``auto_cast(level="O1")`` casts by op NAME, as the JAX package's
-  dispatch hook does (``paddle_tpu/ops/__init__.py:39-66``): a black-listed
-  op runs in f32, a white-listed one in the amp dtype, any other in its
-  inputs' dtypes; ``custom_white_list`` takes ops off the black list. The
+* ``auto_cast`` casts by op NAME, as the JAX package's dispatch hook
+  does (``paddle_tpu/ops/__init__.py:39-66``). O1: a black-listed op runs
+  in f32, a white-listed one in the amp dtype, any other in its inputs'
+  dtypes. O2: every op in the amp dtype except the black list, which
+  runs in f32. ``custom_white_list`` takes ops off the black list. The
   lists are copies of JAX's (``WHITE_LIST`` / ``BLACK_LIST``), not
-  ``torch.autocast``'s: the port's ops call ``_amp_cast(name, ...)`` with
-  their JAX names at the seams where the JAX package dispatches them
-  (``linear`` in the fleet linears; ``lm_head_tied``, on neither list, in
-  GPT's tied head; ``exp``, ``sum``, ``log`` in ``ParallelCrossEntropy``;
-  ``mean`` in the loss). The cast happens inside autograd, so each
-  gradient comes back in its input's dtype, as ``astype``'s VJP does in
-  JAX.
-* ``auto_cast(level="O2")`` casts every op of the paddle-style op layer
-  (``ops.apply_op``, by the op's name, JAX's single dispatch seam) to the
-  amp dtype except the black list, which runs in f32. The ported models
-  do not run on the op layer yet: their seams (``_amp_cast``) raise
-  ``NotImplementedError`` under O2 until the nn surface moves onto it
-  (ROADMAP A).
+  ``torch.autocast``'s. The op layer casts in ``ops.apply_op``; the nn
+  functionals in ``ops.apply_like``; the torch-level models and their
+  layers call ``_amp_cast(name, ...)`` (or ``apply_like``) with JAX's op
+  names at the seams where the JAX package dispatches an op (``linear``
+  in the fleet linears; ``split_qkv``, ``fused_rope``, ``swiglu``,
+  ``flash_attention``, ``lm_head_tied``, ``mlm_decoder``; the cross
+  entropy's ``exp``, ``sum``, ``log``, ``add``, ``subtract``, ``where``;
+  ``mean`` in the loss), so that each intermediate has the dtype JAX's
+  has. The cast happens inside autograd, so each gradient comes back in
+  its input's dtype, as ``astype``'s VJP does in JAX.
 * ``GradScaler`` is JAX's dynamic loss scaling state machine, eager as
   there (JAX's ``TrainStep`` takes no scaler); found-inf stays a device
   tensor until ``step`` or ``update`` reads it.
@@ -101,27 +99,22 @@ def _op_cast_target(name):
     return None
 
 
-def _cast_target(name):
-    """``_op_cast_target`` for the ported models' seams, which cast at O1
-    only: under O2 they raise, since O2 casts every op and the models do
-    not run on the op layer yet."""
-    if _amp_state["enable"] and _amp_state["level"] == "O2":
-        raise NotImplementedError(
-            f"auto_cast(level='O2') casts the ops of the paddle-style op "
-            f"layer; the ported models do not run on it yet (op {name!r}; "
-            f"ROADMAP A: the nn surface)")
-    return _op_cast_target(name)
-
-
 def _amp_cast(name, *tensors):
     """``tensors`` as op ``name`` takes them under the current amp state:
     each floating tensor cast to the op's dtype, or all as they are."""
-    target = _cast_target(name)
+    target = _op_cast_target(name)
     if target is None:
         return tensors
     return tuple(t.to(target) if isinstance(t, torch.Tensor)
                  and t.is_floating_point() and t.dtype != target else t
                  for t in tensors)
+
+
+def _amp_add(x, y):
+    """``x + y`` as JAX's op ``add`` takes its inputs (under O2 both in the
+    amp dtype; under O1, torch's promotion, as jnp's)."""
+    x, y = _amp_cast("add", x, y)
+    return x + y
 
 
 def _snapshot():

@@ -7,10 +7,16 @@ compared after steps.
 ``GPTConfig`` builds ``GPTForCausalLM`` (either family, with the
 GPT-2-style variant's positions, biases and untied head), ``LlamaConfig``
 ``LlamaForCausalLM`` and ``BertConfig`` ``BertForMaskedLM``. Any
-``nn.Layer`` model (a ResNet, a Transformer) takes the place of a config:
-it takes the JAX model's ``state_dict()`` under the same structured names,
-parameters and persistable buffers (batch norm's ``_mean`` /
-``_variance``) alike, and gives its own back the same way. The bridge
+``nn.Layer`` model (a ResNet, a Transformer, a recurrent model) takes the
+place of a config: it takes the JAX model's ``state_dict()`` under the
+same structured names, parameters and persistable buffers (batch norm's
+``_mean`` / ``_variance``) alike, and gives its own back the same way.
+The recurrent layers carry each cell's ``weight_ih`` / ``weight_hh`` /
+``bias_ih`` / ``bias_hh`` per layer and direction
+(``cells.{layer·dirs + dir}.weight_ih``), ``SpectralNorm`` its
+``weight_u`` / ``weight_v``, ``HSigmoidLoss`` its ``weight`` / ``bias``
+and ``AdaptiveLogSoftmaxWithLoss`` its ``head_weight`` (``head_bias``)
+and ``tail_{i}_0`` / ``tail_{i}_1``, as JAX names them. The bridge
 takes numpy only and imports nothing of JAX; a caller holding a JAX model
 passes ``{k: np.asarray(v) for k, v in jax_model.raw_state().items()}``
 (or, for GPT, of ``jax_model.gpt.raw_state()``). Names may carry the

@@ -5,17 +5,18 @@
 Weights keep paddle's ``[in, out]`` layout, so ``bridge.py`` copies the JAX
 package's arrays without transposing them. The products are plain
 ``torch.matmul``: the JAX package left them to XLA outside any Pallas
-kernel. Sharding over ranks waits for the distributed slice. Under AMP O1
-(``amp.auto_cast``) the products are the op ``linear`` and the
-cross-entropy's ``exp``, ``sum`` and ``log`` are black-listed, as the JAX
-package dispatches them (``amp._amp_cast``).
+kernel. Sharding over ranks waits for the distributed slice. Under AMP
+(``amp.auto_cast``, O1 and O2) each op casts its inputs under the name the
+JAX package dispatches it by (``amp._amp_cast``): the lookup ``embedding``,
+the products ``linear``, and the cross entropy's ``subtract``, ``exp``,
+``sum``, ``log`` (black-listed: f32), ``add`` and ``where``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ...amp import _amp_cast
+from ...amp import _amp_add, _amp_cast
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
            "RowParallelLinear", "ParallelCrossEntropy"]
@@ -32,7 +33,8 @@ class VocabParallelEmbedding(nn.Module):
         nn.init.xavier_normal_(self.weight, generator=generator)
 
     def forward(self, ids):
-        return self.weight[ids]
+        (w,) = _amp_cast("embedding", self.weight)
+        return w[ids]
 
 
 class _Linear(nn.Module):
@@ -73,17 +75,20 @@ class ParallelCrossEntropy(nn.Module):
         vocab = input.shape[-1]
         squeeze = label.dim() == input.dim() and label.shape[-1] == 1
         lab = label.squeeze(-1) if squeeze else label
+        (input,) = _amp_cast("max", input)
         m = input.amax(dim=-1, keepdim=True).detach()
-        (e,) = _amp_cast("exp", input - m)
+        (e,) = _amp_cast("exp", torch.sub(*_amp_cast("subtract", input, m)))
         (e,) = _amp_cast("sum", torch.exp(e))
         (e,) = _amp_cast("log", e.sum(dim=-1))
-        lse = torch.log(e) + m.squeeze(-1)
+        lse = _amp_add(torch.log(e), m.squeeze(-1))
         in_vocab = (lab >= 0) & (lab < vocab)
-        tgt = input.gather(-1, lab.clamp(0, vocab - 1).unsqueeze(-1))
-        # JAX sums the masked row ("sum", f32 under O1): the one value
-        tgt = torch.where(in_vocab, _amp_cast("sum", tgt.squeeze(-1))[0],
-                          torch.zeros_like(lse))
-        loss = lse - tgt
+        (picked,) = _amp_cast("where", input)
+        tgt = picked.gather(-1, lab.clamp(0, vocab - 1).unsqueeze(-1))
+        # JAX sums the masked row ("sum", f32 under O1 and O2): the one value
+        (tgt,) = _amp_cast("sum", tgt.squeeze(-1))
+        tgt = torch.where(in_vocab, tgt, torch.zeros_like(tgt))
+        loss = torch.sub(*_amp_cast("subtract", lse, tgt))
+        (loss,) = _amp_cast("where", loss)
         loss = torch.where(lab == self.ignore_index, torch.zeros_like(loss),
                            loss)
         return loss.unsqueeze(-1) if squeeze else loss

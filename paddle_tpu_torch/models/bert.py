@@ -19,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..amp import _amp_add, _amp_cast
 from ..distributed.fleet.meta_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -83,11 +84,11 @@ class BertEmbeddings(nn.Module):
                 f"sequence length {S} exceeds max_position "
                 f"{self.position_embeddings.weight.shape[0]}")
         x = self.word_embeddings(input_ids)
-        x = x + self.position_embeddings(torch.arange(S,
-                                                      device=x.device))
+        x = _amp_add(x, self.position_embeddings(
+            torch.arange(S, device=x.device)))
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = x + self.token_type_embeddings(token_type_ids)
+        x = _amp_add(x, self.token_type_embeddings(token_type_ids))
         return self.dropout(self.layer_norm(x))
 
 
@@ -106,8 +107,8 @@ class BertSelfAttention(nn.Module):
     def forward(self, x, attention_mask=None):
         B, S = x.shape[0], x.shape[1]
         H, D = self.num_heads, self.head_dim
-        q, k, v = (t.reshape(B, S, H, D)
-                   for t in self.qkv(x).split(H * D, dim=-1))
+        (qkv,) = _amp_cast("split_qkv", self.qkv(x))
+        q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, dim=-1))
         if attention_mask is not None:
             out = F.scaled_dot_product_attention(
                 q, k, v, attn_mask=attention_mask, is_causal=False,
@@ -135,8 +136,10 @@ class BertLayer(nn.Module):
         self.dropout = Dropout(c.dropout)
 
     def forward(self, x, attention_mask=None):
-        x = self.ln1(x + self.dropout(self.attention(x, attention_mask)))
-        return self.ln2(x + self.dropout(self.fc2(F.gelu(self.fc1(x)))))
+        x = self.ln1(_amp_add(x, self.dropout(self.attention(
+            x, attention_mask))))
+        return self.ln2(_amp_add(x, self.dropout(self.fc2(F.gelu(
+            self.fc1(x))))))
 
 
 class BertModel(nn.Module):
@@ -200,7 +203,9 @@ class BertForMaskedLM(nn.Module):
             attention_mask = torch.as_tensor(attention_mask, device=dev)
         h = self.bert(input_ids, token_type_ids, attention_mask)
         h = self.transform_ln(F.gelu(self.transform(h)))
-        logits = h @ self.bert.embeddings.word_embeddings.weight.T
+        h, w = _amp_cast("mlm_decoder", h,
+                         self.bert.embeddings.word_embeddings.weight)
+        logits = h @ w.T
         if labels is None:
             return logits
         return logits, masked_lm_loss(logits,
@@ -210,7 +215,8 @@ class BertForMaskedLM(nn.Module):
 def masked_lm_loss(logits, labels, ignore_index=IGNORE_INDEX):
     """Mean NLL in f32 over the positions whose label is not
     ``ignore_index``; 0 (not NaN) when nothing is masked (JAX
-    ``bert.py:154-171``)."""
+    ``bert.py:154-171``; the op ``mlm_loss`` under AMP)."""
+    (logits,) = _amp_cast("mlm_loss", logits)
     lg = logits.reshape(-1, logits.shape[-1]).float()
     lab = labels.reshape(-1)
     valid = lab != ignore_index

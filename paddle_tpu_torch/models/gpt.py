@@ -38,7 +38,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..amp import _amp_cast
+from ..amp import _amp_add, _amp_cast
 from ..distributed.fleet.meta_parallel import (
     ColumnParallelLinear,
     ParallelCrossEntropy,
@@ -164,7 +164,8 @@ class GPTAttention(nn.Module):
         with learned positions."""
         B, S = x.shape[0], x.shape[1]
         H, Hkv, D = self.num_heads, self.num_kv_heads, self.head_dim
-        q, k, v = self.qkv_proj(x).split([H * D, Hkv * D, Hkv * D], dim=-1)
+        (qkv,) = _amp_cast("split_qkv", self.qkv_proj(x))
+        q, k, v = qkv.split([H * D, Hkv * D, Hkv * D], dim=-1)
         q = q.reshape(B, S, H, D)
         k = k.reshape(B, S, Hkv, D)
         v = v.reshape(B, S, Hkv, D)
@@ -220,11 +221,11 @@ class GPTBlock(nn.Module):
     def forward(self, x, rope, k_pool=None, v_pool=None, step=None,
                 decode_kernel="kernel"):
         if step is None:
-            x = x + self.dropout(self.attn(self.ln1(x), rope))
-            return x + self.dropout(self.mlp(self.ln2(x)))
-        x = x + self.attn(self.ln1(x), rope, k_pool, v_pool, step,
-                          decode_kernel)
-        return x + self.mlp(self.ln2(x))
+            x = _amp_add(x, self.dropout(self.attn(self.ln1(x), rope)))
+            return _amp_add(x, self.dropout(self.mlp(self.ln2(x))))
+        x = _amp_add(x, self.attn(self.ln1(x), rope, k_pool, v_pool, step,
+                                  decode_kernel))
+        return _amp_add(x, self.mlp(self.ln2(x)))
 
 
 class GPTModel(nn.Module):
@@ -274,7 +275,8 @@ class GPTModel(nn.Module):
         if c.use_rope:
             rope = rope_cos_sin(pos, c.hidden_size // c.num_heads, x.dtype)
         else:
-            x = x + self.embed_positions(pos.clamp(0, c.max_position - 1))
+            x = _amp_add(x, self.embed_positions(
+                pos.clamp(0, c.max_position - 1)))
         if step is None:
             remat = c.recompute if self.training else None
             for blk in self.blocks:

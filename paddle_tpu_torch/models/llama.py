@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..amp import _amp_cast
+from ..amp import _amp_add, _amp_cast
 from ..distributed.fleet.meta_parallel import (
     ColumnParallelLinear,
     ParallelCrossEntropy,
@@ -129,7 +129,9 @@ class LlamaMLP(nn.Module):
                                            c.hidden_size, **kw)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        g, u = _amp_cast("multiply", F.silu(self.gate_proj(x)),
+                         self.up_proj(x))
+        return self.down_proj(g * u)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -145,9 +147,9 @@ class LlamaDecoderLayer(nn.Module):
 
     def forward(self, x, rope, k_pool=None, v_pool=None, step=None,
                 decode_kernel="kernel"):
-        x = x + self.self_attn(self.input_layernorm(x), rope, k_pool, v_pool,
-                               step, decode_kernel)
-        return x + self.mlp(self.post_attention_layernorm(x))
+        x = _amp_add(x, self.self_attn(self.input_layernorm(x), rope,
+                                       k_pool, v_pool, step, decode_kernel))
+        return _amp_add(x, self.mlp(self.post_attention_layernorm(x)))
 
 
 class LlamaModel(nn.Module):

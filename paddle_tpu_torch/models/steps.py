@@ -13,6 +13,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..amp import _amp_cast
 from ..ops.paged_attention import paged_scatter_
 
 __all__ = ["PagedStep", "DenseStep", "DECODE_KERNELS", "step_positions",
@@ -64,13 +65,19 @@ def attend_cached(q, k, v, k_pool, v_pool, step, paged, dense):
     T, D] in place at ``[length, length + S)``, then ``dense`` attends.
     JAX's ``dynamic_update_slice`` clamps a start past the end;
     ``generate()`` never gets there, so a host length whose rows would
-    pass T raises here (a device length is its caller's to bound)."""
+    pass T raises here (a device length is its caller's to bound).
+    Under AMP q, k and v take the dtype of JAX's op of the branch
+    (``paged_decode_attention`` / ``decode_attention``); the pools keep
+    the dtype they were made with, written in place (JAX's branch returns
+    caches cast to the op's dtype under O2: ROADMAP C)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     if isinstance(step, PagedStep):
+        q, k, v = _amp_cast("paged_decode_attention", q, k, v)
         paged_scatter_(k_pool, k, step.write_rows, step.write_slots)
         paged_scatter_(v_pool, v, step.write_rows, step.write_slots)
         return paged(q, k_pool, v_pool, step.tables, step.lengths,
                      scale=scale)
+    q, k, v = _amp_cast("decode_attention", q, k, v)
     B, S, T = k.shape[0], k.shape[1], k_pool.shape[2]
     lo = step.length
     if isinstance(lo, torch.Tensor):

@@ -1,8 +1,10 @@
 """nn.functional of the port — the counterpart of
 ``paddle_tpu/nn/functional``: activations, common (linear, dropout,
 embedding, interpolate, ...), convolutions, normalisation, pooling,
-losses, the attention dispatcher and the packed attention forms of
-``extra``. Each functional runs through the op layer under the JAX op
+losses, the attention dispatcher, the fill-ins of ``extra``, grid
+sampling (``vision``), and ``pad``, ``unfold``, ``one_hot``, ``clip``,
+``pdist`` and ``cdist`` as JAX re-exports them: every name
+``paddle_tpu.nn.functional`` exports. Each functional runs through the op layer under the JAX op
 name (``ops.apply_like``) and returns the kind it is given."""
 from .activation import *  # noqa: F401,F403
 from .activation import __all__ as _activation
@@ -10,7 +12,9 @@ from .common import *  # noqa: F401,F403
 from .common import __all__ as _common
 from .conv import *  # noqa: F401,F403
 from .conv import __all__ as _conv
-from .extra import flash_attn_qkvpacked, flash_attn_varlen_qkvpacked
+from . import vision
+from .extra import *  # noqa: F401,F403
+from .extra import __all__ as _extra
 from .flash_attention import (
     flash_attention,
     flash_attn_unpadded,
@@ -25,9 +29,13 @@ from .norm import *  # noqa: F401,F403
 from .norm import __all__ as _norm
 from .pooling import *  # noqa: F401,F403
 from .pooling import __all__ as _pooling
+from .vision import affine_grid, grid_sample
+from ...ops.math import clip
+from ...ops.parity import cdist, pdist
 
 __all__ = (_activation + _common + _conv + _loss + _norm + _pooling
+           + _extra
            + ["flash_attention", "flash_attn_unpadded", "flashmask_attention",
-              "flash_attn_qkvpacked", "flash_attn_varlen_qkvpacked",
               "scaled_dot_product_attention", "sdp_kernel",
-              "get_last_attention_backend"])
+              "get_last_attention_backend", "affine_grid", "grid_sample",
+              "clip", "pdist", "cdist", "vision"])

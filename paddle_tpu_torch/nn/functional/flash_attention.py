@@ -8,7 +8,10 @@ on anything else; there is no fallback. The JAX package's TPU crossover (the
 Pallas kernel only at S >= 1024, ``_use_pallas`` :70-84) is not copied: the
 kernel-against-library times at the training shape are in PERF.md. CPU
 tensors run the kernels' plain versions (or ``_sdpa_core`` for shapes the
-kernels do not take). ``flashmask_attention`` and ``flash_attn_unpadded``
+kernels do not take). q and k of different lengths or batches, which
+JAX's Pallas kernel refuses too, take ``_sdpa_core`` on every device, as
+JAX takes its XLA route; other shapes the kernels refuse (kv heads that
+do not divide the q heads, head dims outside 64 and 128) raise on CUDA. ``flashmask_attention`` and ``flash_attn_unpadded``
 (packed documents, with one set of boundaries for q and k) run the masked
 form of the same kernels. ``sdp_kernel(enable_flash=False)`` switches the
 kernels off for all three, as ``_use_pallas`` does in JAX: they then
@@ -32,6 +35,7 @@ import math
 
 import torch
 
+from ...amp import _amp_cast
 from ...ops import flash_attention as _fa
 from ...tensor import tensor_seam
 from .common import keep_mask
@@ -68,12 +72,22 @@ def sdp_kernel(enable_flash=True, enable_math=True, enable_mem_efficient=True):
         _sdp_config.update(prev)
 
 
+def _cross(query, key):
+    """True when q and k differ in length or batch: shapes JAX's Pallas
+    kernel refuses too (``ops/pallas/flash_attention.py:512-518``), for
+    which its dispatcher takes the XLA route on every device."""
+    return (query.dim() == 4 and key.dim() == 4
+            and tuple(query.shape[:2]) != tuple(key.shape[:2]))
+
+
 def _takes_kernel(query, key, what):
     """True when the flash kernels' module serves the call: the kernel on
     CUDA, its plain version on CPU. False for the XLA route's plain math:
-    sdp_kernel switched the kernels off, or CPU tensors of shapes the
-    kernels do not take. Such shapes raise on CUDA."""
-    if not _sdp_config["enable_flash"]:
+    sdp_kernel switched the kernels off, q and k of different lengths or
+    batches (``_cross``, JAX's route too, chosen from the shapes before
+    any launch), or CPU tensors of other shapes the kernels do not take.
+    Those other shapes raise on CUDA."""
+    if not _sdp_config["enable_flash"] or _cross(query, key):
         return False
     if _fa.supports(tuple(query.shape), tuple(key.shape)):
         return True
@@ -137,11 +151,11 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     if (not _dropped(dropout, training)
             and _takes_kernel(query, key, "flash_attention")):
         _kernel_mark(query)
-        return _fa.flash_attention(query, key, value, causal=causal,
-                                   scale=scale), None
+        q, k, v = _amp_cast("flash_attention_pallas", query, key, value)
+        return _fa.flash_attention(q, k, v, causal=causal, scale=scale), None
     _mark("plain")
-    return _sdpa_core(query, key, value, None, scale, causal, dropout,
-                      training), None
+    q, k, v = _amp_cast("flash_attention", query, key, value)
+    return _sdpa_core(q, k, v, None, scale, causal, dropout, training), None
 
 
 @tensor_seam
@@ -152,8 +166,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     reported as "plain")."""
     scale = 1.0 / math.sqrt(query.shape[-1])
     _mark("plain")
-    return _sdpa_core(query, key, value, attn_mask, scale, is_causal,
-                      dropout_p, training)
+    q, k, v, m = _amp_cast("scaled_dot_product_attention", query, key, value,
+                           attn_mask)
+    return _sdpa_core(q, k, v, m, scale, is_causal, dropout_p, training)
 
 
 def _same_cu(cu_q, cu_k):
@@ -236,14 +251,15 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     if (key.shape[0] == total and _same_cu(cu_seqlens_q, cu_seqlens_k)
             and _takes_kernel(q, k, "flash_attn_unpadded")):
         _kernel_mark(query)
+        q, k, v = _amp_cast("flash_attn_unpadded_pallas", q, k, v)
         out = _fa.flashmask_attention(q, k, v,
                                       _document_mask(cu_k, total, causal),
                                       causal=causal, scale=scale)
         return out[0], None
     _mark("plain")
     cu_q = torch.as_tensor(cu_seqlens_q).to(query.device)
-    return _segment_attention(query, key, value, cu_q, cu_k, scale,
-                              causal), None
+    q, k, v = _amp_cast("flash_attn_unpadded", query, key, value)
+    return _segment_attention(q, k, v, cu_q, cu_k, scale, causal), None
 
 
 @tensor_seam
@@ -273,12 +289,14 @@ def flashmask_attention(query, key, value, startend_row_indices=None,
     elif (not _dropped(dropout, training)
           and _takes_kernel(query, key, "flashmask_attention")):
         _kernel_mark(query)
-        out = _fa.flashmask_attention(query, key, value, sri, causal=causal,
+        q, k, v = _amp_cast("flashmask_attention_pallas", query, key, value)
+        out = _fa.flashmask_attention(q, k, v, sri, causal=causal,
                                       scale=scale)
     else:
         _mark("plain")
         sri = torch.as_tensor(sri).to(query.device)
-        out = _sdpa_core(query, key, value,
+        q, k, v = _amp_cast("flashmask_attention", query, key, value)
+        out = _sdpa_core(q, k, v,
                          _fa.flashmask_allowed(query.shape[1], sri, causal),
                          scale, False, dropout, training)
     extras = [None] * (int(return_softmax_lse) + int(return_seed_offset))

@@ -14,8 +14,8 @@
   layers, and ``LayerNorm``, in their dtype. ``SyncBatchNorm`` is
   single-process (the collectives wait for the distributed slice).
 * ``GroupNorm``, ``InstanceNorm1D/2D/3D``, ``LocalResponseNorm``,
-  ``LayerNorm``, ``RMSNorm``; ``SpectralNorm`` raises as JAX's does
-  (``nn.utils.spectral_norm`` is the working form).
+  ``LayerNorm``, ``RMSNorm``. (``SpectralNorm`` is in ``layer_extra``,
+  where JAX's working one is.)
 * The pools (:315-395).
 
 ``LayerNorm`` and ``RMSNorm`` keep the port's ``device`` / ``dtype``
@@ -37,7 +37,7 @@ __all__ = [
     "Conv3DTranspose", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
     "BatchNorm3D", "SyncBatchNorm", "LayerNorm", "RMSNorm", "rms_norm",
     "GroupNorm", "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D",
-    "LocalResponseNorm", "SpectralNorm", "MaxPool1D", "MaxPool2D",
+    "LocalResponseNorm", "MaxPool1D", "MaxPool2D",
     "MaxPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D", "AdaptiveAvgPool1D",
     "AdaptiveAvgPool2D", "AdaptiveAvgPool3D", "AdaptiveMaxPool1D",
     "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
@@ -342,14 +342,6 @@ class LocalResponseNorm(Layer):
 
     def forward(self, x):
         return F.local_response_norm(x, *self._args)
-
-
-class SpectralNorm(Layer):
-    def __init__(self, weight_shape, dim=0, power_iters=1, epsilon=1e-12,
-                 name=None):
-        super().__init__()
-        raise NotImplementedError(
-            "SpectralNorm: use paddle_tpu_torch.nn.utils.spectral_norm")
 
 
 # --------------------------------------------------------- pooling layers

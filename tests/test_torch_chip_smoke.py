@@ -424,3 +424,130 @@ def test_eager_ab_reads_the_pairs():
     assert body["this"] == [11.75, 12.0, 12.25]
     assert body["ratio"] == 12.0 / 11.5
     assert body["this_slower_pairs"] == 3 and body["pairs"] == 4
+
+
+def _stub_card(monkeypatch):
+    """The card-only calls of a phase stubbed for a CPU rehearsal, and a
+    dummy capture record on every TrainStep program."""
+    import types
+
+    import torch
+
+    import paddle_tpu_torch.jit.train as train
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "memory_reserved"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    monkeypatch.setattr(chip_smoke, "profile_call",
+                        lambda torch, fn, attention=(): (fn(), dict(
+                            device_busy_share=None, host_launch_calls=0,
+                            device_ms=None, device_ms_by_kind={}))[1])
+    real = train.TrainStep._program
+
+    def program(self, args, kwargs):
+        prog = real(self, args, kwargs)
+        prog.capture = prog.capture or types.SimpleNamespace(graph=None,
+                                                             seconds=0.0)
+        return prog
+
+    monkeypatch.setattr(train.TrainStep, "_program", program)
+
+
+def test_rnn_lm_phase_rehearses_on_the_cpu(monkeypatch, one_thread):
+    """The rnn_lm phase's control flow with the large PTB LSTM cut to a toy
+    (vocab 50, hidden 8, 5 steps, batch 3): bodies and the "captured"
+    steps run the same code from the same state and generator seed, so
+    losses and parameters are equal and the dropout masks too; the hook's
+    LSTM output equals the eager layer's; the beam search's ids equal the
+    plain beam search's."""
+    import torch
+
+    from paddle_tpu_torch.framework import device as pdev
+
+    _stub_card(monkeypatch)
+    monkeypatch.setitem(pdev._current, "place", pdev._current["place"])
+    monkeypatch.setattr(chip_smoke, "RNN_LM", dict(
+        chip_smoke.RNN_LM, vocab=50, hidden=8, steps=5, batch=3))
+    rec = chip_smoke.rnn_lm(torch, "cpu", warmup=1, timed=2, decode_B=2,
+                            decode_T=6)
+    assert rec["replay_losses_equal_body"]
+    assert rec["replay_params_max_abs_diff"] == 0.0
+    assert rec["captured_lstm_output_max_abs_diff"] == 0.0
+    assert rec["decode"]["ids_equal_plain"]
+    assert len(rec["losses"]) == 3
+
+
+def test_rnn_lm_model_is_the_published_configuration():
+    """RNN_LM is the large PTB model of arXiv:1409.2329: 2 x 1500 LSTM over
+    a 10k vocabulary, 35 steps, batch 20, dropout 0.65, init 0.04, SGD 1.0,
+    clip 10; its parameter count is the paper's ~66 M."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.framework import device as pdev
+
+    c = chip_smoke.RNN_LM
+    assert (c["vocab"], c["hidden"], c["layers"], c["steps"], c["batch"]) \
+        == (10000, 1500, 2, 35, 20)
+    assert (c["dropout"], c["init"], c["lr"], c["clip"]) == (0.65, 0.04,
+                                                             1.0, 10.0)
+    prev = pdev._current["place"]
+    P.set_device("cpu")
+    try:
+        small = chip_smoke.rnn_lm_model(P, dict(c, vocab=10, hidden=4))
+        names = sorted(k for k, _ in small.named_parameters())
+    finally:
+        pdev._current["place"] = prev
+    assert names[0] == "embed.weight" and "lstm.cells.1.bias_hh" in names
+    H, V = c["hidden"], c["vocab"]
+    count = 2 * V * H + V + 2 * (4 * H * (H + H) + 8 * H)
+    assert 65e6 < count < 67e6
+
+
+def test_o2_autocast_leg_rehearses_on_the_cpu(monkeypatch):
+    """The o2_autocast leg of train_recipes on a tiny GPT: bodies and the
+    "captured" steps equal, the loss f32 under auto_cast(O2), the replay
+    outside auto_cast equal to one inside, 3 flash calls (the plain
+    versions here, counted as launches) per layer and step."""
+    import torch
+
+    import paddle_tpu_torch.ops.flash_attention as fa
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+
+    _stub_card(monkeypatch)
+    for kind, name in (("fwd", "flash_attention_fwd_ref"),
+                       ("dq", "flash_attention_dq_ref"),
+                       ("dkv", "flash_attention_dkv_ref")):
+        real = getattr(fa, name)
+
+        def counted(*a, _real=real, _kind=kind, **k):
+            fa._WRAPPERS[_kind].launches += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(fa, name, counted)
+    monkeypatch.setattr(chip_smoke, "LEGLESS_PEAK_BYTES", 1)
+    model = GPTForCausalLM(GPTConfig(vocab_size=128, hidden_size=64,
+                                     num_layers=2, num_heads=4,
+                                     max_position=32), device="cpu", seed=3)
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    ids_np = torch.randint(0, 128, (2, 16), generator=torch.Generator()
+                           .manual_seed(0))
+    labels = torch.roll(ids_np, -1, 1)
+    rec = chip_smoke.recipe_leg(torch, fa, model, ids_np, labels,
+                                "o2_autocast", "bfloat16", 2, 2, o2=True)
+    assert rec["amp"].startswith("O2 decorate + auto_cast(O2)")
+    assert rec["loss_dtype"] == "float32"
+    assert rec["outside_auto_cast_equal"]
+    assert rec["replay_losses_equal_body"]
+    assert rec["kernel_launches"]["fwd"] == 2 * 4
+    assert not amp.is_auto_cast_enabled()
+
+
+def test_nn_fillin_cases_rehearse_on_the_cpu(one_thread):
+    """The core phase's nn fill-ins (CPU against CPU here: the control
+    flow, every case's outputs and gradients, the integer outputs)."""
+    import torch
+
+    rec = chip_smoke.nn_fillins(torch, "cpu", capture=False)
+    assert rec["cases"] == 16
+    assert rec["worst"] == {"float64": 0.0, "float32": 0.0}

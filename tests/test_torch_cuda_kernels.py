@@ -187,8 +187,14 @@ def test_flash_kernels_reject_what_they_cannot_run(cuda):
     # attention dropout in training takes the plain route, as in JAX
     F.flash_attention(q, k, v, dropout=0.1)
     assert F.get_last_attention_backend() == "plain"
+    # q and k of different lengths: the plain route, as JAX takes XLA
+    out, _ = F.flash_attention(q, k[:, :8], v[:, :8])
+    assert F.get_last_attention_backend() == "plain"
+    assert out.shape == q.shape
+    # kv heads that do not divide the q heads: no kernel, and no fallback
+    k3 = torch.cat([k, k[:, :, :1]], 2)
     with pytest.raises(ValueError, match="no kernel"):
-        F.flash_attention(q, k[:, :8], v[:, :8])
+        F.flash_attention(q, k3, k3)
 
 
 @pytest.mark.cuda

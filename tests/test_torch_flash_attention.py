@@ -23,6 +23,7 @@ case for some elements and once read 3.1e-5 against it. A causal mask one
 short still fails the bound by orders of magnitude
 (``test_f32_forward_bound_fails_a_mask_one_short``).
 """
+import importlib
 import math
 
 import numpy as np
@@ -385,3 +386,44 @@ def test_sdpa_core_matches_jax(causal):
                                           torch.from_numpy(mask),
                                           is_causal=causal)
     np.testing.assert_allclose(got.numpy(), ref, atol=FWD_TOL, rtol=FWD_TOL)
+
+
+_CROSS = {"longer_k": ((2, 16, 4, 16), (2, 24, 2, 16)),
+          "shorter_k": ((2, 20, 4, 16), (2, 12, 4, 16)),
+          "batch_1_k": ((2, 16, 4, 16), (1, 16, 4, 16))}
+
+
+@pytest.mark.parametrize("form", ["flash", "flashmask"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shapes", list(_CROSS), ids=list(_CROSS))
+def test_cross_shapes_take_the_plain_route_with_jax_values(form, causal,
+                                                           shapes):
+    """q and k of different lengths or batches: JAX's dispatcher takes its
+    XLA route (its Pallas kernel refuses them); the port takes the plain
+    route, reported "plain", with JAX's values within FWD_TOL (f32 sums in
+    another order)."""
+    import paddle_tpu as P
+    import paddle_tpu.nn.functional as JF
+    # the package's name ``flash_attention`` is the function: the module
+    jfa = importlib.import_module("paddle_tpu.nn.functional.flash_attention")
+    qs, ks = _CROSS[shapes]
+    q, k, v = _rand(qs, 100), _rand(ks, 101), _rand(ks, 102)
+    T, n = ks[1], (1 if causal else 2)
+    rng = np.random.default_rng(103)
+    sri = np.sort(rng.integers(0, qs[1] + 1, (ks[0], 1, T, n)), -1)
+    if form == "flash":
+        want = np.asarray(JF.flash_attention(
+            *map(P.to_tensor, (q, k, v)), causal=causal)[0]._value)
+        got, _ = TF.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    else:
+        want = np.asarray(JF.flashmask_attention(
+            *map(P.to_tensor, (q, k, v)), P.to_tensor(sri),
+            causal=causal)._value)
+        got = TF.flashmask_attention(_t(q), _t(k), _t(v),
+                                     torch.from_numpy(sri), causal=causal)
+    assert jfa.get_last_attention_backend() == "xla"
+    assert TF.get_last_attention_backend() == "plain"
+    assert got.shape == want.shape
+    # rows JAX fills with the mean of V where every column is hidden
+    # (flashmask) agree too: both routes run the same masked softmax
+    np.testing.assert_allclose(got.numpy(), want, atol=FWD_TOL, rtol=FWD_TOL)

@@ -224,10 +224,10 @@ def test_o2_decorate_casts_the_same_parameters_as_jax():
     assert got == want and set(want.values()) == {"bfloat16"}
     assert opt._multi_precision and jopt._multi_precision
     assert all(p is q for p, q in zip(opt._params, tm.parameters()))
-    # auto_cast O2 casts the op layer; the model's seams still refuse it
+    # auto_cast O2 reaches the model's seams: bf16 logits
     with tamp.auto_cast(level="O2"):
-        with pytest.raises(NotImplementedError, match="O2"):
-            tm(torch.zeros((1, 4), dtype=torch.int64))
+        assert tm(torch.zeros((1, 4), dtype=torch.int64)).dtype == \
+            torch.bfloat16
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
