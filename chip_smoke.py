@@ -150,6 +150,29 @@ non-zero without the final line:
    stepped after each step, five steps as bodies and then captured (a body
    with its capture, four replays): each replay's loss and parameters
    equal to its body's, the five rates distinct.
+11a. script — GPT-350M as a Paddle training script runs it: the train
+   phase's recipe (O2 bf16, AdamW, B 8, S 1024) behind ``paddle.Model``,
+   fed by ``io.DataLoader`` (96 seeded token windows in a seeded order,
+   two worker processes). ``fit`` for 12 steps, checkpointed every 4 (the
+   main path: one capture, eleven replays, never the eager route, 24
+   launches of each flash kernel a step); ``paddle.save`` / ``load`` of
+   the state dicts equal on the card; the same fit in a fresh process
+   (``--script-fit``) takes SIGTERM after step 6, flushes and exits with
+   101, latest step 6; that checkpoint restored into this process's live
+   step replays steps 7-12 with no new capture and the uninterrupted
+   run's losses, bit for bit, and so does a fresh process resuming with
+   ``resume="auto"``; ``metric.Accuracy`` over ``Model.evaluate`` equal to
+   an argmax count (half the labels planted as hits); ``paddle.device``'s
+   memory statistics equal to ``torch.cuda``'s; ``jit.save`` with
+   ``InputSpec([None, 1024])``, then a fresh process that imports only the
+   package serves the export through ``inference.create_predictor`` at
+   B 8 and 2: 24 launches of the flash forward a forward, logits within
+   2^-6 of the largest |logit| of the eager forward's. Reported: fit's
+   replayed step ms beside the train phase's, its busy share (one
+   profiled ``train_batch``), tokens/s, each checkpoint's snapshot and
+   write seconds and bytes, the resume's wall, the export's and load's
+   seconds and bytes, the predictor's and the program's ms against the
+   eager forward's, peak memory.
 11b. long context — ``bench.py`` ``_long_context_impl`` as the port runs
    it: ``gpt_350m(max_position=S)`` at S=4096, B=2 and S=8192, B=1, O2
    bf16, AdamW, the captured TrainStep, 2 warm-up + 4 timed steps: step
@@ -302,7 +325,8 @@ non-zero without the final line:
    without a host read captured and replayed bit-equal to eager; and
    ``F.flash_attention`` / ``F.flashmask_attention`` with q and k of
    different lengths or batches on the plain route, reported "plain",
-   equal to ``_sdpa_core``, a head dim of 32 still raising.
+   equal to ``_sdpa_core``, and so head dims 32 and 96 (no kernel takes
+   them).
 
 Last lines: each phase's seconds, the card, the kernels JSON (a kernel
 redesigned since it was first ported names the change in "redesigned";
@@ -328,6 +352,7 @@ import urllib.request
 
 import numpy as np
 
+PROCESS_T0 = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
@@ -5301,9 +5326,10 @@ def cross_length_attention(torch, device, B=2, S=256, T=384, H=16, D=64):
     ``F.flash_attention`` and ``F.flashmask_attention`` on CUDA take the
     plain route, reported "plain": in bf16 bit-equal to ``_sdpa_core``
     called directly on the same tensors; in f32 within 1e-4 of the largest
-    |output| of the same call on the CPU (sums in another order). A head
-    dim the kernels do not take (32) on self-attention shapes still raises
-    on CUDA."""
+    |output| of the same call on the CPU (sums in another order). Head
+    dims the kernels do not take (32, 96) on self-attention shapes take the
+    plain route too, reported "plain", with no kernel launch, bit-equal to
+    ``_sdpa_core``."""
     import importlib
 
     import paddle_tpu_torch as P
@@ -5344,18 +5370,25 @@ def cross_length_attention(torch, device, B=2, S=256, T=384, H=16, D=64):
                 equal_plain=bool(torch.equal(out, plain)),
                 f32_cpu_rel_diff=float((got32.cpu() - cpu).abs().max()
                                        / cpu.abs().max()))
-    x = torch.randn(1, 128, 4, 32, generator=g).to(device, torch.bfloat16)
-    try:
-        F.flash_attention(x, x, x, causal=True)
-        rec["head_dim_32_raises"] = False
-    except ValueError as e:
-        rec["head_dim_32_raises"] = "head_dim" in str(e)
+    for d in (32, 96):      # head dims the kernels do not take
+        x = torch.randn(1, 128, 4, d, generator=g).to(device, torch.bfloat16)
+        before = P.ops.flash_attention.flash_fwd.launches
+        out = F.flash_attention(x, x, x, causal=True)[0]
+        fa_launches = P.ops.flash_attention.flash_fwd.launches - before
+        plain = fam._sdpa_core(x, x, x, None, 1.0 / np.sqrt(d), True, 0.0,
+                               False)
+        rec[f"head_dim_{d}"] = dict(
+            backend=F.get_last_attention_backend(), launches=fa_launches,
+            equal_plain=bool(torch.equal(out, plain)))
     print("cross-length", json.dumps(rec), flush=True)
-    bad = {k: r for k, r in rec.items() if k != "head_dim_32_raises" and (
+    bad = {k: r for k, r in rec.items() if not k.startswith("head_dim") and (
         r["backend"] != "plain" or r["f32_backend"] != "plain"
         or not r["equal_plain"] or r["f32_cpu_rel_diff"] > 1e-4)}
-    if bad or not rec["head_dim_32_raises"]:
-        raise AssertionError(f"cross-length attention: {bad or rec}")
+    bad.update({k: r for k, r in rec.items() if k.startswith("head_dim")
+                and (r["backend"] != "plain" or r["launches"]
+                     or not r["equal_plain"])})
+    if bad:
+        raise AssertionError(f"cross-length attention: {bad}")
     return rec
 
 
@@ -5376,6 +5409,470 @@ def core_phase(torch, fa, device):
     costs = wrapper_costs(torch, device)
     return dict(golden=golden, nn_fillins=fillins, cross_length=cross,
                 eager_stack=stack, wrapper_cost=costs)
+
+
+# ------------------------------------------------------------ script phase
+# GPT-350M trained as a Paddle script trains it: a map-style dataset of
+# seeded token windows behind a worker DataLoader, Model.fit checkpointed,
+# preempted, resumed, then exported and served from the export.
+SCRIPT = dict(B=8, S=1024, windows=96, eval_windows=16, every=4,
+              preempt_after=6, seed=16, workers=2)
+SCRIPT_DIR = os.path.join(ROOT, "_script")
+# exported program vs eager forward, max |dlogit| / max |logit|: each side
+# rounds its logits to bf16 once (2^-8 relative at most), and f32 sums in
+# another order may flip a rounding on either side
+SCRIPT_LOGIT_TOL = 2.0 ** -6
+
+SERVE_SCRIPT = r'''
+import json, sys, time
+import numpy as np
+import torch
+import paddle_tpu_torch as P
+from paddle_tpu_torch.ops import flash_attention as fa
+
+art, ref_path, ids_path, out, device = sys.argv[1:6]
+sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+cfg = P.inference.Config(art)
+if device == "cpu":
+    cfg.disable_gpu()
+t0 = time.perf_counter()
+pred = P.inference.create_predictor(cfg)
+sync()
+rec = {"load_s": time.perf_counter() - t0}
+ids = np.load(ids_path)
+refs = np.load(ref_path)
+for name, x in (("b8", ids), ("b2", ids[:2])):
+    before = fa.flash_fwd.launches
+    got = torch.from_numpy(pred.run([x])[0])
+    rec[name + "_launches"] = fa.flash_fwd.launches - before
+    ref = torch.from_numpy(refs[: len(x)]).view(torch.bfloat16).float()
+    rec[name + "_shape"] = list(got.shape)
+    rec[name + "_max_abs_diff"] = float((got - ref).abs().max())
+    rec[name + "_max_abs_ref"] = float(ref.abs().max())
+    rec[name + "_finite"] = bool(torch.isfinite(got).all())
+walls = []
+for _ in range(3):
+    t0 = time.perf_counter()
+    pred.run([ids])
+    walls.append(time.perf_counter() - t0)
+rec["predictor_ms"] = float(np.median(walls)) * 1e3
+layer = pred._layer
+x = torch.as_tensor(ids, device=device)
+layer(x)
+sync()
+walls = []
+for _ in range(3):
+    t0 = time.perf_counter()
+    layer(x)
+    sync()
+    walls.append(time.perf_counter() - t0)
+rec["program_ms"] = float(np.median(walls)) * 1e3
+rec["peak_bytes"] = P.device.cuda.max_memory_allocated()
+rec["modules"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "paddle_tpu"))
+with open(out, "w") as f:
+    json.dump(rec, f)
+'''
+
+
+def gpt_lm_loss(logits, labels):
+    """The LM loss over GPT's logits: ``ParallelCrossEntropy`` per token (in
+    the logits' dtype, as the model's own loss), averaged in f32 so that
+    equal losses mean more than equal bf16 roundings."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        ParallelCrossEntropy)
+
+    per = ParallelCrossEntropy()(logits.reshape(-1, logits.shape[-1]),
+                                 labels.reshape(-1))
+    return per.float().mean()
+
+
+def script_loader(P, vocab, n, seed, c=SCRIPT):
+    """A DataLoader of ``n`` seeded token windows (ids, next ids), in a
+    seeded order, ``c["workers"]`` worker processes, batches of B."""
+    io_ = P.io
+    ids = np.random.default_rng(seed).integers(0, vocab, (n, c["S"] + 1))
+
+    class TokenWindows(io_.Dataset):
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return ids[i, :-1], ids[i, 1:]
+
+    class SeededSampler(io_.Sampler):
+        def __iter__(self):
+            return iter(np.random.default_rng(seed).permutation(n).tolist())
+
+        def __len__(self):
+            return n
+
+    return io_.DataLoader(TokenWindows(), batch_sampler=io_.BatchSampler(
+        sampler=SeededSampler(), batch_size=c["B"]),
+        num_workers=c["workers"])
+
+
+def script_model(P, c=SCRIPT, device="cuda"):
+    """``paddle.Model`` over GPT-350M at full width, seeded, O2 bf16, with
+    the train phase's AdamW, and the training loader."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_350m
+
+    cfg = gpt_350m()
+    net = GPTForCausalLM(cfg, device=device, seed=c["seed"])
+    amp.decorate(net, level="O2", dtype="bfloat16")
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=net.parameters(),
+                          weight_decay=0.01, multi_precision=True)
+    model = P.Model(net).prepare(opt, gpt_lm_loss)
+    return model, script_loader(P, cfg.vocab_size, c["windows"], c["seed"],
+                                c)
+
+
+def script_fit(P, model, loader, ckpt_dir, sigterm_after=None, c=SCRIPT):
+    """``model.fit`` over ``loader`` checkpointed into ``ckpt_dir`` every
+    ``c["every"]`` steps, SIGTERM sent to this process after
+    ``sigterm_after`` steps when given; (record, exit code or None)."""
+    import signal
+
+    from paddle_tpu_torch.framework.checkpoint import PreemptionExit
+    from paddle_tpu_torch.hapi.callbacks import Callback, MonitorCallback
+
+    losses, t = [], {}
+
+    class Recorder(Callback):
+        def on_begin(self, mode, logs=None):
+            t["begin"] = time.perf_counter()
+
+        def on_batch_end(self, mode, step, logs=None):
+            losses.append(logs["loss"][0])
+            if sigterm_after is not None and len(losses) == sigterm_after:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    mon = MonitorCallback()
+    code = None
+    t0 = time.perf_counter()
+    try:
+        model.fit(loader, epochs=1, verbose=0, callbacks=[Recorder(), mon],
+                  checkpoint_dir=ckpt_dir, checkpoint_every=c["every"],
+                  checkpoint_keep_last=2)
+    except PreemptionExit as e:
+        code = e.code
+    step = model._train_step
+    return dict(losses=losses, fit_s=time.perf_counter() - t0,
+                until_first_batch_s=t.get("begin", t0) - t0,
+                step_s=mon.phases["step"], data_wait_s=mon.phases["data_wait"],
+                checkpoints=mon.checkpoints, captures=step.captures,
+                replays=step.replays,
+                eager=model._train_step_broken), code
+
+
+def script_worker(mode, ckpt_dir, out, c=SCRIPT, device="cuda"):
+    """A fresh process's fit (``--script-fit``): "preempt" takes SIGTERM
+    after ``preempt_after`` steps and exits with its flush's code;
+    "resume" resumes from ``ckpt_dir``."""
+    import torch
+
+    import paddle_tpu_torch as P
+
+    model, loader = script_model(P, c, device)
+    rec, code = script_fit(P, model, loader, ckpt_dir,
+                           c["preempt_after"] if mode == "preempt" else None,
+                           c)
+    torch.cuda.synchronize()
+    rec["process_s"] = time.perf_counter() - PROCESS_T0
+    with open(out, "w") as f:
+        json.dump(rec, f)
+    if code is not None:
+        raise SystemExit(code)
+
+
+def run_script_worker(mode, ckpt_dir, timeout=240):
+    """(exit code, its record, wall seconds) of ``script_worker`` in a
+    fresh process."""
+    out = os.path.join(SCRIPT_DIR, f"{mode}.json")
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--script-fit", mode, "--script-dir", ckpt_dir,
+                            "--script-out", out], capture_output=True,
+                           text=True, timeout=timeout, cwd=ROOT)
+    except subprocess.TimeoutExpired as e:
+        err = e.stderr.decode() if isinstance(e.stderr, bytes) else e.stderr
+        raise AssertionError(f"script worker {mode} still ran after "
+                             f"{timeout} s: {(err or '')[-3000:]}") from e
+    wall = time.perf_counter() - t0
+    if not os.path.exists(out):
+        raise AssertionError(f"script worker {mode} wrote nothing (exit "
+                             f"{r.returncode}): {r.stderr[-3000:]}")
+    with open(out) as f:
+        return r.returncode, json.load(f), wall
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def state_equal(torch, a, b):
+    """True when two state dicts (tensors, Tensors, numbers, dicts) hold
+    equal values, tensors bit for bit."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(state_equal(torch, a[k], b[k]) for k in a))
+    a, b = getattr(a, "_value", a), getattr(b, "_value", b)
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.device == b.device and torch.equal(a, b))
+    return a == b
+
+
+def script_phase(torch, fa, device, train_rec, c=SCRIPT):
+    """The ``script`` phase (module docstring). ``train_rec``: the train
+    phase's record, whose replayed TrainStep this fit is set beside."""
+    import shutil
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.framework.checkpoint import (CheckpointManager,
+                                                       latest_step)
+
+    shutil.rmtree(SCRIPT_DIR, ignore_errors=True)
+    os.makedirs(SCRIPT_DIR)
+    full_dir = os.path.join(SCRIPT_DIR, "full")
+    pre_dir = os.path.join(SCRIPT_DIR, "preempted")
+    steps = c["windows"] // c["B"]
+    walls, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        """The wall seconds since the last lap, under ``name``."""
+        now = time.perf_counter()
+        walls[name], last[0] = now - last[0], now
+
+    model, loader = script_model(P, c, device)
+    net, opt = model.network, model._optimizer
+    torch.cuda.synchronize()
+    lap("build")
+
+    # 1-2: the uninterrupted run, checkpointed (the main path)
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_fwd.launches = fa.flash_bwd_dq.launches = 0   # main path
+    fa.flash_bwd_dkv.launches = 0
+    full, code = script_fit(P, model, loader, full_dir, c=c)
+    launches = flash_launches(fa)                          # main path ends
+    peak = torch.cuda.max_memory_allocated()
+    step = model._train_step
+    (prog,) = step._programs.values()
+    replayed_step_s = full["step_s"][1:]
+    snapshots = [s for p, s in full["checkpoints"] if p == "snapshot"]
+    writes = [s for p, s in full["checkpoints"] if p in ("serialize",
+                                                         "commit")]
+    ckpt_bytes = os.path.getsize(os.path.join(
+        full_dir, f"step_{steps:010d}", "data_r0.npz"))
+    lap("fit")
+
+    # 5: paddle.save / paddle.load of the state dicts, on the card
+    t0 = time.perf_counter()
+    P.save(net.state_dict(), os.path.join(SCRIPT_DIR, "net.pdparams"))
+    P.save(opt.state_dict(), os.path.join(SCRIPT_DIR, "net.pdopt"))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net_back = P.load(os.path.join(SCRIPT_DIR, "net.pdparams"))
+    opt_back = P.load(os.path.join(SCRIPT_DIR, "net.pdopt"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    round_trip = dict(
+        save_s=save_s, load_s=load_s,
+        bytes=dir_bytes(SCRIPT_DIR) - dir_bytes(full_dir),
+        net_equal=state_equal(torch, dict(net.state_dict()), net_back),
+        opt_equal=state_equal(torch, opt.state_dict(), opt_back))
+    del net_back, opt_back
+    lap("round_trip")
+
+    # 3: the same fit in a fresh process, SIGTERM after preempt_after steps
+    pre_code, pre, pre_wall = run_script_worker("preempt", pre_dir)
+    pre_latest = latest_step(pre_dir)
+    lap("preempted_process")
+
+    # 4: the preempted run's checkpoint restored into this process's live
+    # step: the captured graph replays on it, nothing is captured again
+    captures = step.captures
+    t0 = time.perf_counter()
+    restored = CheckpointManager(pre_dir).restore(step,
+                                                  step=c["preempt_after"])
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    in_process = []
+    for i, (x, y) in enumerate(loader):
+        if i >= c["preempt_after"]:
+            in_process.append(model.train_batch(x, y)[0])
+    new_captures = step.captures - captures
+    lap("in_process_restore")
+    res_code, res, res_wall = run_script_worker("resume", pre_dir)
+    lap("resumed_process")
+
+    # 7: metric.Accuracy over Model.evaluate against an argmax count; the
+    # label of half the rows is the eager forward's argmax at the last
+    # position, of the others a random token
+    eval_loader = script_loader(P, net.config.vocab_size, c["eval_windows"],
+                                c["seed"] + 1, c)
+    ids = torch.cat([x._value for x, _ in eval_loader])
+    head = last_position(torch, net)
+    with torch.no_grad():
+        net.eval()
+        top2 = torch.topk(head(ids).float(), 2, dim=-1)
+    # hits: even rows whose top logit is not tied (argmax and topk agree)
+    hit = (top2.values[:, 0] > top2.values[:, 1]).cpu().numpy()
+    hit[1::2] = False
+    rng = np.random.default_rng(c["seed"])
+    labels = rng.integers(0, net.config.vocab_size, (len(ids), 1))
+    labels[hit, 0] = top2.indices[:, 0].cpu().numpy()[hit]
+    ev = P.Model(head).prepare(loss=lambda o, y: torch.nn.functional
+                               .cross_entropy(o.float(), y.reshape(-1)),
+                               metrics=P.metric.Accuracy())
+    ds = [(ids[i].cpu().numpy(), labels[i]) for i in range(len(ids))]
+    acc = float(ev.evaluate(ds, batch_size=c["B"], verbose=0)["acc"])
+    preds = ev.predict([(x,) for x, _ in ds], batch_size=c["B"])
+    hand = float(np.mean(torch.cat(preds).argmax(-1).cpu().numpy()
+                         == labels[:, 0]))
+    dev = P.device.cuda
+    memory = {name: (getattr(dev, name)(), getattr(torch.cuda, name)())
+              for name in ("memory_allocated", "max_memory_allocated",
+                           "memory_reserved", "max_memory_reserved")}
+    lap("evaluate")
+
+    # 6: export, then serve the export from a fresh process
+    x8 = ids[:c["B"]]
+    with torch.no_grad():
+        ref8 = net(x8)
+        torch.cuda.synchronize()
+        eager_walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            net(x8)
+            torch.cuda.synchronize()
+            eager_walls.append(time.perf_counter() - t0)
+    eager_ms = float(np.median(eager_walls)) * 1e3
+    ref_path = os.path.join(SCRIPT_DIR, "ref.npy")
+    ids_path = os.path.join(SCRIPT_DIR, "ids.npy")
+    np.save(ref_path, ref8.view(torch.int16).cpu().numpy())
+    np.save(ids_path, x8.cpu().numpy())
+    del ref8
+    art = os.path.join(SCRIPT_DIR, "export", "gpt350m")
+    t0 = time.perf_counter()
+    P.jit.save(net, art, input_spec=[P.static.InputSpec([None, c["S"]],
+                                                        "int64")])
+    export_s = time.perf_counter() - t0
+    art_bytes = dir_bytes(os.path.dirname(art))
+    lap("export")
+    out = os.path.join(SCRIPT_DIR, "serve.json")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", SERVE_SCRIPT, art, ref_path,
+                        ids_path, out, str(device)], capture_output=True,
+                       text=True, timeout=300, cwd=ROOT)
+    serve_wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"serving the export failed: {r.stderr[-3000:]}")
+    with open(out) as f:
+        served = json.load(f)
+    lap("serve")
+
+    # the fit loop's cost: one step through Model.train_batch, profiled,
+    # beside the graph's device time (measurement steps: they go on
+    # training the model)
+    x, y = next(iter(loader))
+    fit_profile = profile_call(torch, lambda: model.train_batch(x, y),
+                               ("flash_",))
+    graph_ms = replay_device_ms(torch, prog.capture.graph)
+    lap("profile")
+    step_ms = float(np.median(replayed_step_s)) * 1e3
+    rec = dict(
+        B=c["B"], S=c["S"], steps=steps, walls=walls,
+        losses=full["losses"], fit_s=full["fit_s"],
+        step_ms=step_ms, train_phase_step_ms=train_rec["step_ms"],
+        fit_over_train_step=step_ms / train_rec["step_ms"],
+        data_wait_ms=float(np.median(full["data_wait_s"])) * 1e3,
+        tokens_per_s=c["B"] * c["S"] / (step_ms / 1e3),
+        graph_device_ms=graph_ms, fit_profile=fit_profile,
+        device_busy_share=fit_profile["device_busy_share"],
+        captures=full["captures"], replays=full["replays"],
+        eager_route=full["eager"], flash_launches=launches,
+        checkpoint=dict(snapshot_s=snapshots, write_s=writes,
+                        bytes=ckpt_bytes, every=c["every"]),
+        round_trip=round_trip,
+        preempted=dict(exit_code=pre_code, latest_step=pre_latest,
+                       losses=pre["losses"], wall_s=pre_wall,
+                       process_s=pre["process_s"]),
+        in_process_restore=dict(step=restored, seconds=restore_s,
+                                losses=in_process,
+                                new_captures=new_captures),
+        resumed=dict(exit_code=res_code, losses=res["losses"],
+                     wall_s=res_wall, process_s=res["process_s"],
+                     until_first_batch_s=res["until_first_batch_s"],
+                     captures=res["captures"], replays=res["replays"],
+                     latest_step=latest_step(pre_dir)),
+        accuracy=acc, accuracy_by_hand=hand, designed_hits=int(hit.sum()),
+        memory=memory,
+        export=dict(seconds=export_s, bytes=art_bytes, eager_ms=eager_ms,
+                    serve_wall_s=serve_wall, **served),
+        max_memory_allocated=peak, card=card_line())
+    print("script", json.dumps(rec), flush=True)
+    full_l, want = full["losses"], full["losses"][c["preempt_after"]:]
+    fails = []
+    # distinct windows of random tokens: the losses stay near ln V
+    if len(full_l) != steps or not all(np.isfinite(full_l)) \
+            or abs(full_l[0] - np.log(net.config.vocab_size)) > 1.0:
+        fails.append(f"losses {full_l}")
+    if full["eager"] or full["captures"] != 1 or full["replays"] != steps - 1:
+        fails.append(f"fit took the eager route or captured again: "
+                     f"{full['captures']} captures, {full['replays']} "
+                     f"replays, eager {full['eager']}")
+    if any(n != net.config.num_layers * steps for n in launches.values()):
+        fails.append(f"flash launches {launches}")
+    if code is not None:
+        fails.append(f"the uninterrupted fit exited with {code}")
+    if not (round_trip["net_equal"] and round_trip["opt_equal"]):
+        fails.append(f"round trip {round_trip}")
+    if pre_code != 101 or pre_latest != c["preempt_after"] \
+            or pre["losses"] != full_l[:c["preempt_after"]]:
+        fails.append(f"preemption: exit {pre_code}, latest {pre_latest}, "
+                     f"losses {pre['losses']}")
+    if restored != c["preempt_after"] or in_process != want \
+            or new_captures != 0:
+        fails.append(f"in-process restore: {restored}, {in_process} vs "
+                     f"{want}, {new_captures} new captures")
+    if res_code != 0 or res["losses"] != want or res["eager"]:
+        fails.append(f"resume: exit {res_code}, {res['losses']} vs {want}")
+    if acc != hand or hand < hit.mean():
+        fails.append(f"accuracy {acc} vs by hand {hand}")
+    if any(a != b for a, b in memory.values()):
+        fails.append(f"memory stats {memory}")
+    for b in ("b8", "b2"):
+        if (served[b + "_launches"] != net.config.num_layers
+                or not served[b + "_finite"]
+                or served[b + "_max_abs_diff"]
+                > SCRIPT_LOGIT_TOL * served[b + "_max_abs_ref"]):
+            fails.append(f"served {b}: {served}")
+    if served["modules"]:
+        fails.append(f"the serving process imported {served['modules']}")
+    del model, net, opt, step, prog, loader, head, ev
+    shutil.rmtree(SCRIPT_DIR, ignore_errors=True)
+    if fails:
+        raise AssertionError("script phase: " + "; ".join(fails))
+    return rec
+
+
+def last_position(torch, net):
+    """The evaluation network: ``net``'s logits at the last position of
+    each window, [B, V] (the shape ``metric.Accuracy`` takes)."""
+
+    class LastPosition(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.net = net
+
+        def forward(self, ids):
+            return self.net(ids)[:, -1]
+
+    return LastPosition()
 
 
 def d128_reading(timing, checked):
@@ -5407,7 +5904,15 @@ def phase(name):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="write the full record to this file")
+    # the script phase's fresh processes (script_worker)
+    ap.add_argument("--script-fit", choices=("preempt", "resume"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--script-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--script-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.script_fit:
+        script_worker(args.script_fit, args.script_dir, args.script_out)
+        return
     import torch
 
     if not torch.cuda.is_available():
@@ -5516,6 +6021,24 @@ def main():
           f"({training['body_step_ms']:.1f} as bodies), "
           f"{training['tokens_per_s']:.0f} tok/s, "
           f"{training['bf16_peak_share']:.3f} of the bf16 peak", flush=True)
+    with phase("script"):
+        script = script_phase(torch, fa, device, training)
+    print(f"script on {card}: fit {script['step_ms']:.1f} ms/step replayed "
+          f"(TrainStep alone {training['step_ms']:.1f}), busy "
+          f"{script['device_busy_share']:.3f}, "
+          f"{script['tokens_per_s']:.0f} tok/s; checkpoint "
+          f"{script['checkpoint']['bytes']} bytes, snapshots "
+          f"{script['checkpoint']['snapshot_s']} s, serialize and commit "
+          f"{script['checkpoint']['write_s']} s; resume "
+          f"{script['resumed']['wall_s']:.1f} s; export "
+          f"{script['export']['seconds']:.1f} s, "
+          f"{script['export']['bytes']} bytes, load "
+          f"{script['export']['load_s']:.1f} s; predictor "
+          f"{script['export']['predictor_ms']:.1f} ms, program "
+          f"{script['export']['program_ms']:.1f} ms, eager forward "
+          f"{script['export']['eager_ms']:.1f} ms; peak "
+          f"{script['max_memory_allocated']} bytes", flush=True)
+    release(torch)
     with phase("long_context"):
         long_ctx = long_context(torch, fa, device)
     for key, r in long_ctx.items():
@@ -5712,7 +6235,11 @@ def main():
                                    if kern == "fwd" else 0),
             "bert_train_launches": bert["train_flash_launches"][kern],
             "core_eager_stack_launches": [
-                x[kern] for x in core["eager_stack"]["flash_launches"]]})
+                x[kern] for x in core["eager_stack"]["flash_launches"]],
+            "script_fit_launches": script["flash_launches"][kern],
+            "script_served_launches": (
+                {b: script["export"][f"{b}_launches"] for b in ("b8", "b2")}
+                if kern == "fwd" else {})})
         t = flash_timing["train_f16"][kern]
         kernels.append({
             "name": f"{name}_f16", "route": "cuda",
@@ -5760,6 +6287,7 @@ def main():
                   dense_profile=gen_profile, batch_serving=batch,
                   degrade=degrade, speculative=spec,
                   train_insitu=train_checks, training=training,
+                  script=script,
                   long_context=long_ctx, train_recipes=recipes,
                   optimizers=optimizers, rnn_lm=lm,
                   flashmask_checks=fm_checks, flashmask_timing=fm_timing,

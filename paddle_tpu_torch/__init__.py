@@ -47,6 +47,14 @@ transformer layers and ``nn.functional``; ``vision.models`` builds the
 ResNet family from it, trained through ``TrainStep`` and the optimizers,
 which take a Layer's parameters with their per-parameter learning rates
 and regularizers.
+
+The training script's surface (slice 16): ``save`` / ``load`` (files
+either package reads), ``framework.checkpoint`` (``CheckpointManager``,
+preemption and resume), ``io`` (``DataLoader`` with worker processes),
+``device``, ``metric``, ``Model`` (``hapi``: ``fit`` through the captured
+``TrainStep``, checkpointed), ``summary`` / ``flops``, ``jit.to_static`` /
+``save`` / ``load`` (a ``torch.export`` program) and
+``inference.create_predictor``.
 """
 from .framework.dtype import (  # noqa: F401
     bfloat16, bool_, complex64, complex128, finfo, float16, float32, float64,
@@ -72,6 +80,10 @@ from . import ops  # noqa: E402
 from .ops import *  # noqa: E402,F401,F403
 from . import autograd, framework, linalg  # noqa: E402,F401
 from . import amp, jit, nn, optimizer, vision  # noqa: E402
+from . import device, inference, io, metric, static  # noqa: E402,F401
+from .framework.io_utils import load, save  # noqa: E402,F401
+from .hapi import Model  # noqa: E402,F401
+from . import hapi  # noqa: E402,F401
 from .bridge import from_paddle_tpu_state, to_paddle_tpu_state
 from .inference import (
     ContinuousGenerateBatchingPredictor,
@@ -97,6 +109,33 @@ from .models import (
     masked_lm_loss,
 )
 
+
+def summary(net, input_size=None, dtypes=None, input=None):
+    """``paddle.summary``: the parameter counts of a network (what
+    ``Model.summary`` prints and returns)."""
+    return Model(net).summary(input_size, dtypes)
+
+
+def flops(net, input_size, custom_ops=None, print_detail=False):
+    """``paddle.flops``: the FLOPs of one forward of ``net`` at a float32
+    input of ``input_size`` (zeros, on the network's device), counted by
+    ``torch.utils.flop_counter`` (matrix products and convolutions; the
+    JAX package counts XLA's cost analysis, elementwise work included)."""
+    import torch as _torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    params = list(_torch.nn.Module.parameters(net))
+    dev = params[0].device if params else _torch.device("cpu")
+    x = _torch.zeros(tuple(input_size), dtype=_torch.float32, device=dev)
+    arg = Tensor(x) if isinstance(net, nn.Layer) else x
+    with _torch.no_grad(), FlopCounterMode(display=False) as counter:
+        net(arg)
+    total = int(counter.get_total_flops())
+    if print_detail:
+        print(f"Total Flops: {total}")
+    return total
+
+
 __all__ = ["GPTConfig", "GPTForCausalLM", "gpt_tiny", "gpt_350m",
            "gpt3_1p3b", "LlamaConfig", "LlamaForCausalLM", "llama2_7b",
            "llama_tiny", "BertConfig", "BertForMaskedLM", "bert_base",
@@ -104,6 +143,8 @@ __all__ = ["GPTConfig", "GPTForCausalLM", "gpt_tiny", "gpt_350m",
            "PagedKVCache", "ContinuousGenerateBatchingPredictor",
            "GenerateBatchingPredictor",
            "InferenceServer", "from_paddle_tpu_state", "to_paddle_tpu_state",
+           "save", "load", "io", "device", "metric", "Model", "summary",
+           "flops", "static", "hapi", "inference",
            "amp", "jit", "nn", "optimizer", "vision", "autograd", "framework",
            "linalg", "ops", "Tensor", "to_tensor", "seed", "get_rng_state",
            "set_rng_state", "no_grad", "enable_grad", "grad",

@@ -43,7 +43,7 @@ import torch
 
 from ..ops._build import recording_launches
 
-__all__ = ["StaticBuffers", "StepRunner", "Capture",
+__all__ = ["StaticBuffers", "StepRunner", "Capture", "CaptureError",
            "first_run_then_capture"]
 
 _ALIGN = 16                 # bytes: every view starts on a 16-byte line
@@ -58,6 +58,12 @@ def _side_stream(device):
     if s is None:
         s = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
     return s
+
+
+class CaptureError(RuntimeError):
+    """The capture of a body failed (the body ran eagerly first, so it is
+    not the body's own error): it synchronised with the host, or read a
+    value a graph cannot hold. The original error is its ``__cause__``."""
 
 
 class Capture:
@@ -91,7 +97,7 @@ def first_run_then_capture(device, first, body, pool=None,
     with the graph (``CUDAGraph.register_generator_state``): the body may
     draw from it, and every replay draws anew from its current state (an
     unregistered generator makes the capture raise). A failed capture
-    raises."""
+    raises ``CaptureError``."""
     with _CAPTURE_LOCK:
         side = _side_stream(device)
         cur = torch.cuda.current_stream(device)
@@ -108,9 +114,11 @@ def first_run_then_capture(device, first, body, pool=None,
                 with torch.cuda.graph(graph, pool=pool, stream=side,
                                       capture_error_mode=error_mode):
                     result = body()
-        except BaseException:
+        except BaseException as e:
             if generators:
                 _end_generator_capture(generators, side)
+            if isinstance(e, Exception):
+                raise CaptureError(f"CUDA graph capture failed: {e}") from e
             raise
         return out, Capture(graph, result, dict(launched),
                             time.perf_counter() - t0)

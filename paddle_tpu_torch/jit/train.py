@@ -39,11 +39,13 @@ sequence into one CUDA graph per key and replays it:
   (``_CAPTURE_MODE``): ``backward()`` launches from autograd's device
   thread, and in this mode an unsafe call from any thread during the
   capture fails it. Nothing in the step may wait on the host (``.item()``,
-  ``.cpu()``, ``nonzero``): the capture raises, and nothing falls back to
-  eager. A call that raises before its capture is made is undone: the
-  state it held (parameters, accumulators, counters, RNG, scheduler) is
-  copied to the host before the first run and restored, so, as in JAX,
-  a failed compile changes nothing.
+  ``.cpu()``, ``nonzero``): the capture raises ``jit.graphs.CaptureError``
+  and the step does not fall back to eager (``hapi.Model`` does, on the
+  same device, and warns). ``captures`` / ``replays`` count the graphs
+  captured and the replays run. A call that raises before its capture is
+  made is undone: the state it held (parameters, accumulators, counters,
+  RNG, scheduler) is copied to the host before the first run and restored,
+  so, as in JAX, a failed compile changes nothing.
 * On the CPU, which the caller asks for explicitly (the tests do), the
   same step runs every call on the same buffers, without capture.
 * A paddle-style model (``nn.Layer``) takes and returns the port's
@@ -197,6 +199,8 @@ class TrainStep:
         self._state_key = None
         self._pool = None
         self._bodies_only = False
+        self.captures = 0               # graphs captured, replays launched
+        self.replays = 0
 
     # ------------------------------------------------------------ the step
     def _split(self, args, kwargs):
@@ -305,10 +309,12 @@ class TrainStep:
                 self.device, lambda: self._body(prog, count_flops),
                 lambda: self._body(prog), self._pool, _CAPTURE_MODE,
                 generators=(default_generator(self.device),))
+            self.captures += 1
             return out, False
         if count_flops:
             return self._body(prog, True), False
         prog.capture.replay()
+        self.replays += 1
         return prog.capture.result, True
 
     @contextlib.contextmanager

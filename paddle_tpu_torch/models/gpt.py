@@ -61,6 +61,7 @@ from .steps import (
     DenseStep,
     PagedStep,
     attend_cached,
+    kernel_serves,
     step_positions,
 )
 
@@ -175,7 +176,7 @@ class GPTAttention(nn.Module):
             out, _ = F.flash_attention(q, k, v, dropout=self.dropout,
                                        causal=True, training=self.training)
         else:
-            kernel = decode_kernel == "kernel"
+            kernel = kernel_serves(decode_kernel, q)
             out = attend_cached(
                 q, k, v, k_pool, v_pool, step,
                 paged_decode_attention if kernel

@@ -41,7 +41,8 @@ from ..ops.paged_attention import (
     paged_decode_attention_ref,
 )
 from .generation import GenerationMixin
-from .steps import DECODE_KERNELS, attend_cached, step_positions
+from .steps import (DECODE_KERNELS, attend_cached, kernel_serves,
+                    step_positions)
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM", "llama2_7b", "llama_tiny"]
@@ -107,7 +108,7 @@ class LlamaAttention(nn.Module):
             out, _ = F.flash_attention(q, k, v, causal=True,
                                        training=self.training)
         else:
-            kernel = decode_kernel == "kernel"
+            kernel = kernel_serves(decode_kernel, q)
             out = attend_cached(
                 q, k, v, k_pool, v_pool, step,
                 paged_decode_attention if kernel

@@ -17,9 +17,20 @@ from ..amp import _amp_cast
 from ..ops.paged_attention import paged_scatter_
 
 __all__ = ["PagedStep", "DenseStep", "DECODE_KERNELS", "step_positions",
-           "attend_cached"]
+           "attend_cached", "kernel_serves"]
 
 DECODE_KERNELS = ("kernel", "plain")
+KERNEL_HEAD_DIMS = (64, 128)    # what the paged and dense kernels take
+
+
+def kernel_serves(decode_kernel, q):
+    """True when the cache branch calls the kernel wrappers: asked for
+    (``decode_kernel="kernel"``), and on CUDA at a head dim the kernels
+    take. Other head dims on CUDA take the plain versions (``*_ref``),
+    chosen before any launch, as JAX computes every head dim; on the CPU
+    the wrappers run their plain versions anyway."""
+    return decode_kernel == "kernel" and (
+        q.device.type != "cuda" or q.shape[-1] in KERNEL_HEAD_DIMS)
 
 
 @dataclass

@@ -14,6 +14,7 @@ with the step's CUDA graph, so each replay draws new masks.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as tF
 
@@ -170,21 +171,69 @@ def _sizes(size):
             for s in sizes]
 
 
+def _cubic_kernel(x):
+    """Keys' cubic convolution kernel with a = -0.5 (JAX's ``bicubic``)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros((), dtype=x.dtype), out)
+
+
+def _triangle_kernel(x):
+    return torch.clamp(1.0 - x.abs(), min=0.0)
+
+
+def _resize_weights(n_in, n_out, kernel):
+    """[n_in, n_out] f64 weights of ``jax.image.resize`` along one axis
+    (``compute_weight_mat``): output j samples input coordinate
+    (j + 0.5) / scale - 0.5 (half-pixel centres); the kernel is widened by
+    1 / scale when shrinking (antialiasing); each column is normalised to
+    sum 1 (zero where the sum is ~0) and zeroed where the sample lies
+    outside the input."""
+    scale = n_out / n_in
+    kscale = max(1.0 / scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float64) + 0.5) / scale - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float64)[:, None]
+         ).abs() / kscale
+    w = kernel(x)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, 1.0),
+                    torch.zeros((), dtype=w.dtype))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros((), dtype=w.dtype))
+
+
+def _separable_resize(v, sizes, kernel):
+    """[N, C, *spatial] resized to ``sizes`` by one weight matrix per
+    resized axis, each applied by a product along that axis, in v's dtype
+    (integer inputs as float32, as JAX promotes them); axes whose size
+    stays are left alone, as in JAX."""
+    if not (v.is_floating_point() or v.is_complex()):
+        v = v.float()
+    for d, s in zip(range(2, v.dim()), sizes):
+        if v.shape[d] == s:
+            continue
+        w = _resize_weights(v.shape[d], s, kernel).to(v.device, v.dtype)
+        v = torch.tensordot(v, w, dims=([d], [0])).movedim(-1, d)
+    return v
+
+
 def interpolate(x, size=None, scale_factor=None, mode="nearest",
                 align_corners=False, align_mode=0, data_format="NCHW",
                 name=None):
     """Resize the spatial axes (JAX's ``jax.image.resize``): ``nearest``
-    with half-pixel centres (torch's ``nearest-exact``), the linear family
+    with half-pixel centres (torch's ``nearest-exact``); the linear family
     (``linear``, ``bilinear``, ``trilinear``; ``area`` is linear, as in
-    JAX) with half-pixel centres and, when shrinking, the kernel widened by
-    the scale (JAX's antialiasing; torch's ``antialias`` for 2-d), or
-    ``align_corners`` sampling at corner-aligned coordinates. ``bicubic``
-    is not ported: JAX's resize uses Keys' a = -0.5 and torch a = -0.75."""
+    JAX) and ``bicubic`` (Keys' kernel with a = -0.5, JAX's; torch's
+    bicubic uses a = -0.75) as one separable resize in any number of
+    dims: half-pixel centres and, when shrinking, the kernel widened by the
+    scale (JAX's antialiasing); or, with ``align_corners``, linear
+    sampling at corner-aligned coordinates (every mode but nearest, as in
+    JAX)."""
     mode = mode.lower()
-    if mode == "bicubic":
-        raise NotImplementedError(
-            "interpolate(mode='bicubic'): jax.image.resize's cubic kernel "
-            "(a = -0.5) has no torch counterpart; not ported")
+    kernels = {"linear": _triangle_kernel, "bilinear": _triangle_kernel,
+               "trilinear": _triangle_kernel, "area": _triangle_kernel,
+               "bicubic": _cubic_kernel}
 
     def f(v):
         chan_last = data_format.endswith("C")
@@ -214,15 +263,7 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest",
                 out = (out.index_select(d, lo) * (1 - w)
                        + out.index_select(d, hi) * w)
         else:
-            linear = {3: "linear", 4: "bilinear", 5: "trilinear"}[nd]
-            shrink = any(s < i for s, i in zip(sizes, in_sizes))
-            if shrink and nd != 4:
-                raise NotImplementedError(
-                    "interpolate: shrinking with the antialiased linear "
-                    "kernel is ported for 2-d inputs only")
-            out = tF.interpolate(v, size=sizes, mode=linear,
-                                 align_corners=False,
-                                 antialias=shrink and nd == 4)
+            out = _separable_resize(v, sizes, kernels[mode])
         return out.movedim(1, -1) if chan_last else out
 
     return apply_like(f, "interpolate", x)

@@ -10,8 +10,12 @@ kernel-against-library times at the training shape are in PERF.md. CPU
 tensors run the kernels' plain versions (or ``_sdpa_core`` for shapes the
 kernels do not take). q and k of different lengths or batches, which
 JAX's Pallas kernel refuses too, take ``_sdpa_core`` on every device, as
-JAX takes its XLA route; other shapes the kernels refuse (kv heads that
-do not divide the q heads, head dims outside 64 and 128) raise on CUDA. ``flashmask_attention`` and ``flash_attn_unpadded``
+JAX takes its XLA route; so do CUDA tensors of head dims the kernels do
+not take (they take 64 and 128; JAX computes every head dim), chosen from
+the shapes before any launch and reported "plain". On the CPU those head
+dims run the kernels' plain version, as every self-attention shape does
+there. kv heads that do not divide the q heads raise on CUDA.
+``flashmask_attention`` and ``flash_attn_unpadded``
 (packed documents, with one set of boundaries for q and k) run the masked
 form of the same kernels. ``sdp_kernel(enable_flash=False)`` switches the
 kernels off for all three, as ``_use_pallas`` does in JAX: they then
@@ -84,13 +88,15 @@ def _takes_kernel(query, key, what):
     """True when the flash kernels' module serves the call: the kernel on
     CUDA, its plain version on CPU. False for the XLA route's plain math:
     sdp_kernel switched the kernels off, q and k of different lengths or
-    batches (``_cross``, JAX's route too, chosen from the shapes before
-    any launch), or CPU tensors of other shapes the kernels do not take.
-    Those other shapes raise on CUDA."""
+    batches (``_cross``, JAX's route too), CUDA tensors of a head dim the
+    kernels do not take (``ops.flash_attention.KERNEL_HEAD_DIMS``), each
+    chosen from the shapes before any launch, or CPU tensors of other
+    shapes the kernels do not take. Those other shapes raise on CUDA."""
     if not _sdp_config["enable_flash"] or _cross(query, key):
         return False
     if _fa.supports(tuple(query.shape), tuple(key.shape)):
-        return True
+        return (query.device.type != "cuda"
+                or query.shape[-1] in _fa.KERNEL_HEAD_DIMS)
     if query.device.type != "cpu":
         raise ValueError(
             f"{what}: no kernel for q {tuple(query.shape)}, k "

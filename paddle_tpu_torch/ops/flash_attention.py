@@ -13,7 +13,10 @@ no ``[B * H, S, D]`` transposes (JAX ``_to_bhsd``, :480-488).
   heads (JAX ``jnp.repeat(kv, n_rep, axis=2)``, :491-494), then
   ``FlashAttentionFunction``, a ``torch.autograd.Function`` whose forward
   runs ``flash_fwd`` and saves ``(q, k, v, out, lse)``, and whose backward
-  computes ``delta`` in f32 and runs ``flash_bwd_dq`` and ``flash_bwd_dkv``.
+  computes ``delta`` in f32 and runs ``flash_bwd_dq`` and ``flash_bwd_dkv``;
+  a call that needs no gradient runs the forward alone. The forward goes
+  through the operator ``torch.ops.paddle_tpu_torch.flash_fwd``
+  (``flash_fwd_op``), which ``torch.export`` keeps in a program.
 * ``flashmask_attention`` — the same with a FlashMask: ``sri``
   (startend_row_indices) ``[B, H' in {1, H}, S, n <= 4]``, cast to int32
   and never broadcast to ``[B, H, S, n]``; ``FlashMaskFunction`` is its
@@ -43,10 +46,12 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
 __all__ = ["flash_attention", "FlashAttentionFunction", "supports",
+           "KERNEL_HEAD_DIMS", "flash_fwd_op",
            "flashmask_attention", "FlashMaskFunction", "flashmask_allowed",
            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flashmask_fwd",
            "flashmask_bwd_dq", "flashmask_bwd_dkv",
@@ -56,7 +61,7 @@ __all__ = ["flash_attention", "FlashAttentionFunction", "supports",
 
 _NEG = torch.finfo(torch.float32).min
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128)      # the head dims the kernels take
 # Limits of kernel_tolerance: twice the unit roundoff of the storage dtype
 # (a value rounded on both sides, or a rounding that flips: bf16 keeps 8
 # significant bits, f16 11), and the slack of f32 sums taken in another
@@ -275,9 +280,9 @@ def _kernel_inputs(what, *tensors):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{what}: the kernel takes float32, bfloat16 or "
                         f"float16, got {q.dtype}")
-    if D not in _HEAD_DIMS:
+    if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{what}: head_dim {D} unsupported by the kernel "
-                         f"{_HEAD_DIMS}")
+                         f"{KERNEL_HEAD_DIMS}")
     out = []
     for t in tensors:
         if t.shape != q.shape:
@@ -455,14 +460,47 @@ for _w in _WRAPPERS.values():
     _w.launches = 0
 
 
+# -------------------------------------------------------------- custom op
+@torch.library.custom_op(
+    "paddle_tpu_torch::flash_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, float scale) "
+           "-> (Tensor, Tensor)")
+def flash_fwd_op(q, k, v, causal, scale):
+    """``flash_fwd`` as the operator ``torch.ops.paddle_tpu_torch.flash_fwd``:
+    on CUDA tensors the kernel (its launch counted on ``flash_fwd``), on
+    CPU tensors the plain version. A traced or exported program
+    (``torch.export``, ``jit.save``) holds the operator, not one backend's
+    body: its ``register_fake`` gives the shapes, and the call runs
+    whichever form the tensors' device takes when the program runs."""
+    return flash_fwd(q, k, v, causal, scale)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_shapes(q, k, v, causal, scale):
+    B, S, H, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((B * H, S), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.paddle_tpu_torch.flash_fwd)
+def _flash_fwd_flops(q_shape, k_shape, v_shape, causal, scale, *args,
+                     **kwargs):
+    """The operator's count for ``torch.utils.flop_counter`` (which does not
+    look inside an operator): the plain version's two products over every
+    (row, column) pair, 2 * 2 * B * H * S * S * D, on any device."""
+    B, S, H, D = q_shape
+    return 4 * B * H * S * S * D
+
+
 # --------------------------------------------------------------- autograd
 class FlashAttentionFunction(torch.autograd.Function):
     """The custom VJP ``_flash`` (:439-455): q, k, v of one shape
-    [B, S, H, D] (kv heads already repeated)."""
+    [B, S, H, D] (kv heads already repeated); the forward is the operator
+    ``flash_fwd_op``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_fwd(q, k, v, causal, scale)
+        out, lse = flash_fwd_op(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
@@ -518,6 +556,9 @@ def flash_attention(q, k, v, causal=False, scale=None):
     each kv head ``H / Hkv`` times (``repeat_interleave``, as ``jnp.repeat``
     on axis 2). Differentiable through the flash backward."""
     k, v = _repeat_kv(q, k, v, "flash_attention")
+    if not (torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return flash_fwd_op(q, k, v, bool(causal), _scale(q, scale))[0]
     return FlashAttentionFunction.apply(q, k, v, bool(causal),
                                         _scale(q, scale))
 

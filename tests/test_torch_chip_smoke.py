@@ -551,3 +551,129 @@ def test_nn_fillin_cases_rehearse_on_the_cpu(one_thread):
     rec = chip_smoke.nn_fillins(torch, "cpu", capture=False)
     assert rec["cases"] == 16
     assert rec["worst"] == {"float64": 0.0, "float32": 0.0}
+
+
+def test_script_phase_rehearses_on_the_cpu(monkeypatch, tmp_path, one_thread):
+    """The script phase's control flow at a toy size on the CPU: a GPT of
+    2 layers, 16 windows of 8 tokens (8 steps), the fresh processes run
+    in this one (``script_worker``, SIGTERM included), the serving process
+    stood in for by its record (the next test runs ``SERVE_SCRIPT``). What
+    only the card gives is reported as failing, and nothing else: no
+    capture here (the step runs as its body), and the served program's
+    kernel launches."""
+    import torch
+
+    from paddle_tpu_torch.framework import device as pdev
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    _stub_card(monkeypatch)
+    for name in ("memory_allocated", "max_memory_reserved"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    monkeypatch.setattr(chip_smoke, "replay_device_ms",
+                        lambda torch, graph, reps=10: 0.0)
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "cpu")
+    monkeypatch.setattr(chip_smoke, "SCRIPT_DIR", str(tmp_path / "script"))
+    monkeypatch.setitem(pdev._current, "place", pdev._current["place"])
+    pdev.set_device("cpu")
+    monkeypatch.setattr(gpt, "gpt_350m", lambda: gpt.GPTConfig(
+        vocab_size=96, hidden_size=64, num_layers=2, num_heads=4,
+        max_position=32))
+    for kind, name in (("fwd", "flash_attention_fwd_ref"),
+                       ("dq", "flash_attention_dq_ref"),
+                       ("dkv", "flash_attention_dkv_ref")):
+        real = getattr(fa, name)
+
+        def counted(*a, _real=real, _kind=kind, **k):
+            fa._WRAPPERS[_kind].launches += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(fa, name, counted)
+    c = dict(chip_smoke.SCRIPT, B=2, S=8, windows=16, eval_windows=4)
+
+    def worker(mode, ckpt_dir, timeout=240):
+        out = str(tmp_path / f"{mode}.json")
+        try:
+            chip_smoke.script_worker(mode, ckpt_dir, out, c, "cpu")
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        import json
+
+        with open(out) as f:
+            return code, json.load(f), 0.0
+
+    monkeypatch.setattr(chip_smoke, "run_script_worker", worker)
+    real_run = chip_smoke.subprocess.run
+
+    def serve(cmd, **kw):
+        if cmd[1] != "-c":
+            return real_run(cmd, **kw)
+        import json
+        import subprocess
+
+        rec = {f"b{n}_{k}": v for n in (8, 2) for k, v in (
+            ("launches", 0), ("finite", True), ("max_abs_diff", 0.0),
+            ("max_abs_ref", 1.0), ("shape", [n, 8, 96]))}
+        rec.update(load_s=0.0, predictor_ms=0.0, program_ms=0.0,
+                   peak_bytes=0, modules=[])
+        with open(cmd[6], "w") as f:
+            json.dump(rec, f)
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", serve)
+    with pytest.raises(AssertionError) as ei:
+        chip_smoke.script_phase(torch, fa, "cpu", {"step_ms": 1.0}, c)
+    fails = str(ei.value).split("; ")
+    assert fails[0].startswith("script phase: fit took the eager route "
+                               "or captured again: 0 captures")
+    assert [f.split(":")[0] for f in fails[1:]] == ["served b8",
+                                                    "served b2"], fails
+
+
+@pytest.fixture(scope="module")
+def served_toy(tmp_path_factory):
+    """``SERVE_SCRIPT``'s record for a toy bf16 GPT exported on the CPU
+    (run once: a fresh process's start is most of it)."""
+    import json
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.models import gpt
+
+    tmp = tmp_path_factory.mktemp("serve")
+    net = gpt.GPTForCausalLM(gpt.GPTConfig(
+        vocab_size=96, hidden_size=64, num_layers=2, num_heads=4,
+        max_position=32), device="cpu", dtype=torch.bfloat16, seed=1).eval()
+    ids = np.random.default_rng(1).integers(0, 96, (8, 16))
+    with torch.no_grad():
+        ref = net(torch.from_numpy(ids))
+    np.save(tmp / "ref.npy", ref.view(torch.int16).numpy())
+    np.save(tmp / "ids.npy", ids)
+    art = str(tmp / "export" / "gpt")
+    P.jit.save(net, art, input_spec=[P.static.InputSpec([None, 16],
+                                                        "int64")])
+    out = str(tmp / "serve.json")
+    r = subprocess.run([sys.executable, "-c", chip_smoke.SERVE_SCRIPT, art,
+                        str(tmp / "ref.npy"), str(tmp / "ids.npy"), out,
+                        "cpu"], capture_output=True, text=True, timeout=240,
+                       cwd=chip_smoke.ROOT)
+    assert r.returncode == 0, r.stderr[-3000:]
+    with open(out) as f:
+        return json.load(f)
+
+
+def test_serve_script_runs_an_export_on_the_cpu(served_toy):
+    """``SERVE_SCRIPT`` (the script phase's serving process) on a toy bf16
+    GPT exported on the CPU: it loads the export through
+    ``create_predictor``, holds both batches' logits to the eager
+    forward's (bit-equal here: the same ops on the same device), and
+    imports nothing of JAX or the JAX package."""
+    rec = served_toy
+    assert rec["b8_shape"] == [8, 16, 96] and rec["b2_shape"] == [2, 16, 96]
+    assert rec["b8_max_abs_diff"] == rec["b2_max_abs_diff"] == 0.0
+    assert rec["b8_finite"] and rec["b2_finite"] and rec["modules"] == []
+    assert rec["b8_launches"] == rec["b2_launches"] == 0     # plain on CPU

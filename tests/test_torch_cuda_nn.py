@@ -205,8 +205,8 @@ def test_nn_fillin_case_on_the_card_matches_the_cpu(cuda, name):
 def test_cross_length_attention_takes_the_plain_route(cuda, form, kb,
                                                       causal):
     """q [2, 128, 4, 64] against k [kb, 192, 4, 64] in bf16: "plain",
-    bit-equal to ``_sdpa_core`` on the same tensors; a head dim of 32 on
-    self-attention shapes still raises."""
+    bit-equal to ``_sdpa_core`` on the same tensors; and so is a head dim
+    of 32 on self-attention shapes."""
     import importlib
 
     F = P.nn.functional
@@ -229,9 +229,15 @@ def test_cross_length_attention_takes_the_plain_route(cuda, form, kb,
                               False, 0.0, False)
     assert F.get_last_attention_backend() == "plain"
     assert torch.equal(out, want)
+    # a head dim no kernel takes (32) on self-attention shapes: the plain
+    # route too, as JAX computes it
     x = q[..., :32].contiguous()
-    with pytest.raises(ValueError, match="head_dim"):
-        F.flash_attention(x, x, x, causal=True)
+    before = P.ops.flash_attention.flash_fwd.launches
+    out = F.flash_attention(x, x, x, causal=True)[0]
+    assert F.get_last_attention_backend() == "plain"
+    assert P.ops.flash_attention.flash_fwd.launches == before
+    assert torch.equal(out, fam._sdpa_core(x, x, x, None, 32 ** -0.5, True,
+                                           0.0, False))
 
 
 @pytest.mark.cuda

@@ -427,3 +427,107 @@ def test_cross_shapes_take_the_plain_route_with_jax_values(form, causal,
     # rows JAX fills with the mean of V where every column is hidden
     # (flashmask) agree too: both routes run the same masked softmax
     np.testing.assert_allclose(got.numpy(), want, atol=FWD_TOL, rtol=FWD_TOL)
+
+
+# ------------------------------------- head dims no kernel takes (16, 32, 96)
+@pytest.mark.parametrize("D", [16, 32, 96])
+@pytest.mark.parametrize("causal", [False, True])
+def test_other_head_dims_match_jax(D, causal):
+    """Head dims the kernels do not take: JAX computes them on its XLA
+    route; the port's three functionals give its values (the kernels'
+    plain versions on the CPU; on CUDA the plain route,
+    ``tests/test_torch_cuda_script.py``)."""
+    import paddle_tpu as P
+    import paddle_tpu.nn.functional as JF
+
+    B, S, H = 2, 40, 4
+    q, k, v = (_rand((B, S, H, D), 110 + i) for i in range(3))
+    want = np.asarray(JF.flash_attention(*map(P.to_tensor, (q, k, v)),
+                                         causal=causal)[0]._value)
+    got, _ = TF.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, atol=FWD_TOL, rtol=FWD_TOL)
+    sri = np.sort(np.random.default_rng(D).integers(
+        S // 2, S + 1, (B, 1, S, 1 if causal else 2)), -1)
+    if not causal:
+        sri[..., 0] = S       # lower band [S, hi): empty, rows keep columns
+    want = np.asarray(JF.flashmask_attention(
+        *map(P.to_tensor, (q, k, v)), P.to_tensor(sri),
+        causal=causal)._value)
+    got = TF.flashmask_attention(_t(q), _t(k), _t(v), torch.from_numpy(sri),
+                                 causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, atol=FWD_TOL, rtol=FWD_TOL)
+    cu = np.array([0, 30, 80], dtype=np.int32)
+    packed = [x.reshape(B * S, H, D) for x in (q, k, v)]
+    scale = 1.0 / math.sqrt(D)
+    want = np.asarray(JF.flash_attn_unpadded(
+        *map(P.to_tensor, packed), P.to_tensor(cu), P.to_tensor(cu), 50, 50,
+        scale, causal=causal)[0]._value)
+    got, _ = TF.flash_attn_unpadded(*map(_t, packed), torch.from_numpy(cu),
+                                    torch.from_numpy(cu), 50, 50, scale,
+                                    causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, atol=FWD_TOL, rtol=FWD_TOL)
+
+
+@pytest.mark.parametrize("D", [16, 32, 96])
+def test_decode_entry_points_at_other_head_dims_match_jax(D):
+    """``decode_attention`` and ``paged_decode_attention`` at head dims no
+    kernel takes: the port's entry points (their plain versions here; the
+    models pick the plain versions on CUDA, ``models.steps.kernel_serves``)
+    against JAX's plain route (``kernel="xla"``)."""
+    from paddle_tpu.ops.pallas import decode_attention as jda
+    from paddle_tpu_torch.ops import decode_attention as tda
+    from paddle_tpu_torch.ops import paged_attention as tpa
+
+    B, S, Hq, Hkv, T = 2, 3, 4, 2, 48
+    q = _rand((B, S, Hq, D), 120)
+    kc, vc = _rand((B, Hkv, T, D), 121), _rand((B, Hkv, T, D), 122)
+    lengths = np.array([20, 41], dtype=np.int32)
+    want = np.asarray(jda.decode_attention_xla(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(lengths)))
+    got = tda.decode_attention(_t(q), _t(kc), _t(vc),
+                               torch.from_numpy(lengths))
+    np.testing.assert_allclose(got.numpy(), want, atol=FWD_TOL, rtol=FWD_TOL)
+    BS, NB = 16, T // 16
+    tables = np.arange(B * NB, dtype=np.int32).reshape(B, NB)
+    pages = [x.transpose(1, 0, 2, 3).reshape(Hkv, B * NB, BS, D)
+             for x in (kc, vc)]
+    got = tpa.paged_decode_attention(_t(q), *map(_t, pages),
+                                     torch.from_numpy(tables),
+                                     torch.from_numpy(lengths))
+    np.testing.assert_allclose(got.numpy(), want, atol=FWD_TOL, rtol=FWD_TOL)
+
+
+_TINY = dict(vocab_size=1024, hidden_size=64, num_layers=2, num_heads=4,
+             max_position=128)
+
+
+@pytest.fixture(scope="module")
+def jax_tiny_forward():
+    """``gpt_tiny()``'s weights and JAX's cache-free logits on seeded ids
+    (computed once: JAX's eager forward compiles op by op)."""
+    import paddle_tpu as P
+    from paddle_tpu.models import gpt as jgpt
+
+    with P.utils.unique_name.guard():
+        P.seed(3)
+        jm = jgpt.GPTForCausalLM(jgpt.GPTConfig(**_TINY))
+    jm.eval()
+    state = {k: np.asarray(v) for k, v in jm.gpt.raw_state().items()}
+    ids = np.random.default_rng(3).integers(0, 1024, (2, 20))
+    return state, ids, np.asarray(jm(P.to_tensor(ids))._value)
+
+
+def test_gpt_tiny_forward_at_its_head_dim_matches_jax(jax_tiny_forward):
+    """``gpt_tiny()`` (head dim 16) on the same weights: the cache-free
+    forward's logits within 1e-5 of JAX's."""
+    from paddle_tpu_torch import from_paddle_tpu_state
+    from paddle_tpu_torch.models import gpt as tgpt
+
+    state, ids, want = jax_tiny_forward
+    tm = from_paddle_tpu_state(state, tgpt.GPTConfig(**_TINY),
+                               device="cpu").eval()
+    with torch.no_grad():
+        got = tm(torch.from_numpy(ids))
+    assert tm.config.hidden_size // tm.config.num_heads == 16
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)

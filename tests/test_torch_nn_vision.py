@@ -90,3 +90,65 @@ def test_grid_sample_keeps_the_kind_and_f64(on_cpu):
     assert type(out) is torch.Tensor and out.dtype == torch.float64
     np.testing.assert_allclose(out.numpy(), torch.nn.functional.grid_sample(
         x, g, align_corners=True).numpy(), rtol=1e-12, atol=1e-12)
+
+
+# ----------------------------------------------- interpolate (bicubic, linear)
+_RESIZE = {   # (input shape NC..., output size, mode): grow and shrink
+    "linear_1d_shrink": ((2, 3, 9), [5], "linear"),
+    "linear_1d_grow": ((2, 3, 9), [17], "linear"),
+    "bicubic_1d_shrink": ((2, 3, 9), [4], "bicubic"),
+    "bicubic_1d_grow": ((2, 3, 9), [20], "bicubic"),
+    "bilinear_shrink": ((2, 3, 9, 7), [4, 3], "bilinear"),
+    "bicubic_2d_grow": ((2, 3, 9, 7), [13, 15], "bicubic"),
+    "bicubic_2d_shrink": ((2, 3, 9, 7), [4, 5], "bicubic"),
+    "bicubic_2d_mixed": ((2, 3, 9, 7), [20, 3], "bicubic"),
+    "trilinear_shrink": ((1, 2, 6, 7, 8), [3, 3, 4], "trilinear"),
+    "trilinear_grow": ((1, 2, 6, 7, 8), [12, 9, 16], "trilinear"),
+    "bicubic_3d_mixed": ((1, 2, 6, 7, 8), [3, 9, 4], "bicubic"),
+    "area_shrink": ((2, 3, 9, 7), [3, 2], "area"),
+}
+
+
+def _resize_body(name):
+    shape, size, mode = _RESIZE[name]
+
+    def body(paddle):
+        F = paddle.nn.functional
+        x = paddle.to_tensor(_r(shape, 11), stop_gradient=False)
+        out = F.interpolate(x, size=size, mode=mode)
+        (out * paddle.to_tensor(_r(out.shape, 12))).sum().backward()
+        res = {"out": npy(out), "gx": npy(x.grad)}
+        if len(shape) == 4:     # channels last, the same resize
+            xl = paddle.to_tensor(np.moveaxis(_r(shape, 11), 1, -1))
+            res["nhwc"] = npy(F.interpolate(xl, size=size, mode=mode,
+                                            data_format="NHWC"))
+        return res
+
+    body.__name__ = f"interpolate_{name}"
+    return body
+
+
+RESIZE_BODIES = [_resize_body(n) for n in _RESIZE]
+
+
+@PKG
+@pytest.mark.parametrize("body", RESIZE_BODIES,
+                         ids=[b.__name__ for b in RESIZE_BODIES])
+def test_interpolate_body(on_cpu, body, pkg):
+    """JAX's ``jax.image.resize``: Keys' cubic (a = -0.5) and the linear
+    kernel, half-pixel centres, widened by the scale when shrinking, in any
+    number of dims (values and input gradients)."""
+    run(body, pkg, rtol=1e-5, atol=1e-6)
+
+
+def test_bicubic_is_not_torchs_kernel(on_cpu):
+    """torch's bicubic (a = -0.75) gives other values: the port does not
+    call it."""
+    import paddle_tpu_torch as tp
+
+    x = torch.from_numpy(_r((1, 1, 6, 6), 13))
+    ours = tp.nn.functional.interpolate(x, size=[12, 12], mode="bicubic")
+    theirs = torch.nn.functional.interpolate(x, size=[12, 12],
+                                             mode="bicubic",
+                                             align_corners=False)
+    assert float((ours - theirs).abs().max()) > 1e-3
