@@ -77,6 +77,27 @@ non-zero without the final line:
    the run, prefix hits, drafted = accepted + wasted, no capture after the
    warmup, a well-formed scrape with the bound families, and the paged
    kernel's launches.
+7c. serve_production — the same model behind a continuous scheduler with
+   an AdapterRegistry (four seeded rank-8 adapters over qkv_proj and
+   gate_up), a TenantLedger (gold, free, metered), an SLOMonitor, a
+   FlightRecorder, a UtilizationLedger and a Tracer, behind
+   InferenceServer (8 slots, chunk 64, block 32, warmup). Gated: base
+   requests bit-identical to a scheduler without a registry; each
+   adapter's greedy tokens, in f32, equal to a registry-free scheduler
+   over merged weights W + (alpha / r) A B up to the first f32 near-tie,
+   through the LoRA prefill / decode programs, the LoRA verify_step (a
+   speculative scheduler) and LoRA generate_paged alike;
+   no capture after the warmup under mixed traffic with a load and an
+   unload in flight; a gold arrival pausing one of 8 free sequences, all
+   tokens unchanged; every tick's FLOPs conserved and the MFU gauge off
+   the card's 989e12 bf16 peak; /slo, /debug/ticks, /utilization and
+   /debug/profile over HTTP with the 400 / 429 taxonomy; a batcher-thread
+   death healed and a torn adapter load refused with the bank intact; a
+   two-replica ReplicaFleet with one capture set per replica. Recorded:
+   tokens/s with adapters against without and monitors on against off
+   (three rounds of 64 requests each, each form's spread beside its
+   median), paged launches per forward, what the replicas' captures added
+   to the model's one graph pool.
 8. dense kernel vs plain — the dense split-KV kernel (decode form up to 16
    query rows per (request, kv head) and in f32, prefill form above) against
    its plain version, within ``decode_attention.kernel_tolerance`` (f32
@@ -2008,6 +2029,601 @@ def serve_knobs(torch, model, device, slots=8, chunk=64, decode_steps=4,
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"serve_knobs: {failed}: {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------- phase 7c
+PROD = dict(slots=8, chunk=64, decode_steps=4, block_size=32,
+            max_seq_len=512, new=48, adapters=4, rank=8, alpha=16.0,
+            requests=16, free=8, spec_k=4, rate_requests=64,
+            turns=("base", "lora", "monitored", "monitored", "lora", "base",
+                   "base", "lora", "monitored"))
+F32_TIE_REL = 1e-4      # f32 near-tie: the LoRA and merged products differ
+                        # by f32 rounding (~1e-6 relative), far below this
+
+
+def lora_factors(reg, seed, rank, scale=0.05):
+    """Seeded (A [in, r], B [r, out]) numpy factors for every target."""
+    rng = np.random.default_rng(seed)
+    return {p: (rng.standard_normal((reg.dims(p)[0], rank))
+                .astype(np.float32) * scale,
+                rng.standard_normal((rank, reg.dims(p)[1]))
+                .astype(np.float32) * scale)
+            for p in reg.target_paths()}
+
+
+def _storm_infer(pred, jobs, timeout=600):
+    """[(prompt, kwargs)] served concurrently -> (outputs, wall seconds);
+    a failed request raises."""
+    outs, errs = [None] * len(jobs), {}
+
+    def client(i):
+        try:
+            outs[i] = np.asarray(pred.infer(jobs[i][0], timeout=timeout,
+                                            **jobs[i][1]))
+        except Exception as e:      # reported below, fails the phase
+            errs[i] = repr(e)
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=client, args=(i,))
+          for i in range(len(jobs))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=timeout)
+    wall = time.perf_counter() - t0
+    if errs or any(o is None for o in outs):
+        raise AssertionError(f"requests failed: {errs}")
+    return outs, wall
+
+
+def rate_ratio(rates, num, den):
+    """Median tokens/s of form ``num`` over form ``den``, with the wider of
+    the two forms' spreads between turns ((max - min) / median); the ratio
+    is resolved only where its gap from 1 is wider than that spread."""
+    med = {f: float(np.median(rates[f])) for f in (num, den)}
+    spread = max((max(rates[f]) - min(rates[f])) / med[f]
+                 for f in (num, den))
+    ratio = med[num] / med[den]
+    return dict(ratio=ratio, spread=spread,
+                resolved=bool(abs(1.0 - ratio) > spread))
+
+
+def _wait_until(cond, limit=600.0):
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > limit:
+            raise AssertionError("condition never held")
+        time.sleep(0.002)
+
+
+def _f32_first_tie(torch, model, seq, plen, device):
+    """Generated positions of ``seq`` before the first f32 near-tie of a
+    cache-free forward over it (all of them when there is none)."""
+    with torch.no_grad():
+        lg = model(torch.as_tensor(seq[None], device=device)).float()[
+            0, plen - 1:-1]
+    top2 = lg.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    scale = lg.abs().amax(dim=-1).cpu().numpy()
+    ties = np.nonzero(gap < F32_TIE_REL * scale)[0]
+    return int(ties[0]) if len(ties) else len(seq) - plen
+
+
+def serve_production(torch, model, device, p=None):
+    """Serving beyond the main path: GPT-350M bf16 behind a continuous
+    scheduler with an ``AdapterRegistry`` (max 8 adapters of rank <= 8 over
+    qkv_proj and gate_up, four seeded adapters), a ``TenantLedger`` (gold:
+    weight 3, priority 0; free: priority 2; metered: 1 token/s for the
+    429), an ``SLOMonitor``, a ``FlightRecorder``, a ``UtilizationLedger``
+    and a ``Tracer``, behind ``InferenceServer``; 8 slots, chunk 64, block
+    32, warmup. Gates, every one failing the run:
+    (a) base requests are bit-identical to a scheduler without a registry;
+    (b) each adapter's greedy tokens equal, in f32, those of a scheduler
+        without a registry over the model with merged weights W + (alpha /
+        r) A B, up to the first f32 near-tie: through a LoRA scheduler, a
+        speculative LoRA scheduler (verify_step with the bank) and LoRA
+        generate_paged (one capture, replayed for every adapter), their
+        paged launches counted;
+    (c) mixed adapter / base / sampled traffic, with a load and an unload
+        while requests run, captures nothing after the warmup;
+    (d) a gold request arriving while 8 free sequences run pauses one, and
+        every free sequence's tokens equal its unpaused run, bit for bit;
+    (e) every tick conserves its integer FLOPs, and the MFU gauge reads
+        off the card's 989e12 bf16 peak;
+    (f) /slo, /debug/ticks, /utilization and /debug/profile answer over
+        HTTP, with the X-Adapter / X-Tenant 400 and 429 taxonomy;
+    (g) an injected batcher.tick ThreadDeath is restarted by the
+        Supervisor and serving goes on; a lora.load fault leaves the
+        registry and its bank as they were;
+    (h) a two-replica ReplicaFleet over the model answers requests, each
+        replica with one capture set over its own pool.
+    Recorded: tokens/s with adapters against the same traffic without,
+    monitors on against off (three rounds of ``rate_requests`` requests
+    a form, each form's spread between turns beside its median, and a
+    ratio called unresolved where that spread is wider than its gap), row
+    1's launches per forward, captures per replica, what the replicas'
+    captures added to the model's one graph pool, the bank's bytes."""
+    from paddle_tpu_torch.inference import (
+        AdapterRegistry,
+        ContinuousGenerateBatchingPredictor,
+        FaultInjector,
+        InferenceServer,
+        PagedKVCache,
+        ReplicaFleet,
+        ThreadDeath,
+    )
+    from paddle_tpu_torch.inference.qos import TenantLedger
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.observability import (
+        SLOMonitor,
+        Tracer,
+        UtilizationLedger,
+        device_peak_flops,
+    )
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    p = dict(PROD, **(p or {}))
+    t_phase = time.perf_counter()
+    S, C, T, new = p["slots"], p["chunk"], p["decode_steps"], p["new"]
+    spec = model._decode_cache_spec()
+    L = spec[0]
+    V = model.config.vocab_size
+    rng = np.random.default_rng(53)
+    targets = ("qkv_proj", "gate_up")
+
+    def pool(m=model, dtype=torch.bfloat16):
+        return PagedKVCache(*m._decode_cache_spec(),
+                            block_size=p["block_size"],
+                            num_blocks=S * p["max_seq_len"]
+                            // p["block_size"], dtype=dtype, device=device)
+
+    base = dict(max_slots=S, prefill_chunk=C, decode_steps=T,
+                max_new_tokens=new, max_seq_len=p["max_seq_len"],
+                device=device)
+
+    def prompts(n, lo=32, hi=200):
+        return [rng.integers(0, V, int(rng.integers(lo, hi + 1)))
+                .astype(np.int64) for _ in range(n)]
+
+    faults = FaultInjector()
+    reg = AdapterRegistry(model, max_adapters=8, max_rank=8,
+                          targets=targets, faults=faults)
+    names = [f"ad{i}" for i in range(p["adapters"])]
+    factors = {n: lora_factors(reg, 100 + i, p["rank"])
+               for i, n in enumerate(names)}
+    for n in names:
+        reg.register(n, factors[n], alpha=p["alpha"])
+    led = TenantLedger()
+    led.register("gold", weight=3.0, priority=0)
+    led.register("free", weight=1.0, priority=2)
+    led.register("metered", rate=1.0, burst=64.0)
+    mon = SLOMonitor({"ttft_p95_ms": 60000.0, "tpot_p99_ms": 60000.0,
+                      "availability": 0.99})
+    util = UtilizationLedger(device=device)
+    tracer = Tracer()
+    kv = pool()
+    gp = ContinuousGenerateBatchingPredictor(
+        model, kv_cache=kv, adapters=reg, qos=led, slo=mon,
+        flight_recorder=True, utilization=util, tracer=tracer,
+        faults=faults, warmup=True, **base)
+    ticks = []
+    tick_end = util.tick_end
+
+    def counted_tick_end():         # every tick's split, for gate (e)
+        t = tick_end()
+        if t is not None:
+            ticks.append(t)
+        return t
+
+    util.tick_end = counted_tick_end
+    plain = ContinuousGenerateBatchingPredictor(
+        model, kv_cache=pool(), warmup=True,
+        tracer=Tracer(enabled=False), **base)
+    quiet = ContinuousGenerateBatchingPredictor(
+        model, kv_cache=pool(), adapters=reg, warmup=True,
+        tracer=Tracer(enabled=False), **base)
+    srv = None
+    try:
+        _wait_until(lambda: gp.ready() and plain.ready() and quiet.ready())
+        warm = {k: r.captures for k, r in model._runner_cache().items()
+                if ("pool", kv.uid) in k}
+
+        # (a) + the main path: base traffic, then mixed traffic with a
+        # load and an unload in flight, then the preemption round
+        base_prompts = prompts(p["free"])
+        pa.paged_decode_attention.launches = 0      # main path starts here
+        snap0 = gp.metrics.snapshot()
+        base_lora = [np.asarray(gp.infer(q, timeout=600))
+                     for q in base_prompts]
+        # the mixed traffic routes ad0-ad2 and base; meanwhile ad_late is
+        # loaded and the idle ad3 unloaded
+        live = names[:-1]
+        mixed = [(q, (dict(adapter=live[i % len(live)]) if i % 5 else {})
+                  | (dict(temperature=0.8, top_k=40) if i % 4 == 3 else {})
+                  | dict(tenant="free" if i % 2 else "gold"))
+                 for i, q in enumerate(prompts(p["requests"]))]
+        churn = {}
+
+        def churn_bank():       # load and unload while requests run
+            _wait_until(lambda: gp._phase_count(None) > 0)
+            reg.register("ad_late", lora_factors(reg, 99, p["rank"]),
+                         alpha=p["alpha"])
+            churn["unloaded"] = reg.unregister(names[-1])
+            churn["live_at_unload"] = gp._phase_count(None)
+
+        ct = threading.Thread(target=churn_bank)
+        ct.start()
+        mixed_outs, mixed_wall = _storm_infer(gp, mixed)
+        ct.join(timeout=600)
+        reg.unregister("ad_late")
+        reg.register(names[-1], factors[names[-1]], alpha=p["alpha"])
+        # 8 free sequences, then the same 8 with a gold request arriving
+        # once they hold every slot: it pauses one of them
+        free_jobs = [(q, dict(tenant="free"))
+                     for q in prompts(p["free"], 64, 96)]
+        gold_job = (prompts(1)[0], dict(tenant="gold"))
+        ref_free, _ = _storm_infer(gp, free_jobs)
+        ref_gold = np.asarray(gp.infer(gold_job[0], timeout=600,
+                                       **gold_job[1]))
+        pre0 = gp.metrics.get("preempted_seqs")
+        res0 = gp.metrics.get("resumed_seqs")
+        box = {}
+        ft = threading.Thread(target=lambda: box.update(
+            free=_storm_infer(gp, free_jobs)[0]))
+        ft.start()
+        _wait_until(lambda: sum(s is not None for s in gp._slots) == S)
+        got_gold = np.asarray(gp.infer(gold_job[0], timeout=600,
+                                       **gold_job[1]))
+        ft.join(timeout=600)
+        launches = pa.paged_decode_attention.launches   # main path ends
+        snap1 = gp.metrics.snapshot()
+
+        def ticked(kind):
+            return snap1.get(kind, 0) - snap0.get(kind, 0)
+        forwards = ticked("prefill_ticks") + T * ticked("decode_ticks")
+        paused = gp.metrics.get("preempted_seqs") - pre0
+        resumed = gp.metrics.get("resumed_seqs") - res0
+        after = {k: r.captures for k, r in model._runner_cache().items()
+                 if ("pool", kv.uid) in k}
+        recompiles = sum(c.value for _, c in
+                         gp._recompile_counter.children())
+        base_plain = [np.asarray(plain.infer(q, timeout=600))
+                      for q in base_prompts]
+
+        # rates: base / lora / monitored, in turns
+        rate_jobs = [(q, {}) for q in prompts(p["rate_requests"])]
+        lora_jobs = [(q, dict(adapter=names[i % len(names)]))
+                     for i, (q, _) in enumerate(rate_jobs)]
+        rates = {"base": [], "lora": [], "monitored": []}
+        for form in p["turns"]:
+            pred, jobs = {"base": (plain, rate_jobs),
+                          "lora": (quiet, lora_jobs),
+                          "monitored": (gp, lora_jobs)}[form]
+            outs, wall = _storm_infer(pred, jobs)
+            rates[form].append(sum(len(o) - len(q) for o, (q, _) in
+                                   zip(outs, jobs)) / wall)
+
+        # (e) the conservation of every tick so far, and the MFU gauge
+        conserved = bool(ticks) and all(
+            t["issued"] == t["useful"] + t["pad"] + t["spec_waste"]
+            and sum(t["tenants"].values()) == t["useful"] for t in ticks)
+        usnap = util.snapshot()
+
+        # (f) HTTP
+        srv = InferenceServer(gp, device=device, default_timeout=600).start()
+        http = {}
+        q = prompts(1)[0]
+        for name, path, body, hdrs in (
+                ("generate_adapter", "/generate", q, {"X-Adapter": "ad0",
+                                                      "X-Tenant": "gold"}),
+                ("unknown_adapter", "/generate", q, {"X-Adapter": "nope"}),
+                ("empty_tenant", "/generate", q, {"X-Tenant": " "}),
+                ("unknown_tenant", "/generate", q, {"X-Tenant": "nope"}),
+                ("metered", "/generate", q, {"X-Tenant": "metered"}),
+                ("slo", "/slo", None, None),
+                ("ticks", "/debug/ticks?last=4", None, None),
+                ("utilization", "/utilization", None, None),
+                ("profile", "/debug/profile?ms=200", None, None),
+                ("prom", "/metrics?format=prom", None, None)):
+            status, h, raw = _http(srv.port, path,
+                                   None if body is None else _npz(body),
+                                   hdrs)
+            http[name] = dict(status=status, retry_after=h.get(
+                "Retry-After"), body=raw)
+        prom = http["prom"]["body"].decode()
+        mfu_line = next((ln for ln in prom.splitlines()
+                         if ln.startswith("paddle_serving_mfu{")), None)
+
+        # (g) faults
+        restarts0 = gp._sup.restarts
+        faults.install("batcher.tick", error=ThreadDeath(), times=1)
+        _wait_until(lambda: faults.fired("batcher.tick") == 1)
+        healed = np.asarray(gp.infer(q, timeout=600))
+        restarts = gp._sup.restarts - restarts0
+        before = ({n: reg.acquire(n) for n in reg.names()}, reg.stats(),
+                  {k: float(t.double().abs().sum()) for k, t in
+                   reg.bank()["b"].items()})
+        for n in before[0]:
+            reg.release(before[0][n][0])
+        faults.install("lora.load", error=IOError("torn artifact"), times=1)
+        try:
+            reg.register("torn", factors[names[0]])
+            torn = "registered"
+        except IOError:
+            torn = "refused"
+        after_fault = ({n: reg.acquire(n) for n in reg.names()},
+                       reg.stats(),
+                       {k: float(t.double().abs().sum()) for k, t in
+                        reg.bank()["b"].items()})
+        for n in after_fault[0]:
+            reg.release(after_fault[0][n][0])
+    finally:
+        if srv is not None:
+            srv.stop(drain_timeout=60)
+        for pr in (gp, plain, quiet):
+            pr.close()
+    served_rows = {"tokens": int(sum(len(o) - len(q) for o, (q, _) in
+                                     zip(mixed_outs, mixed)))}
+
+    # (b) f32: LoRA against merged weights, each adapter
+    m32 = GPTForCausalLM(model.config, device=device, dtype=torch.float32,
+                         seed=0)
+    reg32 = AdapterRegistry(m32, max_adapters=8, max_rank=8,
+                            targets=targets)
+    rows32 = {n: reg32.register(n, factors[n], alpha=p["alpha"])
+              for n in names}
+    g32 = ContinuousGenerateBatchingPredictor(
+        m32, kv_cache=pool(m32, torch.float32), adapters=reg32,
+        tracer=Tracer(enabled=False), **base)
+    kv_spec = pool(m32, torch.float32)
+    g32s = ContinuousGenerateBatchingPredictor(
+        m32, kv_cache=kv_spec, adapters=reg32, spec_k=p["spec_k"],
+        tracer=Tracer(enabled=False), **base)
+    merged = GPTForCausalLM(model.config, device=device,
+                            dtype=torch.float32, seed=0)
+    mods = dict(torch.nn.Module.named_modules(merged._decode_layer()))
+    orig = {path: mods[path].weight.detach().clone()
+            for path in reg32.target_paths()}
+    gm = ContinuousGenerateBatchingPredictor(
+        merged, kv_cache=pool(merged, torch.float32),
+        tracer=Tracer(enabled=False), **base)
+    # generate_paged, LoRA and merged: prompts right-padded to the
+    # prompts' longest (one key, so every adapter replays one capture)
+    B_pg, P_pg = 2, 200
+    kv_pg, kv_pm = pool(m32, torch.float32), pool(merged, torch.float32)
+    tab_pg = np.stack([kv_pg.reserve(("pg", b), P_pg + new)
+                       for b in range(B_pg)])
+    tab_pm = np.stack([kv_pm.reserve(("pg", b), P_pg + new)
+                       for b in range(B_pg)])
+    b_rec = {}
+    spec_launches = spec_forwards = pg_launches = pg_calls = 0
+    try:
+        for n in names:
+            with torch.no_grad():
+                for path, (a, b) in factors[n].items():
+                    mods[path].weight.copy_(orig[path] + torch.as_tensor(
+                        a @ b * (p["alpha"] / p["rank"]), device=device))
+            qs = prompts(2)
+            lora_outs, _ = _storm_infer(g32, [(q, dict(adapter=n))
+                                              for q in qs])
+            merged_outs, _ = _storm_infer(gm, [(q, {}) for q in qs])
+            s0 = g32s.metrics.snapshot()
+            pa.paged_decode_attention.launches = 0
+            spec_outs, _ = _storm_infer(g32s, [(q, dict(adapter=n))
+                                               for q in qs])
+            spec_launches += pa.paged_decode_attention.launches
+            s1 = g32s.metrics.snapshot()
+            spec_forwards += sum(s1.get(k, 0) - s0.get(k, 0) for k in
+                                 ("prefill_ticks", "verify_ticks"))
+            ids = np.zeros((B_pg, P_pg), np.int64)
+            for b, qb in enumerate(qs):
+                ids[b, :len(qb)] = qb
+            plens = np.array([len(qb) for qb in qs])
+            pa.paged_decode_attention.launches = 0
+            pg_lora = m32.generate_paged(
+                ids, plens, kv_pg, tab_pg, max_new_tokens=new,
+                adapters=reg32, adapter_slots=[rows32[n]] * B_pg)
+            pg_launches += pa.paged_decode_attention.launches
+            pg_calls += 1
+            pg_merged = merged.generate_paged(ids, plens, kv_pm, tab_pm,
+                                              max_new_tokens=new)
+            cmp, cmp_pg, eq, eq_spec, eq_pg = 0, 0, True, True, True
+            for b, (qb, lo, mo, so) in enumerate(zip(qs, lora_outs,
+                                                     merged_outs,
+                                                     spec_outs)):
+                c = _f32_first_tie(torch, merged, mo, len(qb), device)
+                cmp += c
+                eq &= bool(np.array_equal(lo[:len(qb) + c],
+                                          mo[:len(qb) + c]))
+                eq_spec &= bool(np.array_equal(so[:len(qb) + c],
+                                               mo[:len(qb) + c]))
+                # generate_paged's own reference: the merged model's
+                # generate_paged, up to its first near-tie
+                seq = np.concatenate([qb, pg_merged[b]])
+                cp = _f32_first_tie(torch, merged, seq, len(qb), device)
+                cmp_pg += cp
+                eq_pg &= bool(np.array_equal(pg_lora[b, :cp],
+                                             pg_merged[b, :cp]))
+            b_rec[n] = dict(equal=eq, compared_tokens=cmp,
+                            generated=2 * new, speculative_equal=eq_spec,
+                            generate_paged_equal=eq_pg,
+                            generate_paged_compared=cmp_pg)
+        spec_keys = [k for k in m32._runner_cache()
+                     if ("pool", kv_spec.uid) in k]
+        pg_run = [r for k, r in m32._runner_cache().items()
+                  if k[0] == "paged" and ("pool", kv_pg.uid) in k]
+        lora_paths = dict(
+            speculative=dict(
+                launches=spec_launches, forwards=spec_forwards,
+                programs=sorted(k[0] for k in spec_keys),
+                lora_verify=any(k[0] == "verify_step"
+                                and k[-1] == ("bank", reg32.uid)
+                                for k in spec_keys),
+                verify_ticks=g32s.metrics.get("verify_ticks"),
+                accepted=g32s._spec_accepted, drafted=g32s._spec_drafted),
+            generate_paged=dict(
+                calls=pg_calls, launches=pg_launches,
+                captures=[r.captures for r in pg_run],
+                replays=[r.replays for r in pg_run]))
+    finally:
+        for b in range(B_pg):
+            kv_pg.release(("pg", b))
+            kv_pm.release(("pg", b))
+        g32.close()
+        g32s.close()
+        gm.close()
+        reg32.close()
+    del m32, merged
+    torch.cuda.empty_cache()
+
+    # (h) a two-replica fleet over the one model
+    fleet_rec = {}
+    gp0, al0 = graph_pool_bytes(torch, model), torch.cuda.memory_allocated()
+    fleet = ReplicaFleet.build(model, n_replicas=1, warmup=True,
+                               tracer=Tracer(enabled=False), **base)
+    try:
+        r0 = fleet._by_name("r0").predictor
+        _wait_until(r0.ready)
+        gp1, al1 = (graph_pool_bytes(torch, model),
+                    torch.cuda.memory_allocated())
+        fleet.add_replica(warmup=True)
+        r1 = fleet._by_name("r1").predictor
+        _wait_until(r1.ready)
+        gp2, al2 = (graph_pool_bytes(torch, model),
+                    torch.cuda.memory_allocated())
+
+        def caps(pr):
+            return {k: r.captures for k, r in model._runner_cache().items()
+                    if ("pool", pr.kv_cache.uid) in k}
+        warm_caps = [caps(r0), caps(r1)]
+        fleet_outs, fleet_wall = _storm_infer(
+            fleet, [(q, {}) for q in prompts(p["requests"])])
+        fleet_rec = dict(
+            replicas=fleet.replica_states(),
+            captures_per_replica=[sum(c.values()) for c in warm_caps],
+            keys_per_replica=[len(c) for c in warm_caps],
+            captures_after=[sum(caps(r).values()) for r in (r0, r1)],
+            # the replicas' captures all allocate from the model's one
+            # graph pool, which reuses the segments that the closed
+            # schedulers' captures freed: what each replica's warmup added
+            # to that shared pool, and the pool's total after both. Each
+            # replica's own memory is its allocation growth: its KV pool
+            # (kv_pool_bytes) and its runners' buffers
+            shared_graph_pool_growth_bytes=[
+                None if gp1 is None or gp0 is None else gp1 - gp0,
+                None if gp2 is None or gp1 is None else gp2 - gp1],
+            shared_graph_pool_total_bytes=gp2,
+            allocated_bytes=[al1 - al0, al2 - al1],
+            kv_pool_bytes=[sum(t.numel() * t.element_size()
+                               for t in (*r.kv_cache.k_pages,
+                                         *r.kv_cache.v_pages))
+                           for r in (r0, r1)],
+            served=sum(1 for o in fleet_outs if o is not None),
+            dispatch={rep.name: rep.predictor.metrics.get("completed")
+                      for rep in fleet._snapshot()},
+            wall_s=fleet_wall)
+    finally:
+        fleet.close()
+    reg.close()
+
+    peak = device_peak_flops(device)
+    rec = dict(
+        config=dict(p, targets=list(targets), bank_bytes=reg.bank_bytes(),
+                    tenants=led.tenant_names()),
+        base_bit_identical=all(np.array_equal(a, b) for a, b in
+                               zip(base_lora, base_plain)),
+        adapters_vs_merged_f32=b_rec,
+        mixed=dict(requests=len(mixed), wall_s=mixed_wall,
+                   unloaded_row=churn.get("unloaded"),
+                   live_at_unload=churn.get("live_at_unload"),
+                   **served_rows),
+        captures_after_warm=sum(after.values()) - sum(warm.values()),
+        warm_keys=len(warm), recompiles=recompiles,
+        preemption=dict(paused=paused, resumed=resumed, free_equal=bool(all(
+                np.array_equal(a, b) for a, b in zip(box["free"],
+                                                     ref_free))),
+            gold_equal=bool(np.array_equal(got_gold, ref_gold))),
+        utilization=dict(ticks=len(ticks), conserved=conserved,
+                         peak_flops=util.peak_flops,
+                         card_peak_flops=peak, mfu=usnap["mfu"],
+                         mfu_line=mfu_line, flops=usnap["flops"],
+                         useful_ratio=usnap.get("useful_ratio"),
+                         host_gap_p50_s=usnap.get("host_gap_p50_s")),
+        http={k: dict(status=v["status"], retry_after=v["retry_after"])
+              for k, v in http.items()},
+        faults=dict(restarts=restarts, healed_tokens=len(healed) - len(q),
+                    lora_load=torn, registry_intact=(
+                        before[0] == after_fault[0]
+                        and before[1] == after_fault[1]
+                        and before[2] == after_fault[2])),
+        fleet=fleet_rec,
+        kernel_launches=launches, forwards=forwards,
+        launches_per_forward=launches / forwards if forwards else None,
+        rates_tok_per_s=rates,
+        rate_turns=dict(requests=len(rate_jobs), new_tokens=new,
+                        turns=list(p["turns"])),
+        adapters_over_base=rate_ratio(rates, "lora", "base"),
+        monitored_over_quiet=rate_ratio(rates, "monitored", "lora"),
+        lora_paths=lora_paths,
+        wall_s=time.perf_counter() - t_phase)
+    print("serve-production", json.dumps(rec, default=str), flush=True)
+    checks = {
+        "(a) base traffic bit-identical to no registry":
+            rec["base_bit_identical"],
+        "(b) adapters equal merged weights in f32": all(
+            r["equal"] and r["compared_tokens"] > 0
+            for r in b_rec.values()) and len(b_rec) == len(names),
+        "(b) speculative LoRA (verify_step with the bank) equals merged": (
+            all(r["speculative_equal"] for r in b_rec.values())
+            and lora_paths["speculative"]["lora_verify"]
+            and lora_paths["speculative"]["verify_ticks"] > 0
+            and lora_paths["speculative"]["launches"]
+            == L * lora_paths["speculative"]["forwards"] > 0),
+        "(b) LoRA generate_paged equals merged, one capture replayed": (
+            all(r["generate_paged_equal"] and r["generate_paged_compared"]
+                > 0 for r in b_rec.values())
+            and lora_paths["generate_paged"]["launches"]
+            == L * new * pg_calls > 0
+            and lora_paths["generate_paged"]["captures"]
+            == [0 if str(device) == "cpu" else 1]),
+        "(c) no capture after warmup under mixed traffic and churn": (
+            rec["captures_after_warm"] == 0 and recompiles == 0
+            and len(warm) == 2 and churn.get("unloaded") is not None
+            and churn.get("live_at_unload", 0) > 0),
+        "(d) a gold arrival pauses a free sequence, tokens unchanged": (
+            paused >= 1 and rec["preemption"]["resumed"] >= 1
+            and rec["preemption"]["free_equal"]
+            and rec["preemption"]["gold_equal"]),
+        "(e) utilization conserved, MFU off the card's peak": (
+            conserved and peak is not None
+            and util.peak_flops == peak == PEAK_FLOPS["bfloat16"]
+            and mfu_line is not None),
+        "(f) HTTP routes and the 400 / 429 taxonomy": (
+            http["generate_adapter"]["status"] == 200
+            and http["unknown_adapter"]["status"] == 400
+            and http["empty_tenant"]["status"] == 400
+            and http["unknown_tenant"]["status"] == 400
+            and http["metered"]["status"] == 429
+            and int(http["metered"]["retry_after"]) >= 1
+            and all(http[k]["status"] == 200 for k in
+                    ("slo", "ticks", "utilization", "profile", "prom"))),
+        "(g) thread death healed, a torn load leaves the registry": (
+            restarts >= 1 and len(healed) > len(q) and torn == "refused"
+            and rec["faults"]["registry_intact"]),
+        "(h) two replicas, one capture set each": (
+            fleet_rec.get("served") == p["requests"]
+            and all(v == "ready" for v in fleet_rec["replicas"].values())
+            and fleet_rec["keys_per_replica"] == [2, 2]
+            and fleet_rec["captures_after"]
+            == fleet_rec["captures_per_replica"]
+            and all(v > 0 for v in fleet_rec["dispatch"].values())),
+        "paged launches = layers x forwards": (launches == L * forwards
+                                               and launches > 0),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"serve_production: {failed}: {rec}")
     return rec
 
 
@@ -5979,6 +6595,24 @@ def main():
           f"indexed rows vs cold {max(knobs['prefix_rows']['rel']):.2e} "
           f"(swapped page {knobs['prefix_rows']['control']:.2e})",
           flush=True)
+    with phase("serve_production"):
+        prod = serve_production(torch, model, device)
+    r = prod["rates_tok_per_s"]
+
+    def ratio(d):
+        return (f"{d['ratio']:.3f}, turn spread {d['spread']:.3f}, "
+                f"{'resolved' if d['resolved'] else 'unresolved'}")
+    print(f"serve_production on {card}: {np.median(r['lora']):.0f} tok/s "
+          f"with adapters against {np.median(r['base']):.0f} without "
+          f"({ratio(prod['adapters_over_base'])}), monitors on "
+          f"{np.median(r['monitored']):.0f} "
+          f"({ratio(prod['monitored_over_quiet'])} of off), "
+          f"{prod['launches_per_forward']:.0f} paged launches a "
+          f"forward, captures per replica "
+          f"{prod['fleet']['captures_per_replica']}, shared graph pool "
+          f"grown by {prod['fleet']['shared_graph_pool_growth_bytes']} "
+          f"bytes by the replicas' warmups, "
+          f"{prod['wall_s']:.1f} s", flush=True)
     del model
     torch.cuda.empty_cache()
     with phase("dense_checks_and_times"):
@@ -6145,6 +6779,7 @@ def main():
         "replaces": "paddle_tpu/ops/pallas/decode_attention.py:245",
         "launches": serving["kernel_launches"],
         "serve_knobs_launches": knobs["kernel_launches"],
+        "serve_production_launches": prod["kernel_launches"],
         "batch_serve_launches": batch["paged_launches"],
         "max_abs_err": worst["bfloat16"],
         "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
@@ -6280,7 +6915,7 @@ def main():
                   dense_timing_f16=dense_timing_f16, f16_serve=f16,
                   core=core,
                   insitu=insitu, profile=steps, serving=serving,
-                  serve_knobs=knobs,
+                  serve_knobs=knobs, serve_production=prod,
                   flash_checks=flash_checks, flash_timing=flash_timing,
                   dense_checks=dense_checks, dense_timing=dense_timing,
                   dense_insitu=gen_insitu, generation=gen,

@@ -32,8 +32,8 @@ its synchronous flush the loop raises ``PreemptionExit`` with
 ``ELASTIC_EXIT_CODE`` (101), the code an elastic launcher restarts on.
 ``monitor`` and ``injector`` are duck-typed as in JAX
 (``checkpoint_phase`` / ``checkpoint_result``; ``check(site)`` /
-``monotonic()``); the port has no ``StepMonitor`` or fault injector of its
-own.
+``monotonic()``): ``inference.faults.FaultInjector`` is an injector; the
+port has no ``StepMonitor`` yet.
 """
 from __future__ import annotations
 

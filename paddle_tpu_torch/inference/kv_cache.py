@@ -21,8 +21,9 @@ handed out, indexed, parked or counted.
 With a ``PrefixCache`` attached (``attach_prefix_cache``), a reservation
 can lead with shared blocks (``reserve(..., shared=pairs)``), release frees
 a block only when its last holder lets go, and a refcount-zero indexed
-block parks in the prefix tier instead of freeing. Fault injection and
-mesh sharding of the JAX class are not ported.
+block parks in the prefix tier instead of freeing. ``faults=`` (an
+``inference.faults.FaultInjector``) checks ``kv.reserve`` and
+``kv.allocate``. Mesh sharding of the JAX class is not ported.
 """
 from __future__ import annotations
 
@@ -49,10 +50,11 @@ class BlockAllocator:
     """Fixed-population free-list block allocator with LIFO reuse (the most
     recently freed block is handed out first)."""
 
-    def __init__(self, num_blocks: int):
+    def __init__(self, num_blocks: int, faults=None):
         self.num_blocks = int(num_blocks)
         self._free = list(range(self.num_blocks - 1, -1, -1))
         self._live: set[int] = set()
+        self._faults = faults   # FaultInjector | None
 
     @property
     def available(self) -> int:
@@ -63,6 +65,8 @@ class BlockAllocator:
         return self.num_blocks - len(self._free)
 
     def allocate(self, n: int) -> list[int]:
+        if self._faults is not None:
+            self._faults.check("kv.allocate")   # may raise CacheOutOfBlocks
         if n > len(self._free):
             raise CacheOutOfBlocks(
                 f"need {n} blocks, {len(self._free)} free of {self.num_blocks}")
@@ -99,7 +103,8 @@ class PagedKVCache:
     the caller passes ``device="cpu"``."""
 
     def __init__(self, num_layers, num_kv_heads, head_dim, block_size=128,
-                 num_blocks=64, dtype=torch.bfloat16, device="cuda"):
+                 num_blocks=64, dtype=torch.bfloat16, device="cuda",
+                 faults=None):
         self.num_layers = int(num_layers)
         self.num_kv_heads = int(num_kv_heads)
         self.head_dim = int(head_dim)
@@ -115,7 +120,8 @@ class PagedKVCache:
         self.v_pages = [torch.zeros(shape, dtype=self.dtype,
                                     device=self.device)
                         for _ in range(self.num_layers)]
-        self.allocator = BlockAllocator(self.num_blocks)
+        self.allocator = BlockAllocator(self.num_blocks, faults=faults)
+        self._faults = faults
         # the captured step programs hold these pools' addresses: their
         # cache keys carry this id, never reused by another cache
         self.uid = next(_UIDS)
@@ -217,6 +223,8 @@ class PagedKVCache:
         was — nothing is evicted when eviction still could not cover the
         allocation, and a failed reservation re-parks what it acquired."""
         with self._lock:
+            if self._faults is not None:
+                self._faults.check("kv.reserve")  # injected pool-dry faults
             if request_id in self._requests:
                 raise ValueError(f"request {request_id!r} already reserved")
             n = self.blocks_for(max_seq_len)
@@ -367,6 +375,11 @@ class PagedKVCache:
         """Blocks that two or more request tables hold."""
         with self._lock:
             return sum(1 for v in self._block_refs.values() if v > 1)
+
+    @property
+    def utilization(self) -> float:
+        """Fraction of the pool's blocks allocated (retained ones too)."""
+        return self.allocator.in_use / self.num_blocks
 
     @property
     def live_utilization(self) -> float:

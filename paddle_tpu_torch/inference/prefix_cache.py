@@ -27,8 +27,17 @@ Sharing is copy-on-write at block granularity, and never copies:
 Locking: this index has its own ``threading.RLock``, and the order is
 ``PagedKVCache._lock -> PrefixCache._lock``: ``_acquire``, ``_park`` and
 ``_reclaim`` run with the pool lock held; ``lookup`` takes only this lock;
-``register`` and ``purge`` take the pool lock first. Fault injection
-(``faults=``) is not ported; it takes only None.
+``register`` and ``purge`` take the pool lock first.
+
+``faults=`` (an ``inference.faults.FaultInjector``; default: the pool's)
+checks ``kv.prefix_match`` at the entry of ``lookup`` (the scheduler takes
+any lookup failure as a miss) and ``kv.prefix_evict`` at the entry of
+``_reclaim``, inside ``reserve``'s atomic section.
+
+A chain rooted at a non-empty ``seed`` (an adapter's registration seed,
+``inference.adapters``) never matches a chain of another seed, so KV
+computed under one adapter is never shared with another, nor with the
+base model.
 """
 from __future__ import annotations
 
@@ -69,10 +78,9 @@ class PrefixCache:
     writer of a digest wins; a later one keeps its private block."""
 
     def __init__(self, kv_cache, faults=None):
-        if faults is not None:
-            raise NotImplementedError(
-                "fault injection (faults=) is not ported (ROADMAP A7)")
         self.kv = kv_cache
+        self._faults = (faults if faults is not None
+                        else getattr(kv_cache, "_faults", None))
         self.block_size = int(kv_cache.block_size)
         self._index: dict[bytes, _Entry] = {}
         self._by_block: dict[int, bytes] = {}
@@ -103,6 +111,8 @@ class PrefixCache:
     def lookup(self, prompt, seed=b"") -> PrefixHit:
         """Longest indexed chain over the prompt's full blocks, capped at
         ``plen - 1`` tokens. Takes only this index's lock."""
+        if self._faults is not None:
+            self._faults.check("kv.prefix_match")
         prompt = np.asarray(prompt).reshape(-1)
         n_match = max(0, (len(prompt) - 1) // self.block_size)
         digests = self.hash_blocks(prompt, seed=seed)
@@ -188,6 +198,8 @@ class PrefixCache:
     def _reclaim(self, need: int) -> list:
         """Evict up to ``need`` parked blocks LRU-first, dropping their
         index entries; returns the block ids for the pool to free."""
+        if self._faults is not None:
+            self._faults.check("kv.prefix_evict")
         with self._lock:
             order = sorted(
                 self._parked,

@@ -23,9 +23,9 @@ exact.
   dense split-KV kernel on the card).
 
 ``speculative_generate`` is the single-stream loop behind
-``model.generate_speculative(...)``. Not ported yet: the continuous
-scheduler's ``spec_k`` knob and ``SpecStats.unit_split`` (the utilization
-ledger).
+``model.generate_speculative(...)``; the continuous scheduler's ``spec_k``
+knob drafts through the same drafters, and ``SpecStats.unit_split`` gives
+a run's verify rows in the utilization ledger's convention.
 """
 from __future__ import annotations
 
@@ -160,6 +160,16 @@ class SpecStats:
                 "wasted": self.wasted, "launches": self.launches,
                 "emitted": self.emitted,
                 "acceptance_rate": round(self.acceptance_rate, 4)}
+
+    def unit_split(self, width) -> tuple[int, int, int]:
+        """(useful, spec_waste, pad) verify-row units for the utilization
+        ledger, out of ``launches * width`` rows: every emitted token was a
+        useful row, every rejected draft a spec-waste row, the rest of each
+        fixed-width launch padding (the scheduler's per-tick convention)."""
+        total = self.launches * int(width)
+        useful = min(self.emitted, total)
+        spec = min(self.wasted, total - useful)
+        return useful, spec, total - useful - spec
 
     def __repr__(self):
         return f"SpecStats({self.to_dict()})"

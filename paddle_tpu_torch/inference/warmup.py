@@ -5,7 +5,8 @@ counterpart of ``paddle_tpu/inference/warmup.py``.
   a continuous scheduler's configuration can request: ``prefill_chunk
   [S, C]``, ``decode_step [S, decode_steps]`` and, with ``spec_k > 0``,
   ``verify_step [S, K + 1]``, each over the scheduler's table width, pool,
-  eos, decode kernel and decode state — the port's counterpart of
+  eos, decode kernel and decode state (and, with an adapter registry,
+  the bank's shape and identity) — the port's counterpart of
   ``ServingConfig.program_keys`` (``paddle_tpu/analysis/compilesurface.py:
   303-353``), derived from ``GenerationMixin._step_runner``'s key layout.
 * ``Warmup`` runs each of those programs once with every slot idle
@@ -87,16 +88,22 @@ def _shape(pred, path):
 def program_keys(pred):
     """Every runner key the scheduler ``pred`` can request (the layout of
     ``GenerationMixin._step_runner``: kind, shape, table width, pool
-    signature, eos, ids dtype, decode kernel, pool, decode state)."""
+    signature, eos, ids dtype, decode kernel, pool, decode state; then,
+    with an adapter registry, ``adapter_key_part``: the bank's signature
+    and identity, as JAX ``warmup.py:97-99`` adds the signature)."""
+    from ..models.generation import adapter_key_part
+
     kv = pred.kv_cache
     _, state_key = pred.model._state_for_key(kv.dtype)
     eos = -1 if pred.eos_token_id is None else int(pred.eos_token_id)
+    ad = getattr(pred, "adapters", None)
+    bank = () if ad is None else adapter_key_part(ad)
     keys = []
     for path in active_paths(pred):
         keys.append((path, *_shape(pred, path), pred.table_width,
                      kv.signature(), -1 if path == "verify_step" else eos,
                      "int64", pred.decode_kernel, ("pool", kv.uid),
-                     state_key))
+                     state_key) + bank)
     return keys
 
 
@@ -124,20 +131,25 @@ class Warmup:
         tables = np.zeros((S, W), np.int32)
         zeros = np.zeros(S, np.int64)
         idle = np.zeros(S, bool)
+        # a registry's scheduler warms the LoRA variant (every slot on row
+        # 0, the identity), the program every later adapter mix replays
+        ad = getattr(pred, "adapters", None)
+        akw = ({} if ad is None else
+               dict(adapters=ad, adapter_slots=np.zeros(S, np.int32)))
         if path == "prefill_chunk":
             model.prefill_chunk(np.zeros((S, pred.prefill_chunk), np.int64),
                                 zeros, zeros, kv, tables,
                                 eos_token_id=pred.eos_token_id,
-                                decode_kernel=kern)
+                                decode_kernel=kern, **akw)
         elif path == "decode_step":
             model.decode_step(zeros, zeros, idle, kv, tables,
                               steps=pred.decode_steps, max_lens=zeros,
                               eos_token_id=pred.eos_token_id,
-                              decode_kernel=kern)
+                              decode_kernel=kern, **akw)
         else:
             model.verify_step(np.zeros((S, pred.spec_k + 1), np.int64),
                               zeros, zeros, idle, kv, tables,
-                              max_lens=zeros, decode_kernel=kern)
+                              max_lens=zeros, decode_kernel=kern, **akw)
 
     def run(self) -> dict:
         pred = self._pred

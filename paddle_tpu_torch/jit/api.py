@@ -113,10 +113,13 @@ class StaticFunction:
             torch.nn.Module.parameters(self._layer))
 
     def _device(self, leaves):
+        """The parameters' or tensor inputs' device; with neither, the
+        current place (``framework.device.get_place``: the card unless the
+        caller set the CPU)."""
         for t in self._params() + leaves:
             if isinstance(t, torch.Tensor):
                 return t.device
-        return torch.device("cpu")
+        return _device.get_place().device
 
     def _needs_autograd(self, leaves):
         return torch.is_grad_enabled() and any(
@@ -231,8 +234,8 @@ def _example(spec, device, dims):
 
 def _export(layer, state, input_spec):
     """``torch.export`` of layer's eval forward over (state, inputs)."""
-    device = next(iter(state.values())).device if state else \
-        torch.device("cpu")
+    device = (next(iter(state.values())).device if state
+              else _device.get_place().device)
     dims: list = []
     examples = [_example(s, device, dims) for s in input_spec]
     inputs = tuple(x for x, _ in examples)

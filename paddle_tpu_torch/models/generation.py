@@ -48,6 +48,7 @@ import torch
 
 from ..framework import make_generator
 from ..jit.graphs import StepRunner
+from ..observability.device import cost_flops
 from ..ops.paged_attention import paged_write_slots
 from .steps import DenseStep, PagedStep
 
@@ -57,6 +58,9 @@ _F32_MIN = torch.finfo(torch.float32).min
 # one cold build (runner construction) at a time, as JAX traces one key at
 # a time; lookups of built runners take no lock
 _TRACE_LOCK = threading.Lock()
+# functional_call's parameter swap, and every read of the parameters
+# that must not see a swap in progress (the decode state's cast cache)
+_SWAP_LOCK = threading.RLock()
 # dense generate() runners kept per model, least recently used dropped
 # first: unlike a compiled JAX program, each holds its own caches
 # ([B, Hkv, P + bucket, D] per layer, K and V), 0.5 GB at B 8, P 512,
@@ -114,6 +118,23 @@ def _drop_runners(model_ref, tag):
             cache.pop(key, None)
 
 
+def adapter_key_part(adapters):
+    """What a LoRA step program's cache key adds: the bank's shape and the
+    registry holding the bank tensors the program reads."""
+    return (adapters.signature(), ("bank", adapters.uid))
+
+
+def _with_adapters(body, bank):
+    """``body`` run under ``applied(bank, aidx)``: the LoRA hooks fire in
+    the eager first run, the capture and every CPU run alike."""
+    from ..inference.adapters import applied
+
+    def run(inp, out):
+        with applied(bank, inp["aidx"]):
+            body(inp, out)
+    return run
+
+
 class GenerationMixin:
     """Hooks a model provides: ``_decode_layer()`` (the module taking
     ``(ids, k_caches, v_caches, step, decode_kernel)`` and returning
@@ -129,23 +150,29 @@ class GenerationMixin:
         """The decode layer's parameters cast to ``dtype`` (f32 tensors
         only), cached until a parameter changes; None when no cast is
         needed (the parameters run as they are). ``params``: the layer's
-        named parameters, when the caller has them."""
-        if params is None:
-            params = dict(self._decode_layer().named_parameters())
-        if all(p.dtype == dtype or p.dtype != torch.float32
-               for p in params.values()):
-            return None
-        key = (dtype, tuple((id(p), p._version) for p in params.values()))
-        cached = getattr(self, "_decode_state_cache", None)
-        if cached is not None and cached[0] == key:
-            return cached[1]
-        with torch.no_grad():
-            cast = {n: (p.to(dtype) if p.dtype == torch.float32 else p)
-                    for n, p in params.items()}
-        if cached is not None:      # programs captured over the old cast
-            _drop_runners(weakref.ref(self), ("cast", id(cached[1])))
-        self._decode_state_cache = (key, cast)
-        return cast
+        named parameters, when the caller has them. Under ``_SWAP_LOCK``:
+        several schedulers (a fleet's replicas) build programs at once, and
+        none may read the parameters while another's forward has swapped
+        them, nor cast twice (a second cast drops the programs captured
+        over the first)."""
+        with _SWAP_LOCK:
+            if params is None:
+                params = dict(self._decode_layer().named_parameters())
+            if all(p.dtype == dtype or p.dtype != torch.float32
+                   for p in params.values()):
+                return None
+            key = (dtype,
+                   tuple((id(p), p._version) for p in params.values()))
+            cached = getattr(self, "_decode_state_cache", None)
+            if cached is not None and cached[0] == key:
+                return cached[1]
+            with torch.no_grad():
+                cast = {n: (p.to(dtype) if p.dtype == torch.float32 else p)
+                        for n, p in params.items()}
+            if cached is not None:      # programs captured over the old cast
+                _drop_runners(weakref.ref(self), ("cast", id(cached[1])))
+            self._decode_state_cache = (key, cast)
+            return cast
 
     def _state_for_key(self, dtype):
         """(state, key part): the decode state and what a captured program
@@ -153,8 +180,10 @@ class GenerationMixin:
         rebuilt when a parameter changes) or the parameters' addresses
         (updates in place are seen by a replay). ``dtype`` None: the
         parameters as they are."""
-        params = dict(self._decode_layer().named_parameters())
-        state = None if dtype is None else self._decode_state(dtype, params)
+        with _SWAP_LOCK:
+            params = dict(self._decode_layer().named_parameters())
+            state = None if dtype is None else self._decode_state(dtype,
+                                                                  params)
         if state is not None:
             return state, ("cast", id(state))
         return None, ("params", tuple(p.data_ptr() for p in params.values()))
@@ -167,7 +196,12 @@ class GenerationMixin:
         args = (ids, k_caches, v_caches, step, decode_kernel)
         if state is None:
             return layer(*args)
-        return torch.func.functional_call(layer, state, args)
+        # functional_call swaps the module's parameters for the cast state
+        # and back: two threads forwarding one model at once (a fleet's
+        # replicas, or a FLOP count beside a capture) would restore each
+        # other's swap and leave the cast in the model
+        with _SWAP_LOCK:
+            return torch.func.functional_call(layer, state, args)
 
     @staticmethod
     def _device_step(offsets, S, tables, valid, block_size, scratch_slot):
@@ -236,10 +270,14 @@ class GenerationMixin:
                 self._runner_cache().pop(order.pop(0), None)
 
     def _runners(self, kind, *shape):
-        """The cached runners of ``kind`` whose key starts with ``shape``."""
+        """The cached base runners of ``kind`` whose key starts with
+        ``shape``; a LoRA runner (its key ends in ``("bank", uid)``,
+        ``adapter_key_part``) is not one of them."""
         n = 1 + len(shape)
         return [run for key, run in list(self._runner_cache().items())
-                if key[:n] == (kind, *shape)]
+                if key[:n] == (kind, *shape)
+                and not (isinstance(key[-1], tuple)
+                         and key[-1][:1] == ("bank",))]
 
     # ------------------------------------------------------------- hooks
     @staticmethod
@@ -441,7 +479,8 @@ class GenerationMixin:
     def generate_paged(self, input_ids, prompt_lens, kv_cache, block_tables,
                        max_new_tokens=32, temperature=0.0, top_k=0,
                        eos_token_id=None, seed=0, decode_kernel="kernel",
-                       deadline=None, timing_hook=None):
+                       deadline=None, timing_hook=None, adapters=None,
+                       adapter_slots=None):
         """Whole-batch autoregressive decoding over a SHARED paged pool.
 
         input_ids [B, P] prompts right-padded to a common P; prompt_lens [B]
@@ -514,7 +553,7 @@ class GenerationMixin:
              "temps": ((B,), torch.float32), "top_ks": ((B,), torch.int64),
              "u": ((n, B), torch.float32)},
             {"tokens": ((B, n), torch.int64)}, make_body,
-            keep=_PAGED_RUNNERS)
+            keep=_PAGED_RUNNERS, adapters=adapters)
         self._check_deadline(deadline, "paged decode launch")
         out = self._run_step(
             run, compiled_now, timing_hook, "paged", (B, P, n),
@@ -524,7 +563,8 @@ class GenerationMixin:
                      np.float32), (B,)),
                  top_ks=np.broadcast_to(np.asarray(top_k or 0, np.int64),
                                         (B,)),
-                 u=self._uniforms(seed, (n, B))))
+                 u=self._uniforms(seed, (n, B)),
+                 **self._adapter_values(adapters, adapter_slots, B)))
         return out["tokens"]
 
     def compiled_generate_paged_runner(self, batch, prompt_len,
@@ -558,23 +598,36 @@ class GenerationMixin:
         return logits[torch.arange(S, device=dev), (lens - 1).clamp(min=0)]
 
     def _step_runner(self, kind, shape, kv_cache, eos, decode_kernel,
-                     inputs, outputs, make_body, keep=None):
+                     inputs, outputs, make_body, keep=None, adapters=None):
         """(run, compiled_now) of a paged step program:
         ``kind`` and ``shape`` (slots, width) lead the key as in JAX, then
         the table width, the pool signature, eos, the ids dtype, the decode
         kernel, the pool and the decode state. ``make_body(state, k_pages,
         v_pages, block_size, scratch_slot)`` -> body(inputs, outputs).
         ``keep`` bounds the runners of ``kind`` kept, least recently used
-        dropped first."""
+        dropped first.
+
+        ``adapters`` (an ``inference.adapters.AdapterRegistry``): the
+        program gains an ``aidx`` [slots] int32 input and runs its body
+        under ``adapters.applied`` over the registry's bank tensors; the
+        key grows the bank's shape (``signature()``) and, since a graph
+        holds the bank's addresses as it holds the pool's, the registry's
+        id. Adapter contents and mix are inputs: they never change a
+        key."""
         state, state_key = self._state_for_key(kv_cache.dtype)
         NB = inputs["tables"][0][1]
         cache_key = (kind, *shape, NB, kv_cache.signature(), eos, "int64",
                      decode_kernel, ("pool", kv_cache.uid), state_key)
+        if adapters is not None:
+            cache_key += adapter_key_part(adapters)
+            inputs = {**inputs, "aidx": ((shape[0],), torch.int32)}
 
         def make_run():
             self._watch_pool(kv_cache)
             body = make_body(state, kv_cache.k_pages, kv_cache.v_pages,
                              kv_cache.block_size, kv_cache.scratch_slot)
+            if adapters is not None:
+                body = _with_adapters(body, adapters.bank())
             return StepRunner(self.device, inputs, outputs, {"step": body},
                               pool=self._graph_pool())
 
@@ -582,6 +635,17 @@ class GenerationMixin:
         if keep is not None:
             self._keep_recent(cache_key, keep)
         return found
+
+    @staticmethod
+    def _adapter_values(adapters, adapter_slots, S):
+        """The ``aidx`` input of a LoRA step program: the [S] bank index
+        (row 0, the identity, where none is given); {} without a
+        registry."""
+        if adapters is None:
+            return {}
+        if adapter_slots is None:
+            return {"aidx": np.zeros(S, np.int32)}
+        return {"aidx": np.asarray(adapter_slots, np.int32).reshape(S)}
 
     def _run_step(self, run, compiled_now, timing_hook, path, timing,
                   values):
@@ -598,14 +662,14 @@ class GenerationMixin:
             out = run.read()
         self._emit_timing(timing_hook, path, *timing, compiled_now, t0,
                           self.device,
-                          flops=run.flops.get("step") if wants else None)
+                          flops=cost_flops(run) if wants else None)
         return out
 
     @torch.no_grad()
     def prefill_chunk(self, chunk_ids, offsets, chunk_lens, kv_cache,
                       block_tables, temperature=0.0, top_k=0,
                       eos_token_id=None, seed=0, decode_kernel="kernel",
-                      timing_hook=None):
+                      timing_hook=None, adapters=None, adapter_slots=None):
         """One chunked-prefill step over the shared paged pool.
 
         chunk_ids [S, C] (right-padded), offsets [S] cache length before the
@@ -614,7 +678,12 @@ class GenerationMixin:
         place and returns [S] int64 next-token samples from each chunk's
         last valid position (numpy). One program per (S, C, NB, pool,
         eos, decode kernel): the forward, the last-position gather and the
-        sampler."""
+        sampler.
+
+        ``adapters`` / ``adapter_slots`` (here and in ``decode_step``,
+        ``verify_step`` and ``generate_paged``): an ``AdapterRegistry`` and
+        each slot's [S] bank row (None: row 0, the base model), the LoRA
+        variant of the program (``_step_runner``)."""
         ids = np.asarray(chunk_ids, np.int64)
         S, C = ids.shape
         tables = np.asarray(block_tables, np.int32)
@@ -646,7 +715,7 @@ class GenerationMixin:
                                                      torch.int32),
              "temps": ((S,), torch.float32), "top_ks": ((S,), torch.int64),
              "u": ((S,), torch.float32)},
-            {"tokens": ((S,), torch.int64)}, make_body)
+            {"tokens": ((S,), torch.int64)}, make_body, adapters=adapters)
         out = self._run_step(
             run, compiled_now, timing_hook, "prefill_chunk", (S, C, 0),
             dict(ids=ids, offsets=np.asarray(offsets, np.int64),
@@ -654,14 +723,15 @@ class GenerationMixin:
                  temps=np.broadcast_to(np.asarray(temperature, np.float32),
                                        (S,)),
                  top_ks=np.broadcast_to(np.asarray(top_k, np.int64), (S,)),
-                 u=self._uniforms(seed, (S,))))
+                 u=self._uniforms(seed, (S,)),
+                 **self._adapter_values(adapters, adapter_slots, S)))
         return out["tokens"]
 
     @torch.no_grad()
     def decode_step(self, tokens, lengths, active, kv_cache, block_tables,
                     steps=1, max_lens=None, temperature=0.0, top_k=0,
                     eos_token_id=None, seed=0, decode_kernel="kernel",
-                    timing_hook=None):
+                    timing_hook=None, adapters=None, adapter_slots=None):
         """``steps`` decode iterations for a fixed-width slot batch.
 
         tokens [S] current input per slot (not yet in the cache), lengths
@@ -706,7 +776,7 @@ class GenerationMixin:
              "tables": (tables.shape, torch.int32),
              "temps": ((S,), torch.float32), "top_ks": ((S,), torch.int64),
              "u": ((T, S), torch.float32)},
-            {"tokens": ((S, T), torch.int64)}, make_body)
+            {"tokens": ((S, T), torch.int64)}, make_body, adapters=adapters)
         out = self._run_step(
             run, compiled_now, timing_hook, "decode_step", (S, 1, T),
             dict(tokens=tok, lengths=lens,
@@ -715,14 +785,16 @@ class GenerationMixin:
                  temps=np.broadcast_to(np.asarray(temperature, np.float32),
                                        (S,)),
                  top_ks=np.broadcast_to(np.asarray(top_k, np.int64), (S,)),
-                 u=self._uniforms(seed, (T, S))))
+                 u=self._uniforms(seed, (T, S)),
+                 **self._adapter_values(adapters, adapter_slots, S)))
         return out["tokens"]
 
     # ------------------------------------------------------ speculative
     @torch.no_grad()
     def verify_step(self, chunk_ids, offsets, draft_lens, active, kv_cache,
                     block_tables, max_lens=None, temperature=0.0, top_k=0,
-                    seed=0, decode_kernel="kernel", timing_hook=None):
+                    seed=0, decode_kernel="kernel", timing_hook=None,
+                    adapters=None, adapter_slots=None):
         """Speculative draft verification over the paged pool.
 
         chunk_ids [S, K+1]: position 0 is each slot's current input token
@@ -812,7 +884,7 @@ class GenerationMixin:
              "u_accept": ((S, K), torch.float32),
              "u_next": ((S,), torch.float32)},
             {"accepted": ((S,), torch.int32), "next": ((S,), torch.int64)},
-            make_body)
+            make_body, adapters=adapters)
         gen = make_generator(seed, "cpu")
         u_accept = torch.rand((S, K), generator=gen)
         out = self._run_step(
@@ -824,7 +896,8 @@ class GenerationMixin:
                  temps=np.broadcast_to(np.asarray(temperature, np.float32),
                                        (S,)),
                  top_ks=np.broadcast_to(np.asarray(top_k, np.int64), (S,)),
-                 u_accept=u_accept, u_next=torch.rand(S, generator=gen)))
+                 u_accept=u_accept, u_next=torch.rand(S, generator=gen),
+                 **self._adapter_values(adapters, adapter_slots, S)))
         return out["accepted"], out["next"]
 
     def compiled_prefill_chunk_runner(self, slots, chunk):

@@ -677,3 +677,56 @@ def test_serve_script_runs_an_export_on_the_cpu(served_toy):
     assert rec["b8_max_abs_diff"] == rec["b2_max_abs_diff"] == 0.0
     assert rec["b8_finite"] and rec["b2_finite"] and rec["modules"] == []
     assert rec["b8_launches"] == rec["b2_launches"] == 0     # plain on CPU
+
+
+def test_serve_production_phase_rehearses_on_the_cpu(monkeypatch,
+                                                     one_thread):
+    """The serve_production phase's control flow and every gate with
+    GPT-350M cut to a toy (2 layers, hidden 64, vocab 160; 4 slots, chunk
+    8, block 8, 8 new tokens, two adapters) and the card's peak stubbed
+    in: base traffic
+    bit-identical without a registry, adapters equal to merged weights in
+    f32 (through the LoRA scheduler, a speculative LoRA scheduler and LoRA
+    generate_paged), no program built after warmup under churn, a gold
+    arrival pausing a free sequence with tokens unchanged, conserved
+    utilization, the HTTP taxonomy, a healed thread death and a refused
+    torn load, two replicas with two programs each (nothing is captured on
+    the CPU)."""
+    import torch
+
+    import paddle_tpu_torch.observability as obs
+    import paddle_tpu_torch.observability.utilization as ut
+    import paddle_tpu_torch.models.gpt as tgpt
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    _stub_card(monkeypatch)
+    peak = chip_smoke.PEAK_FLOPS["bfloat16"]
+    for mod in (obs, ut):
+        monkeypatch.setattr(mod, "device_peak_flops", lambda dev: peak)
+    for name in ("paged_decode_attention", "paged_decode_attention_ref"):
+        def counted(*a, _f=getattr(tgpt, name), **k):
+            pa.paged_decode_attention.launches += 1     # stands in for one
+            return _f(*a, **k)
+
+        monkeypatch.setattr(tgpt, name, counted)
+    cfg = GPTConfig(vocab_size=160, hidden_size=64, num_layers=2,
+                    num_heads=4, num_kv_heads=2, max_position=256)
+    model = GPTForCausalLM(cfg, device="cpu", dtype=torch.bfloat16, seed=0)
+    rec = chip_smoke.serve_production(torch, model, "cpu", p=dict(
+        slots=4, chunk=8, block_size=8, max_seq_len=256, new=8,
+        requests=8, free=4, spec_k=2, rate_requests=4, adapters=2,
+        turns=("base", "lora", "monitored")))
+    assert rec["base_bit_identical"]
+    assert rec["preemption"]["paused"] >= 1
+    assert rec["launches_per_forward"] == 2
+    assert rec["fleet"]["keys_per_replica"] == [2, 2]
+    assert rec["http"]["metered"]["status"] == 429
+    assert rec["utilization"]["peak_flops"] == peak
+    assert set(rec["adapters_vs_merged_f32"]) == {"ad0", "ad1"}
+    assert all(r["speculative_equal"] and r["generate_paged_equal"]
+               for r in rec["adapters_vs_merged_f32"].values())
+    spec = rec["lora_paths"]["speculative"]
+    assert spec["lora_verify"] and spec["launches"] == 2 * spec["forwards"]
+    assert rec["lora_paths"]["generate_paged"]["launches"] == 2 * 8 * 2
+    assert set(rec["adapters_over_base"]) == {"ratio", "spread", "resolved"}

@@ -221,14 +221,12 @@ def test_knob_validation(pair, knobs):
         _port(pair[1], **knobs).close()
 
 
-@pytest.mark.parametrize("knob", ["compile_cache_dir", "hbm_budget",
-                                  "adapters", "qos", "slo",
-                                  "flight_recorder", "utilization"])
-def test_knobs_not_ported_raise_not_implemented(pair, knob):
-    value = {"compile_cache_dir": "/nonexistent", "hbm_budget": 1 << 30,
-             "flight_recorder": True, "utilization": True}.get(knob,
-                                                              object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+@pytest.mark.parametrize("knob, item", [("compile_cache_dir", "ROADMAP C"),
+                                        ("hbm_budget", "ROADMAP A6")])
+def test_knobs_not_ported_raise_not_implemented(pair, knob, item):
+    value = {"compile_cache_dir": "/nonexistent",
+             "hbm_budget": 1 << 30}[knob]
+    with pytest.raises(NotImplementedError, match=item):
         _port(pair[1], **{knob: value})
 
 
@@ -518,7 +516,9 @@ PORT_FAMILIES = {
     "paddle_sched_prefill_backlog_tokens", "paddle_spec_tokens_total",
     "paddle_spec_acceptance_rate", "paddle_prefix_cache_blocks",
     "paddle_prefix_cache_evicted_blocks_total",
-    "paddle_prefix_hit_tokens_total", "paddle_serving_recompiles_total"}
+    "paddle_prefix_hit_tokens_total", "paddle_serving_recompiles_total",
+    "paddle_serving_ttft_seconds", "paddle_serving_tpot_seconds",
+    "paddle_trace_dropped_spans_total"}
 
 
 def test_bound_families_carry_jax_names_types_and_labels(pair, jax_refs):

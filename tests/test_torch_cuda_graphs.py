@@ -14,7 +14,8 @@ launch counts must go on counting through replays, and a body that
 synchronises with the host must make its capture raise. generate_paged
 replays its one graph per key with the body's tokens; a scheduler's warmup
 captures every program and leaves the pool's live pages bit-equal; a
-speculative scheduler captures verify_step once per pool.
+speculative scheduler captures verify_step once per pool; a LoRA program
+replays its body's tokens and reads bank rows written after its capture.
 """
 import threading
 import time
@@ -278,3 +279,49 @@ def test_spec_scheduler_captures_verify_step_once_per_pool(model):
                   if k[0] == "verify_step" and ("pool", kv.uid) in k]
         assert len(verify) == 1 and verify[0].captures == 1
         assert verify[0].replays == gp.metrics.get("verify_ticks") - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", ["prefill_chunk", "decode_step",
+                                     "verify_step"])
+def test_lora_replay_gives_the_bodys_tokens_and_sees_bank_writes(model,
+                                                                 program):
+    """A LoRA program captured over the bank replays the body's tokens; a
+    load written into the bank after the capture is read by the replay
+    (the graph holds the bank's addresses), and row 0 stays the base."""
+    from paddle_tpu_torch.inference import AdapterRegistry
+
+    reg = AdapterRegistry(model, max_adapters=2, max_rank=4)
+    rng = np.random.default_rng(7)
+
+    def factors():
+        return {p: (rng.standard_normal((reg.dims(p)[0], 4))
+                    .astype(np.float32) * 0.3,
+                    rng.standard_normal((4, reg.dims(p)[1]))
+                    .astype(np.float32) * 0.3)
+                for p in reg.target_paths()}
+
+    try:
+        reg.register("a", factors())
+        kv, tables = _pool(model)
+        call, _ = _programs(model, kv, tables)[program]
+        rows = np.array([1, 0, 1], np.int32)
+        lora = dict(adapters=reg, adapter_slots=rows)
+        call(**lora)                              # the body, then capture
+        run = next(r for k, r in model._generate_cache.items()
+                   if k[0] == program and ("bank", reg.uid) in k
+                   and ("pool", kv.uid) in k)
+        with run._eager():
+            body = call(**lora)
+        replay = call(**lora)
+        assert run.captures == 1 and run.replays >= 1
+        np.testing.assert_array_equal(_flat(replay), _flat(body))
+        reg.register("b", factors())              # after the capture
+        lora_b = dict(adapters=reg, adapter_slots=np.array([2, 0, 2],
+                                                           np.int32))
+        with run._eager():
+            body_b = call(**lora_b)
+        np.testing.assert_array_equal(_flat(call(**lora_b)), _flat(body_b))
+        assert run.captures == 1
+    finally:
+        reg.close()

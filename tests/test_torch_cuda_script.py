@@ -227,3 +227,25 @@ def test_to_static_captures_once_and_replays(cuda):
         second = fn(ids)
     assert (fn.captures, fn.replays) == (1, 1)
     assert torch.equal(first, want) and torch.equal(second, want)
+
+
+class _Ramp(P.nn.Layer):
+    def forward(self, x):
+        return x * 2.0 + 1.0
+
+
+@pytest.mark.cuda
+def test_parameter_free_layer_builds_on_the_card(cuda, tmp_path):
+    """With the card as the place, a parameter-free layer's program and
+    example inputs are built there (they were built on the CPU)."""
+    fn = P.jit.to_static(_Ramp())
+    assert fn._device([]).type == "cuda"
+    path = str(tmp_path / "ramp")
+    P.jit.save(_Ramp(), path,
+               input_spec=[P.static.InputSpec([None, 4], "float32")])
+    loaded = P.jit.load(path)
+    x = torch.arange(8, dtype=torch.float32, device="cuda").reshape(2, 4)
+    out = loaded(P.to_tensor(x))
+    out = out._value if hasattr(out, "_value") else out
+    assert out.device.type == "cuda"
+    assert torch.equal(out, x * 2.0 + 1.0)

@@ -284,6 +284,38 @@ def test_to_static_over_a_torch_module_and_a_method(on_cpu):
     assert "def forward" in fn.code
 
 
+
+class _Ramp(port.nn.Layer):
+    """No parameters: its input's device is all it has."""
+
+    def forward(self, x):
+        return x * 2.0 + 1.0
+
+
+def test_parameter_free_layer_takes_the_current_place(on_cpu):
+    """A parameter-free layer with no tensor input builds on the current
+    place (``get_place``), not on a fixed CPU: here the place is the CPU,
+    and a place of the card raises on a machine without one instead of
+    falling back (``on_cpu`` restores the place)."""
+    fn = port.jit.to_static(_Ramp())
+    assert fn._device([]) == torch.device("cpu")
+    path = os.path.join(tempfile.mkdtemp(), "ramp")
+    port.jit.save(_Ramp(), path, input_spec=[
+        port.static.InputSpec([None, 4], "float32")])
+    loaded = port.jit.load(path)
+    x = np.arange(8, dtype=np.float32).reshape(2, 4)
+    np.testing.assert_array_equal(npy(loaded(port.to_tensor(x))),
+                                  x * 2.0 + 1.0)
+    if not torch.cuda.is_available():
+        from paddle_tpu_torch.framework import device as pdev
+
+        pdev._current["place"] = None       # no place set: the card
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn._device([])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port.jit.save(_Ramp(), path + "2", input_spec=[
+                port.static.InputSpec([None, 4], "float32")])
+
 def _gpt_state():
     from paddle_tpu.models import gpt as jgpt
 

@@ -42,6 +42,7 @@ from paddle_tpu_torch.inference import (
     InferenceServer,
     PagedKVCache,
 )
+from paddle_tpu_torch.inference.faults import FaultInjector
 from paddle_tpu_torch.inference.kv_cache import CacheOutOfBlocks
 from paddle_tpu_torch.inference.prefix_cache import PrefixCache
 from paddle_tpu_torch.models import gpt as tgpt
@@ -338,8 +339,17 @@ def test_attaching_a_second_index_raises():
     kv, _ = _pair()[1]
     with pytest.raises(ValueError):
         PrefixCache(kv)
-    with pytest.raises(NotImplementedError, match="A7"):
-        PrefixCache(PagedKVCache(1, 2, 8, device="cpu"), faults=object())
+    # faults= arms the lookup's site: an injected error surfaces from
+    # lookup (the scheduler takes it as a miss) and the index is unchanged
+    f = FaultInjector()
+    kv2 = PagedKVCache(1, 2, 8, block_size=4, num_blocks=8, device="cpu")
+    px = PrefixCache(kv2, faults=f)
+    f.install("kv.prefix_match", error=RuntimeError("index down"), times=1)
+    with pytest.raises(RuntimeError, match="index down"):
+        px.lookup(np.arange(9, dtype=np.int64))
+    assert f.fired("kv.prefix_match") == 1
+    assert px.lookup(np.arange(9, dtype=np.int64)).pairs == []
+    assert f.calls("kv.prefix_match") == 2
 
 
 # --------------------------------------------------------------- model level
