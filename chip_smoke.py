@@ -188,12 +188,53 @@ non-zero without the final line:
    ``InputSpec([None, 1024])``, then a fresh process that imports only the
    package serves the export through ``inference.create_predictor`` at
    B 8 and 2: 24 launches of the flash forward a forward, logits within
-   2^-6 of the largest |logit| of the eager forward's. Reported: fit's
+   2^-6 of the largest |logit| of the eager forward's. The fit runs under
+   ``MonitorCallback`` (a bound ``StepMonitor``): the step seconds, data
+   waits and checkpoint phases come from its tracer and registry;
+   ``paddle_train_checkpoint_seconds`` observes every checkpoint's
+   snapshot, serialize and commit, ``paddle_train_checkpoints_total
+   {result="committed"}`` equals the checkpoints written, goodput lies in
+   (0, 1], and the resumed process's monitor continues the step count
+   from the checkpoint. Reported: fit's
    replayed step ms beside the train phase's, its busy share (one
    profiled ``train_batch``), tokens/s, each checkpoint's snapshot and
    write seconds and bytes, the resume's wall, the export's and load's
    seconds and bytes, the predictor's and the program's ms against the
    eager forward's, peak memory.
+11f. train_monitor — GPT-350M at full width, O2 bf16, AdamW, B 8,
+   S 1024, the captured TrainStep under a bound ``StepMonitor``: (a) 8
+   monitored steps from a saved state bit-equal to 8 bare ones, rows 3-5
+   launching 24 a step each as bare, no new capture, and host launch
+   calls of a replay equal to the bare step's with ``loss_every=0`` (one
+   more with the loss read); (b) tokens/s monitored over bare in turns
+   (bare, monitored, monitored, bare; 3 rounds of 30 steps, from a saved
+   state put back after them), with each form's spread, resolved or not,
+   and each round's own ratio (its drift cancelled) with their spread and
+   the most the monitor can cost; (c) a batch of another shape counts one
+   recompile, ``new_shape``, and after ``aot_prime`` one ``aot_fallback``;
+   (d) a NaN planted in a weight for one step (the state restored) gives
+   one ``nan_loss`` anomaly, in the counter and as a trace event; (e) the
+   live MFU beside the model-FLOP share of the same wall, their ratio,
+   and the HBM gauges; (f) GPT-350M's operator-stats table from its seams
+   under ``auto_cast(O2)``.
+11g. incubate — (g) a 12-layer ``FusedTransformerEncoderLayer`` stack at
+   BERT-base widths (768, 12 heads, 3072, post-LN, B 32, S 512, dropout 0,
+   f32, relu) against ``nn.TransformerEncoder`` on the same weights and
+   against ``fused_multi_head_attention`` + ``fused_feedforward``, within
+   layers x 3072 x 2^-24 of the output's scale; (f) its operator stats
+   over one eager O2 forward (black list f32, products bf16) and the
+   tensor checker (level 0 raises on an inf, level 1 warns); (h) the stack
+   in bf16 with dropout 0.1 and gelu, 8 steps as bodies, then captured
+   under a ``StepMonitor``: bit-equal; (i) ``MoELayer`` at GPT-350M
+   widths (d 1024, 8 experts of 4096, gelu, ``GShardGate`` top-2, T 8192):
+   index against dense in f32 over three seeds (the same routing;
+   ``l_aux`` equal; the output and every gradient within d x 2^-24 of its
+   largest magnitude: the combine weights' gradient sums its d products
+   in another order in the two), the index mode's bf16 forward + backward
+   timed; (j) ``asp.prune_model`` on GPT-350M's 96 linear
+   weights, 3 eager AdamW steps through ``decorate``: 2:4 kept; (k)
+   ``LookAhead(k=2)`` and ``ModelAverage`` over 4 eager SGD steps of a
+   two-layer stack equal hand loops, ``apply`` / ``restore`` round-trip.
 11b. long context — ``bench.py`` ``_long_context_impl`` as the port runs
    it: ``gpt_350m(max_position=S)`` at S=4096, B=2 and S=8192, B=1, O2
    bf16, AdamW, the captured TrainStep, 2 warm-up + 4 timed steps: step
@@ -358,6 +399,7 @@ and serving number) is also written to PATH.
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import gc
 import io
@@ -4726,6 +4768,15 @@ def release(torch):
     return torch.cuda.memory_reserved()
 
 
+def reserved_segments(torch, n=8):
+    """The allocator's largest segments: (bytes, live bytes, pool) each,
+    pool 0 for the default pool and a graph's private pool otherwise."""
+    segs = sorted(torch.cuda.memory_snapshot(),
+                  key=lambda sg: -sg["total_size"])
+    return [(sg["total_size"], sg["allocated_size"],
+             list(sg.get("segment_pool_id", (0, 0)))) for sg in segs[:n]]
+
+
 def host_available_bytes():
     """MemAvailable of /proc/meminfo (``free``'s available column)."""
     with open("/proc/meminfo") as f:
@@ -6164,7 +6215,8 @@ def script_fit(P, model, loader, ckpt_dir, sigterm_after=None, c=SCRIPT):
             if sigterm_after is not None and len(losses) == sigterm_after:
                 os.kill(os.getpid(), signal.SIGTERM)
 
-    mon = MonitorCallback()
+    mon = MonitorCallback(samples_per_step=c["B"],
+                          tokens_per_step=c["B"] * c["S"])
     code = None
     t0 = time.perf_counter()
     try:
@@ -6174,12 +6226,63 @@ def script_fit(P, model, loader, ckpt_dir, sigterm_after=None, c=SCRIPT):
     except PreemptionExit as e:
         code = e.code
     step = model._train_step
+    readings = monitor_readings(mon.monitor)
     return dict(losses=losses, fit_s=time.perf_counter() - t0,
                 until_first_batch_s=t.get("begin", t0) - t0,
-                step_s=mon.phases["step"], data_wait_s=mon.phases["data_wait"],
-                checkpoints=mon.checkpoints, captures=step.captures,
-                replays=step.replays,
+                step_s=readings.pop("step_s"),
+                batch_s=readings.pop("batch_s"),
+                data_wait_s=readings.pop("data_wait_s"),
+                checkpoints=readings.pop("checkpoints"), monitor=readings,
+                captures=step.captures, replays=step.replays,
                 eager=model._train_step_broken), code
+
+
+def monitor_series(mon, name):
+    """{label values: value} of a StepMonitor's series ``name`` (a
+    histogram's value: its observation count)."""
+    for fam in mon.registry.families():
+        if fam.name == name:
+            return {labels: (sum(child.histogram_state()[0])
+                             if fam.type == "histogram" else child.value)
+                    for labels, child in fam.children()}
+    return {}
+
+
+def monitor_readings(mon):
+    """What a StepMonitor's registry and tracer hold: each step's seconds
+    (its ``h2d`` span's start to its ``step`` span's end, what
+    ``paddle_train_step_seconds`` observes: ``TrainStep.__call__`` only),
+    each batch's seconds after the first (its ``data_wait`` span's end to
+    the next ``callbacks`` span's end: the fit loop's batch begin to batch
+    end, ``Model.train_batch``'s host work and the callbacks included), the
+    loader's waits (``data_wait``), the checkpoint phases as they ended (phase, seconds),
+    the phase histogram's observations, the checkpoints by result,
+    ``steps_total``, the monitor's step count and goodput."""
+    spans = mon.tracer.spans()
+    h2d = {sp.tags["step"]: sp.start_us for sp in spans if sp.name == "h2d"}
+    waits = [sp.end_us for sp in spans if sp.name == "data_wait"]
+    ends = sorted(sp.end_us for sp in spans if sp.name == "callbacks")
+    batches = [(ends[i] - w) / 1e6 for w in waits
+               for i in [bisect.bisect_right(ends, w)] if i < len(ends)]
+    ckpt = sorted((sp for sp in spans if sp.name.startswith("ckpt_")),
+                  key=lambda sp: sp.end_us)
+    return dict(
+        step_s=[(sp.end_us - h2d.get(sp.tags["step"], sp.start_us)) / 1e6
+                for sp in spans if sp.name == "step"],
+        batch_s=batches,
+        data_wait_s=[sp.duration_us / 1e6 for sp in spans
+                     if sp.name == "data_wait"],
+        checkpoints=[(sp.name[len("ckpt_"):], sp.duration_us / 1e6)
+                     for sp in ckpt],
+        checkpoint_observations={k[0]: int(v) for k, v in monitor_series(
+            mon, "paddle_train_checkpoint_seconds").items()},
+        checkpoint_results={k[0]: int(v) for k, v in monitor_series(
+            mon, "paddle_train_checkpoints_total").items()},
+        steps_total=int(monitor_series(mon, "paddle_train_steps_total")
+                        .get((), 0)),
+        step=mon.last_fields.get("step"),
+        goodput=mon.last_fields.get("goodput"),
+        anomalies=[e.kind for e in mon.anomalies])
 
 
 def script_worker(mode, ckpt_dir, out, c=SCRIPT, device="cuda"):
@@ -6400,11 +6503,14 @@ def script_phase(torch, fa, device, train_rec, c=SCRIPT):
     graph_ms = replay_device_ms(torch, prog.capture.graph)
     lap("profile")
     step_ms = float(np.median(replayed_step_s)) * 1e3
+    batch_ms = float(np.median(full["batch_s"])) * 1e3
     rec = dict(
         B=c["B"], S=c["S"], steps=steps, walls=walls,
         losses=full["losses"], fit_s=full["fit_s"],
         step_ms=step_ms, train_phase_step_ms=train_rec["step_ms"],
         fit_over_train_step=step_ms / train_rec["step_ms"],
+        batch_ms=batch_ms, batch_over_train_step=batch_ms
+        / train_rec["step_ms"],
         data_wait_ms=float(np.median(full["data_wait_s"])) * 1e3,
         tokens_per_s=c["B"] * c["S"] / (step_ms / 1e3),
         graph_device_ms=graph_ms, fit_profile=fit_profile,
@@ -6413,6 +6519,7 @@ def script_phase(torch, fa, device, train_rec, c=SCRIPT):
         eager_route=full["eager"], flash_launches=launches,
         checkpoint=dict(snapshot_s=snapshots, write_s=writes,
                         bytes=ckpt_bytes, every=c["every"]),
+        monitor=full["monitor"], resumed_monitor=res["monitor"],
         round_trip=round_trip,
         preempted=dict(exit_code=pre_code, latest_step=pre_latest,
                        losses=pre["losses"], wall_s=pre_wall,
@@ -6457,6 +6564,25 @@ def script_phase(torch, fa, device, train_rec, c=SCRIPT):
                      f"{want}, {new_captures} new captures")
     if res_code != 0 or res["losses"] != want or res["eager"]:
         fails.append(f"resume: exit {res_code}, {res['losses']} vs {want}")
+    # the bound StepMonitor's series: every checkpoint's three phases and
+    # its commit, goodput, and a resumed count that continues the step
+    fm, written = full["monitor"], -(-steps // c["every"])
+    if (fm["checkpoint_observations"] != {p: written for p in
+                                          ("snapshot", "serialize",
+                                           "commit")}
+            or fm["checkpoint_results"] != {"committed": written}
+            or fm["steps_total"] != steps or fm["step"] != steps
+            or not 0.0 < (fm["goodput"] or 0.0) <= 1.0
+            or len(full["step_s"]) != steps
+            or len(full["data_wait_s"]) != steps - 1):
+        fails.append(f"the fit's monitor: {fm}, {len(full['step_s'])} "
+                     f"steps, {len(full['data_wait_s'])} data waits, "
+                     f"{written} checkpoints written")
+    rm = res["monitor"]
+    if (rm["step"] != steps or rm["steps_total"] != steps
+            - c["preempt_after"]):
+        fails.append(f"the resumed monitor does not continue the count: "
+                     f"{rm}")
     if acc != hand or hand < hit.mean():
         fails.append(f"accuracy {acc} vs by hand {hand}")
     if any(a != b for a, b in memory.values()):
@@ -6504,17 +6630,581 @@ def flash_reading(timed, checked):
     return dict({k: timed[k] for k in READING_KEYS}, **checked)
 
 
+# ------------------------------------------------ training monitors (18)
+def turn_rates(torch, step, args, kwargs, monitor, rounds, steps):
+    """Tokens/s of ``steps`` steps a turn, in turns bare, monitored,
+    monitored, bare (``rounds`` times): {"bare": [...], "monitored":
+    [...]}. A monitored turn binds ``monitor``; a bare one detaches it."""
+    rates = {"bare": [], "monitored": []}
+    tokens = args[0].numel()
+    for _ in range(rounds):
+        for form in ("bare", "monitored", "monitored", "bare"):
+            if form == "monitored":
+                monitor.bind(step)
+            else:
+                monitor.detach(step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step(*args, **kwargs)
+            torch.cuda.synchronize()
+            rates[form].append(tokens * steps / (time.perf_counter() - t0))
+    monitor.detach(step)
+    return rates
+
+
+def paired_ratio(rates, num, den):
+    """``turn_rates``' rounds (den, num, num, den) each as one ratio, the
+    mean rate of its two ``num`` turns over that of its two ``den`` turns,
+    which cancels a drift linear in time within the round: the rounds'
+    ratios, their median and spread (max - min), resolved where the
+    median's gap from 1 is wider than the spread, and ``cost_at_most``,
+    1 less the lowest round's ratio."""
+    rounds = [(rates[num][2 * r] + rates[num][2 * r + 1])
+              / (rates[den][2 * r] + rates[den][2 * r + 1])
+              for r in range(len(rates[num]) // 2)]
+    med = float(np.median(rounds))
+    spread = max(rounds) - min(rounds)
+    return dict(rounds=rounds, ratio=med, spread=spread,
+                resolved=bool(abs(1.0 - med) > spread),
+                cost_at_most=1.0 - min(rounds))
+
+
+def train_monitor(torch, fa, device, B=8, S=1024, steps=8, rounds=3,
+                  turn_steps=30, seed=12, cfg=None):
+    """Phase ``train_monitor`` (module docstring, 11f): GPT-350M (or
+    ``cfg``), O2 bf16, AdamW, the captured TrainStep under a bound
+    ``StepMonitor``: (a) losses bit-equal to the bare step's, the same
+    launches and host launch calls, (b) the monitored / bare rate, (c) the
+    recompile sentinel, (d) one planted NaN, one anomaly, (e) live MFU
+    beside the model-FLOP share and the HBM gauges, and GPT-350M's
+    operator-stats table from its seams (f)."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.amp import debugging
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_350m
+    from paddle_tpu_torch.observability import StepMonitor, device_peak_flops
+
+    t_start = time.perf_counter()
+    cfg = cfg or gpt_350m()
+    model = GPTForCausalLM(cfg, device=device, seed=seed)
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                          weight_decay=0.01, multi_precision=True)
+    step = TrainStep(model, lambda logits, loss: loss, opt)
+    rng = np.random.default_rng(seed)
+    ids_np = rng.integers(0, cfg.vocab_size, (B, S))
+    ids = torch.as_tensor(ids_np, device=device)
+    batch = ((ids,), {"labels": torch.as_tensor(np.roll(ids_np, -1, 1),
+                                                device=device)})
+    half = rng.integers(0, cfg.vocab_size, (B // 2, S))
+    other = ((torch.as_tensor(half, device=device),),
+             {"labels": torch.as_tensor(np.roll(half, -1, 1),
+                                        device=device)})
+    start = step.export_state()
+
+    # (a) the bare captured step, then the same steps monitored
+    fa.flash_fwd.launches = fa.flash_bwd_dq.launches = 0
+    fa.flash_bwd_dkv.launches = 0
+    bare = [step(*batch[0], **batch[1]) for _ in range(steps)]
+    bare_launches = flash_launches(fa)
+    bare = torch.stack(bare)
+
+    # (c) a batch of another shape: one recompile, new_shape
+    sentinel = StepMonitor(samples_per_step=B, tokens_per_step=B * S)
+    sentinel.bind(step)
+    step(*batch[0], **batch[1])
+    step(*other[0], **other[1])
+    step(*other[0], **other[1])
+    sentinel.detach(step)
+    new_shape = dict(recompiles=sentinel.recompiles,
+                     reasons=[sp.tags["reason"] for sp in
+                              sentinel.tracer.spans()
+                              if sp.name == "compile"])
+
+    step.import_state(start)
+    prog = step.aot_prime(*batch[0], **batch[1])     # FLOPs, memory
+    mon = StepMonitor(samples_per_step=B, tokens_per_step=B * S)
+    mon.bind(step)
+    captures = step.captures
+    fa.flash_fwd.launches = fa.flash_bwd_dq.launches = 0   # main path
+    fa.flash_bwd_dkv.launches = 0
+    monitored = [step(*batch[0], **batch[1]) for _ in range(steps)]
+    launches = flash_launches(fa)                          # main path ends
+    monitored = torch.stack(monitored)
+    losses_equal = bool(torch.equal(monitored, bare))
+    fields = dict(mon.last_fields)
+    live = dict(mfu=fields.get("mfu"), step_time_s=fields["step_time_s"],
+                flops_per_step=mon.flops_per_step,
+                peak_flops=device_peak_flops(step.device))
+    model_flops = step_flops("gpt", cfg, B, S)
+    live["model_flop_share"] = (model_flops / fields["step_time_s"]
+                                / live["peak_flops"]
+                                if live["peak_flops"] else None)
+    live["model_flops_per_step"] = model_flops
+    live["mfu_over_model_share"] = (live["mfu"] / live["model_flop_share"]
+                                    if live["mfu"] and
+                                    live["model_flop_share"] else None)
+    hbm = dict(mon.hbm_stats)
+
+    # the host's launch calls of one replay: bare, monitored without and
+    # with the loss read
+    def one_step():
+        step(*batch[0], **batch[1])
+        torch.cuda.synchronize()
+
+    mon.detach(step)
+    calls = {"bare": profile_call(torch, one_step)["host_launch_calls"]}
+    mon.bind(step)
+    mon.loss_every = 0
+    calls["monitored_no_loss_read"] = profile_call(
+        torch, one_step)["host_launch_calls"]
+    mon.loss_every = 1
+    calls["monitored"] = profile_call(torch, one_step)["host_launch_calls"]
+
+    # (b) monitored against bare, in interleaved turns under a monitor of
+    # their own, from a saved state put back after them: the turns train
+    # on one batch, and the loss they reach would make the next batch of
+    # (c') a spike for ``mon``'s detector
+    pre_turns = step.export_state()
+    rates = turn_rates(torch, step, *batch, StepMonitor(
+        samples_per_step=B, tokens_per_step=B * S), rounds, turn_steps)
+    step.import_state(pre_turns)
+    del pre_turns
+    ratio = dict(rate_ratio(rates, "monitored", "bare"),
+                 paired=paired_ratio(rates, "monitored", "bare"))
+
+    # (c') after aot_prime a call of another shape is JAX's aot_fallback
+    mon.bind(step)
+    before = mon.recompiles
+    step(*other[0], **other[1])
+    fallback = dict(recompiles=mon.recompiles - before, series={
+        k[0]: v for k, v in monitor_series(
+            mon, "paddle_train_recompiles_total").items()})
+
+    # (d) a NaN planted in a weight for one step, the state restored
+    saved = step.export_state()
+    with torch.no_grad():
+        model.gpt.ln_f.weight[0] = float("nan")
+    step(*batch[0], **batch[1])
+    step.import_state(saved)
+    after_nan = float(step(*batch[0], **batch[1]))
+    anomalies = monitor_series(mon, "paddle_train_anomalies_total")
+    anomaly_events = [sp.tags["kind"] for sp in mon.tracer.spans()
+                      if sp.name == "anomaly"]
+    mon.detach(step)
+    del saved, start
+
+    # (f) GPT-350M's table from its seams: one eager O2 forward
+    model.eval()
+    with torch.no_grad(), debugging.collect_operator_stats(), \
+            contextlib.redirect_stdout(io.StringIO()):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            model(*batch[0], **batch[1])
+        gpt_table = debugging.operator_stats_snapshot()
+    rec = dict(
+        B=B, S=S, steps=steps, layers=cfg.num_layers,
+        bare_losses=[float(x) for x in bare.float()],
+        monitored_losses=[float(x) for x in monitored.float()],
+        losses_bit_equal=losses_equal, flash_launches=launches,
+        bare_flash_launches=bare_launches,
+        new_captures=step.captures - captures,
+        host_launch_calls=calls, rates_tok_per_s=rates,
+        monitored_over_bare=ratio, new_shape=new_shape,
+        aot_fallback=fallback, live_mfu=live, hbm=hbm,
+        anomalies={k[0]: v for k, v in anomalies.items()},
+        anomaly_events=anomaly_events, loss_after_restore=after_nan,
+        gpt_op_table=gpt_table, flops_counted=prog.flops,
+        wall_s=time.perf_counter() - t_start, card=card_line())
+    print("train_monitor", json.dumps(rec), flush=True)
+    fails = []
+    if not losses_equal:
+        fails.append(f"monitored losses differ from the bare step's: "
+                     f"{rec['monitored_losses']} vs {rec['bare_losses']}")
+    n = cfg.num_layers * steps
+    if any(v != n for v in launches.values()) or launches != bare_launches:
+        fails.append(f"flash launches {launches} (bare {bare_launches}), "
+                     f"want {n} each")
+    if rec["new_captures"] != 0:
+        fails.append(f"{rec['new_captures']} captures under the monitor")
+    if calls["monitored_no_loss_read"] != calls["bare"]:
+        fails.append(f"host launch calls {calls}")
+    if new_shape != dict(recompiles=1, reasons=["first", "new_shape"]):
+        fails.append(f"new shape: {new_shape}")
+    if fallback["recompiles"] != 1 or fallback["series"] != {
+            "aot_fallback": 1.0}:
+        fails.append(f"aot fallback: {fallback}")
+    if anomalies != {("nan_loss",): 1.0} or anomaly_events != ["nan_loss"] \
+            or not np.isfinite(after_nan):
+        fails.append(f"anomalies {anomalies}, events {anomaly_events}, "
+                     f"loss after the restore {after_nan}")
+    if not (live["mfu"] and live["flops_per_step"] and hbm.get(
+            "argument_bytes") and hbm.get("peak_bytes")):
+        fails.append(f"live MFU or HBM gauges missing: {live}, {hbm}")
+    if gpt_table.get("linear") != {"bfloat16": 4 * cfg.num_layers} \
+            or set(gpt_table.get("sum", {})) != {"float32"}:
+        fails.append(f"GPT-350M's seams: {gpt_table}")
+    del step, opt, model, prog, mon, sentinel
+    if fails:
+        raise AssertionError("train_monitor: " + "; ".join(fails))
+    return rec
+
+
+def fused_stack(torch, P, layers, d, heads, ff, dropout, activation):
+    """``layers`` FusedTransformerEncoderLayer in a Sequential (post-LN)."""
+    inc = P.incubate.nn
+    return P.nn.Sequential(*[inc.FusedTransformerEncoderLayer(
+        d, heads, ff, dropout_rate=dropout, activation=activation)
+        for _ in range(layers)])
+
+
+def stack_weights(torch, fused, nn_stack):
+    """``nn_stack``'s TransformerEncoderLayers given ``fused``'s weights:
+    q / k / v are the column blocks of qkv_proj."""
+    with torch.no_grad():
+        for f, g in zip(fused, nn_stack.layers):
+            w, b = f.fused_attn.qkv_proj.weight._value, \
+                f.fused_attn.qkv_proj.bias._value
+            a = g.self_attn
+            for i, proj in enumerate((a.q_proj, a.k_proj, a.v_proj)):
+                E = w.shape[0]
+                proj.weight._value.copy_(w[:, i * E:(i + 1) * E])
+                proj.bias._value.copy_(b[i * E:(i + 1) * E])
+            for src, dst in ((f.fused_attn.out_proj, a.out_proj),
+                             (f.ffn.linear1, g.linear1),
+                             (f.ffn.linear2, g.linear2),
+                             (f.fused_attn.ln, g.norm1), (f.ffn.ln, g.norm2)):
+                dst.weight._value.copy_(src.weight._value)
+                dst.bias._value.copy_(src.bias._value)
+
+
+def functional_stack(P, fused, x):
+    """The stack as ``fused_multi_head_attention`` + ``fused_feedforward``
+    on its own weights (relu, no dropout)."""
+    IF = P.incubate.nn.functional
+    for f in fused:
+        a, m = f.fused_attn, f.ffn
+        x = IF.fused_multi_head_attention(
+            x, a.qkv_proj.weight, a.out_proj.weight,
+            qkv_bias=a.qkv_proj.bias, linear_bias=a.out_proj.bias,
+            ln_scale=a.ln.weight, ln_bias=a.ln.bias, dropout_rate=0.0,
+            attn_dropout_rate=0.0, num_heads=a.num_heads,
+            transpose_qkv_wb=True, training=False)
+        x = IF.fused_feedforward(
+            x, m.linear1.weight, m.linear2.weight,
+            linear1_bias=m.linear1.bias, linear2_bias=m.linear2.bias,
+            ln2_scale=m.ln.weight, ln2_bias=m.ln.bias, dropout1_rate=0.0,
+            dropout2_rate=0.0, activation="relu", training=False)
+    return x
+
+
+def moe_grads(torch, layer, x):
+    """(output, l_aux, every gradient) of one forward and backward."""
+    layer.clear_gradients()
+    xt = x.detach().clone().requires_grad_(True)
+    out = layer(xt)
+    (out.float().square().mean() + 0.01 * layer.l_aux).backward()
+    grads = [xt.grad] + [p._value.grad for p in layer.parameters()]
+    return out.detach(), layer.l_aux.detach(), grads
+
+
+def incubate_phase(torch, device, B=32, S=512, d=768, heads=12, ff=3072,
+                   layers=12, steps=8, seed=18,
+                   moe_shape=(8, 1024, 1024, 8, 4096), asp_config=None):
+    """Phase ``incubate`` (module docstring, 11g): (g) the fused stack
+    against the nn stack and the functionals in f32; (f) the stack's O2
+    operator stats and the tensor checker; (h) the stack trained in bf16
+    under a StepMonitor, replays against bodies; (i) MoE at GPT-350M
+    widths, index against dense; (j) ASP on GPT-350M; (k) LookAhead and
+    ModelAverage against hand loops."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.amp import debugging
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_350m
+    from paddle_tpu_torch.nn.functional import get_last_attention_backend
+    from paddle_tpu_torch.observability import StepMonitor
+
+    t_start = time.perf_counter()
+    walls, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        walls[name], last[0] = now - last[0], now
+
+    P.set_device("gpu:0" if str(device).startswith("cuda") else "cpu")
+    P.seed(seed)
+    g = torch.Generator(device=device).manual_seed(seed)
+    fails = []
+
+    # (g) f32: fused layers = nn layers = the functionals
+    fused = fused_stack(torch, P, layers, d, heads, ff, 0.0, "relu")
+    fused.eval()
+    nn_stack = P.nn.TransformerEncoder(P.nn.TransformerEncoderLayer(
+        d, heads, ff, dropout=0.0), layers)
+    nn_stack.eval()
+    stack_weights(torch, fused, nn_stack)
+    x = torch.randn(B, S, d, generator=g, device=device)
+    with torch.no_grad():
+        out_fused = fused(P.Tensor(x))._value
+        backend = get_last_attention_backend()
+        out_nn = nn_stack(P.Tensor(x))._value
+        out_fn = functional_stack(P, fused, P.Tensor(x))._value
+    scale = float(out_nn.abs().max())
+    # f32 sums of up to ``ff`` terms in another order, through ``layers``
+    # layers each renormalised by its LayerNorm: at most layers * ff * 2^-24
+    # of the output's scale (the worst-case, linear bound)
+    lim = layers * ff * 2.0 ** -24 * scale
+    g_rec = dict(fused_vs_nn=float((out_fused - out_nn).abs().max()),
+                 functional_vs_fused=float((out_fn - out_fused).abs().max()),
+                 limit=lim, backend=backend)
+    if g_rec["fused_vs_nn"] > lim or g_rec["functional_vs_fused"] > lim \
+            or backend != "plain":
+        fails.append(f"(g) {g_rec}")
+    del nn_stack, out_nn, out_fn, out_fused
+    lap("g")
+
+    # (f) one eager O2 forward of the stack: operator stats
+    with torch.no_grad(), debugging.collect_operator_stats(), \
+            contextlib.redirect_stdout(io.StringIO()):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            fused(P.Tensor(x))
+        table = debugging.operator_stats_snapshot()
+    black = amp.black_list()
+    wrong = {op: b for op, b in table.items()
+             if (op in black and set(b) != {"float32"})
+             or (op in ("linear", "matmul") and set(b) != {"bfloat16"})}
+    if wrong or "linear" not in table or "layer_norm" not in table:
+        fails.append(f"(f) O2 table {table}")
+    inf = P.to_tensor(torch.tensor([1.0, float("inf")], device=device))
+    checker = {}
+    try:
+        debugging.enable_tensor_checker(debugging.TensorCheckerConfig(
+            enable=True,
+            debug_mode=debugging.DebugMode.CHECK_NAN_INF_AND_ABORT))
+        try:
+            P.exp(inf)
+            checker["level0"] = "no raise"
+        except FloatingPointError as e:
+            checker["level0"] = str(e)
+        debugging.enable_tensor_checker(debugging.TensorCheckerConfig(
+            enable=True, debug_mode=debugging.DebugMode.CHECK_NAN_INF))
+        import warnings
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            P.exp(inf)
+        checker["level1"] = [str(w.message) for w in caught]
+    finally:
+        debugging.disable_tensor_checker()
+    if "NaN/Inf" not in checker["level0"] or not any(
+            "NaN/Inf" in m for m in checker["level1"]):
+        fails.append(f"(f) tensor checker {checker}")
+    lap("f")
+
+    # (h) bf16, dropout 0.1, gelu: the captured TrainStep under a monitor,
+    # replays against bodies from one saved state
+    del fused
+    P.seed(seed + 1)
+    model = fused_stack(torch, P, layers, d, heads, ff, 0.1, "gelu")
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = P.optimizer.AdamW(learning_rate=1e-4,
+                            parameters=model.parameters())
+    step = TrainStep(model, lambda out, y: (
+        (out.astype("float32") - y) ** 2).mean(), opt)
+    xb = x.to(torch.bfloat16)
+    target = torch.randn(B, S, d, generator=g, device=device)
+    start = step.export_state()
+    with step._eager():
+        body = torch.stack([step(xb, target) for _ in range(steps)])
+    step.import_state(start)
+    mon = StepMonitor(samples_per_step=B, tokens_per_step=B * S)
+    mon.bind(step)
+    replay = torch.stack([step(xb, target) for _ in range(steps)])
+    h_rec = dict(body_losses=[float(v) for v in body],
+                 replay_losses=[float(v) for v in replay],
+                 equal=bool(torch.equal(body, replay)),
+                 captures=step.captures, replays=step.replays,
+                 monitor_steps=mon.last_fields.get("step"),
+                 step_ms=mon.last_fields["step_time_s"] * 1e3,
+                 backend=get_last_attention_backend())
+    if not h_rec["equal"] or h_rec["captures"] != (
+            1 if step.device.type == "cuda" else 0) \
+            or h_rec["monitor_steps"] != steps \
+            or not all(np.isfinite(h_rec["replay_losses"])):
+        fails.append(f"(h) {h_rec}")
+    del step, opt, model, start, body, replay, mon, x, xb, target
+    release(torch)
+    lap("h")
+
+    # (i) MoE at GPT-350M widths: index against dense in f32 over three
+    # seeds, then the index mode's bf16 forward + backward timed
+    mb, ms_, D, E, F_ = moe_shape
+    T = mb * ms_
+
+    def moe(mode, s_):
+        P.seed(s_)
+        experts = [P.nn.Sequential(P.nn.Linear(D, F_), P.nn.GELU(),
+                                   P.nn.Linear(F_, D)) for _ in range(E)]
+        return MoELayer(D, experts, gate="gshard", dispatch_mode=mode)
+
+    # the same decisions, not the same roundings. Dispatch is exact (one
+    # token a slot), but the combine weights' gradient is a sum over the d
+    # features of grad(y) * expert output: a matrix product (dense) against
+    # a product and a row sum (index), the same d terms in another order.
+    # That gap reaches the gate logits and so x and the gate weight; so
+    # each tensor within d * 2^-24 of its largest magnitude (f32 sums of d
+    # terms in another order: the linear worst case; a random walk gives
+    # ~sqrt(d) * 2^-24)
+    bound = D * 2.0 ** -24
+    runs = []
+    for s_ in (seed + 2, seed + 3, seed + 4):
+        xm = torch.randn(mb, ms_, D, device=device, generator=torch
+                         .Generator(device=device).manual_seed(s_))
+        index, dense = moe("index", s_), moe("dense", s_)
+        with torch.no_grad():
+            for a, b in zip(index.parameters(), dense.parameters()):
+                b._value.copy_(a._value)
+        yi, li, gi = moe_grads(torch, index, xm)
+        yd, ld, gd = moe_grads(torch, dense, xm)
+        diffs = [float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                  1e-30)
+                 for a, b in zip([yi] + gi, [yd] + gd)]
+        # parameters: the experts' in order, then the gate's weight
+        runs.append(dict(seed=s_, out_rel=diffs[0], x_grad_rel=diffs[1],
+                         gate_grad_rel=diffs[-1], expert_grad_rel_max=max(
+                             diffs[2:-1]), worst_rel=max(diffs),
+                         l_aux_equal=bool(torch.equal(li, ld))))
+        del dense, yd, gd, gi, yi
+    i_rec = dict(T=T, d=D, experts=E, ff=F_, capacity=index.gate
+                 .capacity_for(T), seeds=runs, worst_rel=max(
+                     r["worst_rel"] for r in runs), bound=bound,
+                 backend=get_last_attention_backend())
+    if i_rec["worst_rel"] > bound or not all(r["l_aux_equal"]
+                                             for r in runs):
+        fails.append(f"(i) index vs dense {i_rec}")
+    amp.decorate(index, level="O2", dtype="bfloat16")
+    xb16 = xm.to(torch.bfloat16)
+    # each call on its own: its gigabyte temporaries make the allocator
+    # synchronise (time_ms's queued=False)
+    i_rec["bf16_fwd_bwd_ms"] = time_ms(
+        torch, lambda: moe_grads(torch, index, xb16),
+        torch.empty(64 << 20, dtype=torch.uint8, device=device), reps=5,
+        queued=False)
+    del index, xm, xb16
+    release(torch)
+    lap("i")
+
+    # (j) ASP on GPT-350M's linear weights, 3 eager AdamW steps
+    cfg = asp_config or gpt_350m()
+    gpt = GPTForCausalLM(cfg, device=device, seed=seed)
+    asp.set_excluded_layers(["gpt.embed_tokens.weight"])
+    try:
+        masks = asp.prune_model(gpt)
+    finally:
+        asp.reset_excluded_layers()
+    opt = asp.decorate(P.optimizer.AdamW(learning_rate=1e-3,
+                                         parameters=gpt.parameters()))
+    ids_np = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (2, min(1024, cfg.max_position)))
+    ids = torch.as_tensor(ids_np, device=device)
+    labels = torch.as_tensor(np.roll(ids_np, -1, 1), device=device)
+    losses = []
+    for _ in range(3):
+        _, loss = gpt(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+    named = dict(torch.nn.Module.named_parameters(gpt))
+    sparse = {n: asp.check_sparsity(named[n], 2, 4) for n in masks}
+    j_rec = dict(pruned=len(masks), losses=losses,
+                 all_sparse=all(sparse.values()),
+                 density=asp.calculate_density(
+                     named["gpt.blocks.0.mlp.down.weight"]))
+    if not j_rec["all_sparse"] or len(masks) != 4 * cfg.num_layers:
+        fails.append(f"(j) {j_rec}, not 2:4: "
+                     f"{[n for n, ok in sparse.items() if not ok][:4]}")
+    del gpt, opt, named
+    asp._MASKS.clear()
+    release(torch)
+    lap("j")
+
+    # (k) LookAhead(k=2) and ModelAverage over 4 eager steps against hand
+    # loops on a two-layer f32 stack
+    def small(seed_):
+        P.seed(seed_)
+        m = fused_stack(torch, P, 2, d, heads, ff, 0.0, "relu")
+        return m
+
+    xs = torch.randn(4, min(128, S), d, generator=g, device=device)
+    ys = torch.randn(4, min(128, S), d, generator=g, device=device)
+    net, ref = small(seed + 3), small(seed + 3)
+
+    def sgd_step(model, opt_):
+        ((model(P.Tensor(xs))._value - ys) ** 2).mean().backward()
+        opt_.step()
+        opt_.clear_grad()
+
+    la = P.incubate.LookAhead(P.optimizer.SGD(
+        0.05, parameters=net.parameters()), alpha=0.5, k=2)
+    sgd = P.optimizer.SGD(0.05, parameters=ref.parameters())
+    avg = P.incubate.ModelAverage(parameters=net.parameters())
+    slow, seen, la_equal = None, [], True
+    for i in range(4):
+        sgd_step(net, la)
+        avg.step()
+        sgd_step(ref, sgd)
+        if i == 1:
+            slow = [p._value.detach().clone() for p in ref.parameters()]
+        if i == 3:
+            with torch.no_grad():
+                for p, s_ in zip(ref.parameters(), slow):
+                    p._value.copy_(s_ + 0.5 * (p._value - s_))
+        seen.append([p._value.detach().clone() for p in net.parameters()])
+        la_equal &= all(torch.equal(a._value, b._value) for a, b in
+                        zip(net.parameters(), ref.parameters()))
+    live = [p._value.detach().clone() for p in net.parameters()]
+    avg.apply()
+    hand = [sum(s_[i] for s_ in seen) / 4 for i in range(len(live))]
+    avg_equal = all(torch.equal(p._value, h.to(p._value.dtype)) for p, h in
+                    zip(net.parameters(), hand))
+    avg.restore()
+    restored = all(torch.equal(p._value, v) for p, v in
+                   zip(net.parameters(), live))
+    k_rec = dict(lookahead_equal=la_equal, average_equal=avg_equal,
+                 restored=restored)
+    if not all(k_rec.values()):
+        fails.append(f"(k) {k_rec}")
+    del net, ref, la, sgd, avg, seen, live, hand, slow
+    release(torch)
+    lap("k")
+    rec = dict(g=g_rec, f=dict(o2_table=table, tensor_checker=checker),
+               h=h_rec, i=i_rec, j=j_rec, k=k_rec, walls=walls,
+               wall_s=time.perf_counter() - t_start, card=card_line())
+    print("incubate", json.dumps(rec), flush=True)
+    if fails:
+        raise AssertionError("incubate: " + "; ".join(fails))
+    return rec
+
+
 PHASE_S = {}
+PHASE_ALLOCATED = {}     # the allocator's live bytes as each phase ended
 
 
 @contextlib.contextmanager
 def phase(name):
-    """Record the wall seconds of the block under ``name``."""
+    """Record the wall seconds of the block under ``name`` and the bytes
+    the allocator holds live as it ends."""
     t0 = time.perf_counter()
     try:
         yield
     finally:
         PHASE_S[name] = time.perf_counter() - t0
+        PHASE_ALLOCATED[name] = sys.modules["torch"].cuda.memory_allocated()
 
 
 def main():
@@ -6658,7 +7348,8 @@ def main():
     with phase("script"):
         script = script_phase(torch, fa, device, training)
     print(f"script on {card}: fit {script['step_ms']:.1f} ms/step replayed "
-          f"(TrainStep alone {training['step_ms']:.1f}), busy "
+          f"in TrainStep.__call__, {script['batch_ms']:.1f} ms batch begin "
+          f"to end (TrainStep alone {training['step_ms']:.1f}), busy "
           f"{script['device_busy_share']:.3f}, "
           f"{script['tokens_per_s']:.0f} tok/s; checkpoint "
           f"{script['checkpoint']['bytes']} bytes, snapshots "
@@ -6672,6 +7363,32 @@ def main():
           f"{script['export']['program_ms']:.1f} ms, eager forward "
           f"{script['export']['eager_ms']:.1f} ms; peak "
           f"{script['max_memory_allocated']} bytes", flush=True)
+    release(torch)
+    with phase("train_monitor"):
+        tmon = train_monitor(torch, fa, device)
+    r = tmon["monitored_over_bare"]
+    print(f"train_monitor on {card}: monitored / bare "
+          f"{r['ratio']:.4f} (turn spread {r['spread']:.4f}, "
+          f"{'resolved' if r['resolved'] else 'unresolved'}; paired by "
+          f"round {r['paired']['ratio']:.4f}, spread "
+          f"{r['paired']['spread']:.4f}, "
+          f"{'resolved' if r['paired']['resolved'] else 'unresolved'}, "
+          f"cost at most {r['paired']['cost_at_most']:.4f}), live MFU "
+          f"{tmon['live_mfu']['mfu']:.4f} against a model-FLOP share of "
+          f"{tmon['live_mfu']['model_flop_share']:.4f} "
+          f"(ratio {tmon['live_mfu']['mfu_over_model_share']:.4f}), host "
+          f"launch calls {tmon['host_launch_calls']}, {tmon['wall_s']:.1f} s",
+          flush=True)
+    release(torch)
+    with phase("incubate"):
+        incub = incubate_phase(torch, device)
+    print(f"incubate on {card}: fused vs nn {incub['g']['fused_vs_nn']:.2e} "
+          f"(limit {incub['g']['limit']:.2e}), MoE index vs dense "
+          f"{incub['i']['worst_rel']:.2e} (limit {incub['i']['bound']:.2e}"
+          f"), MoE bf16 fwd+bwd {incub['i']['bf16_fwd_bwd_ms']:.2f} ms, "
+          f"fused stack bf16 step "
+          f"{incub['h']['step_ms']:.1f} ms, {incub['wall_s']:.1f} s",
+          flush=True)
     release(torch)
     with phase("long_context"):
         long_ctx = long_context(torch, fa, device)
@@ -6709,13 +7426,20 @@ def main():
           f"captured, {varlen['tokens_per_s']:.0f} tok/s, busy "
           f"{varlen['device_busy_share']:.2f}", flush=True)
 
-    # the other model families, each on a card released of the earlier ones
+    # the other model families, each on a card released of the earlier ones.
+    # cuBLAS keeps a 32 MiB workspace from the allocator for each stream it
+    # ran on; one left inside a large segment holds all of it reserved
+    # (one run: a 512 MiB segment held by one such block, 1.15 GB in all).
+    # No graph of an earlier phase runs again, so none needs its workspace.
+    torch._C._cuda_clearCublasWorkspaces()
     reserved = release(torch)
-    print(f"reserved before the LLaMA-2-7B phases: {reserved} bytes",
-          flush=True)
+    held = reserved_segments(torch)
+    print(f"reserved before the LLaMA-2-7B phases: {reserved} bytes; "
+          f"segments {held}; live bytes as each phase ended "
+          f"{PHASE_ALLOCATED}", flush=True)
     if reserved > 1 << 30:
         raise AssertionError(f"{reserved} bytes still reserved: an earlier "
-                             f"model, pool or graph is alive")
+                             f"model, pool or graph is alive ({held})")
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
 
     t0 = time.perf_counter()
@@ -6872,6 +7596,7 @@ def main():
             "core_eager_stack_launches": [
                 x[kern] for x in core["eager_stack"]["flash_launches"]],
             "script_fit_launches": script["flash_launches"][kern],
+            "train_monitor_launches": tmon["flash_launches"][kern],
             "script_served_launches": (
                 {b: script["export"][f"{b}_launches"] for b in ("b8", "b2")}
                 if kern == "fwd" else {})})
@@ -6922,7 +7647,7 @@ def main():
                   dense_profile=gen_profile, batch_serving=batch,
                   degrade=degrade, speculative=spec,
                   train_insitu=train_checks, training=training,
-                  script=script,
+                  script=script, train_monitor=tmon, incubate=incub,
                   long_context=long_ctx, train_recipes=recipes,
                   optimizers=optimizers, rnn_lm=lm,
                   flashmask_checks=fm_checks, flashmask_timing=fm_timing,
@@ -6930,7 +7655,8 @@ def main():
                   llama_serve=l_serve, llama_generate=l_gen,
                   llama_train=l_train, gpt3_1p3b=g3, bert_base=bert,
                   resnet50=resnet,
-                  phase_s=PHASE_S, kernels=kernels)
+                  phase_s=PHASE_S, phase_allocated=PHASE_ALLOCATED,
+                  kernels=kernels)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)

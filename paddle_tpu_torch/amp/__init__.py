@@ -39,7 +39,7 @@ import torch
 __all__ = ["auto_cast", "amp_guard", "decorate", "GradScaler",
            "is_auto_cast_enabled", "get_amp_dtype", "get_amp_level",
            "white_list", "black_list", "check_numerics",
-           "is_bfloat16_supported", "is_float16_supported"]
+           "is_bfloat16_supported", "is_float16_supported", "debugging"]
 
 _amp_state = {"enable": False, "dtype": torch.bfloat16, "level": "O1",
               "custom_white_list": frozenset(),
@@ -101,8 +101,11 @@ def _op_cast_target(name):
 
 def _amp_cast(name, *tensors):
     """``tensors`` as op ``name`` takes them under the current amp state:
-    each floating tensor cast to the op's dtype, or all as they are."""
+    each floating tensor cast to the op's dtype, or all as they are. Also
+    the seam's ``amp.debugging`` operator-stats record."""
     target = _op_cast_target(name)
+    if debugging._stats is not None:
+        debugging._record_seam(name, target, tensors)
     if target is None:
         return tensors
     return tuple(t.to(target) if isinstance(t, torch.Tensor)
@@ -112,7 +115,8 @@ def _amp_cast(name, *tensors):
 
 def _amp_add(x, y):
     """``x + y`` as JAX's op ``add`` takes its inputs (under O2 both in the
-    amp dtype; under O1, torch's promotion, as jnp's)."""
+    amp dtype; under O1, torch's promotion, as jnp's); recorded as ``add``
+    by ``_amp_cast``."""
     x, y = _amp_cast("add", x, y)
     return x + y
 
@@ -311,6 +315,9 @@ def check_numerics(tensor, op_type="", var_name="", debug_mode=None):
             f"check_numerics failed for {op_type}:{var_name}: {n_nan} NaN, "
             f"{n_inf} Inf")
     return n_nan, n_inf
+
+
+from . import debugging  # noqa: E402
 
 
 def is_bfloat16_supported(device=None):

@@ -1,13 +1,9 @@
 """hapi callbacks — the counterpart of ``paddle_tpu/hapi/callbacks.py``.
 Reference: python/paddle/hapi/callbacks.py.
 
-``MonitorCallback`` differs: the JAX package's binds its ``StepMonitor``
-(not ported) to the compiled step. The port's times the fit loop's phases
-on the host clock itself (``data_wait``: from one batch's end to the next
-one's start, the loader's share; ``step``: a batch's start to its end,
-which holds the step and its loss read) and gives ``ProgBarLogger`` its
-``ips``; a ``monitor`` object with JAX's ``record_phase(name, start_us,
-end_us)`` / ``now_us()`` receives the same phases.
+``MonitorCallback`` binds an ``observability.StepMonitor`` to the model's
+``TrainStep``, as JAX's does; ``ProgBarLogger`` shows the bound monitor's
+``ips`` / ``tok/s`` / ``mfu`` fields.
 """
 from __future__ import annotations
 
@@ -85,13 +81,21 @@ class ProgBarLogger(Callback):
         self.start = time.time()
 
     def _monitor_items(self):
-        """``ips`` of a bound MonitorCallback; [] without one (the line is
+        """Live StepMonitor fields (ips / tokens per second / MFU) when a
+        MonitorCallback bound one to this model; [] otherwise (the line is
         then as without a monitor)."""
         mon = getattr(getattr(self, "model", None), "_step_monitor", None)
         fields = getattr(mon, "last_fields", None) if mon is not None else None
         if not fields:
             return []
-        return [f"ips: {fields['ips']:.1f}"] if "ips" in fields else []
+        items = []
+        if "ips" in fields:
+            items.append(f"ips: {fields['ips']:.1f}")
+        if "tokens_per_sec" in fields:
+            items.append(f"tok/s: {fields['tokens_per_sec']:.0f}")
+        if "mfu" in fields:
+            items.append(f"mfu: {100.0 * fields['mfu']:.1f}%")
+        return items
 
     def on_batch_end(self, mode, step, logs=None):
         self.steps += 1
@@ -174,68 +178,96 @@ class EarlyStopping(Callback):
 
 
 class MonitorCallback(Callback):
-    """Host-clock phases of the fit loop (see the module docstring):
-    ``phases`` {name: [seconds per batch]}, ``last_fields`` ({"ips": batches
-    a second over the last batch's begin to begin}), ``checkpoints`` (the
-    checkpoint phases' seconds and results, in order). ``monitor``: an
-    object with ``now_us()`` and ``record_phase(name, start_us, end_us)``
-    that receives the phases too."""
+    """Binds an ``observability.StepMonitor`` to ``Model.fit`` (JAX
+    ``hapi/callbacks.py:168-260``).
 
-    def __init__(self, monitor=None, **kwargs):
+    The monitor attaches to the model's ``TrainStep`` (made on the first
+    ``train_batch``), so per-step wall time, live MFU, the recompilation
+    sentinel and numerics anomalies all run inside the step itself; this
+    callback adds the phases only the fit loop sees — ``data_wait`` (the
+    loader's gap between batches) and ``callbacks`` (host work after the
+    step) — on the same trace timeline.
+
+    ``log_dir=`` opens a ``utils.log_writer.LogWriter`` for the scalar
+    series (``train/loss``, ``train/ips``, ``train/mfu``, ...);
+    ``log_writer=`` shares one, ``monitor=`` brings a configured
+    ``StepMonitor``; other keyword arguments go to the ``StepMonitor``
+    (``samples_per_step=...`` makes the ips gauge live). ``fit`` hands
+    ``model._step_monitor`` to its ``CheckpointManager``, whose snapshot,
+    serialize, commit and restore timings land in the monitor.
+    """
+
+    def __init__(self, monitor=None, log_writer=None, log_dir=None,
+                 **monitor_kwargs):
         self.monitor = monitor
-        self.phases = {"data_wait": [], "step": []}
-        self.checkpoints = []       # (phase, seconds) / (result, step)
-        self.last_fields = {}
-        self._prev_end = None
-        self._begin = None
-        self._prev_begin = None
-
-    def _now_us(self):
-        if self.monitor is not None:
-            return self.monitor.now_us()
-        return time.perf_counter() * 1e6
-
-    def _record(self, name, start, end):
-        self.phases[name].append((end - start) / 1e6)
-        if self.monitor is not None:
-            self.monitor.record_phase(name, start, end)
+        self._log_writer = log_writer
+        self._log_dir = log_dir
+        self._monitor_kwargs = monitor_kwargs
+        self._own_writer = None
+        self._bound = None
+        self._prev_end_us = None
 
     def on_begin(self, mode, logs=None):
-        if mode == "train":
-            self.model._step_monitor = self
-            self._prev_end = self._prev_begin = None
-
-    def on_batch_begin(self, mode, step, logs=None):
         if mode != "train":
             return
-        now = self._now_us()
-        if self._prev_end is not None:
-            self._record("data_wait", self._prev_end, now)
-        if self._prev_begin is not None:
-            self.last_fields = {"ips": 1e6 / max(now - self._prev_begin,
-                                                 1e-3)}
-        self._begin = self._prev_begin = now
+        if self.monitor is None:
+            from ..observability.training import StepMonitor
+
+            writer = self._log_writer
+            if writer is None and self._log_dir:
+                from ..utils.log_writer import LogWriter
+
+                writer = self._own_writer = LogWriter(self._log_dir)
+            self.monitor = StepMonitor(log_writer=writer,
+                                       **self._monitor_kwargs)
+        elif self._log_writer is not None and self.monitor.log_writer is None:
+            self.monitor.log_writer = self._log_writer
+        self.model._step_monitor = self.monitor
+
+    def _try_bind(self):
+        """The TrainStep exists once ``prepare`` and the first batch made
+        it; keep trying until it does (or the model took the eager
+        route)."""
+        model = self.model
+        step = getattr(model, "_train_step", None)
+        if (step is None and getattr(model, "_optimizer", None) is not None
+                and not getattr(model, "_train_step_broken", False)
+                and hasattr(model, "_compiled_step")):
+            try:
+                step = model._compiled_step()
+            except Exception:
+                step = None
+        if step is not None and self._bound is not step:
+            self.monitor.bind(step)
+            self._bound = step
+
+    def on_batch_begin(self, mode, step, logs=None):
+        if mode != "train" or self.monitor is None:
+            return
+        self._try_bind()
+        now = self.monitor.now_us()
+        if self._prev_end_us is not None:
+            self.monitor.record_phase("data_wait", self._prev_end_us, now)
 
     def on_batch_end(self, mode, step, logs=None):
-        if mode != "train" or self._begin is None:
+        if mode != "train" or self.monitor is None:
             return
-        now = self._now_us()
-        self._record("step", self._begin, now)
-        self._prev_end = now
-
-    def checkpoint_phase(self, phase, seconds):
-        """A checkpoint phase's seconds (``fit`` hands the monitor to its
-        ``CheckpointManager``; serialize and commit arrive from the writer
-        thread)."""
-        self.checkpoints.append((phase, seconds))
-
-    def checkpoint_result(self, ok, step=None):
-        self.checkpoints.append(("committed" if ok else "failed", step))
+        self._try_bind()
+        now = self.monitor.now_us()
+        step_end = self.monitor.last_step_end_us
+        if step_end is not None and step_end <= now:
+            self.monitor.record_phase("callbacks", step_end, now)
+        self._prev_end_us = now
 
     def on_end(self, mode, logs=None):
-        if mode == "train" and getattr(self.model, "_step_monitor",
-                                       None) is self:
-            self.model._step_monitor = None
+        if mode != "train":
+            return
+        if self.monitor is not None and self._bound is not None:
+            self.monitor.detach(self._bound)
+            self._bound = None
+        if self._own_writer is not None:
+            self._own_writer.close()
+            self._own_writer = None
 
 
 class VisualDL(Callback):

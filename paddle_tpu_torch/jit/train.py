@@ -63,7 +63,18 @@ host fill of the n counters and rates, with device-to-device batch
 slices; ``aot_prime`` (:531-537) captures ahead and counts one step's
 FLOPs; ``export_state`` / ``import_state`` (:401-502) copy the state out
 and back into the tensors a graph holds, so a restored step replays.
-ZeRO stages and ``StepMonitor`` are not ported; ``lowered`` /
+A bound ``observability.StepMonitor`` (``_monitor``) is called at JAX's
+three points: ``step_begin`` on entry, ``before_launch`` once the batch's
+program is known (``before_scan_launch`` in ``run_steps``, fingerprint
+``("scan", n_steps, flags, avals)``) and ``step_end`` with the returned
+loss; its counters ride in ``export_state``'s meta (``"monitor"``) and,
+restored before a monitor binds, wait in ``_pending_monitor_counters``.
+With none bound a call pays attribute checks only and the captured
+program is the same. A sublayer's ``l_aux`` set during the forward (MoE's
+balance loss) is added to the loss, as in JAX. ``LookAhead``,
+``ModelAverage`` and an ASP-decorated optimizer are refused: their work is
+outside ``_update`` (JAX's step raises for the first two and drops the
+masks of the third, ROADMAP C). ZeRO stages are not ported; ``lowered`` /
 ``lowered_steps`` have no counterpart (a CUDA graph has no program text).
 """
 from __future__ import annotations
@@ -147,6 +158,7 @@ class StepProgram:
         self.n_leaves = len(leaves)
         self.capture = None
         self.flops = None
+        self.memory = None
         self.amp_state = amp._snapshot()    # the first call's AMP state
 
     def batch(self):
@@ -176,6 +188,14 @@ class TrainStep:
                 "TrainStep(LBFGS): LBFGS evaluates a closure and decides on "
                 "the host between evaluations, so it is not one captured "
                 "step; call LBFGS.step(closure) eagerly")
+        wrapper = getattr(optimizer, "_step_wrapper_name", None)
+        if wrapper is not None:
+            raise NotImplementedError(
+                f"TrainStep({wrapper}): the wrapper's work (slow-weight "
+                f"sync, the running average, the sparsity masks) happens in "
+                f"its eager step() outside the update rule, which a "
+                f"captured step does not run; call {wrapper}.step() "
+                f"eagerly")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -190,6 +210,9 @@ class TrainStep:
             k: p for k, p in torch.nn.Module.named_parameters(model)
             if p.requires_grad and p.is_floating_point()}
         self._params = list(self._trainable.values())
+        # sublayers that leave an auxiliary loss (MoE's l_aux) per forward
+        self._aux_layers = [m for m in model.modules()
+                            if "l_aux" in m.__dict__]
         if not self._params:
             raise ValueError("TrainStep: the model has no trainable "
                              "floating-point parameters")
@@ -201,6 +224,10 @@ class TrainStep:
         self._bodies_only = False
         self.captures = 0               # graphs captured, replays launched
         self.replays = 0
+        self._compiled = None           # the aot_prime'd StepProgram
+        self._compiled_avals = None     # its batch fingerprint
+        self._monitor = None            # observability.StepMonitor.bind()
+        self._pending_monitor_counters = None   # restored before a bind
 
     # ------------------------------------------------------------ the step
     def _split(self, args, kwargs):
@@ -233,6 +260,7 @@ class TrainStep:
         if self._paddle:
             model_args, kwargs, label = _map_tensors(
                 Tensor, (model_args, kwargs, label))
+        before = [m.l_aux for m in self._aux_layers]
         out = self.model(*model_args, **kwargs)
         if label is not None:
             loss = self.loss_fn(out, label)
@@ -241,6 +269,12 @@ class TrainStep:
         else:
             loss = self.loss_fn(out)
         loss, out = _unwrapped((loss, out))
+        for m, old in zip(self._aux_layers, before):
+            # an auxiliary loss this forward set joins the objective, as
+            # JAX :153-159 adds a sublayer's fresh l_aux
+            aux = m.l_aux
+            if aux is not None and aux is not old:
+                loss = loss + _unwrapped(aux).to(loss.dtype)
         loss.backward()
         grads = self._clip([p.grad if p.grad is not None
                             else torch.zeros_like(p) for p in self._params])
@@ -310,12 +344,25 @@ class TrainStep:
                 lambda: self._body(prog), self._pool, _CAPTURE_MODE,
                 generators=(default_generator(self.device),))
             self.captures += 1
+            self._note_memory(prog)
             return out, False
         if count_flops:
             return self._body(prog, True), False
         prog.capture.replay()
         self.replays += 1
         return prog.capture.result, True
+
+    def _note_memory(self, prog):
+        """``prog.memory``: the argument bytes (parameters, accumulators,
+        the staged inputs) and, on the card, the allocator's watermark now
+        (after the first run and capture)."""
+        arg = sum(t.numel() * t.element_size() for t in self._state_tensors())
+        arg += sum(t.numel() * t.element_size()
+                   for t in prog.inputs.dev.values())
+        prog.memory = {"argument_bytes": arg}
+        if self.device.type == "cuda":
+            prog.memory["peak_bytes"] = torch.cuda.max_memory_allocated(
+                self.device)
 
     @contextlib.contextmanager
     def _eager(self):
@@ -344,10 +391,22 @@ class TrainStep:
             raise
 
     # ---------------------------------------------------------- public api
+    # one fingerprint definition shared with the serving warmup (the
+    # monitor's recompile sentinel reads it, as in JAX :541)
+    _arg_avals = staticmethod(aval_fingerprint)
+
     def __call__(self, *args, **kwargs):
+        mon = self._monitor
+        t0 = mon.step_begin() if mon is not None else None
         args, kwargs = _unwrapped((args, kwargs))
         prog = self._program(args, kwargs)
         opt = self.optimizer
+        if mon is not None:
+            # a call off the primed fingerprint: JAX's aot_fallback (:547)
+            mon.before_launch(self, args, kwargs,
+                              self._compiled_avals is not None
+                              and self._arg_avals(args, kwargs)
+                              == self._compiled_avals, t0)
         with self._undone_on_failure(prog):
             opt._step_count += 1
             self._seed += 1
@@ -356,6 +415,8 @@ class TrainStep:
             (loss, outs), replayed = self._run(prog)
         if replayed:
             loss, outs = loss.clone(), _map_tensors(torch.Tensor.clone, outs)
+        if mon is not None:
+            mon.step_end(self, loss, t0)
         return (loss, outs) if self._return_outputs else loss
 
     def run_steps(self, n_steps: int, *args, stacked=False, **kwargs):
@@ -370,7 +431,10 @@ class TrainStep:
         to ``n_steps`` sequential calls (JAX :288-360)."""
         if self._return_outputs:
             raise ValueError("run_steps does not support return_outputs=True")
+        mon = self._monitor
+        t0 = mon.step_begin() if mon is not None else None
         args, kwargs = _unwrapped((args, kwargs))
+        given = args
         if stacked:
             stacks = []
             for a in args:
@@ -382,6 +446,10 @@ class TrainStep:
                 stacks.append(torch.as_tensor(a).to(self.device))
             args = tuple(s[0] for s in stacks)
         prog = self._program(args, kwargs)
+        if mon is not None:
+            mon.before_scan_launch(self, n_steps,
+                                   tuple(bool(stacked) for _ in given),
+                                   given, kwargs, t0)
         opt = self.optimizer
         steps = np.arange(opt._step_count + 1, opt._step_count + 1 + n_steps,
                           dtype=np.int32)
@@ -407,6 +475,8 @@ class TrainStep:
                     losses = torch.empty(n_steps, dtype=loss.dtype,
                                          device=loss.device)
                 losses[i].copy_(loss)
+        if mon is not None:
+            mon.step_end(self, losses[-1], t0, n_steps=n_steps)
         return losses
 
     def aot_prime(self, *args, **kwargs):
@@ -415,7 +485,10 @@ class TrainStep:
         one step's FLOPs. The parameters, accumulators, step counter, seed,
         RNG and scheduler are left as they were (the run is undone by
         ``import_state``), so the next call replays. Returns the
-        ``StepProgram`` (``.flops``)."""
+        ``StepProgram`` (``.flops``, ``.memory``), which becomes the
+        step's ``_compiled`` (a later call of another fingerprint is the
+        monitor's ``aot_fallback``)."""
+        args, kwargs = _unwrapped((args, kwargs))
         prog = self._program(args, kwargs)
         opt = self.optimizer
         if prog.flops is None or (self.device.type == "cuda"
@@ -428,6 +501,10 @@ class TrainStep:
                 self._run(prog, count_flops=prog.flops is None)
             finally:
                 self.import_state(saved)
+        if prog.memory is None:
+            self._note_memory(prog)
+        self._compiled = prog
+        self._compiled_avals = self._arg_avals(args, kwargs)
         return prog
 
     def lowered(self, *args, **kwargs):
@@ -455,8 +532,8 @@ class TrainStep:
         created first if missing, as JAX :370-398 does), ``master`` (the
         eager path's f32 masters, when any) and ``meta`` (``step_count``,
         ``seed``, ``rng`` (torch's global states and the port's default
-        generator of the device, which dropout draws from), and
-        ``lr_sched`` under a scheduler)."""
+        generator of the device, which dropout draws from), ``lr_sched``
+        under a scheduler and ``monitor``, a bound monitor's counters)."""
         return self._copy_state(lambda t: t.detach().clone())
 
     def _copy_state(self, copy):
@@ -481,6 +558,9 @@ class TrainStep:
                 "rng": self._rng_state()}
         if isinstance(opt._learning_rate, LRScheduler):
             meta["lr_sched"] = opt._learning_rate.state_dict()
+        counters = getattr(self._monitor, "export_counters", None)
+        if counters is not None:
+            meta["monitor"] = counters()
         state["meta"] = meta
         return state
 
@@ -533,3 +613,12 @@ class TrainStep:
         if ("lr_sched" in meta
                 and isinstance(opt._learning_rate, LRScheduler)):
             opt._learning_rate.set_state_dict(meta["lr_sched"])
+        if "monitor" in meta:
+            if self._monitor is not None:
+                importer = getattr(self._monitor, "import_counters", None)
+                if importer is not None:
+                    importer(meta["monitor"])
+            else:
+                # no monitor bound yet (fit binds through MonitorCallback
+                # on the first batch, after the restore): park them
+                self._pending_monitor_counters = dict(meta["monitor"])

@@ -171,7 +171,7 @@ class GPTAttention(nn.Module):
         k = k.reshape(B, S, Hkv, D)
         v = v.reshape(B, S, Hkv, D)
         if rope is not None:
-            q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+            q, k = apply_rope(q, *rope, k)
         if step is None:
             out, _ = F.flash_attention(q, k, v, dropout=self.dropout,
                                        causal=True, training=self.training)

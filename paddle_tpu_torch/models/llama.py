@@ -101,8 +101,8 @@ class LlamaAttention(nn.Module):
         ``step``; the paged or dense cache branch with one."""
         B, S = x.shape[0], x.shape[1]
         H, Hkv, D = self.num_heads, self.num_kv_heads, self.head_dim
-        q = apply_rope(self.q_proj(x).reshape(B, S, H, D), *rope)
-        k = apply_rope(self.k_proj(x).reshape(B, S, Hkv, D), *rope)
+        q, k = apply_rope(self.q_proj(x).reshape(B, S, H, D), *rope,
+                          self.k_proj(x).reshape(B, S, Hkv, D))
         v = self.v_proj(x).reshape(B, S, Hkv, D)
         if step is None:
             out, _ = F.flash_attention(q, k, v, causal=True,

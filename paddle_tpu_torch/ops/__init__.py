@@ -11,13 +11,14 @@ paddle op is a torch function run through ONE dispatch helper,
 ``apply_op(fn, name, *args, **kwargs)``, which unwraps the paddle-style
 Tensors, applies the AMP cast for the op's NAME (``_amp_wrap``, JAX
 ``:39-66``), calls ``fn`` on torch tensors, scans the outputs for NaN/Inf
-when ``FLAGS_check_nan_inf`` is set, and wraps the outputs. Autograd is
+when ``FLAGS_check_nan_inf`` is set, records the op for
+``amp.debugging``'s operator statistics (``_maybe_record_op_stats``, JAX
+``:286-296``; ``apply_like`` too), and wraps the outputs. Autograd is
 torch's: ``fn`` runs under the current grad mode and its outputs carry
 their graph. The JAX package also keeps an eager vjp cache (``_eager_key``
 and ``_build_entry``, JAX ``:91-149``), because JAX traces every eager op
 anew; torch's eager dispatch runs each op at once and needs none, so it is
-not ported. The operator-statistics hook (``_maybe_record_op_stats``)
-waits for ``amp.debugging``.
+not ported.
 
 Capture safety: no op synchronises with the host unless its output shape
 depends on its values (``nonzero``, ``masked_select``, ``unique``,
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import amp as _amp
+from ..amp import debugging as _debugging
 from ..framework.flags import flag as _flag
 from ..tensor import Tensor
 from .paged_attention import (
@@ -74,6 +76,7 @@ def apply_op(fn, name: str, *args, **kwargs):
     fn = _amp_wrap(fn, name)
     out = fn(*[_unwrap(a) for a in args], **kwargs)
     _maybe_scan_nan_inf(name, out)
+    _maybe_record_op_stats(name, out)
     return _wrap_outputs(out)
 
 
@@ -88,7 +91,16 @@ def apply_like(fn, name: str, x, *args, **kwargs):
         return apply_op(fn, name, x, *args, **kwargs)
     out = _amp_wrap(fn, name)(x, *[_unwrap(a) for a in args], **kwargs)
     _maybe_scan_nan_inf(name, out)
+    _maybe_record_op_stats(name, out)
     return out
+
+
+def _maybe_record_op_stats(name, out):
+    """``amp.debugging``'s operator-stats hook: with collection off, one
+    global load and a None check. It reads dtypes, never values, so it is
+    safe inside a capture."""
+    if _debugging._stats is not None:
+        _debugging._record_op(name, out)
 
 
 def _maybe_scan_nan_inf(name, out):

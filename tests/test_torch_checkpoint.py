@@ -488,6 +488,35 @@ def preemption_flush_off_main_thread(paddle):
     return dict(got)
 
 
+def monitor_counters_through_a_manager(paddle):
+    """A bound StepMonitor's counters ride a checkpoint: the manager feeds
+    its phases and result; a restored step parks them for the next bind,
+    whose step count continues (JAX train.py:425-483)."""
+    obs, ck = paddle.observability, _ck(paddle)
+    x, y = _batch(paddle)
+    _, step = _build(paddle, 0)
+    mon = obs.StepMonitor(peak_flops=None, lint=False).bind(step)
+    for _ in range(3):
+        float(step(x, y))
+    with tempfile.TemporaryDirectory() as d:
+        ck.CheckpointManager(d, async_save=False, monitor=mon).save(step, 3)
+        _, fresh = _build(paddle, 1)
+        watcher = obs.StepMonitor(peak_flops=None, lint=False)
+        restored = ck.CheckpointManager(d, monitor=watcher).restore(fresh)
+    pending = dict(fresh._pending_monitor_counters or {})
+    later = obs.StepMonitor(peak_flops=None, lint=False).bind(fresh)
+    float(fresh(x, y))
+    text = mon.render()
+    return {"restored": restored, "pending": json.dumps(pending),
+            "step": later.last_fields["step"],
+            "phases": ",".join(s.name for s in mon.tracer.spans()
+                               if s.name.startswith("ckpt_")),
+            "restore": [s.name for s in watcher.tracer.spans()] == [
+                "ckpt_restore"],
+            "committed": ('paddle_train_checkpoints_total{result="committed"}'
+                          ' 1') in text}
+
+
 BODIES = [kill_resume_matches_uninterrupted, run_steps_restore,
           mid_commit_kill_falls_back,
           snapshot_and_serialize_kills_keep_previous,
@@ -498,7 +527,8 @@ BODIES = [kill_resume_matches_uninterrupted, run_steps_restore,
           manifest_records_files_and_meta, fit_kill_auto_resume,
           fit_graceful_flush_and_noop_resume, fit_resume_never_starts_fresh,
           fit_sigterm_flushes_and_exits_elastic,
-          preemption_flush_off_main_thread]
+          preemption_flush_off_main_thread,
+          monitor_counters_through_a_manager]
 
 
 @PKG

@@ -730,3 +730,114 @@ def test_serve_production_phase_rehearses_on_the_cpu(monkeypatch,
     assert spec["lora_verify"] and spec["launches"] == 2 * spec["forwards"]
     assert rec["lora_paths"]["generate_paged"]["launches"] == 2 * 8 * 2
     assert set(rec["adapters_over_base"]) == {"ratio", "spread", "resolved"}
+
+
+def _count_flash_refs(monkeypatch):
+    """The plain flash versions count into their kernels' wrappers, as the
+    kernels would on the card."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    for kind, name in (("fwd", "flash_attention_fwd_ref"),
+                       ("dq", "flash_attention_dq_ref"),
+                       ("dkv", "flash_attention_dkv_ref")):
+        real = getattr(fa, name)
+
+        def counted(*a, _real=real, _kind=kind, **k):
+            fa._WRAPPERS[_kind].launches += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(fa, name, counted)
+    return fa
+
+
+def test_train_monitor_phase_rehearses_on_the_cpu(monkeypatch, one_thread):
+    """The train_monitor phase's control flow on a 2-layer GPT (B 2, S
+    16): monitored losses equal the bare step's, launches equal, the
+    sentinel's new_shape and aot_fallback, one planted NaN one anomaly,
+    the seams' table; only the card's gauges fail (no peak FLOP/s for the
+    CPU, so no MFU; no allocator peak)."""
+    import torch
+
+    from paddle_tpu_torch.framework import device as pdev
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    _stub_card(monkeypatch)
+    fa = _count_flash_refs(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "cpu")
+    monkeypatch.setitem(pdev._current, "place", pdev._current["place"])
+    pdev.set_device("cpu")
+    cfg = GPTConfig(vocab_size=96, hidden_size=64, num_layers=2,
+                    num_heads=4, max_position=32)
+    with pytest.raises(AssertionError) as ei:
+        chip_smoke.train_monitor(torch, fa, "cpu", B=2, S=16, steps=3,
+                                 rounds=1, turn_steps=1, cfg=cfg)
+    fails = str(ei.value).split("; ")
+    assert len(fails) == 1, fails
+    assert fails[0].startswith("train_monitor: live MFU or HBM gauges "
+                               "missing: {'mfu': None"), fails
+
+
+def test_monitor_readings_time_each_batch_begin_to_end():
+    """The script phase's batch reading: each ``data_wait`` span's end (a
+    batch's begin) to the next ``callbacks`` span's end (its end), beside
+    the step spans (``h2d`` start to ``step`` end)."""
+    from paddle_tpu_torch.observability import StepMonitor
+
+    mon = StepMonitor()
+    rec = mon.tracer.record
+    rec("h2d", 100, 104, None, tags={"step": 1})
+    rec("step", 104, 140, None, tags={"step": 1})
+    mon.record_phase("callbacks", 140, 150)
+    mon.record_phase("data_wait", 150, 170)
+    rec("h2d", 175, 180, None, tags={"step": 2})
+    rec("step", 180, 200, None, tags={"step": 2})
+    mon.record_phase("callbacks", 200, 215)
+    mon.record_phase("data_wait", 215, 230)
+    mon.record_phase("callbacks", 290, 300)
+    got = chip_smoke.monitor_readings(mon)
+    assert got["step_s"] == [40e-6, 25e-6]
+    assert got["batch_s"] == [45e-6, 70e-6]
+    assert got["data_wait_s"] == [20e-6, 15e-6]
+
+
+def test_incubate_phase_rehearses_on_the_cpu(monkeypatch, one_thread):
+    """The incubate phase's gates (g)-(k) at a toy size on the CPU: the
+    fused stack against the nn stack and the functionals, the O2 table and
+    the tensor checker, the bf16 stack's bodies against its "captured"
+    steps under a monitor, MoE index against dense, ASP on a 2-layer GPT,
+    LookAhead and ModelAverage against hand loops: all hold."""
+    import torch
+
+    from paddle_tpu_torch.framework import device as pdev
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    _stub_card(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "cpu")
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda torch, fn, flush,
+                        reps=25, queued=True: (fn(), 0.0)[1])
+    monkeypatch.setitem(pdev._current, "place", pdev._current["place"])
+    rec = chip_smoke.incubate_phase(
+        torch, "cpu", B=2, S=8, d=16, heads=2, ff=32, layers=2, steps=2,
+        moe_shape=(2, 16, 16, 4, 32),
+        asp_config=GPTConfig(vocab_size=96, hidden_size=64, num_layers=2,
+                             num_heads=4, max_position=32))
+    assert rec["g"]["fused_vs_nn"] <= rec["g"]["limit"]
+    assert rec["h"]["equal"] and rec["h"]["monitor_steps"] == 2
+    assert all(r["l_aux_equal"] for r in rec["i"]["seeds"])
+    assert len(rec["i"]["seeds"]) == 3
+    assert rec["i"]["worst_rel"] <= rec["i"]["bound"]
+    assert rec["j"]["all_sparse"] and rec["j"]["pruned"] == 8
+    assert all(rec["k"].values())
+
+
+def test_paired_ratio_takes_each_round_as_one_ratio():
+    """Rounds of turns (den, num, num, den): a drift within a round
+    cancels, so a steady 1% cost reads as 0.99 in every round."""
+    rates = {"bare": [100.0, 106.0, 200.0, 212.0],
+             "monitored": [100.98, 102.96, 201.96, 205.92]}
+    got = chip_smoke.paired_ratio(rates, "monitored", "bare")
+    assert got["rounds"] == pytest.approx([0.99, 0.99])
+    assert got["spread"] == pytest.approx(0.0, abs=1e-12)
+    assert got["resolved"] and got["cost_at_most"] == pytest.approx(0.01)
+    naive = chip_smoke.rate_ratio(rates, "monitored", "bare")
+    assert not naive["resolved"]

@@ -5,7 +5,15 @@ loaded on the card, and one made on the card that runs the plain version
 on the CPU; head dims no kernel takes (32, 96, 256) on the plain route;
 ``io.DataLoader`` workers that never initialise CUDA; ``Model.fit``
 through the captured step and an in-place restore that captures nothing
-new; ``jit.to_static`` captured once and replayed. Every test here is
+new; ``jit.to_static`` captured once and replayed; a ``StepMonitor`` on a
+captured GPT step (losses bit-equal to the bare step's, the same flash
+launches), the operator-stats hook around a capture (the first run records,
+the capture and the replays add nothing and sync nothing), and MoE's index
+dispatch against dense in f32 (2^-20 of each tensor's largest magnitude:
+the combine rounds differently in the two, ``tests/test_torch_moe.py``);
+the graph sampling pipeline (``sample_neighbors`` -> ``reindex_graph`` ->
+``send_u_recv``) on tensors on the card, its results there and equal to
+the CPU's. Every test here is
 marked ``cuda`` and skips without a GPU. This file imports torch, numpy
 and the port only (no JAX):
 
@@ -249,3 +257,135 @@ def test_parameter_free_layer_builds_on_the_card(cuda, tmp_path):
     out = out._value if hasattr(out, "_value") else out
     assert out.device.type == "cuda"
     assert torch.equal(out, x * 2.0 + 1.0)
+
+
+def _tiny_gpt_step(device, seed=0):
+    from paddle_tpu_torch.jit import TrainStep
+
+    net = _gpt(device, seed)
+    P.amp.decorate(net, level="O2", dtype="bfloat16")
+    opt = P.optimizer.AdamW(learning_rate=1e-3, parameters=net.parameters())
+    return net, TrainStep(net, lambda logits, loss: loss, opt)
+
+
+@pytest.mark.cuda
+def test_monitored_captured_step_equals_the_bare_one(cuda):
+    from paddle_tpu_torch.observability import StepMonitor
+
+    ids = _ids(B=2, S=64).cuda()
+    labels = ids.roll(-1, 1)
+    _, step = _tiny_gpt_step("cuda")
+    start = step.export_state()
+    before = [w.launches for w in (fa.flash_fwd, fa.flash_bwd_dq,
+                                   fa.flash_bwd_dkv)]
+    bare = torch.stack([step(ids, labels=labels) for _ in range(4)])
+    bare_launches = [w.launches - b for w, b in zip(
+        (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv), before)]
+    step.import_state(start)
+    mon = StepMonitor(samples_per_step=2, tokens_per_step=128).bind(step)
+    before = [w.launches for w in (fa.flash_fwd, fa.flash_bwd_dq,
+                                   fa.flash_bwd_dkv)]
+    watched = torch.stack([step(ids, labels=labels) for _ in range(4)])
+    launches = [w.launches - b for w, b in zip(
+        (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv), before)]
+    assert torch.equal(watched, bare)
+    assert launches == bare_launches == [2 * 4] * 3
+    assert step.captures == 1 and mon.last_fields["step"] == 4
+    assert "paddle_train_steps_total 4" in mon.render()
+
+
+@pytest.mark.cuda
+def test_op_stats_around_a_capture_record_the_first_run_only(cuda):
+    from paddle_tpu_torch.amp import debugging
+
+    ids = _ids(B=2, S=64).cuda()
+    labels = ids.roll(-1, 1)
+    _, step = _tiny_gpt_step("cuda")
+    with debugging.collect_operator_stats():
+        step(ids, labels=labels)          # the first run and the capture
+        first = debugging.operator_stats_snapshot()
+        step(ids, labels=labels)          # a replay
+        step(ids, labels=labels)
+        after = debugging.operator_stats_snapshot()
+    assert step.captures == 1 and step.replays == 2
+    assert first == after and first["linear"] == {"bfloat16": 8}
+    _, body = _tiny_gpt_step("cuda")
+    with body._eager(), debugging.collect_operator_stats():
+        body(ids, labels=labels)
+        assert debugging.operator_stats_snapshot() == first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", ["gshard", "switch"])
+def test_moe_index_equals_dense_on_the_card(cuda, gate):
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+
+    D, E = 64, 4
+
+    def layer(mode):
+        P.seed(3)
+        return MoELayer(D, [P.nn.Sequential(P.nn.Linear(D, 4 * D),
+                                            P.nn.GELU(),
+                                            P.nn.Linear(4 * D, D))
+                            for _ in range(E)], gate=gate,
+                        dispatch_mode=mode)
+
+    x = torch.randn(4, 64, D, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    res = []
+    for mode in ("index", "dense"):
+        m = layer(mode)
+        xt = x.clone().requires_grad_(True)
+        out = m(xt)
+        (out.square().mean() + 0.01 * m.l_aux).backward()
+        res.append([out.detach(), m.l_aux.detach(), xt.grad] + [
+            p._value.grad for p in m.parameters()])
+    for a, b in zip(*res):
+        assert float((a - b).abs().max()) <= 2.0 ** -20 * float(
+            b.abs().max())
+
+
+@pytest.mark.cuda
+def test_graph_sampling_pipeline_stays_on_the_card(cuda):
+    """sample_neighbors -> reindex_graph -> send_u_recv on tensors on the
+    card: the host's sampling and reindexing hand their results back on
+    the card, and the pipeline equals the CPU's with the same seed; the
+    weighted sampler, graph_khop_sampler and reindex_heter_graph land
+    there too."""
+    G, inc = P.geometric, P.incubate
+    # CSC graph: node n's neighbours are row[colptr[n]:colptr[n + 1]]
+    row = np.array([1, 2, 3, 0, 2, 0, 1, 3, 4, 2], "int64")
+    colptr = np.array([0, 3, 5, 9, 10, 10], "int64")
+    nodes = np.array([0, 2, 3], "int64")
+    feats = np.random.default_rng(0).standard_normal((5, 8)).astype(
+        "float32")
+
+    def pipeline(dev):
+        def t(a):
+            return P.Tensor(torch.as_tensor(a, device=dev))
+
+        neigh, cnt = G.sample_neighbors(t(row), t(colptr), t(nodes),
+                                        sample_size=2, seed=3)
+        src, dst, out_nodes = G.reindex_graph(t(nodes), neigh, cnt)
+        x = t(feats)[out_nodes._value]
+        agg = G.send_u_recv(x, src, dst, reduce_op="sum",
+                            out_size=len(nodes))
+        return [neigh, cnt, src, dst, out_nodes, agg]
+
+    on_card, on_cpu = pipeline(cuda), pipeline(torch.device("cpu"))
+    for a, b in zip(on_card, on_cpu):
+        assert a._value.device.type == "cuda"
+        assert torch.equal(a._value.cpu(), b._value)
+
+    def t(a):
+        return P.Tensor(torch.as_tensor(a, device=cuda))
+
+    w = np.linspace(1.0, 2.0, len(row)).astype("float32")
+    outs = list(G.weighted_sample_neighbors(
+        t(row), t(colptr), t(w), t(nodes), sample_size=2,
+        eids=t(np.arange(len(row))), return_eids=True, seed=1))
+    outs += inc.graph_khop_sampler(t(row), t(colptr), t(nodes), [2], seed=0)
+    outs += G.reindex_heter_graph(t(nodes), [t(row[:4]), t(row[4:6])],
+                                  [t(np.array([2, 1, 1])),
+                                   t(np.array([1, 0, 1]))])
+    assert [o._value.device.type for o in outs] == ["cuda"] * len(outs)

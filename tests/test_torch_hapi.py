@@ -302,7 +302,7 @@ def test_a_failed_capture_runs_the_step_eagerly_on_the_same_device(
 def test_callbacks_progbar_visualdl_and_monitor(on_cpu, tmp_path, capsys):
     cb = port.hapi.callbacks
     model = _seq_model(port)
-    mon = cb.MonitorCallback()
+    mon = cb.MonitorCallback(samples_per_step=16)
     model.fit(_dataset(port), batch_size=16, epochs=1, shuffle=False,
               callbacks=[cb.ProgBarLogger(log_freq=2, verbose=1),
                          cb.VisualDL(log_dir=str(tmp_path)), mon],
@@ -312,10 +312,23 @@ def test_callbacks_progbar_visualdl_and_monitor(on_cpu, tmp_path, capsys):
     lines = open(tmp_path / "scalars.tsv").read().splitlines()
     assert len(lines) == 4 * 2            # loss and acc for 4 batches
     assert lines[0].startswith("train\t0\tloss\t")
-    assert len(mon.phases["step"]) == 4 and len(mon.phases["data_wait"]) == 3
-    kinds = [k for k, _ in mon.checkpoints]
-    assert kinds.count("snapshot") == 2 and kinds.count("committed") == 2
-    assert model._step_monitor is None
+    # the bound StepMonitor's series: 4 step observations, 3 loader gaps,
+    # two checkpoints' phases in order and their results
+    m = mon.monitor
+    text = m.render()
+    assert "paddle_train_step_seconds_count 4" in text
+    spans = [s.name for s in m.tracer.spans()]
+    assert spans.count("step") == 4 and spans.count("data_wait") == 3
+    ckpt = [s.name for s in sorted(m.tracer.spans(),
+                                   key=lambda s: s.end_us)
+            if s.name.startswith("ckpt_")]
+    for phase in ("snapshot", "serialize", "commit"):
+        assert ckpt.count(f"ckpt_{phase}") == 2, ckpt
+        assert (f'paddle_train_checkpoint_seconds_count{{phase="{phase}"}} 2'
+                in text)
+    assert ckpt[0] == "ckpt_snapshot" and ckpt[-1] == "ckpt_commit"
+    assert 'paddle_train_checkpoints_total{result="committed"} 2' in text
+    assert model._step_monitor is m and model._train_step._monitor is None
 
 
 def test_sigterm_in_a_fit_fed_by_workers_exits_101(tmp_path):
