@@ -389,6 +389,22 @@ non-zero without the final line:
    different lengths or batches on the plain route, reported "plain",
    equal to ``_sdpa_core``, and so head dims 32 and 96 (no kernel takes
    them).
+22. distributed — in a fresh process (``--distributed-worker``), one NCCL
+   rank on the card (``init_parallel_env`` over ``tcp://localhost``):
+   every collective of ``distributed.collective`` on CUDA tensors held to
+   its one-rank answer; GPT-350M (O2 bf16, AdamW, B 8, S 1024) 4 captured
+   TrainSteps under ``DataParallel`` (its gradient all-reduce run at the
+   first run and the capture, none by a replay) against the bare
+   TrainStep: losses and parameters bit-equal, 24 launches of each flash
+   kernel a step; 4 greedy requests through the continuous scheduler
+   under ``serving_mesh(dp=1, tp=1)`` equal to the plain scheduler's (at
+   one rank the mesh is a no-op: the plain scheduler serves, no lockstep
+   runs); the paged kernel on tp = 2 and 4 kv-head shards of a random
+   pool (decode and prefill),
+   the flash forward on each Ulysses head shard [B, S, H/tp, D] and
+   ``ulysses_attention`` itself, each concatenation held to the plain
+   version of the whole call within the kernels' tolerance. The CPU tests
+   rehearse it at two gloo ranks on a tiny GPT.
 
 Last lines: each phase's seconds, the card, the kernels JSON (a kernel
 redesigned since it was first ported names the change in "redesigned";
@@ -406,8 +422,11 @@ import io
 import json
 import os
 import re
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -7195,6 +7214,430 @@ PHASE_S = {}
 PHASE_ALLOCATED = {}     # the allocator's live bytes as each phase ended
 
 
+# ------------------------------------------------------------- distributed
+# the CPU rehearsal's and the card tests' model: head dim 64, a kernel's
+DIST_TINY = dict(vocab_size=128, hidden_size=256, num_layers=2, num_heads=4,
+                 max_position=256)
+
+
+def dist_collectives(torch, dist, device):
+    """Every collective of ``distributed.collective`` on ``device`` at this
+    world size, rank r holding base + r: {name: held to its meaning}."""
+    n, me = dist.get_world_size(), dist.get_rank()
+    base = torch.arange(1, 4, dtype=torch.float32, device=device)
+    xs = [base + 10 * r for r in range(n)]
+    mine = lambda: xs[me].clone()                      # noqa: E731
+    res = {}
+
+    def held(name, got, want):
+        res[name] = bool(torch.equal(got, want))
+
+    stack = torch.stack(xs)
+    for op, want in (("sum", stack.sum(0)), ("max", stack.amax(0)),
+                     ("min", stack.amin(0)), ("prod", stack.prod(0)),
+                     ("avg", stack.mean(0))):
+        t = mine()
+        dist.all_reduce(t, op=op)
+        held(f"all_reduce_{op}", t, want)
+    t = mine()
+    dist.reduce(t, dst=0)
+    held("reduce", t, stack.sum(0))
+    t = mine()
+    dist.broadcast(t, src=n - 1)
+    held("broadcast", t, xs[n - 1])
+    lst = []
+    dist.all_gather(lst, mine())
+    held("all_gather", torch.stack(lst), stack)
+    held("all_gather_axis", dist.all_gather(None, mine()[None], axis=0),
+         stack)
+    lst = []
+    dist.gather(mine(), lst, dst=0)
+    held("gather", torch.stack(lst), stack)
+    t = torch.zeros_like(base)
+    dist.scatter(t, [base * 0 + 10.0 * i for i in range(n)], src=0)
+    held("scatter", t, base * 0 + 10.0 * me)
+    t = torch.zeros_like(base)
+    dist.reduce_scatter(t, [mine() * (i + 1) for i in range(n)])
+    held("reduce_scatter", t, stack.sum(0) * (me + 1))
+    t = torch.zeros_like(base[None])
+    dist.reduce_scatter(t, torch.stack([mine() * (i + 1) for i in range(n)]))
+    held("reduce_scatter_tiled", t[0], stack.sum(0) * (me + 1))
+    outs = []
+    dist.alltoall(outs, [mine() * (i + 1) + i for i in range(n)])
+    held("alltoall", torch.stack(outs), stack * (me + 1) + me)
+    src = torch.cat([mine() * (i + 1) + i for i in range(n)])
+    dst = torch.empty_like(src)
+    dist.alltoall_single(dst, src)
+    held("alltoall_single", dst, (stack * (me + 1) + me).reshape(-1))
+    held("shift", dist.shift(mine(), 1), xs[(me - 1) % n])
+    a = torch.zeros_like(base)
+    nxt, prv = (me + 1) % n, (me - 1) % n
+    for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, mine(), nxt),
+                                     dist.P2POp(dist.irecv, a, prv)]):
+        w.wait()
+    held("batch_isend_irecv", a, xs[prv])
+    objs = [{"from": me}]
+    dist.broadcast_object_list(objs, src=n - 1)
+    res["broadcast_object_list"] = objs[0]["from"] == n - 1
+    got = []
+    dist.all_gather_object(got, me)
+    res["all_gather_object"] = got == list(range(n))
+    got = []
+    dist.scatter_object_list(got, list(range(n)) if me == 0 else None, src=0)
+    res["scatter_object_list"] = got == [me]
+    dist.barrier()
+    res["barrier"] = True
+    return res
+
+
+def dist_train(torch, dist, fa, device, cfg, B, S, steps, dtype, seed=12,
+               plant=None):
+    """The same steps of GPT (O2 bf16 on the card, AdamW) twice: a bare
+    captured TrainStep on the whole batch, then the TrainStep over
+    ``DataParallel`` with this rank's rows (the main path: the flash launch
+    counts). Held: the losses, and each parameter after the steps against
+    the bare step's (``param_gap``: per leaf, sum |p_dp - p_bare| over sum
+    |p_bare - p_init|, the gap as a share of how far the leaf moved). At
+    one rank both must be bit-equal. Across ranks (f32, the CPU
+    rehearsal) the mean of the ranks' losses within 1e-5 relative and
+    every leaf's gap within 1e-3 (f32 sums over other batch splits,
+    through AdamW's normalised update; a skipped sync leaves gaps near 1).
+    ``plant="skip_sync"`` leaves the DataParallel gradients local, which
+    the gate must refuse. Then five rounds of two more steps of each,
+    the forms alternating which goes first (``step_ms``: the median
+    round, host clock; ``dp_over_bare``: the median of the rounds'
+    ratios)."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+
+    n, me = dist.get_world_size(), dist.get_rank()
+    rng = np.random.default_rng(seed)
+    ids_np = rng.integers(0, cfg.vocab_size, (B, S))
+    labels_np = np.roll(ids_np, -1, axis=1)
+    rec, after, live = {}, {}, {}
+    for form in ("bare", "data_parallel"):
+        model = GPTForCausalLM(cfg, device=device, seed=seed)
+        if dtype == "bfloat16":
+            amp.decorate(model, level="O2", dtype="bfloat16")
+        if form == "bare":
+            init = [p.detach().clone() for p in model.parameters()]
+        opt = optimizer.AdamW(learning_rate=1e-4,
+                              parameters=model.parameters(),
+                              weight_decay=0.01, multi_precision=True)
+        net = model if form == "bare" else dist.DataParallel(model)
+        if form == "data_parallel" and plant == "skip_sync":
+            net._sync = False
+        step = TrainStep(net, lambda logits, loss: loss, opt)
+        rows = (slice(None) if form == "bare"
+                else slice(me * B // n, (me + 1) * B // n))
+        ids = torch.as_tensor(ids_np[rows], device=device)
+        labels = torch.as_tensor(labels_np[rows], device=device)
+        if form == "data_parallel":
+            fa.flash_fwd.launches = fa.flash_bwd_dq.launches = 0  # main path
+            fa.flash_bwd_dkv.launches = 0
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(steps):
+            loss = step(ids, labels=labels).float()
+            if form == "data_parallel":
+                dist.all_reduce(loss, op="avg")
+            losses.append(loss)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        r = dict(losses=[float(x) for x in losses],
+                 loss_tensors=torch.stack(losses),
+                 wall_s=time.perf_counter() - t0)
+        if form == "data_parallel":
+            r["flash_launches"] = flash_launches(fa)       # main path ends
+        after[form] = [p.detach().clone() for p in model.parameters()]
+        rec[form] = r
+        live[form] = (step, ids, labels, net)
+    ms = {form: [] for form in live}
+    for rnd in range(5):                    # two more replays, host clock
+        for form in (("bare", "data_parallel") if rnd % 2 == 0
+                     else ("data_parallel", "bare")):
+            step, ids, labels, _ = live[form]
+            if device != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                step(ids, labels=labels)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            ms[form].append((time.perf_counter() - t0) / 2 * 1e3)
+    for form, (step, _, _, net) in live.items():
+        rec[form].update(step_ms=float(np.median(ms[form])),
+                         step_ms_rounds=ms[form], captures=step.captures,
+                         replays=step.replays)
+    rec["data_parallel"]["syncs"] = live["data_parallel"][3].syncs
+    rec["dp_over_bare"] = float(np.median(
+        [d / b for d, b in zip(ms["data_parallel"], ms["bare"])]))
+    del live, step, opt, net, model
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    a, b = rec["bare"].pop("loss_tensors"), rec["data_parallel"].pop(
+        "loss_tensors")
+    rec["bit_equal"] = bool(torch.equal(a, b))
+    rec["max_rel_diff"] = float(((a - b).abs() / a.abs()).max())
+    gaps = [float((d.float() - w.float()).abs().sum()
+                  / (w.float() - i.float()).abs().sum().clamp(min=1e-30))
+            for i, w, d in zip(init, after["bare"], after["data_parallel"])]
+    rec["params_bit_equal"] = all(
+        torch.equal(w, d) for w, d in zip(after["bare"],
+                                          after["data_parallel"]))
+    rec["param_gap"] = max(gaps)
+    del init, after
+    rec["ok"] = bool(rec["bit_equal"] and rec["params_bit_equal"] if n == 1
+                     else rec["max_rel_diff"] <= 1e-5
+                     and rec["param_gap"] <= 1e-3)
+    rec["ok"] = rec["ok"] and all(np.isfinite(rec["bare"]["losses"]))
+    if device != "cpu":
+        # the gradient all-reduce ran while the step was captured (a sync
+        # at the first run and one at the capture, none at the replays):
+        # it is in the graph (at one rank NCCL copies: no kernel to see)
+        dp = rec["data_parallel"]
+        want = cfg.num_layers * steps
+        rec["ok"] = (rec["ok"] and dp["captures"] == 1 and dp["syncs"] == 2
+                     and all(v == want
+                             for v in dp["flash_launches"].values()))
+    return rec
+
+
+def dist_serve(torch, dist, pa, device, cfg, dtype, n_req=4, plen=64,
+               new=16):
+    """Greedy requests through the continuous scheduler of a whole model,
+    then through ``serving_mesh(dp=1, tp=world)`` over the same weights
+    (each rank its shards). Tokens must be identical; the paged launches
+    of the mesh run are the main path's. At world > 1 (the CPU rehearsal)
+    every rank runs a predictor in lockstep and rank 0 serves. At one rank
+    (the card) the mesh's tp axis has size 1, so the model gets no tp group
+    and the predictor is the plain scheduler (``lockstep`` False): the
+    check then holds the plain scheduler against itself over weights that
+    went through the bridge, and no distributed serving code runs."""
+    from paddle_tpu_torch import from_paddle_tpu_state, to_paddle_tpu_state
+    from paddle_tpu_torch.inference import (
+        ContinuousGenerateBatchingPredictor,
+    )
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+
+    n, me = dist.get_world_size(), dist.get_rank()
+    td = getattr(torch, dtype)
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(0, cfg.vocab_size, plen).astype(np.int64)
+               for _ in range(n_req)]
+    kw = dict(max_slots=4, prefill_chunk=64, decode_steps=4,
+              max_new_tokens=new, max_seq_len=256, block_size=32,
+              num_blocks=4 * 256 // 32, device=device)
+    whole = GPTForCausalLM(cfg, device=device, dtype=td, seed=0)
+    whole.eval()
+    pred = ContinuousGenerateBatchingPredictor(whole, **kw)
+    ref = [np.asarray(pred.infer(p, timeout=600)) for p in prompts]
+    pred.close()
+    state = to_paddle_tpu_state(whole)
+    del whole, pred
+    mesh = dist.serving_mesh(dp=1, tp=n)
+    model = from_paddle_tpu_state(state, cfg, device=device, dtype=td)
+    model.eval()
+    pa.paged_decode_attention.launches = 0                 # main path
+    t0 = time.perf_counter()
+    pred = ContinuousGenerateBatchingPredictor(model, **kw)
+    got = None
+    if me == 0:
+        got = [np.asarray(pred.infer(p, timeout=600)) for p in prompts]
+    pred.close()
+    launches = pa.paged_decode_attention.launches          # main path ends
+    rec = dict(tp=mesh.get_dim_size("tp"), requests=n_req, prompt=plen,
+               new=new, wall_s=time.perf_counter() - t0,
+               lockstep=model.tp_group is not None,
+               paged_launches=launches,
+               pool_per_chip_bytes=pred.kv_cache.per_chip_pool_bytes(),
+               pool_bytes=pred.kv_cache.pool_bytes())
+    dist.set_mesh(None)
+    if me == 0:
+        rec["tokens_equal"] = all(np.array_equal(a, b)
+                                  for a, b in zip(got, ref))
+        rec["ok"] = rec["tokens_equal"] and all(
+            len(a) == plen + new for a in got)
+    else:
+        rec["follower_runs"] = pred.follower_runs
+        rec["ok"] = pred.follower_runs > 0
+    if device != "cpu":
+        rec["ok"] = rec["ok"] and launches > 0
+    del model, pred
+    return rec
+
+
+def dist_shards(torch, pa, fa, device, B, S, H, D, dtype):
+    """The kernels on tensor-parallel head shards, as rank r of tp would
+    launch them: the paged kernel over its kv heads of a pool (decode and
+    a 64-row prefill), the flash forward on each Ulysses head shard
+    [B, S, H/tp, D]; each concatenation held against the plain version of
+    the whole call within the kernels' tolerance. The pool is random, not
+    one a scheduler filled: what tp changes is which heads a launch sees
+    (a slice of the pool's head axis and of q's), not the values, tables
+    or lengths, and the tables and lengths here are the single-card
+    check's (``decode_lengths`` / ``prefill_offsets``). A pool filled by
+    the tp = 2 scheduler is driven on the CPU, where the plain version
+    stands in for the kernel (``tests/test_torch_mesh_serving.py``)."""
+    rng = np.random.default_rng(17)
+    rec = {}
+    for tp in (2, 4):
+        h = H // tp
+        for name, Sq in (("paged_decode", 1), ("paged_prefill", 64)):
+            lengths = (decode_lengths(rng) if Sq == 1
+                       else prefill_offsets(rng))
+            args = make_case(torch, 8, Sq, H, 1, D, 32, lengths, dtype,
+                             device, seed=tp)
+            q, kp, vp, tbl, ln = args
+            got = torch.cat([pa.paged_decode_attention(
+                q[:, :, r * h:(r + 1) * h], kp[r * h:(r + 1) * h],
+                vp[r * h:(r + 1) * h], tbl, ln) for r in range(tp)], dim=2)
+            ref = pa.paged_decode_attention_ref(*args)
+            err, ratio = held_to_plain(torch, pa, args, got, ref)
+            rec[f"{name}_tp{tp}"] = dict(max_abs_err=err, over_limit=ratio,
+                                         ok=ratio <= 1.0)
+        q, k, v, _ = flash_inputs(torch, B, S, H, H, D, dtype, device, tp)
+        outs, lses = zip(*[fa.flash_fwd(q[:, :, r * h:(r + 1) * h],
+                                        k[:, :, r * h:(r + 1) * h],
+                                        v[:, :, r * h:(r + 1) * h], True)
+                           for r in range(tp)])
+        ro, rl = fa.flash_attention_fwd_ref(q, k, v, True)
+        lim = fa.kernel_tolerance(q, k, v, {"out": ro, "lse": rl}, True)
+        lse = torch.cat([x.reshape(B, h, S) for x in lses],
+                        dim=1).reshape(B * H, S)          # [B * H, S]
+        res = over_limit(torch, {"out": torch.cat(outs, dim=2), "lse": lse},
+                         {"out": ro, "lse": rl}, lim)
+        rec[f"ulysses_flash_fwd_tp{tp}"] = dict(
+            max_abs_err=res["out"][0], over_limit=max(
+                r[1] for r in res.values()),
+            ok=all(r[1] <= 1.0 for r in res.values()))
+    return rec
+
+
+def dist_ulysses(torch, dist, fa, device, B, S, H, D, dtype):
+    """``ulysses_attention`` over the world (the all-to-all, the flash
+    kernel on the local heads, the all-to-all back): each rank's output
+    shard held against the plain attention of the whole inputs."""
+    from paddle_tpu_torch.distributed.context_parallel import (
+        ulysses_attention,
+    )
+
+    n, me = dist.get_world_size(), dist.get_rank()
+    q, k, v, _ = flash_inputs(torch, B, S, H, H, D, dtype, device, 5)
+    cut = lambda x: x.chunk(n, dim=1)[me].contiguous()     # noqa: E731
+    got = ulysses_attention(cut(q), cut(k), cut(v), causal=True,
+                            group=dist.new_group())
+    ro, rl = fa.flash_attention_fwd_ref(q, k, v, True)
+    lim = fa.kernel_tolerance(q, k, v, {"out": ro, "lse": rl}, True)
+    err = (got.float() - cut(ro).float()).abs()
+    ratio = float((err / cut(lim["out"]).clamp(min=1e-30)).max())
+    return dict(max_abs_err=float(err.max()), over_limit=ratio,
+                ok=ratio <= 1.0)
+
+
+def distributed_worker(args):
+    """One rank of the distributed phase, in a fresh process: joins the
+    process group (NCCL on the card, gloo on the CPU), runs the checks and
+    writes its record to ``args.dist_out``."""
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_350m
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    device = args.dist_device
+    if device == "cpu":
+        torch.set_num_threads(1)     # the ranks share the host's cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    env = dist.init_parallel_env(device=device, init_method=args.dist_init,
+                                 world_size=args.dist_world,
+                                 rank=args.dist_rank, timeout=120)
+    dev = str(dist.env.device())
+    rec = dict(rank=env.rank, world=env.world_size, backend=dist.get_backend(),
+               init_s=time.perf_counter() - t0)
+    if args.dist_plant == "raise" and env.rank == args.dist_world - 1:
+        raise RuntimeError("planted failure on the last rank")
+    tiny = args.dist_tiny
+    cfg = GPTConfig(**DIST_TINY) if tiny else gpt_350m()
+    dtype = "float32" if tiny else "bfloat16"
+    rec["collectives"] = dist_collectives(torch, dist, dev)
+    rec["train"] = dist_train(torch, dist, fa, dev, cfg, 4 if tiny else 8,
+                              64 if tiny else 1024, 4, dtype,
+                              plant=args.dist_plant)
+    rec["serve"] = dist_serve(torch, dist, pa, dev, cfg, dtype,
+                              new=8 if tiny else 16)
+    shape = (2, 128, 4, 64) if tiny else (8, 1024, 16, 64)
+    rec["shards"] = dist_shards(torch, pa, fa, dev, *shape, dtype)
+    rec["ulysses"] = dist_ulysses(torch, dist, fa, dev, *shape, dtype)
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["failures"] = (
+        [k for k, ok in rec["collectives"].items() if not ok]
+        + [k for k in ("train", "serve", "ulysses") if not rec[k]["ok"]]
+        + [k for k, r in rec["shards"].items() if not r["ok"]])
+    with open(args.dist_out, "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def distributed_phase(world=1, device="cuda", tiny=False, plant=None,
+                      timeout=600):
+    """The distributed phase: ``world`` fresh processes, each one rank of a
+    process group (NCCL at one rank on the card; gloo on the CPU, where the
+    tests rehearse it at two). Fails if any rank fails or a check of any
+    rank does not hold; returns rank 0's record."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init = (f"tcp://localhost:{port}" if device != "cpu"
+            else f"file://{tmp}/store")
+    procs = []
+    try:
+        for r in range(world):
+            cmd = [sys.executable, os.path.abspath(__file__),
+                   "--distributed-worker", "--dist-rank", str(r),
+                   "--dist-world", str(world), "--dist-init", init,
+                   "--dist-device", device,
+                   "--dist-out", os.path.join(tmp, f"rank{r}.json")]
+            cmd += ["--dist-tiny"] if tiny else []
+            cmd += ["--dist-plant", plant] if plant else []
+            procs.append(subprocess.Popen(cmd))
+        t_end = time.monotonic() + timeout
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, t_end - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        codes = [p.returncode for p in procs]
+        recs = []
+        for r in range(world):
+            path = os.path.join(tmp, f"rank{r}.json")
+            recs.append(json.load(open(path)) if os.path.exists(path)
+                        else None)
+        if any(c != 0 for c in codes) or any(r is None for r in recs):
+            raise AssertionError(f"distributed phase: rank exit codes "
+                                 f"{codes}")
+        bad = {r["rank"]: {k: r.get(k, r["collectives"].get(k))
+                           for k in r["failures"]}
+               for r in recs if r["failures"]}
+        if bad:
+            raise AssertionError(f"distributed phase: failed checks "
+                                 f"{json.dumps(bad)}")
+        return recs[0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 @contextlib.contextmanager
 def phase(name):
     """Record the wall seconds of the block under ``name`` and the bytes
@@ -7215,9 +7658,20 @@ def main():
                     help=argparse.SUPPRESS)
     ap.add_argument("--script-dir", help=argparse.SUPPRESS)
     ap.add_argument("--script-out", help=argparse.SUPPRESS)
+    # the distributed phase's ranks (distributed_worker)
+    ap.add_argument("--distributed-worker", action="store_true",
+                    help=argparse.SUPPRESS)
+    for name, typ in (("rank", int), ("world", int), ("init", str),
+                      ("device", str), ("out", str), ("plant", str)):
+        ap.add_argument(f"--dist-{name}", type=typ, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-tiny", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.script_fit:
         script_worker(args.script_fit, args.script_dir, args.script_out)
+        return
+    if args.distributed_worker:
+        distributed_worker(args)
         return
     import torch
 
@@ -7494,6 +7948,38 @@ def main():
           f"against the model's {np.median(st['model_step_ms'][1:]):.1f}",
           flush=True)
     release(torch)
+    with phase("distributed"):
+        dist_rec = distributed_phase()
+    tr, sv = dist_rec["train"], dist_rec["serve"]
+    print(f"distributed on {card}: {dist_rec['backend']} at world "
+          f"{dist_rec['world']} (init {dist_rec['init_s']:.1f} s); "
+          f"collectives {sum(dist_rec['collectives'].values())}/"
+          f"{len(dist_rec['collectives'])} held", flush=True)
+    print(f"distributed on {card}: GPT-350M DataParallel TrainStep losses "
+          f"{tr['data_parallel']['losses']} against the bare TrainStep's "
+          f"{tr['bare']['losses']}: bit-equal {tr['bit_equal']}; "
+          f"{tr['data_parallel']['step_ms']:.1f} ms a step against "
+          f"{tr['bare']['step_ms']:.1f} (median of 5 alternating rounds; "
+          f"ratio {tr['dp_over_bare']:.4f}); parameters bit-equal "
+          f"{tr['params_bit_equal']}; gradient syncs "
+          f"{tr['data_parallel']['syncs']} (first run, capture); flash "
+          f"launches {tr['data_parallel']['flash_launches']}",
+          flush=True)
+    print(f"distributed on {card}: serving_mesh(dp=1, tp={sv['tp']}) "
+          f"greedy tokens equal to the plain scheduler's "
+          f"{sv['tokens_equal']} ({sv['requests']} requests, "
+          f"{sv['paged_launches']} paged launches; lockstep "
+          f"{sv['lockstep']}: at tp = 1 the mesh is a no-op and the plain "
+          f"scheduler served)", flush=True)
+    for key, r in sorted(dist_rec["shards"].items()):
+        print(f"distributed on {card}: {key} max |kernel - plain| "
+              f"{r['max_abs_err']:.3e}, {r['over_limit']:.3f} of the "
+              f"limit", flush=True)
+    u = dist_rec["ulysses"]
+    print(f"distributed on {card}: ulysses_attention (world "
+          f"{dist_rec['world']}) max |err| {u['max_abs_err']:.3e}, "
+          f"{u['over_limit']:.3f} of the limit; phase "
+          f"{dist_rec['wall_s']:.1f} s in the worker", flush=True)
 
     d = timing["decode"]
     kernels = [{
@@ -7514,6 +8000,8 @@ def main():
         "d128": d128_reading(timing, worst["d128"]),
         "llama_serve_launches": l_serve["serving"]["kernel_launches"],
         "gpt3_1p3b_serve_launches": g3["serving"]["kernel_launches"],
+        # serving_mesh(dp=1, tp=1) on the card: the plain scheduler served
+        "mesh_tp1_serve_launches": sv["paged_launches"],
     }]
     d = timing_f16["decode"]
     kernels.append({
@@ -7599,7 +8087,9 @@ def main():
             "train_monitor_launches": tmon["flash_launches"][kern],
             "script_served_launches": (
                 {b: script["export"][f"{b}_launches"] for b in ("b8", "b2")}
-                if kern == "fwd" else {})})
+                if kern == "fwd" else {}),
+            "distributed_launches":
+                tr["data_parallel"]["flash_launches"][kern]})
         t = flash_timing["train_f16"][kern]
         kernels.append({
             "name": f"{name}_f16", "route": "cuda",
@@ -7654,7 +8144,7 @@ def main():
                   varlen_insitu=varlen_checks, varlen_train=varlen,
                   llama_serve=l_serve, llama_generate=l_gen,
                   llama_train=l_train, gpt3_1p3b=g3, bert_base=bert,
-                  resnet50=resnet,
+                  resnet50=resnet, distributed=dist_rec,
                   phase_s=PHASE_S, phase_allocated=PHASE_ALLOCATED,
                   kernels=kernels)
     if args.json:

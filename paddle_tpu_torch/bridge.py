@@ -23,6 +23,17 @@ passes ``{k: np.asarray(v) for k, v in jax_model.raw_state().items()}``
 model's top prefix (``gpt.``, ``llama.``, ``bert.``) or not. Linear
 weights keep paddle's ``[in, out]`` layout on both sides, so nothing is
 transposed.
+
+Tensor parallelism: ``shard_state(state, config, tp, rank)`` cuts a GPT
+state into rank ``rank``'s shards of a tp-way model, and
+``gather_state(shards, config)`` puts the ranks' shards back together.
+The fused ``qkv_proj`` is cut per head group — rank r's columns are its
+query heads', then its kv heads' keys, then their values — and
+``gate_up`` per half, as an SPMD rank's attention and SwiGLU read them: a
+contiguous cut of the fused columns would give a rank other heads' keys
+and compute wrong attention without an error. ``from_paddle_tpu_state``
+cuts the state for a model built over a model-parallel group, and
+``to_paddle_tpu_state`` returns that rank's shards.
 """
 from __future__ import annotations
 
@@ -34,7 +45,8 @@ from .nn.layer import Layer
 from .models.gpt import GPTConfig, GPTForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
 
-__all__ = ["from_paddle_tpu_state", "to_paddle_tpu_state"]
+__all__ = ["from_paddle_tpu_state", "to_paddle_tpu_state", "shard_state",
+           "gather_state"]
 
 # config type -> (model class, the top module whose prefix is optional)
 _MODELS = {GPTConfig: (GPTForCausalLM, "gpt"),
@@ -76,6 +88,9 @@ def from_paddle_tpu_state(state, config, device="cuda", dtype=None):
         return _load_layer(config, state)
     cls, top = _model_for(config)
     model = cls(config, device=device, dtype=dtype)
+    group = getattr(model, "tp_group", None)
+    if group is not None:
+        state = shard_state(state, config, group.nranks, group.rank)
     params = dict(model.named_parameters())
     given = {}
     for k, v in state.items():
@@ -112,3 +127,90 @@ def to_paddle_tpu_state(model):
             t = t.float()
         out[name] = t.numpy().copy()
     return out
+
+
+# ---------------------------------------------------- tensor parallelism
+def _gpt_layout(name, config):
+    """How a GPT parameter is cut over tp ranks: ("rows",) / ("cols",) a
+    contiguous cut of dim 0 / the last dim, ("qkv",) per head group,
+    ("halves",) each half of the last dim, None replicated."""
+    leaf = ".".join(name.split(".")[-2:])
+    if name.endswith("embed_tokens.weight"):
+        return ("rows",)
+    if leaf in ("qkv_proj.weight", "qkv_proj.bias"):
+        return ("qkv",)
+    if leaf == "gate_up.weight":
+        return ("halves",)
+    if leaf in ("fc1.weight", "fc1.bias", "lm_head.weight"):
+        return ("cols",)
+    if leaf in ("out_proj.weight", "down.weight"):
+        return ("rows",)
+    return None
+
+
+def _qkv_parts(config):
+    d = config.hidden_size // config.num_heads
+    return [config.num_heads * d, config.num_kv_heads * d,
+            config.num_kv_heads * d]
+
+
+def _cut(arr, layout, config, tp, rank):
+    if layout is None:
+        return arr
+    kind = layout[0]
+    if kind == "rows":
+        return np.split(arr, tp, axis=0)[rank]
+    if kind == "cols":
+        return np.split(arr, tp, axis=-1)[rank]
+    parts = (_qkv_parts(config) if kind == "qkv"
+             else [arr.shape[-1] // 2] * 2)
+    pieces = np.split(arr, np.cumsum(parts)[:-1], axis=-1)
+    return np.concatenate([np.split(p, tp, axis=-1)[rank] for p in pieces],
+                          axis=-1)
+
+
+def _join(arrs, layout, config):
+    if layout is None:
+        return arrs[0]
+    kind = layout[0]
+    if kind == "rows":
+        return np.concatenate(arrs, axis=0)
+    if kind == "cols":
+        return np.concatenate(arrs, axis=-1)
+    tp = len(arrs)
+    parts = (_qkv_parts(config) if kind == "qkv"
+             else [arrs[0].shape[-1] * tp // 2] * 2)
+    local = [p // tp for p in parts]
+    per_rank = [np.split(a, np.cumsum(local)[:-1], axis=-1) for a in arrs]
+    return np.concatenate([np.concatenate([r[i] for r in per_rank], axis=-1)
+                           for i in range(len(parts))], axis=-1)
+
+
+def _check_tp(config, tp):
+    if not isinstance(config, GPTConfig):
+        raise TypeError("tensor-parallel shards are defined for GPT")
+    for what, n in (("num_heads", config.num_heads),
+                    ("num_kv_heads", config.num_kv_heads),
+                    ("intermediate_size", config.intermediate_size),
+                    ("vocab_size", config.vocab_size)):
+        if n % tp:
+            raise ValueError(f"tp={tp} must divide {what} ({n})")
+
+
+def shard_state(state, config, tp, rank):
+    """{name: np.ndarray} of a whole GPT -> rank ``rank``'s shards of a
+    ``tp``-way tensor-parallel GPT, under the same names."""
+    _check_tp(config, tp)
+    return {k: np.ascontiguousarray(_cut(np.asarray(v),
+                                         _gpt_layout(k, config), config, tp,
+                                         rank))
+            for k, v in state.items()}
+
+
+def gather_state(shards, config):
+    """The inverse of ``shard_state``: every rank's shards, in rank order
+    -> the whole GPT state."""
+    _check_tp(config, len(shards))
+    return {k: _join([np.asarray(s[k]) for s in shards],
+                     _gpt_layout(k, config), config)
+            for k in shards[0]}

@@ -15,12 +15,14 @@ paths to distribution pins, never to bit identity.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
 
 __all__ = ["make_generator", "seed", "default_generator", "get_rng_state",
-           "set_rng_state"]
+           "set_rng_state", "RNGStatesTracker", "get_rng_state_tracker",
+           "model_parallel_random_seed"]
 
 _GENERATORS: dict = {}      # torch.device -> the device's default generator
 # the seed of generators made from now on (JAX's default generator starts
@@ -69,3 +71,82 @@ def get_rng_state(device="cuda") -> torch.Tensor:
 def set_rng_state(state, device="cuda"):
     default_generator(device).set_state(torch.as_tensor(state,
                                                         dtype=torch.uint8))
+
+
+class RNGStatesTracker:
+    """Named random streams for tensor parallelism (JAX
+    ``framework/random.py:98-140``, Paddle ``mpu/random.py``): each name is
+    a ``torch.Generator`` of its own on the rank's device. "global_seed"
+    is the same on every rank of the model-parallel group (dropout on
+    replicated activations), "local_seed" differs per rank (dropout on
+    sharded ones). Under ``rng_state(name)`` the stream stands in for the
+    device's default generator, so the port's random ops draw from it."""
+
+    def __init__(self):
+        self._states: dict = {}
+
+    def reset(self):
+        self._states = {}
+
+    def add(self, name, s, device=None):
+        if name in self._states:
+            raise ValueError(f"state {name!r} already exists")
+        if device is None:
+            from ..distributed import env
+
+            device = env.device()
+        self._states[name] = make_generator(s, device)
+
+    def get_states_tracker(self):
+        return {k: (g.device, g.get_state()) for k, g in self._states.items()}
+
+    def set_states_tracker(self, states):
+        self._states = {}
+        for k, (dev, st) in states.items():
+            gen = torch.Generator(device=dev)
+            gen.set_state(st)
+            self._states[k] = gen
+
+    @contextlib.contextmanager
+    def rng_state(self, name="global_seed"):
+        if name not in self._states:
+            raise ValueError(f"state {name!r} not added yet")
+        gen = self._states[name]
+        dev = _key(gen.device)
+        prev = _GENERATORS.get(dev)
+        _GENERATORS[dev] = gen
+        try:
+            yield gen
+        finally:
+            if prev is None:
+                _GENERATORS.pop(dev, None)
+            else:
+                _GENERATORS[dev] = prev
+
+
+_RNG_TRACKER = RNGStatesTracker()
+
+
+def get_rng_state_tracker() -> RNGStatesTracker:
+    return _RNG_TRACKER
+
+
+def model_parallel_random_seed(seed_=None, tp_rank=None):
+    """Set up the "global_seed" and "local_seed" streams (JAX :143-152):
+    global = 100003 + seed on every rank, local = seed + 1024 + 100 *
+    tp_rank, and reseed the default generators with the global seed.
+    ``tp_rank`` defaults to this rank's place in the model-parallel
+    group."""
+    if seed_ is None:
+        seed_ = 2048
+    if tp_rank is None:
+        from ..distributed.fleet.base import get_hybrid_communicate_group
+
+        hcg = get_hybrid_communicate_group()
+        tp_rank = hcg.get_model_parallel_rank() if hcg is not None else 0
+    global_seed = 100003 + int(seed_)
+    local_seed = int(seed_) + 1024 + int(tp_rank) * 100
+    _RNG_TRACKER.reset()
+    _RNG_TRACKER.add("global_seed", global_seed)
+    _RNG_TRACKER.add("local_seed", local_seed)
+    seed(global_seed)

@@ -23,7 +23,17 @@ can lead with shared blocks (``reserve(..., shared=pairs)``), release frees
 a block only when its last holder lets go, and a refcount-zero indexed
 block parks in the prefix tier instead of freeing. ``faults=`` (an
 ``inference.faults.FaultInjector``) checks ``kv.reserve`` and
-``kv.allocate``. Mesh sharding of the JAX class is not ported.
+``kv.allocate``.
+
+Under tensor parallelism (``tp_group=``, else the global mesh's "tp" axis,
+as JAX's class reads its mesh, :113-130) the pool is head-sharded: each
+rank holds ``[Hkv / tp, P, BS, D]`` per layer, its own kv heads, which its
+step programs attend with. ``pool_bytes()`` is the logical pool's bytes,
+``per_chip_pool_bytes()`` this rank's (1/tp of them), and the
+``paddle_kv_pool_per_chip_bytes`` gauge reads the latter. tp must divide
+the kv heads (GQA groups stay whole). Host bookkeeping is the same on
+every rank; the continuous scheduler keeps it on rank 0 and sends the
+tables to the others with each tick.
 """
 from __future__ import annotations
 
@@ -104,15 +114,29 @@ class PagedKVCache:
 
     def __init__(self, num_layers, num_kv_heads, head_dim, block_size=128,
                  num_blocks=64, dtype=torch.bfloat16, device="cuda",
-                 faults=None):
+                 faults=None, tp_group=None):
+        from ..distributed.mesh import axis_group
+
         self.num_layers = int(num_layers)
         self.num_kv_heads = int(num_kv_heads)
+        # None: the global mesh's "tp" axis; False: no sharding
+        group = (None if tp_group is False else
+                 tp_group if tp_group is not None else axis_group("tp"))
+        if group is not None and group.nranks <= 1:
+            group = None
+        if group is not None and self.num_kv_heads % group.nranks:
+            raise ValueError(f"tp={group.nranks} must divide the "
+                             f"{self.num_kv_heads} kv heads")
+        self.tp_group = group
+        self.tp_sharded = group is not None
+        self.tp = 1 if group is None else group.nranks
+        self.local_kv_heads = self.num_kv_heads // self.tp
         self.head_dim = int(head_dim)
         self.block_size = int(block_size)
         self.num_blocks = int(num_blocks)
         self.dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         self.device = resolve_device(device)
-        shape = (self.num_kv_heads, self.num_blocks + 1, self.block_size,
+        shape = (self.local_kv_heads, self.num_blocks + 1, self.block_size,
                  self.head_dim)                 # + the scratch page
         self.k_pages = [torch.zeros(shape, dtype=self.dtype,
                                     device=self.device)
@@ -141,8 +165,11 @@ class PagedKVCache:
     def signature(self):
         """Hashable shape identity for step-program cache keys (JAX
         ``kv_cache.py:149-152``)."""
-        return (self.num_layers, self.num_kv_heads, self.head_dim,
-                self.block_size, self.num_blocks, str(self.dtype))
+        sig = (self.num_layers, self.num_kv_heads, self.head_dim,
+               self.block_size, self.num_blocks, str(self.dtype))
+        if self.tp_sharded:       # a program over a head shard of a group
+            sig += (("tp", self.tp_group.id),)
+        return sig
 
     @property
     def scratch_slot(self) -> int:
@@ -153,11 +180,15 @@ class PagedKVCache:
     def blocks_for(self, seq_len: int) -> int:
         return max(1, math.ceil(seq_len / self.block_size))
 
-    def pool_bytes(self) -> int:
-        """Bytes of the K and V pools of every layer, the scratch page
-        included (what the device holds)."""
+    def per_chip_pool_bytes(self) -> int:
+        """Bytes of this rank's K and V pools of every layer, the scratch
+        page included (what its device holds)."""
         return sum(p.numel() * p.element_size()
                    for p in self.k_pages + self.v_pages)
+
+    def pool_bytes(self) -> int:
+        """Bytes of the logical pool: every rank's shard together."""
+        return self.per_chip_pool_bytes() * self.tp
 
     def attach_prefix_cache(self, prefix):
         """Wire a PrefixCache into release and eviction (JAX
@@ -173,8 +204,9 @@ class PagedKVCache:
         live|free|evictable}`` (they partition the pool),
         ``paddle_kv_pool_size_blocks``, ``paddle_kv_pool_live_utilization``,
         ``paddle_kv_pool_evictions_total`` and
-        ``paddle_kv_pool_per_chip_bytes`` (the pools' bytes on the card,
-        the scratch page included: the port does not shard the pool)."""
+        ``paddle_kv_pool_per_chip_bytes`` (this rank's pools' bytes on
+        its card, the scratch page included: 1/tp of the logical pool
+        under tensor parallelism)."""
         blocks = registry.gauge(
             "paddle_kv_pool_blocks",
             "KV page-pool blocks by state; live+free+evictable == pool size",
@@ -203,7 +235,8 @@ class PagedKVCache:
             "paddle_kv_pool_per_chip_bytes",
             "KV pool bytes resident PER CHIP — 1/tp of the logical pool "
             "when the pool is head-sharded over the serving mesh's tp axis",
-            labels=("pool",)).labels(pool).set_function(self.pool_bytes)
+            labels=("pool",)).labels(pool).set_function(
+                self.per_chip_pool_bytes)
         return self
 
     # ----------------------------------------------------------- allocation
@@ -473,7 +506,7 @@ class PagedKVCache:
             tbl = torch.as_tensor(req.blocks[:n], device=self.device)
 
             def dense(pages):
-                arr = pages[:, tbl].reshape(self.num_kv_heads, -1,
+                arr = pages[:, tbl].reshape(self.local_kv_heads, -1,
                                             self.head_dim)
                 return arr.transpose(0, 1)[:req.length].cpu()
 

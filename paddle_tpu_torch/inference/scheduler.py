@@ -45,6 +45,7 @@ import numpy as np
 
 from .faults import ThreadDeath
 from .kv_cache import CacheOutOfBlocks
+from .lockstep import LockstepLeader, follow
 from .prefix_cache import PrefixCache
 from .resilience import DeadlineExceeded, ServiceUnavailable
 from .serving import _PENDING, GenerateBatchingPredictor
@@ -249,6 +250,14 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
     ``compile_cache_dir`` raises for good (a CUDA graph holds device
     addresses and cannot be persisted; ROADMAP C) and ``hbm_budget``
     until the HBM planner is ported (ROADMAP A6).
+
+    A tensor-parallel model (its ``tp_group``, e.g. under
+    ``distributed.serving_mesh(dp=1, tp=n)``) is served by a predictor on
+    every rank of the group, in lockstep (``inference.lockstep``): rank 0
+    admits, schedules and sends each step-program call to the others,
+    whose predictors only follow (``infer`` raises there). Close rank 0's
+    first or together: its close ends the followers. Adapters and the
+    self-drafter are not ported under tensor parallelism.
     """
 
     _component = "continuous"
@@ -281,6 +290,16 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
             raise NotImplementedError(
                 "hbm_budget= waits for the HBM planner "
                 "(analysis/hbm.py plan_kv_pool; ROADMAP A6)")
+        self.tp_group = model._tp()
+        self._follower = self.tp_group is not None and self.tp_group.rank
+        if self.tp_group is not None:
+            if adapters is not None or (int(spec_k) > 0
+                                        and drafter == "self"):
+                raise NotImplementedError(
+                    "adapters and the self-drafter under tensor "
+                    "parallelism are a later slice of the port (ROADMAP A5.10)")
+            if not self._follower:
+                model = LockstepLeader(model, self.tp_group)
         self.max_slots = int(max_slots)
         self.prefill_chunk = int(prefill_chunk)
         self.prefill_token_budget = int(prefill_token_budget
@@ -390,7 +409,7 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
             "Post-ready step-program cold builds by program — stays 0 when "
             "the AOT warmup covered the compile-surface manifest "
             "(analysis/compilesurface.py)", labels=("component", "program"))
-        if self.warmup and not self.fallback_dense:
+        if self.warmup and not self.fallback_dense and not self._follower:
             self._warm_thread = threading.Thread(
                 target=self._warm_start, name="warmup", daemon=True)
             self._warm_thread.start()
@@ -625,6 +644,11 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
         tier for preemption. Unknown names (and any tenant on a
         ledger-less scheduler) raise ValueError — the X-Adapter taxonomy;
         None rides the ledger's built-in default tenant."""
+        if self._follower:
+            raise RuntimeError(
+                f"rank {self.tp_group.ranks[self._follower]} follows rank "
+                f"{self.tp_group.ranks[0]} of its tensor-parallel group: "
+                f"send requests to that rank")
         req = self._make_request([np.asarray(ids)], timeout, deadline,
                                  trace_id)
         if max_new_tokens is not None:
@@ -814,6 +838,10 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
 
     # ------------------------------------------------------------- tick loop
     def _loop(self):
+        if self._follower:      # a tensor-parallel rank other than 0
+            self.follower_runs = follow(self.model, self.kv_cache,
+                                        self.tp_group)
+            return
         # ready gate: no tick runs (and so no step program can
         # cold-build under traffic) until the aot-warmup thread finished.
         # Wait with a poll so close() during warmup still exits promptly.
@@ -1833,3 +1861,7 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
         self._drain_backlog()
         if self._warm_thread is not None:   # a launch cannot be cut short
             self._warm_thread.join(timeout=60)
+        if isinstance(self.model, LockstepLeader):
+            self.model.stop()           # the followers' loops end
+        elif self._follower:
+            self._sup.thread.join(timeout=60)

@@ -579,7 +579,8 @@ class GenerateBatchingPredictor(BatchingPredictor):
         if kv_cache is None:
             kv_cache = PagedKVCache(*spec, block_size=block_size,
                                     num_blocks=num_blocks,
-                                    device=self.device, faults=faults)
+                                    device=self.device, faults=faults,
+                                    tp_group=model._tp() or False)
         if kv_cache.device != self.device:
             raise ValueError(f"KV pool on {kv_cache.device}, predictor on "
                              f"{self.device}")

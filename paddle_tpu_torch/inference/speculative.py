@@ -195,7 +195,7 @@ def _lend_pool(model, total, dtype):
         return kv
     return PagedKVCache(*model._decode_cache_spec(), block_size=_BLOCK,
                         num_blocks=num_blocks, dtype=dtype,
-                        device=model.device)
+                        device=model.device, tp_group=model._tp() or False)
 
 
 def _return_pool(model, kv_cache):

@@ -183,6 +183,14 @@ class TrainStep:
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer,
                  donate_state=True, return_outputs=False, split_label=False):
+        from ..distributed.fleet.hybrid_optimizer import (
+            HybridParallelOptimizer,
+        )
+
+        if isinstance(optimizer, HybridParallelOptimizer):
+            # fleet's optimizer: the model wrapper's backward syncs the
+            # gradients; the update and the hybrid clip are the inner one's
+            optimizer = optimizer._inner_opt
         if isinstance(optimizer, LBFGS):
             raise NotImplementedError(
                 "TrainStep(LBFGS): LBFGS evaluates a closure and decides on "
@@ -201,11 +209,15 @@ class TrainStep:
         self.optimizer = optimizer
         self._return_outputs = return_outputs
         self._split_label = split_label
+        # a parallel wrapper (DataParallel, TensorParallel) passes its
+        # arguments on: the batch convention is its model's
+        self._inner = (model._layers if hasattr(model, "_paddle_io")
+                       else model)
         try:
-            self._fwd_sig = inspect.signature(type(model).forward)
+            self._fwd_sig = inspect.signature(type(self._inner).forward)
         except (TypeError, ValueError):
             self._fwd_sig = None
-        self._paddle = isinstance(model, Layer)
+        self._paddle = isinstance(self._inner, Layer)
         self._trainable = {
             k: p for k, p in torch.nn.Module.named_parameters(model)
             if p.requires_grad and p.is_floating_point()}
@@ -235,7 +247,7 @@ class TrainStep:
             return args[:-1], args[-1]
         if self._fwd_sig is not None:
             try:
-                self._fwd_sig.bind(self.model, *args, **kwargs)
+                self._fwd_sig.bind(self._inner, *args, **kwargs)
             except TypeError:
                 return args[:-1], args[-1]
         return args, None
@@ -248,6 +260,9 @@ class TrainStep:
             raise NotImplementedError(
                 f"TrainStep clips by global norm, norm or value, got "
                 f"{type(clip)}")
+        if getattr(clip, "needs_params", False):
+            # the hybrid clip tells sharded parameters from replicated ones
+            return clip.clip_params(self._params, grads)
         return clip.clip(grads)
 
     def _step(self, args, kwargs, lr, step):

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..amp import _amp_add, _amp_cast
+from ..distributed.fleet.mp_ops import require_single_device
 from ..distributed.fleet.meta_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -171,6 +172,7 @@ class BertForMaskedLM(nn.Module):
     def __init__(self, config: BertConfig, device="cuda", dtype=None,
                  seed=0):
         super().__init__()
+        require_single_device("BERT")
         c = config
         dev = resolve_device(device)
         self.config = c

@@ -195,13 +195,45 @@ class GenerationMixin:
         layer = self._decode_layer()
         args = (ids, k_caches, v_caches, step, decode_kernel)
         if state is None:
-            return layer(*args)
+            return self._whole_vocab(layer(*args))
         # functional_call swaps the module's parameters for the cast state
         # and back: two threads forwarding one model at once (a fleet's
         # replicas, or a FLOP count beside a capture) would restore each
         # other's swap and leave the cast in the model
         with _SWAP_LOCK:
-            return torch.func.functional_call(layer, state, args)
+            return self._whole_vocab(
+                torch.func.functional_call(layer, state, args))
+
+    # ------------------------------------------------ tensor parallelism
+    def _tp(self):
+        """The model's tensor-parallel group, or None."""
+        return getattr(self, "tp_group", None)
+
+    def _whole_vocab(self, logits):
+        """Under tensor parallelism the forward gives this rank's vocab
+        columns: gather them, so every rank samples from the same logits
+        (and, from the same uniforms, picks the same token)."""
+        g = self._tp()
+        if g is None:
+            return logits
+        from ..distributed.collective import _gather_cat
+
+        return _gather_cat(logits, logits.dim() - 1, g)
+
+    def _local_kv_heads(self):
+        """The kv heads of this rank's caches."""
+        _, kv_heads, _ = self._decode_cache_spec()
+        g = self._tp()
+        return kv_heads if g is None else kv_heads // g.nranks
+
+    def _check_pool(self, kv_cache):
+        """A pool must hold this rank's kv heads: one built over the same
+        tensor-parallel group (``PagedKVCache(tp_group=)``)."""
+        if kv_cache.local_kv_heads != self._local_kv_heads():
+            raise ValueError(
+                f"the pool holds {kv_cache.local_kv_heads} kv heads a rank, "
+                f"the model {self._local_kv_heads()}: build it over the "
+                f"model's tensor-parallel group")
 
     @staticmethod
     def _device_step(offsets, S, tables, valid, block_size, scratch_slot):
@@ -385,8 +417,10 @@ class GenerationMixin:
         dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         state, state_key = self._state_for_key(dtype)
         eos = -1 if eos_token_id is None else int(eos_token_id)
+        g = self._tp()
         cache_key = ("dense", B, P, bucket, eos, str(ids.dtype),
-                     str(dtype), decode_kernel, state_key)
+                     str(dtype), decode_kernel,
+                     ("tp", None if g is None else g.id), state_key)
         run, compiled_now = self._runner_for(
             cache_key, lambda: self._make_dense_runner(
                 B, P, bucket, eos, state, dtype, decode_kernel))
@@ -419,8 +453,8 @@ class GenerationMixin:
         """
         dev = self.device
         cache_dtype = torch.float32 if dtype is None else dtype
-        num_layers, kv_heads, head_dim = self._decode_cache_spec()
-        shape = (B, kv_heads, P + bucket, head_dim)
+        num_layers, _, head_dim = self._decode_cache_spec()
+        shape = (B, self._local_kv_heads(), P + bucket, head_dim)
         kc = [torch.zeros(shape, dtype=cache_dtype, device=dev)
               for _ in range(num_layers)]
         vc = [torch.zeros(shape, dtype=cache_dtype, device=dev)
@@ -583,6 +617,7 @@ class GenerationMixin:
         writes the chunk's K/V into ``kv_cache`` in place and returns the
         [S, V] logits at each chunk's last valid position (on the model's
         device). A width-1 chunk at offsets = lengths is one decode step."""
+        self._check_pool(kv_cache)
         dev = self.device
         ids = torch.as_tensor(np.asarray(chunk_ids, np.int64), device=dev)
         S, C = ids.shape
@@ -614,6 +649,7 @@ class GenerationMixin:
         holds the bank's addresses as it holds the pool's, the registry's
         id. Adapter contents and mix are inputs: they never change a
         key."""
+        self._check_pool(kv_cache)
         state, state_key = self._state_for_key(kv_cache.dtype)
         NB = inputs["tables"][0][1]
         cache_key = (kind, *shape, NB, kv_cache.signature(), eos, "int64",

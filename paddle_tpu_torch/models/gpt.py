@@ -32,6 +32,21 @@ after the MLP, ``gpt.py:220``, ``:231-232``) and in attention (``:181``),
 which puts attention on the plain route in training, as JAX's XLA route;
 ``recompute`` "block" or "dots" (``:53-58``, ``:282-290``) through
 ``distributed.fleet.recompute``.
+
+Tensor parallelism: given a model-parallel group of tp ranks
+(``mp_group=``, else the hybrid group's mp axis or the serving mesh's
+"tp" axis; ``distributed.fleet.mp_ops.mp_group``), each rank holds its
+shards, as JAX's GSPMD run holds them on each device: attention on
+``num_heads / tp`` query and ``num_kv_heads / tp`` kv heads (``qkv_proj``'s
+local columns are ``[q_r | k_r | v_r]``, cut per head group by
+``bridge.shard_state``), the MLP on ``intermediate_size / tp``, the
+vocab-sharded embedding and (tied) ``lm_head``, the loss through the
+vocab-parallel ``ParallelCrossEntropy`` (JAX ``gpt.py:315-317``). The
+forward returns the rank's vocab columns of the logits
+(``gather_logits`` gathers them); the step programs gather them before
+the sampler. tp must divide the heads, the kv heads (GQA groups stay
+whole, as JAX's ``decode_attention.py:276`` declines to shard otherwise),
+the MLP width and the vocab. The same classes serve tp = 1 unchanged.
 """
 from __future__ import annotations
 
@@ -44,6 +59,11 @@ from ..distributed.fleet.meta_parallel import (
     ParallelCrossEntropy,
     RowParallelLinear,
     VocabParallelEmbedding,
+)
+from ..distributed.fleet.mp_ops import (
+    gather_last,
+    identity_allreduce,
+    mp_group as resolve_mp_group,
 )
 from ..distributed.fleet.recompute import recompute
 from ..framework import make_generator, resolve_device
@@ -121,10 +141,18 @@ def gpt3_1p3b():
                      use_swiglu=False)
 
 
-def _check_supported(c: GPTConfig):
+def _check_supported(c: GPTConfig, group=None):
     if c.num_heads % c.num_kv_heads:
         raise ValueError(f"num_kv_heads {c.num_kv_heads} must divide "
                          f"num_heads {c.num_heads}")
+    tp = 1 if group is None else group.nranks
+    for what, n in (("num_heads", c.num_heads),
+                    ("num_kv_heads", c.num_kv_heads),
+                    ("intermediate_size", c.intermediate_size),
+                    ("vocab_size", c.vocab_size)):
+        if n % tp:
+            raise ValueError(f"tensor parallelism over {tp} ranks needs tp "
+                             f"to divide {what} ({n})")
 
 
 def _norm(c: GPTConfig, device, dtype):
@@ -134,22 +162,29 @@ def _norm(c: GPTConfig, device, dtype):
 
 
 class GPTAttention(nn.Module):
-    def __init__(self, config: GPTConfig, device=None, dtype=None):
+    def __init__(self, config: GPTConfig, device=None, dtype=None,
+                 group=False):
         super().__init__()
         c = config
-        self.num_heads = c.num_heads
-        self.num_kv_heads = c.num_kv_heads
+        tp = 1 if not group else group.nranks
+        # this rank's heads (all of them without a group)
+        self.num_heads = c.num_heads // tp
+        self.num_kv_heads = c.num_kv_heads // tp
         self.head_dim = c.hidden_size // c.num_heads
         self.dropout = c.dropout
         q_size = c.hidden_size
-        kv_size = self.num_kv_heads * self.head_dim
+        kv_size = c.num_kv_heads * self.head_dim
         self.qkv_proj = ColumnParallelLinear(c.hidden_size,
                                              q_size + 2 * kv_size,
                                              has_bias=not c.use_rms_norm,
-                                             device=device, dtype=dtype)
+                                             gather_output=False,
+                                             mp_group=group, device=device,
+                                             dtype=dtype)
         self.out_proj = RowParallelLinear(c.hidden_size, c.hidden_size,
                                           has_bias=not c.use_rms_norm,
-                                          device=device, dtype=dtype)
+                                          input_is_parallel=True,
+                                          mp_group=group, device=device,
+                                          dtype=dtype)
 
     def forward(self, x, rope, k_pool=None, v_pool=None,
                 step: PagedStep | DenseStep | None = None,
@@ -186,22 +221,25 @@ class GPTAttention(nn.Module):
 
 
 class GPTMLP(nn.Module):
-    def __init__(self, config: GPTConfig, device=None, dtype=None):
+    def __init__(self, config: GPTConfig, device=None, dtype=None,
+                 group=False):
         super().__init__()
         c = config
         self.use_swiglu = c.use_swiglu
         inner = c.intermediate_size
+        kw = dict(mp_group=group, device=device, dtype=dtype)
         if c.use_swiglu:
+            # local columns [gate_r | up_r] (bridge.shard_state)
             self.gate_up = ColumnParallelLinear(c.hidden_size, 2 * inner,
-                                                has_bias=False, device=device,
-                                                dtype=dtype)
+                                                has_bias=False,
+                                                gather_output=False, **kw)
         else:
             self.fc1 = ColumnParallelLinear(c.hidden_size, inner,
-                                            has_bias=True, device=device,
-                                            dtype=dtype)
+                                            has_bias=True,
+                                            gather_output=False, **kw)
         self.down = RowParallelLinear(inner, c.hidden_size,
                                       has_bias=not c.use_swiglu,
-                                      device=device, dtype=dtype)
+                                      input_is_parallel=True, **kw)
 
     def forward(self, x):
         if self.use_swiglu:
@@ -210,13 +248,14 @@ class GPTMLP(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, config: GPTConfig, device=None, dtype=None):
+    def __init__(self, config: GPTConfig, device=None, dtype=None,
+                 group=False):
         super().__init__()
         c = config
         self.ln1 = _norm(c, device, dtype)
-        self.attn = GPTAttention(c, device=device, dtype=dtype)
+        self.attn = GPTAttention(c, device=device, dtype=dtype, group=group)
         self.ln2 = _norm(c, device, dtype)
-        self.mlp = GPTMLP(c, device=device, dtype=dtype)
+        self.mlp = GPTMLP(c, device=device, dtype=dtype, group=group)
         self.dropout = Dropout(c.dropout)
 
     def forward(self, x, rope, k_pool=None, v_pool=None, step=None,
@@ -230,22 +269,28 @@ class GPTBlock(nn.Module):
 
 
 class GPTModel(nn.Module):
-    def __init__(self, config: GPTConfig, device=None, dtype=None):
+    def __init__(self, config: GPTConfig, device=None, dtype=None,
+                 group=False):
         super().__init__()
         c = config
         self.config = c
+        self.group = group or None
         self.embed_tokens = VocabParallelEmbedding(c.vocab_size,
                                                    c.hidden_size,
+                                                   mp_group=group,
                                                    device=device, dtype=dtype)
         if not c.use_rope:
             self.embed_positions = Embedding(c.max_position, c.hidden_size,
                                              device=device, dtype=dtype)
-        self.blocks = nn.ModuleList([GPTBlock(c, device=device, dtype=dtype)
+        self.blocks = nn.ModuleList([GPTBlock(c, device=device, dtype=dtype,
+                                              group=group)
                                      for _ in range(c.num_layers)])
         self.ln_f = _norm(c, device, dtype)
         if not c.tie_embeddings:
             self.lm_head = ColumnParallelLinear(c.hidden_size, c.vocab_size,
-                                                has_bias=False, device=device,
+                                                has_bias=False,
+                                                gather_output=False,
+                                                mp_group=group, device=device,
                                                 dtype=dtype)
 
     def forward(self, input_ids, k_pools=None, v_pools=None, step=None,
@@ -289,6 +334,9 @@ class GPTModel(nn.Module):
         x = self.ln_f(x)
         if not c.tie_embeddings:
             return self.lm_head(x)
+        if self.group is not None:
+            # every rank's vocab columns read the same x: sum its gradient
+            x = identity_allreduce(x, self.group)
         h, w = _amp_cast("lm_head_tied", x, self.embed_tokens.weight)
         return h @ w.T
 
@@ -303,13 +351,17 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
     ``Layer`` does: dropout and recompute apply to the cache-free forward
     until ``eval()``; the cache branches never apply them."""
 
-    def __init__(self, config: GPTConfig, device="cuda", dtype=None, seed=0):
+    def __init__(self, config: GPTConfig, device="cuda", dtype=None, seed=0,
+                 mp_group=None):
         super().__init__()
-        _check_supported(config)
+        group = resolve_mp_group(mp_group)
+        _check_supported(config, group)
         dev = resolve_device(device)
         dtype = dtype if dtype is not None else getattr(torch, config.dtype)
         self.config = config
-        self.gpt = GPTModel(config, device=dev, dtype=dtype)
+        self.tp_group = group
+        self.gpt = GPTModel(config, device=dev, dtype=dtype,
+                            group=group or False)
         self.reset_parameters(make_generator(seed, dev))
 
     @property
@@ -331,9 +383,17 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
         if labels is None:
             return logits
         labels = torch.as_tensor(labels, device=self.device)
-        per_token = ParallelCrossEntropy()(
+        per_token = ParallelCrossEntropy(mp_group=self.tp_group or False)(
             logits.reshape(-1, logits.shape[-1]), labels.reshape(-1))
         return logits, _amp_cast("mean", per_token)[0].mean()
+
+    def gather_logits(self, logits):
+        """The whole vocab of logits from this rank's columns (a gather
+        over the model-parallel group, differentiable); the logits as
+        they are without one."""
+        if self.tp_group is None:
+            return logits
+        return gather_last(logits, self.tp_group)
 
     # --------------------------------------- GenerationMixin hooks
     def _decode_layer(self):

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..amp import _amp_add, _amp_cast
+from ..distributed.fleet.mp_ops import require_single_device
 from ..distributed.fleet.meta_parallel import (
     ColumnParallelLinear,
     ParallelCrossEntropy,
@@ -224,6 +225,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
     def __init__(self, config: LlamaConfig, device="cuda", dtype=None,
                  seed=0):
         super().__init__()
+        require_single_device("LLaMA")
         c = config
         if c.num_heads % c.num_kv_heads:
             raise ValueError(f"num_kv_heads {c.num_kv_heads} must divide "

@@ -7,6 +7,7 @@ Prometheus line pattern and near-tie cut; the model families' FLOP counts
 each family), the D = 128 bounds, the served-rows gate and the kernels
 line's D = 128 readings; the resnet50 phase's MAC count (held to the flop
 counter) and its control flow rehearsed at a toy size."""
+import json
 import pathlib
 import sys
 
@@ -841,3 +842,64 @@ def test_paired_ratio_takes_each_round_as_one_ratio():
     assert got["resolved"] and got["cost_at_most"] == pytest.approx(0.01)
     naive = chip_smoke.rate_ratio(rates, "monitored", "bare")
     assert not naive["resolved"]
+
+
+@pytest.fixture(scope="module")
+def distributed_rehearsal():
+    """The distributed phase at two gloo ranks on a tiny GPT (fresh
+    processes, ~30 s on the CPU: a fixture's, outside the call budget)."""
+    return chip_smoke.distributed_phase(world=2, device="cpu", tiny=True,
+                                        timeout=240)
+
+
+def test_distributed_phase_rehearses_on_the_cpu(distributed_rehearsal):
+    """Every collective holds, the DataParallel TrainStep's mean loss is
+    the bare step's on the whole batch, the lockstep scheduler under
+    serving_mesh(dp=1, tp=2) gives the whole model's tokens, and the head
+    shards and Ulysses hold to their plain versions."""
+    rec = distributed_rehearsal
+    assert rec["world"] == 2 and rec["backend"] == "gloo"
+    assert all(rec["collectives"].values())
+    assert rec["train"]["ok"] and rec["train"]["max_rel_diff"] <= 1e-5
+    assert rec["train"]["param_gap"] <= 1e-3
+    assert rec["train"]["data_parallel"]["syncs"] == 14   # 4 + 10 timed
+    assert rec["serve"]["tp"] == 2 and rec["serve"]["tokens_equal"]
+    assert rec["serve"]["lockstep"]
+    assert (rec["serve"]["pool_per_chip_bytes"] * 2
+            == rec["serve"]["pool_bytes"])
+    assert set(rec["shards"]) == {
+        f"{k}_tp{tp}" for k in ("paged_decode", "paged_prefill",
+                                "ulysses_flash_fwd") for tp in (2, 4)}
+    assert rec["ulysses"]["ok"] and not rec["failures"]
+
+
+@pytest.fixture(scope="module")
+def distributed_skipped_sync():
+    """The rehearsal with DataParallel's gradient sync planted away: the
+    failure message of the phase, or None if it passed."""
+    try:
+        chip_smoke.distributed_phase(world=2, device="cpu", tiny=True,
+                                     plant="skip_sync", timeout=240)
+    except AssertionError as e:
+        return str(e)
+    return None
+
+
+def test_distributed_phase_fails_when_the_sync_is_skipped(
+        distributed_skipped_sync):
+    """Gradients left local on each rank: the parameters leave the bare
+    step's (the gap near 1) and the gate refuses the phase."""
+    msg = distributed_skipped_sync
+    assert msg is not None and "failed checks" in msg
+    bad = json.loads(msg.split("failed checks ", 1)[1])
+    train = bad["0"]["train"]
+    assert not train["ok"] and train["param_gap"] > 0.1
+    assert train["data_parallel"]["syncs"] == 0
+
+
+def test_distributed_phase_fails_when_a_rank_raises():
+    """A rank that raises fails the phase (its peers fail in the next
+    collective, within the group's timeout) instead of hanging it."""
+    with pytest.raises(AssertionError, match="exit codes"):
+        chip_smoke.distributed_phase(world=2, device="cpu", tiny=True,
+                                     plant="raise", timeout=240)
