@@ -403,8 +403,25 @@ non-zero without the final line:
    pool (decode and prefill),
    the flash forward on each Ulysses head shard [B, S, H/tp, D] and
    ``ulysses_attention`` itself, each concatenation held to the plain
-   version of the whole call within the kernels' tolerance. The CPU tests
-   rehearse it at two gloo ranks on a tiny GPT.
+   version of the whole call within the kernels' tolerance. Then, in the
+   same worker, the pipeline phase: (a) ``gpt_pipeline(gpt3_1p3b(),
+   num_stages=4)`` under ``PipelineParallel`` (B 4, S 2048, O2 bf16,
+   AdamW, 4 micro-batches; every stage in the one process), three steps
+   of 1F1B, Eager1F1B, FThenB, ZB-H1 and VPP 2 from one saved state, held
+   to the unpipelined micro-batch accumulation (losses within 2 bf16
+   ulps, the whole model's gap within 1e-2 and every leaf's within 0.25)
+   with each flash kernel's
+   launches a step equal to the streams' prediction, the peak allocated
+   bytes against the unpipelined step's and the 1F1B step's ms against the
+   captured gpt3_1p3b step's; (b) GPT-350M under the captured TrainStep
+   with ``shard_optimizer(opt, ShardingStage1/2/3)`` at one rank (the
+   stages' collectives captured), parameters bit-equal to the bare
+   TrainStep's; (c) the ZeRO-1 model and AdamW state through
+   ``save_state_dict`` / ``load_state_dict`` into a fresh model and
+   optimizer, bit-equal, and the next captured step equal (bytes and
+   seconds recorded). The CPU tests rehearse it at two gloo ranks on a
+   tiny GPT (pp 2 over the two ranks), with a planted fault: the tied
+   weight's gradient not summed across its stages.
 
 Last lines: each phase's seconds, the card, the kernels JSON (a kernel
 redesigned since it was first ported names the change in "redesigned";
@@ -7536,6 +7553,490 @@ def dist_ulysses(torch, dist, fa, device, B, S, H, D, dtype):
                 ok=ratio <= 1.0)
 
 
+# ------------------------------------------------------- phase: pipeline
+PIPE_SCHEDULES = (("1F1B", "1F1B", 1), ("Eager1F1B", "Eager1F1B", 1),
+                  ("FThenB", "FThenB", 1), ("ZB-H1", "ZB-H1", 1),
+                  ("VPP2", "1F1B", 2))
+# the rehearsal's GPT: gpt3_1p3b's family (learned positions, LayerNorm,
+# GELU, biases, tied), head dim 128; 11 layers fill VPP 2's 8 chunks
+PIPE_TINY = dict(vocab_size=128, hidden_size=256, num_layers=8, num_heads=2,
+                 max_position=64, use_rope=False, use_rms_norm=False,
+                 use_swiglu=False)
+PIPE_CKPT_DIR = os.path.join(ROOT, "_pipeline_ckpt")
+
+
+def pipe_predicted_launches(model, p, v, m, schedule, mine):
+    """One step's flash launches of this rank's chunks, from the streams:
+    every F of a chunk other than the last runs its blocks' forward; B
+    (and ZB-H1's W) runs the chunk's forward again, then the backward
+    (dq and dk/dv per block); ZB-H1's B of the first chunk makes no input
+    gradient and runs nothing; the last chunk's F is fused into its B."""
+    from paddle_tpu_torch.distributed.fleet.pipeline import (
+        _SCHEDULES,
+        SegmentLayers,
+        _normalize_schedule,
+    )
+    from paddle_tpu_torch.models.gpt import GPTBlockPipe
+
+    n = p * v
+    bounds = SegmentLayers(model.layers_desc, n).do_segment()
+    blocks = [sum(1 for i in range(bounds[c], bounds[c + 1])
+                  if model.layers_desc[i].layer_func is GPTBlockPipe)
+              for c in range(n)]
+    gen, split = _SCHEDULES[_normalize_schedule(schedule)]
+    fwd = bwd = 0
+    for c, stream in enumerate(gen(n, m)):
+        if not mine(c):
+            continue
+        for op, _ in stream:
+            if op == "F":
+                fwd += blocks[c] if c < n - 1 else 0
+            elif split and op == "B" and c == 0 and n > 1:
+                continue
+            else:
+                fwd += blocks[c]
+                bwd += blocks[c]
+    return {"fwd": fwd, "dq": bwd, "dkv": bwd}
+
+
+def _pipe_tensors(model):
+    return {k: getattr(t, "_value", t) for k, t in model.state_dict().items()}
+
+
+def _pipe_sums(got, want, init):
+    """(sum |got - want|, sum |want - init|) of one leaf, on got's device
+    (the snapshots may be host copies)."""
+    dev = got.device
+    want, init = want.to(dev).float(), init.to(dev).float()
+    return (float((got.detach().float() - want).abs().sum()),
+            float((want - init).abs().sum()))
+
+
+def _pipe_gap(torch, got, want, init):
+    diff, moved = _pipe_sums(got, want, init)
+    return diff / max(moved, 1e-30)
+
+
+def _pipe_model_gap(torch, got, want, init):
+    """The gap over the whole model: every leaf's summed difference over
+    every leaf's summed movement."""
+    sums = [_pipe_sums(got[k], want[k], init[k]) for k in got]
+    return sum(d for d, _ in sums) / max(sum(m for _, m in sums), 1e-30)
+
+
+def pipe_gpt(torch, dist, fa, device, tiny=False, plant=None, seed=21):
+    """(a), (d), (e): ``gpt_pipeline(gpt3_1p3b(), num_stages=4)`` (every
+    stage in this process at one rank; the rehearsal's world-n ranks one
+    stage each) under ``PipelineParallel``, B 4, S 2048, O2 bf16 with
+    LayerNorm f32, AdamW with f32 masters, ``accumulate_steps`` 4: three
+    steps of each schedule from one saved state, held to the unpipelined
+    micro-batch accumulation of the same model and batches (the engine's
+    random contract: micro-batch i from the generator seeded with one
+    draw + i). Loss limit: 2 bf16 ulps at the loss's magnitude (each
+    micro-batch's loss is a bf16 mean; the tied embedding's gradient sums
+    its two uses in another order, so later steps may round apart); f32
+    (the rehearsal) 1e-5 relative. Parameters: the whole model's gap
+    (every leaf's summed difference over every leaf's summed movement)
+    within 1e-2 and every leaf's ``param_gap`` within 0.25. AdamW's
+    normalised update turns a last-bit difference on an element with a
+    tiny second moment into a step-sized one, and a zero-initialised bias
+    moves little: such a leaf read 0.072-0.078 on the card in bf16 (the
+    first probe; the rehearsal's f32 ~1e-2, its chunks' boundary values
+    from the no-grad forward, whose CPU kernels may round apart from the
+    recompute's); the planted fault reads ~0.75 on the tied weight. The
+    worst leaf's ``worst_leaf_low_v_share``: the share of its summed
+    difference on the tenth of its elements with the smallest AdamW
+    second moment (0.1 if spread evenly); of a ``qkv_proj.bias``,
+    ``worst_leaf_key_share``: the share on its key third. A control at
+    every world size:
+    1F1B with micro-batch 0's B and W dropped from the global order (a
+    lost micro-batch) must fail the parameter gate on its own.
+    Launches: each flash kernel's count
+    in the main path's steps equals the streams' prediction. Peak
+    allocated bytes of a pipelined step and of an unpipelined one, and the
+    1F1B step's host-clock ms. ``plant="skip_shared_sum"`` leaves the
+    tied weight's copies unsynced (pp > 1), which the gate must refuse."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import pipeline as pl
+    from paddle_tpu_torch.distributed.fleet.base import (
+        set_hybrid_communicate_group,
+    )
+    from paddle_tpu_torch.framework import default_generator
+    from paddle_tpu_torch.models.gpt import GPTConfig, gpt3_1p3b, gpt_pipeline
+
+    n, me = dist.get_world_size(), dist.get_rank()
+    cfg = GPTConfig(**PIPE_TINY) if tiny else gpt3_1p3b()
+    B, S, m, steps = (4, 64, 4, 3) if tiny else (4, 2048, 4, 3)
+    bf16 = device != "cpu"
+    p = 4 if n == 1 else n
+    rng = np.random.default_rng(seed)
+    ids_np = rng.integers(0, cfg.vocab_size, (B, S))
+    ids = torch.as_tensor(ids_np, device=device)
+    labels = torch.as_tensor(np.roll(ids_np, -1, axis=1), device=device)
+    gen = default_generator(device)
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    def peak_reset():
+        if device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return (int(torch.cuda.max_memory_allocated()) if device != "cpu"
+                else None)
+
+    def new_opt(model):
+        return optimizer.AdamW(learning_rate=1e-4,
+                               parameters=model.parameters(),
+                               weight_decay=0.01, multi_precision=True)
+
+    def build(num_stages, vpp=1):
+        model = gpt_pipeline(cfg, num_stages=num_stages, device=device,
+                             seed=seed, num_virtual_pipeline_stages=vpp)
+        if bf16:
+            amp.decorate(model, level="O2", dtype="bfloat16")
+        return model
+
+    # the reference: the whole model, unpipelined
+    set_hybrid_communicate_group(None)
+    ref = build(1)
+    # host copies: the card holds what the steps hold, for the peaks
+    init = {k: t.detach().to("cpu", copy=True)
+            for k, t in _pipe_tensors(ref).items()}
+    opt = new_opt(ref)
+    mx, my = ids.chunk(m), labels.chunk(m)
+    ref_losses, ref_ms = [], []
+    for step in range(steps):
+        sync()
+        peak_reset()
+        plain_base = (int(torch.cuda.memory_allocated())
+                      if device != "cpu" else None)
+        t0 = time.perf_counter()
+        s = pl.micro_seed(gen)
+        after = gen.get_state()
+        total = 0
+        for i in range(m):
+            gen.manual_seed(s + i)
+            loss = ref.loss_fn(ref(mx[i]), my[i])
+            (loss / m).backward()
+            total = total + loss.detach().float()
+        gen.set_state(after)
+        opt.step()
+        opt.clear_grad()
+        sync()
+        ref_ms.append((time.perf_counter() - t0) * 1e3)
+        ref_losses.append(float(total / m))
+    plain_peak = peak()
+    ref_after = {k: t.detach().to("cpu", copy=True)
+                 for k, t in _pipe_tensors(ref).items()}
+    # the last loss's graph reaches the parameters (its AccumulateGrad
+    # nodes): drop it with the model
+    del ref, opt, loss, total
+    if device != "cpu":
+        release(torch)
+
+    hcg, strategy = None, None
+    if n > 1:
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs.update(pp_degree=n)
+        hcg = fleet.HybridCommunicateGroup(strategy=strategy)
+        set_hybrid_communicate_group(hcg)
+    out = {"B": B, "S": S, "accumulate_steps": m, "stages": p,
+           "layers": cfg.num_layers, "ref_losses": ref_losses,
+           "ref_step_ms": ref_ms, "plain_peak_bytes": plain_peak,
+           "plain_base_bytes": plain_base,
+           "schedules": {}}
+    built = {"model": None, "v": None}
+
+    def low_v_share(model, opt, leaf, got):
+        """The share of ``leaf``'s summed difference from the unpipelined
+        run that sits on its elements in the lowest tenth of AdamW's second
+        moment (0.1 if the difference spreads evenly)."""
+        params = {k: getattr(q, "_value", q)
+                  for k, q in model.named_parameters()}
+        store = opt._accumulators.get("moment2", {})
+        q = params.get(leaf)
+        if q is None or id(q) not in store:
+            return None
+        v = store[id(q)].detach().float().flatten()
+        d = (got.detach().float().flatten()
+             - ref_after[leaf].to(got.device).float().flatten()).abs()
+        if float(d.sum()) == 0.0:
+            return None
+        cut = v.kthvalue(max(1, v.numel() // 10)).values
+        return float(d[v <= cut].sum() / d.sum())
+
+    def key_share(leaf, got):
+        """Of a ``qkv_proj.bias``: the share of its summed difference from
+        the unpipelined run on its key third (whose gradient is zero in
+        exact arithmetic: softmax ignores a constant per query)."""
+        if not leaf.endswith("qkv_proj.bias"):
+            return None
+        lo = cfg.hidden_size
+        hi = lo + cfg.num_kv_heads * (cfg.hidden_size // cfg.num_heads)
+        d = (got.detach().float().flatten()
+             - ref_after[leaf].to(got.device).float().flatten()).abs()
+        total = float(d.sum())
+        return float(d[lo:hi].sum()) / total if total else None
+
+    def run_schedule(sched, v, fault=None):
+        """Three steps of ``sched`` from the saved state, gated against
+        the unpipelined run. ``fault="skip_backward"`` drops micro-batch
+        0's B and W from the global order (a lost micro-batch)."""
+        if built["model"] is None or (n > 1 and built["v"] != v):
+            built["model"] = None
+            if device != "cpu":
+                release(torch)
+            built["model"] = build(p, v if n > 1 else 1)
+            built["v"] = v
+        model = built["model"]
+        live = _pipe_tensors(model)
+        with torch.no_grad():
+            for k, t in live.items():
+                t.copy_(init[k])
+        if fault == "skip_shared_sum":
+            model._shared_groups = {}
+
+        class _Cfg:
+            pipeline_configs = {"accumulate_steps": m, "schedule_mode": sched}
+            hybrid_configs = {"pp_configs": {"virtual_pp_degree": v}}
+
+        wrapper = pl.PipelineParallel(model, hcg, strategy=_Cfg())
+        opt = new_opt(model)
+        wrapper._build_engine()
+        eng = wrapper._engine
+        if fault == "skip_backward":
+            eng._orders[(m, eng.schedule)] = [
+                o for o in pl.global_order(eng.n_chunks, m, eng.schedule)
+                if o[1] == "F" or o[2] != 0]
+        predicted = pipe_predicted_launches(model, p, v, m, sched, eng.mine)
+        losses, ms = [], []
+        fa.flash_fwd.launches = fa.flash_bwd_dq.launches = 0   # main path
+        fa.flash_bwd_dkv.launches = 0
+        for step in range(steps):
+            sync()
+            peak_reset()
+            step_base = (int(torch.cuda.memory_allocated())
+                         if device != "cpu" else None)
+            t0 = time.perf_counter()
+            losses.append(float(wrapper.train_batch((ids, labels), opt)))
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = flash_launches(fa)                          # main path ends
+        step_peak = peak()
+        if bf16:
+            ulp = [2.0 ** (np.floor(np.log2(abs(x))) - 7)
+                   for x in ref_losses]
+            limit = [2 * u for u in ulp]
+        else:
+            limit = [1e-5 * abs(x) for x in ref_losses]
+        tensors = _pipe_tensors(model)
+        gaps = {k: _pipe_gap(torch, t, ref_after[k], init[k])
+                for k, t in tensors.items()}
+        model_gap = _pipe_model_gap(torch, tensors, ref_after, init)
+        worst = max(gaps, key=gaps.get)
+        per_step = {kk: vv // steps for kk, vv in launches.items()}
+        r = dict(losses=losses, step_ms=ms, peak_bytes=step_peak,
+                 launches=launches, launches_per_step=per_step,
+                 predicted_per_step=predicted, loss_limit=limit,
+                 max_loss_diff=max(abs(a - b) for a, b in
+                                   zip(losses, ref_losses)),
+                 param_gap=max(gaps.values()), model_gap=model_gap,
+                 worst_leaf=worst,
+                 worst_leaf_low_v_share=low_v_share(model, opt, worst,
+                                                    tensors[worst]),
+                 worst_leaf_key_share=key_share(worst, tensors[worst]),
+                 base_bytes=step_base,
+                 chunks=sorted(eng.chunks), schedule=eng.schedule)
+        r["losses_ok"] = bool(
+            all(abs(a - b) <= lim for a, b, lim in
+                zip(losses, ref_losses, limit)) and all(np.isfinite(losses)))
+        r["params_ok"] = bool(r["param_gap"] <= 0.25 and model_gap <= 1e-2)
+        r["launches_ok"] = bool(device == "cpu" or all(
+            launches[kk] == steps * predicted[kk] for kk in predicted))
+        r["ok"] = r["losses_ok"] and r["params_ok"] and r["launches_ok"]
+        del wrapper, opt
+        return r
+
+    for name, sched, v in PIPE_SCHEDULES:
+        out["schedules"][name] = run_schedule(sched, v, plant)
+    # the control: a lost micro-batch must fail the parameter gate alone
+    ctl = run_schedule("1F1B", 1, "skip_backward")
+    out["control_skip_backward"] = {
+        k: ctl[k] for k in ("losses", "max_loss_diff", "param_gap",
+                            "model_gap", "worst_leaf", "losses_ok",
+                            "params_ok")}
+    out["control_failed"] = not ctl["params_ok"]
+    model = built.pop("model")
+    del model
+    if device != "cpu":
+        release(torch)
+    set_hybrid_communicate_group(None)
+    one = out["schedules"]["1F1B"]
+    out["step_ms"] = float(np.median(one["step_ms"][1:]))
+    out["plain_step_ms"] = float(np.median(ref_ms[1:]))
+    out["pipeline_peak_bytes"] = one["peak_bytes"]
+    out["pipeline_base_bytes"] = one["base_bytes"]
+    out["ok"] = (all(r["ok"] for r in out["schedules"].values())
+                 and out["control_failed"])
+    return out
+
+
+def pipe_zero(torch, dist, fa, device, tiny=False, seed=12, steps=3):
+    """(b) and (c): GPT-350M (O2 bf16, AdamW, B 8, S 1024) under the
+    captured ``jit.TrainStep`` with ``shard_optimizer(opt,
+    ShardingStage{1,2,3}("dp", mesh))`` on a "dp" mesh of the world: at
+    one rank every stage keeps its collectives (NCCL copies), and the
+    parameters after the steps equal the bare TrainStep's bit for bit
+    (the rehearsal's ranks: the mean loss within 1e-5 and every leaf's
+    gap within 1e-3). Then (c): the ZeRO-1 model and AdamW state through
+    ``save_state_dict`` / ``load_state_dict`` into a fresh model and
+    optimizer, bit-equal, and the next captured step of each equal; the
+    bytes written and the seconds."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.distributed import (
+        ShardingStage1,
+        ShardingStage2,
+        ShardingStage3,
+    )
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM, gpt_350m
+
+    n, me = dist.get_world_size(), dist.get_rank()
+    cfg = GPTConfig(**DIST_TINY) if tiny else gpt_350m()
+    B, S = (4, 64) if tiny else (8, 1024)
+    rng = np.random.default_rng(seed)
+    ids_np = rng.integers(0, cfg.vocab_size, (B, S))
+    labels_np = np.roll(ids_np, -1, axis=1)
+    mesh = dist.auto_mesh(n, dim_names=["dp"])
+    dist.set_mesh(mesh)
+
+    def make(stage=None):
+        model = GPTForCausalLM(cfg, device=device, seed=seed)
+        if device != "cpu":
+            amp.decorate(model, level="O2", dtype="bfloat16")
+        opt = optimizer.AdamW(learning_rate=1e-4,
+                              parameters=model.parameters(),
+                              weight_decay=0.01, multi_precision=True)
+        zero = stage("dp", mesh) if stage is not None else None
+        sopt = dist.shard_optimizer(opt, zero) if zero else opt
+        return model, opt, zero, TrainStep(model, lambda lg, ls: ls, sopt)
+
+    def run(step, rows, k):
+        ids = torch.as_tensor(ids_np[rows], device=device)
+        labels = torch.as_tensor(labels_np[rows], device=device)
+        out = []
+        for _ in range(k):
+            loss = step(ids, labels=labels).float()
+            if n > 1:
+                dist.all_reduce(loss, op="avg")
+            out.append(float(loss))
+        return out
+
+    whole = slice(None)
+    mine = slice(me * B // n, (me + 1) * B // n)
+    bare, _, _, bstep = make()
+    init = {k: t.detach().clone() for k, t in bare.named_parameters()}
+    bare_losses = run(bstep, whole, steps)
+    bare_after = {k: t.detach().clone() for k, t in bare.named_parameters()}
+    del bare, bstep
+    if device != "cpu":
+        release(torch)
+    rec = {"B": B, "S": S, "steps": steps, "bare_losses": bare_losses,
+           "stages": {}}
+    keep = None
+    for k, cls in ((1, ShardingStage1), (2, ShardingStage2),
+                   (3, ShardingStage3)):
+        model, opt, zero, step = make(cls)
+        losses = run(step, mine if n > 1 else whole, steps)
+        equal, gaps, rows = True, {}, {}
+        for name, t in model.named_parameters():
+            want = bare_after[name]
+            w0 = init[name]
+            lo_hi = getattr(t, "_zero_rows", None)
+            if k == 3 and lo_hi is not None:
+                want, w0 = want[lo_hi[0]:lo_hi[1]], w0[lo_hi[0]:lo_hi[1]]
+                rows[name] = list(t.shape)
+            equal = equal and torch.equal(t.detach(), want)
+            gaps[name] = _pipe_gap(torch, t.detach(), want, w0)
+        r = dict(losses=losses, params_bit_equal=bool(equal),
+                 param_gap=max(gaps.values()), captures=step.captures,
+                 replays=step.replays,
+                 sliced=sum(1 for t in model.parameters()
+                            if getattr(t, "_zero_rows", None) is not None))
+        r["ok"] = bool((equal and losses == bare_losses) if n == 1 else (
+            max(abs(a - b) / abs(b) for a, b in zip(losses, bare_losses))
+            <= 1e-5 and r["param_gap"] <= 1e-3))
+        if device != "cpu":
+            r["ok"] = r["ok"] and r["captures"] == 1
+        rec["stages"][f"zero{k}"] = r
+        if k == 1:
+            keep = (model, opt, zero, step)
+        else:
+            del model, opt, zero, step
+            if device != "cpu":
+                release(torch)
+    rec["checkpoint"] = pipe_checkpoint(torch, dist, device, keep, make,
+                                        run, mine if n > 1 else whole)
+    del keep
+    dist.set_mesh(None)
+    rec["ok"] = (all(r["ok"] for r in rec["stages"].values())
+                 and rec["checkpoint"]["ok"])
+    return rec
+
+
+def pipe_checkpoint(torch, dist, device, keep, make, run, rows):
+    """(c): the ZeRO-1 run's model and AdamW state saved, loaded into a
+    fresh model and optimizer (bit-equal), then one more captured step of
+    each (equal)."""
+    from paddle_tpu_torch.distributed import ShardingStage1
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+
+    model, opt, zero, step = keep
+    me = dist.get_rank()
+    if me == 0:
+        shutil.rmtree(PIPE_CKPT_DIR, ignore_errors=True)
+    dist.barrier()
+    t0 = time.perf_counter()
+    ckpt.save_state_dict({"model": model.state_dict(keep_vars=True),
+                          "opt": opt.state_dict()}, PIPE_CKPT_DIR)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(PIPE_CKPT_DIR, f))
+                 for f in os.listdir(PIPE_CKPT_DIR))
+    fresh, fopt, fzero, fstep = make(ShardingStage1)
+    fopt._materialize_accumulators(list(fstep._params))
+    t0 = time.perf_counter()
+    target = {"model": fresh.state_dict(keep_vars=True),
+              "opt": fopt.state_dict()}
+    ckpt.load_state_dict(target, PIPE_CKPT_DIR)
+    fopt.set_state_dict(target["opt"])
+    if device != "cpu":
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(
+        fresh.parameters(), model.parameters()))
+    sd_a, sd_b = opt.state_dict(), fopt.state_dict()
+    same_opt = all(
+        (torch.equal(sd_a[k], sd_b[k]) if isinstance(sd_a[k], torch.Tensor)
+         else sd_a[k] == sd_b[k]) for k in sd_a)
+    cont_a = run(step, rows, 1)
+    cont_b = run(fstep, rows, 1)
+    after = all(torch.equal(a, b) for a, b in zip(
+        fresh.parameters(), model.parameters()))
+    dist.barrier()
+    if me == 0:
+        shutil.rmtree(PIPE_CKPT_DIR, ignore_errors=True)
+    rec = dict(bytes=nbytes, save_s=save_s, load_s=load_s,
+               params_bit_equal=bool(same), opt_bit_equal=bool(same_opt),
+               next_loss=cont_a, next_loss_restored=cont_b,
+               next_params_bit_equal=bool(after))
+    rec["ok"] = bool(same and same_opt and after and cont_a == cont_b)
+    return rec
+
+
 def distributed_worker(args):
     """One rank of the distributed phase, in a fresh process: joins the
     process group (NCCL on the card, gloo on the CPU), runs the checks and
@@ -7550,6 +8051,7 @@ def distributed_worker(args):
     device = args.dist_device
     if device == "cpu":
         torch.set_num_threads(1)     # the ranks share the host's cores
+        os.nice(10)                  # below the tests that rehearse it
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     env = dist.init_parallel_env(device=device, init_method=args.dist_init,
@@ -7573,10 +8075,21 @@ def distributed_worker(args):
     rec["shards"] = dist_shards(torch, pa, fa, dev, *shape, dtype)
     rec["ulysses"] = dist_ulysses(torch, dist, fa, dev, *shape, dtype)
     rec["wall_s"] = time.perf_counter() - t0
+    # the pipeline phase, in the same worker
+    t1 = time.perf_counter()
+    if device != "cpu":
+        release(torch)
+    rec["pipeline"] = {
+        "gpt": pipe_gpt(torch, dist, fa, dev, tiny=tiny,
+                        plant=args.dist_plant),
+        "zero": pipe_zero(torch, dist, fa, dev, tiny=tiny)}
+    rec["pipeline"]["wall_s"] = time.perf_counter() - t1
     rec["failures"] = (
         [k for k, ok in rec["collectives"].items() if not ok]
         + [k for k in ("train", "serve", "ulysses") if not rec[k]["ok"]]
-        + [k for k, r in rec["shards"].items() if not r["ok"]])
+        + [k for k, r in rec["shards"].items() if not r["ok"]]
+        + [f"pipeline.{k}" for k in ("gpt", "zero")
+           if not rec["pipeline"][k]["ok"]])
     with open(args.dist_out, "w") as f:
         json.dump(rec, f)
     dist.destroy_process_group()
@@ -7624,7 +8137,9 @@ def distributed_phase(world=1, device="cuda", tiny=False, plant=None,
         if any(c != 0 for c in codes) or any(r is None for r in recs):
             raise AssertionError(f"distributed phase: rank exit codes "
                                  f"{codes}")
-        bad = {r["rank"]: {k: r.get(k, r["collectives"].get(k))
+        bad = {r["rank"]: {k: (r["pipeline"][k.split(".", 1)[1]]
+                               if k.startswith("pipeline.")
+                               else r.get(k, r["collectives"].get(k)))
                            for k in r["failures"]}
                for r in recs if r["failures"]}
         if bad:
@@ -7980,6 +8495,51 @@ def main():
           f"{dist_rec['world']}) max |err| {u['max_abs_err']:.3e}, "
           f"{u['over_limit']:.3f} of the limit; phase "
           f"{dist_rec['wall_s']:.1f} s in the worker", flush=True)
+    pipe = dist_rec["pipeline"]
+    PHASE_S["distributed.pipeline"] = pipe["wall_s"]    # within it
+    pg, pz = pipe["gpt"], pipe["zero"]
+    pg["captured_gpt3_1p3b_step_ms"] = g3["training"]["step_ms"]
+    pg["over_captured_step"] = pg["step_ms"] / g3["training"]["step_ms"]
+    for name, r in pg["schedules"].items():
+        print(f"pipeline on {card}: gpt3_1p3b {pg['stages']} stages "
+              f"{name} (B {pg['B']}, S {pg['S']}, {pg['accumulate_steps']} "
+              f"micro-batches, O2 bf16) losses {r['losses']} against the "
+              f"unpipelined {pg['ref_losses']} (limit {r['loss_limit']}); "
+              f"param_gap {r['param_gap']:.3e} ({r['worst_leaf']}), whole "
+              f"model {r['model_gap']:.3e}; flash "
+              f"launches a step {r['launches_per_step']}, predicted "
+              f"{r['predicted_per_step']}", flush=True)
+    c = pg["control_skip_backward"]
+    print(f"pipeline on {card}: control, 1F1B with micro-batch 0's "
+          f"backward dropped: param_gap {c['param_gap']:.3e} "
+          f"({c['worst_leaf']}, limit 0.25), whole model "
+          f"{c['model_gap']:.3e} (limit 1e-2), max loss diff "
+          f"{c['max_loss_diff']:.3e}: refused {pg['control_failed']}; "
+          f"the sound runs' worst leaf carries "
+          f"{[r['worst_leaf_low_v_share'] for r in pg['schedules'].values()]}"
+          f" of its difference on its lowest-second-moment tenth and "
+          f"{[r['worst_leaf_key_share'] for r in pg['schedules'].values()]}"
+          f" on its key third", flush=True)
+    print(f"pipeline on {card}: 1F1B step {pg['step_ms']:.1f} ms against "
+          f"the unpipelined accumulation's {pg['plain_step_ms']:.1f} and "
+          f"the captured gpt3_1p3b step's {g3['training']['step_ms']:.1f} "
+          f"(host clock); peak allocated {pg['pipeline_peak_bytes']} bytes "
+          f"against {pg['plain_peak_bytes']} unpipelined (held before the "
+          f"step {pg['pipeline_base_bytes']} and {pg['plain_base_bytes']})",
+          flush=True)
+    for k, r in pz["stages"].items():
+        print(f"pipeline on {card}: GPT-350M {k} captured TrainStep "
+              f"losses {r['losses']} against bare {pz['bare_losses']}: "
+              f"parameters bit-equal {r['params_bit_equal']}, "
+              f"{r['sliced']} parameters in rows, captures "
+              f"{r['captures']}", flush=True)
+    ck = pz["checkpoint"]
+    print(f"pipeline on {card}: ZeRO-1 GPT-350M checkpoint {ck['bytes']} "
+          f"bytes saved in {ck['save_s']:.2f} s, loaded in "
+          f"{ck['load_s']:.2f} s; restored bit-equal "
+          f"{ck['params_bit_equal'] and ck['opt_bit_equal']}, next step "
+          f"equal {ck['next_params_bit_equal']}; phase "
+          f"{pipe['wall_s']:.1f} s in the worker", flush=True)
 
     d = timing["decode"]
     kernels = [{
@@ -8089,7 +8649,10 @@ def main():
                 {b: script["export"][f"{b}_launches"] for b in ("b8", "b2")}
                 if kern == "fwd" else {}),
             "distributed_launches":
-                tr["data_parallel"]["flash_launches"][kern]})
+                tr["data_parallel"]["flash_launches"][kern],
+            "pipeline_launches": {
+                name: r["launches"][kern]
+                for name, r in pg["schedules"].items()}})
         t = flash_timing["train_f16"][kern]
         kernels.append({
             "name": f"{name}_f16", "route": "cuda",

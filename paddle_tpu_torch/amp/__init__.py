@@ -239,6 +239,20 @@ class GradScaler:
             p.grad = p.grad * inv
             bad = ~torch.isfinite(p.grad).all()
             found = bad if found is None else found | bad
+        group = getattr(self, "_found_inf_group", None)
+        if group is not None:
+            # distributed.shard_scaler: a non-finite gradient on any rank
+            # skips the step on every rank (every rank joins, with or
+            # without gradients)
+            from ..distributed.collective import _all_reduce_
+
+            dev = (optimizer._params[0].device if optimizer._params
+                   else "cpu")
+            flag = torch.zeros((), dtype=torch.float32, device=dev)
+            if found is not None:
+                flag = flag + found.to(torch.float32)
+            _all_reduce_(flag, "max", group)
+            found = flag > 0
         if found is not None:
             # OR, do not overwrite: a clean second optimizer must not
             # erase an inf the first one found

@@ -34,6 +34,14 @@ contiguous cut of the fused columns would give a rank other heads' keys
 and compute wrong attention without an error. ``from_paddle_tpu_state``
 cuts the state for a model built over a model-parallel group, and
 ``to_paddle_tpu_state`` returns that rank's shards.
+
+Pipeline stages and ZeRO: ``stage_state(state, model)`` takes the whole
+state under JAX's names (a ``PipelineLayer``'s ``run_function.{i}.…``, a
+shared layer under its first use) to the part ``model`` holds on this
+rank, each tensor cut where its layout (``distributed.layout``) says:
+the stage's layers only, the tensor-parallel shards, the ZeRO-3 rows.
+``part_record`` / ``gather_parts`` go back: every rank's parts (state,
+gradients or accumulators) placed into the whole tensors.
 """
 from __future__ import annotations
 
@@ -46,7 +54,7 @@ from .models.gpt import GPTConfig, GPTForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
 
 __all__ = ["from_paddle_tpu_state", "to_paddle_tpu_state", "shard_state",
-           "gather_state"]
+           "gather_state", "stage_state", "part_record", "gather_parts"]
 
 # config type -> (model class, the top module whose prefix is optional)
 _MODELS = {GPTConfig: (GPTForCausalLM, "gpt"),
@@ -214,3 +222,77 @@ def gather_state(shards, config):
     return {k: _join([np.asarray(s[k]) for s in shards],
                      _gpt_layout(k, config), config)
             for k in shards[0]}
+
+
+# ------------------------------------- pipeline stages and ZeRO slices
+def _tensors(model):
+    """{name: torch tensor} of a model's state (a paddle-style Layer's
+    Parameters unwrapped; a torch module's own tensors, kept live)."""
+    if isinstance(model, Layer):
+        return {k: getattr(t, "_value", t)
+                for k, t in model.state_dict().items()}
+    return dict(model.state_dict(keep_vars=True))
+
+
+def stage_state(state, model):
+    """The whole state (JAX's names: a ``PipelineLayer``'s
+    ``run_function.{i}.…`` and its shared layers' first-use names) ->
+    ``model``'s part on this rank, under its names: only the stage's
+    layers, each tensor cut by its layout (``distributed.layout``: the
+    tensor-parallel shards, the ZeRO rows, GPT's fused per-head-group
+    columns)."""
+    from .distributed.layout import layout_of
+
+    out = {}
+    for k, t in _tensors(model).items():
+        if k not in state:
+            raise KeyError(f"the whole state has no {k!r}")
+        arr = np.asarray(state[k])
+        shape, pieces = layout_of(t)
+        if list(arr.shape) != list(shape):
+            raise ValueError(f"{k}: whole shape {arr.shape} != {shape}")
+        local = np.empty(tuple(t.shape), dtype=arr.dtype)
+        for sl, off in pieces:
+            src = tuple(slice(o, o + (s.stop - s.start))
+                        for o, s in zip(off, sl))
+            local[sl] = arr[src]
+        out[k] = local
+    return out
+
+
+def part_record(model, values=None):
+    """{name: (array, global shape, pieces)} of this rank's part of
+    ``model``'s state (or of ``values``, {name: tensor} laid out like it:
+    gradients) for ``gather_state``; bf16 as f32."""
+    from .distributed.layout import layout_of
+
+    out = {}
+    for k, t in _tensors(model).items():
+        v = t if values is None else values.get(k)
+        if v is None:
+            continue
+        # a value with a layout of its own (a ZeRO accumulator's rows)
+        shape, pieces = layout_of(v if hasattr(v, "_global_shape") else t)
+        v = v.detach().cpu()
+        if v.dtype == torch.bfloat16:
+            v = v.float()
+        out[k] = (v.numpy().copy(), shape,
+                  [([(s.start, s.stop) for s in sl], off)
+                   for sl, off in pieces])
+    return out
+
+
+def gather_parts(records):
+    """The whole state from every rank's ``part_record``: each part placed
+    where its layout says (replicas write the same values)."""
+    whole = {}
+    for rec in records:
+        for k, (arr, shape, pieces) in rec.items():
+            if k not in whole:
+                whole[k] = np.zeros(shape, dtype=arr.dtype)
+            for sl, off in pieces:
+                src = tuple(slice(a, b) for a, b in sl)
+                dst = tuple(slice(o, o + (b - a))
+                            for o, (a, b) in zip(off, sl))
+                whole[k][dst] = arr[src]
+    return whole

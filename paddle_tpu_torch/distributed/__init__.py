@@ -1,19 +1,20 @@
 """``paddle.distributed`` on ``torch.distributed`` — the counterpart of
 ``paddle_tpu/distributed/__init__.py``, one process per device.
 
-This slice ports the process group (``init_parallel_env``), the mesh and
+The port holds the process group (``init_parallel_env``), the mesh and
 its placements, the collectives, ``DataParallel``, the fleet hybrid group
-with tensor and sequence parallelism, the dist-tensor API without ZeRO,
-and context parallelism (ring attention, Ulysses). ``spawn`` starts
+with tensor, sequence and pipeline parallelism, the dist-tensor API, ZeRO
+(``ShardingStage1/2/3``, ``shard_optimizer``, ``shard_scaler``), context
+parallelism (ring attention, Ulysses) and the sharded checkpoint
+(``checkpoint``: ``save_state_dict`` / ``load_state_dict``). ``spawn`` starts
 ``nprocs`` processes with ``torch.multiprocessing`` (start method
 "spawn"), each calling ``func(*args)`` with ``PADDLE_TRAINER_ID`` /
 ``PADDLE_TRAINERS_NUM`` / ``MASTER_ADDR`` / ``MASTER_PORT`` set, where
 the JAX package calls ``func`` once (:53-57).
 
 The names of later slices raise ``NotImplementedError`` naming their
-ROADMAP item: pipeline parallelism, ZeRO, ``auto_parallel``'s plans,
-``checkpoint``, ``launch``, ``rpc``, the fleet datasets and the entry
-attributes.
+ROADMAP item: ``auto_parallel``'s plans (A5.4), ``launch``, ``rpc``, the
+fleet datasets and the entry attributes.
 """
 from __future__ import annotations
 
@@ -51,6 +52,8 @@ from .context_parallel import (  # noqa: F401,E402
     RingFlashAttention, SegmentParallel, ring_attention, ulysses_attention,
 )
 from . import fleet  # noqa: F401,E402
+from . import checkpoint  # noqa: F401,E402
+from .checkpoint import load_state_dict, save_state_dict  # noqa: F401,E402
 
 all_to_all = alltoall
 all_to_all_single = alltoall_single
@@ -64,9 +67,6 @@ _LATER = {
     "ShowClickEntry": "A5.9 (entry_attr.py)",
     "io": "A5.9 (io.py)",
     "rpc": "A5.9 (rpc/)",
-    "checkpoint": "A5.5 (distributed/checkpoint/)",
-    "load_state_dict": "A5.5 (distributed/checkpoint/)",
-    "save_state_dict": "A5.5 (distributed/checkpoint/)",
     "launch": "A5.6 (launch/, store/)",
     "auto_parallel": "A5.4 (auto_parallel/)",
     "ColWiseParallel": "A5.4 (auto_parallel/)",

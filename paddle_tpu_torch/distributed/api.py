@@ -17,8 +17,8 @@ then cuts. ``dtensor_from_local`` wraps a rank's part as it is;
 each rank its slice of every batch along the data-parallel mesh
 dimension.
 
-``ShardingStage1/2/3``, ``shard_optimizer`` and ``shard_scaler`` raise:
-ZeRO is a later slice (ROADMAP A5.2).
+``ShardingStage1/2/3``, ``shard_optimizer`` and ``shard_scaler`` (ZeRO)
+live in ``sharding.py`` and are exported here too.
 """
 from __future__ import annotations
 
@@ -26,16 +26,21 @@ import torch
 
 from ..tensor import Tensor
 from .collective import _all_reduce_, _gather_cat
+from .layout import cut_pieces, layout_of, set_layout
 from .mesh import Partial, Placement, ProcessMesh, Replicate, Shard, get_mesh
+from .sharding import (  # noqa: F401
+    ShardingStage1,
+    ShardingStage2,
+    ShardingStage3,
+    shard_optimizer,
+    shard_scaler,
+)
 
 __all__ = ["DistTensor", "shard_tensor", "dtensor_from_local",
            "dtensor_from_fn", "reshard", "unshard_dtensor", "shard_layer",
            "shard_dataloader", "shard_optimizer", "shard_scaler",
            "ShardingStage1", "ShardingStage2", "ShardingStage3",
            "ReduceType", "DistAttr", "Placement"]
-
-_ZERO = "ZeRO sharding is a later slice of the port (ROADMAP A5.2)"
-
 
 class DistTensor(Tensor):
     """A Tensor holding this rank's part of a global value laid out by
@@ -65,8 +70,26 @@ def _val(x):
     return x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
 
 
-def _local_part(v, mesh, placements):
+def _pieces_for(shape, mesh, placements):
+    """Where this rank's part of a ``shape`` tensor under ``placements``
+    sits (``layout``)."""
     coord = mesh.get_coord()
+    shape = [int(s) for s in shape]
+    pieces = [(tuple(slice(0, s) for s in shape), [0] * len(shape))]
+    local = list(shape)
+    for axis, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            n, d = mesh.shape[axis], pl.get_dim()
+            pieces = cut_pieces(local, pieces, d, n, coord[axis])
+            local[d] //= n
+    return pieces
+
+
+def _local_part(v, mesh, placements):
+    """This rank's part of ``v``, with its layout (where it sits in ``v``,
+    ``layout``: the sharded checkpoint reads it)."""
+    coord = mesh.get_coord()
+    shape = list(v.shape)
     for axis, pl in enumerate(placements):
         if isinstance(pl, Shard):
             n = mesh.shape[axis]
@@ -75,7 +98,8 @@ def _local_part(v, mesh, placements):
                 raise ValueError(f"dim {d} of size {v.shape[d]} does not "
                                  f"split over mesh dim {axis} of size {n}")
             v = v.chunk(n, dim=d)[coord[axis]]
-    return v.contiguous()
+    return set_layout(v.contiguous(), shape,
+                      _pieces_for(shape, mesh, placements))
 
 
 def _wrap(data, v, mesh, placements, global_shape, stop_gradient):
@@ -97,6 +121,7 @@ def shard_tensor(data, mesh: ProcessMesh, placements, dtype=None,
     if hasattr(data, "trainable"):        # a Layer's nn.Parameter
         with torch.no_grad():
             data._value.data = local
+        set_layout(data._value, *layout_of(local))
         # kept on its torch parameter (the wrapper has fixed slots)
         data._value._dist_attr = (mesh, list(placements))
         data._value._global_shape = list(v.shape)
@@ -112,6 +137,7 @@ def dtensor_from_local(local_tensor, mesh, placements):
     for axis, pl in enumerate(placements):
         if isinstance(pl, Shard):
             shape[pl.get_dim()] *= mesh.shape[axis]
+    set_layout(v, shape, _pieces_for(shape, mesh, placements))
     return _wrap(local_tensor, v, mesh, placements, shape, None)
 
 
@@ -152,6 +178,7 @@ def reshard(dist_tensor, mesh: ProcessMesh, placements):
             v = v.chunk(n, dim=d)[mesh.get_coord()[axis]].contiguous()
         elif isinstance(b, Partial):
             raise NotImplementedError("resharding to Partial is not ported")
+    set_layout(v, global_shape, _pieces_for(global_shape, mesh, placements))
     return DistTensor(v, (mesh, list(placements)), global_shape,
                       stop_gradient=t.stop_gradient)
 
@@ -227,31 +254,6 @@ def shard_dataloader(dataloader, meshes=None, shard_dims=None,
     if mesh is None or is_dataset_splitted:
         return dataloader
     return _ShardedDataLoader(dataloader, mesh, shard_dims)
-
-
-class _ZeroStage:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{type(self).__name__}: {_ZERO}")
-
-
-class ShardingStage1(_ZeroStage):
-    pass
-
-
-class ShardingStage2(_ZeroStage):
-    pass
-
-
-class ShardingStage3(_ZeroStage):
-    pass
-
-
-def shard_optimizer(optimizer, shard_fn=None):
-    raise NotImplementedError(f"shard_optimizer: {_ZERO}")
-
-
-def shard_scaler(scaler):
-    raise NotImplementedError(f"shard_scaler: {_ZERO}")
 
 
 class ReduceType:

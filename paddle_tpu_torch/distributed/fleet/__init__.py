@@ -1,8 +1,9 @@
 """Fleet — the counterpart of ``paddle_tpu/distributed/fleet``: the hybrid
 group over the world's ranks (``init``), the tensor-parallel layer library,
-sequence parallelism, the hybrid optimizer and recompute. Pipeline
-parallelism (``PipelineLayer``, ``LayerDesc``) and elastic training are
-later slices (ROADMAP A5)."""
+sequence parallelism, the hybrid optimizer, recompute and pipeline
+parallelism (``PipelineLayer``, ``LayerDesc``, ``SharedLayerDesc``,
+``PipelineParallel`` and its interleaved form). Elastic training is a
+later slice (ROADMAP A5.6)."""
 from __future__ import annotations
 
 from . import meta_parallel, sequence_parallel_utils  # noqa: F401
@@ -20,6 +21,10 @@ from .hybrid_optimizer import (  # noqa: F401
 from .meta_parallel import (  # noqa: F401
     ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
     SegmentParallel, TensorParallel, VocabParallelEmbedding,
+)
+from .pipeline import (  # noqa: F401
+    LayerDesc, PipelineLayer, PipelineParallel,
+    PipelineParallelWithInterleave, SegmentLayers, SharedLayerDesc,
 )
 from .recompute import recompute, recompute_sequential  # noqa: F401
 from .sequence_parallel_utils import (  # noqa: F401
@@ -51,9 +56,8 @@ def get_rank():
 
 
 def __getattr__(name):
-    if name in ("PipelineLayer", "LayerDesc", "SharedLayerDesc",
-                "PipelineParallel", "elastic"):
+    if name == "elastic":
         raise NotImplementedError(
-            f"fleet.{name}: pipeline parallelism and elastic training are "
-            f"later slices of the port (ROADMAP A5.1, A5.6)")
+            "fleet.elastic: elastic training is a later slice of the port "
+            "(ROADMAP A5.6)")
     raise AttributeError(name)

@@ -5,9 +5,11 @@
 The hybrid group lays the world's ranks on the axes [pp, dp, sharding,
 sep, mp] (Paddle ``topology.py:199``, mp fastest) and gives each rank its
 coordinate and its process group along every axis (a ``ProcessMesh``
-over the world, installed as the global mesh). The dp, mp and sep degrees
-are real; a pp or sharding degree above 1 raises: pipeline parallelism
-and ZeRO are later slices (ROADMAP A5).
+over the world, installed as the global mesh). With the JAX package's
+axis order, rank r has the coordinates of JAX's device r. Every degree is
+real: pp lays the pipeline stages (``get_stage_id``, the pipe group and a
+stage's p2p neighbours ``get_rank_from_stage``), sharding the ZeRO axis
+(``get_sharding_parallel_*``), dp, sep and mp as before.
 """
 from __future__ import annotations
 
@@ -23,10 +25,6 @@ __all__ = ["DistributedStrategy", "CommunicateTopology",
            "HybridCommunicateGroup", "PaddleCloudRoleMaker",
            "get_hybrid_communicate_group", "set_hybrid_communicate_group"]
 
-_LATER = {"pp_degree": "pipeline parallelism (ROADMAP A5.1)",
-          "sharding_degree": "ZeRO sharding (ROADMAP A5.2)"}
-
-
 class DistributedStrategy:
     """The configuration tree of the fields the port honours."""
 
@@ -38,7 +36,8 @@ class DistributedStrategy:
             "sharding_degree": 1,
             "sep_degree": 1,
         }
-        self.pipeline_configs = {"accumulate_steps": 1, "micro_batch_size": 1}
+        self.pipeline_configs = {"accumulate_steps": 1, "micro_batch_size": 1,
+                                 "schedule_mode": "1F1B"}
         self.amp = False
         self.amp_configs = {}
         self.recompute = False
@@ -96,11 +95,6 @@ class HybridCommunicateGroup:
     def __init__(self, topology=None, strategy=None):
         if topology is None:
             cfg = (strategy or DistributedStrategy()).hybrid_configs
-            for key, what in _LATER.items():
-                if int(cfg.get(key, 1)) > 1:
-                    raise NotImplementedError(
-                        f"{key}={cfg[key]}: {what} is a later slice of the "
-                        f"port")
             dims = [cfg["pp_degree"], cfg["dp_degree"],
                     cfg["sharding_degree"], cfg["sep_degree"],
                     cfg["mp_degree"]]
@@ -120,11 +114,18 @@ class HybridCommunicateGroup:
         self._coord = dict(zip(self.AXES,
                                topology.get_rank_coordinate(self.global_rank)))
         self._dp_sep = self._fused_group(("dp", "sep"))
+        self._fused: dict = {}
+        if self.get_pipe_parallel_world_size() > 1 or (
+                self.get_sharding_parallel_world_size() > 1):
+            # the groups the pipeline and ZeRO reduce over, made on every
+            # rank in one order
+            for axes in (("dp", "sharding"), ("pp", "sharding", "mp")):
+                self._fused[axes] = self._fused_group(axes)
 
     def _fused_group(self, axes):
         """This rank's group over the ranks that differ only along
         ``axes`` (every such group made on every rank, in one order); the
-        one axis's group where the other has size 1."""
+        one axis's group where the others have size 1."""
         live = [a for a in axes if self._topo.get_dim(a) > 1]
         if len(live) < 2:
             return self._group(live[0] if live else axes[0])
@@ -199,9 +200,46 @@ class HybridCommunicateGroup:
         return self._dp_sep
 
     def get_check_parallel_group(self, sharding=False):
+        """The group found-inf is reduced over: the world."""
         from ..collective import get_group
 
         return get_group()
+
+    def get_fused_group(self, axes):
+        """This rank's group over the ranks that differ only along
+        ``axes`` (made at construction for ("dp", "sharding") and ("pp",
+        "sharding", "mp") when pp or sharding is above 1)."""
+        axes = tuple(axes)
+        if axes not in self._fused:
+            raise KeyError(f"no fused group over {axes}")
+        return self._fused[axes]
+
+    def get_sharding_parallel_group_src_rank(self):
+        return self._group("sharding").ranks[0]
+
+    def get_pipe_parallel_group_src_rank(self):
+        return self._group("pp").ranks[0]
+
+    def get_rank_from_stage(self, stage_id, **kwargs):
+        """The global rank of stage ``stage_id`` with this rank's other
+        coordinates (overridden by ``kwargs``)."""
+        coord = dict(self._coord, pp=int(stage_id))
+        coord.update(kwargs)
+        return self._topo.get_rank(**coord)
+
+    @property
+    def prev_rank(self):
+        """The previous stage's rank (the last stage's for stage 0)."""
+        p = self.get_pipe_parallel_world_size()
+        return self.get_rank_from_stage((self.get_stage_id() - 1) % p)
+
+    @property
+    def next_rank(self):
+        p = self.get_pipe_parallel_world_size()
+        return self.get_rank_from_stage((self.get_stage_id() + 1) % p)
+
+    def get_p2p_groups(self):
+        return None
 
     def get_data_parallel_group_src_rank(self):
         return self._group("dp").ranks[0]
@@ -219,10 +257,14 @@ class HybridCommunicateGroup:
         return self._topo
 
     def get_parallel_mode(self):
+        if self.get_pipe_parallel_world_size() > 1:
+            return "pipeline"
         if self.get_model_parallel_world_size() > 1:
             return "tensor"
         if self.get_sep_parallel_world_size() > 1:
             return "sep"
+        if self.get_sharding_parallel_world_size() > 1:
+            return "sharding"
         return "data"
 
 

@@ -52,13 +52,25 @@ class Fleet:
         return self._hcg
 
     def distributed_model(self, model):
-        """Tensor parallel when mp > 1, segment parallel when sep > 1
-        (each averages the gradients over dp x sep at the backward's end),
-        data parallel when dp > 1, else the model itself."""
+        """``PipelineParallel`` (its interleaved form with a
+        ``virtual_pp_degree`` above 1) when pp > 1; tensor parallel when
+        mp > 1, segment parallel when sep > 1 (each averages the gradients
+        over dp x sep at the backward's end), data parallel when dp > 1,
+        else the model itself."""
         from ..parallel import DataParallel
         from .meta_parallel import SegmentParallel, TensorParallel
+        from .pipeline import (
+            PipelineParallel,
+            PipelineParallelWithInterleave,
+            _vpp_of,
+        )
 
         hcg = self._need_hcg()
+        if hcg.get_pipe_parallel_world_size() > 1:
+            if _vpp_of(self._strategy) > 1:
+                return PipelineParallelWithInterleave(
+                    model, hcg, strategy=self._strategy)
+            return PipelineParallel(model, hcg, strategy=self._strategy)
         if hcg.get_model_parallel_world_size() > 1:
             return TensorParallel(model, hcg, strategy=self._strategy)
         if hcg.get_sep_parallel_world_size() > 1:

@@ -3,13 +3,19 @@
 ``hybrid_parallel_optimizer.py:275``).
 
 The JAX package's gradients are global arrays, so its clip already sees
-every shard. A rank of the port holds only its shards. Its gradients are
+every shard, and its single process sees the whole model. A rank of the
+port holds only its shards of its pipeline stage. Its gradients are
 already synced when the backward ends (the model wrapper's
 ``parallel.GradientSync``: averaged over dp x sep, the
-``sequence_parallel`` ones summed over mp), so the wrapper only clips by
-the global norm across the model-parallel group
-(``HybridParallelClipGrad``): a sharded parameter's squared norm is
-all-reduced once, a replicated one counted once.
+``sequence_parallel`` ones summed over mp; or the pipeline's and the ZeRO
+stage's syncs), so the wrapper only clips by the global norm
+(``HybridParallelClipGrad``): each rank sums the squares of the
+gradients it alone holds, and the sum is all-reduced over the
+model-parallel group, the ZeRO stage's group and the pipe group in turn
+(orthogonal axes: the sum over their product). A gradient replicated
+along one of them counts on that group's first rank only; a shared
+(tied) weight's copy on a later stage does not count
+(``_pp_shared_copy``).
 
 The inner optimizer's clip is replaced by the hybrid one, so a
 ``jit.TrainStep`` (which updates through the inner optimizer) clips the
@@ -29,33 +35,43 @@ def _is_sharded(p):
     return bool(getattr(getattr(p, "_value", p), "is_distributed", False))
 
 
+def _live(g):
+    return g if g is not None and g.nranks > 1 else None
+
+
 class HybridParallelClipGrad(ClipGradBase):
-    """Global-norm clip over a model-parallel group: the squared norms of
-    the sharded parameters' gradients are summed over the group in one
-    all-reduce, the replicated ones added once."""
+    """Global-norm clip over the model-parallel ``group``, the ZeRO
+    ``zero_group`` (gradients of ``_zero_sliced`` parameters are rows) and
+    the ``pp_group`` (each rank holds one stage)."""
 
     needs_params = True
 
-    def __init__(self, clip, group):
+    def __init__(self, clip, group=None, zero_group=None, pp_group=None):
         self._clip = clip
         self.clip_norm = clip.clip_norm
         self.group = group
+        self.zero_group = zero_group
+        self.pp_group = pp_group
 
     def clip_params(self, params, grads):
         if not grads:
             return grads
         dev = grads[0].device
-        sharded = torch.zeros((), dtype=torch.float32, device=dev)
-        replicated = torch.zeros((), dtype=torch.float32, device=dev)
+        mp, zero = _live(self.group), _live(self.zero_group)
+        total = torch.zeros((), dtype=torch.float32, device=dev)
         for p, g in zip(params, grads):
-            sq = g.float().square().sum()
-            if _is_sharded(p):
-                sharded = sharded + sq
-            else:
-                replicated = replicated + sq
-        if self.group is not None and self.group.nranks > 1:
-            _all_reduce_(sharded, "sum", self.group)
-        gnorm = torch.sqrt(sharded + replicated)
+            if getattr(p, "_pp_shared_copy", False):
+                continue
+            if mp is not None and not _is_sharded(p) and mp.rank != 0:
+                continue
+            if (zero is not None and not getattr(p, "_zero_sliced", False)
+                    and zero.rank != 0):
+                continue
+            total = total + g.float().square().sum()
+        for grp in (mp, zero, _live(self.pp_group)):
+            if grp is not None:
+                _all_reduce_(total, "sum", grp)
+        gnorm = torch.sqrt(total)
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
         return [ClipGradByGlobalNorm.apply(g, scale) for g in grads]
@@ -81,10 +97,17 @@ class HybridParallelOptimizer:
         self._inner_opt = optimizer
         self._hcg = hcg
         self._strategy = strategy
+        inner = getattr(optimizer, "_inner_opt", optimizer)
         mp = hcg.get_model_parallel_group()
-        clip = optimizer._grad_clip
-        if isinstance(clip, ClipGradByGlobalNorm) and mp.nranks > 1:
-            optimizer._grad_clip = HybridParallelClipGrad(clip, mp)
+        pp = hcg.get_pipe_parallel_group()
+        sharding = hcg.get_sharding_parallel_group()
+        clip = inner._grad_clip
+        if isinstance(clip, ClipGradByGlobalNorm) and max(
+                mp.nranks, pp.nranks, sharding.nranks) > 1:
+            inner._grad_clip = HybridParallelClipGrad(
+                clip, mp, zero_group=None, pp_group=pp)
+        elif isinstance(clip, HybridParallelClipGrad):
+            clip.group, clip.pp_group = mp, pp
 
     def __getattr__(self, item):
         return getattr(self._inner_opt, item)

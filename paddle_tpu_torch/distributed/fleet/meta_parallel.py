@@ -1,6 +1,8 @@
 """The tensor-parallel layers, ``ParallelCrossEntropy`` and the
 ``TensorParallel`` / ``SegmentParallel`` wrappers — the counterpart of
-``paddle_tpu/distributed/fleet/meta_parallel.py:67-168`` and ``:413-442``.
+``paddle_tpu/distributed/fleet/meta_parallel.py:67-168`` and ``:413-442``;
+the pipeline layers and wrappers (:172-411) live in ``pipeline.py`` and
+are exported here too.
 
 Weights keep paddle's ``[in, out]`` layout, so ``bridge.py`` copies the JAX
 package's arrays without transposing them. The JAX package holds each
@@ -35,6 +37,7 @@ from torch import nn
 
 from ...amp import _amp_add, _amp_cast
 from ..collective import _all_reduce_
+from ..layout import set_layout
 from ..parallel import GradientSync
 from .mp_ops import (
     allreduce_identity,
@@ -46,7 +49,9 @@ from .mp_ops import (
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
            "RowParallelLinear", "ParallelCrossEntropy", "TensorParallel",
-           "SegmentParallel", "shard_size"]
+           "SegmentParallel", "shard_size", "mark_fused", "LayerDesc",
+           "SharedLayerDesc", "SegmentLayers", "PipelineLayer",
+           "PipelineParallel", "PipelineParallelWithInterleave"]
 
 
 def shard_size(total, group, what):
@@ -60,9 +65,35 @@ def shard_size(total, group, what):
 
 def _mark(param, dim, group):
     """A sharded parameter carries ``is_distributed`` and its split
-    dimension (the hybrid clip all-reduces its squared norm)."""
+    dimension (the hybrid clip all-reduces its squared norm), and where it
+    sits in the whole weight (``distributed.layout``: the checkpoint
+    writes it there)."""
     param.is_distributed = group is not None
     param.split_axis = dim
+    shape = list(param.shape)
+    offset = [0] * len(shape)
+    if group is not None and dim is not None:
+        offset[dim] = group.rank * shape[dim]
+        shape[dim] *= group.nranks
+    set_layout(param, shape, [(tuple(slice(0, s) for s in param.shape),
+                               offset)])
+
+
+def mark_fused(param, parts, group):
+    """``param``'s last dimension fuses ``parts`` (global widths), each cut
+    over ``group`` and the rank's parts concatenated (GPT's ``qkv_proj``
+    and ``gate_up``): one layout piece per part."""
+    if group is None:
+        return
+    n, r = group.nranks, group.rank
+    pieces, lo, glo = [], 0, 0
+    lead = tuple(slice(0, s) for s in param.shape[:-1])
+    for width in parts:
+        w = width // n
+        pieces.append((lead + (slice(lo, lo + w),),
+                       [0] * (param.dim() - 1) + [glo + r * w]))
+        lo, glo = lo + w, glo + width
+    set_layout(param, list(param.shape[:-1]) + [glo], pieces)
 
 
 class VocabParallelEmbedding(nn.Module):
@@ -278,3 +309,13 @@ class SegmentParallel(GradientSync):
         if hcg is not None:
             _broadcast_replicated(layers, hcg.get_model_parallel_group())
             _broadcast_all(layers, hcg.get_dp_sep_parallel_group())
+
+
+from .pipeline import (  # noqa: E402,F401
+    LayerDesc,
+    PipelineLayer,
+    PipelineParallel,
+    PipelineParallelWithInterleave,
+    SegmentLayers,
+    SharedLayerDesc,
+)

@@ -26,6 +26,9 @@ rank is b_r / (sep * sum over dp of b)), after summing over the
 model-parallel group the gradients of parameters marked
 ``sequence_parallel`` (each mp rank saw only its sequence slice).
 
+The gradients of parameters a ZeRO stage averages over the same group
+(``sharding.owns``) are left to the stage: each axis has one sync.
+
 Parameters and buffers are broadcast from the group's first rank when the
 model is wrapped. ``no_sync`` skips the all-reduce (gradients accumulate
 locally until a backward outside it, or ``apply_collective_grads``);
@@ -45,6 +48,7 @@ from .collective import (
     _get_group,
     broadcast,
 )
+from .sharding import owns
 
 __all__ = ["DataParallel", "GradientSync"]
 
@@ -131,7 +135,9 @@ class GradientSync(Layer):
                 _all_reduce_coalesced_(marked, sp)
         g = self.group
         if g is not None:
-            grads = [p.grad for p in params]
+            # a ZeRO stage averages its parameters over this group itself
+            grads = [p.grad for p in params if not owns(p, g)]
+        if g is not None and grads:
             if g.nranks > 1:
                 b = torch.full((), float(self._local_batch or 1),
                                dtype=torch.float32, device=grads[0].device)

@@ -33,6 +33,7 @@ later call with new inputs.
 from __future__ import annotations
 
 import contextlib
+import gc
 import math
 import threading
 import time
@@ -49,6 +50,9 @@ __all__ = ["StaticBuffers", "StepRunner", "Capture", "CaptureError",
 _ALIGN = 16                 # bytes: every view starts on a 16-byte line
 _CAPTURE_LOCK = threading.Lock()    # one capture (and its first run) at once
 _SIDE_STREAMS: dict = {}            # device -> the stream captures run on
+_UNDERWAY = False                   # a capture is being recorded
+_DEFERRED: list = []                # graphs released during it
+_POOL_FAILURES: dict = {}           # pool -> its first failed capture
 
 
 def _side_stream(device):
@@ -85,6 +89,33 @@ class Capture:
         for wrapper, n in self.launches.items():
             wrapper.launches += n
 
+    def __del__(self):
+        # destroying a graph is a call a capture forbids: one released
+        # during a capture (its last reference dropped on any thread) is
+        # kept until the capture ends
+        if _UNDERWAY:
+            _DEFERRED.append(self.graph)
+
+
+@contextlib.contextmanager
+def _recording():
+    """Within: a capture is underway. The cyclic collector is off, so that
+    it cannot run the finalizers of dead runners (and destroy their graphs)
+    on the capturing thread, and ``Capture.__del__`` defers a graph's
+    destruction to the end of the capture. A graph destroyed during a
+    capture makes the capture fail."""
+    global _UNDERWAY
+    collecting = gc.isenabled()
+    gc.disable()
+    _UNDERWAY = True
+    try:
+        yield
+    finally:
+        _UNDERWAY = False
+        if collecting:
+            gc.enable()
+        _DEFERRED.clear()
+
 
 def first_run_then_capture(device, first, body, pool=None,
                            error_mode="thread_local", generators=()):
@@ -110,7 +141,8 @@ def first_run_then_capture(device, first, body, pool=None,
             graph.register_generator_state(gen)
         t0 = time.perf_counter()
         try:
-            with recording_launches(side.cuda_stream) as launched:
+            with _recording(), recording_launches(side.cuda_stream) as \
+                    launched:
                 with torch.cuda.graph(graph, pool=pool, stream=side,
                                       capture_error_mode=error_mode):
                     result = body()
@@ -118,10 +150,24 @@ def first_run_then_capture(device, first, body, pool=None,
             if generators:
                 _end_generator_capture(generators, side)
             if isinstance(e, Exception):
-                raise CaptureError(f"CUDA graph capture failed: {e}") from e
+                raise CaptureError(_failure(pool, e)) from e
             raise
         return out, Capture(graph, result, dict(launched),
                             time.perf_counter() - t0)
+
+
+def _failure(pool, error):
+    """The message of a failed capture into ``pool``. A failed capture
+    leaves its pool marked as recording (``capture_end`` raises before it
+    ends the recording), so every later capture into the pool fails with
+    "already recording"; their messages name the pool's first failure."""
+    said = str(error).splitlines()[0] if str(error) else repr(error)
+    msg = f"CUDA graph capture failed: {error}"
+    if pool is not None:
+        first = _POOL_FAILURES.setdefault(pool, said)
+        if first != said:
+            msg += f" (the first failed capture into this pool: {first})"
+    return msg
 
 
 def _end_generator_capture(generators, stream):

@@ -74,7 +74,14 @@ program is the same. A sublayer's ``l_aux`` set during the forward (MoE's
 balance loss) is added to the loss, as in JAX. ``LookAhead``,
 ``ModelAverage`` and an ASP-decorated optimizer are refused: their work is
 outside ``_update`` (JAX's step raises for the first two and drops the
-masks of the third, ROADMAP C). ZeRO stages are not ported; ``lowered`` /
+masks of the third, ROADMAP C). A ZeRO stage
+(``distributed.shard_optimizer``, JAX :86-95, :178-185, :226-247) runs in
+the step: the forward under the stage's ``saving()``, the gradients
+reduced by the stage (rows where it shards) before the clip, the update
+on each parameter's rows, the rows gathered after it; on the card its
+NCCL reduce-scatters and all-gathers are captured with the step; the
+accumulators are rows, and ``export_state`` / ``import_state`` carry them
+as they are (stage 3's parameters too). ``lowered`` /
 ``lowered_steps`` have no counterpart (a CUDA graph has no program text).
 """
 from __future__ import annotations
@@ -187,10 +194,20 @@ class TrainStep:
             HybridParallelOptimizer,
         )
 
+        from ..distributed.sharding import _ShardOptimizer, install
+
         if isinstance(optimizer, HybridParallelOptimizer):
             # fleet's optimizer: the model wrapper's backward syncs the
             # gradients; the update and the hybrid clip are the inner one's
             optimizer = optimizer._inner_opt
+        # a ZeRO stage (distributed.shard_optimizer) runs inside the step:
+        # its reduce-scatters and all-gathers are captured with it
+        self._stage = None
+        if isinstance(optimizer, _ShardOptimizer):
+            self._stage = optimizer._shard_fn
+            optimizer = optimizer._inner_opt
+            if self._stage is not None and self._stage.shard_params:
+                install(model)
         if isinstance(optimizer, LBFGS):
             raise NotImplementedError(
                 "TrainStep(LBFGS): LBFGS evaluates a closure and decides on "
@@ -276,13 +293,16 @@ class TrainStep:
             model_args, kwargs, label = _map_tensors(
                 Tensor, (model_args, kwargs, label))
         before = [m.l_aux for m in self._aux_layers]
-        out = self.model(*model_args, **kwargs)
-        if label is not None:
-            loss = self.loss_fn(out, label)
-        elif isinstance(out, (tuple, list)):
-            loss = self.loss_fn(*out)
-        else:
-            loss = self.loss_fn(out)
+        stage = self._stage
+        with (stage.saving() if stage is not None
+              else contextlib.nullcontext()):
+            out = self.model(*model_args, **kwargs)
+            if label is not None:
+                loss = self.loss_fn(out, label)
+            elif isinstance(out, (tuple, list)):
+                loss = self.loss_fn(*out)
+            else:
+                loss = self.loss_fn(out)
         loss, out = _unwrapped((loss, out))
         for m, old in zip(self._aux_layers, before):
             # an auxiliary loss this forward set joins the objective, as
@@ -291,14 +311,21 @@ class TrainStep:
             if aux is not None and aux is not old:
                 loss = loss + _unwrapped(aux).to(loss.dtype)
         loss.backward()
-        grads = self._clip([p.grad if p.grad is not None
-                            else torch.zeros_like(p) for p in self._params])
+        if stage is None:
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in self._params]
+        else:       # averaged over the stage's group: rows where it shards
+            grads = stage.reduce_grads(self._params)
+        grads = self._clip(grads)
         with torch.no_grad():
             for p, g in zip(self._params, grads):
                 p.grad = None
                 scale = opt._lr_scale(p)
                 plr = lr if scale == 1.0 else lr * scale
-                p.copy_(opt._update(p, p.detach(), g.to(p.dtype), plr, step))
+                pv = p.detach() if stage is None else stage.local(p)
+                pv.copy_(opt._update(p, pv, g.to(p.dtype), plr, step))
+            if stage is not None:
+                stage.gather_params(self._params)
         outs = (_map_tensors(torch.Tensor.detach, out)
                 if self._return_outputs else None)
         return loss.detach(), outs

@@ -47,6 +47,12 @@ forward returns the rank's vocab columns of the logits
 the sampler. tp must divide the heads, the kv heads (GQA groups stay
 whole, as JAX's ``decode_attention.py:276`` declines to shard otherwise),
 the MLP width and the vocab. The same classes serve tp = 1 unchanged.
+
+Pipeline form (JAX ``gpt.py:350-428``): ``gpt_pipeline(config,
+num_stages)`` is the model as a ``distributed.fleet.PipelineLayer`` of
+``GPTEmbeddingPipe``, ``GPTBlockPipe`` (a block that makes its RoPE
+tables from the sequence length), ``GPTNormPipe`` and ``GPTHeadPipe`` or
+the tied head ``_tied_lm_head``, with the loss ``gpt_causal_lm_loss``.
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ from ..distributed.fleet.meta_parallel import (
     ParallelCrossEntropy,
     RowParallelLinear,
     VocabParallelEmbedding,
+    mark_fused,
 )
 from ..distributed.fleet.mp_ops import (
     gather_last,
@@ -87,7 +94,9 @@ from .steps import (
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
            "GPTForCausalLM", "PagedStep", "DenseStep", "gpt_tiny",
-           "gpt_350m", "gpt3_1p3b"]
+           "gpt_350m", "gpt3_1p3b", "GPTEmbeddingPipe", "GPTBlockPipe",
+           "GPTNormPipe", "GPTHeadPipe", "gpt_causal_lm_loss",
+           "gpt_pipeline"]
 
 
 class GPTConfig:
@@ -185,6 +194,10 @@ class GPTAttention(nn.Module):
                                           input_is_parallel=True,
                                           mp_group=group, device=device,
                                           dtype=dtype)
+        parts = [q_size, kv_size, kv_size]
+        mark_fused(self.qkv_proj.weight, parts, group or None)
+        if self.qkv_proj.bias is not None:
+            mark_fused(self.qkv_proj.bias, parts, group or None)
 
     def forward(self, x, rope, k_pool=None, v_pool=None,
                 step: PagedStep | DenseStep | None = None,
@@ -233,6 +246,7 @@ class GPTMLP(nn.Module):
             self.gate_up = ColumnParallelLinear(c.hidden_size, 2 * inner,
                                                 has_bias=False,
                                                 gather_output=False, **kw)
+            mark_fused(self.gate_up.weight, [inner, inner], group or None)
         else:
             self.fc1 = ColumnParallelLinear(c.hidden_size, inner,
                                             has_bias=True,
@@ -411,3 +425,160 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
             raise ValueError(
                 f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) "
                 f"exceeds max_position ({c.max_position})")
+
+
+# ---------------------------------------------------------- pipeline form
+def _seeded(module, seed, device):
+    """Draw ``module``'s parameters from a generator seeded with ``seed``
+    (each pipeline layer its own: the weights do not depend on the cut)."""
+    gen = make_generator(seed, device)
+    with torch.no_grad():
+        for mod in module.modules():
+            if hasattr(mod, "reset_parameters") and mod is not module:
+                mod.reset_parameters(gen)
+    return module
+
+
+class GPTEmbeddingPipe(nn.Module):
+    """Token (and, without RoPE, learned position) embedding: the first
+    pipeline layer (JAX ``gpt.py:353-370``)."""
+
+    def __init__(self, config: GPTConfig, device=None, dtype=None, seed=0,
+                 group=None):
+        super().__init__()
+        c = config
+        group = resolve_mp_group(group)
+        dev = resolve_device(device or "cuda")
+        dtype = dtype if dtype is not None else getattr(torch, c.dtype)
+        self.config = c
+        self.group = group
+        self.embed_tokens = VocabParallelEmbedding(
+            c.vocab_size, c.hidden_size, mp_group=group or False,
+            device=dev, dtype=dtype)
+        if not c.use_rope:
+            self.embed_positions = Embedding(c.max_position, c.hidden_size,
+                                             device=dev, dtype=dtype)
+        _seeded(self, seed, dev)
+
+    def forward(self, input_ids):
+        c = self.config
+        x = self.embed_tokens(input_ids)
+        if not c.use_rope:
+            S = input_ids.shape[1]
+            if S > c.max_position:
+                raise ValueError(f"sequence length {S} exceeds max_position "
+                                 f"{c.max_position}")
+            x = _amp_add(x, self.embed_positions(
+                torch.arange(S, device=x.device)))
+        return x
+
+
+class GPTBlockPipe(GPTBlock):
+    """A ``GPTBlock`` that makes its RoPE tables from the sequence length
+    (positions ``arange(S)``, JAX ``GPTAttention`` without
+    ``position_ids``), so it takes the boundary activation alone."""
+
+    def __init__(self, config: GPTConfig, device=None, dtype=None, seed=0,
+                 group=None):
+        group = resolve_mp_group(group)
+        dev = resolve_device(device or "cuda")
+        dtype = dtype if dtype is not None else getattr(torch, config.dtype)
+        _check_supported(config, group)
+        super().__init__(config, device=dev, dtype=dtype,
+                         group=group or False)
+        self._head_dim = (config.hidden_size // config.num_heads
+                          if config.use_rope else None)
+        _seeded(self, seed, dev)
+
+    def forward(self, x):
+        rope = None
+        if self._head_dim is not None:
+            B, S = x.shape[0], x.shape[1]
+            pos = torch.arange(S, device=x.device).expand(B, S)
+            rope = rope_cos_sin(pos, self._head_dim, x.dtype)
+        return super().forward(x, rope)
+
+
+class GPTNormPipe(nn.Module):
+    def __init__(self, config: GPTConfig, device=None, dtype=None, seed=0,
+                 group=None):
+        super().__init__()
+        dev = resolve_device(device or "cuda")
+        dtype = dtype if dtype is not None else getattr(torch, config.dtype)
+        self.ln_f = _norm(config, dev, dtype)
+
+    def forward(self, x):
+        return self.ln_f(x)
+
+
+class GPTHeadPipe(nn.Module):
+    """The untied head; its logits are gathered over the vocab (JAX's
+    ``ColumnParallelLinear`` default ``gather_output``)."""
+
+    def __init__(self, config: GPTConfig, device=None, dtype=None, seed=0,
+                 group=None):
+        super().__init__()
+        group = resolve_mp_group(group)
+        dev = resolve_device(device or "cuda")
+        dtype = dtype if dtype is not None else getattr(torch, config.dtype)
+        self.lm_head = ColumnParallelLinear(
+            config.hidden_size, config.vocab_size, has_bias=False,
+            gather_output=True, mp_group=group or False, device=dev,
+            dtype=dtype)
+        _seeded(self, seed, dev)
+
+    def forward(self, x):
+        return self.lm_head(x)
+
+
+def _tied_lm_head(embed_layer: GPTEmbeddingPipe, x):
+    """The tied head on the last stage: x @ embed_tokens.weight.T, the
+    vocab columns of a model-parallel group gathered."""
+    g = embed_layer.group
+    if g is not None:
+        x = identity_allreduce(x, g)
+    h, w = _amp_cast("lm_head_tied", x, embed_layer.embed_tokens.weight)
+    logits = h @ w.T
+    return gather_last(logits, g) if g is not None else logits
+
+
+def gpt_causal_lm_loss(logits, labels):
+    """The mean token cross entropy over the whole vocab (the loss of
+    ``GPTForCausalLM``)."""
+    per_token = ParallelCrossEntropy(mp_group=False)(
+        logits.reshape(-1, logits.shape[-1]), labels.reshape(-1))
+    return _amp_cast("mean", per_token)[0].mean()
+
+
+def gpt_pipeline(config: GPTConfig, num_stages: int, loss_fn=None,
+                 device=None, dtype=None, seed=0, **pp_kwargs):
+    """``GPTForCausalLM`` as a ``PipelineLayer`` (BASELINE config 4, JAX
+    ``gpt.py:402-428``): the tied embedding a ``SharedLayerDesc`` across
+    the first and last stage, each ``GPTBlock`` one ``LayerDesc``. Inside
+    a stage the blocks are tensor parallel over the hybrid group's mp
+    axis. Layer i draws its weights from ``seed + i``."""
+    from ..distributed.fleet.pipeline import (
+        LayerDesc,
+        PipelineLayer,
+        SharedLayerDesc,
+    )
+
+    c = config
+    kw = dict(device=device, dtype=dtype)
+    n = c.num_layers
+    blocks = [LayerDesc(GPTBlockPipe, c, seed=seed + 1 + i, **kw)
+              for i in range(n)]
+    if c.tie_embeddings:
+        descs = ([SharedLayerDesc("gpt_embed", GPTEmbeddingPipe, None,
+                                  "embed_tokens.weight", c, seed=seed, **kw)]
+                 + blocks
+                 + [LayerDesc(GPTNormPipe, c, seed=seed + n + 1, **kw),
+                    SharedLayerDesc("gpt_embed", GPTEmbeddingPipe,
+                                    _tied_lm_head, "embed_tokens.weight", c,
+                                    seed=seed, **kw)])
+    else:
+        descs = ([LayerDesc(GPTEmbeddingPipe, c, seed=seed, **kw)] + blocks
+                 + [LayerDesc(GPTNormPipe, c, seed=seed + n + 1, **kw),
+                    LayerDesc(GPTHeadPipe, c, seed=seed + n + 2, **kw)])
+    return PipelineLayer(descs, num_stages=num_stages,
+                         loss_fn=loss_fn or gpt_causal_lm_loss, **pp_kwargs)

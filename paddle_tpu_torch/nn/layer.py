@@ -354,7 +354,14 @@ class Layer(torch.nn.Module):
         unexpected = []
         for k, v in state_dict.items():
             if k in own:
-                own[k].set_value(_state_value(v))
+                t = own[k]
+                if isinstance(t, Tensor):
+                    t.set_value(_state_value(v))
+                else:           # a torch child module's tensor
+                    v = _state_value(v)
+                    v = v._value if isinstance(v, Tensor) else v
+                    with torch.no_grad():
+                        t.copy_(torch.as_tensor(v).to(t.dtype))
             else:
                 unexpected.append(k)
         missing = [k for k in own if k not in state_dict]

@@ -281,8 +281,14 @@ class Optimizer:
         for acc_name, store in self._accumulators.items():
             for p in self._params:
                 if id(p) in store:
-                    out[f"{self._param_name(p)}_{acc_name}"] = (
-                        store[id(p)].detach().clone())
+                    t = store[id(p)]
+                    c = out[f"{self._param_name(p)}_{acc_name}"] = (
+                        t.detach().clone())
+                    if hasattr(t, "_global_shape"):
+                        # where a ZeRO / tensor-parallel part sits
+                        # (distributed.layout), for the checkpoint
+                        c._global_shape = t._global_shape
+                        c._global_pieces = t._global_pieces
         if isinstance(self._learning_rate, LRScheduler):
             out["LR_Scheduler"] = self._learning_rate.state_dict()
         out["@step"] = self._step_count

@@ -11,7 +11,9 @@ dicts of them). It returns ``[{body: result} for each rank]``. Every
 collective has a 60 s timeout and the run a deadline, so a rank that
 raises leaves the others failing in their next collective instead of
 hanging; the error reported is the first rank's traceback
-(``RankFailed``).
+(``RankFailed``). A body may live in another module of the tests
+(``"module:function"``). One spawn runs at a time across the processes
+of a test run (a lock file in the temp directory), its ranks at nice 10.
 """
 from __future__ import annotations
 
@@ -43,6 +45,9 @@ def _entry(rank, world, store, bodies, inputs, out_dir, timeout_s):
     result, err, t_err = {}, None, None
     try:
         sys.path.insert(0, _ROOT)
+        # below the test workers' priority: a spawn's ranks must not slow
+        # the calls other workers time against the per-test budget
+        os.nice(10)
         import torch
 
         from paddle_tpu_torch.distributed import env
@@ -52,7 +57,7 @@ def _entry(rank, world, store, bodies, inputs, out_dir, timeout_s):
                               world_size=world, rank=rank,
                               timeout=datetime.timedelta(seconds=timeout_s))
         for name in bodies:
-            result[name] = globals()[name](inputs)
+            result[name] = _body(name)(inputs)
         # a rank that is done must not exit (closing its sockets) while
         # another still connects to a group the bodies made last
         from paddle_tpu_torch.distributed import barrier
@@ -68,8 +73,37 @@ def _entry(rank, world, store, bodies, inputs, out_dir, timeout_s):
         destroy_process_group()
 
 
+def _body(name):
+    """A body of this module, or ``"module:function"`` of another module
+    of the tests (which, like this one, imports torch and the port
+    only)."""
+    if ":" not in name:
+        return globals()[name]
+    import importlib
+
+    mod, fn = name.split(":")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    return getattr(importlib.import_module(mod), fn)
+
+
 def run_ranks(bodies, world, inputs=None, deadline_s=150.0,
               timeout_s=COLLECTIVE_TIMEOUT_S):
+    import fcntl
+
+    # one spawn at a time across the test workers: the ranks of several
+    # files at once would crowd the cores the other workers' calls are
+    # timed on (the per-test budget guard)
+    lock_path = os.path.join(tempfile.gettempdir(),
+                             "paddle_tpu_torch_dist_ranks.lock")
+    with open(lock_path, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _run_ranks(bodies, world, inputs, deadline_s, timeout_s)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _run_ranks(bodies, world, inputs, deadline_s, timeout_s):
     import torch.multiprocessing as mp
 
     tmp = tempfile.mkdtemp(prefix="dist_ranks_")
@@ -457,13 +491,12 @@ def body_tensor_parallel(inputs):
     with tr.rng_state("local_seed"):
         l = torch.rand(4, generator=trandom.default_generator("cpu"))
     out["rng"] = (g.numpy(), l.numpy())
-    try:
-        s = fleet.DistributedStrategy()
-        s.hybrid_configs["pp_degree"] = 2
-        fleet.HybridCommunicateGroup(strategy=s)
-        out["pp_refused"] = False
-    except NotImplementedError as e:
-        out["pp_refused"] = "A5.1" in str(e)
+    # pp above 1 is taken: two stages over the two ranks
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs["pp_degree"] = 2
+    pp_hcg = fleet.HybridCommunicateGroup(strategy=s)
+    out["pp_stage"] = pp_hcg.get_stage_id()
+    out["pp_mode"] = pp_hcg.get_parallel_mode()
     return out
 
 

@@ -873,6 +873,70 @@ def test_distributed_phase_rehearses_on_the_cpu(distributed_rehearsal):
     assert rec["ulysses"]["ok"] and not rec["failures"]
 
 
+def test_pipeline_phase_rehearses_on_the_cpu(distributed_rehearsal):
+    """The pipeline phase at pp 2 over the two gloo ranks (each rank one
+    stage of the tiny gpt3-style GPT): every schedule's losses and this
+    rank's parameters against the unpipelined accumulation; ZeRO 1-3
+    under TrainStep at dp 2 against the bare step; the ZeRO-1 checkpoint
+    round trip bit-equal and the next step equal."""
+    pipe = distributed_rehearsal["pipeline"]
+    gpt = pipe["gpt"]
+    assert gpt["stages"] == 2 and gpt["ok"]
+    assert set(gpt["schedules"]) == {"1F1B", "Eager1F1B", "FThenB", "ZB-H1",
+                                     "VPP2"}
+    for name, r in gpt["schedules"].items():
+        assert r["ok"] and r["max_loss_diff"] <= max(r["loss_limit"]), name
+        assert r["model_gap"] <= 1e-2 and r["param_gap"] <= 0.25, name
+        assert r["chunks"] == ([0, 2] if name == "VPP2" else [0]), name
+        # rank 0 holds chunk 0 (and 2): the plain flash versions ran there
+        assert r["predicted_per_step"]["fwd"] > 0
+    assert gpt["schedules"]["ZB-H1"]["schedule"] == "ZB-H1"
+    # the control (micro-batch 0's backward dropped) fails the parameter
+    # gate on its own
+    ctl = gpt["control_skip_backward"]
+    assert gpt["control_failed"] and not ctl["params_ok"]
+    assert ctl["model_gap"] > 1e-2 or ctl["param_gap"] > 0.25
+    zero = pipe["zero"]
+    for k in ("zero1", "zero2", "zero3"):
+        assert zero["stages"][k]["ok"], k
+        assert zero["stages"][k]["sliced"] > 0
+    ck = zero["checkpoint"]
+    assert ck["ok"] and ck["params_bit_equal"] and ck["opt_bit_equal"]
+    assert ck["next_params_bit_equal"] and ck["bytes"] > 0
+
+
+@pytest.fixture(scope="module")
+def pipeline_skipped_shared_sum():
+    """The rehearsal with the tied weight's gradient left unsummed across
+    its two stages: the failure message, or None if it passed."""
+    try:
+        chip_smoke.distributed_phase(world=2, device="cpu", tiny=True,
+                                     plant="skip_shared_sum", timeout=240)
+    except AssertionError as e:
+        return str(e)
+    return None
+
+
+def test_pipeline_phase_fails_when_the_shared_sum_is_skipped(
+        pipeline_skipped_shared_sum):
+    """Each stage's copy of the tied embedding takes only its own use's
+    gradient: the copies leave the unpipelined run's weights (the token
+    table's gap near 0.75) and the gate refuses every schedule."""
+    msg = pipeline_skipped_shared_sum
+    assert msg is not None and "failed checks" in msg
+    bad = json.loads(msg.split("failed checks ", 1)[1])
+    for rank in ("0", "1"):
+        gpt = bad[rank]["pipeline.gpt"]
+        assert not gpt["ok"]
+        for name, r in gpt["schedules"].items():
+            assert not r["ok"], name
+            # the worst leaf is the shared layer's (its token table, or on
+            # the last stage its learned positions, which that copy's use
+            # never reads)
+            assert r["worst_leaf"].startswith("run_function.0.shared."), name
+            assert r["param_gap"] > 0.25, name
+
+
 @pytest.fixture(scope="module")
 def distributed_skipped_sync():
     """The rehearsal with DataParallel's gradient sync planted away: the

@@ -16,9 +16,14 @@ replays its one graph per key with the body's tokens; a scheduler's warmup
 captures every program and leaves the pool's live pages bit-equal; a
 speculative scheduler captures verify_step once per pool; a LoRA program
 replays its body's tokens and reads bank rows written after its capture.
+A graph released during another's capture (by its last reference or by
+the collector) leaves that capture whole, and a later failed capture into
+a pool names the pool's first failure.
 """
+import gc
 import threading
 import time
+import weakref
 
 import numpy as np
 import pytest
@@ -325,3 +330,101 @@ def test_lora_replay_gives_the_bodys_tokens_and_sees_bank_writes(model,
         assert run.captures == 1
     finally:
         reg.close()
+
+
+def _doubler(pool, extra=None):
+    """A runner of one program, y = 2 x, whose body first calls ``extra``
+    with its call number (1: the eager first run, 2: the capture)."""
+    calls = []
+
+    def body(inp, out):
+        calls.append(1)
+        if extra is not None:
+            extra(len(calls))
+        out["y"].copy_(inp["x"] * 2)
+
+    return StepRunner("cuda", {"x": ((4,), torch.float32)},
+                      {"y": ((4,), torch.float32)}, {"f": body}, pool=pool)
+
+
+def _doubled(run, x):
+    run.fill(x=x)
+    run.run("f")
+    return run.read()["y"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("released_by", ["collector", "last_reference"])
+def test_a_graph_released_during_a_capture_leaves_it_whole(model,
+                                                           released_by):
+    """A graph destroyed while another is captured (its runner's last
+    reference dropped, or a dead cycle collected on the capturing thread)
+    is an operation the capture forbids: the capture must succeed, and the
+    graph be destroyed after it."""
+    from paddle_tpu_torch.jit import graphs
+
+    pool = torch.cuda.graph_pool_handle()
+    x = np.arange(4, dtype=np.float32)
+    old = _doubler(pool)
+    for _ in range(2):                       # the capture, then a replay
+        np.testing.assert_array_equal(_doubled(old, x), 2 * x)
+    assert old.captures == 1 and old.replays == 1
+    held = [old.graphs.pop("f")]
+    del old
+    released = []
+
+    def release(call):
+        if call != 2:
+            return
+        cap = held.pop()
+        released.append(weakref.ref(cap))
+        if released_by == "last_reference":
+            del cap
+        else:               # a dead cycle, then allocations that would
+            cyc = [cap]     # run the collector at a threshold of 1
+            cyc.append(cyc)
+            del cap, cyc
+            for _ in range(2000):
+                [[]]
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        new = _doubler(pool, release)
+        np.testing.assert_array_equal(_doubled(new, x), 2 * x)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert new.captures == 1 and "f" in new.graphs
+    gc.collect()
+    assert released[0]() is None and graphs._DEFERRED == []
+    np.testing.assert_array_equal(_doubled(new, x + 1), 2 * (x + 1))
+    assert new.replays == 1
+
+
+@pytest.mark.cuda
+def test_a_later_failure_in_a_pool_names_the_first(model):
+    """A capture that fails (a host sync in its body) leaves its memory
+    pool marked as recording, so a later capture into the pool fails with
+    "already recording": its message must name the pool's first failure."""
+    from paddle_tpu_torch.jit.graphs import CaptureError
+
+    pool = torch.cuda.graph_pool_handle()
+    x = np.arange(4, dtype=np.float32)
+
+    def sync(call):
+        torch.cuda.current_stream().synchronize()
+
+    said = []
+    for _ in range(2):
+        bad = _doubler(pool, sync)
+        bad.fill(x=x)
+        with pytest.raises(CaptureError) as e:
+            bad.run("f")
+        said.append(str(e.value))
+    first = said[0].removeprefix("CUDA graph capture failed: ")
+    assert "already recording" not in said[0]
+    assert first.splitlines()[0] in said[1]
+    good = _doubler(torch.cuda.graph_pool_handle())
+    for _ in range(2):
+        np.testing.assert_array_equal(_doubled(good, x), 2 * x)
+    assert good.captures == 1 and good.replays == 1

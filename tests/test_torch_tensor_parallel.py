@@ -193,7 +193,9 @@ def test_hybrid_group_layout(setup):
     assert [r["mp_rank"] for r in ranks] == [0, 1]
     assert {r["mp_world"] for r in ranks} == {2}
     assert {r["mode"] for r in ranks} == {"tensor"}
-    assert all(r["pp_refused"] for r in ranks)
+    # pp = 2 over the same two ranks builds (pipeline parallelism, A5.1)
+    assert [r["pp_stage"] for r in ranks] == [0, 1]
+    assert {r["pp_mode"] for r in ranks} == {"pipeline"}
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
