@@ -389,14 +389,23 @@ non-zero without the final line:
    different lengths or batches on the plain route, reported "plain",
    equal to ``_sdpa_core``, and so head dims 32 and 96 (no kernel takes
    them).
-22. distributed — in a fresh process (``--distributed-worker``), one NCCL
-   rank on the card (``init_parallel_env`` over ``tcp://localhost``):
-   every collective of ``distributed.collective`` on CUDA tensors held to
-   its one-rank answer; GPT-350M (O2 bf16, AdamW, B 8, S 1024) 4 captured
-   TrainSteps under ``DataParallel`` (its gradient all-reduce run at the
-   first run and the capture, none by a replay) against the bare
-   TrainStep: losses and parameters bit-equal, 24 launches of each flash
-   kernel a step; 4 greedy requests through the continuous scheduler
+22. distributed — one NCCL rank on the card, started by the port's
+   launcher (``python -m paddle_tpu_torch.distributed.launch
+   --nproc_per_node 1 --backend nccl``: the worker, ``--distributed-worker``,
+   joins from the launcher's environment; the launcher's store must serve
+   natively and see the rank's heartbeats, and its exit code is the
+   phase's): every collective of ``distributed.collective`` on CUDA
+   tensors held to its one-rank answer; GPT-350M (O2 bf16, AdamW, B 8, S
+   1024) 4 captured TrainSteps under ``DataParallel`` (its gradient
+   all-reduce run at the first run and the capture, none by a replay)
+   against the bare TrainStep: losses and parameters bit-equal, 24
+   launches of each flash kernel a step; the same model through
+   ``auto_parallel`` (``parallelize`` with a ColWise / RowWise plan over
+   the attention and MLP linears, every key matched, and ZeRO-2;
+   ``to_static`` under ``Strategy.amp`` O2 bf16) for 4 captured steps
+   against a bare TrainStep under the same ``auto_cast``: losses and
+   parameters bit-equal, 24 launches of each flash kernel a step, its
+   step's ms over the bare step's; 4 greedy requests through the continuous scheduler
    under ``serving_mesh(dp=1, tp=1)`` equal to the plain scheduler's (at
    one rank the mesh is a no-op: the plain scheduler serves, no lockstep
    runs); the paged kernel on tp = 2 and 4 kv-head shards of a random
@@ -7421,6 +7430,162 @@ def dist_train(torch, dist, fa, device, cfg, B, S, steps, dtype, seed=12,
     return rec
 
 
+GPT_TP_PLAN = {
+    r"gpt\.blocks\.\d+\.attn\.qkv_proj": "col",
+    r"gpt\.blocks\.\d+\.attn\.out_proj": "row",
+    r"gpt\.blocks\.\d+\.mlp\.(fc1|gate_up)": "col",
+    r"gpt\.blocks\.\d+\.mlp\.down": "row",
+}
+
+
+def dist_auto_parallel(torch, dist, fa, device, cfg, B, S, steps, dtype,
+                       seed=12):
+    """GPT through ``auto_parallel``: ``dist.parallelize`` with a
+    ``ColWiseParallel`` / ``RowWiseParallel`` plan over the attention and
+    MLP linears (``GPT_TP_PLAN``: every key must match a layer) and
+    ``dp_config.sharding_level`` 2, on a ("dp", "mp") mesh of [world, 1];
+    then ``dist.to_static`` under ``Strategy({"amp": O2 bf16})`` (f32 on
+    the CPU), ``steps`` train steps on the global batch (each rank feeds
+    its "dp" rows; the main path: the flash launch counts). Held to a bare
+    captured TrainStep of the same model, seed, batch and AMP recipe (the
+    same loss, under the same ``auto_cast``): at one rank the plans cut
+    nothing and ZeRO keeps only its machinery, so the losses and every
+    parameter must be bit-equal; across ranks (the CPU rehearsal) the
+    losses within 1e-5 relative and every leaf's ``param_gap`` within
+    1e-3. On the card the flash kernels must launch ``num_layers`` times
+    a step each (rows 3-5) and the step be captured once. Then five rounds of two more steps of each, the forms
+    alternating which goes first: ``step_ms`` (median round, host clock)
+    and ``dist_over_bare`` (median of the rounds' ratios)."""
+    import warnings
+
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.amp import _amp_cast
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        ParallelCrossEntropy,
+    )
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+
+    n = dist.get_world_size()
+    rng = np.random.default_rng(seed)
+    ids_np = rng.integers(0, cfg.vocab_size, (B, S))
+    labels_np = np.roll(ids_np, -1, axis=1)
+    ids = torch.as_tensor(ids_np, device=device)
+    labels = torch.as_tensor(labels_np, device=device)
+    bf16 = dtype == "bfloat16"
+    amp_cfg = {"enable": bf16, "dtype": "bfloat16", "level": "o2"}
+
+    def loss_fn(logits, lab):
+        per_token = ParallelCrossEntropy(mp_group=False)(
+            logits.reshape(-1, logits.shape[-1]), lab.reshape(-1))
+        return _amp_cast("mean", per_token)[0].mean()
+
+    def make():
+        model = GPTForCausalLM(cfg, device=device, seed=seed)
+        if bf16:
+            amp.decorate(model, level="O2", dtype="bfloat16")
+        opt = optimizer.AdamW(learning_rate=1e-4,
+                              parameters=model.parameters(),
+                              weight_decay=0.01, multi_precision=True)
+        return model, opt
+
+    def cast():
+        return (amp.auto_cast(enable=True, level="O2", dtype="bfloat16")
+                if bf16 else contextlib.nullcontext())
+
+    rec = {"B": B, "S": S, "steps": steps}
+    bare, bopt = make()
+    init = [p.detach().clone() for p in bare.parameters()]
+    bstep = TrainStep(bare, loss_fn, bopt, split_label=True)
+    losses = []
+    for _ in range(steps):
+        with cast():
+            losses.append(bstep(ids, labels).float().clone())
+    a = torch.stack(losses)
+    rec["bare_losses"] = [float(x) for x in losses]
+    after_bare = [p.detach().clone() for p in bare.parameters()]
+
+    mesh = dist.ProcessMesh(np.arange(n).reshape(n, 1), ["dp", "mp"])
+    dist.auto_parallel.set_mesh(mesh)
+    model, opt = make()
+    plan = {k: dist.ColWiseParallel() if v == "col" else
+            dist.RowWiseParallel() for k, v in GPT_TP_PLAN.items()}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        model, sopt = dist.parallelize(model, opt, config={
+            "mp_config": {"parallelize_plan": plan},
+            "dp_config": {"sharding_level": 2}})
+    rec["unmatched_keys"] = [str(w.message) for w in caught
+                             if "matched no layer" in str(w.message)]
+    dm = dist.to_static(model, loss=loss_fn, optimizer=sopt,
+                        strategy=dist.Strategy({"amp": amp_cfg}))
+    dm.train()
+    fa.flash_fwd.launches = fa.flash_bwd_dq.launches = 0    # main path
+    fa.flash_bwd_dkv.launches = 0
+    losses = []
+    for _ in range(steps):
+        losses.append(dm(ids, labels)._value.float().clone())
+    if device != "cpu":
+        torch.cuda.synchronize()
+    rec["flash_launches"] = flash_launches(fa)             # main path ends
+    b = torch.stack(losses)
+    rec["losses"] = [float(x) for x in losses]
+    step = dm._train_step
+    rec.update(captures=step.captures, zero_stage=step._stage.stage,
+               zero_group_ranks=step._stage.nranks)
+    after = [p.detach().clone() for p in model.parameters()]
+    rec["bit_equal"] = bool(torch.equal(a, b))
+    rec["max_rel_diff"] = float(((a - b).abs() / a.abs()).max())
+    rec["params_bit_equal"] = all(torch.equal(w, d)
+                                  for w, d in zip(after_bare, after))
+    rec["param_gap"] = max(
+        float((d.float() - w.float()).abs().sum()
+              / (w.float() - i.float()).abs().sum().clamp(min=1e-30))
+        for i, w, d in zip(init, after_bare, after))
+    del init, after, after_bare
+    ms = {"bare": [], "dist_model": []}
+    for rnd in range(5):                    # two more steps each, host clock
+        for form in (("bare", "dist_model") if rnd % 2 == 0
+                     else ("dist_model", "bare")):
+            if device != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                if form == "bare":
+                    with cast():
+                        bstep(ids, labels)
+                else:
+                    dm(ids, labels)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            ms[form].append((time.perf_counter() - t0) / 2 * 1e3)
+    rec["step_ms"] = float(np.median(ms["dist_model"]))
+    rec["bare_step_ms"] = float(np.median(ms["bare"]))
+    rec["dist_over_bare"] = float(np.median(
+        [d / b for d, b in zip(ms["dist_model"], ms["bare"])]))
+    rec["step_ms_rounds"] = ms
+    dist.set_mesh(None)
+    from paddle_tpu_torch.distributed import sharding
+
+    sharding.uninstall(model)
+    del dm, step, bstep, model, bare, opt, bopt, sopt
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    want = cfg.num_layers * steps
+    rec["predicted_launches"] = {"fwd": want, "dq": want, "dkv": want}
+    rec["ok"] = bool(
+        not rec["unmatched_keys"]
+        and (rec["bit_equal"] and rec["params_bit_equal"] if n == 1
+             else rec["max_rel_diff"] <= 1e-5 and rec["param_gap"] <= 1e-3)
+        and all(np.isfinite(rec["losses"]))
+        and rec["zero_stage"] == 2 and rec["zero_group_ranks"] == n)
+    if device != "cpu":
+        # the kernels run on the card (the plain versions on the CPU)
+        rec["ok"] = (rec["ok"] and rec["captures"] == 1
+                     and rec["flash_launches"] == rec["predicted_launches"])
+    return rec
+
+
 def dist_serve(torch, dist, pa, device, cfg, dtype, n_req=4, plen=64,
                new=16):
     """Greedy requests through the continuous scheduler of a whole model,
@@ -8038,9 +8203,12 @@ def pipe_checkpoint(torch, dist, device, keep, make, run, rows):
 
 
 def distributed_worker(args):
-    """One rank of the distributed phase, in a fresh process: joins the
-    process group (NCCL on the card, gloo on the CPU), runs the checks and
-    writes its record to ``args.dist_out``."""
+    """One rank of the distributed phase, started by the port's launcher
+    (``python -m paddle_tpu_torch.distributed.launch``): joins the process
+    group from the launcher's environment (NCCL on the card, gloo on the
+    CPU), runs the checks and writes its record to
+    ``args.dist_out/rank<r>.json`` (its pid first, so the phase can stop
+    it)."""
     import torch
 
     from paddle_tpu_torch import distributed as dist
@@ -8053,14 +8221,16 @@ def distributed_worker(args):
         torch.set_num_threads(1)     # the ranks share the host's cores
         os.nice(10)                  # below the tests that rehearse it
     torch.backends.cuda.matmul.allow_tf32 = False
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    with open(os.path.join(args.dist_out, f"pid{rank}"), "w") as f:
+        f.write(str(os.getpid()))
     t0 = time.perf_counter()
-    env = dist.init_parallel_env(device=device, init_method=args.dist_init,
-                                 world_size=args.dist_world,
-                                 rank=args.dist_rank, timeout=120)
+    env = dist.init_parallel_env(device=device, timeout=120)
     dev = str(dist.env.device())
-    rec = dict(rank=env.rank, world=env.world_size, backend=dist.get_backend(),
+    world = env.world_size
+    rec = dict(rank=env.rank, world=world, backend=dist.get_backend(),
                init_s=time.perf_counter() - t0)
-    if args.dist_plant == "raise" and env.rank == args.dist_world - 1:
+    if args.dist_plant == "raise" and env.rank == world - 1:
         raise RuntimeError("planted failure on the last rank")
     tiny = args.dist_tiny
     cfg = GPTConfig(**DIST_TINY) if tiny else gpt_350m()
@@ -8069,6 +8239,11 @@ def distributed_worker(args):
     rec["train"] = dist_train(torch, dist, fa, dev, cfg, 4 if tiny else 8,
                               64 if tiny else 1024, 4, dtype,
                               plant=args.dist_plant)
+    t1 = time.perf_counter()
+    rec["auto_parallel"] = dist_auto_parallel(
+        torch, dist, fa, dev, cfg, 4 if tiny else 8, 64 if tiny else 1024,
+        4, dtype)
+    rec["auto_parallel"]["wall_s"] = time.perf_counter() - t1
     rec["serve"] = dist_serve(torch, dist, pa, dev, cfg, dtype,
                               new=8 if tiny else 16)
     shape = (2, 128, 4, 64) if tiny else (8, 1024, 16, 64)
@@ -8084,59 +8259,103 @@ def distributed_worker(args):
                         plant=args.dist_plant),
         "zero": pipe_zero(torch, dist, fa, dev, tiny=tiny)}
     rec["pipeline"]["wall_s"] = time.perf_counter() - t1
+    # the launcher's side: its store's server and this rank's heartbeats
+    store, hb = dist.env.store(), dist.env.heartbeat()
+    rec["launcher"] = {
+        "server": store.get("job/server").decode() if store else None,
+        "heartbeats": hb.beats if hb is not None else 0,
+        "heartbeat_seen": bool(store is not None and store.get(
+            f"hb/{env.rank}", wait=False) is not None),
+        "attempt": int(os.environ.get("PADDLE_RESTART_ATTEMPT", "0"))}
+    rec["launcher"]["ok"] = (rec["launcher"]["server"] == "native"
+                             and rec["launcher"]["heartbeats"] >= 1
+                             and rec["launcher"]["heartbeat_seen"])
     rec["failures"] = (
         [k for k, ok in rec["collectives"].items() if not ok]
-        + [k for k in ("train", "serve", "ulysses") if not rec[k]["ok"]]
+        + [k for k in ("train", "auto_parallel", "serve", "ulysses",
+                       "launcher") if not rec[k]["ok"]]
         + [k for k, r in rec["shards"].items() if not r["ok"]]
         + [f"pipeline.{k}" for k in ("gpt", "zero")
            if not rec["pipeline"][k]["ok"]])
-    with open(args.dist_out, "w") as f:
+    with open(os.path.join(args.dist_out, f"rank{env.rank}.json"), "w") as f:
         json.dump(rec, f)
     dist.destroy_process_group()
 
 
+def _stop(pids):
+    """SIGKILL each of the phase's ranks still alive (a pid whose command
+    line is still a distributed worker's)."""
+    import signal
+
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                if b"--distributed-worker" not in f.read():
+                    continue
+            os.kill(pid, signal.SIGKILL)
+        except (OSError, ProcessLookupError, PermissionError):
+            pass
+
+
 def distributed_phase(world=1, device="cuda", tiny=False, plant=None,
                       timeout=600):
-    """The distributed phase: ``world`` fresh processes, each one rank of a
-    process group (NCCL at one rank on the card; gloo on the CPU, where the
-    tests rehearse it at two). Fails if any rank fails or a check of any
-    rank does not hold; returns rank 0's record."""
+    """The distributed phase: ``world`` ranks started by the port's
+    launcher (``python -m paddle_tpu_torch.distributed.launch
+    --nproc_per_node <world> --backend nccl``, gloo on the CPU, where the
+    tests rehearse it at two; NCCL at one rank on the card), each rank a
+    ``--distributed-worker`` of this script. Fails if the launcher exits
+    with another code than 0 (a rank that raises fails the pod) or a check
+    of any rank does not hold; returns rank 0's record with the
+    launcher's exit code and the stream of its log."""
+    import signal
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    init = (f"tcp://localhost:{port}" if device != "cpu"
-            else f"file://{tmp}/store")
-    procs = []
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(world),
+           "--backend", "gloo" if device == "cpu" else "nccl",
+           "--log_dir", os.path.join(tmp, "log"),
+           "--heartbeat_interval", "1", "--heartbeat_timeout", "600",
+           "--stop_grace", "10",
+           os.path.abspath(__file__), "--distributed-worker",
+           "--dist-device", device, "--dist-out", tmp]
+    cmd += ["--dist-tiny"] if tiny else []
+    cmd += ["--dist-plant", plant] if plant else []
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    launcher = subprocess.Popen(
+        cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        # the CPU rehearsal's processes below the tests beside it
+        preexec_fn=(lambda: os.nice(10)) if device == "cpu" else None)
     try:
-        for r in range(world):
-            cmd = [sys.executable, os.path.abspath(__file__),
-                   "--distributed-worker", "--dist-rank", str(r),
-                   "--dist-world", str(world), "--dist-init", init,
-                   "--dist-device", device,
-                   "--dist-out", os.path.join(tmp, f"rank{r}.json")]
-            cmd += ["--dist-tiny"] if tiny else []
-            cmd += ["--dist-plant", plant] if plant else []
-            procs.append(subprocess.Popen(cmd))
-        t_end = time.monotonic() + timeout
-        for p in procs:
+        try:
+            out, _ = launcher.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            launcher.send_signal(signal.SIGINT)     # tears its pod down
             try:
-                p.wait(timeout=max(1.0, t_end - time.monotonic()))
+                out, _ = launcher.communicate(timeout=30)
             except subprocess.TimeoutExpired:
-                pass
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        codes = [p.returncode for p in procs]
+                launcher.kill()
+                out, _ = launcher.communicate()
+        code = launcher.returncode
         recs = []
         for r in range(world):
             path = os.path.join(tmp, f"rank{r}.json")
             recs.append(json.load(open(path)) if os.path.exists(path)
                         else None)
-        if any(c != 0 for c in codes) or any(r is None for r in recs):
-            raise AssertionError(f"distributed phase: rank exit codes "
-                                 f"{codes}")
+        if code != 0 or any(r is None for r in recs):
+            logs = ""
+            for r in range(world):
+                lp = os.path.join(tmp, "log", f"workerlog.{r}")
+                if os.path.exists(lp):
+                    logs += f"--- workerlog.{r} ---\n" + open(lp).read()[-3000:]
+            raise AssertionError(
+                f"distributed phase: launcher exit code {code}, rank exit "
+                f"codes in its log {out.strip()!r}; ranks with a record "
+                f"{[r is not None for r in recs]}\n{logs}")
         bad = {r["rank"]: {k: (r["pipeline"][k.split(".", 1)[1]]
                                if k.startswith("pipeline.")
                                else r.get(k, r["collectives"].get(k)))
@@ -8145,11 +8364,20 @@ def distributed_phase(world=1, device="cuda", tiny=False, plant=None,
         if bad:
             raise AssertionError(f"distributed phase: failed checks "
                                  f"{json.dumps(bad)}")
-        return recs[0]
+        rec = recs[0]
+        rec["launcher"].update(exit_code=code, output=out.strip(),
+                               ranks=world)
+        return rec
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
+        if launcher.poll() is None:
+            launcher.kill()
+            launcher.wait()
+        pids = []
+        for r in range(world):
+            pp = os.path.join(tmp, f"pid{r}")
+            if os.path.exists(pp):
+                pids.append(int(open(pp).read() or 0))
+        _stop([p for p in pids if p])
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -8176,8 +8404,7 @@ def main():
     # the distributed phase's ranks (distributed_worker)
     ap.add_argument("--distributed-worker", action="store_true",
                     help=argparse.SUPPRESS)
-    for name, typ in (("rank", int), ("world", int), ("init", str),
-                      ("device", str), ("out", str), ("plant", str)):
+    for name, typ in (("device", str), ("out", str), ("plant", str)):
         ap.add_argument(f"--dist-{name}", type=typ, help=argparse.SUPPRESS)
     ap.add_argument("--dist-tiny", action="store_true",
                     help=argparse.SUPPRESS)
@@ -8490,6 +8717,23 @@ def main():
         print(f"distributed on {card}: {key} max |kernel - plain| "
               f"{r['max_abs_err']:.3e}, {r['over_limit']:.3f} of the "
               f"limit", flush=True)
+    ap = dist_rec["auto_parallel"]
+    print(f"distributed on {card}: auto_parallel GPT-350M "
+          f"(parallelize: ColWise/RowWise plan over {len(GPT_TP_PLAN)} "
+          f"keys, ZeRO-{ap['zero_stage']}; to_static under Strategy.amp "
+          f"O2 bf16) losses {ap['losses']} against the bare TrainStep's "
+          f"{ap['bare_losses']}: bit-equal {ap['bit_equal']}, parameters "
+          f"bit-equal {ap['params_bit_equal']}; {ap['step_ms']:.1f} ms a "
+          f"step against {ap['bare_step_ms']:.1f} (median of 5 alternating "
+          f"rounds; ratio {ap['dist_over_bare']:.4f}); flash launches "
+          f"{ap['flash_launches']} (predicted {ap['predicted_launches']}); "
+          f"leg {ap['wall_s']:.1f} s", flush=True)
+    la = dist_rec["launcher"]
+    print(f"distributed on {card}: started by the port's launcher "
+          f"({la['ranks']} rank(s), store server {la['server']}, "
+          f"{la['heartbeats']} heartbeats sent, seen in the store "
+          f"{la['heartbeat_seen']}, exit code {la['exit_code']})",
+          flush=True)
     u = dist_rec["ulysses"]
     print(f"distributed on {card}: ulysses_attention (world "
           f"{dist_rec['world']}) max |err| {u['max_abs_err']:.3e}, "
@@ -8650,6 +8894,8 @@ def main():
                 if kern == "fwd" else {}),
             "distributed_launches":
                 tr["data_parallel"]["flash_launches"][kern],
+            "auto_parallel_launches":
+                dist_rec["auto_parallel"]["flash_launches"][kern],
             "pipeline_launches": {
                 name: r["launches"][kern]
                 for name, r in pg["schedules"].items()}})

@@ -12,9 +12,13 @@ parallelism (ring attention, Ulysses) and the sharded checkpoint
 ``PADDLE_TRAINERS_NUM`` / ``MASTER_ADDR`` / ``MASTER_PORT`` set, where
 the JAX package calls ``func`` once (:53-57).
 
-The names of later slices raise ``NotImplementedError`` naming their
-ROADMAP item: ``auto_parallel``'s plans (A5.4), ``launch``, ``rpc``, the
-fleet datasets and the entry attributes.
+``auto_parallel`` (``parallelize`` and its plans, ``Strategy``,
+``to_static`` / ``DistModel``, ``to_distributed``), the launcher
+(``launch``: ``python -m paddle_tpu_torch.distributed.launch``), its TCP
+store (``store.TCPStore``) and ``fleet.elastic`` are the host side of the
+same jobs. The names of later slices raise ``NotImplementedError`` naming
+their ROADMAP item: ``rpc``, the fleet datasets, ``io`` and the entry
+attributes (A5.9).
 """
 from __future__ import annotations
 
@@ -58,6 +62,17 @@ from .checkpoint import load_state_dict, save_state_dict  # noqa: F401,E402
 all_to_all = alltoall
 all_to_all_single = alltoall_single
 
+from . import auto_parallel  # noqa: F401,E402
+from .auto_parallel import (  # noqa: F401,E402
+    ColWiseParallel, DistModel, LocalLayer, PrepareLayerInput,
+    PrepareLayerOutput, RowWiseParallel, SequenceParallelBegin,
+    SequenceParallelDisable, SequenceParallelEnable, SequenceParallelEnd,
+    SplitPoint, Strategy, ToDistributedConfig, parallelize, to_distributed,
+    to_static,
+)
+from . import launch, store  # noqa: F401,E402
+from .store import TCPStore  # noqa: F401,E402
+
 # name -> the ROADMAP item (A5.n) that ports it
 _LATER = {
     "InMemoryDataset": "A5.9 (fleet_dataset.py)",
@@ -67,24 +82,6 @@ _LATER = {
     "ShowClickEntry": "A5.9 (entry_attr.py)",
     "io": "A5.9 (io.py)",
     "rpc": "A5.9 (rpc/)",
-    "launch": "A5.6 (launch/, store/)",
-    "auto_parallel": "A5.4 (auto_parallel/)",
-    "ColWiseParallel": "A5.4 (auto_parallel/)",
-    "RowWiseParallel": "A5.4 (auto_parallel/)",
-    "DistModel": "A5.4 (auto_parallel/)",
-    "LocalLayer": "A5.4 (auto_parallel/)",
-    "PrepareLayerInput": "A5.4 (auto_parallel/)",
-    "PrepareLayerOutput": "A5.4 (auto_parallel/)",
-    "SequenceParallelBegin": "A5.4 (auto_parallel/)",
-    "SequenceParallelDisable": "A5.4 (auto_parallel/)",
-    "SequenceParallelEnable": "A5.4 (auto_parallel/)",
-    "SequenceParallelEnd": "A5.4 (auto_parallel/)",
-    "SplitPoint": "A5.4 (auto_parallel/)",
-    "Strategy": "A5.4 (auto_parallel/)",
-    "parallelize": "A5.4 (auto_parallel/)",
-    "to_static": "A5.4 (auto_parallel/)",
-    "ToDistributedConfig": "A5.4 (auto_parallel/)",
-    "to_distributed": "A5.4 (auto_parallel/)",
 }
 
 

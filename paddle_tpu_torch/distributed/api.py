@@ -11,8 +11,10 @@ whose value is this rank's part — along each mesh dimension with
 that mesh dimension. ``reshard`` moves between placements with the
 collectives of each mesh dimension's group: Shard -> Replicate
 all-gathers, Replicate -> Shard takes the chunk, Partial -> Replicate
-all-reduces by the partial's reduce type, Shard(a) -> Shard(b) gathers
-then cuts. ``dtensor_from_local`` wraps a rank's part as it is;
+all-reduces by the partial's reduce type (not when the target holds a
+Partial), Shard(a) -> Shard(b) gathers then cuts; across meshes the value
+is made whole over the source mesh and cut for the target, and the
+gradient flows back through the reverse move. ``dtensor_from_local`` wraps a rank's part as it is;
 ``unshard_dtensor`` gathers the global value. ``shard_dataloader`` gives
 each rank its slice of every batch along the data-parallel mesh
 dimension.
@@ -25,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..tensor import Tensor
-from .collective import _all_reduce_, _gather_cat
+from .collective import _all_reduce_, _gather_cat, _pg
 from .layout import cut_pieces, layout_of, set_layout
 from .mesh import Partial, Placement, ProcessMesh, Replicate, Shard, get_mesh
 from .sharding import (  # noqa: F401
@@ -87,9 +89,12 @@ def _pieces_for(shape, mesh, placements):
 
 def _local_part(v, mesh, placements):
     """This rank's part of ``v``, with its layout (where it sits in ``v``,
-    ``layout``: the sharded checkpoint reads it)."""
-    coord = mesh.get_coord()
+    ``layout``: the sharded checkpoint reads it). A rank outside the mesh
+    holds an empty part."""
     shape = list(v.shape)
+    if not mesh.contains():
+        return set_layout(v.new_empty((0,)), shape, [])
+    coord = mesh.get_coord()
     for axis, pl in enumerate(placements):
         if isinstance(pl, Shard):
             n = mesh.shape[axis]
@@ -155,31 +160,105 @@ def _dist_attr(t):
     return None
 
 
-def reshard(dist_tensor, mesh: ProcessMesh, placements):
-    """The value under new ``placements`` (same mesh): per mesh dimension,
-    Partial is reduced, Shard gathered where the target differs, then cut
-    to the target's Shards."""
-    t = dist_tensor
-    src_mesh, src, global_shape = _dist_attr(t)
-    if src_mesh != mesh:
-        raise NotImplementedError("reshard across meshes is not ported")
-    v = t._value
-    for axis, (a, b) in enumerate(zip(src, placements)):
-        if a == b:
-            continue
+def _whole(v, mesh, placements, resolve):
+    """The whole value from this rank's part under (mesh, placements):
+    Shards gathered (the last mesh dimension first, the reverse of the
+    cut), Partials reduced by their type unless ``resolve`` is False."""
+    for axis in reversed(range(len(placements))):
+        a = placements[axis]
         g = mesh.get_group(axis)
-        if isinstance(a, Partial):
+        if isinstance(a, Partial) and resolve:
             v = v.clone()
             _all_reduce_(v, a.reduce_type, g)
         elif isinstance(a, Shard):
             v = _gather_cat(v, a.get_dim(), g)
+    return v
+
+
+def _cut(v, mesh, placements):
+    coord = mesh.get_coord()
+    for axis, b in enumerate(placements):
         if isinstance(b, Shard):
-            n, d = mesh.shape[axis], b.get_dim()
-            v = v.chunk(n, dim=d)[mesh.get_coord()[axis]].contiguous()
-        elif isinstance(b, Partial):
-            raise NotImplementedError("resharding to Partial is not ported")
-    set_layout(v, global_shape, _pieces_for(global_shape, mesh, placements))
-    return DistTensor(v, (mesh, list(placements)), global_shape,
+            v = v.chunk(mesh.shape[axis], dim=b.get_dim())[coord[axis]]
+    return v.contiguous()
+
+
+def _redistribute(v, src_mesh, src, mesh, placements, global_shape):
+    """This rank's part under (mesh, placements) from its part ``v`` under
+    (src_mesh, src). A target holding a Partial resolves no pending
+    reduction (JAX ``api.py:63``). On one mesh each dimension moves on
+    its own group; across meshes the value is made whole over the source
+    mesh, sent on (a broadcast over the world from the source's first
+    rank) to target ranks outside it, and cut for the target. A rank
+    outside the target mesh holds an empty part."""
+    resolve = not any(isinstance(p, Partial) for p in placements)
+    if src_mesh == mesh:
+        if not mesh.contains():
+            return v
+        for axis, (a, b) in enumerate(zip(src, placements)):
+            if a == b:
+                continue
+            g = mesh.get_group(axis)
+            if isinstance(a, Partial) and resolve:
+                v = v.clone()
+                _all_reduce_(v, a.reduce_type, g)
+            elif isinstance(a, Shard):
+                v = _gather_cat(v, a.get_dim(), g)
+            if isinstance(b, Shard):
+                n, d = mesh.shape[axis], b.get_dim()
+                v = v.chunk(n, dim=d)[mesh.get_coord()[axis]].contiguous()
+        return v
+    if src_mesh.contains():
+        v = _whole(v, src_mesh, src, resolve)
+    outside = set(mesh.process_ids) - set(src_mesh.process_ids)
+    if outside:
+        from .collective import _world
+
+        if not src_mesh.contains():
+            v = v.new_empty(global_shape)
+        torch.distributed.broadcast(v, src_mesh.process_ids[0],
+                                    group=_pg(_world()))
+    if not mesh.contains():
+        return v.new_empty((0,))
+    return _cut(v, mesh, placements)
+
+
+class _Reshard(torch.autograd.Function):
+    """``_redistribute`` whose backward moves the gradient back: from the
+    target's layout to the source's (JAX carries ``_grad_node`` across,
+    ``api.py:78-80``)."""
+
+    @staticmethod
+    def forward(ctx, v, src_mesh, src, mesh, placements, global_shape):
+        ctx.args = (src_mesh, src, mesh, placements, global_shape)
+        with torch.no_grad():
+            out = _redistribute(v, src_mesh, src, mesh, placements,
+                                global_shape)
+        return out.view_as(out) if out is v else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        src_mesh, src, mesh, placements, global_shape = ctx.args
+        with torch.no_grad():
+            g = _redistribute(grad.contiguous(), mesh, placements, src_mesh,
+                              src, global_shape)
+        return g, None, None, None, None, None
+
+
+def reshard(dist_tensor, mesh: ProcessMesh, placements):
+    """The value under ``mesh`` and ``placements`` (JAX ``api.py:56-91``):
+    any mesh (a subset of the ranks included), any placements. Partial
+    sources are reduced unless the target holds a Partial; the gradient
+    flows back through the reverse move."""
+    t = dist_tensor
+    src_mesh, src, global_shape = _dist_attr(t)
+    placements = list(placements)
+    v = _Reshard.apply(t._value, src_mesh, list(src), mesh, placements,
+                       list(global_shape))
+    if mesh.contains():
+        set_layout(v, global_shape,
+                   _pieces_for(global_shape, mesh, placements))
+    return DistTensor(v, (mesh, placements), global_shape,
                       stop_gradient=t.stop_gradient)
 
 

@@ -23,11 +23,15 @@ the rank's part. ``shift`` (JAX's ``ppermute`` ring, :396-406) and
 ``all_to_all_dim`` carry gradients (``torch.autograd.Function``): the
 backward of a shift by k is a shift by -k, of an all-to-all the opposite
 all-to-all. Send and receive are ``torch.distributed``'s point-to-point
-calls.
+calls. Each public collective records itself while it runs
+(``current_comm_task``: the op, a sequence number and its age), which the
+launcher's heartbeat publishes.
 """
 from __future__ import annotations
 
+import functools
 import itertools
+import time
 
 import torch
 import torch.distributed as dist
@@ -41,7 +45,8 @@ __all__ = ["ReduceOp", "Group", "new_group", "get_group", "is_available",
            "broadcast_object_list", "reduce", "scatter",
            "scatter_object_list", "gather", "alltoall", "alltoall_single",
            "send", "recv", "isend", "irecv", "P2POp", "batch_isend_irecv",
-           "barrier", "wait", "shift", "all_to_all_dim", "split"]
+           "barrier", "wait", "shift", "all_to_all_dim", "split",
+           "current_comm_task"]
 
 
 class ReduceOp:
@@ -149,6 +154,45 @@ def destroy_process_group(group=None):
     if dist.is_initialized():
         dist.destroy_process_group()
     env._STATE["device"] = None
+
+
+# ------------------------------------------------------- comm tracking
+# The collective in flight (reference comm_task_manager.cc:66): the
+# launcher's heartbeat publishes it beside ``hb/<rank>``, so a rank whose
+# heartbeat goes stale is named with the collective it is stuck in.
+_COMM_TASK = {"op": None, "seq": 0, "start": 0.0}
+
+
+class _track_comm:
+    def __init__(self, op):
+        self.op = op
+
+    def __enter__(self):
+        _COMM_TASK["op"] = self.op
+        _COMM_TASK["seq"] += 1
+        _COMM_TASK["start"] = time.time()
+        return self
+
+    def __exit__(self, *exc):
+        _COMM_TASK["op"] = None
+        return False
+
+
+def current_comm_task():
+    """(op, seq, age in seconds) of the collective in flight, or None."""
+    op = _COMM_TASK["op"]
+    if op is None:
+        return None
+    return (op, _COMM_TASK["seq"], time.time() - _COMM_TASK["start"])
+
+
+def _tracked(fn):
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with _track_comm(fn.__name__):
+            return fn(*args, **kwargs)
+
+    return call
 
 
 # ----------------------------------------------------------------- helpers
@@ -300,6 +344,7 @@ def all_to_all_dim(x, split_dim, concat_dim, group=None):
 
 
 # ------------------------------------------------------------- collectives
+@_tracked
 def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
     """In place: every rank's value becomes the reduction over the group.
     Returns the value (or, with ``sync_op=False``, the task to wait on)."""
@@ -308,6 +353,7 @@ def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
     return tensor if sync_op or task is None else task
 
 
+@_tracked
 def all_gather(tensor_list, tensor, group=None, sync_op=True, axis=0):
     """Every rank's value, in group order, appended to ``tensor_list``
     (returned). ``tensor_list=None``: the values concatenated along
@@ -320,6 +366,7 @@ def all_gather(tensor_list, tensor, group=None, sync_op=True, axis=0):
     return tensor_list
 
 
+@_tracked
 def all_gather_object(object_list, obj, group=None):
     g = _get_group(group)
     out = [None] * g.nranks
@@ -328,6 +375,7 @@ def all_gather_object(object_list, obj, group=None):
     return object_list
 
 
+@_tracked
 def reduce_scatter(tensor, tensor_list, op=ReduceOp.SUM, group=None,
                    sync_op=True):
     """``tensor`` becomes part r of the reduction: the sum over ranks of
@@ -360,6 +408,7 @@ def _assign(tensor, v):
                          f"{tuple(t.shape)}")
 
 
+@_tracked
 def broadcast(tensor, src=0, group=None, sync_op=True):
     """In place: every rank's value becomes ``src``'s."""
     g = _get_group(group)
@@ -369,6 +418,7 @@ def broadcast(tensor, src=0, group=None, sync_op=True):
     return tensor if sync_op else task
 
 
+@_tracked
 def broadcast_object_list(object_list, src=0, group=None):
     g = _get_group(group)
     dist.broadcast_object_list(object_list, src=_global(g, src),
@@ -382,6 +432,7 @@ def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, sync_op=True):
     return all_reduce(tensor, op, group, sync_op)
 
 
+@_tracked
 def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
     """Rank r's value becomes ``tensor_list[r]`` as ``src`` holds it."""
     g = _get_group(group)
@@ -397,6 +448,7 @@ def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
     return tensor
 
 
+@_tracked
 def scatter_object_list(out_object_list, in_object_list=None, src=0,
                         group=None):
     g = _get_group(group)
@@ -414,6 +466,7 @@ def scatter_object_list(out_object_list, in_object_list=None, src=0,
     return out_object_list
 
 
+@_tracked
 def gather(tensor, gather_list=None, dst=0, group=None, sync_op=True):
     """Every rank's value, in group order, appended to ``gather_list`` on
     every rank (JAX's in-trace ``all_gather``); ``dst`` reads it."""
@@ -424,6 +477,7 @@ def gather(tensor, gather_list=None, dst=0, group=None, sync_op=True):
     return gather_list
 
 
+@_tracked
 def alltoall(out_tensor_list, in_tensor_list, group=None, sync_op=True):
     """``in_tensor_list[j]`` goes to rank j; ``out_tensor_list`` gets, in
     rank order, what every rank sent here."""
@@ -439,6 +493,7 @@ def alltoall(out_tensor_list, in_tensor_list, group=None, sync_op=True):
     return out_tensor_list
 
 
+@_tracked
 def alltoall_single(out_tensor, in_tensor, in_split_sizes=None,
                     out_split_sizes=None, group=None, sync_op=True):
     """Rows of ``in_tensor`` (dim 0) in ``in_split_sizes`` parts, part j to
@@ -463,6 +518,7 @@ def alltoall_single(out_tensor, in_tensor, in_split_sizes=None,
     return out_tensor if sync_op else task
 
 
+@_tracked
 def send(tensor, dst=0, group=None, sync_op=True):
     g = _get_group(group)
     with torch.no_grad():
@@ -470,6 +526,7 @@ def send(tensor, dst=0, group=None, sync_op=True):
                   group=_pg(g))
 
 
+@_tracked
 def recv(tensor, src=0, group=None, sync_op=True):
     g = _get_group(group)
     with torch.no_grad():
@@ -512,6 +569,7 @@ def batch_isend_irecv(p2p_op_list):
     return dist.batch_isend_irecv(ops)
 
 
+@_tracked
 def barrier(group=None):
     g = _get_group(group)
     dist.barrier(group=_pg(g))

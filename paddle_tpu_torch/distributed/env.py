@@ -13,13 +13,17 @@ the caller passes them.
 * On the card (the default): NCCL on ``cuda:<local_rank>``, after
   ``torch.cuda.set_device``. No CUDA device, or NCCL failing to start,
   raises; nothing falls back to the CPU.
-* On the CPU, when asked (``device="cpu"`` or
-  ``PADDLE_DISTRI_BACKEND=cpu``): gloo. The tests run so.
+* On the CPU, when asked (``device="cpu"`` or ``PADDLE_DISTRI_BACKEND``
+  "cpu" or "gloo"): gloo. The tests run so.
 
 ``init_method`` (a ``file://`` or ``tcp://`` URL) takes the place of the
-address; a world of one with neither runs over an in-process store. The
-launcher's TCP store and heartbeat belong to ``launch/``, which a later
-slice ports.
+address; a world of one with neither runs over an in-process store.
+
+Under the launcher (``PADDLE_MASTER`` set, ``launch/``) the process also
+connects to the launcher's store (``store()``) and starts the heartbeat
+the launcher watches (``heartbeat()``, on a connection of its own: the
+application's may wait in a barrier for minutes), as JAX's does
+(``env.py:48-65``), at every world size.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["init_parallel_env", "is_initialized", "get_rank",
-           "get_world_size", "ParallelEnv", "device", "backend"]
+           "get_world_size", "ParallelEnv", "device", "backend", "store",
+           "heartbeat"]
 
 _STATE = {"device": None}
 
@@ -53,8 +58,8 @@ def init_parallel_env(device=None, init_method=None, world_size=None,
     if dist.is_initialized():
         return ParallelEnv()
     if device is None:
-        device = ("cpu" if os.environ.get("PADDLE_DISTRI_BACKEND") == "cpu"
-                  else "cuda")
+        device = ("cpu" if os.environ.get("PADDLE_DISTRI_BACKEND")
+                  in ("cpu", "gloo") else "cuda")
     world = int(world_size if world_size is not None
                 else os.environ.get("PADDLE_TRAINERS_NUM", "1"))
     me = int(rank if rank is not None
@@ -92,7 +97,35 @@ def init_parallel_env(device=None, init_method=None, world_size=None,
         dist.init_process_group(backend_name, init_method=init_method,
                                 world_size=world, rank=me, **kwargs)
     _STATE["device"] = dev
+    _join_launcher(world, me)
     return ParallelEnv()
+
+
+def _join_launcher(world, rank):
+    """Connect to the launcher's store and start the heartbeat, when this
+    process was started by the launcher."""
+    addr = os.environ.get("PADDLE_MASTER")
+    if not addr or ":" not in addr or _STATE.get("store") is not None:
+        return
+    from .launch.watchdog import Heartbeat
+    from .store import TCPStore
+
+    host, port = addr.rsplit(":", 1)
+    _STATE["store"] = TCPStore(host=host, port=int(port), world_size=world)
+    interval = float(os.environ.get("PADDLE_HEARTBEAT_INTERVAL", "5"))
+    hb_store = TCPStore(host=host, port=int(port), world_size=world)
+    _STATE["heartbeat"] = Heartbeat(hb_store, rank, interval).start()
+
+
+def store():
+    """The launcher's store (a ``TCPStore`` client), None when this process
+    was not started by the launcher."""
+    return _STATE.get("store")
+
+
+def heartbeat():
+    """The heartbeat publisher, None outside the launcher."""
+    return _STATE.get("heartbeat")
 
 
 def is_initialized():

@@ -2,11 +2,12 @@
 group over the world's ranks (``init``), the tensor-parallel layer library,
 sequence parallelism, the hybrid optimizer, recompute and pipeline
 parallelism (``PipelineLayer``, ``LayerDesc``, ``SharedLayerDesc``,
-``PipelineParallel`` and its interleaved form). Elastic training is a
-later slice (ROADMAP A5.6)."""
+``PipelineParallel`` and its interleaved form) and elastic training
+(``elastic``: ``ElasticManager`` over the launcher's store,
+``AutoCheckpointer``)."""
 from __future__ import annotations
 
-from . import meta_parallel, sequence_parallel_utils  # noqa: F401
+from . import elastic, meta_parallel, sequence_parallel_utils  # noqa: F401
 from .base import (  # noqa: F401
     CommunicateTopology, DistributedStrategy, HybridCommunicateGroup,
     PaddleCloudRoleMaker,
@@ -54,10 +55,3 @@ def get_rank():
 
     return env.get_rank()
 
-
-def __getattr__(name):
-    if name == "elastic":
-        raise NotImplementedError(
-            "fleet.elastic: elastic training is a later slice of the port "
-            "(ROADMAP A5.6)")
-    raise AttributeError(name)

@@ -32,7 +32,9 @@ __all__ = ["HybridParallelOptimizer", "HybridParallelClipGrad"]
 
 
 def _is_sharded(p):
-    return bool(getattr(getattr(p, "_value", p), "is_distributed", False))
+    # the flag a tensor-parallel cut sets: a torch tensor's own
+    # ``is_distributed`` is a method
+    return getattr(getattr(p, "_value", p), "is_distributed", False) is True
 
 
 def _live(g):

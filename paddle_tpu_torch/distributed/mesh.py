@@ -8,6 +8,8 @@ along it (``get_group(dim)``: this rank's group along ``dim``). A mesh
 built after ``init_parallel_env`` creates all of its groups at once, every
 rank the same groups in the same order, as ``torch.distributed`` demands;
 a mesh built before it is only a layout, and asking it for a group raises.
+A mesh may hold a subset of the world's ranks (every rank builds it; a
+rank outside it holds no group and ``contains()`` is False).
 
 ``serving_mesh(dp, tp)`` (JAX :384-392) builds and installs the
 ("dp", "tp") mesh of the serving step programs: the GPT layers, the paged
@@ -111,16 +113,17 @@ class ProcessMesh:
         self._groups = None
         if env.is_initialized():
             world = env.get_world_size()
-            if arr.size != world or sorted(self._process_ids) != list(
-                    range(world)):
+            if len(set(self._process_ids)) != arr.size or any(
+                    not 0 <= r < world for r in self._process_ids):
                 raise ValueError(
                     f"a mesh of {arr.size} ranks {self._process_ids} over a "
-                    f"world of {world}: the mesh must hold every rank once")
+                    f"world of {world}: each rank of the world at most once")
             self._groups = self._make_groups()
 
     def _make_groups(self):
         """{dim name: this rank's Group along it}: every group of every
-        dimension is created, in one order, on every rank."""
+        dimension is created, in one order, on every rank (a rank outside
+        a mesh over a subset of the world takes part and holds none)."""
         from .collective import new_group
 
         ids = self.mesh
@@ -169,6 +172,10 @@ class ProcessMesh:
         coords = np.unravel_index(idx, self._shape)
         return int(coords[self._dim(dim)])
 
+    def contains(self, rank=None):
+        """Whether ``rank`` (default: this one) is in the mesh."""
+        return (env.get_rank() if rank is None else rank) in self._process_ids
+
     def get_coord(self, rank=None):
         """This rank's (or ``rank``'s) coordinate on every dimension."""
         rank = env.get_rank() if rank is None else rank
@@ -182,6 +189,8 @@ class ProcessMesh:
                 "this mesh was built before init_parallel_env(): it has no "
                 "process groups")
         name = dim if isinstance(dim, str) else self._dim_names[dim]
+        if name not in self._groups:
+            raise RuntimeError(f"rank {env.get_rank()} is not in {self}")
         return self._groups[name]
 
     def __eq__(self, other):
@@ -238,9 +247,10 @@ def mesh_axis_size(name, mesh=None) -> int:
 
 def axis_group(names, mesh=None):
     """This rank's group along the first of ``names`` the mesh (default:
-    the global mesh) has with a size above 1, or None."""
+    the global mesh) has with a size above 1, or None (also on a rank
+    outside the mesh)."""
     m = mesh if mesh is not None else get_mesh()
-    if m is None:
+    if m is None or not m.contains():
         return None
     for name in (names,) if isinstance(names, str) else names:
         if mesh_axis_size(name, m) > 1:

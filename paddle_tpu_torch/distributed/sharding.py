@@ -34,12 +34,17 @@ group along the stage's axis (``axis_name``, "dp" by default, of
 
 The stage owns the gradient sync over its axis: ``parallel.GradientSync``
 (``DataParallel``, the hybrid wrappers) leaves alone the gradients of
-the parameters a stage averages over its group (``owns``). The update is the optimizer's own rule (``_update``) on the
-rows, so it must act element by element: ``Lamb`` (a norm over the whole
-parameter) is refused, as is a per-tensor norm clip; a global-norm clip
-becomes ``HybridParallelClipGrad`` over the stage's group (the rows'
-squared norms summed once). ``shard_scaler`` makes a found-inf on any rank
-skip the step on every rank (a max over the world).
+the parameters a stage averages over its group (``owns``). The update is
+the optimizer's own rule (``_update``) on the rows. Where the rule or the
+clip reads a norm of the whole tensor, as JAX's stages compute it over
+their global arrays (``api.py:198-276``), each rank sums the squares of
+its rows and the sums are all-reduced over the stage's group before the
+norm is used (a device-side collective, nothing read on the host):
+``Lamb``'s trust ratio (``whole_norms``), a per-tensor ``ClipGradByNorm``
+(``ClipGradByNormOverRows``, one all-reduce of every parameter's sum). A
+global-norm clip becomes ``HybridParallelClipGrad`` over the stage's
+group (the rows' squared norms summed once). ``shard_scaler`` makes a
+found-inf on any rank skip the step on every rank (a max over the world).
 """
 from __future__ import annotations
 
@@ -50,13 +55,14 @@ import weakref
 import torch
 
 from . import env
+from ..nn.clip import ClipGradBase
 from .collective import _all_reduce_, _all_reduce_coalesced_, _pg
 from .layout import cut, layout_of, set_layout
 from .mesh import get_mesh
 
 __all__ = ["ShardingStage1", "ShardingStage2", "ShardingStage3",
            "shard_optimizer", "shard_scaler", "owns", "install",
-           "uninstall"]
+           "uninstall", "ClipGradByNormOverRows"]
 
 def owns(p, group):
     """Whether a ZeRO stage averages ``p``'s gradient over ``group``'s
@@ -246,12 +252,6 @@ class ShardingStage1:
     def bind(self, optimizer):
         """Lay the stage over ``optimizer``'s trainable parameters (the
         accumulators are made as rows; stage 3 cuts the parameters)."""
-        from ..optimizer import Lamb
-
-        if isinstance(optimizer, Lamb):
-            raise NotImplementedError(
-                "ZeRO: Lamb's trust ratio is a norm over the whole "
-                "parameter; the stage updates rows")
         g = self.group
         if g is None:
             raise ValueError(f"ZeRO over {self.axis_name!r}: the mesh has "
@@ -304,16 +304,24 @@ class ShardingStage1:
         from ..nn.clip import ClipGradByGlobalNorm, ClipGradByNorm
         from .fleet.hybrid_optimizer import HybridParallelClipGrad
 
-        if isinstance(clip, ClipGradByNorm):
-            raise NotImplementedError(
-                "ZeRO: a per-tensor norm clip needs the whole gradient; "
-                "the stage holds rows")
-        if isinstance(clip, ClipGradByGlobalNorm):
+        if type(clip) is ClipGradByNorm:
+            optimizer._grad_clip = ClipGradByNormOverRows(clip, self)
+        elif isinstance(clip, ClipGradByGlobalNorm):
             optimizer._grad_clip = HybridParallelClipGrad(
                 clip, zero_group=g)
         elif isinstance(clip, HybridParallelClipGrad):
             clip.zero_group = g
         return self
+
+    # -- norms of the whole tensor --------------------------------------
+    @torch.no_grad()
+    def whole_norms(self, *parts):
+        """The L2 norms (f32) of the whole tensors whose rows this rank
+        holds in ``parts``: the squared sums all-reduced over the group in
+        one collective."""
+        sq = torch.stack([x.float().square().sum() for x in parts])
+        _all_reduce_(sq, "sum", self.group)
+        return sq.sqrt().unbind()
 
     # -- stage 3's gather on use ----------------------------------------
     def _gathered(self, part):
@@ -448,6 +456,41 @@ class ShardingStage1:
         self.apply(optimizer, params, grads, optimizer.get_lr(),
                    optimizer._step_count,
                    master=optimizer._multi_precision)
+
+
+class ClipGradByNormOverRows(ClipGradBase):
+    """``ClipGradByNorm`` under a ZeRO stage: each gradient scaled by
+    min(clip_norm / max(||g||, 1e-12), 1) with ||g|| the whole gradient's
+    norm in its own dtype; a gradient held as rows sums its squares over
+    the stage's group (every parameter's sum in one all-reduce)."""
+
+    needs_params = True
+
+    def __init__(self, clip, stage):
+        self._clip = clip
+        self.clip_norm = clip.clip_norm
+        self.stage = stage
+
+    def clip_params(self, params, grads):
+        if not grads:
+            return grads
+        sq = torch.stack([torch.sum(torch.square(g)).to(torch.float32)
+                          if self.stage.shards(p) else
+                          torch.zeros((), dtype=torch.float32,
+                                      device=g.device)
+                          for p, g in zip(params, grads)])
+        _all_reduce_(sq, "sum", self.stage.group)
+        out = []
+        for i, (p, g) in enumerate(zip(params, grads)):
+            n = (torch.sqrt(sq[i]).to(g.dtype) if self.stage.shards(p)
+                 else torch.sqrt(torch.sum(torch.square(g))))
+            out.append(g * torch.clamp(
+                self.clip_norm / torch.clamp(n, min=1e-12), max=1.0))
+        return out
+
+    def clip(self, grads):
+        raise TypeError("ClipGradByNormOverRows needs the parameters: "
+                        "call clip_params(params, grads)")
 
 
 class ShardingStage2(ShardingStage1):

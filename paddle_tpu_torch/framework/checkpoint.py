@@ -54,9 +54,9 @@ from .io_utils import fsync_dir, fsync_file
 __all__ = ["CheckpointManager", "CheckpointCorruptWarning", "latest_step",
            "PreemptionFlush", "PreemptionExit", "ELASTIC_EXIT_CODE"]
 
-# the elastic launcher's "restart me, this is not a crash" code (JAX
-# distributed/fleet/elastic/manager.py, not ported)
-ELASTIC_EXIT_CODE = 101
+# the elastic launcher's "restart me, this is not a crash" code, defined
+# once with the elastic manager
+from ..distributed.fleet.elastic.manager import ELASTIC_EXIT_CODE  # noqa: E402
 
 _MANIFEST = "manifest.json"
 _STEP_PREFIX = "step_"

@@ -42,7 +42,7 @@ from ..framework.checkpoint import _readback, _storable
 from ..nn.layer import Layer
 from ..tensor import Tensor
 from .fingerprint import aval_fingerprint, dtype_name, flatten, unflatten
-from .graphs import StaticBuffers, first_run_then_capture
+from .graphs import StaticBuffers, first_run_then_capture, poisoned
 from .train import _leaf_spec, _map_tensors, _unwrapped
 
 __all__ = ["to_static", "not_to_static", "ignore_module", "save", "load",
@@ -160,6 +160,12 @@ class StaticFunction:
             return self._call(a, kw)
 
         if prog.capture is None:
+            if poisoned(self._pool):
+                # a capture failed into it: the programs move to a fresh
+                # pool and capture again
+                for other in self._programs.values():
+                    other.capture = None
+                self._pool = None
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             out, prog.capture = first_run_then_capture(dev, body, body,

@@ -45,6 +45,7 @@ import torch
 from ..ops._build import recording_launches
 
 __all__ = ["StaticBuffers", "StepRunner", "Capture", "CaptureError",
+           "poisoned",
            "first_run_then_capture"]
 
 _ALIGN = 16                 # bytes: every view starts on a 16-byte line
@@ -67,7 +68,23 @@ def _side_stream(device):
 class CaptureError(RuntimeError):
     """The capture of a body failed (the body ran eagerly first, so it is
     not the body's own error): it synchronised with the host, or read a
-    value a graph cannot hold. The original error is its ``__cause__``."""
+    value a graph cannot hold. The original error is its ``__cause__``;
+    ``pool`` is the graph pool the capture allocated from, which is
+    poisoned from then on (``poisoned``)."""
+
+    def __init__(self, msg, pool=None):
+        super().__init__(msg)
+        self.pool = pool
+
+
+def poisoned(pool):
+    """Whether a capture into ``pool`` failed. Such a pool stays marked as
+    recording (``capture_end`` raises before it ends the recording), so
+    every later capture into it fails: its owner (a model's runners, a
+    ``TrainStep``, a ``to_static`` function) moves to a fresh
+    ``torch.cuda.graph_pool_handle()`` and drops what it captured into the
+    old one."""
+    return pool is not None and pool in _POOL_FAILURES
 
 
 class Capture:
@@ -150,7 +167,7 @@ def first_run_then_capture(device, first, body, pool=None,
             if generators:
                 _end_generator_capture(generators, side)
             if isinstance(e, Exception):
-                raise CaptureError(_failure(pool, e)) from e
+                raise CaptureError(_failure(pool, e), pool) from e
             raise
         return out, Capture(graph, result, dict(launched),
                             time.perf_counter() - t0)

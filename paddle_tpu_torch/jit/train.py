@@ -101,7 +101,7 @@ from ..optimizer import LBFGS
 from ..optimizer.lr import LRScheduler
 from ..tensor import Tensor
 from .fingerprint import aval_fingerprint, flatten, unflatten
-from .graphs import StaticBuffers, first_run_then_capture
+from .graphs import StaticBuffers, first_run_then_capture, poisoned
 
 __all__ = ["TrainStep", "StepProgram"]
 
@@ -379,6 +379,12 @@ class TrainStep:
         if self.device.type != "cuda" or self._bodies_only:
             return self._body(prog, count_flops), False
         if prog.capture is None:
+            if poisoned(self._pool):
+                # a capture failed into it: the programs move to a fresh
+                # pool and capture again
+                for other in self._programs.values():
+                    other.capture = None
+                self._pool = None
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             out, prog.capture = first_run_then_capture(

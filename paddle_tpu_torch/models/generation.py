@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from ..framework import make_generator
-from ..jit.graphs import StepRunner
+from ..jit.graphs import StepRunner, poisoned
 from ..observability.device import cost_flops
 from ..ops.paged_attention import paged_write_slots
 from .steps import DenseStep, PagedStep
@@ -258,6 +258,10 @@ class GenerationMixin:
         """Build-or-fetch the runner of ``cache_key``; one build under
         concurrency (JAX ``generation.py:201-220``). The hit path takes no
         lock; only a cold build serialises. Returns (run, compiled_now)."""
+        pool = getattr(self, "_graph_pool_handle", None)
+        if pool is not None and poisoned(pool):
+            with _TRACE_LOCK:       # a failed capture: runners move pools
+                self._graph_pool()
         cache = self._runner_cache()
         run = cache.get(cache_key)
         if run is not None:
@@ -271,13 +275,24 @@ class GenerationMixin:
 
     def _graph_pool(self):
         """The graph memory pool every capture of this model allocates from
-        (None on the CPU). Called under ``_TRACE_LOCK``."""
+        (None on the CPU). After a failed capture into it the model moves
+        to a fresh pool and drops the runners that hold the old one
+        (``jit.graphs.poisoned``). Called under ``_TRACE_LOCK``."""
         if self.device.type != "cuda":
             return None
         pool = getattr(self, "_graph_pool_handle", None)
+        if pool is not None and poisoned(pool):
+            self._drop_pool_runners(pool)
+            pool = None
         if pool is None:
             pool = self._graph_pool_handle = torch.cuda.graph_pool_handle()
         return pool
+
+    def _drop_pool_runners(self, pool):
+        cache = self._runner_cache()
+        for key, run in list(cache.items()):
+            if getattr(run, "pool", None) == pool:
+                cache.pop(key, None)
 
     def _watch_pool(self, kv_cache):
         """Drop the runners over ``kv_cache``'s pools when the cache dies

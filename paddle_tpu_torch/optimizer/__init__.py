@@ -517,7 +517,9 @@ class RMSProp(Optimizer):
 class Lamb(Optimizer):
     """Adam's direction r plus ``lamb_weight_decay`` p, scaled by the trust
     ratio ||p|| / ||update|| (1 where either norm is 0);
-    ``exclude_from_weight_decay_fn(p)`` True exempts p from the decay."""
+    ``exclude_from_weight_decay_fn(p)`` True exempts p from the decay.
+    Under a ZeRO stage that holds p in rows, both norms are the whole
+    tensor's (``ShardingStage1.whole_norms``)."""
 
     _acc_names = ("moment1", "moment2")
 
@@ -544,8 +546,13 @@ class Lamb(Optimizer):
         if self._exclude_fn is not None and self._exclude_fn(p):
             wd = 0.0
         update = r + wd * pval
-        w_norm = torch.linalg.vector_norm(pval.float())
-        u_norm = torch.linalg.vector_norm(update.float())
+        stage = getattr(p, "_zero_stage", None)
+        if stage is not None and stage.shards(p):
+            # a ZeRO stage updates rows: the norms are the whole tensor's
+            w_norm, u_norm = stage.whole_norms(pval, update)
+        else:
+            w_norm = torch.linalg.vector_norm(pval.float())
+            u_norm = torch.linalg.vector_norm(update.float())
         trust = torch.where((w_norm > 0) & (u_norm > 0), w_norm / u_norm,
                             torch.ones((), device=pval.device)).to(pval.dtype)
         return pval - _mul(lr * trust, update)

@@ -13,10 +13,12 @@ raises leaves the others failing in their next collective instead of
 hanging; the error reported is the first rank's traceback
 (``RankFailed``). A body may live in another module of the tests
 (``"module:function"``). One spawn runs at a time across the processes
-of a test run (a lock file in the temp directory), its ranks at nice 10.
+of a test run (a lock file in the temp directory, ``spawn_lock``, which
+launched jobs take too), its ranks at nice 10.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import pickle
@@ -86,21 +88,34 @@ def _body(name):
     return getattr(importlib.import_module(mod), fn)
 
 
-def run_ranks(bodies, world, inputs=None, deadline_s=150.0,
-              timeout_s=COLLECTIVE_TIMEOUT_S):
+@contextlib.contextmanager
+def spawn_lock():
+    """Within: this process holds the one spawn slot across the test
+    workers. The processes of several spawns at once would crowd the
+    cores the other workers' calls are timed on (the per-test budget
+    guard); launched jobs take it too."""
     import fcntl
 
-    # one spawn at a time across the test workers: the ranks of several
-    # files at once would crowd the cores the other workers' calls are
-    # timed on (the per-test budget guard)
     lock_path = os.path.join(tempfile.gettempdir(),
                              "paddle_tpu_torch_dist_ranks.lock")
     with open(lock_path, "a") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
-            return _run_ranks(bodies, world, inputs, deadline_s, timeout_s)
+            yield
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def below_workers():
+    """``preexec_fn`` of a launched job: its processes at nice 10, as the
+    spawned ranks run."""
+    os.nice(10)
+
+
+def run_ranks(bodies, world, inputs=None, deadline_s=150.0,
+              timeout_s=COLLECTIVE_TIMEOUT_S):
+    with spawn_lock():
+        return _run_ranks(bodies, world, inputs, deadline_s, timeout_s)
 
 
 def _run_ranks(bodies, world, inputs, deadline_s, timeout_s):

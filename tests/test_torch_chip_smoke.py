@@ -13,6 +13,8 @@ import sys
 
 import pytest
 
+import dist_ranks
+
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
 
@@ -848,8 +850,9 @@ def test_paired_ratio_takes_each_round_as_one_ratio():
 def distributed_rehearsal():
     """The distributed phase at two gloo ranks on a tiny GPT (fresh
     processes, ~30 s on the CPU: a fixture's, outside the call budget)."""
-    return chip_smoke.distributed_phase(world=2, device="cpu", tiny=True,
-                                        timeout=240)
+    with dist_ranks.spawn_lock():
+        return chip_smoke.distributed_phase(world=2, device="cpu",
+                                            tiny=True, timeout=240)
 
 
 def test_distributed_phase_rehearses_on_the_cpu(distributed_rehearsal):
@@ -871,6 +874,27 @@ def test_distributed_phase_rehearses_on_the_cpu(distributed_rehearsal):
         f"{k}_tp{tp}" for k in ("paged_decode", "paged_prefill",
                                 "ulysses_flash_fwd") for tp in (2, 4)}
     assert rec["ulysses"]["ok"] and not rec["failures"]
+
+
+def test_launcher_and_auto_parallel_rehearse_on_the_cpu(
+        distributed_rehearsal):
+    """The phase's ranks come from the port's launcher over its native
+    store (heartbeats sent and seen, exit code 0), and the auto_parallel
+    leg (``parallelize`` with the GPT plan, every key matched, ZeRO-2 over
+    the two ranks; ``to_static``) holds the bare step's losses within
+    1e-5 and every leaf's gap within 1e-3."""
+    rec = distributed_rehearsal
+    la = rec["launcher"]
+    assert la["ok"] and la["server"] == "native" and la["exit_code"] == 0
+    assert la["heartbeats"] >= 1 and la["heartbeat_seen"]
+    assert la["ranks"] == 2 and la["attempt"] == 0
+    ap = rec["auto_parallel"]
+    assert ap["ok"] and not ap["unmatched_keys"]
+    assert ap["max_rel_diff"] <= 1e-5 and ap["param_gap"] <= 1e-3
+    assert ap["zero_stage"] == 2 and ap["zero_group_ranks"] == 2
+    assert len(ap["losses"]) == ap["steps"] == 4
+    assert ap["predicted_launches"] == {k: 2 * 4 for k in ("fwd", "dq",
+                                                            "dkv")}
 
 
 def test_pipeline_phase_rehearses_on_the_cpu(distributed_rehearsal):
@@ -910,8 +934,10 @@ def pipeline_skipped_shared_sum():
     """The rehearsal with the tied weight's gradient left unsummed across
     its two stages: the failure message, or None if it passed."""
     try:
-        chip_smoke.distributed_phase(world=2, device="cpu", tiny=True,
-                                     plant="skip_shared_sum", timeout=240)
+        with dist_ranks.spawn_lock():
+            chip_smoke.distributed_phase(world=2, device="cpu", tiny=True,
+                                         plant="skip_shared_sum",
+                                         timeout=240)
     except AssertionError as e:
         return str(e)
     return None
@@ -942,8 +968,9 @@ def distributed_skipped_sync():
     """The rehearsal with DataParallel's gradient sync planted away: the
     failure message of the phase, or None if it passed."""
     try:
-        chip_smoke.distributed_phase(world=2, device="cpu", tiny=True,
-                                     plant="skip_sync", timeout=240)
+        with dist_ranks.spawn_lock():
+            chip_smoke.distributed_phase(world=2, device="cpu", tiny=True,
+                                         plant="skip_sync", timeout=240)
     except AssertionError as e:
         return str(e)
     return None
@@ -961,9 +988,23 @@ def test_distributed_phase_fails_when_the_sync_is_skipped(
     assert train["data_parallel"]["syncs"] == 0
 
 
-def test_distributed_phase_fails_when_a_rank_raises():
-    """A rank that raises fails the phase (its peers fail in the next
-    collective, within the group's timeout) instead of hanging it."""
-    with pytest.raises(AssertionError, match="exit codes"):
-        chip_smoke.distributed_phase(world=2, device="cpu", tiny=True,
-                                     plant="raise", timeout=240)
+@pytest.fixture(scope="module")
+def distributed_raised():
+    """The rehearsal with the last rank raising: the failure message of
+    the phase, or None if it passed (a fixture's launch, outside the call
+    budget)."""
+    try:
+        with dist_ranks.spawn_lock():
+            chip_smoke.distributed_phase(world=2, device="cpu", tiny=True,
+                                         plant="raise", timeout=240)
+    except AssertionError as e:
+        return str(e)
+    return None
+
+
+def test_distributed_phase_fails_when_a_rank_raises(distributed_raised):
+    """A rank that raises fails the phase through the launcher's exit
+    code (the launcher tears its pod down) instead of hanging it."""
+    msg = distributed_raised
+    assert msg is not None and "exit codes" in msg
+    assert "launcher exit code 1" in msg

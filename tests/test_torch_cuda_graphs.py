@@ -428,3 +428,88 @@ def test_a_later_failure_in_a_pool_names_the_first(model):
     for _ in range(2):
         np.testing.assert_array_equal(_doubled(good, x), 2 * x)
     assert good.captures == 1 and good.replays == 1
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_moves_the_model_to_a_fresh_pool():
+    """One program of a model fails its capture (a host sync in its body),
+    which leaves the model's graph pool recording for good; the model's
+    next program must capture into a fresh pool (``jit.graphs.poisoned``)
+    and replay its body's tokens, and the failed runner is dropped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs have no CPU mode)")
+    from paddle_tpu_torch.jit.graphs import CaptureError, poisoned
+
+    m = tgpt.GPTForCausalLM(tgpt.GPTConfig(**CFG), device="cuda",
+                            dtype=torch.bfloat16, seed=4)
+    x = np.arange(4, dtype=np.float32)
+
+    def sync(call):
+        torch.cuda.current_stream().synchronize()
+
+    bad, _ = m._runner_for(("planted",),
+                           lambda: _doubler(m._graph_pool(), sync))
+    old = bad.pool
+    bad.fill(x=x)
+    with pytest.raises(CaptureError) as e:
+        bad.run("f")
+    assert e.value.pool == old and poisoned(old)
+    ids = np.random.default_rng(1).integers(0, 256, (2, 12))
+    first = m.generate(ids, max_new_tokens=4)      # captures
+    again = m.generate(ids, max_new_tokens=4)      # replays
+    np.testing.assert_array_equal(torch.as_tensor(first).cpu().numpy(),
+                                  torch.as_tensor(again).cpu().numpy())
+    assert m._graph_pool() != old
+    assert ("planted",) not in m._runner_cache()
+    assert all(getattr(r, "pool", None) != old
+               for r in m._runner_cache().values())
+
+
+@pytest.mark.cuda
+def test_a_failed_train_step_capture_leaves_the_next_program_capturable():
+    """A TrainStep whose first capture fails (a host read in the forward)
+    moves to a fresh pool: its next program (another batch shape)
+    captures, and its replays give the bodies' losses bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs have no CPU mode)")
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.jit.graphs import CaptureError
+
+    torch.manual_seed(0)
+    net = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.Tanh(),
+                              torch.nn.Linear(16, 1)).cuda()
+    read = {"on": True}
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.net = net
+
+        def forward(self, x):
+            y = self.net(x)
+            if read["on"]:
+                y = y + float(y.detach().sum()) * 0.0
+            return y
+
+    model = Net()
+    opt = optimizer.SGD(learning_rate=0.1, parameters=model.parameters())
+    step = TrainStep(model, lambda o, t: ((o - t) ** 2).mean(), opt)
+    rng = np.random.default_rng(0)
+    x4 = torch.as_tensor(rng.standard_normal((4, 8)), dtype=torch.float32,
+                         device="cuda")
+    with pytest.raises(CaptureError):
+        step(x4, torch.zeros(4, 1, device="cuda"))
+    read["on"] = False
+    x6 = torch.as_tensor(rng.standard_normal((6, 8)), dtype=torch.float32,
+                         device="cuda")
+    y6 = torch.zeros(6, 1, device="cuda")
+    start = [p.detach().clone() for p in model.parameters()]
+    got = [float(step(x6, y6)) for _ in range(3)]
+    assert step.captures == 1 and step.replays == 2
+    with torch.no_grad():
+        for p, s in zip(model.parameters(), start):
+            p.copy_(s)
+    with step._eager():
+        want = [float(step(x6, y6)) for _ in range(3)]
+    assert got == want

@@ -250,10 +250,10 @@ def test_entry_points_refuse_without_a_card_or_group():
         dist.init_parallel_env()
     with pytest.raises(RuntimeError, match="init_parallel_env"):
         dist.all_reduce(torch.ones(2))
-    with pytest.raises(NotImplementedError, match="A5.4"):
-        dist.parallelize
-    with pytest.raises(NotImplementedError, match="A5.6"):
-        dist.launch
+    with pytest.raises(NotImplementedError, match="A5.9"):
+        dist.rpc
+    with pytest.raises(NotImplementedError, match="A5.9"):
+        dist.InMemoryDataset
     # ZeRO is ported (A5.2): a stage is made; it needs a mesh only when
     # it is laid over an optimizer
     assert dist.ShardingStage1().axis_name == "dp"

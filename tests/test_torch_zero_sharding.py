@@ -14,7 +14,10 @@ measure single elements); the local sizes: accumulators, gradients and
 where it does not (the last bias, 10 rows); the eager ``step`` equal to
 the captured form; ``DataParallel`` over the same ranks leaving the sync
 to the stage; and a non-finite gradient on one rank under
-``shard_scaler`` skipping the step on every rank.
+``shard_scaler`` skipping the step on every rank. Lamb and AdamW under a
+per-tensor ``ClipGradByNorm`` run under every stage against JAX's
+single-device step (the whole tensor's norms: ``whole_norms``,
+``ClipGradByNormOverRows``).
 """
 import jax
 import numpy as np
@@ -79,6 +82,33 @@ def param_gap(got, want, init):
 
 BODIES = ["body_zero1", "body_zero2", "body_zero3", "body_zero2_eager",
           "body_zero3_eager", "body_zero1_data_parallel", "body_zero_scaler"]
+# whole-tensor norms under the stages (tests/dist_auto_bodies.py)
+NORM_BODIES = [f"body_zero_{kind}{k}" for kind in ("lamb", "clip")
+               for k in (1, 2, 3)]
+
+
+def _jax_single(kind):
+    """JAX's single-device TrainStep: Lamb, or AdamW under a per-tensor
+    ``ClipGradByNorm``."""
+    prev = jdist.get_mesh()
+    jdist.set_mesh(None)
+    try:
+        model = _jax_model()
+        if kind == "lamb":
+            opt = paddle.optimizer.Lamb(learning_rate=1e-2,
+                                        lamb_weight_decay=0.01,
+                                        parameters=model.parameters())
+        else:
+            opt = paddle.optimizer.AdamW(
+                learning_rate=1e-2, parameters=model.parameters(),
+                grad_clip=nn.ClipGradByNorm(0.05))
+        loss_fn = nn.MSELoss()
+        step = JTrainStep(model, lambda o, y: loss_fn(o, y), opt)
+        x, y = (paddle.to_tensor(a) for a in _data())
+        losses = [float(step(x, y)) for _ in range(STEPS)]
+        return losses, _state(model)
+    finally:
+        jdist.set_mesh(prev)
 
 
 @pytest.fixture(scope="module")
@@ -91,10 +121,12 @@ def runs():
     x, y = _data()
     inputs = {"zero_state": init, "zero_x": x, "zero_y": y,
               "zero_steps": STEPS}
-    ranks = dist_ranks.run_ranks([f"dist_pipeline_bodies:{b}"
-                                  for b in BODIES], DP, inputs)
-    got = {b: [r[f"dist_pipeline_bodies:{b}"] for r in ranks]
-           for b in BODIES}
+    for kind in ("lamb", "clip"):
+        jax_runs[kind] = _jax_single(kind)
+    names = ([f"dist_pipeline_bodies:{b}" for b in BODIES]
+             + [f"dist_auto_bodies:{b}" for b in NORM_BODIES])
+    ranks = dist_ranks.run_ranks(names, DP, inputs)
+    got = {n.split(":")[1]: [r[n] for r in ranks] for n in names}
     return init, jax_runs, got
 
 
@@ -202,3 +234,24 @@ def test_shard_scaler_skips_the_step_on_every_rank(runs):
     _, _, got = runs
     for r in got["body_zero_scaler"]:
         assert r["unchanged"] and r["scale"] == 512.0 and r["moved"]
+
+
+@pytest.mark.parametrize("kind", ["lamb", "clip"])
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_whole_tensor_norms_under_the_stage_match_jax(runs, kind, stage):
+    """Lamb's trust ratio and a per-tensor ``ClipGradByNorm`` read the
+    norm of the whole tensor, as JAX's stages compute it over global
+    arrays: each rank's squared row sums are all-reduced over the stage's
+    group first. Held to JAX's single-device step: the mean loss (rtol
+    1e-5, atol 1e-6) and every gathered parameter (``param_gap`` 1e-3).
+    A stage norm over rows alone moves the ratio and the clip."""
+    init, jax_runs, got = runs
+    ranks = got[f"body_zero_{kind}{stage}"]
+    mean = np.mean([r["losses"] for r in ranks], axis=0)
+    np.testing.assert_allclose(mean, jax_runs[kind][0], rtol=1e-5,
+                               atol=1e-6)
+    whole = gather_parts([r["params"] for r in ranks])
+    for k, v in whole.items():
+        assert param_gap(v, jax_runs[kind][1][k], init[k]) <= 1e-3, k
+    assert ranks[0]["clip"] == (None if kind == "lamb"
+                                else "ClipGradByNormOverRows")
