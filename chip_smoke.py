@@ -428,8 +428,19 @@ non-zero without the final line:
    TrainStep's; (c) the ZeRO-1 model and AdamW state through
    ``save_state_dict`` / ``load_state_dict`` into a fresh model and
    optimizer, bit-equal, and the next captured step equal (bytes and
-   seconds recorded). The CPU tests rehearse it at two gloo ranks on a
-   tiny GPT (pp 2 over the two ranks), with a planted fault: the tied
+   seconds recorded). Then three more legs: (d) ``moe_ep``, ``MoELayer``
+   at the incubate phase's GPT-350M widths (8 x 1024 tokens, d 1024, 8
+   experts of 4096, bf16, gshard top-2) built with ``moe_group=`` the
+   one-rank world group, so NCCL's all-to-all carries its dispatch and
+   return: forward, ``l_aux`` and every gradient bit-equal to the same
+   layer without a group, both fwd + bwd timed, four all-to-alls a
+   call; (e) ``sync_bn``, ResNet-50 (B 32, 224^2, NHWC, O2 bf16,
+   Momentum) converted by ``convert_sync_batchnorm`` under
+   ``DataParallel``, 2 captured steps bit-equal to the bare BatchNorm
+   step, both step times; (f) ``rpc``, round trips to this rank over the
+   launcher's native store, the median latency. The CPU tests rehearse
+   the phase at two gloo ranks on a tiny GPT (pp 2 over the two ranks;
+   ep 2 and dp 2 in the last legs), with a planted fault: the tied
    weight's gradient not summed across its stages.
 
 Last lines: each phase's seconds, the card, the kernels JSON (a kernel
@@ -8259,6 +8270,19 @@ def distributed_worker(args):
                         plant=args.dist_plant),
         "zero": pipe_zero(torch, dist, fa, dev, tiny=tiny)}
     rec["pipeline"]["wall_s"] = time.perf_counter() - t1
+    # expert parallelism, SyncBatchNorm and rpc, in the same worker
+    t1 = time.perf_counter()
+    if device != "cpu":
+        release(torch)
+    rec["moe_ep"] = dist_moe_ep(torch, dist, dev, (2, 16, 32, 4, 64) if tiny
+                                else (8, 1024, 1024, 8, 4096))
+    rec["moe_ep"]["wall_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rec["sync_bn"] = dist_sync_bn(torch, dist, dev, tiny)
+    rec["sync_bn"]["wall_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rec["rpc"] = dist_rpc(torch, dist)
+    rec["rpc"]["wall_s"] = time.perf_counter() - t1
     # the launcher's side: its store's server and this rank's heartbeats
     store, hb = dist.env.store(), dist.env.heartbeat()
     rec["launcher"] = {
@@ -8273,13 +8297,274 @@ def distributed_worker(args):
     rec["failures"] = (
         [k for k, ok in rec["collectives"].items() if not ok]
         + [k for k in ("train", "auto_parallel", "serve", "ulysses",
-                       "launcher") if not rec[k]["ok"]]
+                       "launcher", "moe_ep", "sync_bn", "rpc")
+           if not rec[k]["ok"]]
         + [k for k, r in rec["shards"].items() if not r["ok"]]
         + [f"pipeline.{k}" for k in ("gpt", "zero")
            if not rec["pipeline"][k]["ok"]])
     with open(os.path.join(args.dist_out, f"rank{env.rank}.json"), "w") as f:
         json.dump(rec, f)
     dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _place(device):
+    """The port's layers build on ``device`` within."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.framework import device as pdev
+
+    prev = pdev._current["place"]
+    P.set_device("cpu" if device == "cpu" else "gpu:0")
+    try:
+        yield P
+    finally:
+        pdev._current["place"] = prev
+
+
+def dist_moe_ep(torch, dist, device, shape, seed=31):
+    """``MoELayer`` (gshard top-2, index dispatch, bf16 on the card) built
+    with ``moe_group=`` the world group, so its dispatch and return go
+    through ``global_scatter`` / ``global_gather`` (NCCL's all-to-all on
+    the card), against the same layer built without a group from the
+    same weights. At one rank the forward, ``l_aux`` and every gradient
+    must be bit-equal; across ranks (the CPU rehearsal, f32) each rank's
+    output equals the no-group layer on its own tokens within 1e-5 of its
+    largest magnitude (the capacity is per source rank). The fwd + bwd
+    device times of both (``time_ms``, one call at a time), their ratio
+    and a profile of each (``profile_call``), and the all-to-all launches
+    of one fwd + bwd (``a2a_launches``: two forward, two backward)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed.collective import _world
+    from paddle_tpu_torch.distributed.utils import moe_utils
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+
+    mb, ms_, D, E, F_ = shape
+    n = dist.get_world_size()
+    bf16 = device != "cpu"
+    with _place(device) as P:
+        layers = {}
+        for form, group in (("ep", _world()), ("bare", None)):
+            P.seed(seed)
+            experts = [P.nn.Sequential(P.nn.Linear(D, F_), P.nn.GELU(),
+                                       P.nn.Linear(F_, D))
+                       for _ in range(E)]
+            layers[form] = MoELayer(D, experts, gate="gshard",
+                                    moe_group=group)
+            if bf16:
+                amp.decorate(layers[form], level="O2", dtype="bfloat16")
+    ep, bare = layers["ep"], layers["bare"]
+    with torch.no_grad():       # the same weights: the ep layer's slice
+        names = dict(torch.nn.Module.named_parameters(bare))
+        lo = ep.ep_group.rank * len(ep.experts)
+        for k, p in torch.nn.Module.named_parameters(ep):
+            if k.startswith("experts."):
+                i, rest = k[len("experts."):].split(".", 1)
+                k = f"experts.{lo + int(i)}.{rest}"
+            p.copy_(names[k])
+    gen = torch.Generator(device=device).manual_seed(seed + dist.get_rank())
+    x = torch.randn(mb, ms_, D, device=device, generator=gen)
+    if bf16:
+        x = x.to(torch.bfloat16)
+    before = moe_utils.launches
+    ye, le, ge = moe_grads(torch, ep, x)
+    a2a = moe_utils.launches - before
+    yb, lb, gb = moe_grads(torch, bare, x)
+    rec = dict(shape=list(shape), ranks=n, ep_local_experts=len(ep.experts),
+               dtype="bfloat16" if bf16 else "float32", a2a_launches=a2a,
+               dropped=int(ep.dropped), capacity=ep.gate.capacity_for(
+                   mb * ms_))
+    if n == 1:
+        rec["out_bit_equal"] = bool(torch.equal(ye, yb))
+        rec["l_aux_bit_equal"] = bool(torch.equal(le, lb))
+        rec["grads_bit_equal"] = all(torch.equal(a, b)
+                                     for a, b in zip(ge, gb))
+        rec["ok"] = (rec["out_bit_equal"] and rec["l_aux_bit_equal"]
+                     and rec["grads_bit_equal"])
+    else:
+        rec["out_rel"] = float((ye.float() - yb.float()).abs().max()
+                               / yb.float().abs().max().clamp(min=1e-30))
+        rec["ok"] = rec["out_rel"] <= 1e-5
+    rec["ok"] = bool(rec["ok"] and a2a == 4)
+    del ye, yb, ge, gb
+    if device != "cpu":
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+        rec["ep_fwd_bwd_ms"] = time_ms(torch, lambda: moe_grads(
+            torch, ep, x), flush, reps=5, queued=False)
+        rec["bare_fwd_bwd_ms"] = time_ms(torch, lambda: moe_grads(
+            torch, bare, x), flush, reps=5, queued=False)
+        rec["ep_over_bare"] = rec["ep_fwd_bwd_ms"] / rec["bare_fwd_bwd_ms"]
+        del flush
+
+        def traced(layer):
+            def call():
+                moe_grads(torch, layer, x)
+                torch.cuda.synchronize()
+            return call
+
+        # where the two calls' device time goes, kernel by kernel
+        rec["ep_profile"] = profile_call(torch, traced(ep))
+        rec["bare_profile"] = profile_call(torch, traced(bare))
+    del ep, bare, layers, x
+    return rec
+
+
+def _bn_net(P, tiny):
+    """ResNet-50 (NHWC, 1000 classes) on the card; a small conv net with
+    two batch norms in the CPU rehearsal."""
+    if not tiny:
+        return P.vision.models.resnet50(num_classes=1000, data_format="NHWC")
+    nn = P.nn
+    return nn.Sequential(
+        nn.Conv2D(3, 8, 3, padding=1, data_format="NHWC"),
+        nn.BatchNorm2D(8, data_format="NHWC"), nn.ReLU(),
+        nn.Conv2D(8, 8, 3, padding=1, data_format="NHWC"),
+        nn.BatchNorm2D(8, data_format="NHWC"), nn.ReLU(),
+        nn.AdaptiveAvgPool2D(1, data_format="NHWC"), nn.Flatten(),
+        nn.Linear(8, 10))
+
+
+def _state_copy(model):
+    """Copies of every parameter and buffer of a paddle-style layer."""
+    return [getattr(t, "_value", t).detach().clone()
+            for t in model.state_dict().values()]
+
+
+def dist_sync_bn(torch, dist, device, tiny, B=32, hw=224, steps=2,
+                 seed=33):
+    """ResNet-50 converted by ``SyncBatchNorm.convert_sync_batchnorm`` under
+    ``DataParallel`` (O2 bf16 on the card, Momentum, this rank's rows),
+    against the bare ``BatchNorm`` model on the whole batch, each through
+    a ``TrainStep`` (``steps`` calls: the capture, then replays; cuDNN
+    deterministic). At one rank the losses, parameters and running
+    statistics must be bit-equal; across ranks (the CPU rehearsal, f32)
+    the mean of the ranks' losses within 1e-5 relative and the state's
+    gap within 1e-3 of how far it moved. Then three rounds of two more
+    steps each, the forms alternating (``step_ms``, host clock)."""
+    from paddle_tpu_torch import amp, nn, optimizer
+    from paddle_tpu_torch.jit import TrainStep
+
+    n, me = dist.get_world_size(), dist.get_rank()
+    if tiny:
+        B, hw = 8, 8
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rec, after, live, init = {}, {}, {}, None
+    try:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        x = torch.randn(B, hw, hw, 3, device=device, generator=gen)
+        y = torch.randint(0, 10 if tiny else 1000, (B,), device=device,
+                          generator=gen)
+        if not tiny:
+            x = x.to(torch.bfloat16)
+        with _place(device) as P:
+            for form in ("bare", "sync"):
+                P.seed(seed)
+                model = _bn_net(P, tiny)
+                if not tiny:
+                    amp.decorate(model, level="O2", dtype="bfloat16")
+                if form == "bare":
+                    init = _state_copy(model)
+                    net = model
+                    rows = slice(None)
+                else:
+                    model = nn.SyncBatchNorm.convert_sync_batchnorm(model)
+                    net = dist.DataParallel(model)
+                    rows = slice(me * B // n, (me + 1) * B // n)
+                loss_fn = nn.CrossEntropyLoss()
+                opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                         parameters=model.parameters(),
+                                         multi_precision=True)
+                step = TrainStep(net, lambda out, t: loss_fn(out, t), opt)
+                xt, yt = P.Tensor(x[rows]), P.Tensor(y[rows])
+                losses = []
+                for _ in range(steps):
+                    loss = step(xt, yt)
+                    loss = getattr(loss, "_value", loss).float().detach() \
+                        .clone()
+                    if form == "sync":
+                        dist.all_reduce(loss, op="avg")
+                    losses.append(loss)
+                rec[form] = dict(losses=[float(v) for v in losses],
+                                 kinds=sorted({type(m).__name__
+                                               for m in model.sublayers()
+                                               if "BatchNorm" in
+                                               type(m).__name__}))
+                after[form] = (_state_copy(model), torch.stack(losses))
+                live[form] = (step, xt, yt)
+        ms = {form: [] for form in live}
+        for rnd in range(3):
+            for form in (("bare", "sync") if rnd % 2 == 0
+                         else ("sync", "bare")):
+                step, xt, yt = live[form]
+                if device != "cpu":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    step(xt, yt)
+                if device != "cpu":
+                    torch.cuda.synchronize()
+                ms[form].append((time.perf_counter() - t0) / 2 * 1e3)
+        for form, (step, _, _) in live.items():
+            rec[form].update(step_ms=float(np.median(ms[form])),
+                             step_ms_rounds=ms[form],
+                             captures=step.captures, replays=step.replays)
+        rec["sync_over_bare"] = float(np.median(
+            [s / b for s, b in zip(ms["sync"], ms["bare"])]))
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+    (wb, lb), (ws, ls) = after["bare"], after["sync"]
+    rec["losses_bit_equal"] = bool(torch.equal(lb, ls))
+    rec["state_bit_equal"] = all(torch.equal(a, b) for a, b in zip(wb, ws))
+    rec["max_rel_diff"] = float(((lb - ls).abs() / lb.abs()).max())
+    # the whole state's gap as a share of how far it moved (a conv bias
+    # before a batch norm has a zero gradient up to rounding: its own
+    # movement is noise)
+    moved = [(i, b, s_) for i, b, s_ in zip(init, wb, ws)
+             if i.is_floating_point()]
+    rec["param_gap"] = float(
+        sum((s_.float() - b.float()).abs().sum() for _, b, s_ in moved)
+        / sum((b.float() - i.float()).abs().sum() for i, b, _ in moved))
+    rec["ok"] = bool(rec["losses_bit_equal"] and rec["state_bit_equal"]
+                     if n == 1 else rec["max_rel_diff"] <= 1e-5
+                     and rec["param_gap"] <= 1e-3)
+    rec["ok"] = bool(rec["ok"] and rec["sync"]["kinds"] == ["SyncBatchNorm"]
+                     and "SyncBatchNorm" not in rec["bare"]["kinds"])
+    del live, after, init
+    if device != "cpu":
+        release(torch)
+    return rec
+
+
+def dist_rpc(torch, dist, reps=50):
+    """``distributed.rpc`` over the launcher's store: a round trip to this
+    rank itself and one to the next rank, ``reps`` timed calls to self
+    (``latency_ms``: the median, host clock)."""
+    from paddle_tpu_torch.distributed import rpc
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    store = dist.env.store()
+    rpc.init_rpc(name=f"worker{rank}", rank=rank, world_size=world)
+    try:
+        me = rpc.rpc_sync(f"worker{rank}", pow, args=(rank + 3, 2))
+        peer = rpc.rpc_sync(f"worker{(rank + 1) % world}", pow,
+                            args=(rank + 2, 2))
+        lat = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            rpc.rpc_sync(rank, max, args=(1, 2))
+            lat.append((time.perf_counter() - t0) * 1e3)
+        workers = [w.name for w in rpc.get_all_worker_infos()]
+    finally:
+        rpc.shutdown()
+    server = store.get("job/server").decode() if store else None
+    rec = dict(self_answer=me, peer_answer=peer, workers=workers,
+               latency_ms=float(np.median(lat)),
+               latency_ms_p90=float(np.percentile(lat, 90)), reps=reps,
+               server=server)
+    rec["ok"] = bool(me == (rank + 3) ** 2 and peer == (rank + 2) ** 2
+                     and workers == [f"worker{r}" for r in range(world)]
+                     and server == "native")
+    return rec
 
 
 def _stop(pids):

@@ -24,14 +24,17 @@ model's top prefix (``gpt.``, ``llama.``, ``bert.``) or not. Linear
 weights keep paddle's ``[in, out]`` layout on both sides, so nothing is
 transposed.
 
-Tensor parallelism: ``shard_state(state, config, tp, rank)`` cuts a GPT
-state into rank ``rank``'s shards of a tp-way model, and
+Tensor parallelism: ``shard_state(state, config, tp, rank)`` cuts a GPT,
+LLaMA or BERT state into rank ``rank``'s shards of a tp-way model, and
 ``gather_state(shards, config)`` puts the ranks' shards back together.
-The fused ``qkv_proj`` is cut per head group — rank r's columns are its
-query heads', then its kv heads' keys, then their values — and
-``gate_up`` per half, as an SPMD rank's attention and SwiGLU read them: a
-contiguous cut of the fused columns would give a rank other heads' keys
-and compute wrong attention without an error. ``from_paddle_tpu_state``
+The fused ``qkv_proj`` (BERT's ``qkv``) is cut per head group — rank r's
+columns are its query heads', then its kv heads' keys, then their
+values — and ``gate_up`` per half, as an SPMD rank's attention and SwiGLU
+read them: a contiguous cut of the fused columns would give a rank other
+heads' keys and compute wrong attention without an error. LLaMA's
+separate ``q/k/v/gate/up`` projections and ``lm_head`` are cut in
+columns, ``o/down`` in rows, the embeddings in vocabulary rows.
+``from_paddle_tpu_state``
 cuts the state for a model built over a model-parallel group, and
 ``to_paddle_tpu_state`` returns that rank's shards.
 
@@ -138,28 +141,54 @@ def to_paddle_tpu_state(model):
 
 
 # ---------------------------------------------------- tensor parallelism
+# (leaf names cut per head group, in columns, in rows) of each family
+_TP_LEAVES = {
+    GPTConfig: (("qkv_proj.weight", "qkv_proj.bias"),
+                ("fc1.weight", "fc1.bias", "lm_head.weight"),
+                ("out_proj.weight", "down.weight")),
+    LlamaConfig: ((),
+                  ("q_proj.weight", "k_proj.weight", "v_proj.weight",
+                   "gate_proj.weight", "up_proj.weight", "lm_head.weight"),
+                  ("o_proj.weight", "down_proj.weight")),
+    BertConfig: (("qkv.weight", "qkv.bias"),
+                 ("fc1.weight", "fc1.bias", "transform.weight",
+                  "transform.bias"),
+                 ("out.weight", "fc2.weight")),
+}
+
+
 def _gpt_layout(name, config):
-    """How a GPT parameter is cut over tp ranks: ("rows",) / ("cols",) a
-    contiguous cut of dim 0 / the last dim, ("qkv",) per head group,
-    ("halves",) each half of the last dim, None replicated."""
+    """How a parameter of a GPT, LLaMA or BERT is cut over tp ranks:
+    ("rows",) / ("cols",) a contiguous cut of dim 0 / the last dim,
+    ("qkv",) per head group, ("halves",) each half of the last dim, None
+    replicated."""
     leaf = ".".join(name.split(".")[-2:])
-    if name.endswith("embed_tokens.weight"):
+    if name.endswith(("embed_tokens.weight", "word_embeddings.weight")):
         return ("rows",)
-    if leaf in ("qkv_proj.weight", "qkv_proj.bias"):
+    qkv, cols, rows = _TP_LEAVES[_family(config)]
+    if leaf in qkv:
         return ("qkv",)
     if leaf == "gate_up.weight":
         return ("halves",)
-    if leaf in ("fc1.weight", "fc1.bias", "lm_head.weight"):
+    if leaf in cols:
         return ("cols",)
-    if leaf in ("out_proj.weight", "down.weight"):
+    if leaf in rows:
         return ("rows",)
     return None
 
 
+def _family(config):
+    for cfg_type in _TP_LEAVES:
+        if isinstance(config, cfg_type):
+            return cfg_type
+    raise TypeError("tensor-parallel shards are defined for GPT, LLaMA "
+                    "and BERT")
+
+
 def _qkv_parts(config):
     d = config.hidden_size // config.num_heads
-    return [config.num_heads * d, config.num_kv_heads * d,
-            config.num_kv_heads * d]
+    kv = getattr(config, "num_kv_heads", config.num_heads)
+    return [config.num_heads * d, kv * d, kv * d]
 
 
 def _cut(arr, layout, config, tp, rank):
@@ -195,10 +224,10 @@ def _join(arrs, layout, config):
 
 
 def _check_tp(config, tp):
-    if not isinstance(config, GPTConfig):
-        raise TypeError("tensor-parallel shards are defined for GPT")
+    _family(config)
     for what, n in (("num_heads", config.num_heads),
-                    ("num_kv_heads", config.num_kv_heads),
+                    ("num_kv_heads", getattr(config, "num_kv_heads",
+                                             config.num_heads)),
                     ("intermediate_size", config.intermediate_size),
                     ("vocab_size", config.vocab_size)):
         if n % tp:
@@ -206,8 +235,9 @@ def _check_tp(config, tp):
 
 
 def shard_state(state, config, tp, rank):
-    """{name: np.ndarray} of a whole GPT -> rank ``rank``'s shards of a
-    ``tp``-way tensor-parallel GPT, under the same names."""
+    """{name: np.ndarray} of a whole GPT, LLaMA or BERT -> rank ``rank``'s
+    shards of a ``tp``-way tensor-parallel model, under the same
+    names."""
     _check_tp(config, tp)
     return {k: np.ascontiguousarray(_cut(np.asarray(v),
                                          _gpt_layout(k, config), config, tp,
@@ -217,7 +247,7 @@ def shard_state(state, config, tp, rank):
 
 def gather_state(shards, config):
     """The inverse of ``shard_state``: every rank's shards, in rank order
-    -> the whole GPT state."""
+    -> the whole state."""
     _check_tp(config, len(shards))
     return {k: _join([np.asarray(s[k]) for s in shards],
                      _gpt_layout(k, config), config)

@@ -15,10 +15,12 @@ the JAX package calls ``func`` once (:53-57).
 ``auto_parallel`` (``parallelize`` and its plans, ``Strategy``,
 ``to_static`` / ``DistModel``, ``to_distributed``), the launcher
 (``launch``: ``python -m paddle_tpu_torch.distributed.launch``), its TCP
-store (``store.TCPStore``) and ``fleet.elastic`` are the host side of the
-same jobs. The names of later slices raise ``NotImplementedError`` naming
-their ROADMAP item: ``rpc``, the fleet datasets, ``io`` and the entry
-attributes (A5.9).
+store (``store.TCPStore``), ``fleet.elastic`` and ``rpc`` are the host
+side of the same jobs. ``utils`` holds MoE's ``global_scatter`` /
+``global_gather``; ``auto_tuner`` the hybrid-parallel tuner; the fleet
+datasets (``InMemoryDataset``, ``QueueDataset``), the sparse-table entry
+records and ``io`` (``save_persistables`` / ``load_persistables``) are
+JAX's, as they are.
 """
 from __future__ import annotations
 
@@ -73,24 +75,11 @@ from .auto_parallel import (  # noqa: F401,E402
 from . import launch, store  # noqa: F401,E402
 from .store import TCPStore  # noqa: F401,E402
 
-# name -> the ROADMAP item (A5.n) that ports it
-_LATER = {
-    "InMemoryDataset": "A5.9 (fleet_dataset.py)",
-    "QueueDataset": "A5.9 (fleet_dataset.py)",
-    "CountFilterEntry": "A5.9 (entry_attr.py)",
-    "ProbabilityEntry": "A5.9 (entry_attr.py)",
-    "ShowClickEntry": "A5.9 (entry_attr.py)",
-    "io": "A5.9 (io.py)",
-    "rpc": "A5.9 (rpc/)",
-}
-
-
-def __getattr__(name):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"distributed.{name} is a later slice of the port (ROADMAP "
-            f"{_LATER[name]})")
-    raise AttributeError(name)
+from . import auto_tuner, io, rpc, utils  # noqa: F401,E402
+from .entry_attr import (  # noqa: F401,E402
+    CountFilterEntry, ProbabilityEntry, ShowClickEntry,
+)
+from .fleet_dataset import InMemoryDataset, QueueDataset  # noqa: F401,E402
 
 
 def _free_port():

@@ -15,7 +15,10 @@ model-parallel group, the ZeRO stage's group and the pipe group in turn
 (orthogonal axes: the sum over their product). A gradient replicated
 along one of them counts on that group's first rank only; a shared
 (tied) weight's copy on a later stage does not count
-(``_pp_shared_copy``).
+(``_pp_shared_copy``). Expert parameters of an expert-parallel MoE layer
+(``_ep_group``) are different experts on each rank of that group: their
+squares are summed over it, and every other gradient, the same on each
+of its ranks, counts on its first rank only.
 
 The inner optimizer's clip is replaced by the hybrid one, so a
 ``jit.TrainStep`` (which updates through the inner optimizer) clips the
@@ -60,6 +63,9 @@ class HybridParallelClipGrad(ClipGradBase):
             return grads
         dev = grads[0].device
         mp, zero = _live(self.group), _live(self.zero_group)
+        ep = _live(next((getattr(p, "_ep_group", None) for p in params
+                         if getattr(p, "_ep_group", None) is not None),
+                        None))
         total = torch.zeros((), dtype=torch.float32, device=dev)
         for p, g in zip(params, grads):
             if getattr(p, "_pp_shared_copy", False):
@@ -69,8 +75,11 @@ class HybridParallelClipGrad(ClipGradBase):
             if (zero is not None and not getattr(p, "_zero_sliced", False)
                     and zero.rank != 0):
                 continue
+            if (ep is not None and getattr(p, "_ep_group", None) is None
+                    and ep.rank != 0):
+                continue
             total = total + g.float().square().sum()
-        for grp in (mp, zero, _live(self.pp_group)):
+        for grp in (mp, zero, _live(self.pp_group), ep):
             if grp is not None:
                 _all_reduce_(total, "sum", grp)
         gnorm = torch.sqrt(total)

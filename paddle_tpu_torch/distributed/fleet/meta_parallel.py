@@ -172,7 +172,10 @@ class ColumnParallelLinear(_Linear):
 
 class RowParallelLinear(_Linear):
     """y = sum over ranks of x_r @ W_r (+ b), W [in / n, out] the rank's
-    rows; the bias is replicated and added after the sum."""
+    rows; the bias is replicated and added after the sum.
+    ``_pre_reduce_hooks`` ({key: fn(layer, x_r, partial) -> partial}) act
+    on the rank's partial product before the sum (a LoRA delta of the
+    rank's rows of A)."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
                  has_bias=True, input_is_parallel=False,
@@ -182,12 +185,15 @@ class RowParallelLinear(_Linear):
         super().__init__(in_features, out_features, has_bias, group, 0,
                          device, dtype)
         self.input_is_parallel = input_is_parallel
+        self._pre_reduce_hooks = {}
 
     def forward(self, x):
         if self.group is not None and not self.input_is_parallel:
             x = split_last(x, self.group)
         x, w, b = _amp_cast("linear", x, self.weight, self.bias)
         out = x @ w
+        for hook in list(self._pre_reduce_hooks.values()):
+            out = hook(self, x, out)
         if self.group is not None:
             out = allreduce_identity(out, self.group)
         return out + b if b is not None else out
@@ -275,7 +281,9 @@ def _broadcast_all(model, group):
         return
     with torch.no_grad():
         for p in list(model.parameters()) + list(model.buffers()):
-            broadcast(p.data, src=group.ranks[0], group=group)
+            # an expert's copies are on the ranks holding its experts
+            g = getattr(p, "_expert_group", None) or group
+            broadcast(p.data, src=g.ranks[0], group=g)
 
 
 class TensorParallel(GradientSync):

@@ -7,6 +7,8 @@ collectives, each rank of the port holds its shard and calls these
 
 * ``identity_allreduce`` (Paddle ``_c_identity``): identity forward,
   all-reduce of the gradient (the input of a column-parallel product);
+* ``allreduce_sum``: all-reduce forward and backward (a sum every rank's
+  loss reads, such as MoE's balance statistics);
 * ``allreduce_identity`` (``_mp_allreduce``): all-reduce forward, identity
   backward (the output of a row-parallel product, the embedding lookup);
 * ``gather_last`` / ``split_last`` (``_c_concat`` / ``_c_split``): the
@@ -31,8 +33,8 @@ from ..collective import (
 )
 
 __all__ = ["mp_group", "identity_allreduce", "allreduce_identity",
-           "gather_last", "split_last", "gather_dim", "reduce_scatter_dim",
-           "scatter_dim", "require_single_device"]
+           "allreduce_sum", "gather_last", "split_last", "gather_dim",
+           "reduce_scatter_dim", "scatter_dim"]
 
 
 def mp_group(group=None):
@@ -53,16 +55,6 @@ def mp_group(group=None):
     if group is None or group.nranks <= 1:
         return None
     return group
-
-
-def require_single_device(what):
-    """Raise when a model-parallel group is in force: tensor parallelism
-    is ported for GPT only, and ``what``'s attention does not know its
-    layers would be sharded."""
-    if mp_group() is not None:
-        raise NotImplementedError(
-            f"{what} under tensor parallelism is a later slice of the port "
-            f"(ROADMAP A5.10); GPT is the tensor-parallel model")
 
 
 def _chunk(v, dim, g):
@@ -98,6 +90,17 @@ class _AllReduceIdentity(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return _reduced(x, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduced(grad, ctx.g), None
 
 
 class _GatherDim(torch.autograd.Function):
@@ -142,6 +145,12 @@ def identity_allreduce(x, g):
 
 def allreduce_identity(x, g):
     return _AllReduceIdentity.apply(x, g)
+
+
+def allreduce_sum(x, g):
+    """The sum over the group, whose gradient is the sum of every rank's
+    gradients: each rank's loss reads the same total."""
+    return _AllReduceSum.apply(x, g)
 
 
 def gather_last(x, g):

@@ -29,10 +29,19 @@ model-parallel group the gradients of parameters marked
 The gradients of parameters a ZeRO stage averages over the same group
 (``sharding.owns``) are left to the stage: each axis has one sync.
 
+An expert parameter of an expert-parallel ``MoELayer`` (it carries
+``_expert_group``: the ranks that hold the same experts) is scaled like
+the others and summed over that group only: each rank's experts saw the
+tokens its expert group routed to them, and the ranks outside the group
+hold other experts. Summing it over the whole group would add other
+experts' gradients to it.
+
 Parameters and buffers are broadcast from the group's first rank when the
-model is wrapped. ``no_sync`` skips the all-reduce (gradients accumulate
-locally until a backward outside it, or ``apply_collective_grads``);
-``scale_loss`` is the identity: the all-reduce already averages.
+model is wrapped (an expert parameter from its expert group's first), and
+the model's ``SyncBatchNorm`` layers without a group take this one.
+``no_sync`` skips the all-reduce (gradients accumulate locally until a
+backward outside it, or ``apply_collective_grads``); ``scale_loss`` is
+the identity: the all-reduce already averages.
 """
 from __future__ import annotations
 
@@ -136,15 +145,28 @@ class GradientSync(Layer):
         g = self.group
         if g is not None:
             # a ZeRO stage averages its parameters over this group itself
-            grads = [p.grad for p in params if not owns(p, g)]
-        if g is not None and grads:
+            mine = [p for p in params if not owns(p, g)]
+            grads = [p.grad for p in mine
+                     if getattr(p, "_expert_group", None) is None]
+            experts = {}
+            for p in mine:
+                eg = getattr(p, "_expert_group", None)
+                if eg is not None:
+                    experts.setdefault(id(eg), (eg, []))[1].append(p.grad)
+        if g is not None and (grads or experts):
             if g.nranks > 1:
+                first = (grads or next(iter(experts.values()))[1])[0]
                 b = torch.full((), float(self._local_batch or 1),
-                               dtype=torch.float32, device=grads[0].device)
+                               dtype=torch.float32, device=first.device)
                 total = b.clone()
                 _all_reduce_(total, "sum", g)
-                torch._foreach_mul_(grads, b / total)
-            _all_reduce_coalesced_(grads, g)
+                torch._foreach_mul_(
+                    grads + [t for _, ts in experts.values() for t in ts],
+                    b / total)
+            if grads:
+                _all_reduce_coalesced_(grads, g)
+            for eg, ts in experts.values():
+                _all_reduce_coalesced_(ts, eg)
         self._pending = False
         self.syncs += 1
 
@@ -179,7 +201,14 @@ class DataParallel(GradientSync):
                  group=None):
         super().__init__(layers, _get_group(group))
         self.find_unused_parameters = find_unused_parameters
+        from ..nn.layer_conv_norm import SyncBatchNorm
+
+        for m in torch.nn.Module.modules(layers):
+            if isinstance(m, SyncBatchNorm) and m._group is None:
+                m._group = self.group
         with torch.no_grad():
             for t in list(self._grad_params()) + list(
                     torch.nn.Module.buffers(layers)):
-                broadcast(t, src=self.group.ranks[0], group=self.group)
+                # an expert's copies are on the ranks holding its experts
+                g = getattr(t, "_expert_group", None) or self.group
+                broadcast(t, src=g.ranks[0], group=g)

@@ -81,11 +81,24 @@ def topk_capacity_routing_indices(probs, k: int, capacity: int,
             top1)
 
 
-def load_balance_loss(probs, top1_onehot):
+def load_balance_loss(probs, top1_onehot, group=None):
     """GShard's aux loss: E * sum_e mean_prob_e * mean_top1_frac_e (also
-    Switch's N * sum(f_i * P_i))."""
+    Switch's N * sum(f_i * P_i)). Over a ``group`` of more than one rank
+    the means are over every rank's tokens: the per-expert sums and the
+    token count go into one all-reduce of a [2, E + 1] tensor, whose
+    gradient is summed back over the group (each rank's loss reads it)."""
     E = probs.shape[1]
-    return E * (probs.mean(dim=0) * top1_onehot.mean(dim=0)).sum()
+    if group is None or group.nranks <= 1:
+        return E * (probs.mean(dim=0) * top1_onehot.mean(dim=0)).sum()
+    from ......distributed.fleet.mp_ops import allreduce_sum
+
+    count = probs.new_full((2, 1), probs.shape[0])
+    stats = allreduce_sum(torch.cat([
+        torch.stack([probs.sum(dim=0), top1_onehot.sum(dim=0)]), count],
+        dim=1), group)
+    me = stats[0, :E] / stats[0, E]
+    ce = stats[1, :E] / stats[1, E]
+    return E * (me * ce).sum()
 
 
 class BaseGate(Layer):
@@ -95,6 +108,9 @@ class BaseGate(Layer):
         self.num_expert = num_expert
         self.tot_expert = world_size * num_expert
         self.loss = None
+        # the group whose tokens the balance statistics cover (set by an
+        # expert-parallel MoELayer)
+        self._stats_group = None
 
     def get_loss(self, clear=True):
         loss = self.loss
@@ -124,7 +140,8 @@ class NaiveGate(BaseGate):
         probs = torch.softmax(logits.float(), dim=-1)
         combine, dispatch, top1 = topk_capacity_routing(probs, self.top_k,
                                                         capacity)
-        return combine, dispatch, load_balance_loss(probs, top1)
+        return combine, dispatch, load_balance_loss(probs, top1,
+                                                    self._stats_group)
 
     def route_indices(self, logits, capacity):
         """(eids, locs, keeps, gvals) [k, T] and the aux loss: the
@@ -132,7 +149,8 @@ class NaiveGate(BaseGate):
         probs = torch.softmax(logits.float(), dim=-1)
         eids, locs, keeps, gvals, top1 = topk_capacity_routing_indices(
             probs, self.top_k, capacity)
-        return eids, locs, keeps, gvals, load_balance_loss(probs, top1)
+        return eids, locs, keeps, gvals, load_balance_loss(
+            probs, top1, self._stats_group)
 
 
 class GShardGate(NaiveGate):

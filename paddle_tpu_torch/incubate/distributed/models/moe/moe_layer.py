@@ -18,16 +18,38 @@ Uniform experts (one parameter layout) run as one batched call over their
 stacked parameters (``torch.func.vmap`` of ``torch.func.functional_call``
 of the first expert); others one by one. ``recompute_interval`` > 0 puts
 the experts under ``distributed.fleet.recompute``. Capacity is
-``min(gate.capacity_for(T), T)``; dropped tokens give zero rows; the
-balance loss is ``l_aux`` and ``gate.set_loss``'s, and a ``jit.TrainStep``
-adds a fresh ``l_aux`` to the objective, as JAX's does. The port has no
-device mesh yet (ROADMAP item 5): the layer runs on one device, as JAX's
-does without a mesh, and ``moe_group`` / ``mp_group`` raise.
+``min(gate.capacity_for(T), T)`` with T this rank's tokens; dropped
+tokens give zero rows (``dropped`` counts them, on the device); the
+balance loss is ``l_aux`` and ``gate.set_loss``'s, and a
+``jit.TrainStep`` adds a fresh ``l_aux`` to the objective, as JAX's does.
+
+Expert parallelism. The expert axis is ``moe_group=`` (a process group),
+else the global mesh's "ep" or "moe" axis when its size is above 1, as
+JAX finds it (``moe_layer.py:26-34``); it is read when the layer is
+built. Over an expert group of ep ranks, rank j keeps experts
+``[j E / ep, (j + 1) E / ep)`` of the list given (``E % ep`` must be 0).
+A forward routes this rank's tokens, sends the ``[E, C, d]`` dispatch
+buffer through ``distributed.utils.global_scatter`` (rank-major: block j
+holds the rows for rank j's experts), runs the local experts on the
+``[E / ep, ep C, d]`` rows that arrive, returns them through
+``global_gather`` and combines as on one device. The capacity is per
+source rank, the layout of JAX's ``global_scatter``. The gate's balance
+statistics are taken over the routing group (the mesh's ranks, or
+``moe_group``): its per-expert sums and token count are all-reduced
+before the product, so ``l_aux`` is JAX's whole-batch value. Each local
+expert parameter carries ``_expert_group``, the ranks that hold the same
+experts (the mesh's other axes at this rank's ep coordinate), and
+``_ep_group``: ``parallel.GradientSync`` sums its gradient over
+``_expert_group`` only, and the hybrid clip adds its square once across
+``_ep_group``. ``mp_group=`` is accepted and never read by JAX; the port
+raises when it is given (ROADMAP C, arguments JAX does not read).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .....distributed.utils.moe_utils import global_gather, global_scatter
 from .....nn.layer import Layer
 from .....nn.layer_common import LayerList
 from .....ops import apply_like
@@ -46,27 +68,39 @@ class MoELayer(Layer):
                  mp_group=None, recompute_interval=0, dispatch_mode=None,
                  **kwargs):
         super().__init__()
-        if moe_group is not None or mp_group is not None:
+        if mp_group is not None:
             raise NotImplementedError(
-                "MoELayer(moe_group= / mp_group=): expert and model "
-                "parallelism need the device mesh of ROADMAP item 5; the "
-                "layer runs on one device")
+                "MoELayer(mp_group=): JAX accepts it and never reads it; "
+                "the port raises rather than ignore it (ROADMAP C)")
         if dispatch_mode not in (None, "index", "dense"):
             raise ValueError(f"dispatch_mode must be None, 'index' or "
                              f"'dense', got {dispatch_mode!r}")
         self.d_model = d_model
-        self.experts = (experts if isinstance(experts, LayerList)
-                        else LayerList(experts))
+        experts = list(experts)
+        self.num_expert = len(experts)
+        self.ep_group, stats_group, expert_group = _expert_groups(
+            moe_group, self.num_expert)
+        if self.ep_group is not None:
+            n = self.num_expert // self.ep_group.nranks
+            lo = self.ep_group.rank * n
+            experts = experts[lo:lo + n]
+        self.experts = LayerList(experts)
+        if self.ep_group is not None:
+            for e in self.experts:
+                for p in torch.nn.Module.parameters(e):
+                    p._expert_group = expert_group
+                    p._ep_group = self.ep_group
         if gate is None:
             gate = "gshard"
         if isinstance(gate, dict):
             gate = gate.get("type", "gshard")
         if isinstance(gate, str):
             gate = {"gshard": GShardGate, "switch": SwitchGate,
-                    "naive": NaiveGate}[gate](d_model, len(self.experts))
+                    "naive": NaiveGate}[gate](d_model, self.num_expert)
         if not isinstance(gate, BaseGate):
             raise TypeError(f"gate must be a BaseGate, got {type(gate)}")
         self.gate = gate
+        gate._stats_group = stats_group
         has_indices = hasattr(gate, "route_indices")
         if dispatch_mode == "index" and not has_indices:
             raise ValueError(
@@ -77,6 +111,7 @@ class MoELayer(Layer):
                                                else "dense")
         self.recompute_interval = recompute_interval
         self.l_aux = None
+        self.dropped = None
         self._uniform = self._check_uniform()
 
     def _param_names(self, expert):
@@ -91,7 +126,8 @@ class MoELayer(Layer):
         return len(layouts) == 1
 
     def _run_experts(self, names, pvals, disp):
-        """[E, C, d] expert outputs for the dispatched rows ``disp``."""
+        """[E_local, rows, d] expert outputs for the dispatched rows
+        ``disp``."""
         E, P = len(self.experts), len(names)
         if self._uniform:
             stacked = {n: torch.stack([pvals[e * P + i] for e in range(E)])
@@ -114,8 +150,9 @@ class MoELayer(Layer):
         T = 1
         for s in shape[:-1]:
             T *= s
-        E = len(self.experts)
+        E = self.num_expert
         C = min(self.gate.capacity_for(T), T)
+        g = self.ep_group
         names = self._param_names(self.experts[0])
         params = [p for e in self.experts
                   for p in (dict(torch.nn.Module.named_parameters(e))[n]
@@ -136,10 +173,19 @@ class MoELayer(Layer):
                     0, slot.reshape(-1), t_idx.reshape(-1))
                 x_pad = torch.cat([xf, xf.new_zeros(1, d)])
                 disp = x_pad[token_for[:-1]].reshape(E, C, d)
+                self.dropped = (~keeps).sum()
             else:
                 combine, dispatch, l_aux = gate.route(logits, C)
+                self.dropped = gate.top_k * T - dispatch.sum()
                 combine = combine.to(xf.dtype)
                 disp = torch.einsum("tec,td->ecd", dispatch.to(xf.dtype), xf)
+            if g is not None:
+                # block j (rank j's experts) to rank j; [ep, E/ep, C, d]
+                # arrives, each local expert takes its rows of every rank
+                ep = g.nranks
+                recv = global_scatter(disp.reshape(E * C, d), group=g)
+                disp = recv.reshape(ep, E // ep, C, d).transpose(0, 1) \
+                    .reshape(E // ep, ep * C, d)
             if self.recompute_interval > 0:
                 from .....distributed.fleet.recompute import recompute
 
@@ -148,6 +194,11 @@ class MoELayer(Layer):
                                disp, *pvals)
             else:
                 eo = self._run_experts(names, pvals, disp)
+            if g is not None:
+                ep = g.nranks
+                eo = eo.reshape(E // ep, ep, C, d).transpose(0, 1) \
+                    .reshape(E * C, d)
+                eo = global_gather(eo, group=g).reshape(E, C, d)
             if index_mode:
                 eo_pad = torch.cat([eo.reshape(E * C, d).float(),
                                     eo.new_zeros(1, d, dtype=torch.float32)])
@@ -162,3 +213,47 @@ class MoELayer(Layer):
         self.l_aux = l_aux
         gate.set_loss(l_aux)
         return y
+
+
+def _expert_groups(moe_group, num_expert):
+    """(ep group, routing group, expert data group) of a layer of
+    ``num_expert`` experts: ``moe_group`` or the global mesh's "ep" /
+    "moe" axis, the ranks whose tokens the gate's statistics cover, and
+    the ranks that hold the same experts as this one. (None, None, None)
+    without expert parallelism."""
+    from .....distributed import collective, env
+    from .....distributed.mesh import get_mesh
+
+    if moe_group is not None:
+        ep = moe_group.nranks
+        if env.get_world_size() % ep:
+            raise ValueError(f"an expert group of {ep} ranks does not tile "
+                             f"a world of {env.get_world_size()}")
+        ids = np.arange(env.get_world_size()).reshape(-1, ep)
+        if list(ids[env.get_rank() // ep]) != list(moe_group.ranks):
+            raise ValueError(f"moe_group {moe_group.ranks} is not a block "
+                             f"of {ep} consecutive ranks")
+        group, routing = moe_group, moe_group
+    else:
+        mesh = get_mesh()
+        axis = None
+        if mesh is not None and mesh.contains():
+            axis = next((n for n in ("ep", "moe") if n in mesh.dim_names
+                         and mesh.get_dim_size(n) > 1), None)
+        if axis is None:
+            return None, None, None
+        group, ep = mesh.get_group(axis), mesh.get_dim_size(axis)
+        ids = np.moveaxis(mesh.mesh, mesh.dim_names.index(axis),
+                          -1).reshape(-1, ep)
+        routing = (collective._world()
+                   if len(mesh.process_ids) == env.get_world_size()
+                   else collective.new_group(mesh.process_ids))
+    if num_expert % ep:
+        raise ValueError(f"{num_expert} experts do not split over an "
+                         f"expert-parallel group of {ep} ranks")
+    expert_group = None
+    for j in range(ep):             # every rank makes every group
+        grp = collective.new_group([int(r) for r in ids[:, j]])
+        if env.get_rank() in grp.ranks:
+            expert_group = grp
+    return group, routing, expert_group

@@ -236,9 +236,9 @@ def _drop(h, rate, training, mode):
 def _no_ring(ring_id, what):
     if ring_id != -1:
         raise NotImplementedError(
-            f"{what}(ring_id={ring_id}): model-parallel rings are ROADMAP "
-            f"item 5; the JAX package accepts the argument and reads "
-            f"nothing")
+            f"{what}(ring_id={ring_id}): the JAX package accepts the "
+            f"argument and reads nothing; the port raises rather than "
+            f"ignore it (ROADMAP C)")
 
 
 def fused_multi_head_attention(x, qkv_weight, linear_weight,

@@ -39,6 +39,19 @@ unload never races an in-flight request (admission holds a ref until the
 sequence retires).
 
 Fault site: ``lora.load`` (entry of ``register``, before any bank write).
+
+Tensor parallelism: a registry over a rank's model shards holds its cut
+of the bank. ``dims`` and ``register`` speak of the whole projection
+(the factors are the same arrays on every rank); a column-parallel
+target keeps the columns of B its weight holds (per head group for a
+fused ``qkv_proj``, per half for ``gate_up``: the weight's layout,
+``distributed.layout``), a row-parallel one the rows of A, and its
+delta is added to the rank's partial product before the all-reduce
+(``RowParallelLinear``'s ``_pre_reduce_hooks``). Under a lockstep
+scheduler the leader's loads and frees are sent to the followers'
+registries before they are written (``lockstep.LockstepLeader.
+mirrored``), so every rank's bank rows change between the same two step
+calls.
 """
 from __future__ import annotations
 
@@ -74,25 +87,48 @@ def applied(bank, adapter_slots):
         _ACTIVE.reset(token)
 
 
+def _delta(path, x, output):
+    """``output`` plus each slot's ``(x @ A) @ B`` under ``applied``; None
+    (no change) outside it."""
+    active = _ACTIVE.get()
+    if active is None:
+        return None
+    bank, aidx = active
+    a = bank["a"][path].index_select(0, aidx)     # [S, in, r_max]
+    b = bank["b"][path].index_select(0, aidx)     # [S, r_max, out]
+    S = x.shape[0]
+    d = torch.bmm(x.reshape(S, -1, x.shape[-1]), a.to(x.dtype))
+    d = torch.bmm(d, b.to(x.dtype))
+    return output + d.reshape(*output.shape[:-1], -1).to(output.dtype)
+
+
 def _delta_hook(path):
     """Forward hook of one target projection: gather each slot's factors
-    and add ``(x @ A) @ B`` to the output; None (no change) outside
-    ``applied``."""
+    and add ``(x @ A) @ B`` to the output."""
 
     def hook(module, inputs, output):
-        active = _ACTIVE.get()
-        if active is None:
-            return None
-        bank, aidx = active
-        x = inputs[0]
-        a = bank["a"][path].index_select(0, aidx)     # [S, in, r_max]
-        b = bank["b"][path].index_select(0, aidx)     # [S, r_max, out]
-        S = x.shape[0]
-        d = torch.bmm(x.reshape(S, -1, x.shape[-1]), a.to(x.dtype))
-        d = torch.bmm(d, b.to(x.dtype))
-        return output + d.reshape(*output.shape[:-1], -1).to(output.dtype)
+        return _delta(path, inputs[0], output)
 
     return hook
+
+
+def _pre_reduce_hook(path):
+    """The same delta for a row-parallel target: added to the rank's
+    partial product (its rows of A) before the all-reduce sums them."""
+
+    def hook(module, x, partial):
+        out = _delta(path, x, partial)
+        return partial if out is None else out
+
+    return hook
+
+
+class _Removable:
+    def __init__(self, hooks, key):
+        self._hooks, self._key = hooks, key
+
+    def remove(self):
+        self._hooks.pop(self._key, None)
 
 
 class _Slot:
@@ -133,27 +169,40 @@ class AdapterRegistry:
         self.device = torch.device(model.device)
         self.uid = next(_UIDS)
         self._uid = itertools.count(1)
+        from ..distributed.layout import layout_of
+
         root = model._decode_layer()
-        self._dims = {}                              # path -> (in, out)
+        self._dims = {}                  # path -> whole (in, out)
+        self._pieces = {}                # path -> the weight's layout
+        local = {}                       # path -> this rank's (in, out)
         self._hooks = []
+        self._lockstep = None            # a LockstepLeader under TP
         for path, layer in torch.nn.Module.named_modules(root):
             if not path or path.split(".")[-1] not in targets:
                 continue
             w = getattr(layer, "weight", None)
             if not isinstance(w, torch.Tensor) or w.dim() != 2:
                 continue
-            in_f, out_f = int(w.shape[0]), int(w.shape[1])
-            self._dims[path] = (in_f, out_f)
-            self._hooks.append(torch.nn.Module.register_forward_hook(
-                layer, _delta_hook(path)))
+            shape, pieces = layout_of(w)
+            self._dims[path] = (int(shape[0]), int(shape[1]))
+            self._pieces[path] = pieces
+            local[path] = (int(w.shape[0]), int(w.shape[1]))
+            pre = getattr(layer, "_pre_reduce_hooks", None)
+            if pre is not None and getattr(layer, "group", None) is not None:
+                key = object()
+                pre[key] = _pre_reduce_hook(path)
+                self._hooks.append(_Removable(pre, key))
+            else:
+                self._hooks.append(torch.nn.Module.register_forward_hook(
+                    layer, _delta_hook(path)))
         if not self._dims:
             raise ValueError(
                 f"no LoRA targets matched {targets!r} in the model")
         kw = dict(dtype=self._dtype, device=self.device)
         self._a = {p: torch.zeros((self._rows, i, self._r_max), **kw)
-                   for p, (i, o) in self._dims.items()}
+                   for p, (i, o) in local.items()}
         self._b = {p: torch.zeros((self._rows, self._r_max, o), **kw)
-                   for p, (i, o) in self._dims.items()}
+                   for p, (i, o) in local.items()}
         self._bank = {"a": self._a, "b": self._b}
         self._names = {}                             # name -> bank row
         self._slots = [None] * self._rows            # row -> _Slot | None
@@ -178,8 +227,20 @@ class AdapterRegistry:
         return tuple(sorted(self._dims))
 
     def dims(self, path):
-        """``(in_features, out_features)`` of a target path."""
+        """``(in_features, out_features)`` of a target path (of the whole
+        projection under tensor parallelism)."""
         return self._dims[path]
+
+    def _cut(self, path, a, b):
+        """This rank's rows of A and columns of B: the weight's pieces."""
+        a_loc = np.zeros((self._a[path].shape[1], a.shape[1]), np.float32)
+        b_loc = np.zeros((b.shape[0], self._b[path].shape[2]), np.float32)
+        for sl, off in self._pieces[path]:
+            n0 = sl[0].stop - sl[0].start
+            n1 = sl[1].stop - sl[1].start
+            a_loc[sl[0]] = a[off[0]:off[0] + n0]
+            b_loc[:, sl[1]] = b[:, off[1]:off[1] + n1]
+        return a_loc, b_loc
 
     # ------------------------------------------------------------ lifecycle
     def _resolve(self, key):
@@ -204,10 +265,10 @@ class AdapterRegistry:
         """Load an adapter into a free bank row; returns the row.
 
         ``weights`` maps target path (or unique suffix) to an ``(A, B)``
-        pair, A ``[in, r]`` and B ``[r, out]``, r <= max_rank; ``alpha /
-        r`` is folded into B here. Untouched targets keep zero factors. The
-        rows are written in place and the device synchronised before this
-        returns."""
+        pair, A ``[in, r]`` and B ``[r, out]`` (the whole projection's),
+        r <= max_rank; ``alpha / r`` is folded into B here. Untouched
+        targets keep zero factors. The rows are written in place and the
+        device synchronised before this returns."""
         if self._faults is not None:
             self._faults.check("lora.load")
         if not weights:
@@ -244,18 +305,46 @@ class AdapterRegistry:
                     "unregister one first or size max_adapters up")
             uid = next(self._uid)
             seed = f"lora:{name}:{uid}".encode()
-            with torch.no_grad():
-                for path, (a, b, r) in resolved.items():
-                    a_pad = np.zeros(self._a[path].shape[1:], np.float32)
-                    b_pad = np.zeros(self._b[path].shape[1:], np.float32)
-                    a_pad[:, :r] = a
-                    b_pad[:r, :] = b
-                    self._a[path][row].copy_(torch.from_numpy(a_pad))
-                    self._b[path][row].copy_(torch.from_numpy(b_pad))
-            self._sync()
+            if self._lockstep is not None:
+                self._lockstep.mirrored("adapters.register",
+                                        (name, weights, alpha, row),
+                                        lambda: self._write(resolved, row))
+            else:
+                self._write(resolved, row)
             self._slots[row] = _Slot(name, seed)
             self._names[name] = row
             return row
+
+    def _write(self, resolved, row):
+        with torch.no_grad():
+            for path, (a, b, r) in resolved.items():
+                a, b = self._cut(path, a, b)
+                a_pad = np.zeros(self._a[path].shape[1:], np.float32)
+                b_pad = np.zeros(self._b[path].shape[1:], np.float32)
+                a_pad[:, :r] = a
+                b_pad[:r, :] = b
+                self._a[path][row].copy_(torch.from_numpy(a_pad))
+                self._b[path][row].copy_(torch.from_numpy(b_pad))
+        self._sync()
+
+    def _mirror_register(self, name, weights, alpha, row):
+        """A follower's side of the leader's ``register``: the same row."""
+        with self._lock:
+            if self._slots[row] is not None or name in self._names:
+                raise RuntimeError(f"adapter row {row} / {name!r} out of "
+                                   "step with the leader's registry")
+            got = self.register(name, weights, alpha)
+            if got != row:
+                raise RuntimeError(f"adapter {name!r} took row {got}, the "
+                                   f"leader's {row}")
+
+    def _mirror_free(self, row):
+        """A follower's side of the leader's free of ``row``."""
+        with self._lock:
+            slot = self._slots[row]
+            if slot is not None:
+                self._names.pop(slot.name, None)
+            self._free_rows(row)
 
     def unregister(self, name):
         """Unmap ``name`` now; free its row when in-flight refs drain (new
@@ -273,6 +362,14 @@ class AdapterRegistry:
             return row
 
     def _free(self, row):
+        with self._lock:
+            if self._lockstep is not None:
+                self._lockstep.mirrored("adapters.free", (row,),
+                                        lambda: self._free_rows(row))
+            else:
+                self._free_rows(row)
+
+    def _free_rows(self, row):
         # zeroed: a freed row is an identity until reused
         with self._lock:
             with torch.no_grad():

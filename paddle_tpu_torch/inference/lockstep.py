@@ -20,6 +20,14 @@ draws from the same uniforms (the seed rides the call), so every rank
 picks the same token. ``stop()`` ends the followers; an idle leader sends
 a keepalive every ``KEEPALIVE_S`` so a follower's wait never reaches the
 group's collective timeout.
+
+The self-drafter's dense ``generate`` calls are step calls too, so a
+speculative scheduler drafts in lockstep. LoRA: each rank's
+``AdapterRegistry`` holds its cut of the bank; a step call's registry
+rides as a marker (each rank passes its own) beside the adapter slots,
+and the leader's registry sends its loads and frees through
+``mirrored`` before it writes them, so every follower's bank rows change
+between the same two step calls as the leader's.
 """
 from __future__ import annotations
 
@@ -32,22 +40,25 @@ __all__ = ["LockstepLeader", "follow", "STEP_CALLS", "KEEPALIVE_S"]
 
 # the model calls the continuous scheduler (and its warmup) makes that
 # run a forward on the device
-STEP_CALLS = ("prefill_chunk", "decode_step", "verify_step")
+STEP_CALLS = ("prefill_chunk", "decode_step", "verify_step", "generate")
 KEEPALIVE_S = 1.0
 _POOL = "<the rank's own pool>"
+_ADAPTERS = "<the rank's own adapter registry>"
 _NOOP = "noop"
 
 
 def _portable(args, kwargs):
-    """The call's arguments as the other ranks can take them: the pool
-    replaced by a marker (each rank passes its own), the host timing hook
-    dropped."""
-    mark = lambda v: _POOL if isinstance(v, PagedKVCache) else v  # noqa
+    """The call's arguments as the other ranks can take them: the pool and
+    the adapter registry replaced by markers (each rank passes its own),
+    the host timing hook dropped."""
+    from .adapters import AdapterRegistry
+
+    def mark(v):
+        if isinstance(v, PagedKVCache):
+            return _POOL
+        return _ADAPTERS if isinstance(v, AdapterRegistry) else v
+
     kw = {k: mark(v) for k, v in kwargs.items() if k != "timing_hook"}
-    if kw.get("adapters") is not None:
-        raise NotImplementedError(
-            "LoRA adapters under tensor parallelism are a later slice of "
-            "the port (ROADMAP A5.10)")
     return tuple(mark(a) for a in args), kw
 
 
@@ -80,6 +91,17 @@ class LockstepLeader:
                 return attr(*args, **kwargs)
         return call
 
+    def mirrored(self, name, args, fn):
+        """Send ``(name, args)`` to the followers, then run ``fn()`` here,
+        with no step call between the two (an adapter registry's load or
+        free: the followers apply it in the same place of the call
+        stream)."""
+        with self._lock:
+            if self._stopped.is_set():
+                raise RuntimeError("the tensor-parallel group stopped")
+            self._send((name, args, {}))
+            return fn()
+
     def _send(self, msg):
         broadcast_object_list([msg], src=self._group.ranks[0],
                               group=self._group)
@@ -104,11 +126,12 @@ class LockstepLeader:
         self._keepalive.join(timeout=10)
 
 
-def follow(model, kv_cache, group):
+def follow(model, kv_cache, group, adapters=None):
     """A follower rank's loop: run every call rank 0 sends on this rank's
-    ``model`` and ``kv_cache`` until it sends the stop. Returns the number
-    of step programs run."""
+    ``model``, ``kv_cache`` and ``adapters`` (its ``AdapterRegistry``)
+    until it sends the stop. Returns the number of step programs run."""
     runs = 0
+    mine = {_POOL: kv_cache, _ADAPTERS: adapters}
     while True:
         box = [None]
         broadcast_object_list(box, src=group.ranks[0], group=group)
@@ -118,7 +141,10 @@ def follow(model, kv_cache, group):
         if msg == _NOOP:
             continue
         name, args, kwargs = msg
-        own = (lambda v: kv_cache if isinstance(v, str) and v == _POOL
+        if name.startswith("adapters."):
+            getattr(adapters, "_mirror_" + name.split(".", 1)[1])(*args)
+            continue
+        own = (lambda v: mine[v] if isinstance(v, str) and v in mine
                else v)
         getattr(model, name)(*(own(a) for a in args),
                              **{k: own(v) for k, v in kwargs.items()})

@@ -256,8 +256,10 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
     every rank of the group, in lockstep (``inference.lockstep``): rank 0
     admits, schedules and sends each step-program call to the others,
     whose predictors only follow (``infer`` raises there). Close rank 0's
-    first or together: its close ends the followers. Adapters and the
-    self-drafter are not ported under tensor parallelism.
+    first or together: its close ends the followers. Every rank passes its
+    own ``AdapterRegistry`` over its model shards (rank 0's loads and
+    unloads reach the others in lockstep), and the self-drafter's calls
+    go through the lockstep like every step call.
     """
 
     _component = "continuous"
@@ -292,14 +294,11 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
                 "(analysis/hbm.py plan_kv_pool; ROADMAP A6)")
         self.tp_group = model._tp()
         self._follower = self.tp_group is not None and self.tp_group.rank
-        if self.tp_group is not None:
-            if adapters is not None or (int(spec_k) > 0
-                                        and drafter == "self"):
-                raise NotImplementedError(
-                    "adapters and the self-drafter under tensor "
-                    "parallelism are a later slice of the port (ROADMAP A5.10)")
-            if not self._follower:
-                model = LockstepLeader(model, self.tp_group)
+        if self.tp_group is not None and not self._follower:
+            model = LockstepLeader(model, self.tp_group)
+            if adapters is not None:
+                # loads and frees reach the followers' registries
+                adapters._lockstep = model
         self.max_slots = int(max_slots)
         self.prefill_chunk = int(prefill_chunk)
         self.prefill_token_budget = int(prefill_token_budget
@@ -316,6 +315,11 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
             raise ValueError("spec_k must be >= 0")
         self._drafter = (make_drafter(drafter, model) if self.spec_k > 0
                          else None)
+        if (isinstance(model, LockstepLeader)
+                and getattr(self._drafter, "model", None) is model._model):
+            # a self-drafter given over the tensor-parallel model drafts
+            # through the lockstep too
+            self._drafter.model = model
         if admit_policy not in ("fifo", "shortest_prompt_first"):
             raise ValueError(f"unknown admit_policy {admit_policy!r} "
                              "(fifo | shortest_prompt_first)")
@@ -840,7 +844,7 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
     def _loop(self):
         if self._follower:      # a tensor-parallel rank other than 0
             self.follower_runs = follow(self.model, self.kv_cache,
-                                        self.tp_group)
+                                        self.tp_group, self.adapters)
             return
         # ready gate: no tick runs (and so no step program can
         # cold-build under traffic) until the aot-warmup thread finished.

@@ -1351,6 +1351,193 @@ class _Replica:
         self.state = "ready"
 
 
+# ------------------------------------------ replicas led by other processes
+# name -> the continuous scheduler this process leads, for the fleet's
+# router to reach through ``distributed.rpc``; answers of submitted
+# requests by ticket; the replicas closed by the router
+_LED: dict = {}
+_ANSWERS: dict = {}
+_CLOSED: dict = {}
+_ANSWERS_LOCK = threading.Lock()
+_ERRORS = {"ServiceUnavailable": ServiceUnavailable,
+           "ServerBusy": ServerBusy, "DeadlineExceeded": DeadlineExceeded,
+           "ValueError": ValueError}
+
+
+def _portable_error(e):
+    """An exception as (kind, message, retry_after, permanent): the
+    serving errors rebuilt on the router with their fields."""
+    return (type(e).__name__, str(e), getattr(e, "retry_after", None),
+            getattr(e, "permanent", False))
+
+
+def _rebuilt_error(kind, msg, retry_after, permanent):
+    cls = _ERRORS.get(kind, RuntimeError)
+    if cls is ServiceUnavailable:
+        return cls(msg, retry_after=retry_after, permanent=permanent)
+    if cls is ServerBusy:
+        return cls(msg, retry_after=retry_after)
+    return cls(msg if cls is not RuntimeError else f"{kind}: {msg}")
+
+
+def _replica_op(name, op, args, kwargs):
+    """Run on the process that leads replica ``name`` (through rpc). A
+    replica its router closed reads as dead, and closes again as a
+    no-op."""
+    pred = _LED.get(name)
+    if pred is None:
+        if op == "close":
+            return None
+        if op == "state":
+            return {"pending": 0, "ready": False, "breaker": "closed",
+                    "dead": True}
+        raise ServiceUnavailable(f"replica {name} is closed",
+                                 retry_after=None, permanent=True)
+    if op == "state":
+        return {"pending": pred.pending(), "ready": pred.ready(),
+                "breaker": pred.breaker.state, "dead": pred._sup.dead()}
+    if op == "pool":
+        kv = pred.kv_cache
+        return {"per_rank": kv.per_chip_pool_bytes(),
+                "logical": kv.pool_bytes(), "tp_sharded": kv.tp_sharded}
+    if op == "submit":
+        ticket = new_trace_id()
+        done = threading.Event()
+        with _ANSWERS_LOCK:
+            _ANSWERS[ticket] = [done, None]
+
+        def run():
+            try:
+                box = ("ok", np.asarray(pred.infer(*args, **kwargs)))
+            except Exception as e:      # answered on the router
+                box = ("err", _portable_error(e))
+            _ANSWERS[ticket][1] = box
+            done.set()
+
+        threading.Thread(target=run, name=f"fleet-{name}-{ticket[:8]}",
+                         daemon=True).start()
+        return ticket
+    if op == "take":
+        done, _ = _ANSWERS[args[0]]
+        if not done.wait(0.05):
+            return ("pending",)
+        with _ANSWERS_LOCK:
+            return _ANSWERS.pop(args[0])[1]
+    if op == "close":
+        pred.close()
+        _CLOSED[name].set()
+        return None
+    return getattr(pred, op)(*args, **kwargs)
+
+
+class _RemoteState:
+    """The routing reads of a remote replica (``breaker.state``,
+    ``_sup.dead()``), each one rpc round trip."""
+
+    def __init__(self, proxy):
+        self._proxy = proxy
+
+    @property
+    def state(self):
+        return self._proxy._call("state")["breaker"]
+
+    def dead(self):
+        return self._proxy._call("state")["dead"]
+
+
+class _RemotePool:
+    def __init__(self, proxy):
+        self._proxy = proxy
+
+    def per_chip_pool_bytes(self):
+        return self._proxy._call("pool")["per_rank"]
+
+    def pool_bytes(self):
+        return self._proxy._call("pool")["logical"]
+
+    @property
+    def tp_sharded(self):
+        return self._proxy._call("pool")["tp_sharded"]
+
+
+class _RemoteReplica:
+    """Stands for a replica whose tensor-parallel group another process
+    leads: the scheduler calls the router makes (``infer``, ``pending``,
+    ``ready``, the breaker and supervisor reads, ``drain``, ``close``)
+    over ``distributed.rpc`` to that leader. A request is submitted, then
+    its answer polled, so the leader's rpc agent stays free for the
+    router's other reads while the request runs there."""
+
+    POLL_S = 0.005
+
+    def __init__(self, name, leader_rank, rpc_timeout=300.0):
+        self.name = name
+        self.leader_rank = int(leader_rank)
+        self._timeout = float(rpc_timeout)
+        self.breaker = _RemoteState(self)
+        self._sup = self.breaker
+        self.kv_cache = _RemotePool(self)
+
+    def _call(self, op, *args, **kwargs):
+        from ..distributed import rpc
+
+        return rpc.rpc_sync(self.leader_rank, _replica_op,
+                            args=(self.name, op, args, kwargs),
+                            timeout=self._timeout)
+
+    def pending(self):
+        return self._call("state")["pending"]
+
+    def ready(self):
+        return self._call("state")["ready"]
+
+    def infer(self, ids, timeout=None, deadline=None, trace_id=None, **kw):
+        if deadline is not None:
+            timeout = max(deadline.remaining(), 0.0)
+        ticket = self._call("submit", np.asarray(ids), timeout=timeout,
+                            trace_id=trace_id, **kw)
+        while True:
+            got = self._call("take", ticket)
+            if got[0] == "ok":
+                return got[1]
+            if got[0] == "err":
+                raise _rebuilt_error(*got[1])
+            time.sleep(self.POLL_S)
+
+    def infer_stream(self, ids, **kw):
+        raise NotImplementedError(
+            "streaming from a replica led by another process: the router "
+            "relays whole answers (infer)")
+
+    def drain(self):
+        return self._call("drain")
+
+    def close(self):
+        return self._call("close")
+
+
+def _ensure_rpc():
+    """Start this process's rpc agent over the launcher's store, or over a
+    store rank 0 hosts (its port broadcast over the world) outside a
+    launched job. Returns whether it was started here."""
+    from ..distributed import env, rpc
+    from ..distributed.collective import broadcast_object_list
+    from ..distributed.store import TCPStore
+
+    if rpc._agent is not None:
+        return False
+    rank, world = env.get_rank(), env.get_world_size()
+    store = env.store()
+    if store is None:
+        master = (TCPStore(is_master=True, world_size=world) if rank == 0
+                  else None)
+        box = [master.port if master is not None else None]
+        broadcast_object_list(box, src=0)
+        store = master or TCPStore(port=int(box[0]), world_size=world)
+    rpc.init_rpc(f"worker{rank}", rank=rank, world_size=world, store=store)
+    return True
+
+
 class ReplicaFleet:
     """Least-loaded router over N data-parallel scheduler replicas (JAX
     ``serving.py:1439-1836``).
@@ -1375,6 +1562,18 @@ class ReplicaFleet:
     * ``drain_replica`` stops new dispatches (queued work finishes),
       ``undrain_replica`` reverses it, ``retire_replica`` drains, waits and
       closes.
+
+    Over tensor-parallel groups (``build`` of a model whose ``tp_group``
+    spans fewer ranks than the world, as under ``serving_mesh(dp, tp)``):
+    every rank calls ``build``; replica r is the lockstep group of ranks
+    ``[r tp, (r + 1) tp)``, each rank building its scheduler over its
+    shards. The router lives on global rank 0: replica 0 is its own
+    scheduler, and a replica whose leader is another process is reached
+    through a proxy over ``distributed.rpc`` (``_RemoteReplica``: infer,
+    load and breaker reads, drain / retire and close), with the routing
+    contract unchanged. On the other ranks the fleet only keeps its
+    scheduler serving: ``infer`` raises there, and ``close`` returns once
+    the router has closed the fleet.
 
     Series: ``paddle_fleet_replicas{state}``,
     ``paddle_fleet_dispatch_total{replica,outcome}``, a ``fleet_dispatch``
@@ -1437,6 +1636,14 @@ class ReplicaFleet:
 
         registry = registry if registry is not None else MetricsRegistry()
         tracer = tracer if tracer is not None else Tracer()
+        tp = model._tp() if hasattr(model, "_tp") else None
+        if tp is not None:
+            from ..distributed import env
+
+            if env.get_world_size() > tp.nranks:
+                return cls._build_tp(model, int(n_replicas), tp, registry,
+                                     tracer, admission, replica_kwargs,
+                                     kwargs)
         per = list(replica_kwargs) if replica_kwargs else []
         replicas = []
         for i in range(int(n_replicas)):
@@ -1452,6 +1659,47 @@ class ReplicaFleet:
         fleet.device = model.device
         fleet._model = model
         fleet._replica_kwargs = dict(kwargs)
+        return fleet
+
+    @classmethod
+    def _build_tp(cls, model, n_replicas, tp, registry, tracer, admission,
+                  replica_kwargs, kwargs):
+        """``build`` over tensor-parallel groups (see the class)."""
+        from ..distributed import env
+        from ..distributed.collective import barrier
+        from .scheduler import ContinuousGenerateBatchingPredictor
+
+        n, world, rank = tp.nranks, env.get_world_size(), env.get_rank()
+        if n_replicas * n != world or tp.ranks != list(
+                range(tp.ranks[0], tp.ranks[0] + n)) or tp.ranks[0] % n:
+            raise ValueError(
+                f"{n_replicas} replicas of tensor-parallel groups of {n} "
+                f"ranks must tile the world of {world} in consecutive "
+                f"blocks (this rank's group: {tp.ranks})")
+        started = _ensure_rpc()
+        me = rank // n
+        name = f"r{me}"
+        kw = dict(kwargs)
+        per = list(replica_kwargs) if replica_kwargs else []
+        if me < len(per) and per[me]:
+            kw.update(per[me])
+        pred = ContinuousGenerateBatchingPredictor(
+            model, registry=registry, tracer=tracer, component=name, **kw)
+        leads = rank == tp.ranks[0]
+        if leads:
+            _LED[name] = pred
+            _CLOSED[name] = threading.Event()
+        barrier()                   # every leader reachable
+        if rank == 0:
+            replicas = [_Replica(name, pred)] + [
+                _Replica(f"r{j}", _RemoteReplica(f"r{j}", j * n))
+                for j in range(1, n_replicas)]
+        else:
+            replicas = []
+        fleet = cls(replicas, admission=admission, registry=registry,
+                    tracer=tracer)
+        fleet.device = model.device
+        fleet._member = (name, pred, leads, started)
         return fleet
 
     # ------------------------------------------------------------ membership
@@ -1631,6 +1879,9 @@ class ReplicaFleet:
     def infer(self, ids, timeout=None, deadline=None, trace_id=None, **kw):
         """The continuous scheduler's infer() through the router: ONE
         deadline rides every failover attempt."""
+        if getattr(self, "_member", None) is not None and not self._replicas:
+            raise RuntimeError("the fleet's router is on global rank 0; "
+                               "this rank only serves its replica")
         if deadline is None and timeout is not None:
             deadline = Deadline.after(float(timeout), self._clock)
         tr = RequestTrace(self.tracer, trace_id)
@@ -1695,7 +1946,25 @@ class ReplicaFleet:
             rep.predictor.drain()
 
     def close(self):
+        """Close every replica. Over tensor-parallel groups every rank
+        calls it: the router (rank 0) closes the replicas, the other
+        leaders' through rpc; a follower's returns when its leader closed,
+        a leader's when the router closed it; then the rpc agents stop."""
         self._draining.set()
+        member = getattr(self, "_member", None)
         for rep in self._snapshot():
             rep.predictor.close()
             rep.state = "dead"
+        if member is None:
+            return
+        name, pred, leads, started = member
+        if leads and self._replicas == []:
+            _CLOSED[name].wait()
+        elif not leads:
+            pred.close()
+        _LED.pop(name, None)
+        if started:
+            from ..distributed import rpc
+
+            rpc.shutdown()
+        self._member = None

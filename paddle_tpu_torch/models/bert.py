@@ -12,6 +12,16 @@ the flash kernels on CUDA, and the plain route in training when dropout is
 above 0, as in JAX. ``bert_mlm_mask`` is JAX's host-side 80/10/10 recipe on
 numpy, giving the same arrays for a seed; ``masked_lm_loss`` the mean NLL
 over the masked positions, in f32.
+
+Tensor parallelism follows JAX's layer kinds (``bert.py:78-80``,
+``:115-117``, ``:154``): given a model-parallel group of tp ranks
+(``mp_group=``, else the hybrid group's mp axis; ``fleet.mp_ops``),
+``qkv`` (cut per head group: a rank's columns are its heads' queries,
+keys, then values), ``fc1`` and ``transform`` (its output gathered) are
+column-parallel, ``out`` and ``fc2`` row-parallel, and the word
+embeddings vocabulary-parallel. The tied decoder gives a rank its vocab
+columns of the logits (``gather_logits``); the masked-LM loss gathers
+them first. tp must divide the heads, the MLP width and the vocab.
 """
 from __future__ import annotations
 
@@ -20,11 +30,16 @@ import torch
 from torch import nn
 
 from ..amp import _amp_add, _amp_cast
-from ..distributed.fleet.mp_ops import require_single_device
 from ..distributed.fleet.meta_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
+    mark_fused,
+)
+from ..distributed.fleet.mp_ops import (
+    gather_last,
+    identity_allreduce,
+    mp_group as resolve_mp_group,
 )
 from ..framework import make_generator, resolve_device
 from ..nn import Dropout, Embedding, LayerNorm
@@ -64,12 +79,14 @@ def bert_tiny():
 
 
 class BertEmbeddings(nn.Module):
-    def __init__(self, config: BertConfig, device=None, dtype=None):
+    def __init__(self, config: BertConfig, device=None, dtype=None,
+                 group=False):
         super().__init__()
         c = config
         kw = dict(device=device, dtype=dtype)
         self.word_embeddings = VocabParallelEmbedding(c.vocab_size,
-                                                      c.hidden_size, **kw)
+                                                      c.hidden_size,
+                                                      mp_group=group, **kw)
         self.position_embeddings = Embedding(c.max_position, c.hidden_size,
                                              **kw)
         self.token_type_embeddings = Embedding(c.type_vocab_size,
@@ -94,15 +111,22 @@ class BertEmbeddings(nn.Module):
 
 
 class BertSelfAttention(nn.Module):
-    def __init__(self, config: BertConfig, device=None, dtype=None):
+    def __init__(self, config: BertConfig, device=None, dtype=None,
+                 group=False):
         super().__init__()
         c = config
-        self.num_heads = c.num_heads
+        tp = 1 if not group else group.nranks
+        self.num_heads = c.num_heads // tp
         self.head_dim = c.hidden_size // c.num_heads
         self.qkv = ColumnParallelLinear(c.hidden_size, 3 * c.hidden_size,
+                                        gather_output=False, mp_group=group,
                                         device=device, dtype=dtype)
         self.out = RowParallelLinear(c.hidden_size, c.hidden_size,
+                                     input_is_parallel=True, mp_group=group,
                                      device=device, dtype=dtype)
+        parts = [c.hidden_size] * 3
+        mark_fused(self.qkv.weight, parts, group or None)
+        mark_fused(self.qkv.bias, parts, group or None)
         self.dropout = c.dropout
 
     def forward(self, x, attention_mask=None):
@@ -123,15 +147,18 @@ class BertSelfAttention(nn.Module):
 class BertLayer(nn.Module):
     """Post-norm (original BERT): ln(x + sublayer(x))."""
 
-    def __init__(self, config: BertConfig, device=None, dtype=None):
+    def __init__(self, config: BertConfig, device=None, dtype=None,
+                 group=False):
         super().__init__()
         c = config
         kw = dict(device=device, dtype=dtype)
-        self.attention = BertSelfAttention(c, **kw)
+        self.attention = BertSelfAttention(c, group=group, **kw)
         self.ln1 = LayerNorm(c.hidden_size, epsilon=c.layer_norm_eps, **kw)
         self.fc1 = ColumnParallelLinear(c.hidden_size, c.intermediate_size,
+                                        gather_output=False, mp_group=group,
                                         **kw)
         self.fc2 = RowParallelLinear(c.intermediate_size, c.hidden_size,
+                                     input_is_parallel=True, mp_group=group,
                                      **kw)
         self.ln2 = LayerNorm(c.hidden_size, epsilon=c.layer_norm_eps, **kw)
         self.dropout = Dropout(c.dropout)
@@ -144,12 +171,14 @@ class BertLayer(nn.Module):
 
 
 class BertModel(nn.Module):
-    def __init__(self, config: BertConfig, device=None, dtype=None):
+    def __init__(self, config: BertConfig, device=None, dtype=None,
+                 group=False):
         super().__init__()
         self.config = config
-        self.embeddings = BertEmbeddings(config, device=device, dtype=dtype)
+        self.embeddings = BertEmbeddings(config, device=device, dtype=dtype,
+                                         group=group)
         self.layers = nn.ModuleList([
-            BertLayer(config, device=device, dtype=dtype)
+            BertLayer(config, device=device, dtype=dtype, group=group)
             for _ in range(config.num_layers)])
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
@@ -170,14 +199,25 @@ class BertForMaskedLM(nn.Module):
     ignore_index = IGNORE_INDEX
 
     def __init__(self, config: BertConfig, device="cuda", dtype=None,
-                 seed=0):
+                 seed=0, mp_group=None):
         super().__init__()
-        require_single_device("BERT")
         c = config
+        group = resolve_mp_group(mp_group)
+        tp = 1 if group is None else group.nranks
+        for what, n in (("num_heads", c.num_heads),
+                        ("intermediate_size", c.intermediate_size),
+                        ("vocab_size", c.vocab_size),
+                        ("hidden_size", c.hidden_size)):
+            if n % tp:
+                raise ValueError(f"tensor parallelism over {tp} ranks needs "
+                                 f"tp to divide {what} ({n})")
         dev = resolve_device(device)
         self.config = c
-        self.bert = BertModel(c, device=dev, dtype=dtype)
+        self.tp_group = group
+        self.bert = BertModel(c, device=dev, dtype=dtype,
+                              group=group or False)
         self.transform = ColumnParallelLinear(c.hidden_size, c.hidden_size,
+                                              mp_group=group or False,
                                               device=dev, dtype=dtype)
         self.transform_ln = LayerNorm(c.hidden_size,
                                       epsilon=c.layer_norm_eps, device=dev,
@@ -196,7 +236,8 @@ class BertForMaskedLM(nn.Module):
 
     def forward(self, input_ids, labels=None, token_type_ids=None,
                 attention_mask=None):
-        """logits [B, S, V], or (logits, loss) with ``labels``."""
+        """logits [B, S, V] (this rank's vocab columns under tensor
+        parallelism), or (logits, loss) with ``labels``."""
         dev = self.device
         input_ids = torch.as_tensor(input_ids, device=dev)
         if token_type_ids is not None:
@@ -205,13 +246,23 @@ class BertForMaskedLM(nn.Module):
             attention_mask = torch.as_tensor(attention_mask, device=dev)
         h = self.bert(input_ids, token_type_ids, attention_mask)
         h = self.transform_ln(F.gelu(self.transform(h)))
+        if self.tp_group is not None:
+            # every rank's vocab columns read the same h: sum its gradient
+            h = identity_allreduce(h, self.tp_group)
         h, w = _amp_cast("mlm_decoder", h,
                          self.bert.embeddings.word_embeddings.weight)
         logits = h @ w.T
         if labels is None:
             return logits
-        return logits, masked_lm_loss(logits,
+        return logits, masked_lm_loss(self.gather_logits(logits),
                                       torch.as_tensor(labels, device=dev))
+
+    def gather_logits(self, logits):
+        """The whole vocab of logits from this rank's columns (a gather
+        over the model-parallel group); as they are without one."""
+        if self.tp_group is None:
+            return logits
+        return gather_last(logits, self.tp_group)
 
 
 def masked_lm_loss(logits, labels, ignore_index=IGNORE_INDEX):

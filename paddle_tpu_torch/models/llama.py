@@ -17,6 +17,20 @@ step programs, ``verify_step``) and the dense cache branch (dense
 ``GPTModel``'s, ``(ids, k_caches, v_caches, step, decode_kernel)`` ->
 logits, so ``GenerationMixin``, the schedulers, the servers and
 speculative decoding serve it as they serve GPT.
+
+Tensor parallelism follows JAX's layer kinds (``llama.py:69-75``,
+``:160-164``, ``:241``), as ``GPTForCausalLM`` does: given a
+model-parallel group of tp ranks (``mp_group=``, else the hybrid group's
+mp axis or the serving mesh's "tp" axis; ``fleet.mp_ops.mp_group``),
+``q/k/v/gate/up`` are column-parallel and ``o/down`` row-parallel, so a
+rank attends on ``num_heads / tp`` query and ``num_kv_heads / tp`` kv
+heads (RoPE on its local heads; tp must divide both, GQA groups stay
+whole) and its paged pool is head-sharded ``[Hkv / tp, P, BS, D]``; the
+embedding is vocabulary-parallel and ``lm_head`` column-parallel, its
+vocab columns not gathered: the loss is ``ParallelCrossEntropy``,
+``gather_logits`` gathers them, and the step programs gather them before
+the sampler. ``bridge.shard_state`` cuts JAX's whole weights into a
+rank's shards.
 """
 from __future__ import annotations
 
@@ -24,12 +38,15 @@ import torch
 from torch import nn
 
 from ..amp import _amp_add, _amp_cast
-from ..distributed.fleet.mp_ops import require_single_device
 from ..distributed.fleet.meta_parallel import (
     ColumnParallelLinear,
     ParallelCrossEntropy,
     RowParallelLinear,
     VocabParallelEmbedding,
+)
+from ..distributed.fleet.mp_ops import (
+    gather_last,
+    mp_group as resolve_mp_group,
 )
 from ..distributed.fleet.recompute import recompute
 from ..framework import make_generator, resolve_device
@@ -82,19 +99,39 @@ def llama_tiny():
                        max_position=128)
 
 
+def _check_supported(c: LlamaConfig, group=None):
+    if c.num_heads % c.num_kv_heads:
+        raise ValueError(f"num_kv_heads {c.num_kv_heads} must divide "
+                         f"num_heads {c.num_heads}")
+    tp = 1 if group is None else group.nranks
+    for what, n in (("num_heads", c.num_heads),
+                    ("num_kv_heads", c.num_kv_heads),
+                    ("intermediate_size", c.intermediate_size),
+                    ("vocab_size", c.vocab_size)):
+        if n % tp:
+            raise ValueError(f"tensor parallelism over {tp} ranks needs tp "
+                             f"to divide {what} ({n})")
+
+
 class LlamaAttention(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None,
+                 group=False):
         super().__init__()
         c = config
-        self.num_heads = c.num_heads
-        self.num_kv_heads = c.num_kv_heads
+        tp = 1 if not group else group.nranks
+        # this rank's heads (all of them without a group)
+        self.num_heads = c.num_heads // tp
+        self.num_kv_heads = c.num_kv_heads // tp
         self.head_dim = c.hidden_size // c.num_heads
-        kv_size = self.num_kv_heads * self.head_dim
-        kw = dict(has_bias=False, device=device, dtype=dtype)
-        self.q_proj = ColumnParallelLinear(c.hidden_size, c.hidden_size, **kw)
-        self.k_proj = ColumnParallelLinear(c.hidden_size, kv_size, **kw)
-        self.v_proj = ColumnParallelLinear(c.hidden_size, kv_size, **kw)
-        self.o_proj = RowParallelLinear(c.hidden_size, c.hidden_size, **kw)
+        kv_size = c.num_kv_heads * self.head_dim
+        kw = dict(has_bias=False, mp_group=group, device=device, dtype=dtype)
+        col = dict(kw, gather_output=False)
+        self.q_proj = ColumnParallelLinear(c.hidden_size, c.hidden_size,
+                                           **col)
+        self.k_proj = ColumnParallelLinear(c.hidden_size, kv_size, **col)
+        self.v_proj = ColumnParallelLinear(c.hidden_size, kv_size, **col)
+        self.o_proj = RowParallelLinear(c.hidden_size, c.hidden_size,
+                                        input_is_parallel=True, **kw)
 
     def forward(self, x, rope, k_pool=None, v_pool=None, step=None,
                 decode_kernel="kernel"):
@@ -119,16 +156,19 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None,
+                 group=False):
         super().__init__()
         c = config
-        kw = dict(has_bias=False, device=device, dtype=dtype)
+        kw = dict(has_bias=False, mp_group=group, device=device, dtype=dtype)
+        col = dict(kw, gather_output=False)
         self.gate_proj = ColumnParallelLinear(c.hidden_size,
-                                              c.intermediate_size, **kw)
+                                              c.intermediate_size, **col)
         self.up_proj = ColumnParallelLinear(c.hidden_size,
-                                            c.intermediate_size, **kw)
+                                            c.intermediate_size, **col)
         self.down_proj = RowParallelLinear(c.intermediate_size,
-                                           c.hidden_size, **kw)
+                                           c.hidden_size,
+                                           input_is_parallel=True, **kw)
 
     def forward(self, x):
         g, u = _amp_cast("multiply", F.silu(self.gate_proj(x)),
@@ -137,15 +177,17 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None,
+                 group=False):
         super().__init__()
         c = config
         self.input_layernorm = RMSNorm(c.hidden_size, epsilon=c.rms_eps,
                                        device=device, dtype=dtype)
-        self.self_attn = LlamaAttention(c, device=device, dtype=dtype)
+        self.self_attn = LlamaAttention(c, device=device, dtype=dtype,
+                                        group=group)
         self.post_attention_layernorm = RMSNorm(
             c.hidden_size, epsilon=c.rms_eps, device=device, dtype=dtype)
-        self.mlp = LlamaMLP(c, device=device, dtype=dtype)
+        self.mlp = LlamaMLP(c, device=device, dtype=dtype, group=group)
 
     def forward(self, x, rope, k_pool=None, v_pool=None, step=None,
                 decode_kernel="kernel"):
@@ -155,15 +197,17 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None,
+                 group=False):
         super().__init__()
         c = config
         self.config = c
         self.embed_tokens = VocabParallelEmbedding(c.vocab_size,
                                                    c.hidden_size,
+                                                   mp_group=group,
                                                    device=device, dtype=dtype)
         self.layers = nn.ModuleList([
-            LlamaDecoderLayer(c, device=device, dtype=dtype)
+            LlamaDecoderLayer(c, device=device, dtype=dtype, group=group)
             for _ in range(c.num_layers)])
         self.norm = RMSNorm(c.hidden_size, epsilon=c.rms_eps, device=device,
                             dtype=dtype)
@@ -223,19 +267,21 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
     model starts in training mode, as a JAX ``Layer`` does."""
 
     def __init__(self, config: LlamaConfig, device="cuda", dtype=None,
-                 seed=0):
+                 seed=0, mp_group=None):
         super().__init__()
-        require_single_device("LLaMA")
         c = config
-        if c.num_heads % c.num_kv_heads:
-            raise ValueError(f"num_kv_heads {c.num_kv_heads} must divide "
-                             f"num_heads {c.num_heads}")
+        group = resolve_mp_group(mp_group)
+        _check_supported(c, group)
         dev = resolve_device(device)
         self.config = c
-        self.llama = LlamaModel(c, device=dev, dtype=dtype)
+        self.tp_group = group
+        self.llama = LlamaModel(c, device=dev, dtype=dtype,
+                                group=group or False)
         self.lm_head = ColumnParallelLinear(c.hidden_size, c.vocab_size,
-                                            has_bias=False, device=dev,
-                                            dtype=dtype)
+                                            has_bias=False,
+                                            gather_output=False,
+                                            mp_group=group or False,
+                                            device=dev, dtype=dtype)
         # held outside the module tree: its parameters are the model's own
         self.__dict__["_decoder"] = LlamaDecoder(self.llama, self.lm_head)
         self.reset_parameters(make_generator(seed, dev))
@@ -251,8 +297,9 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
                 mod.reset_parameters(generator)
 
     def forward(self, input_ids, labels=None, position_ids=None):
-        """logits [B, S, V], or (logits, loss) with ``labels`` [B, S]: the
-        mean of ``ParallelCrossEntropy`` over all tokens (JAX
+        """logits [B, S, V] (this rank's vocab columns under tensor
+        parallelism), or (logits, loss) with ``labels`` [B, S]: the mean
+        of ``ParallelCrossEntropy`` over all tokens (JAX
         ``llama.py:244-259``)."""
         input_ids = torch.as_tensor(input_ids, device=self.device)
         logits = self.lm_head(self.llama(input_ids,
@@ -260,9 +307,17 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         if labels is None:
             return logits
         labels = torch.as_tensor(labels, device=self.device)
-        per_token = ParallelCrossEntropy()(
+        per_token = ParallelCrossEntropy(mp_group=self.tp_group or False)(
             logits.reshape(-1, logits.shape[-1]), labels.reshape(-1))
         return logits, _amp_cast("mean", per_token)[0].mean()
+
+    def gather_logits(self, logits):
+        """The whole vocab of logits from this rank's columns (a gather
+        over the model-parallel group); the logits as they are without
+        one."""
+        if self.tp_group is None:
+            return logits
+        return gather_last(logits, self.tp_group)
 
     # --------------------------------------- GenerationMixin hooks
     def _decode_layer(self):

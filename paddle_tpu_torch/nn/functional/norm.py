@@ -15,11 +15,21 @@ momentum) * batch`` with the variance unbiased by n / (n - 1), written IN
 PLACE into the tensors given (``copy_`` under ``no_grad``, each in its own
 dtype), so a captured ``jit.TrainStep`` replays the update into the same
 storage a body writes (JAX rebinds ``running_mean._value``).
+
+Given a process group of more than one rank (``SyncBatchNorm`` under a
+data-parallel group), the statistics are over every rank's rows: each
+rank's per-channel sum, sum of squares and row count go into one
+all-reduce, the mean and the variance (``E[x^2] - mean^2``) and the
+unbiased running variance use the global count, and the backward
+all-reduces the per-channel sums of dy and dy * xhat, so it is the
+gradient of the whole batch's normalisation. No value is read on the
+host, so a captured ``TrainStep`` holds the collectives.
 """
 from __future__ import annotations
 
 import torch
 
+from ...distributed.collective import _all_reduce_
 from ...ops import apply_like
 from ...tensor import Tensor
 
@@ -61,42 +71,64 @@ class _BNTrain(torch.autograd.Function):
     statistics only)."""
 
     @staticmethod
-    def forward(ctx, x, w, b, residual, ax, bshape, epsilon, act):
+    def forward(ctx, x, w, b, residual, ax, bshape, epsilon, act,
+                group=None):
         x32 = x.to(_STATS)
-        mean = x32.mean(dim=ax)
-        var = torch.square(x32 - mean.reshape(bshape)).mean(dim=ax)
+        n = 1
+        for a in ax:
+            n *= x.shape[a]
+        if group is None:
+            mean = x32.mean(dim=ax)
+            var = torch.square(x32 - mean.reshape(bshape)).mean(dim=ax)
+            running_var = var * (n / max(n - 1, 1))
+        else:
+            # one all-reduce of [sum, sum of squares, count] per channel
+            stats = torch.stack([x32.sum(dim=ax), x32.square().sum(dim=ax),
+                                 torch.full_like(x32.sum(dim=ax), n)])
+            _all_reduce_(stats, "sum", group)
+            n = stats[2]
+            mean = stats[0] / n
+            var = torch.clamp(stats[1] / n - mean.square(), min=0.0)
+            running_var = var * (n / torch.clamp(n - 1, min=1.0))
         inv = torch.rsqrt(var + epsilon)
         out = _bn_apply(x32, w, b, residual, mean, inv, bshape,
                         act).to(x.dtype)
         ctx.save_for_backward(x, w, out if act == "relu" else None, mean,
                               inv)
         ctx.meta = (ax, bshape, act, None if residual is None
-                    else residual.dtype, None if b is None else b.dtype)
-        ctx.mark_non_differentiable(mean, var)
-        return out, mean, var
+                    else residual.dtype, None if b is None else b.dtype,
+                    group, n)
+        ctx.mark_non_differentiable(mean, running_var)
+        return out, mean, running_var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, w, act_out, mean, inv = ctx.saved_tensors
-        ax, bshape, act, res_dtype, b_dtype = ctx.meta
+        ax, bshape, act, res_dtype, b_dtype, group, n = ctx.meta
         dy32 = dy.to(_STATS)
         if act == "relu":
             dy32 = torch.where(act_out > 0, dy32, torch.zeros(
                 (), dtype=_STATS, device=dy.device))
         xhat = (x.to(_STATS) - mean.reshape(bshape)) * inv.reshape(bshape)
-        n = 1
-        for a in ax:
-            n *= x.shape[a]
         sum_dy = dy32.sum(dim=ax)
         sum_dy_xhat = (dy32 * xhat).sum(dim=ax)
+        if group is not None:
+            # the whole batch's sums for dx; dw / db stay this rank's
+            # (the data-parallel sync sums them)
+            sums = torch.stack([sum_dy, sum_dy_xhat])
+            _all_reduce_(sums, "sum", group)
+            dw = sum_dy_xhat.to(w.dtype) if w is not None else None
+            db = sum_dy.to(b_dtype) if b_dtype is not None else None
+            sum_dy, sum_dy_xhat = sums[0], sums[1]
         wf = w.reshape(bshape).to(_STATS) if w is not None else 1.0
         dx = (wf * inv.reshape(bshape)) * (
             dy32 - (sum_dy / n).reshape(bshape)
             - xhat * (sum_dy_xhat / n).reshape(bshape))
-        dw = sum_dy_xhat.to(w.dtype) if w is not None else None
-        db = sum_dy.to(b_dtype) if b_dtype is not None else None
+        if group is None:
+            dw = sum_dy_xhat.to(w.dtype) if w is not None else None
+            db = sum_dy.to(b_dtype) if b_dtype is not None else None
         dres = dy32.to(res_dtype) if res_dtype is not None else None
-        return dx.to(x.dtype), dw, db, dres, None, None, None, None
+        return dx.to(x.dtype), dw, db, dres, None, None, None, None, None
 
 
 def _stats_axes(v, chan_last):
@@ -114,11 +146,14 @@ def _raw(t):
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5, data_format="NCHW",
-               use_global_stats=None, name=None, residual=None, act=None):
+               use_global_stats=None, name=None, residual=None, act=None,
+               group=None):
     """Batch statistics in training (the running ones updated in place),
     the running ones otherwise. ``residual`` / ``act="relu"`` (JAX's
     extension): relu(bn(x) + residual) in the same op, its backward
-    recomputing the epilogue instead of saving it."""
+    recomputing the epilogue instead of saving it. ``group`` (a process
+    group): the training statistics over every rank's rows
+    (``SyncBatchNorm``); None or one rank, this rank's."""
     if act not in (None, "relu"):
         raise ValueError(f"batch_norm act must be None or 'relu', got "
                          f"{act!r}")
@@ -126,19 +161,17 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                  and data_format not in ("NC", "NCL"))
     xv = _raw(x)
     ax, bshape = _stats_axes(xv, chan_last)
+    if group is not None and group.nranks <= 1:
+        group = None
     if training and not use_global_stats:
         out, mean, var = apply_like(
             lambda v, w, b, r: _BNTrain.apply(v, w, b, r, ax, bshape,
-                                              float(epsilon), act),
+                                              float(epsilon), act, group),
             "batch_norm", x, weight, bias, residual)
-        n = 1
-        for a in ax:
-            n *= xv.shape[a]
         mean, var = _raw(mean), _raw(var)
         with torch.no_grad():
             for run, stat in ((_raw(running_mean), mean),
-                              (_raw(running_var),
-                               var * (n / max(n - 1, 1)))):
+                              (_raw(running_var), var)):
                 if run is not None:
                     run.copy_((momentum * run + (1 - momentum) * stat)
                               .to(run.dtype))

@@ -11,8 +11,8 @@
   float32 buffers ``_mean`` / ``_variance`` (persistable), momentum 0.9
   meaning "keep" as in paddle; ``forward_fused`` is JAX's fused
   residual-add and relu (:156-166). ``amp.decorate`` at O2 leaves these
-  layers, and ``LayerNorm``, in their dtype. ``SyncBatchNorm`` is
-  single-process (the collectives wait for the distributed slice).
+  layers, and ``LayerNorm``, in their dtype. ``SyncBatchNorm`` takes its
+  training statistics over the data-parallel group.
 * ``GroupNorm``, ``InstanceNorm1D/2D/3D``, ``LocalResponseNorm``,
   ``LayerNorm``, ``RMSNorm``. (``SpectralNorm`` is in ``layer_extra``,
   where JAX's working one is.)
@@ -235,11 +235,60 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """``BatchNorm`` over this process's batch: the cross-process
-    statistics come with the distributed slice (ROADMAP A9)."""
+    """Batch norm whose training statistics are over every rank's rows of
+    the data-parallel batch (Paddle ``SyncBatchNorm``; JAX's is
+    ``BatchNorm`` under GSPMD, whose statistics span the sharded batch
+    axis). In training over a group of more than one rank, each call
+    all-reduces the per-channel count, sum and sum of squares once, the
+    running variance is unbiased by the global count, and the backward is
+    that of the whole batch's normalisation (``F.batch_norm(group=)``).
+    The group is ``group=``, else the one of the ``DataParallel`` that
+    wraps the layer, else the world when a process group is set; at one
+    rank, or with none, the layer is ``BatchNorm`` bit for bit."""
+
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, group=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format)
+        self._group = group
+
+    def _sync_group(self):
+        if self._group is not None:
+            return self._group
+        from ..distributed import env
+        from ..distributed.collective import _world
+
+        return _world() if env.is_initialized() else None
+
+    def forward_fused(self, x, residual=None, act=None):
+        return F.batch_norm(
+            x, self._mean, self._variance, self.weight, self.bias,
+            training=self.training, momentum=self._momentum,
+            epsilon=self._epsilon, data_format=self._data_format,
+            use_global_stats=self._use_global_stats, residual=residual,
+            act=act, group=self._sync_group() if self.training else None)
+
+    def forward(self, x):
+        out = self.forward_fused(x)
+        # a converted legacy ``BatchNorm`` keeps its activation
+        return (F.relu(out) if getattr(self, "_act", None) == "relu"
+                else out)
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):
+        """Every ``_BatchNormBase`` sublayer of ``layer`` (or ``layer``
+        itself) replaced by a ``SyncBatchNorm`` that holds the same
+        parameters and buffers (Paddle's meaning; JAX returns the layer
+        as it is, its two being one). Returns the converted layer."""
+        if isinstance(layer, _BatchNormBase) and not isinstance(layer, cls):
+            sync = cls.__new__(cls)
+            sync.__dict__.update(layer.__dict__)
+            sync._group = None
+            return sync
+        for name, child in list(layer._modules.items()):
+            if child is not None:
+                layer._modules[name] = cls.convert_sync_batchnorm(child)
         return layer
 
 

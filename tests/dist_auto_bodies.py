@@ -517,3 +517,63 @@ def body_zero_clip2(inputs):
 
 def body_zero_clip3(inputs):
     return _zero_norm_step(inputs, 3, "clip")
+
+
+# ------------------------------------------------------------ auto-tuner
+def body_tuner_trials(inputs):
+    """``tests/test_auto_tuner.py``'s live-trial body on the port: the
+    tuner's first three (dp, mp) candidates for 8 ranks, each trial a mesh
+    of that shape, the plain model parallelized by its plan and three
+    DistModel steps; the metric is the steps a second, the slowest rank's
+    (every rank then ranks the trials alike)."""
+    import time
+
+    import torch
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import optimizer as optim
+    from paddle_tpu_torch.distributed.auto_tuner import AutoTuner, ModelSpec
+
+    _cpu()
+    spec = ModelSpec(num_params=1e6, num_layers=2, hidden=64, seq_len=32,
+                     global_batch=16)
+    tuner = AutoTuner({"world_size": 8, "model_spec": spec, "task_limit": 3,
+                       "use_sharding": False, "max_pp": 1})
+    rs = np.random.RandomState(0)
+    blocks = {}
+    for i in range(N_BLOCKS):
+        blocks[f"blocks.{i}.up.weight"] = rs.randn(HID, 2 * HID) * 0.1
+        blocks[f"blocks.{i}.up.bias"] = np.zeros(2 * HID)
+        blocks[f"blocks.{i}.down.weight"] = rs.randn(2 * HID, HID) * 0.1
+        blocks[f"blocks.{i}.down.bias"] = np.zeros(HID)
+    state = {k: v.astype(np.float32) for k, v in blocks.items()}
+    x = rs.randn(16, HID).astype(np.float32)
+    y = rs.randn(16, HID).astype(np.float32)
+    tried = []
+
+    def trial(cfg):
+        dp, mp = cfg["dp_degree"], cfg["mp_degree"]
+        tried.append((dp, mp))
+        mesh = dist.ProcessMesh(np.arange(8).reshape(dp, mp), ["dp", "mp"])
+        dist.auto_parallel.set_mesh(mesh)
+        try:
+            model = _plain_model(state)
+            opt = optim.SGD(learning_rate=0.1, parameters=model.parameters())
+            config = ({"mp_config": {"parallelize_plan": _mp_plan(dist)}}
+                      if mp > 1 else {})
+            model, opt = dist.parallelize(model, opt, config=config)
+            dm = dist.to_static(model, loss=_loss_fn, optimizer=opt)
+            dm.train()
+            float(dm(_tensor(x), _tensor(y)).numpy())
+            t0 = time.perf_counter()
+            for _ in range(3):
+                float(dm(_tensor(x), _tensor(y)).numpy())
+            rate = torch.tensor([3 / (time.perf_counter() - t0)])
+            dist.all_reduce(rate, op="min")
+            return float(rate)
+        finally:
+            dist.set_mesh(None)
+
+    best = tuner.tune(trial)
+    return {"best": best, "tried": len(tried),
+            "best_cfg": None if best is None else best["cfg"]}

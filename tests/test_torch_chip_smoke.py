@@ -897,6 +897,29 @@ def test_launcher_and_auto_parallel_rehearse_on_the_cpu(
                                                             "dkv")}
 
 
+def test_moe_ep_sync_bn_and_rpc_legs_rehearse_on_the_cpu(
+        distributed_rehearsal):
+    """The worker's last three legs at two ranks: the expert-parallel MoE
+    layer over the world group (two experts a rank; each rank's output the
+    no-group layer's on its tokens, four all-to-alls a fwd + bwd);
+    SyncBatchNorm under DataParallel against the bare BatchNorm model on
+    the whole batch (f32: mean loss within 1e-5, the state within 1e-3 of
+    how far it moved); rpc round trips over the launcher's native
+    store, to this rank and to the next."""
+    rec = distributed_rehearsal
+    moe = rec["moe_ep"]
+    assert moe["ok"] and moe["ranks"] == 2 and moe["ep_local_experts"] == 2
+    assert moe["a2a_launches"] == 4 and moe["out_rel"] <= 1e-5
+    bn = rec["sync_bn"]
+    assert bn["ok"] and bn["sync"]["kinds"] == ["SyncBatchNorm"]
+    assert bn["max_rel_diff"] <= 1e-5 and bn["param_gap"] <= 1e-3
+    rpc = rec["rpc"]
+    assert rpc["ok"] and rpc["server"] == "native"
+    assert rpc["workers"] == ["worker0", "worker1"]
+    for leg in (moe, bn, rpc):
+        assert leg["wall_s"] < 10
+
+
 def test_pipeline_phase_rehearses_on_the_cpu(distributed_rehearsal):
     """The pipeline phase at pp 2 over the two gloo ranks (each rank one
     stage of the tiny gpt3-style GPT): every schedule's losses and this

@@ -12,7 +12,9 @@ the port only.
 * ``serving_mesh(dp=1, tp=1)`` gives the plain scheduler's greedy tokens
   (at one rank the mesh is a no-op: no lockstep runs);
 * the paged and flash kernels on tp = 2 and 4 head shards agree with the
-  plain version of the whole call.
+  plain version of the whole call;
+* the MoE layer over the one-rank expert group, the converted
+  SyncBatchNorm net under DataParallel and rpc over the launcher's store.
 """
 import os
 import sys
@@ -154,3 +156,18 @@ def test_two_stage_gpt350m_pipeline_against_the_unpipelined_step():
     have = {k: getattr(t, "_value", t) for k, t in model.state_dict().items()}
     gap = chip_smoke._pipe_model_gap(torch, have, want, init)
     assert gap <= 1e-3, gap
+
+
+def test_moe_ep_sync_bn_and_rpc_on_the_card(record):
+    """The worker's last legs at a tiny size: the MoE layer over the
+    one-rank group (NCCL's all-to-all carrying dispatch and return) is
+    the layer without a group bit for bit, forward, l_aux and gradients;
+    the converted SyncBatchNorm net under DataParallel, captured, is the
+    bare BatchNorm net's step bit for bit; rpc round trips over the
+    launcher's native store."""
+    moe, bn, rpc = record["moe_ep"], record["sync_bn"], record["rpc"]
+    assert moe["ok"] and moe["out_bit_equal"] and moe["grads_bit_equal"]
+    assert moe["l_aux_bit_equal"] and moe["a2a_launches"] == 4
+    assert bn["ok"] and bn["losses_bit_equal"] and bn["state_bit_equal"]
+    assert bn["sync"]["captures"] == 1 and bn["bare"]["captures"] == 1
+    assert rpc["ok"] and rpc["server"] == "native"

@@ -86,11 +86,20 @@ def _jax_state(jm):
             for k, v in jm.state_dict().items()}
 
 
-@pytest.mark.parametrize("config", sorted(CONFIGS))
-def test_logits_loss_and_gradients_match_jax(config):
-    jm, tm = _pair(config)
+@pytest.fixture(scope="module")
+def jax_loss_and_grads():
+    """JAX's logits, loss and gradients per config, computed once before
+    the tests (the jitted ``value_and_grad`` compiles in setup)."""
     ids, labels = _batch()
-    jlogits, jloss, jgrads = _jax_loss_and_grads(jm, ids, labels)
+    return {c: _jax_loss_and_grads(_pair(c)[0], ids, labels)
+            for c in sorted(CONFIGS)}
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_logits_loss_and_gradients_match_jax(config, jax_loss_and_grads):
+    _, tm = _pair(config)
+    ids, labels = _batch()
+    jlogits, jloss, jgrads = jax_loss_and_grads[config]
     tlogits, tloss = tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
     assert TF.get_last_attention_backend() == "plain"
     tloss.backward()
@@ -104,35 +113,55 @@ def test_logits_loss_and_gradients_match_jax(config):
                                    rtol=5e-5, err_msg=k)
 
 
-def test_forward_takes_position_ids_like_jax():
+@pytest.fixture(scope="module")
+def position_ids_case():
+    """The JAX forward at given positions, computed once before the test
+    (its eager programs compile per op: setup, not the test's call)."""
     jm, tm = _pair()
     ids, _ = _batch(B=1, S=10)
     pos = np.arange(5, 15)[None]
     want = np.asarray(jm(paddle.to_tensor(ids),
                          position_ids=paddle.to_tensor(pos))._value)
+    return tm, ids, pos, want
+
+
+def test_forward_takes_position_ids_like_jax(position_ids_case):
+    tm, ids, pos, want = position_ids_case
     got = tm(torch.from_numpy(ids), position_ids=torch.from_numpy(pos))
     np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-5, rtol=0)
 
 
-def test_trainstep_adamw_with_global_norm_clip_matches_jax():
-    jm, tm = _pair()
+@pytest.fixture(scope="module")
+def jax_adamw_steps():
+    """JAX's three TrainStep steps of AdamW with the global-norm clip:
+    (losses, step count, final state), computed once before the test (the
+    step's compile belongs to setup, not to the test's call)."""
+    jm, _ = _pair()
     ids, labels = _batch()
     jopt = paddle.optimizer.AdamW(
         learning_rate=1e-4, parameters=jm.parameters(), weight_decay=0.01,
         grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
     jstep = JaxTrainStep(jm, lambda logits, loss: loss, jopt)
+    losses = [float(jstep(paddle.to_tensor(ids),
+                          labels=paddle.to_tensor(labels)))
+              for _ in range(3)]
+    return losses, jopt._step_count, _jax_state(jm)
+
+
+def test_trainstep_adamw_with_global_norm_clip_matches_jax(jax_adamw_steps):
+    _, tm = _pair()
+    ids, labels = _batch()
+    jlosses, jcount, jstate = jax_adamw_steps
     opt = topt.AdamW(learning_rate=1e-4, parameters=tm.parameters(),
                      weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))
     step = TrainStep(tm, lambda logits, loss: loss, opt)
     before = to_paddle_tpu_state(tm)
-    for _ in range(3):
-        want = float(jstep(paddle.to_tensor(ids),
-                           labels=paddle.to_tensor(labels)))
+    for want in jlosses:
         got = float(step(torch.from_numpy(ids),
                          labels=torch.from_numpy(labels)))
         np.testing.assert_allclose(got, want, rtol=1e-5)
-    assert opt._step_count == jopt._step_count == 3
-    jstate, tstate = _jax_state(jm), to_paddle_tpu_state(tm)
+    assert opt._step_count == jcount == 3
+    tstate = to_paddle_tpu_state(tm)
     moved = max(float(np.abs(tstate[k] - before[k]).max()) for k in tstate)
     assert moved > 1e-4                     # the steps did move them
     for k, v in jstate.items():
@@ -230,16 +259,37 @@ def test_o2_decorate_casts_the_same_parameters_as_jax():
             torch.bfloat16
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_parallel_cross_entropy_with_ignore_index_matches_jax(dtype):
+def _ce_case():
     rng = np.random.default_rng(3)
     logits = rng.standard_normal((10, 32)).astype(np.float32)
     labels = rng.integers(0, 32, (10,))
     labels[[1, 6]] = -100
     w = rng.standard_normal((10,)).astype(np.float32)
-    jx = paddle.to_tensor(logits, dtype=dtype, stop_gradient=False)
-    jloss = JaxCE(ignore_index=-100)(jx, paddle.to_tensor(labels))
-    (jloss.astype("float32") * paddle.to_tensor(w)).sum().backward()
+    return logits, labels, w
+
+
+@pytest.fixture(scope="module")
+def jax_ce():
+    """JAX's cross entropy with ignore_index and its gradient, per dtype,
+    and its shape with labels [N, 1]: computed once before the tests (its
+    eager programs compile per op)."""
+    logits, labels, w = _ce_case()
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        jx = paddle.to_tensor(logits, dtype=dtype, stop_gradient=False)
+        jloss = JaxCE(ignore_index=-100)(jx, paddle.to_tensor(labels))
+        (jloss.astype("float32") * paddle.to_tensor(w)).sum().backward()
+        out[dtype] = (np.asarray(jloss._value.astype("float32")),
+                      np.asarray(jx.grad._value.astype("float32")))
+    ref = JaxCE()(paddle.to_tensor(logits), paddle.to_tensor(labels[:, None]))
+    out["shape"] = tuple(ref.shape)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_parallel_cross_entropy_with_ignore_index_matches_jax(dtype, jax_ce):
+    logits, labels, w = _ce_case()
+    jloss, jgrad = jax_ce[dtype]
     tx = torch.from_numpy(logits).to(getattr(torch, dtype)).requires_grad_()
     tloss = ParallelCrossEntropy(ignore_index=-100)(tx,
                                                     torch.from_numpy(labels))
@@ -247,16 +297,13 @@ def test_parallel_cross_entropy_with_ignore_index_matches_jax(dtype):
     (tloss.float() * torch.from_numpy(w)).sum().backward()
     assert float(tloss[1].detach()) == float(tloss[6].detach()) == 0.0
     tol = 1e-5 if dtype == "float32" else 5e-2
-    np.testing.assert_allclose(tloss.float().detach().numpy(),
-                               np.asarray(jloss._value.astype("float32")),
+    np.testing.assert_allclose(tloss.float().detach().numpy(), jloss,
                                atol=tol, rtol=tol)
-    np.testing.assert_allclose(tx.grad.float().numpy(),
-                               np.asarray(jx.grad._value.astype("float32")),
+    np.testing.assert_allclose(tx.grad.float().numpy(), jgrad,
                                atol=tol, rtol=tol)
-    ref = JaxCE()(paddle.to_tensor(logits), paddle.to_tensor(labels[:, None]))
     got = ParallelCrossEntropy()(torch.from_numpy(logits),
                                  torch.from_numpy(labels[:, None]))
-    assert tuple(got.shape) == tuple(ref.shape) == (10, 1)
+    assert tuple(got.shape) == jax_ce["shape"] == (10, 1)
 
 
 def test_bridge_round_trips_the_jax_state():

@@ -150,9 +150,20 @@ BODIES = [fit_evaluate_predict, early_stopping_and_checkpoint,
           save_load_model, lr_scheduler_callback]
 
 
+@pytest.fixture(scope="module")
+def jax_answers():
+    """The JAX package's answers to every body, computed once before the
+    tests (``port_bodies.jax_results`` keeps them): the JAX legs' eager
+    programs compile per op, which belongs to setup, not to a test's
+    call."""
+    from port_bodies import jax_results
+
+    return {b: jax_results(b) for b in BODIES}
+
+
 @PKG
 @pytest.mark.parametrize("body", BODIES, ids=[b.__name__ for b in BODIES])
-def test_hapi_body(on_cpu, body, pkg):
+def test_hapi_body(on_cpu, jax_answers, body, pkg):
     run(body, pkg, rtol=1e-5, atol=1e-6)
 
 

@@ -5,7 +5,9 @@ reference, the balance loss, capacity drops, gradients, ``to_static``,
 index dispatch against dense, training through ``TrainStep`` with the
 gate's ``l_aux`` in the objective), the port's outputs and gradients held
 to JAX's, ``recompute_interval`` against none (bit-equal), and the raises
-of the mesh groups (ROADMAP item 5; JAX's mesh bodies wait for it).
+of the groups: ``mp_group`` (JAX never reads it: ROADMAP C) and a
+``moe_group`` that does not tile the world. The mesh bodies are in
+``test_torch_expert_parallel.py``.
 Tolerances: f32 outputs and gradients within 1e-5 relative and 1e-6
 absolute of JAX's (sums in another order); index against dense within
 2^-20 of the tensor's largest magnitude (the combine's products are
@@ -96,9 +98,17 @@ ROUTING = {g: _routing_body(g, k) for g, k in (("SwitchGate", 1),
                                               ("GShardGate", 2))}
 
 
+@pytest.fixture(scope="module")
+def jax_routing():
+    """JAX's routing answers for both gates, computed once before the
+    tests (``jax_results`` keeps them): the JAX legs' eager programs
+    compile per op, which belongs to setup, not to a test's call."""
+    return {g: jax_results(body) for g, body in ROUTING.items()}
+
+
 @PKG
 @pytest.mark.parametrize("gate", sorted(ROUTING))
-def test_moe_routing_matches_dense_reference(pkg, gate, on_cpu):
+def test_moe_routing_matches_dense_reference(pkg, gate, on_cpu, jax_routing):
     run(ROUTING[gate], pkg, **TOL)
 
 
@@ -209,9 +219,13 @@ def test_recompute_interval_equals_none(on_cpu):
 
 def test_mesh_groups_raise(on_cpu):
     moe = _moe(paddle_tpu_torch)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        moe.MoELayer(D, _experts(paddle_tpu_torch, 2), moe_group=object())
-    with pytest.raises(NotImplementedError, match="item 5"):
+
+    class _Group:
+        nranks, rank, ranks = 3, 0, [0, 1, 2]
+
+    with pytest.raises(ValueError, match="does not tile"):
+        moe.MoELayer(D, _experts(paddle_tpu_torch, 2), moe_group=_Group())
+    with pytest.raises(NotImplementedError, match="ROADMAP C"):
         moe.MoELayer(D, _experts(paddle_tpu_torch, 2), mp_group=object())
 
 

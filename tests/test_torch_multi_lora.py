@@ -633,22 +633,37 @@ def test_multi_adapter_storm_parity_soak(pair):
 
 
 # ======================================================== logits and law
-def test_lora_forward_logits_match_jax(pair):
-    """Under ``applied`` each package's forward adds its slots' deltas:
-    three sequences through rows 0 (base), 1 and 2 of banks loaded with the
-    same factors give JAX's logits within 1e-4 (f32, a 2-layer model)."""
-    jm, _, tm = pair
-    reg = AdapterRegistry(tm, max_adapters=2, max_rank=8)
+@pytest.fixture(scope="module")
+def jax_lora_logits(pair):
+    """JAX's forward under ``applied`` over banks loaded with two
+    adapters' factors: (ids, rows, factors, logits), computed once before
+    the test (its eager programs compile per op: setup, not the call)."""
+    jm = pair[0]
     jreg = JaxRegistry(jm, max_adapters=2, max_rank=8)
     try:
-        for i, name in enumerate(("x", "y")):
-            w = _weights(reg, 11 + i, rank=4 + i, scale=0.2)
-            reg.register(name, w, alpha=4.0)
+        factors = [_weights(jreg, 11 + i, rank=4 + i, scale=0.2)
+                   for i in range(2)]
+        for name, w in zip(("x", "y"), factors):
             jreg.register(name, w, alpha=4.0)
         ids = np.random.default_rng(5).integers(0, VOCAB, (3, 9))
         rows = np.array([0, 1, 2], np.int32)
         with jax_applied(jreg.bank(), jnp.asarray(rows)):
             ref = np.asarray(jm(paddle.to_tensor(ids))._value)
+    finally:
+        jreg.close()
+    return ids, rows, factors, ref
+
+
+def test_lora_forward_logits_match_jax(pair, jax_lora_logits):
+    """Under ``applied`` each package's forward adds its slots' deltas:
+    three sequences through rows 0 (base), 1 and 2 of banks loaded with the
+    same factors give JAX's logits within 1e-4 (f32, a 2-layer model)."""
+    _, _, tm = pair
+    ids, rows, factors, ref = jax_lora_logits
+    reg = AdapterRegistry(tm, max_adapters=2, max_rank=8)
+    try:
+        for name, w in zip(("x", "y"), factors):
+            reg.register(name, w, alpha=4.0)
         with torch.no_grad(), applied(reg.bank(), torch.from_numpy(rows)):
             got = tm(torch.from_numpy(ids)).numpy()
         with torch.no_grad():
@@ -658,7 +673,6 @@ def test_lora_forward_logits_match_jax(pair):
         assert np.abs(got[1:] - plain[1:]).max() > 1e-2    # deltas bite
     finally:
         reg.close()
-        jreg.close()
 
 
 def test_lora_sampled_first_token_law_chi_square(pair):

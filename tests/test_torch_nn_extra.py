@@ -426,9 +426,20 @@ BODIES = [pairwise_distance_and_losses, adaptive_log_softmax, max_unpool,
           parameter_dict, class_center_sample]
 
 
+@pytest.fixture(scope="module")
+def jax_answers():
+    """The JAX package's answers to every body, computed once before the
+    tests (``port_bodies.jax_results`` keeps them): the JAX legs' eager
+    programs compile per op, which belongs to setup, not to a test's
+    call."""
+    from port_bodies import jax_results
+
+    return {b: jax_results(b) for b in BODIES}
+
+
 @PKG
 @pytest.mark.parametrize("body", BODIES, ids=[b.__name__ for b in BODIES])
-def test_extra_body(on_cpu, body, pkg):
+def test_extra_body(on_cpu, jax_answers, body, pkg):
     run(body, pkg, rtol=1e-5, atol=1e-5)
 
 

@@ -9,7 +9,10 @@ launcher's environment, then (by its arguments):
   ``DataParallel`` ``TrainStep`` steps of the weights in PATH on this
   rank's rows of the batch there; it writes its record to
   ``<log_dir>/rank<r>.json`` and meets the others at a store barrier;
-* ``--fail-once``: the last rank exits 17 on the first attempt.
+* ``--fail-once``: the last rank exits 17 on the first attempt;
+* ``--rpc``: instead, ``distributed.rpc`` over the launcher's store: each
+  rank asks the next for ``pow(rank + 2, 2)`` by worker name and records
+  the answer and the worker names, then shuts the agent down.
 """
 import json
 import os
@@ -38,6 +41,17 @@ def main():
         os._exit(17)
     rec = {"rank": rank, "world": world, "attempt": attempt,
            "server": store.get("job/server").decode()}
+    if "--rpc" in sys.argv:
+        from paddle_tpu_torch.distributed import rpc
+
+        rpc.init_rpc(name=f"worker{rank}", rank=rank, world_size=world)
+        peer = (rank + 1) % world
+        rec["rpc"] = rpc.rpc_sync(f"worker{peer}", pow, args=(rank + 2, 2))
+        rec["workers"] = [w.name for w in rpc.get_all_worker_infos()]
+        rpc.shutdown()
+        _write(rec, rank)
+        store.barrier("done", world, timeout=60)
+        return
     t = torch.ones(4) * (rank + 1)
     dist.all_reduce(t)
     rec["sum"] = t.tolist()
@@ -61,10 +75,14 @@ def main():
             "--trainstep") + 1], rank, world)
     hb = dist.env.heartbeat()
     rec["heartbeats"] = hb.beats if hb is not None else 0
+    _write(rec, rank)
+    store.barrier("done", world, timeout=60)
+
+
+def _write(rec, rank):
     out = os.path.join(os.environ["PADDLE_LOG_DIR_OUT"], f"rank{rank}.json")
     with open(out, "w") as f:
         json.dump(rec, f)
-    store.barrier("done", world, timeout=60)
 
 
 def _trainstep(path, rank, world):
