@@ -94,13 +94,15 @@ class _AllReduceIdentity(torch.autograd.Function):
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, g):
-        ctx.g = g
+    def forward(ctx, x, g, loss_share):
+        ctx.g, ctx.share = g, loss_share
         return _reduced(x, g)
 
     @staticmethod
     def backward(ctx, grad):
-        return _reduced(grad, ctx.g), None
+        if ctx.share is None:
+            return _reduced(grad, ctx.g), None, None
+        return _reduced(grad * ctx.share, ctx.g) / ctx.share, None, None
 
 
 class _GatherDim(torch.autograd.Function):
@@ -147,10 +149,13 @@ def allreduce_identity(x, g):
     return _AllReduceIdentity.apply(x, g)
 
 
-def allreduce_sum(x, g):
+def allreduce_sum(x, g, loss_share=None):
     """The sum over the group, whose gradient is the sum of every rank's
-    gradients: each rank's loss reads the same total."""
-    return _AllReduceSum.apply(x, g)
+    gradients: each rank's loss reads the same total. ``loss_share`` (this
+    rank's share of the data-parallel batch): each rank's gradient
+    weighted by its share, in units of the receiver's, as
+    ``moe_utils.exchange`` does."""
+    return _AllReduceSum.apply(x, g, loss_share)
 
 
 def gather_last(x, g):

@@ -14,11 +14,12 @@ b_r / sum(b), and sums them over the group, in place and in their own
 dtype (one coalesced all-reduce per dtype): the gradients become those of
 the mean loss over the global batch even when the ranks' batches differ in
 size (the local batch size is the leading dimension of the first tensor
-argument). The batch total is all-reduced on the device and the scaling is
-one ``_foreach_mul_``, with no host read, so inside a captured
-``jit.TrainStep`` the sync is part of the graph (NCCL captures; gloo runs
-on the CPU, where nothing is captured). At one rank nothing is scaled and
-the all-reduce leaves the gradients bit for bit.
+argument). The share is computed in the forward, the batch total
+all-reduced on the device, and the scaling is one ``_foreach_mul_``, with
+no host read, so inside a captured ``jit.TrainStep`` the sync is part of
+the graph (NCCL captures; gloo runs on the CPU, where nothing is
+captured). At one rank nothing is scaled and the all-reduce leaves the
+gradients bit for bit.
 
 The hybrid wrappers sync over the data x segment-parallel group (each sep
 rank's loss is the mean over its sequence segment, so the share of a sep
@@ -34,7 +35,13 @@ An expert parameter of an expert-parallel ``MoELayer`` (it carries
 the others and summed over that group only: each rank's experts saw the
 tokens its expert group routed to them, and the ranks outside the group
 hold other experts. Summing it over the whole group would add other
-experts' gradients to it.
+experts' gradients to it. Its gradient on a rank sums what every rank of
+the expert-parallel group sent back for its tokens, so those layers whose
+backward crosses ranks (they carry ``_loss_share``: the MoE exchange, the
+gate's balance statistics) are given the share in the forward, and a
+gradient leaving a rank is scaled by its share and divided by the
+receiver's on arrival: after the sync's scaling each rank's loss carries
+its own weight, also when the ranks' batches differ.
 
 Parameters and buffers are broadcast from the group's first rank when the
 model is wrapped (an expert parameter from its expert group's first), and
@@ -92,7 +99,10 @@ class GradientSync(Layer):
         self._paddle_io = isinstance(layers, Layer)
         self._sync = True
         self._pending = False       # a backward ran under no_sync
-        self._local_batch = None
+        self._share = None          # b_r / sum(b), set by the forward
+        # layers whose backward crosses ranks: they weight what they send
+        self._crossing = [m for m in torch.nn.Module.modules(layers)
+                          if hasattr(m, "_loss_share")]
         self.syncs = 0              # gradient syncs issued
 
     def _grad_params(self):
@@ -100,13 +110,30 @@ class GradientSync(Layer):
                 if p.requires_grad]
 
     def forward(self, *inputs, **kwargs):
-        first = _first_tensor((inputs, kwargs))
-        self._local_batch = (1 if first is None or first.dim() == 0
-                             else int(first.shape[0]))
+        if torch.is_grad_enabled():
+            self._set_share(_first_tensor((inputs, kwargs)))
         out = self._layers(*inputs, **kwargs)
         if torch.is_grad_enabled():
             self._hook(out)
         return out
+
+    def _set_share(self, first):
+        """This rank's share of the group's batch, b_r / sum(b), on the
+        device (None without a group of more than one rank), also given
+        to the layers whose backward crosses ranks."""
+        g = self.group
+        share = None
+        if g is not None and g.nranks > 1:
+            b = 1 if first is None or first.dim() == 0 else first.shape[0]
+            dev = (first.device if first is not None
+                   else self._grad_params()[0].device)
+            share = torch.full((), float(b), dtype=torch.float32, device=dev)
+            total = share.clone()
+            _all_reduce_(total, "sum", g)
+            share = share / total
+        self._share = share
+        for m in self._crossing:
+            m._loss_share = share
 
     def _hook(self, out):
         """Queue the gradient sync at the end of the backward that reaches
@@ -154,15 +181,10 @@ class GradientSync(Layer):
                 if eg is not None:
                     experts.setdefault(id(eg), (eg, []))[1].append(p.grad)
         if g is not None and (grads or experts):
-            if g.nranks > 1:
-                first = (grads or next(iter(experts.values()))[1])[0]
-                b = torch.full((), float(self._local_batch or 1),
-                               dtype=torch.float32, device=first.device)
-                total = b.clone()
-                _all_reduce_(total, "sum", g)
+            if g.nranks > 1 and self._share is not None:
                 torch._foreach_mul_(
                     grads + [t for _, ts in experts.values() for t in ts],
-                    b / total)
+                    self._share)
             if grads:
                 _all_reduce_coalesced_(grads, g)
             for eg, ts in experts.values():

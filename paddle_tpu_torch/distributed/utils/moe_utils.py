@@ -27,7 +27,7 @@ import torch.distributed as dist
 from ...tensor import Tensor
 from ..collective import _pg
 
-__all__ = ["global_scatter", "global_gather", "launches"]
+__all__ = ["global_scatter", "global_gather", "exchange", "launches"]
 
 # all-to-all exchanges issued (the card's launch count)
 launches = 0
@@ -49,13 +49,26 @@ def _exchange(v, g):
 
 class _Exchange(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, v, g):
-        ctx.g = g
+    def forward(ctx, v, g, loss_share):
+        ctx.g, ctx.share = g, loss_share
         return _exchange(v, g)
 
     @staticmethod
     def backward(ctx, grad):
-        return _exchange(grad, ctx.g), None
+        if ctx.share is None:
+            return _exchange(grad, ctx.g), None, None
+        # what leaves carries this rank's loss weight; what arrives is put
+        # in units of this rank's loss, which the gradient sync weights
+        return _exchange(grad * ctx.share, ctx.g) / ctx.share, None, None
+
+
+def exchange(v, group, loss_share=None):
+    """The exchange of the torch tensor ``v`` over ``group``, its backward
+    the same exchange. ``loss_share`` (this rank's share of the
+    data-parallel batch, set by ``parallel.GradientSync``): the gradient
+    sent scaled by the sender's share and divided by the receiver's, so a
+    rank's loss keeps its weight when the ranks' batches differ."""
+    return _Exchange.apply(v, group, loss_share)
 
 
 def _check_counts(rows, world, local_count, global_count):
@@ -84,7 +97,7 @@ def global_scatter(x, local_count=None, global_count=None, group=None,
     if group is None:
         return x
     _check_counts(v.shape[0], group.nranks, local_count, global_count)
-    out = _Exchange.apply(v, group)
+    out = exchange(v, group)
     return Tensor(out) if isinstance(x, Tensor) else out
 
 

@@ -81,12 +81,14 @@ def topk_capacity_routing_indices(probs, k: int, capacity: int,
             top1)
 
 
-def load_balance_loss(probs, top1_onehot, group=None):
+def load_balance_loss(probs, top1_onehot, group=None, loss_share=None):
     """GShard's aux loss: E * sum_e mean_prob_e * mean_top1_frac_e (also
     Switch's N * sum(f_i * P_i)). Over a ``group`` of more than one rank
     the means are over every rank's tokens: the per-expert sums and the
     token count go into one all-reduce of a [2, E + 1] tensor, whose
-    gradient is summed back over the group (each rank's loss reads it)."""
+    gradient is summed back over the group (each rank's loss reads it),
+    each rank's weighted by ``loss_share`` when given
+    (``mp_ops.allreduce_sum``)."""
     E = probs.shape[1]
     if group is None or group.nranks <= 1:
         return E * (probs.mean(dim=0) * top1_onehot.mean(dim=0)).sum()
@@ -95,13 +97,16 @@ def load_balance_loss(probs, top1_onehot, group=None):
     count = probs.new_full((2, 1), probs.shape[0])
     stats = allreduce_sum(torch.cat([
         torch.stack([probs.sum(dim=0), top1_onehot.sum(dim=0)]), count],
-        dim=1), group)
+        dim=1), group, loss_share)
     me = stats[0, :E] / stats[0, E]
     ce = stats[1, :E] / stats[1, E]
     return E * (me * ce).sum()
 
 
 class BaseGate(Layer):
+    # this rank's share of the data-parallel batch (parallel.GradientSync)
+    _loss_share = None
+
     def __init__(self, num_expert, world_size=1):
         super().__init__()
         self.world_size = world_size
@@ -140,8 +145,8 @@ class NaiveGate(BaseGate):
         probs = torch.softmax(logits.float(), dim=-1)
         combine, dispatch, top1 = topk_capacity_routing(probs, self.top_k,
                                                         capacity)
-        return combine, dispatch, load_balance_loss(probs, top1,
-                                                    self._stats_group)
+        return combine, dispatch, load_balance_loss(
+            probs, top1, self._stats_group, self._loss_share)
 
     def route_indices(self, logits, capacity):
         """(eids, locs, keeps, gvals) [k, T] and the aux loss: the
@@ -150,7 +155,7 @@ class NaiveGate(BaseGate):
         eids, locs, keeps, gvals, top1 = topk_capacity_routing_indices(
             probs, self.top_k, capacity)
         return eids, locs, keeps, gvals, load_balance_loss(
-            probs, top1, self._stats_group)
+            probs, top1, self._stats_group, self._loss_share)
 
 
 class GShardGate(NaiveGate):

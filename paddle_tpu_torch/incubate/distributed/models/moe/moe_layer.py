@@ -29,11 +29,13 @@ JAX finds it (``moe_layer.py:26-34``); it is read when the layer is
 built. Over an expert group of ep ranks, rank j keeps experts
 ``[j E / ep, (j + 1) E / ep)`` of the list given (``E % ep`` must be 0).
 A forward routes this rank's tokens, sends the ``[E, C, d]`` dispatch
-buffer through ``distributed.utils.global_scatter`` (rank-major: block j
-holds the rows for rank j's experts), runs the local experts on the
-``[E / ep, ep C, d]`` rows that arrive, returns them through
-``global_gather`` and combines as on one device. The capacity is per
-source rank, the layout of JAX's ``global_scatter``. The gate's balance
+buffer through the exchange of ``distributed.utils.global_scatter``
+(``moe_utils.exchange``; rank-major: block j holds the rows for rank j's
+experts), runs the local experts on the ``[E / ep, ep C, d]`` rows that
+arrive, returns them through the same exchange (``global_gather``) and
+combines as on one device. The capacity is per source rank, the layout
+of JAX's ``global_scatter``, so the ranks of an expert group must route
+the same capacity (the exchange's blocks are of one size). The gate's balance
 statistics are taken over the routing group (the mesh's ranks, or
 ``moe_group``): its per-expert sums and token count are all-reduced
 before the product, so ``l_aux`` is JAX's whole-batch value. Each local
@@ -41,15 +43,20 @@ expert parameter carries ``_expert_group``, the ranks that hold the same
 experts (the mesh's other axes at this rank's ep coordinate), and
 ``_ep_group``: ``parallel.GradientSync`` sums its gradient over
 ``_expert_group`` only, and the hybrid clip adds its square once across
-``_ep_group``. ``mp_group=`` is accepted and never read by JAX; the port
-raises when it is given (ROADMAP C, arguments JAX does not read).
+``_ep_group``. Under ``GradientSync`` the layer and its gate hold this
+rank's share of the data-parallel batch (``_loss_share``): the gradients
+the exchange and the statistics' all-reduce send back to other ranks
+carry the sender's weight, so uneven batches weight each rank's loss as
+JAX's whole-batch mean does. ``mp_group=`` is accepted and never read by
+JAX; the port raises when it is given (ROADMAP C, arguments JAX does not
+read).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .....distributed.utils.moe_utils import global_gather, global_scatter
+from .....distributed.utils.moe_utils import exchange
 from .....nn.layer import Layer
 from .....nn.layer_common import LayerList
 from .....ops import apply_like
@@ -63,6 +70,9 @@ class MoELayer(Layer):
     Layers) routed by ``gate`` (a ``BaseGate``, or "gshard" | "switch" |
     "naive", or a dict whose "type" names one). After a forward
     ``l_aux`` holds the load-balance loss (also ``gate.get_loss()``)."""
+
+    # this rank's share of the data-parallel batch (parallel.GradientSync)
+    _loss_share = None
 
     def __init__(self, d_model, experts, gate=None, moe_group=None,
                  mp_group=None, recompute_interval=0, dispatch_mode=None,
@@ -183,7 +193,7 @@ class MoELayer(Layer):
                 # block j (rank j's experts) to rank j; [ep, E/ep, C, d]
                 # arrives, each local expert takes its rows of every rank
                 ep = g.nranks
-                recv = global_scatter(disp.reshape(E * C, d), group=g)
+                recv = exchange(disp.reshape(E * C, d), g, self._loss_share)
                 disp = recv.reshape(ep, E // ep, C, d).transpose(0, 1) \
                     .reshape(E // ep, ep * C, d)
             if self.recompute_interval > 0:
@@ -198,7 +208,7 @@ class MoELayer(Layer):
                 ep = g.nranks
                 eo = eo.reshape(E // ep, ep, C, d).transpose(0, 1) \
                     .reshape(E * C, d)
-                eo = global_gather(eo, group=g).reshape(E, C, d)
+                eo = exchange(eo, g, self._loss_share).reshape(E, C, d)
             if index_mode:
                 eo_pad = torch.cat([eo.reshape(E * C, d).float(),
                                     eo.new_zeros(1, d, dtype=torch.float32)])

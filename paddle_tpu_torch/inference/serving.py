@@ -1469,11 +1469,12 @@ class _RemoteReplica:
     router's other reads while the request runs there."""
 
     POLL_S = 0.005
+    # seconds an rpc to the leader may take
+    RPC_TIMEOUT_S = 300.0
 
-    def __init__(self, name, leader_rank, rpc_timeout=300.0):
+    def __init__(self, name, leader_rank):
         self.name = name
         self.leader_rank = int(leader_rank)
-        self._timeout = float(rpc_timeout)
         self.breaker = _RemoteState(self)
         self._sup = self.breaker
         self.kv_cache = _RemotePool(self)
@@ -1483,7 +1484,7 @@ class _RemoteReplica:
 
         return rpc.rpc_sync(self.leader_rank, _replica_op,
                             args=(self.name, op, args, kwargs),
-                            timeout=self._timeout)
+                            timeout=self.RPC_TIMEOUT_S)
 
     def pending(self):
         return self._call("state")["pending"]

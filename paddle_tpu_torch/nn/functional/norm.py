@@ -18,18 +18,20 @@ storage a body writes (JAX rebinds ``running_mean._value``).
 
 Given a process group of more than one rank (``SyncBatchNorm`` under a
 data-parallel group), the statistics are over every rank's rows: each
-rank's per-channel sum, sum of squares and row count go into one
-all-reduce, the mean and the variance (``E[x^2] - mean^2``) and the
-unbiased running variance use the global count, and the backward
-all-reduces the per-channel sums of dy and dy * xhat, so it is the
-gradient of the whole batch's normalisation. No value is read on the
-host, so a captured ``TrainStep`` holds the collectives.
+rank's per-channel row count, two-pass mean and sum of squared
+deviations go into one all-gather and are combined exactly (Chan et
+al.'s parallel variance, so a channel whose mean is large against its
+spread keeps the accuracy of the two-pass form), the unbiased running
+variance uses the global count, and the backward all-reduces the
+per-channel sums of dy and dy * xhat, so it is the gradient of the whole
+batch's normalisation. No value is read on the host, so a captured
+``TrainStep`` holds the collectives.
 """
 from __future__ import annotations
 
 import torch
 
-from ...distributed.collective import _all_reduce_
+from ...distributed.collective import _all_reduce_, _gather_list
 from ...ops import apply_like
 from ...tensor import Tensor
 
@@ -77,18 +79,20 @@ class _BNTrain(torch.autograd.Function):
         n = 1
         for a in ax:
             n *= x.shape[a]
+        mean = x32.mean(dim=ax)
+        var = torch.square(x32 - mean.reshape(bshape)).mean(dim=ax)
         if group is None:
-            mean = x32.mean(dim=ax)
-            var = torch.square(x32 - mean.reshape(bshape)).mean(dim=ax)
             running_var = var * (n / max(n - 1, 1))
         else:
-            # one all-reduce of [sum, sum of squares, count] per channel
-            stats = torch.stack([x32.sum(dim=ax), x32.square().sum(dim=ax),
-                                 torch.full_like(x32.sum(dim=ax), n)])
-            _all_reduce_(stats, "sum", group)
-            n = stats[2]
-            mean = stats[0] / n
-            var = torch.clamp(stats[1] / n - mean.square(), min=0.0)
+            # one all-gather of every rank's [count, mean, sum of squared
+            # deviations] per channel, combined exactly (Chan et al.)
+            parts = torch.stack(_gather_list(
+                torch.stack([torch.full_like(mean, n), mean, var * n]),
+                group))                                   # [W, 3, C]
+            counts, means, m2s = parts[:, 0], parts[:, 1], parts[:, 2]
+            n = counts.sum(dim=0)
+            mean = (counts * means).sum(dim=0) / n
+            var = (m2s + counts * torch.square(means - mean)).sum(dim=0) / n
             running_var = var * (n / torch.clamp(n - 1, min=1.0))
         inv = torch.rsqrt(var + epsilon)
         out = _bn_apply(x32, w, b, residual, mean, inv, bshape,

@@ -193,8 +193,17 @@ class _BatchNormBase(Layer):
         self.register_buffer("_variance", torch.ones(
             num_features, dtype=torch.float32, device=dev))
 
+    # the legacy ``BatchNorm``'s activation (kept by a converted one)
+    _act = None
+
     def forward(self, x):
-        return self.forward_fused(x)
+        out = self.forward_fused(x)
+        return F.relu(out) if self._act == "relu" else out
+
+    def _sync_group(self):
+        """The process group whose rows the training statistics cover
+        (``SyncBatchNorm``); None: this rank's rows."""
+        return None
 
     def forward_fused(self, x, residual=None, act=None):
         """relu(bn(x) + residual) as one op (``residual`` / ``act``
@@ -204,7 +213,7 @@ class _BatchNormBase(Layer):
             training=self.training, momentum=self._momentum,
             epsilon=self._epsilon, data_format=self._data_format,
             use_global_stats=self._use_global_stats, residual=residual,
-            act=act)
+            act=act, group=self._sync_group() if self.training else None)
 
 
 class BatchNorm(_BatchNormBase):
@@ -216,10 +225,6 @@ class BatchNorm(_BatchNormBase):
         super().__init__(num_channels, momentum, epsilon, param_attr,
                          bias_attr, data_layout, use_global_stats)
         self._act = act
-
-    def forward(self, x):
-        out = super().forward(x)
-        return F.relu(out) if self._act == "relu" else out
 
 
 class BatchNorm1D(_BatchNormBase):
@@ -239,19 +244,15 @@ class SyncBatchNorm(_BatchNormBase):
     the data-parallel batch (Paddle ``SyncBatchNorm``; JAX's is
     ``BatchNorm`` under GSPMD, whose statistics span the sharded batch
     axis). In training over a group of more than one rank, each call
-    all-reduces the per-channel count, sum and sum of squares once, the
-    running variance is unbiased by the global count, and the backward is
-    that of the whole batch's normalisation (``F.batch_norm(group=)``).
-    The group is ``group=``, else the one of the ``DataParallel`` that
-    wraps the layer, else the world when a process group is set; at one
-    rank, or with none, the layer is ``BatchNorm`` bit for bit."""
+    all-gathers every rank's per-channel count, mean and sum of squared
+    deviations once and combines them exactly, the running variance is
+    unbiased by the global count, and the backward is that of the whole
+    batch's normalisation (``F.batch_norm(group=)``). The group is the
+    one of the ``DataParallel`` that wraps the layer, else the world when
+    a process group is set; at one rank, or with none, the layer is
+    ``BatchNorm`` bit for bit."""
 
-    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
-                 weight_attr=None, bias_attr=None, data_format="NCHW",
-                 name=None, group=None):
-        super().__init__(num_features, momentum, epsilon, weight_attr,
-                         bias_attr, data_format)
-        self._group = group
+    _group = None
 
     def _sync_group(self):
         if self._group is not None:
@@ -260,20 +261,6 @@ class SyncBatchNorm(_BatchNormBase):
         from ..distributed.collective import _world
 
         return _world() if env.is_initialized() else None
-
-    def forward_fused(self, x, residual=None, act=None):
-        return F.batch_norm(
-            x, self._mean, self._variance, self.weight, self.bias,
-            training=self.training, momentum=self._momentum,
-            epsilon=self._epsilon, data_format=self._data_format,
-            use_global_stats=self._use_global_stats, residual=residual,
-            act=act, group=self._sync_group() if self.training else None)
-
-    def forward(self, x):
-        out = self.forward_fused(x)
-        # a converted legacy ``BatchNorm`` keeps its activation
-        return (F.relu(out) if getattr(self, "_act", None) == "relu"
-                else out)
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):
@@ -284,7 +271,6 @@ class SyncBatchNorm(_BatchNormBase):
         if isinstance(layer, _BatchNormBase) and not isinstance(layer, cls):
             sync = cls.__new__(cls)
             sync.__dict__.update(layer.__dict__)
-            sync._group = None
             return sync
         for name, child in list(layer._modules.items()):
             if child is not None:

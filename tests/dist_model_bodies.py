@@ -72,15 +72,17 @@ def _bn_case(P, state, x, y, convert):
 
 def body_sync_batchnorm(inputs):
     """Each rank its half of the batch through the converted net (and the
-    control: the unconverted one) under DataParallel: outputs, running
-    statistics and the synced gradients."""
+    control: the unconverted one; and the converted net of
+    ``offset_state``) under DataParallel: outputs, running statistics and
+    the synced gradients."""
     P = _cpu()
     rank, world = _me()
     half = inputs["x"].shape[0] // world
     rows = slice(rank * half, (rank + 1) * half)
     x, y = inputs["x"][rows], inputs["y"][rows]
     out = {"sync": _bn_case(P, inputs["state"], x, y, True),
-           "plain": _bn_case(P, inputs["state"], x, y, False)}
+           "plain": _bn_case(P, inputs["state"], x, y, False),
+           "sync_offset": _bn_case(P, inputs["offset_state"], x, y, True)}
     # convert keeps the parameters and buffers themselves
     net = P.nn.Sequential(P.nn.Conv2D(3, 4, 3), P.nn.BatchNorm2D(4))
     w, mean = net[1].weight._value, net[1]._mean
@@ -183,17 +185,19 @@ def _global_params(model):
     return out
 
 
-def _ep_train(P, inputs, mesh_shape, strip_expert_groups=False):
-    """[dp, ep] mesh: each rank its rows of the batch through
+def _ep_train(P, inputs, mesh_shape, strip_expert_groups=False,
+              case="ep_case"):
+    """[dp, ep] mesh: each rank its rows of ``inputs[case]``'s batch (an
+    equal part, or the case's ``sizes[rank]`` rows in rank order) through
     DataParallel (the world) and a TrainStep of AdamW with the gshard
-    loss, ``steps`` steps: per-step losses, dropped tokens and the
-    parameters after."""
+    loss, ``steps`` steps: per-step losses, dropped tokens, the rows
+    taken and the parameters after."""
     from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch import optimizer as popt
     from paddle_tpu_torch.jit import TrainStep
 
     rank, world = _me()
-    C = inputs["ep_case"]
+    C = inputs[case]
     mesh = dist.ProcessMesh(np.arange(world).reshape(mesh_shape),
                             ["dp", "ep"])
     dist.set_mesh(mesh)
@@ -212,14 +216,15 @@ def _ep_train(P, inputs, mesh_shape, strip_expert_groups=False):
         return lf(out, y) + model.moe.gate.get_loss(clear=False)
 
     step = TrainStep(net, loss_fn, opt)
-    per = C["x"].shape[0] // world
-    rows = slice(rank * per, (rank + 1) * per)
+    sizes = C.get("sizes") or [C["x"].shape[0] // world] * world
+    lo = sum(sizes[:rank])
+    rows = slice(lo, lo + sizes[rank])
     x, y = P.to_tensor(C["x"][rows]), P.to_tensor(C["y"][rows])
     losses, dropped = [], []
     for _ in range(C["steps"]):
         losses.append(float(step(x, y)))
         dropped.append(int(model.moe.dropped))
-    return {"losses": losses, "dropped": dropped,
+    return {"losses": losses, "dropped": dropped, "rows": sizes[rank],
             "params": _global_params(model),
             "n_local": len(model.moe.experts)}
 
@@ -228,8 +233,9 @@ def body_expert_parallel(inputs):
     """The mesh bodies of ``tests/test_moe.py``: ``[dp 1, ep 8]`` with the
     scale experts (every rank the whole batch, as GSPMD replicates it at
     dp 1), then ``[dp 2, ep 4]`` TrainSteps against JAX's whole-batch run
-    (and the control that syncs expert gradients over the world), a
-    capacity that binds, and the hybrid clip's norm across ep."""
+    (and the control that syncs expert gradients over the world, and a
+    batch split unevenly), a capacity that binds, and the hybrid clip's
+    norm across ep."""
     import torch
 
     from paddle_tpu_torch import distributed as dist
@@ -271,6 +277,9 @@ def body_expert_parallel(inputs):
     out["train"] = _ep_train(P, inputs, (2, world // 2))
     out["control"] = _ep_train(P, inputs, (2, world // 2),
                                strip_expert_groups=True)
+    # a batch split unevenly over the ranks
+    out["uneven"] = _ep_train(P, inputs, (2, world // 2),
+                              case="uneven_case")
     # a capacity that binds: each rank's output is JAX's single-device
     # layer on the rank's rows
     B = inputs["bind_case"]

@@ -44,7 +44,7 @@ from paddle_tpu_torch.models.gpt import GPTConfig
 
 import dist_ranks
 import test_torch_expert_parallel as ep_test
-from serving_port import MARGIN, continuous, one_torch_thread
+from serving_port import continuous, one_torch_thread
 
 WORLD = 8
 
@@ -205,7 +205,6 @@ def four():
                     for p, w in zip(prompts, wants)]
         finally:
             pred.close()
-        decided = [bodies_decided(tm, p, r) for p, r in zip(prompts, refs)]
     finally:
         next(torch_threads, None)
     ranks = dist_ranks.run_ranks(
@@ -213,38 +212,22 @@ def four():
         {"fleet": {"config": FLEET_CFG, "state": state, "prompts": prompts,
                    "wants": wants, "sched_kw": FLEET_KW,
                    "pool": FLEET_POOL}}, deadline_s=240)
-    return refs, decided, [r["dist_model_bodies:body_serving_tp"]
-                           for r in ranks]
-
-
-def bodies_decided(tm, prompt, seq):
-    """How many leading new tokens of ``seq`` the single-rank forward
-    decides by a top-2 gap above MARGIN."""
-    import torch
-
-    with torch.no_grad():
-        lg = tm(torch.as_tensor(seq)[None]).float()[0, len(prompt) - 1:-1]
-    top2 = lg.topk(2, dim=-1).values
-    ok = (top2[:, 0] - top2[:, 1] > MARGIN).tolist()
-    return ok.index(False) if False in ok else len(ok)
+    return refs, [r["dist_model_bodies:body_serving_tp"] for r in ranks]
 
 
 def test_serving_tp_fleet_matches_single_rank(four):
-    """Token-identical to the single-rank scheduler, each request up to
-    its first near-tie on the single-rank forward (none here cuts more
-    than a quarter of the new tokens)."""
-    refs, decided, ranks = four
+    """Every request token-identical to the single-rank scheduler, as
+    JAX's leg asserts (the f32 pools keep tp 1 and tp 2 within f32
+    rounding of each other)."""
+    refs, ranks = four
     got = ranks[0]["tokens"]
-    new = [len(r) - len(p) for r, p in zip(refs, FLEET_PROMPTS())]
-    assert sum(decided) >= 0.75 * sum(new)
-    for g, r, n, m in zip(got, refs, decided, new):
-        keep = len(r) - m + n
-        np.testing.assert_array_equal(g[:keep], r[:keep])
-        assert len(g) == len(r)
+    assert len(got) == len(refs)
+    for g, r in zip(got, refs):
+        np.testing.assert_array_equal(g, r)
 
 
 def test_serving_tp_pools_are_head_sharded(four):
-    _, _, ranks = four
+    _, ranks = four
     r0 = ranks[0]
     assert r0["kinds"] == ["ContinuousGenerateBatchingPredictor",
                            "_RemoteReplica"]
@@ -254,7 +237,7 @@ def test_serving_tp_pools_are_head_sharded(four):
 
 
 def test_serving_tp_replicas_end_ready(four):
-    _, _, ranks = four
+    _, ranks = four
     assert set(ranks[0]["states"].values()) == {"ready"}
     assert all(r["refuses"] for r in ranks[1:])
 
@@ -262,9 +245,7 @@ def test_serving_tp_replicas_end_ready(four):
 def test_serving_tp_retires_a_remote_replica(four):
     """Retiring the replica led by rank 2 drains and closes it over rpc:
     it reads dead, and the router serves the next request from r0."""
-    refs, decided, ranks = four
+    refs, ranks = four
     r0 = ranks[0]
     assert r0["after_retire"] == {"r0": "ready", "r1": "dead"}
-    n = len(FLEET_PROMPTS()[0]) + decided[0]
-    np.testing.assert_array_equal(r0["after_retire_tokens"][:n],
-                                  refs[0][:n])
+    np.testing.assert_array_equal(r0["after_retire_tokens"], refs[0])

@@ -20,6 +20,14 @@ whole-batch runs.
   batch is split). The control, with
   the expert gradients summed over the whole world, fails the parameter
   check.
+* The ``[dp 2, ep 4]`` run on a 14-row batch split unevenly over the
+  ranks (``UNEVEN`` rows each, so ranks of one expert group differ and
+  so do the two groups): every rank's loss weighs its share of the
+  batch, also in the expert gradients that other ranks' tokens send back
+  and in the balance loss's gradient, so the mean loss weighted by rows
+  and the parameters meet the same bounds against JAX's whole-batch run.
+  The ranks of an expert group must route the same capacity (the
+  exchange's blocks are of one size): 2 and 3 tokens both give 2.
 * A capacity that binds (factor 0.5): each rank's output is JAX's
   single-device layer on that rank's rows, drops included.
 * The hybrid global-norm clip adds each expert's squares once across ep:
@@ -39,6 +47,9 @@ import dist_ranks
 
 WORLD = 8
 D, E = 16, 4
+# rows of the 14-row batch on each rank in the uneven leg (the expert
+# groups are ranks 0-3 and 4-7; each routes one capacity)
+UNEVEN = [2, 3, 2, 3, 1, 1, 1, 1]
 
 
 def _state(layer):
@@ -139,8 +150,11 @@ def _bind_case():
 def setup():
     scale_in, scale_out = _scale_case()
     ep_in, ep_ref = _ep_case(3, 16)
+    uneven_in, uneven_ref = _ep_case(3, sum(UNEVEN), seed=1)
+    uneven_in["sizes"] = UNEVEN
     bind_in, bind_out, bind_drops = _bind_case()
-    ref = {"scale": scale_out, "ep": ep_ref, "bind": bind_out,
+    ref = {"scale": scale_out, "ep": ep_ref, "uneven": uneven_ref,
+           "bind": bind_out,
            "bind_drops": bind_drops, "clip_norm": _clip_norm(ep_in)}
     a2a = np.arange(WORLD * WORLD * 2 * 4, dtype=np.float32).reshape(
         WORLD * WORLD * 2, 4)
@@ -148,7 +162,7 @@ def setup():
         ["dist_model_bodies:body_global_scatter",
          "dist_model_bodies:body_expert_parallel"], WORLD,
         {"a2a": a2a, "scale_case": scale_in, "ep_case": ep_in,
-         "bind_case": bind_in})
+         "bind_case": bind_in, "uneven_case": uneven_in})
     return a2a, ref, ranks
 
 
@@ -228,6 +242,21 @@ def test_ep_train_step_matches_jax_whole_batch(setup):
     mean = np.mean([r["losses"] for r in res], axis=0)
     np.testing.assert_allclose(mean, ref["ep"]["losses"], rtol=1e-5)
     _params_match(res, ref["ep"])
+
+
+def test_ep_train_step_with_uneven_batches_matches_jax_whole_batch(setup):
+    """Uneven local batches: the mean of the ranks' losses weighted by
+    their rows is JAX's whole-batch loss, and every parameter, the
+    experts' included, meets the same bound."""
+    _, ref, ranks = setup
+    res = _ep(ranks, "uneven")
+    assert [r["rows"] for r in res] == UNEVEN
+    assert all(d == 0 for r in res for d in r["dropped"])
+    assert all(d == 0 for d in ref["uneven"]["drops"])
+    w = np.asarray(UNEVEN, dtype=np.float64) / sum(UNEVEN)
+    mean = np.einsum("r,rs->s", w, [r["losses"] for r in res])
+    np.testing.assert_allclose(mean, ref["uneven"]["losses"], rtol=1e-5)
+    _params_match(res, ref["uneven"])
 
 
 def test_expert_gradients_synced_over_the_world_fail(setup):
