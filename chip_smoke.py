@@ -95,7 +95,7 @@ non-zero without the final line:
    death healed and a torn adapter load refused with the bank intact; a
    two-replica ReplicaFleet with one capture set per replica. Recorded:
    tokens/s with adapters against without and monitors on against off
-   (three rounds of 64 requests each, each form's spread beside its
+   (three rounds of 32 requests each, each form's spread beside its
    median), paged launches per forward, what the replicas' captures added
    to the model's one graph pool.
 8. dense kernel vs plain — the dense split-KV kernel (decode form up to 16
@@ -207,7 +207,7 @@ non-zero without the final line:
    launching 24 a step each as bare, no new capture, and host launch
    calls of a replay equal to the bare step's with ``loss_every=0`` (one
    more with the loss read); (b) tokens/s monitored over bare in turns
-   (bare, monitored, monitored, bare; 3 rounds of 30 steps, from a saved
+   (bare, monitored, monitored, bare; 2 rounds of 20 steps, from a saved
    state put back after them), with each form's spread, resolved or not,
    and each round's own ratio (its drift cancelled) with their spread and
    the most the monitor can cost; (c) a batch of another shape counts one
@@ -216,7 +216,23 @@ non-zero without the final line:
    one ``nan_loss`` anomaly, in the counter and as a trace event; (e) the
    live MFU beside the model-FLOP share of the same wall, their ratio,
    and the HBM gauges; (f) GPT-350M's operator-stats table from its seams
-   under ``auto_cast(O2)``.
+   under ``auto_cast(O2)``; (g) the monitor's graph lint
+   (``analysis.analyze_train_step``, once at its first launch; the
+   sentinel's and the turns' monitors run with ``lint=False``): one
+   ``graph_lint`` span with its findings and no error, inside (a)'s
+   bit-equal losses, launches and host launch calls.
+11h. analysis — ``paddle_tpu_torch.analysis`` (part 1) on the card over
+   the serving GPT-350M (bf16, block 32, 8 slots, max_seq_len 2048): (a)
+   ``hbm_budget=`` under a fit-bound budget ((params + 300 pages) / 0.92)
+   and a clamped one (params + 8 GiB): the pool equal to
+   ``plan_kv_pool``'s (the clamped one 8 x 64 = 512 blocks), 8 greedy
+   requests equal to a scheduler given that num_blocks directly, paged
+   launches, the ``paddle_hbm_planned_bytes`` gauges summing to the plan's
+   total, the allocator's peak beside it; (b) the prefill_chunk and
+   decode_step programs' static peak (``estimate_peak`` over their FX
+   graphs) against their measured body peak, the ratio and the
+   estimate-drift verdict; (c) ``--self-check`` in process with the zoo
+   traced over fake CUDA tensors: exit 0, HIGH findings only allowlisted.
 11g. incubate — (g) a 12-layer ``FusedTransformerEncoderLayer`` stack at
    BERT-base widths (768, 12 heads, 3072, post-LN, B 32, S 512, dropout 0,
    f32, relu) against ``nn.TransformerEncoder`` on the same weights and
@@ -453,6 +469,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import collections
 import contextlib
 import gc
 import io
@@ -2133,7 +2150,7 @@ def serve_knobs(torch, model, device, slots=8, chunk=64, decode_steps=4,
 # ---------------------------------------------------------------- phase 7c
 PROD = dict(slots=8, chunk=64, decode_steps=4, block_size=32,
             max_seq_len=512, new=48, adapters=4, rank=8, alpha=16.0,
-            requests=16, free=8, spec_k=4, rate_requests=64,
+            requests=16, free=8, spec_k=4, rate_requests=32,
             turns=("base", "lora", "monitored", "monitored", "lora", "base",
                    "base", "lora", "monitored"))
 F32_TIE_REL = 1e-4      # f32 near-tie: the LoRA and merged products differ
@@ -6271,8 +6288,10 @@ def script_fit(P, model, loader, ckpt_dir, sigterm_after=None, c=SCRIPT):
             if sigterm_after is not None and len(losses) == sigterm_after:
                 os.kill(os.getpid(), signal.SIGTERM)
 
+    # the graph lint is train_monitor's (g): here it would trace GPT-350M
+    # once in every fit process
     mon = MonitorCallback(samples_per_step=c["B"],
-                          tokens_per_step=c["B"] * c["S"])
+                          tokens_per_step=c["B"] * c["S"], lint=False)
     code = None
     t0 = time.perf_counter()
     try:
@@ -6726,8 +6745,8 @@ def paired_ratio(rates, num, den):
                 cost_at_most=1.0 - min(rounds))
 
 
-def train_monitor(torch, fa, device, B=8, S=1024, steps=8, rounds=3,
-                  turn_steps=30, seed=12, cfg=None):
+def train_monitor(torch, fa, device, B=8, S=1024, steps=8, rounds=2,
+                  turn_steps=20, seed=12, cfg=None):
     """Phase ``train_monitor`` (module docstring, 11f): GPT-350M (or
     ``cfg``), O2 bf16, AdamW, the captured TrainStep under a bound
     ``StepMonitor``: (a) losses bit-equal to the bare step's, the same
@@ -6767,7 +6786,8 @@ def train_monitor(torch, fa, device, B=8, S=1024, steps=8, rounds=3,
     bare = torch.stack(bare)
 
     # (c) a batch of another shape: one recompile, new_shape
-    sentinel = StepMonitor(samples_per_step=B, tokens_per_step=B * S)
+    sentinel = StepMonitor(samples_per_step=B, tokens_per_step=B * S,
+                           lint=False)
     sentinel.bind(step)
     step(*batch[0], **batch[1])
     step(*other[0], **other[1])
@@ -6789,6 +6809,14 @@ def train_monitor(torch, fa, device, B=8, S=1024, steps=8, rounds=3,
     launches = flash_launches(fa)                          # main path ends
     monitored = torch.stack(monitored)
     losses_equal = bool(torch.equal(monitored, bare))
+    # (g) the graph lint ran once, at the first monitored launch
+    spans = [sp for sp in mon.tracer.spans() if sp.name == "graph_lint"]
+    lint = dict(spans=len(spans),
+                tags=dict(spans[0].tags) if spans else None,
+                seconds=(spans[0].end_us - spans[0].start_us) / 1e6
+                if spans else None,
+                high=[f.render() for f in mon.lint_report.high()]
+                if mon.lint_report else None)
     fields = dict(mon.last_fields)
     live = dict(mfu=fields.get("mfu"), step_time_s=fields["step_time_s"],
                 flops_per_step=mon.flops_per_step,
@@ -6824,7 +6852,8 @@ def train_monitor(torch, fa, device, B=8, S=1024, steps=8, rounds=3,
     # (c') a spike for ``mon``'s detector
     pre_turns = step.export_state()
     rates = turn_rates(torch, step, *batch, StepMonitor(
-        samples_per_step=B, tokens_per_step=B * S), rounds, turn_steps)
+        samples_per_step=B, tokens_per_step=B * S, lint=False), rounds,
+        turn_steps)
     step.import_state(pre_turns)
     del pre_turns
     ratio = dict(rate_ratio(rates, "monitored", "bare"),
@@ -6870,7 +6899,7 @@ def train_monitor(torch, fa, device, B=8, S=1024, steps=8, rounds=3,
         aot_fallback=fallback, live_mfu=live, hbm=hbm,
         anomalies={k[0]: v for k, v in anomalies.items()},
         anomaly_events=anomaly_events, loss_after_restore=after_nan,
-        gpt_op_table=gpt_table, flops_counted=prog.flops,
+        gpt_op_table=gpt_table, flops_counted=prog.flops, graph_lint=lint,
         wall_s=time.perf_counter() - t_start, card=card_line())
     print("train_monitor", json.dumps(rec), flush=True)
     fails = []
@@ -6897,12 +6926,190 @@ def train_monitor(torch, fa, device, B=8, S=1024, steps=8, rounds=3,
     if not (live["mfu"] and live["flops_per_step"] and hbm.get(
             "argument_bytes") and hbm.get("peak_bytes")):
         fails.append(f"live MFU or HBM gauges missing: {live}, {hbm}")
+    if lint["spans"] != 1 or "error" in (lint["tags"] or {"error": 1}) \
+            or "findings" not in lint["tags"]:
+        fails.append(f"graph lint: {lint}")
     if gpt_table.get("linear") != {"bfloat16": 4 * cfg.num_layers} \
             or set(gpt_table.get("sum", {})) != {"float32"}:
         fails.append(f"GPT-350M's seams: {gpt_table}")
     del step, opt, model, prog, mon, sentinel
     if fails:
         raise AssertionError("train_monitor: " + "; ".join(fails))
+    return rec
+
+
+def analysis_phase(torch, pa, model, device, slots=8, max_seq_len=2048,
+                   n_requests=8, new=16, seed=23, fit_pages=300,
+                   prompt_lens=(32, 257), self_check_programs=None):
+    """Phase ``analysis`` (module docstring, 11h): the port of
+    ``paddle_tpu/analysis`` (part 1) on the card. (a) A continuous
+    scheduler sized by ``hbm_budget=`` over ``model`` (GPT-350M bf16,
+    block 32) under a fit-bound budget (the params plus 300 pages, over
+    0.92) and a clamped one (the params plus 8 GiB: slots x
+    blocks_for(max_seq_len) blocks): num_blocks equal to plan_kv_pool's,
+    greedy tokens identical to a scheduler given that num_blocks directly,
+    paged launches > 0, the gauges summing to the plan's total, and the
+    allocator's peak while serving beside the plan's total. (b) The
+    residency plan of the scheduler's two step programs at GPT-350M widths:
+    each program's static estimate, its measured body peak (the argument
+    bytes plus the allocator's rise across an eager body run), their ratio
+    and the estimate-drift verdict. (c) ``--self-check`` in process, the
+    zoo traced over fake CUDA tensors: exit 0, every HIGH allowlisted with
+    its reason."""
+    from paddle_tpu_torch.analysis import hbm
+    from paddle_tpu_torch.analysis.__main__ import main as lint_main
+    from paddle_tpu_torch.analysis.compilesurface import ServingConfig
+    from paddle_tpu_torch.inference import (
+        ContinuousGenerateBatchingPredictor,
+        PagedKVCache,
+    )
+
+    t_start = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    params = hbm.params_bytes_of(model)
+    layers, kv_h, hd = (int(x) for x in model._decode_cache_spec())
+    dtype = str(torch.bfloat16)
+    pbb = hbm.per_block_bytes((layers, kv_h, hd, 32, 0, dtype))
+    budgets = {"fit_bound": int((params + fit_pages * pbb) / 0.92),
+               "clamped": params + (8 << 30)}
+    rng = np.random.default_rng(seed)
+    V = model.config.vocab_size
+    jobs = [(rng.integers(0, V, int(n)).astype(np.int64), {})
+            for n in rng.integers(*prompt_lens, n_requests)]
+    kw = dict(device=device, max_slots=slots, max_seq_len=max_seq_len,
+              block_size=32, prefill_chunk=64, decode_steps=4,
+              max_new_tokens=new)
+    sized, fails = {}, []
+    for name, budget in budgets.items():
+        plan = hbm.plan_kv_pool(
+            budget, num_layers=layers, num_kv_heads=kv_h, head_dim=hd,
+            block_size=32, dtype=dtype, slots=slots,
+            max_seq_len=max_seq_len, params_bytes=params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pa.paged_decode_attention.launches = 0
+        gp = ContinuousGenerateBatchingPredictor(model, hbm_budget=budget,
+                                                 **kw)
+        try:
+            outs, wall = _storm_infer(gp, jobs)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            launches = pa.paged_decode_attention.launches
+            nb = gp.kv_cache.num_blocks
+            fams = {f.name: f for f in gp.metrics.registry.families()}
+            gauges = {labels[0]: child.value for labels, child in
+                      fams["paddle_hbm_planned_bytes"].children()}
+            pool = gp.kv_cache.per_chip_pool_bytes()
+            total = gp._hbm_plan.planned_total_bytes
+        finally:
+            gp.close()
+        direct = ContinuousGenerateBatchingPredictor(model, num_blocks=nb,
+                                                     **kw)
+        try:
+            ref, _ = _storm_infer(direct, jobs)
+        finally:
+            direct.close()
+        same = all(np.array_equal(a, b) for a, b in zip(outs, ref))
+        sized[name] = dict(
+            budget_bytes=budget, num_blocks=nb,
+            plan_num_blocks=plan["num_blocks"],
+            fit_blocks=plan["fit_blocks"],
+            target_blocks=plan["target_blocks"],
+            tokens_equal_direct=bool(same), paged_launches=launches,
+            gauges=gauges, gauges_sum=sum(gauges.values()),
+            planned_total_bytes=total, pool_bytes=pool,
+            peak_allocated_bytes=peak, peak_over_plan=peak / total,
+            fit_bound=plan["target_blocks"] > plan["num_blocks"],
+            serve_wall_s=wall)
+        if nb != plan["num_blocks"]:
+            fails.append(f"{name}: num_blocks {nb}, plan {plan['num_blocks']}")
+        if not same:
+            fails.append(f"{name}: tokens differ from the direct scheduler's")
+        if launches <= 0:
+            fails.append(f"{name}: no paged launch")
+        if sum(gauges.values()) != total:
+            fails.append(f"{name}: gauges {gauges} do not sum to {total}")
+        if on_card and peak < params + pool:
+            fails.append(f"{name}: peak {peak} under params + pool")
+        # the next budget's peak counts none of these two pools
+        del gp, direct
+        release(torch)
+    if sized["clamped"]["num_blocks"] != slots * -(-max_seq_len // 32):
+        fails.append(f"clamped pool {sized['clamped']['num_blocks']}")
+    if not sized["fit_bound"]["fit_bound"]:
+        fails.append(f"the fit-bound budget was clamped: {sized}")
+
+    # (b) the two step programs' static estimates against their bodies
+    kv = PagedKVCache(layers, kv_h, hd, block_size=32,
+                      num_blocks=sized["clamped"]["num_blocks"],
+                      device=device)
+    config = ServingConfig(name="gpt-350m", slots=slots, prefill_chunk=64,
+                           decode_steps=4, max_seq_len=max_seq_len,
+                           kv_signature=kv.signature())
+    progs, residency = [], {}
+    pa.paged_decode_attention.launches = 0
+    for path in config.active_paths():
+        t0 = time.perf_counter()
+        pe, est = hbm.program_estimate(model, kv, config, path)
+        progs.append(pe)
+        real = pe.measured_peak_bytes
+        residency[path] = dict(
+            static_peak_bytes=pe.peak_bytes,
+            measured_peak_bytes=real,
+            ratio=(pe.peak_bytes / real) if real else None,
+            argument_bytes=est.argument_bytes,
+            static_temp_bytes=pe.peak_bytes - est.argument_bytes,
+            measured_rise_bytes=(real - est.argument_bytes) if real
+            else None, nodes=est.eqn_count, seconds=time.perf_counter() - t0)
+    plan = hbm.DeploymentPlan(config=config,
+                              budget_bytes=budgets["clamped"],
+                              params_bytes=params, programs=tuple(progs))
+    report = hbm.analyze_hbm_plan(plan)
+    drift_high = [f.message for f in report.high()
+                  if f.rule == "estimate-drift"]
+    residency["drift_high"] = drift_high
+    residency["findings"] = [f.to_dict() for f in report.findings]
+    residency["paged_launches"] = pa.paged_decode_attention.launches
+    if drift_high:
+        fails.append(f"estimate drift: {drift_high}")
+    del kv
+    release(torch)
+
+    # (c) the self-check, the zoo traced over fake CUDA tensors
+    t0 = time.perf_counter()
+    argv = ["--self-check", "--json", "--device",
+            torch.device(device).type]
+    if self_check_programs:
+        argv += ["--programs", ",".join(self_check_programs)]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = lint_main(argv)
+    out = json.loads(buf.getvalue())
+    suppressed = [(p["program"], s["finding"]["rule"],
+                   s["finding"]["severity"], s["reason"])
+                  for p in out["programs"] for s in p["suppressed"]]
+    counts = collections.Counter(f"{r} {sev}" for _p, r, sev, _w
+                                 in suppressed)
+    check = dict(exit=rc, high_total=out["high_total"],
+                 programs=len(out["programs"]),
+                 findings={p["program"]: p["by_rule"]
+                           for p in out["programs"] if p["by_rule"]},
+                 allowlisted=dict(counts),
+                 reasons=sorted({w for _p, _r, _s, w in suppressed}),
+                 seconds=time.perf_counter() - t0)
+    if rc != 0 or out["high_total"]:
+        fails.append(f"self-check exit {rc}, {out['high_total']} HIGH")
+    if any(not reason for _p, _r, _s, reason in suppressed):
+        fails.append("an allowlisted finding without its reason")
+    rec = dict(sized=sized, residency=residency, self_check=check,
+               params_bytes=params, per_block_bytes=pbb,
+               paged_launches=sum(r["paged_launches"]
+                                  for r in sized.values())
+               + residency["paged_launches"],
+               wall_s=time.perf_counter() - t_start, card=card_line())
+    print("analysis", json.dumps(rec), flush=True)
+    if fails:
+        raise AssertionError("analysis: " + "; ".join(fails))
     return rec
 
 
@@ -7077,7 +7284,8 @@ def incubate_phase(torch, device, B=32, S=512, d=768, heads=12, ff=3072,
     with step._eager():
         body = torch.stack([step(xb, target) for _ in range(steps)])
     step.import_state(start)
-    mon = StepMonitor(samples_per_step=B, tokens_per_step=B * S)
+    mon = StepMonitor(samples_per_step=B, tokens_per_step=B * S,
+                      lint=False)
     mon.bind(step)
     replay = torch.stack([step(xb, target) for _ in range(steps)])
     h_rec = dict(body_losses=[float(v) for v in body],
@@ -8784,6 +8992,26 @@ def main():
           f"grown by {prod['fleet']['shared_graph_pool_growth_bytes']} "
           f"bytes by the replicas' warmups, "
           f"{prod['wall_s']:.1f} s", flush=True)
+    release(torch)
+    with phase("analysis"):
+        lint = analysis_phase(torch, pa, model, device)
+    a = lint["residency"]
+    print(f"analysis on {card}: hbm_budget= pools "
+          + ", ".join(f"{k} {v['num_blocks']} blocks (plan "
+                      f"{v['plan_num_blocks']}, tokens equal "
+                      f"{v['tokens_equal_direct']}, {v['paged_launches']} "
+                      f"paged launches, peak / plan "
+                      f"{v['peak_over_plan']:.3f})"
+                      for k, v in lint["sized"].items())
+          + "; residency "
+          + ", ".join(f"{k} static {v['static_peak_bytes']} / measured "
+                      f"{v['measured_peak_bytes']} = {v['ratio']:.4f}"
+                      for k, v in a.items() if k in ("prefill_chunk",
+                                                     "decode_step"))
+          + f"; self-check exit {lint['self_check']['exit']} over "
+          f"{lint['self_check']['programs']} programs in "
+          f"{lint['self_check']['seconds']:.1f} s; {lint['wall_s']:.1f} s",
+          flush=True)
     del model
     torch.cuda.empty_cache()
     with phase("dense_checks_and_times"):
@@ -8858,8 +9086,9 @@ def main():
           f"{tmon['live_mfu']['mfu']:.4f} against a model-FLOP share of "
           f"{tmon['live_mfu']['model_flop_share']:.4f} "
           f"(ratio {tmon['live_mfu']['mfu_over_model_share']:.4f}), host "
-          f"launch calls {tmon['host_launch_calls']}, {tmon['wall_s']:.1f} s",
-          flush=True)
+          f"launch calls {tmon['host_launch_calls']}, graph lint "
+          f"{tmon['graph_lint']['seconds']:.1f} s {tmon['graph_lint']['tags']}"
+          f", {tmon['wall_s']:.1f} s", flush=True)
     release(torch)
     with phase("incubate"):
         incub = incubate_phase(torch, device)
@@ -9080,6 +9309,7 @@ def main():
         "serve_knobs_launches": knobs["kernel_launches"],
         "serve_production_launches": prod["kernel_launches"],
         "batch_serve_launches": batch["paged_launches"],
+        "analysis_launches": lint["paged_launches"],
         "max_abs_err": worst["bfloat16"],
         "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": d["library_ms"],
@@ -9231,7 +9461,8 @@ def main():
                   dense_profile=gen_profile, batch_serving=batch,
                   degrade=degrade, speculative=spec,
                   train_insitu=train_checks, training=training,
-                  script=script, train_monitor=tmon, incubate=incub,
+                  script=script, train_monitor=tmon, analysis=lint,
+                  incubate=incub,
                   long_context=long_ctx, train_recipes=recipes,
                   optimizers=optimizers, rnn_lm=lm,
                   flashmask_checks=fm_checks, flashmask_timing=fm_timing,

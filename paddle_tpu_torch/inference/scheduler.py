@@ -30,9 +30,11 @@ those are installed. When the pool's signature does not match the model,
 the tick loop hands over to the base class's collect-and-run loop, which
 serves each request through dense ``generate()``.
 
-Still raising: ``compile_cache_dir=`` (a CUDA graph holds device addresses
-and cannot be persisted; ROADMAP C) and ``hbm_budget=`` (it waits for the
-HBM planner, ROADMAP A6).
+``hbm_budget=`` sizes the pool from ``analysis.hbm.plan_kv_pool`` (the
+pool's scratch page reserved first) and publishes the plan as
+``paddle_hbm_planned_bytes{component}`` beside
+``paddle_hbm_budget_bytes``. Still raising: ``compile_cache_dir=`` (a CUDA
+graph holds device addresses and cannot be persisted; ROADMAP C).
 """
 from __future__ import annotations
 
@@ -288,10 +290,6 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
                 "compile_cache_dir= has no counterpart in the PyTorch "
                 "scheduler: a CUDA graph holds device addresses and cannot "
                 "be persisted (ROADMAP C); warmup=True captures anew")
-        if hbm_budget is not None:
-            raise NotImplementedError(
-                "hbm_budget= waits for the HBM planner "
-                "(analysis/hbm.py plan_kv_pool; ROADMAP A6)")
         self.tp_group = model._tp()
         self._follower = self.tp_group is not None and self.tp_group.rank
         if self.tp_group is not None and not self._follower:
@@ -381,8 +379,45 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
         self._max_seq_len_arg = max_seq_len
         self.max_seq_len = None             # finalized in _start_worker
         self.table_width = None
+        # hbm_budget= sizes the pool FROM the residency plan
+        # (analysis/hbm.py plan_kv_pool, JAX scheduler.py:465-487), so the
+        # static lint and the runtime share one arithmetic. Under tensor
+        # parallelism each rank holds 1/tp of the kv heads and its own
+        # parameter shards: the plan is per chip.
+        self.hbm_budget = None if hbm_budget is None else int(hbm_budget)
+        self._hbm_plan = None
+        if (self.hbm_budget is not None and kwargs.get("kv_cache") is None
+                and "num_blocks" not in kwargs):
+            kwargs["num_blocks"] = self._plan_pool(
+                getattr(model, "_model", model), kwargs, adapters)
         super().__init__(model, max_batch_size=max_slots,
                          max_defers=max_defers, **kwargs)
+
+    def _plan_pool(self, model, kwargs, adapters):
+        """The pool's num_blocks from ``plan_kv_pool`` over the budget;
+        keeps the plan for the ``paddle_hbm_*`` gauges."""
+        import torch
+
+        from ..analysis.hbm import params_bytes_of, plan_kv_pool
+
+        tp = 1 if self.tp_group is None else int(self.tp_group.nranks)
+        layers, kv_h, hd = (int(x) for x in model._decode_cache_spec())
+        sizing = plan_kv_pool(
+            self.hbm_budget, num_layers=layers, num_kv_heads=kv_h,
+            head_dim=hd, block_size=kwargs.get("block_size", 32),
+            dtype=str(torch.bfloat16), slots=self.max_slots,
+            max_seq_len=self._max_seq_len_arg,
+            # this rank's shards, as the plan's whole replica (params / tp)
+            params_bytes=params_bytes_of(model) * tp, tp=tp,
+            name=kwargs.get("component") or self._component,
+            prefill_chunk=self.prefill_chunk,
+            decode_steps=self.decode_steps, spec_k=self.spec_k,
+            eos_token_id=self.eos_token_id,
+            decode_kernel=self.decode_kernel,
+            adapter_bank_bytes=(0 if adapters is None
+                                else adapters.bank_bytes()))
+        self._hbm_plan = sizing["plan"]
+        return sizing["num_blocks"]
 
     def _start_worker(self):
         """Pool-dependent set-up, then the tick thread."""
@@ -479,6 +514,22 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
             "Prompt tokens still to prefill across in-flight slots",
             labels=("component",)).labels(self._component).set_function(
                 self._prefill_backlog)
+        # the plan hbm_budget= sized the pool from, component by
+        # component, next to the declared budget (JAX :597-610); absent
+        # when the knob is off
+        if self._hbm_plan is not None:
+            reg.gauge(
+                "paddle_hbm_budget_bytes",
+                "Declared per-chip HBM budget the serving plan was sized "
+                "against (scheduler hbm_budget= knob)",
+                labels=("component",)).labels(self._component).set(
+                    self.hbm_budget)
+            planned = reg.gauge(
+                "paddle_hbm_planned_bytes",
+                "Planned per-chip HBM residency by plan component "
+                "(analysis/hbm.py DeploymentPlan)", labels=("component",))
+            for part, nbytes in self._hbm_plan.components().items():
+                planned.labels(part).set(nbytes)
         # multi-LoRA telemetry: bank occupancy by state (loaded =
         # resident, pinned = refcounted by in-flight slots, free = open
         # rows) plus per-adapter admission counts. Absent without a

@@ -6,9 +6,9 @@ counterpart of ``paddle_tpu/inference/warmup.py``.
   [S, C]``, ``decode_step [S, decode_steps]`` and, with ``spec_k > 0``,
   ``verify_step [S, K + 1]``, each over the scheduler's table width, pool,
   eos, decode kernel and decode state (and, with an adapter registry,
-  the bank's shape and identity) — the port's counterpart of
-  ``ServingConfig.program_keys`` (``paddle_tpu/analysis/compilesurface.py:
-  303-353``), derived from ``GenerationMixin._step_runner``'s key layout.
+  the bank's shape and identity): ``ServingConfig.from_predictor(pred)
+  .program_keys()`` of ``analysis.compilesurface``, the one derivation the
+  lint and the warmup share (JAX ``compilesurface.py:303-353``).
 * ``Warmup`` runs each of those programs once with every slot idle
   (``chunk_lens == 0``, ``active == False``), so each key's runner is
   built — on CUDA its first run is its body and its graph is captured —
@@ -31,7 +31,7 @@ import time
 
 import numpy as np
 
-__all__ = ["Warmup", "CompileSentinel", "program_keys", "active_paths",
+__all__ = ["Warmup", "CompileSentinel", "program_keys",
            "activate", "deactivate", "notify"]
 
 
@@ -70,41 +70,17 @@ def notify(component, program):
         s.record(component, program)
 
 
-def active_paths(pred):
-    """The step programs a continuous scheduler's configuration runs."""
-    paths = ["prefill_chunk", "decode_step"]
-    if pred.spec_k > 0:
-        paths.append("verify_step")
-    return tuple(paths)
-
-
-def _shape(pred, path):
-    S = pred.max_slots
-    return {"prefill_chunk": (S, pred.prefill_chunk),
-            "decode_step": (S, pred.decode_steps),
-            "verify_step": (S, pred.spec_k + 1)}[path]
-
-
 def program_keys(pred):
-    """Every runner key the scheduler ``pred`` can request (the layout of
+    """Every runner key the scheduler ``pred`` can request: the
+    compile-surface derivation (``analysis.compilesurface``) of the
+    scheduler's ``ServingConfig`` — the layout of
     ``GenerationMixin._step_runner``: kind, shape, table width, pool
     signature, eos, ids dtype, decode kernel, pool, decode state; then,
     with an adapter registry, ``adapter_key_part``: the bank's signature
-    and identity, as JAX ``warmup.py:97-99`` adds the signature)."""
-    from ..models.generation import adapter_key_part
+    and identity, as JAX ``warmup.py:97-99`` adds the signature."""
+    from ..analysis.compilesurface import ServingConfig
 
-    kv = pred.kv_cache
-    _, state_key = pred.model._state_for_key(kv.dtype)
-    eos = -1 if pred.eos_token_id is None else int(pred.eos_token_id)
-    ad = getattr(pred, "adapters", None)
-    bank = () if ad is None else adapter_key_part(ad)
-    keys = []
-    for path in active_paths(pred):
-        keys.append((path, *_shape(pred, path), pred.table_width,
-                     kv.signature(), -1 if path == "verify_step" else eos,
-                     "int64", pred.decode_kernel, ("pool", kv.uid),
-                     state_key) + bank)
-    return keys
+    return list(ServingConfig.from_predictor(pred).program_keys())
 
 
 class Warmup:
@@ -157,7 +133,7 @@ class Warmup:
         keys = program_keys(pred)
         before = set(pred.model._runner_cache())
         per = {}
-        for path in active_paths(pred):
+        for path in (k[0] for k in keys):
             if pred._stop.is_set():     # closing mid-warmup: stop cleanly
                 break
             t = time.perf_counter()

@@ -474,46 +474,58 @@ class GenerationMixin:
               for _ in range(num_layers)]
         vc = [torch.zeros(shape, dtype=cache_dtype, device=dev)
               for _ in range(num_layers)]
-        tok = torch.zeros(B, dtype=torch.int64, device=dev)
-        length = torch.zeros(B, dtype=torch.int32, device=dev)
-        at_zero = torch.zeros(B, dtype=torch.int32, device=dev)
-        step = torch.zeros(1, dtype=torch.int64, device=dev)
-        finished = torch.zeros(B, dtype=torch.bool, device=dev)
+        carry = {"tok": torch.zeros(B, dtype=torch.int64, device=dev),
+                 "length": torch.zeros(B, dtype=torch.int32, device=dev),
+                 "at_zero": torch.zeros(B, dtype=torch.int32, device=dev),
+                 "step": torch.zeros(1, dtype=torch.int64, device=dev),
+                 "finished": torch.zeros(B, dtype=torch.bool, device=dev)}
         sample = self._make_slot_sampler(eos)
 
-        def prefill(inp, out):
-            lg = self._decode_call(state, inp["ids"], kc, vc,
-                                   DenseStep(at_zero), decode_kernel)
-            nxt, fin = sample(lg[:, -1], inp["u"][0],
-                              torch.zeros_like(finished), inp["temps"],
-                              inp["top_ks"])
-            out["tokens"][:, 0] = nxt
-            tok.copy_(nxt)
-            finished.copy_(fin)
-            length.fill_(P)
-            step.fill_(1)
+        def rebuild(c):
+            state, kc, vc = c["state"], c["k"], c["v"]
+            tok, length, step = c["tok"], c["length"], c["step"]
+            at_zero, finished = c["at_zero"], c["finished"]
 
-        def decode(inp, out):
-            lg = self._decode_call(state, tok[:, None], kc, vc,
-                                   DenseStep(length), decode_kernel)
-            i = step.clamp(max=bucket - 1)
-            nxt, fin = sample(lg[:, -1], inp["u"].index_select(0, i)[0],
-                              finished, inp["temps"], inp["top_ks"])
-            out["tokens"].index_copy_(1, i, nxt[:, None])
-            tok.copy_(nxt)
-            finished.copy_(fin)
-            length.add_(1)
-            step.add_(1)
+            def prefill(inp, out):
+                lg = self._decode_call(state, inp["ids"], kc, vc,
+                                       DenseStep(at_zero), decode_kernel)
+                nxt, fin = sample(lg[:, -1], inp["u"][0],
+                                  torch.zeros_like(finished), inp["temps"],
+                                  inp["top_ks"])
+                out["tokens"][:, 0] = nxt
+                tok.copy_(nxt)
+                finished.copy_(fin)
+                length.fill_(P)
+                step.fill_(1)
 
-        return StepRunner(
+            def decode(inp, out):
+                lg = self._decode_call(state, tok[:, None], kc, vc,
+                                       DenseStep(length), decode_kernel)
+                i = step.clamp(max=bucket - 1)
+                nxt, fin = sample(lg[:, -1], inp["u"].index_select(0, i)[0],
+                                  finished, inp["temps"], inp["top_ks"])
+                out["tokens"].index_copy_(1, i, nxt[:, None])
+                tok.copy_(nxt)
+                finished.copy_(fin)
+                length.add_(1)
+                step.add_(1)
+
+            return {"prefill": prefill, "decode": decode}
+
+        # the tensors the programs close over; analysis.trace_runner
+        # rebuilds them over fake stand-ins
+        closed = {"state": state, "k": kc, "v": vc, **carry}
+        run = StepRunner(
             dev,
             inputs={"ids": ((B, P), torch.int64),
                     "temps": ((B,), torch.float32),
                     "top_ks": ((B,), torch.int64),
                     "u": ((bucket, B), torch.float32)},
             outputs={"tokens": ((B, bucket), torch.int64)},
-            programs={"prefill": prefill, "decode": decode},
+            programs=rebuild(closed),
             pool=self._graph_pool())
+        run.trace_parts = (rebuild, closed)
+        return run
 
     def compiled_generate_runner(self, batch, prompt_len, max_new_tokens):
         """The cached runner of a prior generate() shape, or None (JAX
@@ -675,12 +687,25 @@ class GenerationMixin:
 
         def make_run():
             self._watch_pool(kv_cache)
-            body = make_body(state, kv_cache.k_pages, kv_cache.v_pages,
-                             kv_cache.block_size, kv_cache.scratch_slot)
-            if adapters is not None:
-                body = _with_adapters(body, adapters.bank())
-            return StepRunner(self.device, inputs, outputs, {"step": body},
-                              pool=self._graph_pool())
+            bs, scratch = kv_cache.block_size, kv_cache.scratch_slot
+
+            def rebuild(c):
+                body = make_body(c["state"], c["k_pages"], c["v_pages"], bs,
+                                 scratch)
+                if c["bank"] is not None:
+                    body = _with_adapters(body, c["bank"])
+                return {"step": body}
+
+            # the tensors the body closes over (the pools, not the cache: a
+            # runner must not keep the cache alive); analysis.trace_runner
+            # rebuilds the body over fake stand-ins of them
+            closed = {"state": state, "k_pages": kv_cache.k_pages,
+                      "v_pages": kv_cache.v_pages,
+                      "bank": None if adapters is None else adapters.bank()}
+            run = StepRunner(self.device, inputs, outputs, rebuild(closed),
+                             pool=self._graph_pool())
+            run.trace_parts = (rebuild, closed)
+            return run
 
         found = self._runner_for(cache_key, make_run)
         if keep is not None:

@@ -29,11 +29,10 @@ the captured program is the same. Where the port differs:
   JAX's scan cache does, ``("scan", n_steps, flags, avals)``: a new
   ``n_steps`` counts as a recompile although the port replays the same
   graph n times.
-* **The graph lint** (``lint=True``) needs ``paddle_tpu.analysis``, whose
-  port is ROADMAP item 6: the ``graph_lint`` event carries the
-  ``NotImplementedError`` that JAX's guard would record,
-  ``lint_report`` stays None and ``paddle_analysis_findings_total`` stays
-  empty.
+* **The graph lint** (``lint=True``) runs ``analysis.analyze_train_step``
+  once at the first launch, over an FX graph of the step traced with fake
+  tensors (a CUDA graph has no program text to read): it adds no launch
+  and changes nothing the step holds.
 * **The loss fetch** (``loss_every``) reads the loss the step returns (a
   copy of the capture's own tensor, made before the next replay), outside
   any capture; ``loss_every=0`` adds no host synchronisation.
@@ -145,8 +144,7 @@ class StepMonitor:
                  detector=None, log_writer=None, log_freq=1, loss_every=1,
                  lint=True, enabled=True, clock=time.perf_counter):
         self.enabled = bool(enabled)
-        # graph lint at the first launch (ROADMAP item 6: not ported; the
-        # graph_lint event carries the error). lint=False opts out.
+        # graph lint once at the first launch; lint=False opts out
         self.lint = bool(lint)
         self.lint_report = None
         self._lint_pending = self.lint
@@ -361,17 +359,32 @@ class StepMonitor:
 
     # ---------------------------------------------------------- graph lint
     def _run_lint(self, step, args, kwargs):
-        """The graph lint, once at the first launch. JAX runs
-        ``paddle_tpu.analysis`` over the step here; its port is ROADMAP
-        item 6, so the ``graph_lint`` event carries the
-        ``NotImplementedError`` that JAX's guard would record. Never
+        """Lint the bound step ONCE at its first launch
+        (``analysis.analyze_train_step``: one trace over fake tensors of the
+        body the call is about to run; nothing is captured or launched and
+        the step's state, counters and RNG are left as they were).
+        Findings count into ``paddle_analysis_findings_total{rule,
+        severity}`` and a ``graph_lint`` span joins the timeline. Never
         raises: telemetry must not take down the loop."""
         self._lint_pending = False
         now = self.now_us()
-        err = NotImplementedError("StepMonitor graph lint: paddle_tpu.analysis"
-                                  " is not ported (ROADMAP item 6)")
-        self.tracer.record("graph_lint", now, self.now_us(), self._trace_id,
-                           tags={"error": repr(err)[:200]})
+        try:
+            from .. import analysis
+
+            report = analysis.analyze_train_step(step, *args, **kwargs)
+            self.lint_report = report
+            for f in report.findings:
+                self._m_findings.labels(f.rule, f.severity).inc()
+            self.tracer.record(
+                "graph_lint", now, self.now_us(), self._trace_id,
+                tags={"findings": len(report.findings),
+                      "high": len(report.high()),
+                      "suppressed": len(report.suppressed),
+                      "by_rule": repr(report.by_rule())[:200]})
+        except Exception as e:  # pragma: no cover - defensive
+            self.tracer.record("graph_lint", now, self.now_us(),
+                               self._trace_id,
+                               tags={"error": repr(e)[:200]})
 
     def step_end(self, step, loss_val, t0, n_steps=1):
         """Hook 3/3 (state written back): closes the ``step`` span, updates

@@ -12,7 +12,10 @@ attends to cache columns ``c <= lengths[b] + s``.
   hand-written kernel (``csrc/decode_attention.cu``) or raises; on CPU
   tensors it runs the plain version. ``decode_attention.launches`` counts
   calls that launched the kernel, so a run can show the main path went
-  through it. Unlike the JAX wrapper, it never drops to the plain version
+  through it. It calls the operator
+  ``torch.ops.paddle_tpu_torch.dense_decode`` (``decode_op``), so a
+  program traced over fake tensors holds the kernel as one node. Unlike
+  the JAX wrapper, it never drops to the plain version
   for a cache length its blocks do not divide: the kernel masks the ragged
   tail itself.
 * ``kernel_launch_config`` — which of the kernel's two forms a call takes
@@ -32,11 +35,12 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
 __all__ = ["decode_attention", "decode_attention_ref", "kernel_tolerance",
-           "kernel_launch_config", "LaunchConfig"]
+           "kernel_launch_config", "LaunchConfig", "decode_op"]
 
 _NEG = torch.finfo(torch.float32).min
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -233,11 +237,40 @@ def decode_attention(q, k_cache, v_cache, lengths, scale=None):
     dtype). CPU tensors run ``decode_attention_ref``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return decode_attention_ref(q, k_cache, v_cache, lengths, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: no kernel for {q.device}")
-    return _launch_kernel(q, k_cache, v_cache, lengths, scale)
+    if isinstance(lengths, torch.Tensor):
+        return decode_op(q, k_cache, v_cache, lengths, 0, float(scale))
+    return decode_op(q, k_cache, v_cache, None, int(lengths), float(scale))
 
 
 decode_attention.launches = 0
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::dense_decode", mutates_args=(),
+    schema="(Tensor q, Tensor k_cache, Tensor v_cache, Tensor? lengths, "
+           "int uniform, float scale) -> Tensor")
+def decode_op(q, k_cache, v_cache, lengths, uniform, scale):
+    """The operator ``torch.ops.paddle_tpu_torch.dense_decode`` that
+    ``decode_attention`` calls (``lengths`` a tensor, or None and one
+    ``uniform`` length): on CUDA tensors the kernel (its launch counted on
+    ``decode_attention``), on CPU tensors the plain version; its fake gives
+    the shape to a program traced with fake tensors (``analysis``)."""
+    lens = uniform if lengths is None else lengths
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, lens, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: no kernel for {q.device}")
+    return _launch_kernel(q, k_cache, v_cache, lens, scale)
+
+
+@decode_op.register_fake
+def _decode_shape(q, k_cache, v_cache, lengths, uniform, scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@register_flop_formula(torch.ops.paddle_tpu_torch.dense_decode)
+def _decode_flops(q_shape, k_shape, *args, **kwargs):
+    """The plain version's two products over the T cache columns:
+    4 * B * S * Hq * D * T."""
+    B, S, Hq, D = q_shape
+    return 4 * B * S * Hq * D * k_shape[2]

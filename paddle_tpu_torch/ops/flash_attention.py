@@ -16,7 +16,9 @@ no ``[B * H, S, D]`` transposes (JAX ``_to_bhsd``, :480-488).
   computes ``delta`` in f32 and runs ``flash_bwd_dq`` and ``flash_bwd_dkv``;
   a call that needs no gradient runs the forward alone. The forward goes
   through the operator ``torch.ops.paddle_tpu_torch.flash_fwd``
-  (``flash_fwd_op``), which ``torch.export`` keeps in a program.
+  (``flash_fwd_op``), which ``torch.export`` keeps in a program; the
+  backward through ``flash_bwd_dq_op`` / ``flash_bwd_dkv_op``, so a step
+  traced over fake CUDA tensors (``analysis``) holds the kernels as nodes.
 * ``flashmask_attention`` — the same with a FlashMask: ``sri``
   (startend_row_indices) ``[B, H' in {1, H}, S, n <= 4]``, cast to int32
   and never broadcast to ``[B, H, S, n]``; ``FlashMaskFunction`` is its
@@ -51,7 +53,8 @@ from torch.utils.flop_counter import register_flop_formula
 from . import _build
 
 __all__ = ["flash_attention", "FlashAttentionFunction", "supports",
-           "KERNEL_HEAD_DIMS", "flash_fwd_op",
+           "KERNEL_HEAD_DIMS", "flash_fwd_op", "flash_bwd_dq_op",
+           "flash_bwd_dkv_op",
            "flashmask_attention", "FlashMaskFunction", "flashmask_allowed",
            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flashmask_fwd",
            "flashmask_bwd_dq", "flashmask_bwd_dkv",
@@ -492,6 +495,54 @@ def _flash_fwd_flops(q_shape, k_shape, v_shape, causal, scale, *args,
     return 4 * B * H * S * S * D
 
 
+@torch.library.custom_op(
+    "paddle_tpu_torch::flash_bwd_dq", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor dout, Tensor lse, "
+           "Tensor delta, bool causal, float scale) -> Tensor")
+def flash_bwd_dq_op(q, k, v, dout, lse, delta, causal, scale):
+    """``flash_bwd_dq`` as the operator
+    ``torch.ops.paddle_tpu_torch.flash_bwd_dq`` (launch counted on
+    ``flash_bwd_dq``), so that a program traced with fake tensors
+    (``analysis``) holds the kernel as one node on any device."""
+    return flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale)
+
+
+@flash_bwd_dq_op.register_fake
+def _flash_bwd_dq_shapes(q, k, v, dout, lse, delta, causal, scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::flash_bwd_dkv", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor dout, Tensor lse, "
+           "Tensor delta, bool causal, float scale) -> (Tensor, Tensor)")
+def flash_bwd_dkv_op(q, k, v, dout, lse, delta, causal, scale):
+    """``flash_bwd_dkv`` as the operator
+    ``torch.ops.paddle_tpu_torch.flash_bwd_dkv``."""
+    return flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale)
+
+
+@flash_bwd_dkv_op.register_fake
+def _flash_bwd_dkv_shapes(q, k, v, dout, lse, delta, causal, scale):
+    return (torch.empty_like(k, memory_format=torch.contiguous_format),
+            torch.empty_like(v, memory_format=torch.contiguous_format))
+
+
+@register_flop_formula(torch.ops.paddle_tpu_torch.flash_bwd_dq)
+def _flash_bwd_dq_flops(q_shape, *args, **kwargs):
+    """The plain dq's three products (P, dP, dS.K): 6 * B * H * S * S * D."""
+    B, S, H, D = q_shape
+    return 6 * B * H * S * S * D
+
+
+@register_flop_formula(torch.ops.paddle_tpu_torch.flash_bwd_dkv)
+def _flash_bwd_dkv_flops(q_shape, *args, **kwargs):
+    """The plain dk / dv's four products (P, dP, dS^T.Q, P^T.dO):
+    8 * B * H * S * S * D."""
+    B, S, H, D = q_shape
+    return 8 * B * H * S * S * D
+
+
 # --------------------------------------------------------------- autograd
 class FlashAttentionFunction(torch.autograd.Function):
     """The custom VJP ``_flash`` (:439-455): q, k, v of one shape
@@ -510,9 +561,10 @@ class FlashAttentionFunction(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.to(out.dtype)
         delta = attention_delta(out, dout)
-        dq = flash_bwd_dq(q, k, v, dout, lse, delta, ctx.causal, ctx.scale)
-        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, ctx.causal,
-                               ctx.scale)
+        dq = flash_bwd_dq_op(q, k, v, dout, lse, delta, ctx.causal,
+                             ctx.scale)
+        dk, dv = flash_bwd_dkv_op(q, k, v, dout, lse, delta, ctx.causal,
+                                  ctx.scale)
         return dq, dk, dv, None, None
 
 

@@ -12,6 +12,9 @@ request. Query row s of request b sits at absolute position
   hand-written kernel (``csrc/paged_attention.cu``) or raises; on CPU
   tensors it runs the plain version. ``paged_decode_attention.launches``
   counts kernel launches, so a run can show the main path went through it.
+  It calls the operator ``torch.ops.paddle_tpu_torch.paged_decode``
+  (``paged_decode_op``), so a step program traced over fake tensors
+  (``analysis``) holds the kernel as one node on any device.
 * ``paged_decode_attention_ref`` — the plain PyTorch version: the JAX
   package's gather path (``decode_attention.py:334-340``) followed by
   ``decode_attention_xla`` (``:64``), the port's ``decode_attention_ref``.
@@ -30,6 +33,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .decode_attention import decode_attention_ref
@@ -38,7 +42,7 @@ from .decode_attention import kernel_tolerance as dense_tolerance
 __all__ = ["paged_decode_attention", "paged_decode_attention_ref",
            "kernel_tolerance", "paged_cache_update", "write_positions",
            "paged_write_index", "paged_write_slots", "paged_scatter_",
-           "kernel_launch_config"]
+           "kernel_launch_config", "paged_decode_op"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ROWS = 64          # csrc/paged_attention.cu kRows: query rows of a block
@@ -155,6 +159,23 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
     dtype). CPU tensors run ``paged_decode_attention_ref``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    return paged_decode_op(q, k_pages, v_pages, block_tables, lengths,
+                           float(scale))
+
+
+paged_decode_attention.launches = 0
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::paged_decode", mutates_args=(),
+    schema="(Tensor q, Tensor k_pages, Tensor v_pages, Tensor block_tables, "
+           "Tensor lengths, float scale) -> Tensor")
+def paged_decode_op(q, k_pages, v_pages, block_tables, lengths, scale):
+    """The operator ``torch.ops.paddle_tpu_torch.paged_decode`` that
+    ``paged_decode_attention`` calls: on CUDA tensors the kernel (its
+    launch counted on ``paged_decode_attention``), on CPU tensors the plain
+    version. A step program traced with fake tensors (``analysis``) holds
+    it as one node; its fake gives the shape."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
                                           lengths, scale)
@@ -163,7 +184,18 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
     return _launch_kernel(q, k_pages, v_pages, block_tables, lengths, scale)
 
 
-paged_decode_attention.launches = 0
+@paged_decode_op.register_fake
+def _paged_decode_shape(q, k_pages, v_pages, block_tables, lengths, scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@register_flop_formula(torch.ops.paddle_tpu_torch.paged_decode)
+def _paged_decode_flops(q_shape, k_shape, v_shape, tables_shape, *args,
+                        **kwargs):
+    """The plain version's two products over the gathered cache of NB * BS
+    columns: 4 * B * S * Hq * D * NB * BS."""
+    B, S, Hq, D = q_shape
+    return 4 * B * S * Hq * D * tables_shape[1] * k_shape[2]
 
 
 # ----------------------------------------------------------- cache writes

@@ -780,6 +780,50 @@ def test_train_monitor_phase_rehearses_on_the_cpu(monkeypatch, one_thread):
                                "missing: {'mfu': None"), fails
 
 
+def test_analysis_phase_rehearses_on_the_cpu(monkeypatch, one_thread):
+    """The analysis phase's control flow on a 2-layer bf16 GPT (block 32,
+    2 slots, max_seq_len 128, a budget of 7 pages over the params): both
+    hbm_budget= pools equal plan_kv_pool's (the fit-bound one under its
+    target, the clamped one 2 x 4 blocks), tokens equal a
+    directly sized scheduler's, the gauges sum to the plan, the two step
+    programs have static estimates (no measured peak off the card), and
+    the in-process self-check exits 0."""
+    import torch
+
+    import paddle_tpu_torch.models.gpt as tgpt
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    _stub_card(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "cpu")
+    for name in ("paged_decode_attention", "paged_decode_attention_ref"):
+        def counted(*a, _f=getattr(tgpt, name), **k):
+            pa.paged_decode_attention.launches += 1     # stands in for one
+            return _f(*a, **k)
+
+        monkeypatch.setattr(tgpt, name, counted)
+    cfg = GPTConfig(vocab_size=160, hidden_size=64, num_layers=2,
+                    num_heads=4, num_kv_heads=2, max_position=256)
+    model = GPTForCausalLM(cfg, device="cpu", dtype=torch.bfloat16, seed=0)
+    rec = chip_smoke.analysis_phase(
+        torch, pa, model, "cpu", slots=2, max_seq_len=128, n_requests=2,
+        new=4, fit_pages=7, prompt_lens=(4, 12),
+        self_check_programs=("compile_surface",))
+    fit, clamped = rec["sized"]["fit_bound"], rec["sized"]["clamped"]
+    assert fit["num_blocks"] == fit["plan_num_blocks"] < fit["target_blocks"]
+    assert clamped["num_blocks"] == clamped["plan_num_blocks"] == 2 * 4
+    for r in (fit, clamped):
+        assert r["tokens_equal_direct"] and r["paged_launches"] > 0
+        assert r["gauges_sum"] == r["planned_total_bytes"]
+    for path in ("prefill_chunk", "decode_step"):
+        res = rec["residency"][path]
+        assert res["static_peak_bytes"] > res["argument_bytes"] > 0
+        assert res["measured_peak_bytes"] is None
+    assert rec["residency"]["drift_high"] == []
+    assert rec["self_check"]["exit"] == 0
+    assert rec["self_check"]["programs"] == 1
+
+
 def test_monitor_readings_time_each_batch_begin_to_end():
     """The script phase's batch reading: each ``data_wait`` span's end (a
     batch's begin) to the next ``callbacks`` span's end (its end), beside

@@ -224,10 +224,39 @@ def test_knob_validation(pair, knobs):
 @pytest.mark.parametrize("knob, item", [("compile_cache_dir", "ROADMAP C"),
                                         ("hbm_budget", "ROADMAP A6")])
 def test_knobs_not_ported_raise_not_implemented(pair, knob, item):
-    value = {"compile_cache_dir": "/nonexistent",
-             "hbm_budget": 1 << 30}[knob]
-    with pytest.raises(NotImplementedError, match=item):
-        _port(pair[1], **{knob: value})
+    """compile_cache_dir= still raises (ROADMAP C). hbm_budget= is ported
+    (ROADMAP A6, part 1): the port's scheduler sizes its pool from
+    analysis.hbm.plan_kv_pool as JAX's does — the same num_blocks where
+    max_seq_len clamps the pool, one block fewer where the budget binds
+    (the port's pool holds a scratch page past num_blocks, which its plan
+    reserves; with no max_seq_len JAX's target is None and the budget
+    always binds)."""
+    if knob == "compile_cache_dir":
+        with pytest.raises(NotImplementedError, match=item):
+            _port(pair[1], compile_cache_dir="/nonexistent")
+        return
+    from paddle_tpu.analysis.hbm import params_bytes_of as jax_params_bytes
+    from paddle_tpu_torch.analysis.hbm import params_bytes_of
+
+    jm, tm = pair
+    assert params_bytes_of(tm) == jax_params_bytes(jm)
+    # 2 layers x 2 kv heads x 8 rows x 16 dims x bf16, K and V
+    pbb = 2 * 2 * 2 * 8 * 16 * 2
+    fit_bound = int((params_bytes_of(tm) + 100.5 * pbb) / 0.92)
+    for budget, seq, want_gap in ((1 << 30, 40, 0), (fit_bound, None, 1)):
+        kw = dict(KNOBS, max_seq_len=seq, hbm_budget=budget, block_size=8)
+        jg = JaxContinuous(jm, decode_kernel="xla", **kw)
+        gp = ContinuousGenerateBatchingPredictor(tm, device="cpu", **kw)
+        try:
+            jb, pb = jg.kv_cache.num_blocks, gp.kv_cache.num_blocks
+            assert jb - pb == want_gap, (budget, jb, pb)
+            if seq is not None:
+                assert pb == KNOBS["max_slots"] * 5   # blocks_for(40, 8)
+            assert gp.kv_cache.per_chip_pool_bytes() == (pb + 1) * pbb
+            assert gp.hbm_budget == budget
+        finally:
+            jg.close()
+            gp.close()
 
 
 # -------------------------------------------------------- admission policy

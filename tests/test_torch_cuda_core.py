@@ -125,3 +125,42 @@ def test_to_tensor_defaults_to_the_card():
         assert P.to_tensor([1.0], place="cpu").place.is_cpu_place()
     finally:
         pdev._current["place"] = prev
+
+
+@pytest.mark.cuda
+def test_measured_body_peak_reads_the_allocator_on_a_program_of_known_size(
+        cuda):
+    """``analysis.hbm.measure_body_peak`` on a step program whose body
+    holds one 4 MiB temporary (its first row is copied out, so no aten
+    workspace joins it): the allocator's rise across the eager body is
+    exactly that temporary, the reader adds the argument bytes it is
+    given, and the static estimate of the same body counts the same 4
+    MiB. A column sum instead allocates an 8 MiB workspace inside the
+    operator, which the allocator sees and no graph shows."""
+    from paddle_tpu_torch.analysis import hbm
+    from paddle_tpu_torch.analysis.core import trace
+    from paddle_tpu_torch.jit.graphs import StepRunner
+
+    def body(inp, out):
+        t = inp["x"] * 2.0                       # [1024, 1024] f32: 4 MiB
+        out["y"].copy_(t[0])
+
+    def summed(inp, out):
+        out["y"].copy_((inp["x"] * 2.0).sum(0))
+
+    spec = ({"x": ((1024, 1024), torch.float32)},
+            {"y": ((1024,), torch.float32)})
+    run = StepRunner("cuda", *spec, {"step": body, "summed": summed})
+    run.fill(x=np.ones((1024, 1024), np.float32))
+    run.run("step")                              # first run and capture
+    run.run("summed")
+    torch.cuda.synchronize()
+    temp = 4 << 20
+    got = hbm.measure_body_peak(run, argument_bytes=0)
+    assert got == temp
+    assert hbm.measure_body_peak(run, argument_bytes=123) == temp + 123
+    est = hbm.estimate_peak(trace(body, dict(run.inputs.dev),
+                                  dict(run.outputs.dev)))
+    assert est.peak_bytes - est.argument_bytes == temp
+    assert hbm.measure_body_peak(run, "summed") > 2 * temp
+    assert np.allclose(run.read()["y"], 2048.0)

@@ -245,3 +245,81 @@ def _ready(pred, limit=300.0):
             return False
         time.sleep(0.01)
     return True
+
+
+# ------------------------------------------------------- the analysis seams
+@pytest.mark.cuda
+def test_paged_and_dense_operators_trace_on_fake_cuda_tensors():
+    """The paged and dense kernels are operators with a fake: a step
+    program traces over fake CUDA tensors with each kernel one node and
+    nothing launched, and called for real the same programs launch the
+    kernels, with the same counts as before the operators."""
+    from paddle_tpu_torch.analysis.core import trace_runner
+    from paddle_tpu_torch.ops import decode_attention as tda
+
+    m = _gpt(torch.bfloat16)
+    m.eval()
+    kv = _pool(m, torch.bfloat16)
+    S, C = 2, 8
+    tables = np.zeros((S, 2), np.int32)
+    tables[0] = kv.reserve("a", 24)[:2]
+    ids = np.zeros((S, C), np.int64)
+    lens = np.asarray([C, 0], np.int64)
+    m.prefill_chunk(ids, np.zeros(S, np.int64), lens, kv, tables)
+    run = m.compiled_prefill_chunk_runner(S, C)
+    before = tpa.paged_decode_attention.launches
+    gm, _ = trace_runner(m, run)
+    assert tpa.paged_decode_attention.launches == before
+    ops = [str(n.target) for n in gm.graph.nodes if n.op == "call_function"]
+    assert ops.count("paddle_tpu_torch.paged_decode.default") == 2
+    m.prefill_chunk(ids, np.zeros(S, np.int64), lens, kv, tables)
+    torch.cuda.synchronize()
+    assert tpa.paged_decode_attention.launches == before + 2   # a replay
+    tda.decode_attention.launches = 0
+    m.generate(torch.zeros((2, 8), dtype=torch.int64, device="cuda"),
+               max_new_tokens=4)
+    dense = tda.decode_attention.launches
+    assert dense == 2 * 4                     # 2 layers x 4 forwards
+    run = m.compiled_generate_runner(2, 8, 4)
+    gm, _ = trace_runner(m, run, "decode")
+    assert tda.decode_attention.launches == dense
+    assert [str(n.target) for n in gm.graph.nodes].count(
+        "paddle_tpu_torch.dense_decode.default") == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_seq_len", [128, None])
+def test_hbm_budget_scheduler_on_the_card(max_seq_len):
+    """hbm_budget= sizes the pool from plan_kv_pool on the card: clamped
+    (2 slots x blocks_for(128, 16)) or fit-bound (the params plus 20 pages
+    over 0.92: 19 live blocks and the scratch page); the gauges sum to the
+    plan's total; greedy tokens equal a scheduler given num_blocks."""
+    from paddle_tpu_torch.analysis import hbm
+
+    m = _gpt(torch.bfloat16)
+    pbb = hbm.per_block_bytes((2, 2, 64, 16, 0, "torch.bfloat16"))
+    params = hbm.params_bytes_of(m)
+    budget = (64 << 20) if max_seq_len else int((params + 20.5 * pbb)
+                                                / 0.92)
+    kw = dict(SERVE, max_slots=2, max_seq_len=max_seq_len)
+    gp = ContinuousGenerateBatchingPredictor(m, hbm_budget=budget, **kw)
+    try:
+        nb = gp.kv_cache.num_blocks
+        assert nb == (2 * 8 if max_seq_len else 19)
+        assert gp.kv_cache.per_chip_pool_bytes() == (nb + 1) * pbb
+        jobs = [(q, {}) for q in _prompts(31, (9, 17))]
+        tpa.paged_decode_attention.launches = 0
+        outs = _serve(gp, jobs)
+        assert tpa.paged_decode_attention.launches > 0
+        fams = {f.name: f for f in gp.metrics.registry.families()}
+        parts = {k[0]: c.value
+                 for k, c in fams["paddle_hbm_planned_bytes"].children()}
+        assert sum(parts.values()) == gp._hbm_plan.planned_total_bytes
+    finally:
+        gp.close()
+    direct = ContinuousGenerateBatchingPredictor(m, num_blocks=nb, **kw)
+    try:
+        for a, b in zip(outs, _serve(direct, jobs)):
+            np.testing.assert_array_equal(a, b)
+    finally:
+        direct.close()

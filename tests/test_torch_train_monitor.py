@@ -11,10 +11,11 @@ design: ``paddle_train_model_flops_per_step`` (XLA's cost analysis against
 ``torch.utils.flop_counter``) and ``paddle_train_hbm_bytes`` (XLA's
 memory-analysis kinds against the port's ``argument`` and, on the card,
 ``peak``). Span names and counts, recompile reasons, anomaly events and
-the LogWriter records are compared exactly. The graph lint is the port's
-trouble spot: ``paddle_tpu.analysis`` is not ported (ROADMAP item 6), so
-the ``graph_lint`` event carries a NotImplementedError and nothing is
-counted. JAX's answers are computed once per scenario in module fixtures.
+the LogWriter records are compared exactly. The comparisons run with the
+lint off (``Kit.monitor``); the graph lint is held on its own
+(``paddle_tpu_torch.analysis`` over an FX graph of the step, once at the
+first launch). JAX's answers are computed once per scenario in module
+fixtures.
 """
 import json
 import os
@@ -374,22 +375,34 @@ def test_joined_chrome_export_has_step_phases_next_to_profiler_events(
 
 
 def test_graph_lint_is_item_6(on_cpu):
-    """Trouble spot: the graph_lint event carries a NotImplementedError
-    naming ROADMAP item 6; nothing is counted, the step runs."""
+    """The counterpart of JAX's test_monitor_lints_step_once_at_first_
+    compile: StepMonitor(lint=True, the default) runs analysis over the
+    bound step at its FIRST launch only — a Report lands on the monitor,
+    findings count into paddle_analysis_findings_total{rule,severity} and a
+    graph_lint span joins the timeline. The lint changes nothing the step
+    computes: its losses are bit-equal to an unmonitored twin's."""
     kit = Kit("torch")
     step = kit.step()
+    twin = kit.step()
     a, k = kit.batch()
     mon = StepMonitor(samples_per_step=2).bind(step)
-    step(*a, **k)
-    step(*a, **k)
+    losses = [step(*a, **k)]
+    rep = mon.lint_report
+    assert rep is not None and rep.name == "train_step:GPTForCausalLM"
+    assert rep.high() == []                 # the in-repo step is clean
     lint = [s for s in mon.tracer.spans() if s.name == "graph_lint"]
-    assert len(lint) == 1
-    assert "NotImplementedError" in lint[0].tags["error"]
-    assert "ROADMAP item 6" in lint[0].tags["error"]
-    assert mon.lint_report is None
+    assert len(lint) == 1 and "error" not in lint[0].tags
+    assert lint[0].tags["findings"] == len(rep.findings)
+    assert lint[0].tags["high"] == 0
+    losses.append(step(*a, **k))            # second step: no re-lint
+    assert [s.name for s in mon.tracer.spans()].count("graph_lint") == 1
+    assert step.optimizer._step_count == 2 and step._seed == 2
+    for got, want in zip(losses, [twin(*a, **k), twin(*a, **k)]):
+        assert torch.equal(got, want)
     text = mon.render()
     assert "# TYPE paddle_analysis_findings_total counter" in text
-    assert "\npaddle_analysis_findings_total{" not in text
+    for rule, n in rep.by_rule().items():
+        assert f'paddle_analysis_findings_total{{rule="{rule}"' in text
     quiet = kit.step()
     off = StepMonitor(lint=False).bind(quiet)
     quiet(*a, **k)
