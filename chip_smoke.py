@@ -221,8 +221,8 @@ non-zero without the final line:
    sentinel's and the turns' monitors run with ``lint=False``): one
    ``graph_lint`` span with its findings and no error, inside (a)'s
    bit-equal losses, launches and host launch calls.
-11h. analysis — ``paddle_tpu_torch.analysis`` (part 1) on the card over
-   the serving GPT-350M (bf16, block 32, 8 slots, max_seq_len 2048): (a)
+11h. analysis — ``paddle_tpu_torch.analysis`` on the card over the
+   serving GPT-350M (bf16, block 32, 8 slots, max_seq_len 2048): (a)
    ``hbm_budget=`` under a fit-bound budget ((params + 300 pages) / 0.92)
    and a clamped one (params + 8 GiB): the pool equal to
    ``plan_kv_pool``'s (the clamped one 8 x 64 = 512 blocks), 8 greedy
@@ -232,7 +232,19 @@ non-zero without the final line:
    decode_step programs' static peak (``estimate_peak`` over their FX
    graphs) against their measured body peak, the ratio and the
    estimate-drift verdict; (c) ``--self-check`` in process with the zoo
-   traced over fake CUDA tensors: exit 0, HIGH findings only allowlisted.
+   traced over fake CUDA tensors (the ``*_tp`` entries and
+   ``comms_surface`` too) and the thread leg: exit 0, HIGH findings only
+   allowlisted; (d) the thread lint over the port's source: 0 HIGH after
+   the allowlist, the static lock graph's edges, acyclic; (e) the lock
+   witness active while (a) builds and serves its schedulers: edges seen,
+   0 inversions, ``check_static(lock_order_graph())`` acyclic; (f)
+   GPT-350M's prefill_chunk, decode_step (4 steps) and verify_step (4
+   drafts) at tp 2 over torch's fake process group, built by step calls
+   that launch nothing and traced over fake CUDA tensors: the collective
+   table (grouped), bytes
+   per launch and per tick, the ``CommsBudget`` against the card's NVLink
+   figure (450 GB/s one way, the H100 SXM specification) and its share of
+   the 4 x 50 ms tick, the comms-over-budget verdict.
 11g. incubate — (g) a 12-layer ``FusedTransformerEncoderLayer`` stack at
    BERT-base widths (768, 12 heads, 3072, post-LN, B 32, S 512, dropout 0,
    f32, relu) against ``nn.TransformerEncoder`` on the same weights and
@@ -3032,7 +3044,7 @@ def serve_rounds(gp, model, prompts, new, names):
         dt = time.perf_counter() - t1
         rounds.append(dict(round=name, wall_s=dt,
                            tok_per_s=len(prompts) * new / dt,
-                           batch_sizes=list(gp.batch_sizes[b0:]),
+                           batch_sizes=list(gp.batch_sizes)[b0:],
                            captures=captures_total(model) - c0))
     return results, rounds
 
@@ -6940,9 +6952,10 @@ def train_monitor(torch, fa, device, B=8, S=1024, steps=8, rounds=2,
 
 def analysis_phase(torch, pa, model, device, slots=8, max_seq_len=2048,
                    n_requests=8, new=16, seed=23, fit_pages=300,
-                   prompt_lens=(32, 257), self_check_programs=None):
+                   prompt_lens=(32, 257), self_check_programs=None,
+                   spec_k=4):
     """Phase ``analysis`` (module docstring, 11h): the port of
-    ``paddle_tpu/analysis`` (part 1) on the card. (a) A continuous
+    ``paddle_tpu/analysis`` on the card. (a) A continuous
     scheduler sized by ``hbm_budget=`` over ``model`` (GPT-350M bf16,
     block 32) under a fit-bound budget (the params plus 300 pages, over
     0.92) and a clamped one (the params plus 8 GiB: slots x
@@ -6954,9 +6967,20 @@ def analysis_phase(torch, pa, model, device, slots=8, max_seq_len=2048,
     each program's static estimate, its measured body peak (the argument
     bytes plus the allocator's rise across an eager body run), their ratio
     and the estimate-drift verdict. (c) ``--self-check`` in process, the
-    zoo traced over fake CUDA tensors: exit 0, every HIGH allowlisted with
-    its reason."""
-    from paddle_tpu_torch.analysis import hbm
+    zoo traced over fake CUDA tensors (the tp entries and the comms
+    contract too): exit 0, every HIGH allowlisted with its reason. (d) The
+    thread lint over the port's source: no un-allowlisted HIGH, the static
+    lock graph acyclic. (e) The lock witness, active while (a) builds and
+    serves its schedulers (their pool, prefix, slot and runner locks are
+    made under it): edges seen, no inversion, the witnessed order with
+    the static graph acyclic. (f) GPT-350M's three step programs at tp 2
+    (``model``'s config, slots and block as in (a), ``spec_k`` drafts)
+    over the fake backend, their runners built by step calls that launch
+    nothing, traced over fake CUDA tensors: the collective table, bytes
+    per launch and per tick, the
+    CommsBudget against the card's NVLink figure and its share of the
+    tick, and comms-over-budget's verdict."""
+    from paddle_tpu_torch.analysis import comms, hbm, lockwitness, threads
     from paddle_tpu_torch.analysis.__main__ import main as lint_main
     from paddle_tpu_torch.analysis.compilesurface import ServingConfig
     from paddle_tpu_torch.inference import (
@@ -6966,6 +6990,23 @@ def analysis_phase(torch, pa, model, device, slots=8, max_seq_len=2048,
 
     t_start = time.perf_counter()
     on_card = torch.device(device).type == "cuda"
+    fails = []
+
+    # (d) the thread lint over the port's own source
+    t0 = time.perf_counter()
+    report = threads.analyze_threads()
+    graph = threads.lock_order_graph()      # the same parse, kept
+    adj: dict = {}
+    for a, b in graph:
+        adj.setdefault(a, set()).add(b)
+    cycles = lockwitness._find_cycles(adj)
+    thread_lint = dict(
+        high=len(report.high()), findings=report.by_rule(),
+        allowlisted=len(report.suppressed), lock_graph_edges=len(graph),
+        acyclic=not cycles, seconds=time.perf_counter() - t0)
+    if report.high() or cycles:
+        fails.append(f"thread lint: {len(report.high())} HIGH, cycles "
+                     f"{cycles}")
     params = hbm.params_bytes_of(model)
     layers, kv_h, hd = (int(x) for x in model._decode_cache_spec())
     dtype = str(torch.bfloat16)
@@ -6979,65 +7020,84 @@ def analysis_phase(torch, pa, model, device, slots=8, max_seq_len=2048,
     kw = dict(device=device, max_slots=slots, max_seq_len=max_seq_len,
               block_size=32, prefill_chunk=64, decode_steps=4,
               max_new_tokens=new)
-    sized, fails = {}, []
-    for name, budget in budgets.items():
-        plan = hbm.plan_kv_pool(
-            budget, num_layers=layers, num_kv_heads=kv_h, head_dim=hd,
-            block_size=32, dtype=dtype, slots=slots,
-            max_seq_len=max_seq_len, params_bytes=params)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        pa.paged_decode_attention.launches = 0
-        gp = ContinuousGenerateBatchingPredictor(model, hbm_budget=budget,
-                                                 **kw)
-        try:
-            outs, wall = _storm_infer(gp, jobs)
+    sized = {}
+    # (e) the witness wraps every lock (a)'s schedulers make
+    witness = lockwitness.activate(lockwitness.LockWitness())
+    try:
+        for name, budget in budgets.items():
+            plan = hbm.plan_kv_pool(
+                budget, num_layers=layers, num_kv_heads=kv_h, head_dim=hd,
+                block_size=32, dtype=dtype, slots=slots,
+                max_seq_len=max_seq_len, params_bytes=params)
             torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated()
-            launches = pa.paged_decode_attention.launches
-            nb = gp.kv_cache.num_blocks
-            fams = {f.name: f for f in gp.metrics.registry.families()}
-            gauges = {labels[0]: child.value for labels, child in
-                      fams["paddle_hbm_planned_bytes"].children()}
-            pool = gp.kv_cache.per_chip_pool_bytes()
-            total = gp._hbm_plan.planned_total_bytes
-        finally:
-            gp.close()
-        direct = ContinuousGenerateBatchingPredictor(model, num_blocks=nb,
-                                                     **kw)
-        try:
-            ref, _ = _storm_infer(direct, jobs)
-        finally:
-            direct.close()
-        same = all(np.array_equal(a, b) for a, b in zip(outs, ref))
-        sized[name] = dict(
-            budget_bytes=budget, num_blocks=nb,
-            plan_num_blocks=plan["num_blocks"],
-            fit_blocks=plan["fit_blocks"],
-            target_blocks=plan["target_blocks"],
-            tokens_equal_direct=bool(same), paged_launches=launches,
-            gauges=gauges, gauges_sum=sum(gauges.values()),
-            planned_total_bytes=total, pool_bytes=pool,
-            peak_allocated_bytes=peak, peak_over_plan=peak / total,
-            fit_bound=plan["target_blocks"] > plan["num_blocks"],
-            serve_wall_s=wall)
-        if nb != plan["num_blocks"]:
-            fails.append(f"{name}: num_blocks {nb}, plan {plan['num_blocks']}")
-        if not same:
-            fails.append(f"{name}: tokens differ from the direct scheduler's")
-        if launches <= 0:
-            fails.append(f"{name}: no paged launch")
-        if sum(gauges.values()) != total:
-            fails.append(f"{name}: gauges {gauges} do not sum to {total}")
-        if on_card and peak < params + pool:
-            fails.append(f"{name}: peak {peak} under params + pool")
-        # the next budget's peak counts none of these two pools
-        del gp, direct
-        release(torch)
+            torch.cuda.reset_peak_memory_stats()
+            pa.paged_decode_attention.launches = 0
+            gp = ContinuousGenerateBatchingPredictor(
+                model, hbm_budget=budget, **kw)
+            try:
+                outs, wall = _storm_infer(gp, jobs)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                launches = pa.paged_decode_attention.launches
+                nb = gp.kv_cache.num_blocks
+                fams = {f.name: f for f in gp.metrics.registry.families()}
+                gauges = {labels[0]: child.value for labels, child in
+                          fams["paddle_hbm_planned_bytes"].children()}
+                pool = gp.kv_cache.per_chip_pool_bytes()
+                total = gp._hbm_plan.planned_total_bytes
+            finally:
+                gp.close()
+            direct = ContinuousGenerateBatchingPredictor(
+                model, num_blocks=nb, **kw)
+            try:
+                ref, _ = _storm_infer(direct, jobs)
+            finally:
+                direct.close()
+            same = all(np.array_equal(a, b) for a, b in zip(outs, ref))
+            sized[name] = dict(
+                budget_bytes=budget, num_blocks=nb,
+                plan_num_blocks=plan["num_blocks"],
+                fit_blocks=plan["fit_blocks"],
+                target_blocks=plan["target_blocks"],
+                tokens_equal_direct=bool(same), paged_launches=launches,
+                gauges=gauges, gauges_sum=sum(gauges.values()),
+                planned_total_bytes=total, pool_bytes=pool,
+                peak_allocated_bytes=peak, peak_over_plan=peak / total,
+                fit_bound=plan["target_blocks"] > plan["num_blocks"],
+                serve_wall_s=wall)
+            if nb != plan["num_blocks"]:
+                fails.append(f"{name}: num_blocks {nb}, plan "
+                             f"{plan['num_blocks']}")
+            if not same:
+                fails.append(f"{name}: tokens differ from the direct "
+                             "scheduler's")
+            if launches <= 0:
+                fails.append(f"{name}: no paged launch")
+            if sum(gauges.values()) != total:
+                fails.append(f"{name}: gauges {gauges} do not sum to {total}")
+            if on_card and peak < params + pool:
+                fails.append(f"{name}: peak {peak} under params + pool")
+            # the next budget's peak counts none of these two pools
+            del gp, direct
+            release(torch)
+    finally:
+        lockwitness.deactivate()
+    static = witness.check_static(graph)
+    witnessed = dict(acquisitions=witness.acquisitions,
+                     edges=len(witness.edges),
+                     inversions=len(witness.inversions),
+                     static_cycles=static,
+                     locks=sorted({n for e in witness.edges for n in e}))
+    # a first run captures under its runner's lock (graphs._CAPTURE_LOCK
+    # inside graphs.StepRunner.lock): on the card the witness sees edges
+    if (on_card and not witness.edges) or witness.inversions or static:
+        fails.append(f"lock witness: {len(witness.edges)} edges, "
+                     f"inversions {witness.inversions}, cycles {static}")
     if sized["clamped"]["num_blocks"] != slots * -(-max_seq_len // 32):
         fails.append(f"clamped pool {sized['clamped']['num_blocks']}")
     if not sized["fit_bound"]["fit_bound"]:
         fails.append(f"the fit-bound budget was clamped: {sized}")
+
 
     # (b) the two step programs' static estimates against their bodies
     kv = PagedKVCache(layers, kv_h, hd, block_size=32,
@@ -7101,7 +7161,63 @@ def analysis_phase(torch, pa, model, device, slots=8, max_seq_len=2048,
         fails.append(f"self-check exit {rc}, {out['high_total']} HIGH")
     if any(not reason for _p, _r, _s, reason in suppressed):
         fails.append("an allowlisted finding without its reason")
+
+    # (f) the model's three step programs at tp 2 over the fake backend:
+    # their runners built by step calls that run nothing, then traced
+    t0 = time.perf_counter()
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+
+    pa.paged_decode_attention.launches = 0
+    with comms.tp_world(2) as axes:
+        tp_model = GPTForCausalLM(model.config, device=device,
+                                  dtype=next(model.parameters()).dtype,
+                                  seed=0)
+        tp_model.eval()
+        tp_kv = PagedKVCache(layers, kv_h, hd, block_size=32,
+                             num_blocks=slots * -(-max_seq_len // 32),
+                             device=device)
+        tp_config = ServingConfig(
+            name="gpt-tp2", slots=slots, prefill_chunk=64, decode_steps=4,
+            max_seq_len=max_seq_len, spec_k=spec_k,
+            kv_signature=tp_kv.signature())
+        # full depth: each collective's operator for its line (the
+        # port's frames would cost a third more tracing time)
+        surfaces = comms.serving_comms_surfaces(
+            tp_model, tp_kv, tp_config, mesh_axes=axes, stack_traces=False)
+        del tp_model, tp_kv
+    release(torch)
+    comms_report = comms.analyze_step_comms(_surfaces=surfaces)
+    budget = comms.smoke_comms_budget(surfaces)
+    print(comms.render_comms_table(surfaces, grouped=True), flush=True)
+    over = [f.message for f in comms_report.findings
+            if f.rule == "comms-over-budget"]
+    tp_comms = dict(
+        programs={s["path"]: dict(
+            collectives=len(s["ops"]),
+            kinds=dict(collections.Counter(op.kind for op in s["ops"])),
+            bytes_per_launch=s["bytes_per_launch"],
+            kernel_nodes=s["kernel_nodes"],
+            trace_s=s["trace_s"]) for s in surfaces},
+        bytes_per_tick=budget.bytes_per_tick, budget=budget.to_json(),
+        wire_time_s=budget.wire_time_s(),
+        share_of_tick=budget.share_of_tick(),
+        over_budget=bool(over), high=[f.message for f in comms_report.high()],
+        allowlisted=[f.rule for f, _e in comms_report.suppressed],
+        launches=pa.paged_decode_attention.launches,
+        seconds=time.perf_counter() - t0)
+    if comms_report.high():
+        fails.append(f"comms at tp 2: {tp_comms['high']}")
+    kinds = {k for s in surfaces for k in tp_comms["programs"][s["path"]][
+        "kinds"]}
+    if not kinds or not kinds <= {"all-reduce", "all-gather"}:
+        fails.append(f"comms at tp 2: collective kinds {kinds}")
+    if on_card and not all(s["kernel_nodes"] for s in surfaces):
+        fails.append("comms at tp 2: a trace holds no kernel operator")
+    if on_card and tp_comms["launches"]:
+        fails.append(f"comms at tp 2: {tp_comms['launches']} launches")
     rec = dict(sized=sized, residency=residency, self_check=check,
+               thread_lint=thread_lint, witness=witnessed,
+               tp_comms=tp_comms,
                params_bytes=params, per_block_bytes=pbb,
                paged_launches=sum(r["paged_launches"]
                                   for r in sized.values())
@@ -9011,6 +9127,24 @@ def main():
           + f"; self-check exit {lint['self_check']['exit']} over "
           f"{lint['self_check']['programs']} programs in "
           f"{lint['self_check']['seconds']:.1f} s; {lint['wall_s']:.1f} s",
+          flush=True)
+    tl, wt, tc = lint["thread_lint"], lint["witness"], lint["tp_comms"]
+    share = tc["share_of_tick"]
+    print(f"analysis on {card}: thread lint {tl['high']} HIGH, "
+          f"{tl['allowlisted']} allowlisted, lock graph "
+          f"{tl['lock_graph_edges']} edges, acyclic {tl['acyclic']}, "
+          f"{tl['seconds']:.1f} s; witness {wt['edges']} edges over "
+          f"{wt['acquisitions']} acquisitions, {wt['inversions']} "
+          f"inversions, static cycles {len(wt['static_cycles'])}; tp 2 "
+          "comms per launch "
+          + ", ".join(f"{k} {v['bytes_per_launch']} B in "
+                      f"{v['collectives']} collectives"
+                      for k, v in tc["programs"].items())
+          + f", {tc['bytes_per_tick']} B a tick, "
+          f"{tc['wire_time_s'] * 1e3:.4f} ms on NVLink = "
+          + (f"{share:.6f}" if share is not None else "n/a")
+          + f" of the {tc['budget']['tick_wall_s'] * 1e3:.0f} ms tick, "
+          f"over budget {tc['over_budget']}, {tc['seconds']:.1f} s",
           flush=True)
     del model
     torch.cuda.empty_cache()

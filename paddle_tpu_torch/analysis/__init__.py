@@ -1,5 +1,5 @@
-"""paddle_tpu_torch.analysis — the lints over traced programs, the port of
-``paddle_tpu/analysis`` (part 1 of ROADMAP item 6).
+"""paddle_tpu_torch.analysis — the lints over traced programs and over the
+port's own threading, the port of ``paddle_tpu/analysis``.
 
 The port's step programs are captured into CUDA graphs, which hold no
 program text; the program the lints read is an FX graph traced over fake
@@ -26,15 +26,39 @@ Ported legs:
   measured body peak on the card, ``DeploymentPlan``, hbm-over-budget,
   estimate-drift, oversized-temp, pool-misfit, and ``plan_kv_pool``, which
   the continuous scheduler's ``hbm_budget=`` sizes its pool with;
+* the thread lint (``threads``): an AST pass over the port's source —
+  lock-order-cycle, unguarded-write, blocking-under-lock, raw-clock,
+  non-daemon-thread — and its runtime twin, the lock witness
+  (``lockwitness``): the runtime modules make their locks through
+  ``make_lock`` / ``make_rlock``, plain locks unless a ``LockWitness`` is
+  active;
+* the comms lint (``comms``): the tensor-parallel step programs traced at
+  tp = 2 over a fake process group, their c10d collectives inventoried
+  with bytes on wire, the layouts held to ``SpecLayout`` —
+  implicit-reshard, layout-contract-drift, comms-over-budget,
+  replicated-large-buffer, dead-mesh-axis; ``DeploymentPlan.comms``;
 * the zoo (``zoo``) and the CLI (``python -m paddle_tpu_torch.analysis``,
   whose exit status is the gate).
 
-Not ported yet (ROADMAP A6, part 2): the thread lint and the lock witness
-(JAX ``threads.py``, ``lockwitness.py``), the comms lint (``comms.py``),
-the zoo's ``*_tp`` and ``comms_surface`` entries and the CLI's
-``--threads`` / ``--comms``, which raise ``NotImplementedError``.
 ``StepMonitor(lint=True)`` lints its step once at the first launch.
 """
+from .comms import (  # noqa: F401
+    BUILTIN_COMMS_ALLOWLIST,
+    COMMS_RULES,
+    CollectiveOp,
+    CommsBudget,
+    CommsEstimate,
+    analyze_comms_surfaces,
+    analyze_step_comms,
+    bytes_on_wire,
+    collective_inventory,
+    comms_fixture_reports,
+    render_comms_table,
+    sampled_logits_gather_surface,
+    smoke_comms_budget,
+    step_comms_surfaces,
+    tp_world,
+)
 from .compilesurface import (  # noqa: F401
     BUILTIN_SURFACE_ALLOWLIST,
     SURFACE_RULES,
@@ -88,19 +112,17 @@ from .hbm import (  # noqa: F401
     params_bytes_of,
     plan_kv_pool,
 )
+from .lockwitness import (  # noqa: F401
+    LockWitness,
+    make_lock,
+    make_rlock,
+)
 from .rules import RULES  # noqa: F401
-
-PART2 = ("not ported yet: the thread lint, the lock witness and the comms "
-         "lint are ROADMAP A6, part 2")
-
-
-def _part2(name):
-    def missing(*args, **kwargs):
-        raise NotImplementedError(f"analysis.{name}: {PART2}")
-    missing.__name__ = name
-    return missing
-
-
-analyze_threads = _part2("analyze_threads")
-analyze_step_comms = _part2("analyze_step_comms")
-LockWitness = _part2("LockWitness")
+from .threads import (  # noqa: F401
+    BUILTIN_THREAD_ALLOWLIST,
+    RUNTIME_MODULES,
+    THREAD_RULES,
+    analyze_threads,
+    lock_order_graph,
+    record_findings,
+)

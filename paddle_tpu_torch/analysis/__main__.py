@@ -1,11 +1,13 @@
 """``python -m paddle_tpu_torch.analysis`` — lint the zoo programs, the
-compile surface and the HBM residency plan (the counterpart of
-``paddle_tpu/analysis/__main__.py``).
+compile surface, the HBM residency plan, the collectives of the
+tensor-parallel step programs and the port's own threading discipline
+(the counterpart of ``paddle_tpu/analysis/__main__.py``).
 
 Exit status is the gate: 0 when every zoo program is clean at high
-severity (allowlisted findings are printed with their reason, not
-hidden), 1 otherwise, 2 on a usage error. ``--json`` emits one object
-with the findings by program.
+severity AND the thread lint over the port's source reports no
+un-allowlisted high finding (allowlisted findings are printed with their
+reason, not hidden), 1 otherwise, 2 on a usage error. ``--json`` emits one
+object with the findings by program.
 
 ``--programs a,b`` restricts to a zoo subset; ``--surface [PATH]`` runs
 only the compile-surface lint (strict fixture mode over PATH: a
@@ -15,13 +17,17 @@ prints the derived program inventory as JSON (all shipped serving
 configs, one by name, or a ServingConfig ``.json``); ``--hbm [NAME|PATH]``
 runs only the residency lint (the smoke plan's table and rules, for one
 shipped config by NAME, or strict fixture mode over a DeploymentPlan
-``.json`` / ``make_program()`` ``.py`` / directory PATH). ``--device``
-picks where the zoo is built and traced (default: the card when there is
-one, else the CPU). The full self-check ends with the stale-allowlist
-audit.
-
-``--threads`` and ``--comms`` are the thread and comms lints, not ported
-yet (ROADMAP A6, part 2): they raise ``NotImplementedError``.
+``.json`` / ``make_program()`` ``.py`` / directory PATH);
+``--threads [PATH]`` runs only the thread lint (over PATH, a file or a
+directory with every module treated as runtime: the seeded-fixture mode;
+without PATH over the ``paddle_tpu_torch`` package); ``--comms
+[NAME|PATH]`` runs only the comms lint (the step programs traced at
+tp = 2 over a fake process group, their collective table and the five
+rules, for one step path by NAME, or strict fixture mode over a
+``make_program()`` ``.py`` / comms-surface ``.json`` / directory PATH).
+``--device`` picks where the zoo is built and traced (default: the card
+when there is one, else the CPU). The full self-check runs the thread
+lint too and ends with the stale-allowlist audit of every builtin list.
 """
 from __future__ import annotations
 
@@ -67,26 +73,41 @@ def _print_manifest(spec=None) -> int:
     return 0
 
 
-def main(argv=None) -> int:
-    from . import PART2
+def _thread_report(path=None):
+    from .threads import analyze_threads, thread_lint_paths
 
+    if path is None:
+        return analyze_threads()
+    paths = [path] if os.path.isfile(path) else thread_lint_paths(path)
+    # explicit paths are fixture/audit mode: everything is runtime-strict
+    return analyze_threads(paths=paths, runtime_modules=("*",))
+
+
+def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m paddle_tpu_torch.analysis",
         description="Graph lint over the bundled zoo programs (GPT/ResNet "
                     "train steps, dense and paged decode, the continuous "
-                    "step programs) plus the compile-surface and HBM "
-                    "residency lints.")
+                    "step programs at tp 1 and 2) plus the compile-"
+                    "surface, HBM residency, comms and thread lints.")
     parser.add_argument("--self-check", action="store_true",
                         help="lint the zoo, exit non-zero on any "
                              "high-severity finding (the default)")
     parser.add_argument("--programs", default=None,
                         help="comma-separated subset of zoo programs")
     parser.add_argument("--threads", nargs="?", const="", default=None,
-                        metavar="PATH", help="the thread lint (not ported: "
-                        "ROADMAP A6, part 2)")
+                        metavar="PATH",
+                        help="run ONLY the thread lint: over PATH (file or "
+                             "directory, runtime severities everywhere — "
+                             "the seeded-fixture mode) or the "
+                             "paddle_tpu_torch package")
     parser.add_argument("--comms", nargs="?", const="", default=None,
-                        metavar="NAME|PATH", help="the comms lint (not "
-                        "ported: ROADMAP A6, part 2)")
+                        metavar="NAME|PATH",
+                        help="run ONLY the comms lint: the step programs "
+                             "traced at tp 2, their collective table and "
+                             "the five rules (one step path by NAME: "
+                             "prefill_chunk, decode_step, verify_step), or "
+                             "strict fixture mode over PATH")
     parser.add_argument("--surface", nargs="?", const="", default=None,
                         metavar="PATH",
                         help="run ONLY the compile-surface lint: strict "
@@ -109,30 +130,52 @@ def main(argv=None) -> int:
                         help="print the rule catalog and exit")
     args = parser.parse_args(argv)
 
-    if args.threads is not None or args.comms is not None:
-        flag = "--threads" if args.threads is not None else "--comms"
-        raise NotImplementedError(f"{flag}: {PART2}")
-
     from .rules import RULES
 
     if args.list_rules:
+        from .comms import COMMS_RULES
         from .compilesurface import SURFACE_RULES
         from .hbm import HBM_RULES
+        from .threads import THREAD_RULES
 
         for rule_id, fn in RULES.items():
             doc = (fn.__doc__ or "").strip().split("\n")[0]
             print(f"{rule_id:18s} {doc}")
+        for rule_id, doc in THREAD_RULES.items():
+            print(f"{rule_id:18s} [threads] {doc}")
         for rule_id, doc in SURFACE_RULES.items():
             print(f"{rule_id:18s} [surface] {doc.split(chr(10))[0]}")
         for rule_id, doc in HBM_RULES.items():
             print(f"{rule_id:18s} [hbm] {doc.split(chr(10))[0]}")
+        for rule_id, doc in COMMS_RULES.items():
+            print(f"{rule_id:18s} [comms] {doc.split(chr(10))[0]}")
         return 0
 
     if args.manifest is not None:
         return _print_manifest(args.manifest or None)
 
     reports, tables = [], []
-    if args.hbm is not None:
+    if args.comms is not None:
+        from .comms import (_STEP_PATHS, analyze_step_comms,
+                            comms_fixture_reports, render_comms_table,
+                            step_comms_surfaces)
+
+        if args.comms and os.path.exists(args.comms):
+            reports.extend(comms_fixture_reports(args.comms))
+        else:
+            paths = None
+            if args.comms:
+                if args.comms not in _STEP_PATHS:
+                    print(f"unknown step path {args.comms!r}; available: "
+                          f"{list(_STEP_PATHS)} (or pass a fixture PATH)",
+                          file=sys.stderr)
+                    return 2
+                paths = (args.comms,)
+            surfaces = step_comms_surfaces(paths=paths, device=args.device)
+            tables.append(render_comms_table(surfaces))
+            reports.append(analyze_step_comms(paths=paths,
+                                              _surfaces=surfaces))
+    elif args.hbm is not None:
         from .hbm import analyze_hbm_plan, hbm_fixture_reports, smoke_plan
 
         if args.hbm and os.path.exists(args.hbm):
@@ -154,8 +197,10 @@ def main(argv=None) -> int:
             reports.extend(surface_fixture_reports(args.surface))
         else:
             reports.append(analyze_compile_surface())
+    elif args.threads is not None:
+        reports.append(_thread_report(args.threads or None))
     else:
-        from .zoo import PART2_PROGRAMS, ZOO_PROGRAMS, zoo_reports
+        from .zoo import ZOO_PROGRAMS, zoo_reports
 
         include = None
         if args.programs:
@@ -164,22 +209,26 @@ def main(argv=None) -> int:
             unknown = [p for p in include if p not in ZOO_PROGRAMS]
             if unknown:
                 print(f"unknown program(s) {unknown}; available: "
-                      f"{sorted(set(ZOO_PROGRAMS) - set(PART2_PROGRAMS))}",
-                      file=sys.stderr)
+                      f"{sorted(ZOO_PROGRAMS)}", file=sys.stderr)
                 return 2
         reports.extend(zoo_reports(include=include, device=args.device))
-        if include is None:
-            # the suppressions themselves: a builtin entry that matched
-            # nothing across the whole run is a stale WARN
+        if include is None:     # the full self-check: the host runtime too
+            reports.append(_thread_report())
+            # ... and the suppressions themselves: a builtin entry that
+            # matched nothing across the whole run is a stale WARN
+            from .comms import BUILTIN_COMMS_ALLOWLIST
             from .compilesurface import BUILTIN_SURFACE_ALLOWLIST
             from .core import Report
             from .findings import BUILTIN_ALLOWLIST, stale_allowlist_findings
             from .hbm import BUILTIN_HBM_ALLOWLIST
+            from .threads import BUILTIN_THREAD_ALLOWLIST
 
             stale = stale_allowlist_findings([
                 ("graph", BUILTIN_ALLOWLIST),
+                ("thread", BUILTIN_THREAD_ALLOWLIST),
                 ("surface", BUILTIN_SURFACE_ALLOWLIST),
                 ("hbm", BUILTIN_HBM_ALLOWLIST),
+                ("comms", BUILTIN_COMMS_ALLOWLIST),
             ])
             reports.append(Report("allowlist.audit", stale, [],
                                   ("allowlist-stale",)))

@@ -361,18 +361,57 @@ def _report(name, findings, allowlist, device_type, rules_run):
 _MAKE_FX_ARGS = set(inspect.signature(make_fx).parameters)
 
 
-def trace(fn, *args):
+@contextlib.contextmanager
+def _port_frames():
+    """Within: make_fx keeps a node's frames in the port's source, not only
+    those named ``forward``, so an operator a step body calls outside any
+    module (the sampled-logits gather) still names its line. A torch
+    without the tracer's frame filter keeps its own rule."""
+    from torch.fx.experimental import proxy_tensor
+
+    cls = getattr(proxy_tensor, "PythonKeyTracer", None)
+    base = getattr(cls, "_filter_traceback_frames", None)
+    if base is None:
+        yield
+        return
+    own = "_filter_traceback_frames" in cls.__dict__
+
+    def keep(self, summary):
+        port = [f for f in summary
+                if "paddle_tpu_torch" in f.filename.replace("\\", "/")
+                and "/analysis/" not in f.filename.replace("\\", "/")]
+        if not port:
+            return base(self, summary)
+        import traceback
+
+        return traceback.StackSummary.from_list(port)
+
+    cls._filter_traceback_frames = keep
+    try:
+        yield
+    finally:
+        if own:
+            cls._filter_traceback_frames = base
+        else:
+            del cls._filter_traceback_frames
+
+
+def trace(fn, *args, stack_traces=False):
     """make_fx of ``fn(*args)`` over fake copies of the tensors in ``args``
     (any pytree): nothing runs on a device and no tensor is written.
-    Closed-over tensors become graph constants."""
+    Closed-over tensors become graph constants. ``stack_traces``: record
+    each node's frames in the port too (the comms inventory's
+    provenance)."""
     kw = {"tracing_mode": "fake"}
     # the module path of each node is its provenance (``source_of``); a
-    # stack trace per node would cost a third more tracing time
+    # stack trace per node costs a third more tracing time
     for flag, value in (("_allow_non_fake_inputs", True),
-                        ("record_module_stack", True)):
+                        ("record_module_stack", True),
+                        ("record_stack_traces", bool(stack_traces))):
         if flag in _MAKE_FX_ARGS:
             kw[flag] = value
-    return make_fx(fn, **kw)(*args)
+    with _port_frames() if stack_traces else contextlib.nullcontext():
+        return make_fx(fn, **kw)(*args)
 
 
 def _mutated_storages(gm):
@@ -764,7 +803,7 @@ def analyze_train_step(step, *args, name=None, thresholds=None,
 
 
 # ---------------------------------------------------------- step programs
-def trace_runner(model, run, name="step"):
+def trace_runner(model, run, name="step", stack_traces=False):
     """(GraphModule, labels) of program ``name`` of a runner built by
     ``models/generation.py`` (its ``trace_parts``: the function that builds
     its programs and the tensors they close over). The placeholders are
@@ -788,7 +827,7 @@ def trace_runner(model, run, name="step"):
     traced, tensors, labels, _static, _numbers = _flat_call(
         fn, (closed, dict(run.inputs.dev), dict(run.outputs.dev)), {},
         ("closed", "inputs", "outputs"))
-    return trace(traced, *tensors), labels
+    return trace(traced, *tensors, stack_traces=stack_traces), labels
 
 
 def analyze_runner(model, run, *, name, programs=("step",), mesh_axes=None,

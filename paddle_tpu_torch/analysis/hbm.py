@@ -47,8 +47,9 @@ Rules (JAX's ids, severities and thresholds, ``hbm.py:100-109``):
 ``plan_kv_pool`` is the runtime half: the continuous scheduler's
 ``hbm_budget=`` sizes its pool from the plan and publishes
 ``paddle_hbm_planned_bytes{component}`` beside
-``paddle_hbm_budget_bytes``. ``DeploymentPlan.comms`` stays None until the
-comms lint is ported.
+``paddle_hbm_budget_bytes``. ``DeploymentPlan.comms`` (a
+``comms.CommsBudget``) carries the interconnect beside the residency: its
+own table row and the ``comms-over-budget`` rule, never a component.
 """
 from __future__ import annotations
 
@@ -383,7 +384,11 @@ class DeploymentPlan:
     programs: tuple = ()
     temps_bytes: int = 0
     adapter_bank_bytes: int = 0
-    comms: object = None             # the comms lint's, once ported
+    # the interconnect component (comms.CommsBudget or None), kept apart
+    # from components(): bytes MOVED per tick, not bytes resident, so it
+    # never enters the residency sum; its own row in render_table and its
+    # own rule (comms-over-budget)
+    comms: object = None
 
     def __post_init__(self):
         if self.budget_bytes <= 0:
@@ -453,7 +458,7 @@ class DeploymentPlan:
             "programs": [p.to_json() for p in self.programs],
             "temps_bytes": int(self.temps_bytes),
             "adapter_bank_bytes": int(self.adapter_bank_bytes),
-            "comms": None,
+            "comms": self.comms.to_json() if self.comms else None,
             "components": self.components(),
             "planned_total_bytes": self.planned_total_bytes,
         }
@@ -473,9 +478,9 @@ class DeploymentPlan:
         kw["programs"] = tuple(ProgramEstimate.from_json(p)
                                for p in kw.get("programs", ()))
         if kw.get("comms") is not None:
-            raise NotImplementedError(
-                "DeploymentPlan.comms: the comms lint is not ported "
-                "(ROADMAP A6, part 2)")
+            from .comms import CommsBudget
+
+            kw["comms"] = CommsBudget.from_json(kw["comms"])
         return cls(**kw)
 
     def render_table(self) -> str:
@@ -494,6 +499,15 @@ class DeploymentPlan:
                          f"{pct:5.1f}% of budget")
         lines.append(f"  {'total':12s} {fmt_bytes(total):>12s}  "
                      f"{100.0 * total / self.budget_bytes:5.1f}% -> {fit}")
+        if self.comms is not None:
+            share = self.comms.share_of_tick()
+            wall_ms = self.comms.tick_wall_s * 1e3
+            lines.append(
+                f"  {'comms':12s} {fmt_bytes(self.comms.bytes_per_tick):>12s}"
+                + ("  on wire/tick, interconnect unknown (un-gated)"
+                   if share is None else
+                   f"  on wire/tick = {share:6.1%} of the {wall_ms:.0f}ms "
+                   "tick wall"))
         for p in self.programs:
             measured = (fmt_bytes(p.measured_peak_bytes)
                         if p.measured_peak_bytes else "n/a")
@@ -596,16 +610,25 @@ def _rule_pool_misfit(plan, strict=False):
 
 def analyze_hbm_plan(plan, *, strict=False, allowlist=None,
                      name=None) -> Report:
-    """Run the four residency rules over one DeploymentPlan."""
+    """Run the four residency rules over one DeploymentPlan; a plan that
+    carries its interconnect component (``comms``) gets the comms budget
+    rule too — the deploy review reads one table."""
     findings = []
     findings.extend(_rule_over_budget(plan))
     findings.extend(_rule_estimate_drift(plan))
     findings.extend(_rule_oversized_temp(plan, strict=strict))
     findings.extend(_rule_pool_misfit(plan, strict=strict))
+    rules = tuple(HBM_RULES)
+    if plan.comms is not None:
+        from .comms import _rule_comms_over_budget
+
+        findings.extend(_rule_comms_over_budget(
+            plan.comms, subject=f"{plan.config.name}:comms"))
+        rules += ("comms-over-budget",)
     al = allowlist if allowlist is not None else BUILTIN_HBM_ALLOWLIST
     kept, suppressed = al.apply(findings, "")
     return Report(name or f"hbm.residency[{plan.config.name}]", kept,
-                  suppressed, tuple(HBM_RULES))
+                  suppressed, rules)
 
 
 # ============================================================= runtime half

@@ -390,16 +390,26 @@ def _declared_groups(mesh_axes):
 
 def _group_of(node):
     """The group name a collective node names (its ``group_name`` / ``tag``
-    string argument), or None."""
+    string argument, or the name of the ``ProcessGroup`` a c10d operator
+    takes as a graph attribute), or None."""
     t = node.target
     schema = getattr(t, "_schema", None)
     if schema is not None:
         for i, arg in enumerate(schema.arguments):
-            if arg.name in ("group_name", "tag", "group"):
-                v = (node.args[i] if i < len(node.args)
-                     else node.kwargs.get(arg.name))
-                if isinstance(v, str):
-                    return v
+            if arg.name not in ("group_name", "tag", "group",
+                                "process_group"):
+                continue
+            v = (node.args[i] if i < len(node.args)
+                 else node.kwargs.get(arg.name))
+            if isinstance(v, str):
+                return v
+            if isinstance(v, torch.fx.Node) and v.op == "get_attr":
+                try:
+                    return torch._C._distributed_c10d.ProcessGroup.unbox(
+                        getattr(v.graph.owning_module,
+                                str(v.target))).group_name
+                except Exception:
+                    pass
     return next((a for a in node.args[::-1] if isinstance(a, str)), None)
 
 

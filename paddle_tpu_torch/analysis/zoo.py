@@ -14,12 +14,17 @@ One place builds the programs ``--self-check`` and the tests gate on:
 * ``gpt_prefill_prefix`` — the chunked prefill entered through a prefix
   hit (same program, traced offsets);
 * ``gpt_*_lora`` — the three step programs with the banked LoRA gather;
+* ``gpt_prefill_chunk_tp`` / ``gpt_decode_step_tp`` /
+  ``gpt_verify_step_tp`` — the three step programs traced at tp = 2 inside
+  ``comms.tp_world`` (a fake process group of two ranks in this process,
+  nothing sent): the row- and vocab-parallel layers' all-reduces and the
+  sampled-logits gather are c10d nodes, which ``collective-axis`` holds to
+  the serving mesh's groups;
 * ``compile_surface`` — the program-inventory contract
   (``compilesurface.py``) and the zoo cross-check;
-* ``hbm_residency`` — the residency contract (``hbm.py``).
-
-The ``*_tp`` entries and ``comms_surface`` need ranks and the comms lint,
-which are not ported (ROADMAP A6, part 2): they raise.
+* ``hbm_residency`` — the residency contract (``hbm.py``);
+* ``comms_surface`` — the comms contract (``comms.py``): the step programs'
+  collective inventory at tp = 2 and the five comms rules.
 
 Smoke sizes on purpose, JAX's geometry (vocab 512, hidden 64, 2 layers, 4
 heads): findings are properties of the graph, not of the weights. Every
@@ -36,9 +41,6 @@ import torch
 from .core import Thresholds, analyze_runner, analyze_train_step
 
 __all__ = ["ZOO_PROGRAMS", "zoo_report", "zoo_reports", "zoo_device"]
-
-_PART2 = ("needs ranks and the comms lint, which are not ported yet "
-          "(ROADMAP A6, part 2)")
 
 
 def zoo_device(device=None) -> torch.device:
@@ -165,24 +167,41 @@ def _continuous_smoke(device=None):
     return model, kv, tbl, ids, S, C, NEW, T
 
 
-def _tp_entry(name):
+def _tp_entry(report_fn):
+    """The entry ``report_fn`` at tp = 2: built and traced inside
+    ``comms.tp_world``, its collectives declared over the serving mesh's
+    groups."""
     def report(thresholds=None, allowlist=None, device=None):
-        raise NotImplementedError(f"zoo entry {name!r} {_PART2}")
-    report.__name__ = f"{name}_report"
+        from ..distributed.mesh import get_mesh
+        from .comms import tp_world
+
+        with tp_world(2):
+            mesh = get_mesh()
+            groups = {a: mesh.get_group(a) for a in mesh.dim_names}
+            return report_fn(thresholds, allowlist, device, _tp=groups)
+    report.__name__ = report_fn.__name__.replace("_report", "_tp_report")
     return report
 
 
-def gpt_prefill_chunk_report(thresholds=None, allowlist=None, device=None):
+def _tp_name(name, groups):
+    return name + ("_tp" if groups else "")
+
+
+def gpt_prefill_chunk_report(thresholds=None, allowlist=None, device=None,
+                             _tp=None):
     model, kv, tbl, ids, S, C, NEW, T = _continuous_smoke(device)
     offs = np.zeros(S, np.int64)
     lens = np.asarray([C, 0], np.int64)          # slot 1 idle (masked)
     model.prefill_chunk(ids, offs, lens, kv, tbl)   # builds the runner
     run = model.compiled_prefill_chunk_runner(S, C)
-    return analyze_runner(model, run, name="gpt.decode.paged_prefill_chunk",
-                          thresholds=thresholds, allowlist=allowlist)
+    return analyze_runner(model, run,
+                          name=_tp_name("gpt.decode.paged_prefill_chunk", _tp),
+                          mesh_axes=_tp, thresholds=thresholds,
+                          allowlist=allowlist)
 
 
-def gpt_decode_step_report(thresholds=None, allowlist=None, device=None):
+def gpt_decode_step_report(thresholds=None, allowlist=None, device=None,
+                           _tp=None):
     model, kv, tbl, ids, S, C, NEW, T = _continuous_smoke(device)
     model.prefill_chunk(ids, np.zeros(S, np.int64),
                         np.asarray([C, 0], np.int64), kv, tbl)
@@ -192,8 +211,10 @@ def gpt_decode_step_report(thresholds=None, allowlist=None, device=None):
     lmax = np.asarray([C + NEW, 0], np.int64)
     model.decode_step(tok, lens, act, kv, tbl, steps=T, max_lens=lmax)
     run = model.compiled_decode_step_runner(S, T)
-    return analyze_runner(model, run, name="gpt.decode.paged_step",
-                          thresholds=thresholds, allowlist=allowlist)
+    return analyze_runner(model, run,
+                          name=_tp_name("gpt.decode.paged_step", _tp),
+                          mesh_axes=_tp, thresholds=thresholds,
+                          allowlist=allowlist)
 
 
 def gpt_prefill_prefix_report(thresholds=None, allowlist=None, device=None):
@@ -235,7 +256,8 @@ def gpt_prefill_prefix_report(thresholds=None, allowlist=None, device=None):
                           thresholds=thresholds, allowlist=allowlist)
 
 
-def gpt_verify_step_report(thresholds=None, allowlist=None, device=None):
+def gpt_verify_step_report(thresholds=None, allowlist=None, device=None,
+                           _tp=None):
     model, kv, tbl, ids, S, C, NEW, T = _continuous_smoke(device)
     model.prefill_chunk(ids, np.zeros(S, np.int64),
                         np.asarray([C, 0], np.int64), kv, tbl)
@@ -247,8 +269,10 @@ def gpt_verify_step_report(thresholds=None, allowlist=None, device=None):
                       np.asarray([True, False]), kv, tbl,
                       max_lens=np.asarray([C + NEW, 0], np.int64))
     run = model.compiled_verify_step_runner(S, K + 1)
-    return analyze_runner(model, run, name="gpt.decode.paged_verify_step",
-                          thresholds=thresholds, allowlist=allowlist)
+    return analyze_runner(model, run,
+                          name=_tp_name("gpt.decode.paged_verify_step", _tp),
+                          mesh_axes=_tp, thresholds=thresholds,
+                          allowlist=allowlist)
 
 
 def _continuous_lora_smoke(device=None):
@@ -352,6 +376,17 @@ def hbm_residency_report(thresholds=None, allowlist=None, device=None):
                                  device=device)
 
 
+def comms_surface_report(thresholds=None, allowlist=None, device=None):
+    """The comms contract: the three continuous step programs traced at
+    tp = 2, their collectives inventoried, the SpecLayout contract checked
+    and the five comms rules run (``comms.analyze_step_comms``)."""
+    del thresholds
+    from .comms import analyze_step_comms
+
+    return analyze_step_comms(allowlist=allowlist, name="comms.surface",
+                              device=device)
+
+
 ZOO_PROGRAMS = {
     "gpt_train": gpt_train_report,
     "resnet_train": resnet_train_report,
@@ -361,20 +396,16 @@ ZOO_PROGRAMS = {
     "gpt_prefill_prefix": gpt_prefill_prefix_report,
     "gpt_decode_step": gpt_decode_step_report,
     "gpt_verify_step": gpt_verify_step_report,
-    "gpt_prefill_chunk_tp": _tp_entry("gpt_prefill_chunk_tp"),
-    "gpt_decode_step_tp": _tp_entry("gpt_decode_step_tp"),
-    "gpt_verify_step_tp": _tp_entry("gpt_verify_step_tp"),
+    "gpt_prefill_chunk_tp": _tp_entry(gpt_prefill_chunk_report),
+    "gpt_decode_step_tp": _tp_entry(gpt_decode_step_report),
+    "gpt_verify_step_tp": _tp_entry(gpt_verify_step_report),
     "gpt_prefill_chunk_lora": gpt_prefill_chunk_lora_report,
     "gpt_decode_step_lora": gpt_decode_step_lora_report,
     "gpt_verify_step_lora": gpt_verify_step_lora_report,
     "compile_surface": compile_surface_report,
     "hbm_residency": hbm_residency_report,
-    "comms_surface": _tp_entry("comms_surface"),
+    "comms_surface": comms_surface_report,
 }
-
-# the entries that need ranks or the comms lint (ROADMAP A6, part 2)
-PART2_PROGRAMS = ("gpt_prefill_chunk_tp", "gpt_decode_step_tp",
-                  "gpt_verify_step_tp", "comms_surface")
 
 
 def zoo_report(name, thresholds=None, allowlist=None, device=None):
@@ -384,10 +415,8 @@ def zoo_report(name, thresholds=None, allowlist=None, device=None):
 
 def zoo_reports(include=None, thresholds=None, allowlist=None, device=None):
     """Lint the bundled programs; returns a list of Reports. ``include``
-    restricts to a subset of ``ZOO_PROGRAMS`` keys (default: every entry
-    that runs in one process, ``PART2_PROGRAMS`` left out)."""
-    names = ([n for n in ZOO_PROGRAMS if n not in PART2_PROGRAMS]
-             if include is None else list(include))
+    restricts to a subset of ``ZOO_PROGRAMS`` keys (default: all)."""
+    names = list(ZOO_PROGRAMS) if include is None else list(include)
     th = thresholds or Thresholds()
     return [zoo_report(n, thresholds=th, allowlist=allowlist, device=device)
             for n in names]

@@ -49,6 +49,7 @@ import zlib
 import numpy as np
 import torch
 
+from ..analysis.lockwitness import make_lock
 from .io_utils import fsync_dir, fsync_file
 
 __all__ = ["CheckpointManager", "CheckpointCorruptWarning", "latest_step",
@@ -254,7 +255,7 @@ class CheckpointManager:
         self._writer_err = None
         # one lock guards the writer's lifecycle and the scalars both
         # threads write (saves, commits, last_timings, _writer_err)
-        self._lock = threading.Lock()
+        self._lock = make_lock("checkpoint.CheckpointManager._lock")
         os.makedirs(self.directory, exist_ok=True)
 
     # ----------------------------------------------------------------- clock
@@ -404,7 +405,8 @@ class CheckpointManager:
             files[self._data_name()] = {
                 "bytes": os.path.getsize(data_path),
                 "crc32": _crc_file(data_path)}
-            self.last_bytes = files[self._data_name()]["bytes"]
+            with self._lock:
+                self.last_bytes = files[self._data_name()]["bytes"]
         sidecar = {"rank": self.rank, "keys": job["entries"], "files": files}
         sc_path = os.path.join(tmp, f"meta_r{self.rank}.json")
         with open(sc_path + ".w", "w") as f:

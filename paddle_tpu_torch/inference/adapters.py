@@ -58,10 +58,11 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import itertools
-import threading
 
 import numpy as np
 import torch
+
+from ..analysis.lockwitness import make_rlock
 
 __all__ = ["AdapterRegistry", "applied", "BASE_SLOT"]
 
@@ -160,7 +161,7 @@ class AdapterRegistry:
             raise ValueError("max_adapters must be >= 1")
         if max_rank < 1:
             raise ValueError("max_rank must be >= 1")
-        self._lock = threading.RLock()
+        self._lock = make_rlock("adapters.AdapterRegistry._lock")
         self._faults = faults           # FaultInjector | None (lora.load)
         self._rows = int(max_adapters) + 1          # + identity row 0
         self._r_max = int(max_rank)

@@ -39,8 +39,9 @@ deadline and backoff expiry are tested without sleeping.
 """
 from __future__ import annotations
 
-import threading
 import time
+
+from ..analysis.lockwitness import make_lock
 
 __all__ = ["ThreadDeath", "FaultInjector"]
 
@@ -70,7 +71,7 @@ class FaultInjector:
     """Counter-armed fault injection with a skewable monotonic clock."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("faults.FaultInjector._lock")
         self._faults: dict[str, list[_Fault]] = {}
         self._calls: dict[str, int] = {}
         self._skew = 0.0

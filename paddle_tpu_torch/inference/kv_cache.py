@@ -39,11 +39,11 @@ from __future__ import annotations
 
 import itertools
 import math
-import threading
 
 import numpy as np
 import torch
 
+from ..analysis.lockwitness import make_rlock
 from ..framework import resolve_device
 
 __all__ = ["CacheOutOfBlocks", "BlockAllocator", "PagedKVCache"]
@@ -160,7 +160,7 @@ class PagedKVCache:
         # hit from HTTP handler threads (admission checks) and the batcher
         # thread (reserve/release); re-entrant: reserve -> _evict_lru ->
         # release; taken before PrefixCache._lock, never after
-        self._lock = threading.RLock()
+        self._lock = make_rlock("kv_cache.PagedKVCache._lock")
 
     def signature(self):
         """Hashable shape identity for step-program cache keys (JAX

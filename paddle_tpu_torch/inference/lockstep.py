@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import threading
 
+from ..analysis.lockwitness import make_lock
 from ..distributed.collective import broadcast_object_list
 from .kv_cache import PagedKVCache
 
@@ -69,7 +70,7 @@ class LockstepLeader:
     def __init__(self, model, group):
         self._model = model
         self._group = group
-        self._lock = threading.Lock()
+        self._lock = make_lock("lockstep.LockstepLeader._lock")
         self._sent = threading.Event()
         self._stopped = threading.Event()
         self._keepalive = threading.Thread(target=self._keep_alive,

@@ -47,6 +47,8 @@ import threading
 
 import numpy as np
 
+from ..analysis.lockwitness import make_rlock
+
 __all__ = ["PrefixCache", "PrefixHit"]
 
 _DIGEST_BYTES = 16
@@ -89,7 +91,7 @@ class PrefixCache:
         self.hits = 0                 # lookups that matched >= 1 block
         self.misses = 0
         self.evicted_blocks_total = 0  # parked blocks reclaimed under pressure
-        self._lock = threading.RLock()
+        self._lock = make_rlock("prefix_cache.PrefixCache._lock")
         kv_cache.attach_prefix_cache(self)
 
     # -------------------------------------------------------------- hashing

@@ -38,6 +38,7 @@ from __future__ import annotations
 import threading
 import time
 
+from ..analysis.lockwitness import make_lock
 from .faults import ThreadDeath
 from .resilience import ServerBusy
 
@@ -118,7 +119,7 @@ class TenantLedger:
 
     def __init__(self, tenants=(), *, default_weight=1.0, default_priority=1,
                  clock=None, faults=None):
-        self._lock = threading.Lock()
+        self._lock = make_lock("qos.TenantLedger._lock")
         self._faults = faults
         self._clock = (clock if clock is not None
                        else faults.monotonic if faults is not None

@@ -22,6 +22,7 @@ import random
 import threading
 import time
 
+from ..analysis.lockwitness import make_lock
 from ..observability.metrics import DEFAULT_LATENCY_BUCKETS, MetricsRegistry
 
 __all__ = [
@@ -128,7 +129,7 @@ class CircuitBreaker:
         self.failure_threshold = int(failure_threshold)
         self.reset_after = float(reset_after)
         self.clock = clock
-        self._lock = threading.Lock()
+        self._lock = make_lock("resilience.CircuitBreaker._lock")
         self._failures = 0
         self._opened_at = None
         self._probing = False
@@ -192,7 +193,7 @@ class Supervisor:
         self.max_restarts = int(max_restarts)
         self.backoff = float(backoff)
         self._sleep = sleep
-        self._lock = threading.Lock()
+        self._lock = make_lock("resilience.Supervisor._lock")
         self.restarts = 0
         self.thread = None
 
@@ -260,7 +261,7 @@ class ServingMetrics:
     _LAT_CAP = 4096
 
     def __init__(self, registry=None, component="serving", rng=None):
-        self._lock = threading.Lock()
+        self._lock = make_lock("resilience.ServingMetrics._lock")
         self._counters: dict[str, int] = {}
         self._latencies: list[float] = []
         self._lat_seen = 0                      # total observations ever

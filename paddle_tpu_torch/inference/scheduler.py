@@ -45,6 +45,7 @@ import threading
 
 import numpy as np
 
+from ..analysis.lockwitness import make_lock
 from .faults import ThreadDeath
 from .kv_cache import CacheOutOfBlocks
 from .lockstep import LockstepLeader, follow
@@ -250,8 +251,8 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
     device               defaults to CUDA (see GenerateBatchingPredictor).
 
     ``compile_cache_dir`` raises for good (a CUDA graph holds device
-    addresses and cannot be persisted; ROADMAP C) and ``hbm_budget``
-    until the HBM planner is ported (ROADMAP A6).
+    addresses and cannot be persisted; ROADMAP C); ``hbm_budget`` sizes
+    the pool from ``analysis.hbm.plan_kv_pool``.
 
     A tensor-parallel model (its ``tp_group``, e.g. under
     ``distributed.serving_mesh(dp=1, tp=n)``) is served by a predictor on
@@ -332,7 +333,8 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
         self._spec_accepted = 0
         self._seed = itertools.count(1)     # fresh sampling noise per tick
         self._slots: list = [None] * self.max_slots
-        self._slot_lock = threading.Lock()
+        self._slot_lock = make_lock(
+            "scheduler.ContinuousGenerateBatchingPredictor._slot_lock")
         self._prefix_cache_arg = prefix_cache
         self.prefix_cache = None
         self._prefix_hit_counter = None
@@ -388,14 +390,14 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
         self._hbm_plan = None
         if (self.hbm_budget is not None and kwargs.get("kv_cache") is None
                 and "num_blocks" not in kwargs):
-            kwargs["num_blocks"] = self._plan_pool(
+            kwargs["num_blocks"], self._hbm_plan = self._plan_pool(
                 getattr(model, "_model", model), kwargs, adapters)
         super().__init__(model, max_batch_size=max_slots,
                          max_defers=max_defers, **kwargs)
 
     def _plan_pool(self, model, kwargs, adapters):
-        """The pool's num_blocks from ``plan_kv_pool`` over the budget;
-        keeps the plan for the ``paddle_hbm_*`` gauges."""
+        """(num_blocks, plan): the pool's size from ``plan_kv_pool`` over
+        the budget, and the plan the ``paddle_hbm_*`` gauges publish."""
         import torch
 
         from ..analysis.hbm import params_bytes_of, plan_kv_pool
@@ -416,44 +418,50 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
             decode_kernel=self.decode_kernel,
             adapter_bank_bytes=(0 if adapters is None
                                 else adapters.bank_bytes()))
-        self._hbm_plan = sizing["plan"]
-        return sizing["num_blocks"]
+        return sizing["num_blocks"], sizing["plan"]
 
     def _start_worker(self):
-        """Pool-dependent set-up, then the tick thread."""
-        pool_tokens = self.kv_cache.num_blocks * self.kv_cache.block_size
-        self.max_seq_len = (int(self._max_seq_len_arg)
-                            if self._max_seq_len_arg else pool_tokens)
-        if self.max_seq_len > pool_tokens:
-            raise ValueError(f"max_seq_len {self.max_seq_len} exceeds the "
-                             f"pool ({pool_tokens} tokens)")
-        self.table_width = self.kv_cache.blocks_for(self.max_seq_len)
-        (self._spec_counter, self._lora_requests_counter,
-         self._ttft_hist, self._tpot_hist) = self._bind_scheduler_metrics()
-        pc = self._prefix_cache_arg
-        if pc:
-            pc = (pc if isinstance(pc, PrefixCache)
-                  else PrefixCache(self.kv_cache, faults=self._faults))
-            if pc.kv is not self.kv_cache:
-                raise ValueError("the prefix cache indexes another pool")
-            pc.bind_metrics(self.metrics.registry, component=self._component)
-            self._prefix_hit_counter = self.metrics.registry.counter(
-                "paddle_prefix_hit_tokens_total",
-                "Prompt tokens served from shared prefix blocks instead of "
-                "prefill compute", labels=("component",)).labels(
-                    self._component)
-            self.prefix_cache = pc
-        self._recompile_counter = self.metrics.registry.counter(
-            "paddle_serving_recompiles_total",
-            "Post-ready step-program cold builds by program — stays 0 when "
-            "the AOT warmup covered the compile-surface manifest "
-            "(analysis/compilesurface.py)", labels=("component", "program"))
-        if self.warmup and not self.fallback_dense and not self._follower:
-            self._warm_thread = threading.Thread(
-                target=self._warm_start, name="warmup", daemon=True)
-            self._warm_thread.start()
-        else:
-            self._warm_done.set()
+        """Pool-dependent set-up, then the tick thread. The set-up is
+        written under ``_slot_lock``: the gauges, the warmup thread and
+        ``close()`` read it from other threads once the worker runs."""
+        with self._slot_lock:
+            pool_tokens = self.kv_cache.num_blocks * self.kv_cache.block_size
+            self.max_seq_len = (int(self._max_seq_len_arg)
+                                if self._max_seq_len_arg else pool_tokens)
+            if self.max_seq_len > pool_tokens:
+                raise ValueError(f"max_seq_len {self.max_seq_len} exceeds "
+                                 f"the pool ({pool_tokens} tokens)")
+            self.table_width = self.kv_cache.blocks_for(self.max_seq_len)
+            (self._spec_counter, self._lora_requests_counter,
+             self._ttft_hist,
+             self._tpot_hist) = self._bind_scheduler_metrics()
+            pc = self._prefix_cache_arg
+            if pc:
+                pc = (pc if isinstance(pc, PrefixCache)
+                      else PrefixCache(self.kv_cache, faults=self._faults))
+                if pc.kv is not self.kv_cache:
+                    raise ValueError("the prefix cache indexes another "
+                                     "pool")
+                pc.bind_metrics(self.metrics.registry,
+                                component=self._component)
+                self._prefix_hit_counter = self.metrics.registry.counter(
+                    "paddle_prefix_hit_tokens_total",
+                    "Prompt tokens served from shared prefix blocks instead "
+                    "of prefill compute", labels=("component",)).labels(
+                        self._component)
+                self.prefix_cache = pc
+            self._recompile_counter = self.metrics.registry.counter(
+                "paddle_serving_recompiles_total",
+                "Post-ready step-program cold builds by program — stays 0 "
+                "when the AOT warmup covered the compile-surface manifest "
+                "(analysis/compilesurface.py)",
+                labels=("component", "program"))
+            if self.warmup and not self.fallback_dense and not self._follower:
+                self._warm_thread = threading.Thread(
+                    target=self._warm_start, name="warmup", daemon=True)
+                self._warm_thread.start()
+            else:
+                self._warm_done.set()
         super()._start_worker()
 
     # ---------------------------------------------------------------- warmup
@@ -894,8 +902,10 @@ class ContinuousGenerateBatchingPredictor(GenerateBatchingPredictor):
     # ------------------------------------------------------------- tick loop
     def _loop(self):
         if self._follower:      # a tensor-parallel rank other than 0
-            self.follower_runs = follow(self.model, self.kv_cache,
-                                        self.tp_group, self.adapters)
+            runs = follow(self.model, self.kv_cache, self.tp_group,
+                          self.adapters)
+            with self._slot_lock:
+                self.follower_runs = runs
             return
         # ready gate: no tick runs (and so no step program can
         # cold-build under traffic) until the aot-warmup thread finished.

@@ -29,6 +29,7 @@ deterministic faults at the seams for the chaos tests.
 """
 from __future__ import annotations
 
+import collections
 import io
 import itertools
 import json
@@ -42,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from ..analysis.lockwitness import make_lock, make_module_lock
 from ..framework import resolve_device
 from ..observability.metrics import MetricsRegistry, render_prometheus
 from ..observability.trace import RequestTrace, Tracer, new_trace_id
@@ -113,7 +115,7 @@ class _Request:
         # {queue,prefill,paused,decode}_share, set by the continuous
         # scheduler so the terminal span carries where the time went
         self.attribution = None
-        self._lock = threading.Lock()
+        self._lock = make_lock("serving._Request._lock")
         self._state = _PENDING
 
     @property
@@ -201,7 +203,7 @@ class BatchingPredictor:
         self._stop = threading.Event()
         self._draining = threading.Event()
         self._busy = False
-        self.batch_sizes: list[int] = []
+        self.batch_sizes: collections.deque = collections.deque()
         self._sup = Supervisor(
             self._make_thread,
             name=f"{type(self).__name__}[{self._component}]",
@@ -844,7 +846,7 @@ class InferenceServer:
                                           max_delay_ms))
         self.default_timeout = float(default_timeout)
         self.profile_dir = profile_dir
-        self._profile_lock = threading.Lock()
+        self._profile_lock = make_lock("serving.InferenceServer._profile_lock")
         self._profile_seq = itertools.count(1)
         self._ready = threading.Event()
         self._draining = threading.Event()
@@ -1358,7 +1360,7 @@ class _Replica:
 _LED: dict = {}
 _ANSWERS: dict = {}
 _CLOSED: dict = {}
-_ANSWERS_LOCK = threading.Lock()
+_ANSWERS_LOCK = make_module_lock("serving._ANSWERS_LOCK")
 _ERRORS = {"ServiceUnavailable": ServiceUnavailable,
            "ServerBusy": ServerBusy, "DeadlineExceeded": DeadlineExceeded,
            "ValueError": ValueError}
@@ -1600,7 +1602,7 @@ class ReplicaFleet:
 
     def __init__(self, replicas, *, admission=None, registry=None,
                  tracer=None, clock=time.monotonic):
-        self._lock = threading.Lock()
+        self._lock = make_lock("serving.ReplicaFleet._lock")
         self._replicas = list(replicas)
         self._next_id = len(self._replicas)
         self._clock = clock
@@ -1767,8 +1769,8 @@ class ReplicaFleet:
         rep = self._by_name(name)
         rep.state = "draining"
         rep.predictor.drain()
-        deadline = time.monotonic() + float(drain_timeout)
-        while time.monotonic() < deadline and rep.predictor.pending():
+        deadline = self._clock() + float(drain_timeout)
+        while self._clock() < deadline and rep.predictor.pending():
             time.sleep(0.01)
         rep.predictor.close()
         rep.state = "dead"
@@ -1968,4 +1970,5 @@ class ReplicaFleet:
             from ..distributed import rpc
 
             rpc.shutdown()
-        self._member = None
+        with self._lock:
+            self._member = None

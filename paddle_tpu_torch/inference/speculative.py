@@ -30,11 +30,11 @@ a run's verify rows in the utilization ledger's convention.
 from __future__ import annotations
 
 import itertools
-import threading
 
 import numpy as np
 import torch
 
+from ..analysis.lockwitness import make_module_lock
 from .kv_cache import PagedKVCache
 
 __all__ = ["Drafter", "NGramDrafter", "DraftModelDrafter",
@@ -176,7 +176,7 @@ class SpecStats:
 
 
 _RID = itertools.count(1)   # process-unique reservation ids (atomic draw)
-_SPARE_LOCK = threading.Lock()
+_SPARE_LOCK = make_module_lock("speculative._SPARE_LOCK")
 _BLOCK = 32                 # block size of the private pools
 
 

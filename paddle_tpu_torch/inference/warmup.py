@@ -26,10 +26,11 @@ counterpart here.
 from __future__ import annotations
 
 import collections
-import threading
 import time
 
 import numpy as np
+
+from ..analysis.lockwitness import make_module_lock
 
 __all__ = ["Warmup", "CompileSentinel", "program_keys",
            "activate", "deactivate", "notify"]
@@ -46,7 +47,7 @@ class CompileSentinel:
 
 
 _ACTIVE = None
-_ACTIVE_LOCK = threading.Lock()
+_ACTIVE_LOCK = make_module_lock("warmup._ACTIVE_LOCK")
 
 
 def activate(sentinel: CompileSentinel) -> CompileSentinel:

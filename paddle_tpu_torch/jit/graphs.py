@@ -35,13 +35,13 @@ from __future__ import annotations
 import contextlib
 import gc
 import math
-import threading
 import time
 import warnings
 
 import numpy as np
 import torch
 
+from ..analysis.lockwitness import make_lock, make_module_lock
 from ..ops._build import recording_launches
 
 __all__ = ["StaticBuffers", "StepRunner", "Capture", "CaptureError",
@@ -49,7 +49,8 @@ __all__ = ["StaticBuffers", "StepRunner", "Capture", "CaptureError",
            "first_run_then_capture"]
 
 _ALIGN = 16                 # bytes: every view starts on a 16-byte line
-_CAPTURE_LOCK = threading.Lock()    # one capture (and its first run) at once
+# one capture (and its first run) at once
+_CAPTURE_LOCK = make_module_lock("graphs._CAPTURE_LOCK")
 _SIDE_STREAMS: dict = {}            # device -> the stream captures run on
 _UNDERWAY = False                   # a capture is being recorded
 _DEFERRED: list = []                # graphs released during it
@@ -278,7 +279,7 @@ class StepRunner:
         self.outputs = StaticBuffers(outputs, self.device)
         self.programs = dict(programs)
         self.pool = pool
-        self.lock = threading.Lock()
+        self.lock = make_lock("graphs.StepRunner.lock")
         self.graphs: dict = {}          # name -> Capture
         self.flops: dict = {}           # name -> FLOPs of one run
         self.captures = 0

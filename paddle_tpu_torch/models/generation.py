@@ -39,28 +39,29 @@ on the host, so one seed gives the same draws on every device.
 """
 from __future__ import annotations
 
-import threading
 import time
 import weakref
 
 import numpy as np
 import torch
 
+from ..analysis.lockwitness import make_module_lock, make_module_rlock
 from ..framework import make_generator
 from ..jit.graphs import StepRunner, poisoned
 from ..observability.device import cost_flops
 from ..ops.paged_attention import paged_write_slots
 from .steps import DenseStep, PagedStep
 
-__all__ = ["GenerationMixin", "bucket_new_tokens"]
+__all__ = ["GenerationMixin", "bucket_new_tokens", "STEP_ARG_LABELS",
+           "STEP_INPUT_LABELS", "step_arg_labels"]
 
 _F32_MIN = torch.finfo(torch.float32).min
 # one cold build (runner construction) at a time, as JAX traces one key at
 # a time; lookups of built runners take no lock
-_TRACE_LOCK = threading.Lock()
+_TRACE_LOCK = make_module_lock("generation._TRACE_LOCK")
 # functional_call's parameter swap, and every read of the parameters
 # that must not see a swap in progress (the decode state's cast cache)
-_SWAP_LOCK = threading.RLock()
+_SWAP_LOCK = make_module_rlock("generation._SWAP_LOCK")
 # dense generate() runners kept per model, least recently used dropped
 # first: unlike a compiled JAX program, each holds its own caches
 # ([B, Hkv, P + bucket, D] per layer, K and V), 0.5 GB at B 8, P 512,
@@ -69,6 +70,52 @@ _DENSE_RUNNERS = 4
 # generate_paged runners kept per model, least recently used dropped first:
 # a whole-batch server makes one per (batch, prompt bucket) it meets
 _PAGED_RUNNERS = 16
+
+
+# The step programs' arguments under JAX's labels (JAX ``generation.py``
+# :56-75), the names the comms lint reports input layouts by, so the two
+# packages' surfaces compare label by label. "state" is the decode layer's
+# parameters, "k_pages" / "v_pages" the pools; the rest are runner inputs.
+STEP_ARG_LABELS = {
+    "prefill_chunk": ("state", "chunk", "offsets", "chunk_lens", "tables",
+                      "temperatures", "top_ks", "k_pages", "v_pages",
+                      "rng_key"),
+    "decode_step": ("state", "tokens", "lengths", "active", "max_lens",
+                    "tables", "temperatures", "top_ks", "k_pages",
+                    "v_pages", "rng_key"),
+    "verify_step": ("state", "chunk", "offsets", "draft_lens", "active",
+                    "max_lens", "tables", "temperatures", "top_ks",
+                    "k_pages", "v_pages", "rng_key"),
+}
+# The runner input each label names. JAX passes a PRNG key where the port
+# passes the uniforms it drew on the host from the call's seed: "u", and in
+# verify_step its two draws, "u_accept" and "u_next".
+STEP_INPUT_LABELS = {
+    "prefill_chunk": {"ids": "chunk", "offsets": "offsets",
+                      "lens": "chunk_lens", "tables": "tables",
+                      "temps": "temperatures", "top_ks": "top_ks",
+                      "u": "rng_key", "aidx": "adapter_slots"},
+    "decode_step": {"tokens": "tokens", "lengths": "lengths",
+                    "active": "active", "max_lens": "max_lens",
+                    "tables": "tables", "temps": "temperatures",
+                    "top_ks": "top_ks", "u": "rng_key",
+                    "aidx": "adapter_slots"},
+    "verify_step": {"ids": "chunk", "offsets": "offsets",
+                    "draft_lens": "draft_lens", "active": "active",
+                    "max_lens": "max_lens", "tables": "tables",
+                    "temps": "temperatures", "top_ks": "top_ks",
+                    "u_accept": "rng_key", "u_next": "rng_key",
+                    "aidx": "adapter_slots"},
+}
+
+
+def step_arg_labels(kind, *, adapters=False):
+    """Argument labels for one step program path (``STEP_ARG_LABELS``); a
+    LoRA program adds "adapter_slots" and "bank" before "rng_key"."""
+    base = STEP_ARG_LABELS[kind]
+    if not adapters:
+        return base
+    return base[:-1] + ("adapter_slots", "bank", "rng_key")
 
 
 def bucket_new_tokens(max_new_tokens):

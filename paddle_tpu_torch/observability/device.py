@@ -10,6 +10,10 @@
   attention kernels are not counted); 0.0 when none was taken.
 * ``memory_stats`` — ``paddle_tpu_torch.device.memory_stats`` flattened to
   the ints the telemetry reads; ``{}`` on the CPU.
+* ``device_interconnect_bandwidth`` — the card's one-way NVLink bytes/s
+  from the published specification (JAX's ``device_ici_bandwidth``), the
+  denominator of the comms lint's ``comms-over-budget``; ``None`` off the
+  table.
 
 Nothing here raises: an introspection surface a device does not implement
 yields ``None`` / ``0.0`` / ``{}``.
@@ -17,7 +21,8 @@ yields ``None`` / ``0.0`` / ``{}``.
 from __future__ import annotations
 
 __all__ = ["cost_flops", "device_peak_flops", "memory_stats",
-           "PEAK_BF16_FLOPS"]
+           "PEAK_BF16_FLOPS", "device_interconnect_bandwidth",
+           "INTERCONNECT_BYTES_PER_S"]
 
 # Dense bf16 tensor-core peak FLOP/s by device name prefix (NVIDIA's data
 # sheet; the SXM H100, which ``torch.cuda.get_device_name`` calls "NVIDIA
@@ -51,6 +56,33 @@ def device_peak_flops(device) -> float | None:
     for prefix, peak in PEAK_BF16_FLOPS.items():
         if name.startswith(prefix):
             return peak
+    return None
+
+
+# NVLink bandwidth one card sends at, in bytes/s, by device name prefix: a
+# published specification, not a measurement (NVIDIA's H100 SXM data sheet:
+# fourth-generation NVLink, 18 links, 900 GB/s per GPU, which counts both
+# directions; 450 GB/s each way). The comms lint divides the bytes one card
+# PUTS on the wire per tick (analysis/comms.py ``bytes_on_wire``, ring
+# formulas, per sending card) by it, so the one-way figure is the matching
+# denominator: the aggregate would halve every wire time.
+INTERCONNECT_BYTES_PER_S = {
+    "NVIDIA H100 80GB HBM3": 450e9,
+}
+
+
+def device_interconnect_bandwidth(device) -> float | None:
+    """One-way NVLink bytes/s of ``device`` (a ``torch.device``, a device
+    string, or a card name), or None for the CPU and any card the table
+    does not name — the comms budget rule then stays silent rather than
+    invent a number, as JAX's does off the TPU."""
+    try:
+        name = _device_name(device)
+    except Exception:
+        return None
+    for prefix, bw in INTERCONNECT_BYTES_PER_S.items():
+        if name.startswith(prefix):
+            return bw
     return None
 
 

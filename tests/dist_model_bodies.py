@@ -559,9 +559,29 @@ def body_serving_tp(inputs):
             except RuntimeError:
                 out["refuses"] = True
         fleet.close()
+        out["comms"] = _decode_comms()
     finally:
         dist.set_mesh(None)
     return out
+
+
+def _decode_comms():
+    """``__graft_entry__.py:486-501``: the decode step's comms report,
+    traced at tp 2 over this job's real gloo ranks (every rank enters:
+    ``tp_world`` makes the mesh's groups, a collective act)."""
+    from paddle_tpu_torch.analysis.comms import (analyze_step_comms,
+                                                 step_comms_surfaces)
+
+    surfaces = step_comms_surfaces(paths=("decode_step",), device="cpu")
+    report = analyze_step_comms(paths=("decode_step",), _surfaces=surfaces)
+    (s,) = surfaces
+    return {"high": [f.render() for f in report.high()],
+            "suppressed": [f.rule for f, _e in report.suppressed],
+            "ops": [(op.kind, op.result, op.group_size, op.count,
+                     op.wire_bytes) for op in s["ops"]],
+            "input_specs": s["input_specs"],
+            "output_specs": s["output_specs"],
+            "mesh_axes": s["mesh_axes"]}
 
 
 # ------------------------------------------------------------ dryrun legs

@@ -27,7 +27,7 @@ import torch
 import paddle_tpu.analysis as JA
 import paddle_tpu_torch.analysis as A
 from paddle_tpu_torch.analysis.__main__ import main as cli
-from paddle_tpu_torch.analysis.zoo import PART2_PROGRAMS, ZOO_PROGRAMS
+from paddle_tpu_torch.analysis.zoo import ZOO_PROGRAMS
 
 f32, bf16 = jnp.float32, jnp.bfloat16
 RULES = ("donation-miss", "dtype-upcast", "host-sync", "constant-bloat",
@@ -92,10 +92,12 @@ def jax_answers():
     return {rule: jax_kinds(rep, rule) for rule, rep in out.items()}
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture()
 def gloo_world():
     """A one-process gloo world (rank 0 of 1) and a second group over it:
-    the collective-axis rule needs live group names, and spawns no rank."""
+    the collective-axis rule needs live group names, and spawns no rank.
+    Per test: the tp entries below trace over a fake group of two ranks,
+    which needs no default group alive."""
     import torch.distributed as dist
 
     made = not dist.is_initialized()
@@ -259,6 +261,10 @@ def test_allowlist_requires_reason_and_records_suppressions():
 
 
 # ----------------------------------------------------------------- the zoo
+# the entries of the analysis port's second part (the tp step programs and
+# the comms contract), checked on their own below
+PART2_PROGRAMS = ("gpt_prefill_chunk_tp", "gpt_decode_step_tp",
+                  "gpt_verify_step_tp", "comms_surface")
 RUNNABLE = [n for n in ZOO_PROGRAMS if n not in PART2_PROGRAMS]
 
 
@@ -277,8 +283,21 @@ def test_zoo_program_is_clean_at_high(name, zoo):
 
 @pytest.mark.parametrize("name", PART2_PROGRAMS)
 def test_part2_zoo_entries_raise_naming_part_2(name):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A6, part 2"):
-        ZOO_PROGRAMS[name](device="cpu")
+    """The part-2 entries run now (they raised NotImplementedError before
+    the thread and comms lints were ported): clean at high, no rule error,
+    the fake process group gone after them; a tp program's all-reduces and
+    logits gather are c10d nodes that collective-axis held to the serving
+    mesh's groups."""
+    import torch.distributed as dist
+
+    r = ZOO_PROGRAMS[name](device="cpu")
+    assert r.high() == [], r.render()
+    assert not any(f.rule == "rule-error" for f in r.findings), r.render()
+    assert not dist.is_initialized()
+    if name.endswith("_tp"):
+        assert r.name.endswith("_tp") and "collective-axis" in r.rules_run
+    else:
+        assert [f.rule for f, _e in r.suppressed] == ["dead-mesh-axis"]
 
 
 # ----------------------------------------------------------- the train step
@@ -383,9 +402,10 @@ def test_cli_self_check_json_and_list_rules(capsys):
         "gpt.decode.paged_prefill_chunk", "compile.surface"]
     assert cli(["--list-rules"]) == 0
     listed = [ln.split()[0] for ln in capsys.readouterr().out.splitlines()]
-    assert listed == list(A.RULES) + list(A.SURFACE_RULES) + list(
-        A.HBM_RULES)
+    assert listed == (list(A.RULES) + list(A.THREAD_RULES)
+                      + list(A.SURFACE_RULES) + list(A.HBM_RULES)
+                      + list(A.COMMS_RULES))
     assert cli(["--programs", "no_such_program"]) == 2
-    for flag in ("--threads", "--comms"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6, part 2"):
-            cli([flag])
+    # the thread and comms legs are ported: they run, they do not raise
+    assert cli(["--threads", A.lockwitness.__file__]) == 0
+    assert cli(["--comms", "no_such_step"]) == 2

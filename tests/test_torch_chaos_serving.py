@@ -11,8 +11,11 @@ Served tokens are JAX's dense greedy ones under the margin guard of
 a gate on a fault site here (``GateInjector``: one thread waits on an
 event until the test releases it), and deadlines expire by skewing the
 injected clock. The storms keep short delays: they assert only what holds
-for every interleaving. JAX's lock-witness leg waits for the lock witness
-(ROADMAP A6); its replica-kill leg is in ``test_torch_fleet.py``.
+for every interleaving. Every test runs with the port's lock witness
+(``paddle_tpu_torch/analysis/lockwitness.py``) active, as JAX's conftest
+arms its own for the chaos legs: every lock the runtime makes during the
+test is wrapped, and an acquisition-order inversion fails the test. JAX's
+replica-kill leg is in ``test_torch_fleet.py``.
 """
 import json
 import threading
@@ -21,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.analysis import lockwitness
 from paddle_tpu_torch.inference.faults import FaultInjector, ThreadDeath
 from paddle_tpu_torch.inference.kv_cache import CacheOutOfBlocks, PagedKVCache
 from paddle_tpu_torch.inference.resilience import (
@@ -53,6 +57,23 @@ from serving_port import (
 )
 
 _one_thread = pytest.fixture(autouse=True)(one_torch_thread)
+
+
+@pytest.fixture(autouse=True)
+def _port_lock_witness():
+    """The port's witness, active for the whole test: every lock the
+    serving runtime makes meanwhile records its acquisition order, and an
+    inversion fails the test (JAX's conftest does this for its chaos legs
+    with JAX's witness; the ``chaos`` marker would arm that one, which
+    guards nothing here)."""
+    w = lockwitness.activate(lockwitness.LockWitness())
+    try:
+        yield w
+    finally:
+        lockwitness.deactivate()
+    if w.inversions:
+        pytest.fail("lock witness observed acquisition-order inversions: "
+                    f"{w.inversions}")
 
 
 def _in_thread(fn):
@@ -560,6 +581,37 @@ def test_continuous_storm_exactly_one_terminal_and_pool_conserved(small_gpt):
         np.testing.assert_array_equal(gp.infer(prompt, timeout=120), ref)
     finally:
         gp.close()
+
+
+def test_chaos_lock_witness_ends_clean_and_matches_static_graph(
+        small_gpt, _port_lock_witness):
+    """JAX's runtime lock-witness leg: a fault-storm tick loop under the
+    active witness, then (a) the witness saw the runtime's locks under
+    JAX's names, (b) no order inversion, (c) the observed order unioned
+    with the port's static lock graph stays acyclic."""
+    from paddle_tpu_torch.analysis.threads import lock_order_graph
+
+    w = _port_lock_witness
+    tm, prompt, ref = small_gpt
+    f = FaultInjector()
+    gp = _cont(tm, faults=f, max_slots=2, num_blocks=8)
+    try:
+        f.install("kv.reserve", error=CacheOutOfBlocks("injected"), after=1,
+                  times=1)
+        f.install("predictor.generate", error=ThreadDeath(), after=2,
+                  times=1)
+        outs = storm(lambda i: gp.infer(prompt, timeout=300), 4, 300)
+        for o in outs:
+            if isinstance(o, np.ndarray):
+                np.testing.assert_array_equal(o, ref)
+        gp.kv_cache.check_conservation()
+    finally:
+        gp.close()
+    witnessed = {a for edge in w.edges for a in edge}
+    assert "kv_cache.PagedKVCache._lock" in witnessed, sorted(witnessed)
+    assert w.acquisitions > 0 and w.edges
+    assert w.inversions == []
+    assert w.check_static(lock_order_graph()) == []
 
 
 def test_prefix_lookup_fault_is_a_miss_never_a_failure(small_gpt):

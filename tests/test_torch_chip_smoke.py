@@ -786,8 +786,11 @@ def test_analysis_phase_rehearses_on_the_cpu(monkeypatch, one_thread):
     hbm_budget= pools equal plan_kv_pool's (the fit-bound one under its
     target, the clamped one 2 x 4 blocks), tokens equal a
     directly sized scheduler's, the gauges sum to the plan, the two step
-    programs have static estimates (no measured peak off the card), and
-    the in-process self-check exits 0."""
+    programs have static estimates (no measured peak off the card), the
+    in-process self-check exits 0, the thread lint has no HIGH and an
+    acyclic lock graph, the witness saw the schedulers' acquisitions with
+    no inversion, and the model's three step programs at tp 2 hold only
+    all-reduces and all-gathers (no interconnect figure off the card)."""
     import torch
 
     import paddle_tpu_torch.models.gpt as tgpt
@@ -822,6 +825,20 @@ def test_analysis_phase_rehearses_on_the_cpu(monkeypatch, one_thread):
     assert rec["residency"]["drift_high"] == []
     assert rec["self_check"]["exit"] == 0
     assert rec["self_check"]["programs"] == 1
+    tl, wt, tc = rec["thread_lint"], rec["witness"], rec["tp_comms"]
+    assert tl["high"] == 0 and tl["acyclic"] and tl["lock_graph_edges"] > 0
+    # no capture off the card, so no lock is taken inside another there
+    assert wt["acquisitions"] > 0 and wt["inversions"] == 0
+    assert wt["static_cycles"] == []
+    assert list(tc["programs"]) == ["prefill_chunk", "decode_step",
+                                    "verify_step"]
+    for prog in tc["programs"].values():
+        assert set(prog["kinds"]) == {"all-reduce", "all-gather"}
+    assert tc["bytes_per_tick"] == sum(p["bytes_per_launch"]
+                                       for p in tc["programs"].values())
+    assert tc["share_of_tick"] is None and not tc["over_budget"]
+    assert tc["budget"]["tick_wall_s"] == 4 * 0.05
+    assert tc["high"] == [] and tc["allowlisted"] == ["dead-mesh-axis"]
 
 
 def test_monitor_readings_time_each_batch_begin_to_end():

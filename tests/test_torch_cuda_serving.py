@@ -323,3 +323,73 @@ def test_hbm_budget_scheduler_on_the_card(max_seq_len):
             np.testing.assert_array_equal(a, b)
     finally:
         direct.close()
+
+
+@pytest.mark.cuda
+def test_tp_step_programs_trace_over_the_fake_backend_on_the_card():
+    """The three step programs of a tp = 2 rank over the fake backend, on
+    the card: each built by a step call that runs nothing, then traced
+    over fake CUDA tensors — the paged kernel one operator node per layer,
+    the collectives the declared kinds over groups of two, nothing
+    launched; no process group left behind."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.analysis import comms
+    from paddle_tpu_torch.analysis.compilesurface import ServingConfig
+    from paddle_tpu_torch.analysis.core import trace_runner
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    with comms.tp_world(2) as axes:
+        m = _gpt(torch.bfloat16)
+        m.eval()
+        kv = _pool(m, torch.bfloat16)
+        assert kv.tp_sharded and m._tp() is not None
+        cfg = ServingConfig(name="tp2", slots=2, prefill_chunk=8,
+                            decode_steps=2, max_seq_len=64, spec_k=2,
+                            kv_signature=kv.signature())
+        before = tpa.paged_decode_attention.launches
+        surfaces = comms.serving_comms_surfaces(m, kv, cfg, mesh_axes=axes)
+        run = m.compiled_decode_step_runner(2, 2)
+        gm, _ = trace_runner(m, run)
+        assert tpa.paged_decode_attention.launches == before
+        ops = [str(n.target) for n in gm.graph.nodes]
+        assert ops.count("paddle_tpu_torch.paged_decode.default") == 2 * 2
+    assert not dist.is_initialized()
+    assert [s["path"] for s in surfaces] == ["prefill_chunk", "decode_step",
+                                             "verify_step"]
+    for s in surfaces:
+        assert s["device"] == "cuda"
+        assert {op.kind for op in s["ops"]} == {"all-reduce", "all-gather"}
+        assert all(op.group_size == 2 for op in s["ops"])
+    report = comms.analyze_step_comms(_surfaces=surfaces)
+    assert report.high() == []
+    budget = comms.smoke_comms_budget(surfaces)
+    assert budget.ici_bytes_per_s == (
+        450e9 if torch.cuda.get_device_name(0).startswith(
+            "NVIDIA H100 80GB HBM3") else None)
+
+
+@pytest.mark.cuda
+def test_lock_witness_over_a_card_scheduler():
+    """A continuous scheduler built and served on the card under the
+    port's witness: its pool, slot, runner and capture locks are wrapped,
+    the witness sees edges and no inversion, and the observed order with
+    the static lock graph stays acyclic."""
+    from paddle_tpu_torch.analysis import lockwitness
+    from paddle_tpu_torch.analysis.threads import lock_order_graph
+
+    m = _gpt(torch.bfloat16)
+    w = lockwitness.activate(lockwitness.LockWitness())
+    try:
+        gp = ContinuousGenerateBatchingPredictor(m, **SERVE)
+        try:
+            outs = _serve(gp, [(q, {}) for q in _prompts(5, (9, 17, 12))])
+        finally:
+            gp.close()
+    finally:
+        lockwitness.deactivate()
+    assert all(len(o) > 0 for o in outs)
+    assert w.acquisitions > 0 and w.edges
+    assert w.inversions == []
+    assert w.check_static(lock_order_graph()) == []

@@ -23,9 +23,10 @@ prints one.
   threaded requests token-identical to a single-rank scheduler, each
   replica's per-rank pool bytes 1/tp of the logical pool, every replica
   ``ready`` at the end; then the remote replica retired over rpc reads
-  dead and the router serves from the other. JAX's leg also lints the decode program's
-  collectives (``paddle_tpu.analysis``, ROADMAP A6); that lint is not
-  ported and this leg leaves it out.
+  dead and the router serves from the other. Then, as JAX's leg lints
+  the decode program's collectives, every rank traces the decode step at
+  tp 2 over the job's real gloo groups: no HIGH finding, and the surface
+  equal to the fake backend's in this process.
 
 The 8-rank bodies share one spawn, and the 4-rank body another.
 """
@@ -240,6 +241,37 @@ def test_serving_tp_replicas_end_ready(four):
     _, ranks = four
     assert set(ranks[0]["states"].values()) == {"ready"}
     assert all(r["refuses"] for r in ranks[1:])
+
+
+@pytest.fixture(scope="module")
+def fake_decode_surface():
+    """The decode step's comms surface at tp 2 over the fake backend, in
+    this process (no rank)."""
+    from paddle_tpu_torch.analysis.comms import step_comms_surfaces
+
+    (s,) = step_comms_surfaces(paths=("decode_step",), device="cpu")
+    return s
+
+
+def test_serving_tp_decode_comms_on_real_ranks(four, fake_decode_surface):
+    """``__graft_entry__.py:486-501``: on every gloo rank the decode
+    step's comms report has no HIGH finding (the dp axis visibly
+    allowlisted), and its surface is the fake backend's: the same
+    collectives, groups of two, the same layouts. Only the mesh differs:
+    four ranks make dp 2."""
+    _, ranks = four
+    fake = fake_decode_surface
+    want_ops = [(op.kind, op.result, op.group_size, op.count, op.wire_bytes)
+                for op in fake["ops"]]
+    assert want_ops
+    for r in ranks:
+        c = r["comms"]
+        assert c["high"] == []
+        assert c["suppressed"] == ["dead-mesh-axis"]
+        assert [tuple(op) for op in c["ops"]] == want_ops
+        assert c["input_specs"] == fake["input_specs"]
+        assert c["output_specs"] == fake["output_specs"]
+        assert c["mesh_axes"] == {"dp": 2, "tp": 2}
 
 
 def test_serving_tp_retires_a_remote_replica(four):
